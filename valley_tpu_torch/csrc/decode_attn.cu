@@ -1,0 +1,267 @@
+// Single-token decode attention over the stacked KV cache, for Hopper,
+// sm_90a, plain C interface.
+//
+// Replaces: valley_tpu/ops/decode_pallas.py `_kernel` (the Pallas TPU kernel
+// launched by `decode_attention_stacked`), bf16-cache branch.  Same
+// semantics as its oracle ops/attention.py `decode_attention` over layer
+// `li` of the cache: fp32 logits scaled by d^-1/2, slots where the boolean
+// (B, Smax) validity mask is false set to -1e9, fp32 softmax, probabilities
+// rounded to bf16 before the PV product (decode_pallas.py:110-111), fp32
+// accumulation.  The mask is read slot by slot, never reduced to a length:
+// a prompt padded to its bucket leaves invalid slots between the prompt and
+// the decoded tokens.
+//
+// What bounds it on the H100: device-memory bytes.  One call reads layer
+// li's K and V once (Valley-7B, Smax ~600: 2 x 600 x 32 x 128 x 2 B = 9.8 MB)
+// for ~2 FLOP per byte, far under the card's ~295 FLOP/byte ridge, so the
+// floor is bytes / 3.35 TB/s, a few microseconds.
+//
+// What the design does about it: the layer is addressed by offset into the
+// stacked (L, B, Smax, Hkv, D) cache, so no per-layer slice is copied.  To
+// put enough loads in flight, S is split into 64-slot chunks: one block per
+// (batch, kv head, chunk), so a 7B step runs ~300 blocks instead of 32.  A
+// block reads each K and V row of its chunk once and serves all n_rep query
+// heads of its kv head (GQA without repeating K/V).  K rows are read by one
+// warp each with a warp-reduced dot; V rows by all threads, each thread one
+// column.  Each block writes its chunk's max, sum and unnormalised PV in
+// fp32; a second small kernel merges the chunks with the usual rescale.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 128;       // threads per block (4 warps)
+constexpr int NW = NT / 32;
+constexpr int CHUNK = 64;     // cache slots per block
+constexpr int MAX_REP = 8;    // query heads per kv head
+constexpr float NEG = -1e9f;  // masked logit (ops/attention.py decode_attention)
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+// EPL consecutive bf16 values at p (EPL * 2 bytes, aligned to that) -> fp32.
+template <int EPL>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p, float* out) {
+  if constexpr (EPL == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    const float2 a = __bfloat1622float2(h2[0]);
+    const float2 c = __bfloat1622float2(h2[1]);
+    out[0] = a.x; out[1] = a.y; out[2] = c.x; out[3] = c.y;
+  } else if constexpr (EPL == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = a.x; out[1] = a.y;
+  } else {
+    out[0] = __bfloat162float(*p);
+  }
+}
+
+// q: (B, H, D); k_all/v_all: (L, B, Smax, Hkv, D) contiguous bf16;
+// mask: (B, Smax) bytes, row b at mask + b * mask_stride.
+// part_acc: (B, H, n_split, D); part_m/part_l: (B, H, n_split), fp32.
+// Grid (B * Hkv, n_split).
+template <int D>
+__global__ void __launch_bounds__(NT) decode_split_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_all,
+    const __nv_bfloat16* __restrict__ v_all, const uint8_t* __restrict__ mask,
+    long long mask_stride, float* __restrict__ part_acc,
+    float* __restrict__ part_m, float* __restrict__ part_l, int li, int B,
+    int Smax, int Hkv, int n_rep, float scale) {
+  constexpr int EPL = D >= 32 ? D / 32 : 1;  // K elements per lane
+  constexpr int LANES = D / EPL;              // lanes holding a K element
+  constexpr int G = NT / D;    // slot groups in the PV pass
+  __shared__ float sS[MAX_REP][CHUNK];
+  __shared__ float sAcc[G > 1 ? G : 1][MAX_REP][D];
+
+  const int b = blockIdx.x / Hkv;
+  const int kvh = blockIdx.x % Hkv;
+  const int split = blockIdx.y;
+  const int n_split = gridDim.y;
+  const int s0 = split * CHUNK;
+  const int n = min(Smax - s0, CHUNK);
+  const int H = Hkv * n_rep;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const long long ss = (long long)Hkv * D;  // elements between slots
+  const long long base =
+      ((long long)li * B + b) * Smax * ss + (long long)s0 * ss + (long long)kvh * D;
+  const __nv_bfloat16* kb = k_all + base;
+  const __nv_bfloat16* vb = v_all + base;
+  const uint8_t* mb = mask + (long long)b * mask_stride + s0;
+
+  // lanes past LANES (D = 16) hold zeros and add nothing to the dots
+  float qr[MAX_REP][EPL];
+#pragma unroll
+  for (int r = 0; r < MAX_REP; ++r) {
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) qr[r][e] = 0.f;
+    if (r < n_rep && lane < LANES)
+      load_bf16<EPL>(q + ((long long)b * H + kvh * n_rep + r) * D + lane * EPL,
+                     qr[r]);
+  }
+
+  // logits: one warp per slot
+  for (int j = warp; j < n; j += NW) {
+    float kv[EPL] = {};
+    if (lane < LANES) load_bf16<EPL>(kb + (long long)j * ss + lane * EPL, kv);
+    const bool ok = mb[j] != 0;
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+      if (r >= n_rep) break;
+      float dot = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) dot = fmaf(qr[r][e], kv[e], dot);
+      dot = warp_sum(dot);
+      if (lane == 0) sS[r][j] = ok ? dot * scale : NEG;
+    }
+  }
+  __syncthreads();
+
+  // chunk max and sum per query head; probabilities rounded to bf16
+  for (int r = warp; r < n_rep; r += NW) {
+    float mx = -INFINITY;
+    for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sS[r][j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      const float p = expf(sS[r][j] - mx);
+      sum += p;
+      sS[r][j] = __bfloat162float(__float2bfloat16(p));
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      const long long o = ((long long)b * H + kvh * n_rep + r) * n_split + split;
+      part_m[o] = mx;
+      part_l[o] = sum;
+    }
+  }
+  __syncthreads();
+
+  // unnormalised PV: thread (g, d) sums slots g, g + G, ... of column d
+  const int d = threadIdx.x % D;
+  const int g = threadIdx.x / D;
+  float acc[MAX_REP];
+#pragma unroll
+  for (int r = 0; r < MAX_REP; ++r) acc[r] = 0.f;
+  for (int j = g; j < n; j += G) {
+    const float vv = __bfloat162float(vb[(long long)j * ss + d]);
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r)
+      if (r < n_rep) acc[r] = fmaf(sS[r][j], vv, acc[r]);
+  }
+  if constexpr (G > 1) {
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r)
+      if (r < n_rep) sAcc[g][r][d] = acc[r];
+    __syncthreads();
+    if (g == 0) {
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r) {
+        if (r >= n_rep) break;
+        float t = 0.f;
+        for (int gg = 0; gg < G; ++gg) t += sAcc[gg][r][d];
+        acc[r] = t;
+      }
+    }
+  }
+  if (g == 0) {
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+      if (r >= n_rep) break;
+      const long long o = ((long long)b * H + kvh * n_rep + r) * n_split + split;
+      part_acc[o * D + d] = acc[r];
+    }
+  }
+}
+
+// Merge the chunks of one (batch, query head): out = sum_s w_s acc_s /
+// sum_s w_s l_s with w_s = exp(m_s - max_s m_s).  Grid (B * H), D threads.
+template <int D>
+__global__ void __launch_bounds__(D) decode_combine_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_m,
+    const float* __restrict__ part_l, __nv_bfloat16* __restrict__ out,
+    int n_split) {
+  const long long bh = blockIdx.x;
+  const int d = threadIdx.x;
+  const float* pm = part_m + bh * n_split;
+  const float* pl = part_l + bh * n_split;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, pm[s]);
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float w = expf(pm[s] - mx);
+    num = fmaf(w, part_acc[(bh * n_split + s) * D + d], num);
+    den = fmaf(w, pl[s], den);
+  }
+  out[bh * D + d] = __float2bfloat16(num / den);
+}
+
+template <int D>
+int launch(const void* q, const void* k_all, const void* v_all,
+           const void* mask, long long mask_stride, void* part_acc,
+           void* part_m, void* part_l, void* out, int li, int B, int Smax,
+           int Hkv, int n_rep, int n_split, float scale, cudaStream_t stream) {
+  decode_split_kernel<D><<<dim3(B * Hkv, n_split), NT, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k_all),
+      static_cast<const __nv_bfloat16*>(v_all),
+      static_cast<const uint8_t*>(mask), mask_stride,
+      static_cast<float*>(part_acc), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), li, B, Smax, Hkv, n_rep, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decode_combine_kernel<D><<<B * Hkv * n_rep, D, 0, stream>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
+      static_cast<const float*>(part_l), static_cast<__nv_bfloat16*>(out),
+      n_split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Slots per chunk: the caller sizes the scratch as ceil(Smax / chunk) chunks.
+extern "C" int decode_attn_chunk(void) { return CHUNK; }
+
+// Most query heads one kv head may serve.
+extern "C" int decode_attn_max_rep(void) { return MAX_REP; }
+
+// Returns a cudaError_t as int: 0 when both launches succeeded.
+extern "C" int decode_attn_bf16(const void* q, const void* k_all,
+                                const void* v_all, const void* mask,
+                                long long mask_stride, void* part_acc,
+                                void* part_m, void* part_l, void* out, int li,
+                                int B, int Smax, int Hkv, int n_rep, int D,
+                                int n_split, float scale, void* stream) {
+  if (n_rep < 1 || n_rep > MAX_REP || n_split != (Smax + CHUNK - 1) / CHUNK)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch<16>(q, k_all, v_all, mask, mask_stride, part_acc, part_m,
+                        part_l, out, li, B, Smax, Hkv, n_rep, n_split, scale, st);
+    case 32:
+      return launch<32>(q, k_all, v_all, mask, mask_stride, part_acc, part_m,
+                        part_l, out, li, B, Smax, Hkv, n_rep, n_split, scale, st);
+    case 64:
+      return launch<64>(q, k_all, v_all, mask, mask_stride, part_acc, part_m,
+                        part_l, out, li, B, Smax, Hkv, n_rep, n_split, scale, st);
+    case 128:
+      return launch<128>(q, k_all, v_all, mask, mask_stride, part_acc, part_m,
+                         part_l, out, li, B, Smax, Hkv, n_rep, n_split, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}

@@ -1,0 +1,97 @@
+"""Build the CUDA sources under ``valley_tpu_torch/csrc`` with nvcc into
+shared libraries with a plain C interface, and load them with ctypes.
+
+Each library is built at first use into ``valley_tpu_torch/build/`` under a
+name keyed by a hash of its source and the compiler flags, so an edited
+source builds anew and an unchanged one loads at once.  Nothing here runs
+at import: the CPU tests import every module on a machine with no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+SOURCES = ("flash_fwd", "decode_attn")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the "
+                       "CUDA kernels build only where the CUDA toolkit is "
+                       "installed")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source; returns (process, tmp, out) or None when
+    the library is already built."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing
+
+
+def build_all() -> float:
+    """Compile every source not built yet, one nvcc per source, all started
+    together.  Returns the wall seconds it took."""
+    t0 = time.perf_counter()
+    started = [(name, _start(name)) for name in SOURCES]
+    for name, st in started:
+        _finish(name, st)
+    return time.perf_counter() - t0
+
+
+@functools.cache
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    if name not in SOURCES:
+        raise ValueError(f"unknown kernel source {name!r}")
+    _finish(name, _start(name))
+    return ctypes.CDLL(str(library_path(name)))
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,93 @@
+"""Attention ops: plain PyTorch counterparts of ``valley_tpu/ops/attention.py``
+and the choice between the CUDA kernels and their plain versions.
+
+`mha_attention` and `decode_attention` are the plain functions the JAX
+package falls back to (CLIP attention always runs `mha_attention`, as the
+JAX tower forces ``use_flash=False``).  The LLaMA decoder reaches attention
+through an `Attention` pair instead: `KERNELS` (the default) holds the
+wrappers of the two CUDA kernels, which take their plain version for
+tensors on the CPU and launch the kernel for CUDA tensors; `PLAIN` holds
+the plain versions themselves, for comparing a run on the card with the
+kernels against one without.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
+                                                   decode_attention_stacked)
+from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_plain)
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, Hkv, D) -> (B, S, Hkv*n_rep, D) for grouped-query attention."""
+    if n_rep == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(
+        b, s, h * n_rep, d)
+
+
+def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  causal: bool = False) -> torch.Tensor:
+    """Plain multi-head attention.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, Hkv, D); bias: broadcastable to
+    (B, H, Sq, Sk), additive in fp32.  fp32 logits and softmax,
+    probabilities cast to v's dtype before PV, fp32 accumulation; returns
+    (B, Sq, H, D) in q's dtype.
+    """
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        cm = torch.ones((sq, sk), dtype=torch.bool,
+                        device=q.device).tril(sk - sq)
+        logits = logits.masked_fill(~cm, -1e9)
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     length_mask: torch.Tensor) -> torch.Tensor:
+    """Plain single-token attention against one layer's (B, Smax, Hkv, D)
+    cache; ``length_mask`` (B, Smax) bool marks valid slots."""
+    return decode_attention_plain(q, k_cache[None], v_cache[None], 0,
+                                  length_mask)
+
+
+class Attention(NamedTuple):
+    """The two attention functions of the LLaMA decoder's cached paths.
+
+    prefill(q, k, v, kv_mask, causal=...) with equal head counts;
+    decode(q, k_all, v_all, li, valid) over the stacked cache.
+    """
+    prefill: Callable[..., torch.Tensor]
+    decode: Callable[..., torch.Tensor]
+
+
+KERNELS = Attention(flash_attention, decode_attention_stacked)
+PLAIN = Attention(flash_attention_plain, decode_attention_plain)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_mask: Optional[torch.Tensor], *, causal: bool,
+                      attention: Attention = KERNELS) -> torch.Tensor:
+    """Causal prefill attention with a (B, Sk) validity mask: GQA heads
+    repeated, then ``attention.prefill``."""
+    n_rep = q.shape[2] // k.shape[2]
+    return attention.prefill(q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep),
+                             kv_mask, causal=causal)
