@@ -8,19 +8,31 @@ inside the fixture, at run time).  On a machine with a card:
 Tolerance: max abs error <= 2^-6 * max|ref|, two bf16 ulps at the largest
 output.  Both sides compute in fp32 from the same bf16 inputs and round the
 output to bf16; the decode kernel also rounds probabilities to bf16 per
-64-slot chunk rather than after the global softmax.  Inputs are N(0, 1), so
+64-slot chunk rather than after the global softmax.  The backward kernel
+is held to the same bar on each of dq, dk and dv, with the forward
+kernel's out and lse as both sides' inputs.  Inputs are N(0, 1), so
 logits have unit spread and attending a wrong slot moves the output by far
 more than the tolerance (the decode test plants that fault and checks it
 is caught).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from valley_tpu_torch import valley_tiny
+from valley_tpu_torch.data.dataset import (DataCollatorForSupervisedDataset,
+                                           DataLoader)
+from valley_tpu_torch.models import valley
+from valley_tpu_torch.ops.attention import KERNELS, PLAIN
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
-from valley_tpu_torch.ops.flash_attention import (flash_attention,
+from valley_tpu_torch.ops.flash_attention import (FlashAttention,
+                                                  flash_attention,
+                                                  flash_attention_bwd,
+                                                  flash_attention_bwd_plain,
                                                   flash_attention_plain)
+from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
 REL_TOL = 2 ** -6
 
@@ -100,3 +112,135 @@ def test_decode_kernel_matches_plain_with_mask_hole(gen, b, smax, h, hkv, d):
     fault, _ = _err_and_tol(decode_attention_stacked(q, k, v, li, filled),
                             ref)
     assert fault > tol
+
+
+def _bwd_inputs(gen, b, s, h, d, causal, lengths):
+    q, k, v, g = (_randn(gen, b, s, h, d) for _ in range(4))
+    mask = torch.arange(s, device="cuda")[None, :] < torch.tensor(
+        lengths, device="cuda")[:, None]
+    out, lse = flash_attention(q, k, v, mask, causal=causal, return_lse=True)
+    return q, k, v, g, mask, out, lse
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,lengths", [
+    (2, 512, 8, 128, True, (512, 317)), (2, 300, 4, 64, True, (283, 300)),
+    (1, 77, 2, 32, False, (77,)), (2, 130, 4, 16, True, (125, 130)),
+    (2, 96, 2, 64, False, (70, 0))])
+def test_flash_bwd_kernel_matches_plain(gen, b, s, h, d, causal, lengths):
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, b, s, h, d, causal,
+                                             lengths)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    ref = flash_attention_bwd_plain(q, k, v, mask, out, lse, g,
+                                    causal=causal)
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == r.shape
+        assert bool(torch.isfinite(a.float()).all())
+        err, tol = _err_and_tol(a, r)
+        assert err <= tol
+    for i, n in enumerate(lengths):
+        # keys past a row's length, and every key of an empty row, get 0
+        assert bool((got[1][i, n:] == 0).all())
+        assert bool((got[2][i, n:] == 0).all())
+        if n == 0:
+            assert bool((got[0][i] == 0).all())
+
+
+def test_flash_bwd_kernel_that_ignored_the_mask_fails(gen):
+    """The planted fault: the kernel fed an all-true mask, against the
+    masked reference, must fail the check."""
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, 2, 512, 8, 128, True,
+                                             (512, 317))
+    ref = flash_attention_bwd_plain(q, k, v, mask, out, lse, g, causal=True)
+    bad = flash_attention_bwd(q, k, v, torch.ones_like(mask), out, lse, g,
+                              causal=True)
+    assert max(_err_and_tol(a, r)[0] / _err_and_tol(a, r)[1]
+               for a, r in zip(bad, ref)) > 1.0
+
+
+def test_flash_bwd_kernel_refuses_what_it_cannot_take(gen):
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, 1, 64, 2, 64, True, (64,))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, mask, out, lse.double(), g, causal=True)
+    with pytest.raises(ValueError, match="dout"):
+        flash_attention_bwd(q, k, v, mask, out, lse, g.float(), causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_bwd(q, k, v, mask, out, lse,
+                            g.transpose(1, 2).contiguous().transpose(1, 2),
+                            causal=True)
+
+
+def test_flash_autograd_on_the_card_matches_plain_autograd(gen):
+    """`FlashAttention` (K1 forward, K2 backward) against autograd of the
+    plain forward, on the same bf16 inputs."""
+    q, k, v, g, mask, _, _ = _bwd_inputs(gen, 2, 256, 4, 128, True,
+                                         (256, 201))
+    grads = []
+    for fn in (FlashAttention.apply, lambda *a: flash_attention_plain(
+            *a[:4], causal=a[4])):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, mask, True), leaves, g))
+    for a, r in zip(*grads):
+        assert a.dtype == torch.bfloat16
+        err, tol = _err_and_tol(a, r)
+        assert err <= tol
+
+
+class _Rows:
+    def __init__(self, cfg, n=4):
+        rng = np.random.default_rng(0)
+        tok = cfg.tokens
+        span = [tok.im_start] + [tok.im_patch] * cfg.num_patches + \
+            [tok.im_end] + [tok.vi_start] + [tok.vi_frame] * 2 + [tok.vi_end]
+        size = cfg.vision.image_size
+        self.items = []
+        for i in range(n):
+            ids = rng.integers(5, 400, size=int(rng.integers(20, 40)))
+            ids[1:1 + len(span)] = span
+            labels = ids.copy()
+            labels[:len(span) + 1] = -100
+            self.items.append(dict(input_ids=ids, labels=labels, image=(
+                rng.standard_normal((2 if i % 2 else 1, 3, size, size))
+                .astype(np.float32))))
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, i):
+        return self.items[i]
+
+
+def test_tiny_training_step_on_the_card(gen, tmp_path):
+    """One stage-1 update of the tiny model in bf16 on the card: K1 runs
+    twice per layer (forward and remat recompute) and K2 once; the loss
+    and gradients agree with the plain attention functions."""
+    cfg = valley_tiny()
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    tc = TrainConfig(output_dir=str(tmp_path), learning_rate=2e-3,
+                     freeze_backbone=True, tune_mm_mlp_adapter=True,
+                     per_device_train_batch_size=4, save_steps=0)
+    loader = DataLoader(_Rows(cfg), 4, DataCollatorForSupervisedDataset(
+        pad_to_multiple=16), seed=0, num_workers=1)
+    trainer = Trainer(cfg, tc, params, loader)
+    batch = trainer.device_batch(next(iter(loader.epoch(0))))
+    trainer.attention = PLAIN
+    loss_p, _, grads_p = trainer.loss_and_grads(batch)
+    trainer.attention = KERNELS
+    k1, k2 = flash_attention.launches, flash_attention_bwd.launches
+    loss_k, _, grads_k = trainer.loss_and_grads(batch)
+    layers = cfg.text.num_hidden_layers
+    assert flash_attention.launches - k1 == 2 * layers
+    assert flash_attention_bwd.launches - k2 == layers
+    assert abs(float(loss_k) - float(loss_p)) < 1e-2
+    for a, r in zip(grads_k, grads_p):
+        assert bool(torch.isfinite(a.float()).all())
+        assert float((a.float() - r.float()).norm()) <= \
+            0.05 * float(r.float().norm())
+    embed = params["llama"]["embed"].detach().clone()
+    head = params["llama"]["lm_head"].detach().clone()
+    assert trainer.train_step(batch)["updated"]
+    assert not torch.equal(params["llama"]["embed"], embed)
+    assert torch.equal(params["llama"]["lm_head"], head)

@@ -1,6 +1,8 @@
 """What the PyTorch port imports, checked in fresh interpreters: the test
 process itself has jax loaded (tests/conftest.py imports it)."""
 
+import ast
+import dataclasses
 import json
 import os
 import re
@@ -53,9 +55,11 @@ sys.modules["triton"] = None          # any `import triton` now fails
 import torch
 from valley_tpu_torch.ops import _build, attention
 from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
-from valley_tpu_torch.ops.flash_attention import flash_attention
+from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_bwd)
 q = torch.zeros((1, 4, 2, 16))
-flash_attention(q, q, q, None, causal=True)
+out, lse = flash_attention(q, q, q, None, causal=True, return_lse=True)
+flash_attention_bwd(q, q, q, None, out, lse, q, causal=True)
 decode_attention_stacked(q[:, :1], torch.zeros((1, 1, 4, 2, 16)),
                          torch.zeros((1, 1, 4, 2, 16)), 0,
                          torch.ones((1, 4), dtype=torch.bool))
@@ -64,21 +68,101 @@ print(json.dumps({"loaded": _build.load.cache_info().currsize}))
     assert got == {"loaded": 0}
 
 
+# any import of the JAX package or one of its modules
+JAX_PACKAGE_IMPORT = r"^\s*(import|from)\s+valley_tpu(\.|\s|$)"
+# the one function of chip_smoke.py that may call a library attention:
+# the yardstick ``library_ms``, timed and used nowhere in the port
+LIBRARY_TIMER = "library_attention_ms"
+
+
 def test_port_sources_avoid_jax_and_library_attention():
-    """No jax import, no library attention kernel, no torch.compile, and
-    no module of the JAX package that pulls in jax; chip_smoke.py imports
-    nothing of the JAX package at all."""
-    banned = [r"^\s*(import|from)\s+jax\b", r"scaled_dot_product_attention",
-              r"torch\.compile", r"flash_attn", r"cudnn\.",
-              r"^\s*(import|from)\s+valley_tpu\."
-              r"(models|ops|serve|utils|inference|train|parallel)\b"]
+    """No file of the port and not chip_smoke.py imports jax or anything
+    of the JAX package (the port keeps its own copies of the host code);
+    no library attention kernel and no torch.compile in the port."""
+    banned = [r"^\s*(import|from)\s+jax\b", JAX_PACKAGE_IMPORT,
+              r"scaled_dot_product_attention", r"torch\.compile",
+              r"flash_attn", r"cudnn\."]
     for path in PACKAGE.rglob("*.py"):
         text = path.read_text()
         for pat in banned:
             assert not re.search(pat, text, re.M), (path, pat)
-    # the smoke script reaches the config through the port, never through
-    # the JAX package; it may name cuDNN (to turn its TF32 off)
+    # the smoke script may name cuDNN (to turn its TF32 off) and time the
+    # library's attention as a yardstick inside LIBRARY_TIMER only
     smoke = (ROOT / "chip_smoke.py").read_text()
-    for pat in [p for p in banned if p != r"cudnn\."] + [
-            r"^\s*(import|from)\s+valley_tpu(\.|\s|$)"]:
+    for pat in [p for p in banned if p not in (
+            r"cudnn\.", r"scaled_dot_product_attention")]:
         assert not re.search(pat, smoke, re.M), ("chip_smoke.py", pat)
+    timer = [n for n in ast.walk(ast.parse(smoke))
+             if isinstance(n, ast.FunctionDef) and n.name == LIBRARY_TIMER]
+    assert len(timer) == 1
+    inside = range(timer[0].lineno, timer[0].end_lineno + 1)
+    for no, line in enumerate(smoke.splitlines(), 1):
+        if "scaled_dot_product_attention" in line:
+            assert no in inside, ("chip_smoke.py", no, line)
+
+
+def test_the_pattern_catches_jax_package_imports():
+    for line in ("import valley_tpu", "from valley_tpu import config",
+                 "    from valley_tpu.data.video import load_video",
+                 "import valley_tpu.tokenizer as t"):
+        assert re.search(JAX_PACKAGE_IMPORT, line, re.M), line
+    for line in ("import valley_tpu_torch", "from valley_tpu_torch import x",
+                 "# see valley_tpu/config.py"):
+        assert not re.search(JAX_PACKAGE_IMPORT, line, re.M), line
+
+
+def test_every_module_imports_and_trains_without_jax():
+    """A fresh interpreter imports every module of the port, then trains
+    one tiny step on the CPU: neither jax nor any module of the JAX
+    package is ever loaded."""
+    got = _run("""
+import importlib, json, pkgutil, sys, tempfile
+import numpy as np, torch
+import valley_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(valley_tpu_torch.__path__,
+                                               "valley_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from valley_tpu_torch import valley_tiny
+from valley_tpu_torch.data.dataset import (DataCollatorForSupervisedDataset,
+                                           DataLoader)
+from valley_tpu_torch.models import valley
+from valley_tpu_torch.train.trainer import TrainConfig, Trainer
+cfg = valley_tiny()
+rng = np.random.default_rng(0)
+tok = cfg.tokens
+span = [tok.im_start] + [tok.im_patch] * cfg.num_patches + [tok.im_end]
+rows = []
+for i in range(2):
+    ids = rng.integers(5, 400, 24)
+    ids[1:1 + len(span)] = span
+    rows.append(dict(input_ids=ids, labels=ids.copy(),
+                     image=rng.standard_normal((1, 3, 28, 28)).astype(
+                         np.float32)))
+params = valley.init_params(cfg, torch.Generator().manual_seed(0),
+                            torch.float32)
+tc = TrainConfig(output_dir=tempfile.mkdtemp(), freeze_backbone=True,
+                 tune_mm_mlp_adapter=True, save_steps=0)
+trainer = Trainer(cfg, tc, params, DataLoader(
+    rows, 2, DataCollatorForSupervisedDataset(), num_workers=1))
+m = trainer.train_step(trainer.device_batch(next(iter(
+    trainer.train_loader.loader.epoch(0)))))
+loaded = sorted(n for n in sys.modules
+                if n == "jax" or n.startswith("jax.") or n == "valley_tpu"
+                or n.startswith("valley_tpu."))
+print(json.dumps({"modules": len(names), "loaded": loaded,
+                  "updated": m["updated"], "loss": m["loss"]}))
+""")
+    assert got["loaded"] == []
+    assert got["modules"] >= 25
+    assert got["updated"] and got["loss"] > 0
+
+
+def test_config_presets_equal_the_jax_presets():
+    """The port's copy of config.py gives the same presets."""
+    from valley_tpu import config as jconfig
+    from valley_tpu_torch import config
+
+    for name in ("valley_tiny", "valley_7b", "valley_13b"):
+        assert dataclasses.asdict(getattr(config, name)()) == \
+            dataclasses.asdict(getattr(jconfig, name)()), name

@@ -6,7 +6,10 @@ Tolerances: fp32 on both sides differs only in summation order (~1e-6 on
 O(1) values), so fp32 parity is held to 1e-5.  Against the Pallas decode
 kernel with a bf16 cache the bar is that kernel's own test tolerance, 2e-2:
 the kernel rounds unnormalised probabilities to bf16 per block, the plain
-version rounds normalised ones.
+version rounds normalised ones.  Attention gradients are held to the JAX
+package's own bar for its flash backward against the Pallas kernel
+(max|diff| < 2e-2 * max|ref|, tests/test_flash_attention.py), and to 1e-4
+of max|ref| against ``jax.grad`` of the XLA oracle (summation order only).
 """
 
 import jax
@@ -23,7 +26,10 @@ from valley_tpu.ops.flash_attention import _xla_attention, flash_attention
 from valley_tpu_torch.ops import attention, rope
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
-from valley_tpu_torch.ops.flash_attention import (flash_attention_plain,
+from valley_tpu_torch.ops.flash_attention import (FlashAttention,
+                                                  flash_attention_bwd,
+                                                  flash_attention_bwd_plain,
+                                                  flash_attention_plain,
                                                   flash_attention as
                                                   flash_wrapper)
 
@@ -120,6 +126,106 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="device"):
         decode_attention_stacked(q[:, :1], cache, cache, 0,
                                  torch.ones((1, 8), dtype=torch.bool))
+
+
+def _rel_err(got, want) -> float:
+    want = np.asarray(want, np.float32)
+    return float(np.abs(_np(got) - want).max() / np.abs(want).max())
+
+
+def _port_grads(fn, arrays, g):
+    """Gradients of sum(fn(q, k, v) * g) through the port's autograd."""
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = fn(*ts)
+    return torch.autograd.grad((out * torch.from_numpy(g)).sum(), ts)
+
+
+def _jax_grads(fn, arrays, g):
+    return jax.grad(lambda *x: jnp.sum(fn(*x) * g), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in arrays))
+
+
+@pytest.mark.parametrize("causal,s,block_q,block_k", [
+    (True, 128, 256, 512),    # one block, masked tail
+    (False, 128, 256, 512),
+    (True, 200, 64, 128),     # ragged S over several Q and K blocks
+])
+def test_flash_autograd_grads_match_jax(causal, s, block_q, block_k):
+    """`FlashAttention` (on the CPU: plain forward with its lse, then the
+    backward's formulas) against jax.grad of the JAX flash attention, its
+    Pallas backward in interpret mode, and of the XLA oracle."""
+    rng = np.random.default_rng(10)
+    q, k, v = _qkv(rng, 2, s, 2, 64)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    mask = np.ones((2, s), bool)
+    mask[0, s - 29:] = False
+    jmask = jnp.asarray(mask)
+    got = _port_grads(lambda q_, k_, v_: FlashAttention.apply(
+        q_, k_, v_, torch.from_numpy(mask), causal), (q, k, v), g)
+    with pltpu.force_tpu_interpret_mode():
+        kern = _jax_grads(lambda q_, k_, v_: flash_attention(
+            q_, k_, v_, kv_mask=jmask, causal=causal, block_q=block_q,
+            block_k=block_k), (q, k, v), g)
+    oracle = _jax_grads(lambda q_, k_, v_: _xla_attention(
+        q_, k_, v_, jmask, causal), (q, k, v), g)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, kern, oracle):
+        assert _rel_err(a, b) < 2e-2, (name, _rel_err(a, b))
+        assert _rel_err(a, c) < 1e-4, (name, _rel_err(a, c))
+
+
+def test_gqa_prefill_grads_match_jax():
+    """GQA through `prefill_attention`: the kv heads are repeated before
+    `FlashAttention`, and their gradients summed back over each group."""
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((2, 48, 4, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 48, 2, 32)).astype(np.float32)
+    v = rng.standard_normal((2, 48, 2, 32)).astype(np.float32)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    mask = np.ones((2, 48), bool)
+    mask[1, 40:] = False
+    got = _port_grads(lambda q_, k_, v_: attention.prefill_attention(
+        q_, k_, v_, torch.from_numpy(mask), causal=True), (q, k, v), g)
+    bias = jnp.where(jnp.asarray(mask)[:, None, None, :], 0.0, -1e9)
+    want = _jax_grads(lambda q_, k_, v_: jattn.mha_attention(
+        q_, k_, v_, bias, causal=True, use_flash=False), (q, k, v), g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape
+        assert _rel_err(a, b) < 1e-4, (name, _rel_err(a, b))
+
+
+def test_flash_bwd_fully_masked_rows_are_zero():
+    """Rows with no key to attend have an lse near -1e9; the mask is a
+    predicate, so their gradients are 0, not inf * 0."""
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 2, 64, 2, 32))
+    mask = torch.ones((2, 64), dtype=torch.bool)
+    mask[1] = False
+    mask[0, 50:] = False
+    out, lse = flash_attention_plain(q, k, v, mask, return_lse=True)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    dq, dk, dv = flash_attention_bwd(q, k, v, mask, out, lse, g)
+    for t in (dq, dk, dv):
+        assert bool(torch.isfinite(t).all())
+        assert bool((t[1] == 0).all())
+    assert bool((dk[0, 50:] == 0).all()) and bool((dv[0, 50:] == 0).all())
+    assert float(dq[0].abs().max()) > 0
+
+
+def test_flash_bwd_wrapper_on_cpu_is_plain_and_counts_nothing():
+    rng = np.random.default_rng(13)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 40, 2, 16))
+    out, lse = flash_attention_plain(q, k, v, None, causal=True,
+                                     return_lse=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, None, out, lse, out, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, None, out, lse, out,
+                                     causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert flash_attention_bwd.launches == before
+    meta = torch.zeros((1, 8, 2, 64), device="meta")
+    with pytest.raises(ValueError, match="device"):
+        flash_attention_bwd(meta, meta, meta, None, meta,
+                            torch.zeros((2, 8), device="meta"), meta)
 
 
 def _decode_inputs(rng, b, s, h, hkv, d, n_layers=3):

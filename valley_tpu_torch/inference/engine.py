@@ -22,7 +22,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from valley_tpu.config import ValleyConfig
+from valley_tpu_torch.config import ValleyConfig
 from valley_tpu_torch.models import llama, valley
 from valley_tpu_torch.ops.attention import KERNELS, Attention
 

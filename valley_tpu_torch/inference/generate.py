@@ -9,8 +9,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from valley_tpu.config import ValleyConfig
-from valley_tpu.constants import (DEFAULT_IM_END_TOKEN,
+from valley_tpu_torch.config import ValleyConfig
+from valley_tpu_torch.constants import (DEFAULT_IM_END_TOKEN,
                                   DEFAULT_IM_START_TOKEN,
                                   DEFAULT_IMAGE_PATCH_TOKEN,
                                   DEFAULT_NUM_FRAMES,
@@ -94,7 +94,7 @@ def completion(engine: Engine, tokenizer, video: Optional[str],
     if frames is None:
         if video is None:
             raise ValueError("need a video path or preprocessed frames")
-        from valley_tpu.data.video import load_video_tchw
+        from valley_tpu_torch.data.video import load_video_tchw
 
         size = cfg.vision.image_size
         frames = load_video_tchw(video, fixed_frame_number=num_frames,

@@ -15,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from valley_tpu import config as C
+from valley_tpu_torch import config as C
 from valley_tpu_torch.inference.engine import Engine, GenerationConfig
 from valley_tpu_torch.inference.generate import completion
 from valley_tpu_torch.models import valley
@@ -39,7 +39,7 @@ def load_model(model_name: str, device: Optional[str] = None,
             f"cannot load {model_name!r}: loading Hugging Face Valley "
             "checkpoints is not ported to the PyTorch package yet; use "
             "--model-name random:tiny")
-    from valley_tpu.tokenizer import ByteFallbackTokenizer
+    from valley_tpu_torch.tokenizer import ByteFallbackTokenizer
 
     tokenizer = ByteFallbackTokenizer()
     cfg = C.valley_tiny().replace(tokens=tokenizer.special_tokens())

@@ -15,7 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from valley_tpu.config import VisionConfig
+from valley_tpu_torch.config import VisionConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import mha_attention
 

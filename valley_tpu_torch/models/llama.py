@@ -8,11 +8,12 @@ cache is the same stacked (L, B, Smax, Hkv, D) buffer; this port writes it
 in place.  RMSNorm, rotary and softmax run in fp32 exactly where the JAX
 package runs them.
 
-Ported: the cacheless forward, bucketed prefill at ``cache_index`` 0 and
+Ported: the cacheless forward (training, with full per-layer
+rematerialisation as an option), bucketed prefill at ``cache_index`` 0 and
 single-token decode over the stacked cache, for one stream (B = 1).  Not
-ported yet, and refused with NotImplementedError: the ``cross_valid``
-extend branch, batched (B > 1) cached inference, per-row cache slots,
-quantized or fused projections and LoRA.
+ported yet, and refused with NotImplementedError: the ``"dots"`` remat
+policy, the ``cross_valid`` extend branch, batched (B > 1) cached
+inference, per-row cache slots, quantized or fused projections and LoRA.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from valley_tpu.config import TextConfig
+from valley_tpu_torch.config import TextConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import KERNELS, Attention, \
     prefill_attention
@@ -130,6 +132,29 @@ def _attn(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention):
     return F.linear(out.reshape(b, s, h), lp["wo"][li])
 
 
+def _layer(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention):
+    """One cacheless decoder layer (llama.py:526-535)."""
+    eps = cfg.rms_norm_eps
+    x = x + _attn(lp, li, rms_norm(x, lp["attn_norm"][li], eps), cfg, cos,
+                  sin, attn_mask, attention)
+    return x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps))
+
+
+def _use_remat(remat) -> bool:
+    """The ``remat`` knob of llama.py:640-657: True/"full" recomputes each
+    layer in the backward, False/None keeps its activations."""
+    if remat in (True, "full"):
+        return True
+    if remat in (False, None):
+        return False
+    if remat == "dots":
+        raise NotImplementedError(
+            'the "dots" remat policy (save matmul outputs, recompute the '
+            'elementwise glue) is not ported yet: use True/"full" or False')
+    raise ValueError(f"unknown remat policy {remat!r} "
+                     "(use True/'full', 'dots', or False)")
+
+
 def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: int,
                  kv_valid, attention: Attention):
     """Write this chunk's K/V into layer ``li`` of the cache at slot
@@ -162,7 +187,7 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
                    cache_index: int = 0,
                    kv_valid: Optional[torch.Tensor] = None,
                    cross_valid: Optional[torch.Tensor] = None,
-                   attention: Attention = KERNELS):
+                   attention: Attention = KERNELS, remat=False):
     """Run the decoder stack.  Returns (hidden, cache_or_None).
 
     inputs_embeds: (B, S, H).  attn_mask: (B, S) padding mask of the
@@ -170,9 +195,14 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     plus ``cache_index`` with a cache).  With a cache, the chunk is written
     at slot ``cache_index`` and ``kv_valid`` (B, Smax) marks attendable
     slots.  ``attention`` picks the kernels (default) or their plain
-    versions.
+    versions.  ``remat`` (cacheless path only): True/"full" wraps each
+    layer in `torch.utils.checkpoint`, so the backward recomputes its
+    forward (the attention forward then runs twice per layer).
     """
     b, s, _ = inputs_embeds.shape
+    use_remat = _use_remat(remat)
+    if use_remat and cache is not None:
+        raise ValueError("remat applies to the cacheless forward only")
     if cross_valid is not None:
         raise NotImplementedError(
             "the cross_valid extend branch (multi-turn KV reuse, speculative "
@@ -197,12 +227,16 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     eps = cfg.rms_norm_eps
     x = inputs_embeds
     for li in range(cfg.num_hidden_layers):
-        hn = rms_norm(x, lp["attn_norm"][li], eps)
         if cache is None:
-            x = x + _attn(lp, li, hn, cfg, cos, sin, attn_mask, attention)
-        else:
-            x = x + _attn_cached(lp, li, hn, cfg, cos, sin, cache,
-                                 cache_index, kv_valid, attention)
+            if use_remat:
+                x = checkpoint(_layer, lp, li, x, cfg, cos, sin, attn_mask,
+                               attention, use_reentrant=False)
+            else:
+                x = _layer(lp, li, x, cfg, cos, sin, attn_mask, attention)
+            continue
+        hn = rms_norm(x, lp["attn_norm"][li], eps)
+        x = x + _attn_cached(lp, li, hn, cfg, cos, sin, cache, cache_index,
+                             kv_valid, attention)
         x = x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps))
     return rms_norm(x, params["final_norm"], eps), cache
 
@@ -217,8 +251,8 @@ def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor
 def forward(params: LlamaWeights, cfg: TextConfig,
             inputs_embeds: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
-            attention: Attention = KERNELS) -> torch.Tensor:
+            attention: Attention = KERNELS, remat=False) -> torch.Tensor:
     """Cacheless forward: (B, S, H) -> fp32 logits (B, S, V)."""
     hidden, _ = forward_hidden(params, cfg, inputs_embeds, attn_mask,
-                               attention=attention)
+                               attention=attention, remat=remat)
     return logits_from_hidden(params, hidden)

@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from valley_tpu.config import ValleyConfig
+from valley_tpu_torch.config import ValleyConfig
 
 PORTED_METHODS = ("mean", "max")
 

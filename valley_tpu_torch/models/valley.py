@@ -9,7 +9,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from valley_tpu.config import ValleyConfig
+from valley_tpu_torch.config import ValleyConfig
+from valley_tpu_torch.constants import IGNORE_INDEX
 from valley_tpu_torch.models import Weights, clip_vit, llama, temporal
 from valley_tpu_torch.ops.attention import KERNELS, Attention
 
@@ -46,12 +47,13 @@ def init_params(cfg: ValleyConfig, generator: torch.Generator,
 
 def encode_images(params: ValleyWeights, cfg: ValleyConfig,
                   images: torch.Tensor,
-                  frame_mask: Optional[torch.Tensor] = None
-                  ) -> VisionFeatures:
+                  frame_mask: Optional[torch.Tensor] = None) -> VisionFeatures:
     """images: (B, T, 3, H, W) frames -> vision features.
 
     ``uint8`` images are raw pixels, CLIP-normalised here in fp32 and cast
-    to bf16 (valley.py:63-69).  ``frame_mask``: optional (B, T) bool.
+    to bf16 (valley.py:63-69).  ``frame_mask``: optional (B, T) bool.  The
+    tower is frozen in every recipe, so it runs under `torch.no_grad` (the
+    JAX ``stop_gradient``); the projector keeps its gradient.
     """
     if images.dtype == torch.uint8:
         mean = torch.tensor(clip_vit.CLIP_MEAN, dtype=torch.float32,
@@ -62,7 +64,8 @@ def encode_images(params: ValleyWeights, cfg: ValleyConfig,
             torch.bfloat16)
     b, t = images.shape[:2]
     flat = images.reshape((b * t,) + tuple(images.shape[2:]))
-    feats = clip_vit.encode(params["vision"], cfg.vision, flat)
+    with torch.no_grad():
+        feats = clip_vit.encode(params["vision"], cfg.vision, flat)
     proj = params["projector"]
     feats = feats @ proj["w"] + proj["b"]
     feats = feats.reshape(b, t, feats.shape[1], feats.shape[2])
@@ -117,8 +120,33 @@ def forward(params: ValleyWeights, cfg: ValleyConfig,
             input_ids: torch.Tensor, images: Optional[torch.Tensor] = None,
             attn_mask: Optional[torch.Tensor] = None,
             frame_mask: Optional[torch.Tensor] = None,
-            attention: Attention = KERNELS) -> torch.Tensor:
+            attention: Attention = KERNELS, remat=False) -> torch.Tensor:
     """Full cacheless forward to fp32 logits (B, S, V)."""
     embeds = build_inputs_embeds(params, cfg, input_ids, images, frame_mask)
     return llama.forward(params["llama"], cfg.text, embeds, attn_mask,
-                         attention=attention)
+                         attention=attention, remat=remat)
+
+
+def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """Mean cross entropy over the shifted targets that are not
+    ``IGNORE_INDEX``, from an fp32 log-softmax (valley.py:148-160)."""
+    shift_logits = logits[:, :-1, :]
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, 0).long()
+    logp = torch.log_softmax(shift_logits.float(), dim=-1)
+    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / valid.sum().clamp_min(1)
+
+
+def loss_fn(params: ValleyWeights, cfg: ValleyConfig, batch, remat=True,
+            attention: Attention = KERNELS) -> torch.Tensor:
+    """Training loss of one batch (valley.py:163-171): ``batch`` holds
+    ``input_ids``, ``labels`` and optionally ``attention_mask``, ``images``
+    and ``frame_mask`` tensors."""
+    logits = forward(params, cfg, batch["input_ids"], batch.get("images"),
+                     batch.get("attention_mask"), batch.get("frame_mask"),
+                     attention=attention, remat=remat)
+    return shifted_cross_entropy(logits, batch["labels"])

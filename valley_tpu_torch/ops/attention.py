@@ -5,9 +5,11 @@ and the choice between the CUDA kernels and their plain versions.
 package falls back to (CLIP attention always runs `mha_attention`, as the
 JAX tower forces ``use_flash=False``).  The LLaMA decoder reaches attention
 through an `Attention` pair instead: `KERNELS` (the default) holds the
-wrappers of the two CUDA kernels, which take their plain version for
-tensors on the CPU and launch the kernel for CUDA tensors; `PLAIN` holds
-the plain versions themselves, for comparing a run on the card with the
+prefill attention with the flash kernels in both directions
+(`FlashAttention`: K1 forward, K2 backward) and the decode kernel's
+wrapper, which take their plain versions for tensors on the CPU and launch
+the kernels for CUDA tensors; `PLAIN` holds the plain versions themselves,
+differentiated by autograd, for comparing a run on the card with the
 kernels against one without.
 """
 
@@ -19,7 +21,7 @@ import torch
 
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
-from valley_tpu_torch.ops.flash_attention import (flash_attention,
+from valley_tpu_torch.ops.flash_attention import (flash_attention_autograd,
                                                   flash_attention_plain)
 
 
@@ -79,7 +81,7 @@ class Attention(NamedTuple):
     decode: Callable[..., torch.Tensor]
 
 
-KERNELS = Attention(flash_attention, decode_attention_stacked)
+KERNELS = Attention(flash_attention_autograd, decode_attention_stacked)
 PLAIN = Attention(flash_attention_plain, decode_attention_plain)
 
 
