@@ -5,15 +5,21 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the CUDA kernels from ``valley_tpu_torch/csrc``, holds each
 kernel against its plain PyTorch version at the shapes the Valley-7B paths
-give it (K1 and K3 before serving, K2 before training, each with a planted
-fault that must fail the check), and drives the port's two paths at full
-width and depth with random bf16 weights from a seed, one after the other
-(the serving model is freed before training):
+give it (K1 and K3 before serving, K4 and K3's int8-cache branch before
+int8 serving, K2 before training, each with a planted fault that must fail
+the check), and drives the port's three paths at full width and depth with
+random bf16 weights from a seed, each path in a process of its own, one
+after the other:
 
 - serving: one 8-frame video question with Valley-7B through
   ``Engine.generate_tokens``; checks that the path went through K1 and K3
   and compares its logits at the prefill and at three decode steps with
-  the same path run on the plain attention functions;
+  the same path run on the plain versions;
+- int8 serving, the serving flagship of the JAX package: the same weights
+  fused (``wqkv``, ``w_gateup``) and quantized to int8a8 on the card, an
+  int8 KV cache, the same question; checks that the path went through K1,
+  K3's int8 branch and K4 (the int8 decode GEMV, lm_head included) and
+  compares its logits with the same path on the plain versions;
 - training: Valley-7B stage 1 (frozen backbone, projector and input
   embeddings trained, the stage-1 recipe's optimizer settings) through
   ``Trainer.train_step`` on 16 synthetic rows from the port's collator and
@@ -32,6 +38,7 @@ that path gives it; the last line is
 
 from __future__ import annotations
 
+import argparse
 import gc
 import json
 import shutil
@@ -61,6 +68,17 @@ REL_TOL = 2 ** -6
 # this script: 0.0703 at the prefill (largest logit 4.06); the bar is about
 # twice that.
 LOGIT_TOL = 0.15
+# The int8 slice's logits through the kernels (K1, K3-int8, K4) against the
+# same path on their plain versions, at the prefill and three
+# teacher-forced decode steps: the kernels' summation order and bf16
+# roundings, through 32 layers of int8 weights, an int8 cache (a value
+# moved across a rounding edge moves one int8 step) and W8A8 prefill.
+# H100 readings of this script: 0.155 at the prefill (largest logit 4.16),
+# 0.062 at the decode steps; the bar is about twice that.  The same greedy
+# token is not checked on this slice: at decode step 2 the plain path's top
+# two logits lie 0.0154 apart, under the 0.062 the paths differ by, and the
+# kernels pick the other one (the token line still prints).
+INT8_LOGIT_TOL = 0.3
 # The training slice's first step through the kernels against the same
 # step on the plain attention functions (bf16 model, fp32 loss): the
 # kernels' one-ulp differences in the attention outputs and gradients
@@ -73,8 +91,17 @@ TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 0.05
 DECODE_CHECK_STEPS = 3
 NEW_TOKENS = 64
+# bench.py's request: a 473-token prompt in the 512 bucket; the engine's
+# cache holds bucket + max_new_tokens + steps_per_call slots
+PROMPT_LEN, BUCKET = 473, 512
+SMAX = BUCKET + NEW_TOKENS + NEW_TOKENS - 1
 BENCH_TOKENS = dict(im_patch=31996, im_start=31997, im_end=31998,
                     vi_frame=31999, vi_start=31994, vi_end=31995)
+# Profiler kernel names of each kernel of the serving paths
+KERNEL_NAMES = {"K1": ("flash_fwd_kernel",),
+                "K3": ("decode_split_kernel", "decode_combine_kernel"),
+                "K3-int8": ("decode_split_kernel", "decode_combine_kernel"),
+                "K4": ("int8_matvec_kernel",)}
 # Profiler kernel names by kind, for the training step's breakdown
 KERNEL_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
@@ -173,6 +200,15 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def tolerance(ref: torch.Tensor) -> float:
     return REL_TOL * ref.float().abs().max().item()
+
+
+def add_bound(times: dict, b: dict, what: str) -> None:
+    """Put a kernel's bound beside its times; a device time under the
+    bound is a measurement that lost events, and fails."""
+    times.update(b)
+    check(times["ms"] >= times["bound_ms"], f"{what}: device time "
+          f"{times['ms']} ms under the bound {times['bound_ms']} ms: the "
+          "profiler lost events")
 
 
 def bound(n_bytes: float, flops: float) -> dict:
@@ -299,8 +335,8 @@ def k2_phase(gen) -> tuple:
                 lambda: flash_attention(q, k, v, mask, causal=causal),
                 lambda: flash_attention_plain(q, k, v, mask, causal=causal),
                 iters=5)}
-            k1.update(attention_bound(q, k, mask, causal, 2,
-                                      lse.numel() * 4))
+            add_bound(k1, attention_bound(q, k, mask, causal, 2,
+                                          lse.numel() * 4), f"K1 {name}")
             k1["library_ms"] = library_attention_ms(q, k, v, mask, causal,
                                                     iters=5)
             print(f"K1 flash_fwd {name}: max_abs_err {err:.3e} (tol "
@@ -349,10 +385,10 @@ def k2_phase(gen) -> tuple:
                                                   g, causal=causal),
                 iters=5)
             # inputs q/k/v/out/dout and the lse, outputs dq/dk/dv
-            k2_t.update(attention_bound(
+            add_bound(k2_t, attention_bound(
                 q, k, mask, causal, 5,
                 (g.numel() + q.numel() + 2 * k.numel()) * g.element_size()
-                + lse.numel() * 4))
+                + lse.numel() * 4), f"K2 {name}")
             k2_t["library_ms"] = library_attention_ms(q, k, v, mask, causal,
                                                       dout=g, iters=5)
             line += (f" {fmt_times(k2_t)}; bound {k2_t['bound_ms']:.4f} ms "
@@ -569,6 +605,365 @@ def decode_cases(gen, smax_7b: int, prompt_len: int, bucket: int):
     return cases
 
 
+def int8_weight(gen, f: int, k: int):
+    """An (F, K) int8 weight and its (F,) bf16 scale, quantized by the
+    port's quantizer from N(0, 1) / sqrt(K) bf16 values, as the serving
+    tree's random weights are."""
+    from valley_tpu_torch.ops.quant import quantize_tensor
+
+    w = torch.randn((f, k), generator=gen, device="cuda") * k ** -0.5
+    return quantize_tensor(w.bfloat16())
+
+
+def library_matvec_ms(x, ws, scale, iters: int) -> tuple:
+    """Device ms of one library call on K4's inputs, walking the weight
+    copies ``ws`` as the kernel's timing does, and its label.  A yardstick
+    only: the port never calls it.  torch's int8 weight-only product where
+    this torch runs it on CUDA; otherwise a bf16 GEMV over the same weight
+    dequantized (twice the bytes)."""
+    it = iter(range(10 ** 9))
+    try:
+        torch._weight_int8pack_mm(x, ws[0], scale)
+        fn = lambda: torch._weight_int8pack_mm(  # noqa: E731
+            x, ws[next(it) % len(ws)], scale)
+        label = "torch._weight_int8pack_mm"
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"K4 yardstick: torch._weight_int8pack_mm does not run on "
+              f"CUDA here ({str(e).splitlines()[0][:80]}); timing a bf16 "
+              f"GEMV instead")
+        wb = [(w.float() * scale.float()[:, None]).bfloat16() for w in ws]
+        fn = lambda: torch.nn.functional.linear(  # noqa: E731
+            x, wb[next(it) % len(wb)])
+        label = "F.linear over the bf16 weight (bf16 GEMV, twice the bytes)"
+    fn()
+    return profile_device(fn, iters)[0], label
+
+
+# Valley-7B's fused int8 serving weights, (name, K, F): the decode GEMVs of
+# one layer, then lm_head
+K4_SHAPES_7B = (("wqkv", 4096, 12288), ("wo", 4096, 4096),
+                ("w_gateup", 4096, 22016), ("w_down", 11008, 4096),
+                ("lm_head", 4096, 32000))
+# Bytes of weight copies K4's timing walks: decode walks 6.6 GB of
+# weights per token, so a call finds none of its weight in L2
+K4_TIMING_BYTES = 2_500_000_000
+TIME_KEYS = ("ms", "plain_ms", "loop_ms", "plain_loop_ms", "bound_ms",
+             "library_ms")
+
+
+def k4_phase(gen, layers: int) -> tuple:
+    """K4 against its plain version on the five Valley-7B weights at B = 1,
+    at the row limit with K = 11008 and at an odd F; a planted fault (the
+    scales shifted by one output channel); each 7B weight timed walking
+    copies of it past the 50 MB L2.  Returns (max error, times per call
+    averaged over one decode token's GEMVs: ``layers`` x the four layer
+    weights, then lm_head)."""
+    from valley_tpu_torch.ops.quant import (MAX_ROWS, int8_matvec,
+                                            int8_matvec_plain)
+
+    cases = [(f"7b_{n}_B1", 1, k, f) for n, k, f in K4_SHAPES_7B] + [
+        ("rows8_K11008", MAX_ROWS, 11008, 4096), ("B3_odd_F1001", 3, 4096,
+                                                  1001)]
+    err_max, per_weight, label = 0.0, {}, None
+    for name, b, k, f in cases:
+        x = torch.randn((b, k), generator=gen, device="cuda").bfloat16()
+        w, scale = int8_weight(gen, f, k)
+        out = int8_matvec(x, w, scale)
+        torch.cuda.synchronize()
+        ref = int8_matvec_plain(x, w, scale)
+        err, tol = max_err(out, ref), tolerance(ref)
+        check(out.dtype == torch.float32 and tuple(out.shape) == (b, f)
+              and bool(torch.isfinite(out).all()),
+              f"K4 {name}: dtype, shape or not finite")
+        check(err <= tol, f"K4 {name}: max abs err {err} > {tol}")
+        err_max = max(err_max, err)
+        line = f"K4 int8_matvec {name}: max_abs_err {err:.3e} (tol {tol:.3e})"
+        if name == "7b_wqkv_B1":
+            # planted fault: a kernel that read each row's scale from the
+            # channel before must fail the check
+            fault = max_err(int8_matvec(x, w, scale.roll(1)), ref)
+            check(fault > tol, f"K4 {name}: shifted scales moved the output "
+                  f"by {fault} only, within the tolerance {tol}")
+            line += f"; scales shifted by one channel instead: {fault:.3e} "\
+                "(must fail)"
+        if name.startswith("7b_"):
+            # copies of the weight, walked in turn, far past what the 50 MB
+            # L2 keeps of a cyclic walk (on an H100, a walk of a few
+            # hundred MB read faster than the HBM's 3.35 TB/s)
+            ws = [w] + [w.clone() for _ in range(
+                -(-K4_TIMING_BYTES // w.numel()) - 1)]
+            it = iter(range(10 ** 9))
+            t = kernel_times(
+                lambda: int8_matvec(x, ws[next(it) % len(ws)], scale),
+                lambda: int8_matvec_plain(x, ws[next(it) % len(ws)], scale),
+                iters=20)
+            # bytes: the weight, x, the scale and the fp32 output once
+            n_bytes = f * k + 2 * b * k + 2 * f + 4 * b * f
+            add_bound(t, bound(n_bytes, 2 * b * k * f), f"K4 {name}")
+            t["library_ms"], label = library_matvec_ms(x, ws, scale, 20)
+            per_weight[name.split("_B1")[0][3:]] = t
+            line += (f" {fmt_times(t)} ({f * k / t['ms'] / 1e6:.1f} GB/s of "
+                     f"weights); bound {t['bound_ms']:.4f} ms ("
+                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB), library "
+                     f"{t['library_ms']:.4f} ms ({label})")
+            del ws
+        print(line)
+        del x, w, scale, out, ref
+    calls = 4 * layers + 1
+    token = {key: layers * sum(per_weight[n][key] for n, _, _ in
+                               K4_SHAPES_7B[:4]) + per_weight["lm_head"][key]
+             for key in TIME_KEYS}
+    avg = {key: token[key] / calls for key in TIME_KEYS}
+    avg["bound_by"] = "bytes"
+    avg["library_call"] = label
+    print(f"K4 int8_matvec per decode token ({calls} calls: {layers} x "
+          f"wqkv, wo, w_gateup, w_down, then lm_head): device "
+          f"{token['ms']:.4f} ms vs plain {token['plain_ms']:.4f} ms; bound "
+          f"{token['bound_ms']:.4f} ms; library {token['library_ms']:.4f} ms "
+          f"({label})")
+    return err_max, avg
+
+
+def decode_int8_cases(gen, smax_7b: int, prompt_len: int, bucket: int):
+    """(name, q, k, k_scale, v, v_scale, li, valid, hole): int8 caches
+    quantized by the port's `_quantize_kv` from N(0, 1) bf16 K/V, as decode
+    writes them; the 7B decode shape first, with the hole [prompt_len,
+    bucket) that decode leaves in the mask."""
+    from valley_tpu_torch.models.llama import _quantize_kv
+
+    def make(n_layers, b, smax, h, hkv, d):
+        q = torch.randn((b, 1, h, d), generator=gen, device="cuda").bfloat16()
+        out = [q]
+        for _ in range(2):
+            x = torch.randn((n_layers * b, smax, hkv, d), generator=gen,
+                            device="cuda").bfloat16()
+            xq, xs = _quantize_kv(x)
+            out += [xq.reshape(n_layers, b, smax, hkv, d),
+                    xs.reshape(n_layers, b, smax, hkv)]
+        return out
+
+    cases = []
+    t = make(32, 1, smax_7b, 32, 32, 128)
+    valid = torch.zeros((1, smax_7b), dtype=torch.bool, device="cuda")
+    valid[:, :prompt_len] = True               # the prompt
+    valid[:, bucket:bucket + 40] = True        # 40 decoded tokens
+    cases.append(("7b_decode_L32_S%d_D128_hole" % smax_7b, *t, 17, valid,
+                  (prompt_len, bucket)))
+    for name, geo in (("gqa_rep2_D64", (3, 1, 200, 8, 4, 64)),
+                      ("gqa_rep4_D128", (3, 1, 300, 16, 4, 128)),
+                      ("batch2_S640_D128", (3, 2, 640, 8, 8, 128))):
+        t = make(*geo)
+        valid = torch.rand((geo[1], geo[2]), generator=gen,
+                           device="cuda") < 0.8
+        valid[:, :4] = True
+        cases.append((name, *t, 1, valid, None))
+    return cases
+
+
+def k3_int8_phase(gen, smax: int, prompt_len: int, bucket: int) -> tuple:
+    """K3's int8-cache branch against its plain version on the cases of
+    `decode_int8_cases`; planted faults (the V scales taken as ones, and
+    the hole attended) on the 7B case, which is timed walking its layers.
+    Returns (max error, times)."""
+    from valley_tpu_torch.ops.decode_attention import (
+        decode_attention_plain, decode_attention_stacked)
+
+    err_max, times = 0.0, None
+    for name, q, k, ks, v, vs, li, valid, hole in decode_int8_cases(
+            gen, smax, prompt_len, bucket):
+        out = decode_attention_stacked(q, k, v, li, valid, ks, vs)
+        torch.cuda.synchronize()
+        ref = decode_attention_plain(q, k, v, li, valid, ks, vs)
+        err, tol = max_err(out, ref), tolerance(ref)
+        check(bool(torch.isfinite(out.float()).all()),
+              f"K3-int8 {name}: not finite")
+        check(err <= tol, f"K3-int8 {name}: max abs err {err} > {tol}")
+        err_max = max(err_max, err)
+        line = (f"K3-int8 decode_attn_int8 {name}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e})")
+        if hole is not None:
+            # planted faults: a kernel that ignored the V scales, or one
+            # that attended the hole, must fail the check
+            fault = max_err(decode_attention_stacked(
+                q, k, v, li, valid, ks, torch.ones_like(vs)), ref)
+            check(fault > tol, f"K3-int8 {name}: V scales of one moved the "
+                  f"output by {fault} only, within the tolerance {tol}")
+            filled = valid.clone()
+            filled[:, hole[0]:hole[1]] = True
+            hole_fault = max_err(decode_attention_stacked(
+                q, k, v, li, filled, ks, vs), ref)
+            check(hole_fault > tol, f"K3-int8 {name}: attending the hole "
+                  f"moved the output by {hole_fault} only")
+            line += (f"; V scales of one instead: {fault:.3e}, attending "
+                     f"the hole instead: {hole_fault:.3e} (must fail)")
+            n_layers = k.shape[0]
+            it = iter(range(10 ** 9))
+            times = kernel_times(
+                lambda: decode_attention_stacked(
+                    q, k, v, next(it) % n_layers, valid, ks, vs),
+                lambda: decode_attention_plain(
+                    q, k, v, next(it) % n_layers, valid, ks, vs), iters=64)
+            _, b_, _, hkv_, d_ = k.shape
+            n_valid = int(valid.sum())
+            # the data's need: the valid slots' int8 K and V and their bf16
+            # scales, q, out, the mask
+            need = (2 * n_valid * hkv_ * d_ + 2 * n_valid * hkv_ * 2
+                    + 2 * q.numel() * q.element_size() + valid.numel())
+            add_bound(times, bound(need, 4 * d_ * n_valid * q.shape[2]),
+                      f"K3-int8 {name}")
+            # yardstick: SDPA over the same layer dequantized to bf16
+            kd, vd = ((c[li].float() * s[li].float()[..., None]).bfloat16()
+                      for c, s in ((k, ks), (v, vs)))
+            times["library_ms"] = library_attention_ms(q, kd, vd, valid,
+                                                       False, iters=64)
+            times["library_call"] = "SDPA over the layer in bf16"
+            layer_bytes = 2 * k[0].numel() + 2 * ks[0].numel() * 2
+            line += (f" {fmt_times(times)} ({layer_bytes / 1e6:.2f} MB of "
+                     f"K/V and scales per call: "
+                     f"{layer_bytes / times['ms'] / 1e6:.1f} GB/s); bound "
+                     f"{times['bound_ms']:.4f} ms ({times['bound_by']}, "
+                     f"{need / 1e6:.2f} MB of valid slots), library "
+                     f"{times['library_ms']:.4f} ms (SDPA over the layer in "
+                     f"bf16)")
+            del kd, vd
+        print(line)
+        del q, k, v, ks, vs, out, ref
+    return err_max, times
+
+
+def bench_request(cfg, bucket: int):
+    """bench.py's request: 8 raw uint8 frames and a 473-token prompt (the
+    media span, then random text) in the ``bucket``."""
+    tok = cfg.tokens
+    span = [tok.im_start] + [tok.im_patch] * cfg.num_patches + \
+        [tok.im_end] + [tok.vi_start] + [tok.vi_frame] * 8 + [tok.vi_end]
+    rng = np.random.default_rng(0)
+    prompt = [1] + span + rng.integers(
+        5, 30000, size=bucket - len(span) - 40).tolist()
+    size = cfg.vision.image_size
+    frames = rng.integers(0, 256, (1, 8, 3, size, size)).astype(np.uint8)
+    return prompt, frames
+
+
+def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
+                kernels: dict, logit_tol: float, same_token: bool) -> dict:
+    """One `bench_request` through ``Engine.generate_tokens`` (64 greedy
+    tokens, one stream), after a warm-up request.  ``kernels`` maps a
+    label to (wrapper, launches the request must make): every count is set
+    to 0 just before the request and read just after.  Then the breakdown
+    (profiled prefill and request) and the logits through the kernels
+    against the same path on the plain versions, at the prefill and three
+    teacher-forced decode steps, within ``logit_tol`` and, with
+    ``same_token``, picking the same greedy token.  Returns the counts."""
+    from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+    from valley_tpu_torch.models import valley
+    from valley_tpu_torch.ops.attention import PLAIN
+
+    bucket, new = 512, NEW_TOKENS
+    steps = new - 1
+    prompt, frames = bench_request(cfg, bucket)
+    size = cfg.vision.image_size
+    gcfg = GenerationConfig(max_new_tokens=new, do_sample=False)
+    engine = Engine(cfg, params, buckets=(bucket,), max_new_tokens=new,
+                    steps_per_call=steps, cache_dtype=cache_dtype)
+
+    def run():
+        t0 = time.perf_counter()
+        t_first, toks = None, []
+        for t in engine.generate_tokens([prompt], frames, gcfg,
+                                        eos_ids=[-1]):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            toks.append(int(t[0]))
+        return t_first, time.perf_counter() - t0, toks
+
+    run()   # warm-up: lazy CUDA / cuBLAS initialisation
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    t_first, total, toks = run()           # the main path
+    counts = {k: fn.launches for k, (fn, _) in kernels.items()}
+    check(len(toks) == new, f"{tag}: generated {len(toks)} tokens, want "
+          f"{new}")
+    check(all(0 <= t < cfg.text.vocab_size for t in toks),
+          f"{tag}: token ids")
+    for k, (_, want) in kernels.items():
+        check(counts[k] == want, f"{tag}: {k} launched {counts[k]} times, "
+              f"want {want}")
+    decode_tps = (new - 1) / (total - t_first)
+    print(f"{tag}: prompt {len(prompt)} tokens in bucket {bucket}, 8 frames "
+          f"{size}px uint8, {new} greedy tokens, {cache_dtype} KV cache; "
+          f"launches " + " ".join(f"{k} {n}" for k, n in counts.items()))
+    print(f"{tag}: video->first-token {t_first:.4f} s, decode "
+          f"{decode_tps:.2f} tok/s ({1e3 / decode_tps:.3f} ms/token) on "
+          f"{smi}")
+
+    # where the time goes: device busy time of the prefill and of a whole
+    # request, against the unprofiled wall times above
+    frames_dev = torch.from_numpy(frames).cuda()
+    vision_ms = time_ms(lambda: valley.encode_images(params, cfg, frames_dev),
+                        iters=3, warmup=1)
+    vision_dev, _, _ = profile_device(
+        lambda: valley.encode_images(params, cfg, frames_dev))
+    prefill_dev, prefill_top, _ = profile_device(
+        lambda: engine.prefill([prompt], frames, gcfg))
+    run_dev, top, _ = profile_device(run)
+    decode_dev = (run_dev - prefill_dev) / (new - 1)
+    wall_tok = (total - t_first) / (new - 1) * 1e3
+    shares = ", ".join(f"{name[:48]} {100 * ms / run_dev:.1f}%"
+                       for name, ms in top[:8])
+    print(f"{tag} breakdown: video->first-token wall {t_first * 1e3:.2f} ms, "
+          f"prefill device {prefill_dev:.2f} ms (vision tower device "
+          f"{vision_dev:.2f} ms, wall {vision_ms:.2f} ms); decode wall "
+          f"{wall_tok:.3f} ms/token, device busy {decode_dev:.3f} ms/token "
+          f"(idle share {1 - decode_dev / wall_tok:.3f}); request device "
+          f"busy {run_dev:.2f} ms of {total * 1e3:.2f} ms wall; top kernels: "
+          f"{shares}")
+    print(f"{tag} breakdown: prefill top kernels: " + ", ".join(
+        f"{name[:48]} {ms:.2f} ms" for name, ms in prefill_top[:8]))
+    inside = []
+    for k in kernels:
+        ms = sum(t for name, t in top
+                 if any(key in name for key in KERNEL_NAMES[k]))
+        inside.append(f"{k} {ms:.2f} ms ({100 * ms / run_dev:.1f}%, "
+                      f"{1e3 * ms / max(counts[k], 1):.2f} us per launch)")
+    print(f"{tag} breakdown: the kernels inside the request: "
+          + ", ".join(inside))
+
+    # the slice's logits through the kernels against the same path on the
+    # plain versions: the prefill, then decode steps fed the generated
+    # tokens
+    plain_engine = Engine(cfg, params, buckets=(bucket,), max_new_tokens=new,
+                          steps_per_call=steps, cache_dtype=cache_dtype,
+                          attention=PLAIN)
+    states = [e.prefill([prompt], frames, gcfg)
+              for e in (engine, plain_engine)]
+    check(int(states[0].token[0]) == toks[0], f"{tag}: prefill is not "
+          "repeatable")
+    forced = toks[:DECODE_CHECK_STEPS]
+    logits = [[s.logits[0]] + decode_logits(e, s, len(prompt), forced)
+              for e, s in zip((engine, plain_engine), states)]
+    for i, (lk, lp) in enumerate(zip(*logits)):
+        where = "prefill" if i == 0 else f"decode step {i}"
+        check(bool(torch.isfinite(lk).all())
+              and lk.shape == (cfg.text.vocab_size,),
+              f"{tag}: {where} logits not finite or misshapen")
+        diff = max_err(lk, lp)
+        top2 = torch.topk(lp, 2).values
+        margin = (top2[0] - top2[1]).item()
+        same = int(lk.argmax()) == int(lp.argmax())
+        print(f"{tag}: {where} logits kernels vs plain max abs diff "
+              f"{diff:.4e} (tol {logit_tol}; max |logit| "
+              f"{lp.abs().max().item():.3f}), greedy token "
+              f"{'agrees' if same else 'differs'} (plain top-2 margin "
+              f"{margin:.4f}){'' if same_token else ', not checked'}")
+        check(diff <= logit_tol, f"{tag}: {where} logits beyond tolerance")
+        if same_token:
+            check(same, f"{tag}: {where}: kernels and plain pick different "
+                  f"tokens")
+    del engine, plain_engine, states, logits, frames_dev
+    return counts
+
+
 def decode_logits(engine, state, prompt_len: int, tokens):
     """fp32 logits of teacher-forced decode steps after ``state``'s
     prefill: step i feeds ``tokens[i]`` at slot bucket + i and rotary
@@ -587,54 +982,19 @@ def decode_logits(engine, state, prompt_len: int, tokens):
                 positions=torch.tensor([[prompt_len + i]], device=dev),
                 cache=state.cache, cache_index=slot, kv_valid=valid,
                 attention=engine.attention)
-            out.append(llama.logits_from_hidden(p, hidden)[0, 0])
+            out.append(llama.logits_from_hidden(p, hidden,
+                                                engine.attention)[0, 0])
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    try:
-        from valley_tpu_torch import SpecialTokens, valley_7b
-        from valley_tpu_torch.inference.engine import Engine, GenerationConfig
-        from valley_tpu_torch.models import valley
-        from valley_tpu_torch.ops import _build
-        from valley_tpu_torch.ops.attention import PLAIN
-        from valley_tpu_torch.ops.decode_attention import (
-            decode_attention_plain, decode_attention_stacked)
-        from valley_tpu_torch.ops.flash_attention import (
-            flash_attention, flash_attention_plain)
-    except ImportError as e:
-        print(f"chip_smoke: run from the root of a valley-tpu checkout "
-              f"({e})", file=sys.stderr)
-        return 2
-    check("jax" not in sys.modules, "the port imported jax")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def k1_phase(cases) -> tuple:
+    """K1 against its plain version on ``cases`` (`flash_cases`), the
+    first timed.  Returns (max error, times)."""
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
 
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
-
-    # 2. build
-    print(f"build: {_build.build_all():.2f} s for {list(_build.SOURCES)}")
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    bucket, new = 512, NEW_TOKENS
-    steps = new - 1
-    # the engine's cache: bucket + max_new_tokens + steps_per_call slots
-    smax = bucket + new + steps
-
-    # 3. K1 against its plain version
     k1_err, k1_t = 0.0, None
-    for name, q, k, v, mask, causal in flash_cases(gen):
+    for name, q, k, v, mask, causal in cases:
         out, lse = flash_attention(q, k, v, mask, causal=causal,
                                    return_lse=True)
         torch.cuda.synchronize()
@@ -657,18 +1017,26 @@ def main() -> int:
                 lambda: flash_attention(q, k, v, mask, causal=causal),
                 lambda: flash_attention_plain(q, k, v, mask, causal=causal),
                 iters=20)
-            k1_t.update(attention_bound(q, k, mask, causal, 2,
-                                        lse.numel() * 4))
+            add_bound(k1_t, attention_bound(q, k, mask, causal, 2,
+                                            lse.numel() * 4), f"K1 {name}")
             k1_t["library_ms"] = library_attention_ms(q, k, v, mask, causal,
                                                       iters=20)
             line += (f" {fmt_times(k1_t)}; bound {k1_t['bound_ms']:.4f} ms "
                      f"({k1_t['bound_by']}), library {k1_t['library_ms']:.4f}"
                      f" ms")
         print(line)
+    return k1_err, k1_t
 
-    # 4. K3 against its plain version
+
+def k3_phase(gen, smax: int, prompt_len: int, bucket: int) -> tuple:
+    """K3 (bf16 cache) against its plain version on `decode_cases`, with
+    the planted fault; the 7B case timed walking its layers.  Returns (max
+    error, times)."""
+    from valley_tpu_torch.ops.decode_attention import (
+        decode_attention_plain, decode_attention_stacked)
+
     k3_err, k3_t = 0.0, None
-    for name, q, k, v, li, valid, hole in decode_cases(gen, smax, 473,
+    for name, q, k, v, li, valid, hole in decode_cases(gen, smax, prompt_len,
                                                        bucket):
         out = decode_attention_stacked(q, k, v, li, valid)
         torch.cuda.synchronize()
@@ -704,7 +1072,8 @@ def main() -> int:
             b_, smax_, hkv_, d_ = k.shape[1:]
             need = (2 * int(valid.sum()) * hkv_ * d_ * k.element_size()
                     + 2 * q.numel() * q.element_size() + valid.numel())
-            k3_t.update(bound(need, 4 * d_ * int(valid.sum()) * q.shape[2]))
+            add_bound(k3_t, bound(need, 4 * d_ * int(valid.sum())
+                                  * q.shape[2]), f"K3 {name}")
             k3_t["library_ms"] = library_attention_ms(
                 q, k[li], v[li], valid, False, iters=64)
             line += (f" {fmt_times(k3_t)} ({kv_bytes / 1e6:.2f} MB of K/V "
@@ -714,9 +1083,13 @@ def main() -> int:
                      f"slots), library {k3_t['library_ms']:.4f} ms")
         print(line)
         del k, v
+    return k3_err, k3_t
 
-    # 5. the slice: Valley-7B, 8 uint8 frames, a 512-bucket prompt
-    cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+
+def valley_7b_weights(cfg):
+    """Valley-7B's random bf16 weights on the card, from seed 0."""
+    from valley_tpu_torch.models import valley
+
     t0 = time.perf_counter()
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                                 torch.bfloat16, "cuda")
@@ -724,131 +1097,163 @@ def main() -> int:
     print(f"valley_7b random bf16 weights: "
           f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
           f"params in {time.perf_counter() - t0:.1f} s")
-    tok = cfg.tokens
-    span = [tok.im_start] + [tok.im_patch] * cfg.num_patches + \
-        [tok.im_end] + [tok.vi_start] + [tok.vi_frame] * 8 + [tok.vi_end]
-    rng = np.random.default_rng(0)
-    prompt = [1] + span + rng.integers(
-        5, 30000, size=bucket - len(span) - 40).tolist()
-    size = cfg.vision.image_size
-    frames = rng.integers(0, 256, (1, 8, 3, size, size)).astype(np.uint8)
-    gcfg = GenerationConfig(max_new_tokens=new, do_sample=False)
-    engine = Engine(cfg, params, buckets=(bucket,), max_new_tokens=new,
-                    steps_per_call=steps)
+    return params
 
-    def run():
-        t0 = time.perf_counter()
-        t_first, toks = None, []
-        for t in engine.generate_tokens([prompt], frames, gcfg,
-                                        eos_ids=[-1]):
-            if t_first is None:
-                t_first = time.perf_counter() - t0
-            toks.append(int(t[0]))
-        return t_first, time.perf_counter() - t0, toks
 
-    run()   # warm-up: lazy CUDA / cuBLAS initialisation
-    flash_attention.launches = 0
-    decode_attention_stacked.launches = 0
-    t_first, total, toks = run()           # the main path
-    n_k1 = flash_attention.launches
-    n_k3 = decode_attention_stacked.launches
-    layers = cfg.text.num_hidden_layers
-    check(len(toks) == new, f"generated {len(toks)} tokens, want {new}")
-    check(all(0 <= t < cfg.text.vocab_size for t in toks), "token ids")
-    check(n_k1 == layers, f"K1 launched {n_k1} times, want {layers}")
-    check(n_k3 == layers * (new - 1),
-          f"K3 launched {n_k3} times, want {layers * (new - 1)}")
-    decode_tps = (new - 1) / (total - t_first)
-    print(f"slice: prompt {len(prompt)} tokens in bucket {bucket}, 8 frames "
-          f"{size}px uint8, {new} greedy tokens; launches K1 {n_k1} "
-          f"K3 {n_k3}")
-    print(f"slice: video->first-token {t_first:.4f} s, decode "
-          f"{decode_tps:.2f} tok/s ({1e3 / decode_tps:.3f} ms/token) on "
-          f"{smi}")
+K1_SRC = dict(name="flash_fwd", route="cuda",
+              source="valley_tpu_torch/csrc/flash_fwd.cu",
+              replaces="valley_tpu/ops/flash_attention.py:54")
+K3_SRC = dict(route="cuda", source="valley_tpu_torch/csrc/decode_attn.cu",
+              replaces="valley_tpu/ops/decode_pallas.py:68")
 
-    # where the time goes: device busy time of the prefill and of a whole
-    # request, against the unprofiled wall times above
-    frames_dev = torch.from_numpy(frames).cuda()
-    vision_ms = time_ms(lambda: valley.encode_images(params, cfg, frames_dev),
-                        iters=3, warmup=1)
-    vision_dev, _, _ = profile_device(
-        lambda: valley.encode_images(params, cfg, frames_dev))
-    prefill_dev, _, _ = profile_device(
-        lambda: engine.prefill([prompt], frames, gcfg))
-    run_dev, top, _ = profile_device(run)
-    decode_dev = (run_dev - prefill_dev) / (new - 1)
-    wall_tok = (total - t_first) / (new - 1) * 1e3
-    shares = ", ".join(f"{name[:48]} {100 * ms / run_dev:.1f}%"
-                       for name, ms in top[:6])
-    print(f"breakdown: video->first-token wall {t_first * 1e3:.2f} ms, "
-          f"prefill device {prefill_dev:.2f} ms (vision tower device "
-          f"{vision_dev:.2f} ms, wall {vision_ms:.2f} ms); decode wall "
-          f"{wall_tok:.3f} ms/token, device busy {decode_dev:.3f} ms/token "
-          f"(idle share {1 - decode_dev / wall_tok:.3f}); request device "
-          f"busy {run_dev:.2f} ms of {total * 1e3:.2f} ms wall; top kernels: "
-          f"{shares}")
 
-    # the slice's logits through the kernels against the same path with
-    # the plain attention functions: the prefill, then decode steps fed the
-    # generated tokens
-    plain_engine = Engine(cfg, params, buckets=(bucket,), max_new_tokens=new,
-                          steps_per_call=steps, attention=PLAIN)
-    states = [e.prefill([prompt], frames, gcfg)
-              for e in (engine, plain_engine)]
-    check(int(states[0].token[0]) == toks[0], "prefill is not repeatable")
-    forced = toks[:DECODE_CHECK_STEPS]
-    logits = [[s.logits[0]] + decode_logits(e, s, len(prompt), forced)
-              for e, s in zip((engine, plain_engine), states)]
-    for i, (lk, lp) in enumerate(zip(*logits)):
-        where = "prefill" if i == 0 else f"decode step {i}"
-        check(bool(torch.isfinite(lk).all())
-              and lk.shape == (cfg.text.vocab_size,),
-              f"{where} logits not finite or misshapen")
-        diff = max_err(lk, lp)
-        top2 = torch.topk(lp, 2).values
-        same = int(lk.argmax()) == int(lp.argmax())
-        print(f"slice: {where} logits kernels vs plain max abs diff "
-              f"{diff:.4e} (tol {LOGIT_TOL}; max |logit| "
-              f"{lp.abs().max().item():.3f}), greedy token "
-              f"{'agrees' if same else 'differs'} (plain top-2 margin "
-              f"{(top2[0] - top2[1]).item():.4f})")
-        check(diff <= LOGIT_TOL, f"{where} logits beyond tolerance")
-        check(same, f"{where}: kernels and plain pick different tokens")
+def serve_path(smi: str, gen) -> list:
+    """The bf16 serving path: K1 and K3 against their plain versions, then
+    the slice.  Returns its kernels entries."""
+    from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.quant import int8_matvec
 
-    # free the serving model: two 7B trees never share the card
-    del engine, plain_engine, states, logits, params, frames_dev
+    k1_err, k1_t = k1_phase(flash_cases(gen))
+    k3_err, k3_t = k3_phase(gen, SMAX, PROMPT_LEN, BUCKET)
+    cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+    layers, steps = cfg.text.num_hidden_layers, NEW_TOKENS - 1
+    counts = serve_slice("slice", cfg, valley_7b_weights(cfg), smi,
+                         torch.bfloat16, {
+                             "K1": (flash_attention, layers),
+                             "K3": (decode_attention_stacked, layers * steps),
+                             "K4": (int8_matvec, 0)}, LOGIT_TOL,
+                         same_token=True)
+    return [{**K1_SRC, "path": "serve", "launches": counts["K1"],
+             "max_abs_err": k1_err, **k1_t},
+            {**K3_SRC, "name": "decode_attn", "path": "serve",
+             "launches": counts["K3"], "max_abs_err": k3_err, **k3_t}]
+
+
+def serve_int8_path(smi: str, gen) -> list:
+    """The int8 serving flagship: K1 at the prefill shape, K4 and K3's
+    int8-cache branch against their plain versions, then the slice on the
+    same random weights fused and quantized to int8a8 on the card, with an
+    int8 KV cache.  Returns its kernels entries."""
+    from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.models.llama import fuse_llama_params
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.quant import int8_matvec, quantize_llama_params
+
+    k1_err, k1_t = k1_phase(flash_cases(gen)[:1])
+    cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+    layers, steps = cfg.text.num_hidden_layers, NEW_TOKENS - 1
+    k4_err, k4_t = k4_phase(gen, layers)
+    k3q_err, k3q_t = k3_int8_phase(gen, SMAX, PROMPT_LEN, BUCKET)
     gc.collect()
     torch.cuda.empty_cache()
+    params = valley_7b_weights(cfg)
+    t0 = time.perf_counter()
+    params = quantize_llama_params(fuse_llama_params(params), act8=True)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in
+                       params["llama"].named_parameters() if n != "embed")
+    print(f"int8 slice: fused and quantized (int8a8) in "
+          f"{time.perf_counter() - t0:.1f} s; decoder and lm_head weights "
+          f"{weight_bytes / 1e9:.3f} GB (a decode token reads them once: "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)")
+    counts = serve_slice("int8 slice", cfg, params, smi, torch.int8, {
+        "K1": (flash_attention, layers),
+        "K3-int8": (decode_attention_stacked, layers * steps),
+        "K4": (int8_matvec, 4 * layers * steps + NEW_TOKENS)},
+        INT8_LOGIT_TOL, same_token=False)
+    return [{**K1_SRC, "name": "flash_fwd_int8", "path": "serve_int8",
+             "launches": counts["K1"], "max_abs_err": k1_err, **k1_t},
+            {**K3_SRC, "name": "decode_attn_int8", "path": "serve_int8",
+             "launches": counts["K3-int8"], "max_abs_err": k3q_err,
+             **k3q_t},
+            {"name": "int8_matvec", "route": "cuda",
+             "source": "valley_tpu_torch/csrc/int8_matvec.cu",
+             "replaces": "valley_tpu/ops/quant.py:455", "path": "serve_int8",
+             "launches": counts["K4"], "max_abs_err": k4_err, **k4_t}]
 
-    # 6. K2 against its plain version
+
+def train_path(smi: str, gen) -> list:
+    """K2 (and K1 at the training shape) against the plain versions, then
+    the training slice.  Returns its kernels entries."""
     k2_err, k2_t, k1_train = k2_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
-
-    # 7. the training slice: Valley-7B stage 1
     train_k1, train_k2 = train_phase(smi)
+    return [{**K1_SRC, "name": "flash_fwd_train", "path": "train",
+             "launches": train_k1, **k1_train},
+            {"name": "flash_bwd", "route": "cuda",
+             "source": "valley_tpu_torch/csrc/flash_bwd.cu",
+             "replaces": "valley_tpu/ops/flash_attention.py:183",
+             "path": "train", "launches": train_k2, "max_abs_err": k2_err,
+             **k2_t}]
 
+
+# Each path runs in a process of its own, one after the other: each frees
+# its 7B model by exiting, and each gets a fresh profiler (on an H100 with
+# torch 2.11, traces taken in one process after both serving paths came
+# back short of events, then empty)
+PATHS = {"serve": serve_path, "serve_int8": serve_int8_path,
+         "train": train_path}
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=sorted(PATHS),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--out", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        import valley_tpu_torch  # noqa: F401
+        from valley_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a valley-tpu checkout "
+              f"({e})", file=sys.stderr)
+        return 2
+    check("jax" not in sys.modules, "the port imported jax")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    if args.path:
+        entries = PATHS[args.path](nvidia_smi(),
+                                   torch.Generator("cuda").manual_seed(0))
+        check("jax" not in sys.modules, "the port imported jax")
+        with open(args.out, "w") as f:
+            json.dump(entries, f)
+        return 0
+
+    # the device, the build, then each path in a process of its own
+    smi = nvidia_smi()
+    print(smi)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    print(f"build: {_build.build_all():.2f} s for {list(_build.SOURCES)}",
+          flush=True)
+    kernels = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for name in PATHS:
+            out = f"{tmp}/{name}.json"
+            subprocess.run([sys.executable, __file__, "--path", name,
+                            "--out", out], check=True)
+            with open(out) as f:
+                kernels += json.load(f)
     # one entry per kernel and path: ``launches`` is that path's count
     # (serving: one request; training: the three timed updates), the times
-    # and bound are at the shape that path gives the kernel
-    k1_src = dict(name="flash_fwd", route="cuda",
-                  source="valley_tpu_torch/csrc/flash_fwd.cu",
-                  replaces="valley_tpu/ops/flash_attention.py:54")
-    kernels = [
-        {**k1_src, "path": "serve", "launches": n_k1,
-         "max_abs_err": k1_err, **k1_t},
-        {"name": "decode_attn", "route": "cuda",
-         "source": "valley_tpu_torch/csrc/decode_attn.cu",
-         "replaces": "valley_tpu/ops/decode_pallas.py:68",
-         "path": "serve", "launches": n_k3, "max_abs_err": k3_err, **k3_t},
-        {**k1_src, "name": "flash_fwd_train", "path": "train",
-         "launches": train_k1, **k1_train},
-        {"name": "flash_bwd", "route": "cuda",
-         "source": "valley_tpu_torch/csrc/flash_bwd.cu",
-         "replaces": "valley_tpu/ops/flash_attention.py:183",
-         "path": "train", "launches": train_k2, "max_abs_err": k2_err,
-         **k2_t},
-    ]
+    # and bound are at the shape that path gives the kernel (K4: per call,
+    # averaged over one decode token's GEMVs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -13,7 +13,9 @@ is held to the same bar on each of dq, dk and dv, with the forward
 kernel's out and lse as both sides' inputs.  Inputs are N(0, 1), so
 logits have unit spread and attending a wrong slot moves the output by far
 more than the tolerance (the decode test plants that fault and checks it
-is caught).
+is caught).  The int8 GEMV (K4) and the int8-cache decode attention are
+held to the same bar, each with a planted fault (a scale vector shifted
+by one channel; the V scales replaced by ones) that must fail it.
 """
 
 import numpy as np
@@ -23,7 +25,8 @@ import torch
 from valley_tpu_torch import valley_tiny
 from valley_tpu_torch.data.dataset import (DataCollatorForSupervisedDataset,
                                            DataLoader)
-from valley_tpu_torch.models import valley
+from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+from valley_tpu_torch.models import llama, valley
 from valley_tpu_torch.ops.attention import KERNELS, PLAIN
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
@@ -32,6 +35,8 @@ from valley_tpu_torch.ops.flash_attention import (FlashAttention,
                                                   flash_attention_bwd,
                                                   flash_attention_bwd_plain,
                                                   flash_attention_plain)
+from valley_tpu_torch.ops.quant import (int8_matvec, int8_matvec_plain,
+                                        quantize_llama_params, quantize_tensor)
 from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
 REL_TOL = 2 ** -6
@@ -244,3 +249,141 @@ def test_tiny_training_step_on_the_card(gen, tmp_path):
     assert trainer.train_step(batch)["updated"]
     assert not torch.equal(params["llama"]["embed"], embed)
     assert torch.equal(params["llama"]["lm_head"], head)
+
+
+def _int8_weight(gen, f, k):
+    """An (F, K) int8 weight and its (F,) bf16 scale, quantized from
+    N(0, 1) / sqrt(K) bf16 values as the serving tree's are."""
+    w = (torch.randn((f, k), generator=gen, device="cuda") * k ** -0.5)
+    return quantize_tensor(w.bfloat16())
+
+
+@pytest.mark.parametrize("b,k,f", [
+    (1, 4096, 12288), (8, 4096, 4096), (1, 11008, 4096), (3, 64, 33),
+    (2, 16, 1), (5, 4096, 1000)])
+def test_int8_matvec_kernel_matches_plain(gen, b, k, f):
+    x = _randn(gen, b, k)
+    w, scale = _int8_weight(gen, f, k)
+    before = int8_matvec.launches
+    out = int8_matvec(x, w, scale)
+    torch.cuda.synchronize()
+    assert int8_matvec.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, f)
+    ref = int8_matvec_plain(x, w, scale)
+    err, tol = _err_and_tol(out, ref)
+    assert err <= tol
+    if f > 1:
+        # planted fault: the scales shifted by one output channel
+        fault, _ = _err_and_tol(int8_matvec(x, w, scale.roll(1)), ref)
+        assert fault > tol
+
+
+def test_int8_matvec_kernel_refuses_what_it_cannot_take(gen):
+    x = _randn(gen, 1, 4096)
+    w, scale = _int8_weight(gen, 64, 4096)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_matvec(x[:, :24].contiguous(), w[:, :24].contiguous(), scale)
+    with pytest.raises(ValueError, match="rows"):
+        int8_matvec(_randn(gen, 9, 4096), w, scale)
+    with pytest.raises(TypeError):
+        int8_matvec(x.float(), w, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_matvec(x, w.t().contiguous().t(), scale)
+
+
+def test_int8_matvec_kernel_takes_a_layer_of_stacked_scales(gen):
+    """Layer 1 of an (L, F) scale stack with F = 1001 starts 2002 bytes in:
+    the kernel reads the scale one bf16 at a time, so it takes it."""
+    x = _randn(gen, 1, 64)
+    w, scale = quantize_tensor(
+        (torch.randn((2, 1001, 64), generator=gen, device="cuda")
+         * 0.125).bfloat16())
+    assert scale[1].data_ptr() % 16
+    out = int8_matvec(x, w[1], scale[1])
+    err, tol = _err_and_tol(out, int8_matvec_plain(x, w[1], scale[1]))
+    assert err <= tol
+
+
+def _int8_cache(gen, n_layers, b, smax, hkv, d):
+    """An int8 cache quantized from N(0, 1) bf16 K/V, as decode writes
+    it, with its (L, B, Smax, Hkv) bf16 scales."""
+    out = []
+    for _ in range(2):
+        x = _randn(gen, n_layers * b, smax, hkv, d)
+        q, s = llama._quantize_kv(x)
+        out += [q.reshape(n_layers, b, smax, hkv, d),
+                s.reshape(n_layers, b, smax, hkv)]
+    return out
+
+
+@pytest.mark.parametrize("b,smax,h,hkv,d", [
+    (1, 639, 32, 32, 128), (1, 96, 4, 2, 32), (2, 640, 8, 8, 128),
+    (1, 100, 8, 2, 64), (1, 200, 16, 4, 128), (1, 70, 4, 4, 16)])
+def test_decode_int8_kernel_matches_plain(gen, b, smax, h, hkv, d):
+    n_layers, li = 3, 2
+    q = _randn(gen, b, 1, h, d)
+    k, ks, v, vs = _int8_cache(gen, n_layers, b, smax, hkv, d)
+    valid = torch.zeros((b, smax), dtype=torch.bool, device="cuda")
+    valid[:, :3 * smax // 8] = True                 # the prompt
+    valid[:, smax // 2:smax // 2 + smax // 4] = True  # decoded tokens
+    before = decode_attention_stacked.launches
+    out = decode_attention_stacked(q, k, v, li, valid, ks, vs)
+    torch.cuda.synchronize()
+    assert decode_attention_stacked.launches == before + 1
+    ref = decode_attention_plain(q, k, v, li, valid, ks, vs)
+    err, tol = _err_and_tol(out, ref)
+    assert err <= tol
+    # planted faults: V scales taken as ones; the hole attended
+    fault, _ = _err_and_tol(decode_attention_stacked(
+        q, k, v, li, valid, ks, torch.ones_like(vs)), ref)
+    assert fault > tol
+    filled = valid.clone()
+    filled[:, 3 * smax // 8:smax // 2] = True
+    fault, _ = _err_and_tol(decode_attention_stacked(
+        q, k, v, li, filled, ks, vs), ref)
+    assert fault > tol
+
+
+def test_decode_kernel_refuses_mismatched_cache_and_scales(gen):
+    q = _randn(gen, 1, 1, 4, 32)
+    k, ks, v, vs = _int8_cache(gen, 2, 1, 64, 4, 32)
+    valid = torch.ones((1, 64), dtype=torch.bool, device="cuda")
+    with pytest.raises(TypeError, match="scales"):
+        decode_attention_stacked(q, k, v, 0, valid)       # int8, no scales
+    kb, vb = k.bfloat16(), v.bfloat16()
+    with pytest.raises(TypeError, match="scales"):
+        decode_attention_stacked(q, kb, vb, 0, valid, ks, vs)
+    with pytest.raises(ValueError, match="v_scale"):
+        decode_attention_stacked(q, k, v, 0, valid, ks, vs[:, :, :32])
+
+
+def test_tiny_int8_serving_on_the_card(gen):
+    """The int8a8 fused tree with an int8 cache on the card: per request
+    K1 runs once per layer (prefill), K3 once per layer and decode step,
+    K4 four times per layer and decode step plus once per token for
+    lm_head; the prefill logits agree with the plain versions'."""
+    cfg = valley_tiny()
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    params = quantize_llama_params(llama.fuse_llama_params(params),
+                                   act8=True)
+    new = 6
+    engines = [Engine(cfg, params, buckets=(128,), max_new_tokens=new,
+                      cache_dtype=torch.int8, steps_per_call=2,
+                      attention=a) for a in (KERNELS, PLAIN)]
+    prompt = np.random.default_rng(0).integers(5, 400, 90).tolist()
+    gcfg = GenerationConfig(max_new_tokens=new)
+    counts = (flash_attention.launches, decode_attention_stacked.launches,
+              int8_matvec.launches)
+    toks = [int(t[0]) for t in engines[0].generate_tokens(
+        [prompt], None, gcfg, eos_ids=[-1])]
+    layers = cfg.text.num_hidden_layers
+    assert len(toks) == new
+    assert flash_attention.launches - counts[0] == layers
+    assert decode_attention_stacked.launches - counts[1] == \
+        layers * (new - 1)
+    assert int8_matvec.launches - counts[2] == 4 * layers * (new - 1) + new
+    # the tiny model's logits are O(1); the kernels round bf16 in other
+    # places than the plain versions (two ulps at the largest output)
+    lk, lp = (e.prefill([prompt], None, gcfg).logits for e in engines)
+    assert (lk - lp).abs().max().item() <= 0.05

@@ -285,3 +285,46 @@ def test_run_valley_cli_on_frame_dir(tmp_path, capsys):
 def test_run_valley_refuses_checkpoints():
     with pytest.raises(NotImplementedError, match="random:tiny"):
         run_valley.load_model("/no/such/checkpoint", "cpu")
+
+
+def _frame_dir(path, n=4):
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (40, 40, 3), np.uint8)).save(
+            path / f"f{i}.png")
+    return str(path)
+
+
+def test_run_valley_wants_the_card_without_device_cpu(tmp_path,
+                                                      monkeypatch):
+    """With no card, the entry point and its CLI stop, naming --device
+    cpu, instead of carrying on on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    built = []
+    monkeypatch.setattr(run_valley.valley, "init_params",
+                        lambda *a, **k: built.append(a))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        run_valley.load_model("random:tiny")
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        run_valley.main(["--model-name", "random:tiny", "--video-file",
+                         _frame_dir(tmp_path), "--max-new-tokens", "2"])
+    assert built == []
+
+
+def test_run_valley_cli_int8_serving_on_frame_dir(tmp_path, capsys):
+    """The worker's int8 flagship options on the CPU: fused int8a8 weights
+    and an int8 KV cache answer a question about a frame directory."""
+    run_valley.main(["--model-name", "random:tiny", "--video-file",
+                     _frame_dir(tmp_path), "--device", "cpu",
+                     "--max-new-tokens", "4", "--temperature", "0",
+                     "--quantize", "int8a8", "--fused", "--kv-cache",
+                     "int8"])
+    assert capsys.readouterr().out.endswith("\n")
+    eng, _ = run_valley.load_model("random:tiny", "cpu", buckets=(64,),
+                                   max_new_tokens=2, quantize="int8a8",
+                                   fused=True, kv_cache="int8")
+    lay = eng.params["llama"]["layers"]
+    assert lay["wqkv"].dtype == torch.int8 and "wqkv_scale_a8" in lay
+    assert eng.cache_dtype == torch.int8

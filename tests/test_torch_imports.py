@@ -70,9 +70,10 @@ print(json.dumps({"loaded": _build.load.cache_info().currsize}))
 
 # any import of the JAX package or one of its modules
 JAX_PACKAGE_IMPORT = r"^\s*(import|from)\s+valley_tpu(\.|\s|$)"
-# the one function of chip_smoke.py that may call a library attention:
+# the functions of chip_smoke.py that may call a library kernel, each for
 # the yardstick ``library_ms``, timed and used nowhere in the port
-LIBRARY_TIMER = "library_attention_ms"
+LIBRARY_TIMERS = {"scaled_dot_product_attention": "library_attention_ms",
+                  "_weight_int8pack_mm": "library_matvec_ms"}
 
 
 def test_port_sources_avoid_jax_and_library_attention():
@@ -80,25 +81,26 @@ def test_port_sources_avoid_jax_and_library_attention():
     of the JAX package (the port keeps its own copies of the host code);
     no library attention kernel and no torch.compile in the port."""
     banned = [r"^\s*(import|from)\s+jax\b", JAX_PACKAGE_IMPORT,
-              r"scaled_dot_product_attention", r"torch\.compile",
-              r"flash_attn", r"cudnn\."]
+              r"scaled_dot_product_attention", r"_weight_int8pack_mm",
+              r"torch\.compile", r"flash_attn", r"cudnn\."]
     for path in PACKAGE.rglob("*.py"):
         text = path.read_text()
         for pat in banned:
             assert not re.search(pat, text, re.M), (path, pat)
     # the smoke script may name cuDNN (to turn its TF32 off) and time the
-    # library's attention as a yardstick inside LIBRARY_TIMER only
+    # library's kernels as yardsticks inside LIBRARY_TIMERS only
     smoke = (ROOT / "chip_smoke.py").read_text()
     for pat in [p for p in banned if p not in (
-            r"cudnn\.", r"scaled_dot_product_attention")]:
+            r"cudnn\.", *LIBRARY_TIMERS)]:
         assert not re.search(pat, smoke, re.M), ("chip_smoke.py", pat)
-    timer = [n for n in ast.walk(ast.parse(smoke))
-             if isinstance(n, ast.FunctionDef) and n.name == LIBRARY_TIMER]
-    assert len(timer) == 1
-    inside = range(timer[0].lineno, timer[0].end_lineno + 1)
-    for no, line in enumerate(smoke.splitlines(), 1):
-        if "scaled_dot_product_attention" in line:
-            assert no in inside, ("chip_smoke.py", no, line)
+    for call, fn in LIBRARY_TIMERS.items():
+        timer = [n for n in ast.walk(ast.parse(smoke))
+                 if isinstance(n, ast.FunctionDef) and n.name == fn]
+        assert len(timer) == 1
+        inside = range(timer[0].lineno, timer[0].end_lineno + 1)
+        for no, line in enumerate(smoke.splitlines(), 1):
+            if call in line:
+                assert no in inside, ("chip_smoke.py", no, line)
 
 
 def test_the_pattern_catches_jax_package_imports():

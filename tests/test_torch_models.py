@@ -80,6 +80,9 @@ def test_weights_from_bf16_tree(cfg):
 @pytest.mark.parametrize("mutate,match", [
     ("fused", "fused"), ("int8", "quantized"), ("lora", "LoRA")])
 def test_weights_refuse_unported_trees(jparams, mutate, match):
+    """The fused layout and per-channel int8 convert (tests/
+    test_torch_quant.py); a half-fused tree (wqkv beside unfused MLP
+    projections) and nibble-packed int4 do not, nor do LoRA factors."""
     tree = jax.device_get(jparams)
     tree = {**tree, "llama": {**tree["llama"],
                               "layers": dict(tree["llama"]["layers"])}}
@@ -88,7 +91,8 @@ def test_weights_refuse_unported_trees(jparams, mutate, match):
         lay["wqkv"] = np.concatenate([lay.pop("wq"), lay.pop("wk"),
                                       lay.pop("wv")], axis=1)
     elif mutate == "int8":
-        lay["wq"] = np.zeros(lay["wq"].shape, np.int8)
+        shape = lay["wq"].shape
+        lay["wq"] = np.zeros(shape[:-1] + (shape[-1] // 2,), np.uint8)
     else:
         lay["wq_lora_a"] = np.zeros((2, 64, 4), np.float32)
     with pytest.raises(NotImplementedError, match=match):

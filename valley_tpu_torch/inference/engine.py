@@ -86,9 +86,13 @@ class Prefilled:
 class Engine:
     """Holds the weights on their device and runs prefill and decode.
 
-    ``attention`` picks the CUDA kernels (default; tensors on the CPU take
-    their plain versions) or the plain versions (`ops.attention.PLAIN`),
-    for comparing the two on the card.
+    ``cache_dtype=torch.int8`` keeps the KV cache in int8 with per-slot,
+    per-head bf16 scales (`llama.init_cache`), as the JAX engine does for
+    ``jnp.int8``; the weights may be fused (`llama.fuse_llama_params`) and
+    int8 (`ops.quant.quantize_llama_params`).  ``attention`` picks the CUDA
+    kernels (default; tensors on the CPU take their plain versions) or the
+    plain versions (`ops.attention.PLAIN`), for comparing the two on the
+    card.
     """
 
     def __init__(self, cfg: ValleyConfig, params: valley.ValleyWeights,
@@ -147,7 +151,8 @@ class Engine:
             cache_index=0, kv_valid=kv_valid, attention=self.attention)
         last = torch.gather(hidden, 1, (prompt_len - 1)[:, None, None].expand(
             -1, 1, hidden.shape[-1]))                          # (B, 1, H)
-        logits = llama.logits_from_hidden(self.params["llama"], last)[:, 0]
+        logits = llama.logits_from_hidden(self.params["llama"], last,
+                                          self.attention)[:, 0]
         tok = sample_token(logits, generator, gen.temperature, gen.top_p,
                            gen.do_sample)
         return tok, logits, cache, kv_valid
@@ -170,7 +175,7 @@ class Engine:
                 positions=seq_len[:, None], cache=cache,
                 cache_index=slot + i, kv_valid=valid,
                 attention=self.attention)
-            logits = llama.logits_from_hidden(p, hidden)[:, 0]
+            logits = llama.logits_from_hidden(p, hidden, self.attention)[:, 0]
             token = sample_token(logits, generator, gen.temperature,
                                  gen.top_p, gen.do_sample)
             toks.append(token)

@@ -1,11 +1,16 @@
 """Offline one-shot video Q&A on the PyTorch port.
 
 python -m valley_tpu_torch.inference.run_valley --model-name random:tiny \
-    --video-file v.mp4 --query "Describe the video."
+    --video-file v.mp4 --query "Describe the video." \
+    [--quantize int8a8 --fused --kv-cache int8] [--device cpu]
 
 ``random:tiny`` builds the tiny test configuration with random weights and
 the byte tokenizer.  Loading a Hugging Face Valley checkpoint is not ported
 yet (the JAX package's loader, ``valley_tpu.utils.hf_bridge``, imports jax).
+It runs on the card; without one it stops unless ``--device cpu`` is
+given.  ``--fused``, ``--quantize`` and ``--kv-cache`` are the serving
+worker's options (``valley_tpu/serve/model_worker.py``), applied in its
+order: fuse, then quantize, then choose the cache.
 """
 
 from __future__ import annotations
@@ -18,7 +23,9 @@ import torch
 from valley_tpu_torch import config as C
 from valley_tpu_torch.inference.engine import Engine, GenerationConfig
 from valley_tpu_torch.inference.generate import completion
-from valley_tpu_torch.models import valley
+from valley_tpu_torch.models import llama, valley
+from valley_tpu_torch.ops.quant import (SERVED_MODES, parse_quant_mode,
+                                        quantize_llama_params)
 
 DEFAULT_SYSTEM_PROMPT = (
     "You are Valley, a large language and vision assistant trained by "
@@ -29,11 +36,21 @@ DEFAULT_SYSTEM_PROMPT = (
 
 
 def load_model(model_name: str, device: Optional[str] = None,
-               buckets=(512, 1024, 2048), max_new_tokens: int = 1024):
-    """Build (engine, tokenizer) on ``device`` (default: the card if there
-    is one, else the CPU)."""
+               buckets=(512, 1024, 2048), max_new_tokens: int = 1024,
+               quantize: Optional[str] = None, fused: bool = False,
+               kv_cache: str = "bf16"):
+    """Build (engine, tokenizer) on ``device`` (default the card; without
+    one this raises unless the caller asks for ``"cpu"``).  ``fused`` takes
+    the fused serving layout, ``quantize`` (``int8`` or ``int8a8``) the
+    int8 weights, ``kv_cache="int8"`` the int8 KV cache."""
     if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+        device = "cuda"
+    if torch.device(device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu (device="
+                           "\"cpu\") to run on the CPU")
+    if kv_cache not in ("bf16", "int8"):
+        raise ValueError(f"kv_cache must be bf16 or int8, got {kv_cache!r}")
     if model_name != "random:tiny":
         raise NotImplementedError(
             f"cannot load {model_name!r}: loading Hugging Face Valley "
@@ -48,8 +65,15 @@ def load_model(model_name: str, device: Optional[str] = None,
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" \
         else torch.float32
     params = valley.init_params(cfg, generator, dtype, device)
+    if fused:
+        params = llama.fuse_llama_params(params)
+    if quantize:
+        params = quantize_llama_params(
+            params, act8=parse_quant_mode(quantize)["act8"])
     engine = Engine(cfg, params, buckets=buckets,
-                    max_new_tokens=max_new_tokens)
+                    max_new_tokens=max_new_tokens,
+                    cache_dtype=torch.int8 if kv_cache == "int8"
+                    else torch.bfloat16)
     return engine, tokenizer
 
 
@@ -61,14 +85,27 @@ def main(argv=None):
                         default="Describe the video concisely.")
     parser.add_argument("--system-prompt", type=str,
                         default=DEFAULT_SYSTEM_PROMPT)
-    parser.add_argument("--device", type=str, default=None)
+    parser.add_argument("--device", type=str, default=None,
+                        help="cuda (default) or cpu")
+    parser.add_argument("--quantize", type=str, default=None,
+                        choices=list(SERVED_MODES),
+                        help="per-channel int8 decoder weights; int8a8 "
+                             "also runs W8A8 prefill")
+    parser.add_argument("--kv-cache", type=str, default="bf16",
+                        choices=["bf16", "int8"],
+                        help="KV-cache dtype")
+    parser.add_argument("--fused", action="store_true",
+                        help="fused wqkv/w_gateup layout (4 GEMVs per "
+                             "layer instead of 7)")
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--max-new-tokens", type=int, default=1024)
     parser.add_argument("--do-sample", action="store_true")
     args = parser.parse_args(argv)
 
     engine, tokenizer = load_model(args.model_name, args.device,
-                                   max_new_tokens=args.max_new_tokens)
+                                   max_new_tokens=args.max_new_tokens,
+                                   quantize=args.quantize, fused=args.fused,
+                                   kv_cache=args.kv_cache)
     messages = [
         {"role": "system", "content": args.system_prompt},
         {"role": "user", "content": args.query + " <video>"},

@@ -11,19 +11,25 @@ from torch import nn
 
 class Weights(nn.Module):
     """Named tensors held as frozen parameters, read like the JAX package's
-    parameter dicts (``w["wq"]``).  Subclasses fix the names in ``NAMES``;
-    a value that is a `Weights` becomes a child module."""
+    parameter dicts (``w["wq"]``).  Subclasses fix the names in ``NAMES``,
+    or compute them from the tensors given in `expected_names`; a value
+    that is a `Weights` becomes a child module."""
 
     NAMES: tuple[str, ...] = ()
 
+    @classmethod
+    def expected_names(cls, tensors: Mapping) -> tuple[str, ...]:
+        return cls.NAMES
+
     def __init__(self, tensors: Mapping[str, Union[torch.Tensor, nn.Module]]):
         super().__init__()
-        if set(tensors) != set(self.NAMES):
-            missing = sorted(set(self.NAMES) - set(tensors))
-            extra = sorted(set(tensors) - set(self.NAMES))
+        names = self.expected_names(tensors)
+        if set(tensors) != set(names):
+            missing = sorted(set(names) - set(tensors))
+            extra = sorted(set(tensors) - set(names))
             raise ValueError(f"{type(self).__name__}: missing {missing}, "
                              f"unexpected {extra}")
-        for name in self.NAMES:
+        for name in names:
             value = tensors[name]
             if isinstance(value, nn.Module):
                 self.add_module(name, value)
@@ -33,3 +39,9 @@ class Weights(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self else default

@@ -2,18 +2,22 @@
 ``valley_tpu/models/llama.py``.
 
 Weights keep the JAX package's stacked layout: every per-layer tensor has a
-leading layer axis, projections are stored (L, out, in) and ``lm_head``
-(in, out), so converting a JAX tree is a dtype and device copy.  The KV
-cache is the same stacked (L, B, Smax, Hkv, D) buffer; this port writes it
-in place.  RMSNorm, rotary and softmax run in fp32 exactly where the JAX
-package runs them.
+leading layer axis, projections are stored (L, out, in) and a bf16
+``lm_head`` (in, out), so converting a JAX tree is a dtype and device copy
+(an int8 ``lm_head`` is stored (out, in): see ``ops/quant.py``).  The KV
+cache is the same stacked (L, B, Smax, Hkv, D) buffer, bf16/fp32 or int8
+with (L, B, Smax, Hkv) bf16 scales; this port writes it in place.  RMSNorm,
+rotary and softmax run in fp32 exactly where the JAX package runs them.
 
 Ported: the cacheless forward (training, with full per-layer
 rematerialisation as an option), bucketed prefill at ``cache_index`` 0 and
-single-token decode over the stacked cache, for one stream (B = 1).  Not
-ported yet, and refused with NotImplementedError: the ``"dots"`` remat
-policy, the ``cross_valid`` extend branch, batched (B > 1) cached
-inference, per-row cache slots, quantized or fused projections and LoRA.
+single-token decode over the stacked cache, for one stream (B = 1); the
+fused serving layout (``wqkv``, ``w_gateup``), per-channel int8 projections
+(decode GEMVs through K4, W8A8 prefill for ``*_scale_a8`` trees) and the
+int8 KV cache.  Not ported yet, and refused with NotImplementedError: the
+``"dots"`` remat policy, the ``cross_valid`` extend branch, batched (B > 1)
+cached inference, per-row cache slots, grouped or int4 quantization, a
+half-fused layout and LoRA.
 """
 
 from __future__ import annotations
@@ -29,23 +33,69 @@ from valley_tpu_torch.config import TextConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import KERNELS, Attention, \
     prefill_attention
+from valley_tpu_torch.ops.quant import MAX_ROWS, int8_matvec_plain
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+# Each layout's projections, in the order its parameters are registered
+ATTN_PROJ = {False: ("wq", "wk", "wv", "wo"), True: ("wqkv", "wo")}
+MLP_PROJ = {False: ("w_gate", "w_up", "w_down"), True: ("w_gateup", "w_down")}
+
+
+def _with_scale(tensors, names) -> list:
+    """``names``, each int8 one followed by its scale's name
+    (``<name>_scale_a8`` where the tensors hold it, else ``<name>_scale``)."""
+    out = []
+    for n in names:
+        out.append(n)
+        t = tensors.get(n)
+        if t is not None and t.dtype == torch.int8:
+            out.append(n + ("_scale_a8" if n + "_scale_a8" in tensors
+                            else "_scale"))
+    return out
 
 
 class LlamaLayers(Weights):
+    """The stacked decoder layers: the unfused projections or the fused
+    serving layout (``wqkv``, ``w_gateup``), each int8 projection with its
+    (L, out) bf16 scale."""
     NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
              "w_up", "w_down")
 
+    @classmethod
+    def expected_names(cls, tensors) -> tuple:
+        fused = [n for n in ("wqkv", "w_gateup") if n in tensors]
+        if len(fused) == 1:
+            raise NotImplementedError(
+                f"a half-fused layout ({fused[0]} beside unfused "
+                "projections) is not ported: fuse both with "
+                "fuse_llama_params")
+        f = bool(fused)
+        return tuple(["attn_norm", *_with_scale(tensors, ATTN_PROJ[f]),
+                      "mlp_norm", *_with_scale(tensors, MLP_PROJ[f])])
+
 
 class LlamaWeights(Weights):
+    """Embedding, layers, final norm and ``lm_head`` (int8: with its
+    (1, vocab) bf16 ``lm_head_scale``)."""
     NAMES = ("embed", "layers", "final_norm", "lm_head")
+
+    @classmethod
+    def expected_names(cls, tensors) -> tuple:
+        head = tensors.get("lm_head")
+        if head is not None and head.dtype == torch.int8:
+            return cls.NAMES + ("lm_head_scale",)
+        return cls.NAMES
 
 
 @dataclass
 class KVCache:
-    """Stacked KV cache, updated in place by `forward_hidden`."""
-    k: torch.Tensor   # (L, B, Smax, Hkv, D)
-    v: torch.Tensor   # (L, B, Smax, Hkv, D)
+    """Stacked KV cache, updated in place by `forward_hidden`.  An int8
+    cache (serving quantization) holds per-(layer, row, slot, head) absmax
+    scales; they are None for float caches."""
+    k: torch.Tensor                          # (L, B, Smax, Hkv, D)
+    v: torch.Tensor                          # (L, B, Smax, Hkv, D)
+    k_scale: Optional[torch.Tensor] = None   # (L, B, Smax, Hkv) bf16
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
@@ -56,8 +106,15 @@ def init_cache(cfg: TextConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> KVCache:
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.kv_heads,
              cfg.head_dim)
-    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+    cache = KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                    torch.zeros(shape, dtype=dtype, device=device))
+    if dtype == torch.int8:
+        # two distinct scale buffers, one for K and one for V
+        cache.k_scale = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                    device=device)
+        cache.v_scale = torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                    device=device)
+    return cache
 
 
 def init_params(cfg: TextConfig, generator: torch.Generator,
@@ -93,6 +150,32 @@ def init_params(cfg: TextConfig, generator: torch.Generator,
     })
 
 
+def fuse_llama_params(params):
+    """Concatenate wq/wk/wv -> wqkv and w_gate/w_up -> w_gateup along the
+    out axis of the (L, out, in) storage (llama.py:111-151): decode then
+    runs 4 GEMVs per layer instead of 7, with the same output rows.
+
+    Do this before quantizing (per-out-channel scales survive the concat
+    unchanged).  The concat runs where the weights lie, each original
+    dropped once its fused stack is made.  Returns ``params`` (a
+    `ValleyWeights`) with its layers replaced; a fused tree is returned as
+    it is.
+    """
+    layers = params["llama"]["layers"]
+    if "wqkv" in layers:
+        return params
+    if any(layers[n].dtype == torch.int8 for n in ("wq", "w_gate")):
+        raise ValueError("fuse before quantizing")
+    lt = {n: p.data for n, p in layers.named_parameters(recurse=False)}
+    for names, out in ((("wq", "wk", "wv"), "wqkv"),
+                       (("w_gate", "w_up"), "w_gateup")):
+        lt[out] = torch.cat([lt.pop(n) for n in names], dim=1)
+        for n in names:
+            delattr(layers, n)
+    params.llama.layers = LlamaLayers(lt)
+    return params
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
              ) -> torch.Tensor:
     """fp32 statistics; the normed value is cast back to x's dtype before
@@ -107,29 +190,114 @@ def embed(params: LlamaWeights, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][input_ids]
 
 
+# W8A8 (``*_scale_a8`` trees) applies only to chunks whose sequence axis is
+# at least this long (llama.py:169-179): prefill buckets are >= 128, decode
+# steps take the dequant GEMV, so decode matches plain int8 given the same
+# cache.
+_A8_MIN_SEQ = 128
+
+
+def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
+              scale: torch.Tensor) -> torch.Tensor:
+    """quant(x) @ int8 w^T -> int32, fp32 rescale (llama.py:182-207).
+
+    Activations quantize per token (row absmax / 127, clamped at 1e-6),
+    the int8 x int8 product accumulates exactly in int32, and the result
+    rescales by (token scale x out-channel weight scale) in fp32 before the
+    cast to x's dtype.  ``w`` is (out, in).  The JAX package leaves this
+    product to XLA, outside any Pallas kernel, so the port leaves it to
+    the library's int8 matrix product (``torch._int_mm``), as it leaves
+    plain large matmuls to torch."""
+    k = x.shape[-1]
+    o = w.shape[-2]
+    xf = x.reshape(-1, k).to(torch.float32)
+    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    xq = torch.round(xf / ascale).to(torch.int8)
+    y = torch._int_mm(xq, w.t())
+    out = y.to(torch.float32) * ascale * scale[None, :].to(torch.float32)
+    return out.reshape(x.shape[:-1] + (o,)).to(x.dtype)
+
+
+def _int8_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 attention: Attention) -> torch.Tensor:
+    """fp32 x @ dequant(w)^T for an (out, in) int8 w and its (out,) scale:
+    up to `MAX_ROWS` rows (the product of x's leading dims) through the int8
+    GEMV ``attention.matvec`` (K4), more through the dequantized product
+    `int8_matvec_plain`, which is what the JAX package leaves to XLA."""
+    rows = x.numel() // x.shape[-1]
+    if rows > MAX_ROWS:
+        return int8_matvec_plain(x, w, scale)
+    y = attention.matvec(x.reshape(rows, x.shape[-1]), w, scale)
+    return y.reshape(x.shape[:-1] + (w.shape[0],))
+
+
+def _proj(lp: LlamaLayers, li: int, name: str, x: torch.Tensor,
+          attention: Attention) -> torch.Tensor:
+    """x @ W^T for layer ``li``'s (out, in) projection ``name``
+    (llama.py:246-335).  An int8 weight with its per-out-channel scale
+    takes `_w8a8_dot` with a ``_scale_a8`` scale and a sequence axis of at
+    least `_A8_MIN_SEQ`, else `_int8_linear`.  The result takes x's
+    dtype."""
+    w = lp[name]
+    if w.dtype != torch.int8:
+        if w.dtype == torch.uint8:
+            raise NotImplementedError(
+                f"{name} is nibble-packed (uint8): int4 serving is not "
+                "ported yet")
+        return F.linear(x, w[li])
+    a8 = lp.get(name + "_scale_a8")
+    scale = (lp[name + "_scale"] if a8 is None else a8)[li]
+    w = w[li]
+    if scale.dim() != 1:
+        raise NotImplementedError(
+            f"{name}: grouped scales (int4g/int4gp) are not ported yet")
+    if a8 is not None and x.dim() >= 2 and x.shape[-2] >= _A8_MIN_SEQ:
+        return _w8a8_dot(x, w, scale)
+    return _int8_linear(x, w, scale, attention).to(x.dtype)
+
+
 def _qkv(lp: LlamaLayers, li: int, x: torch.Tensor, cfg: TextConfig, cos,
-         sin):
+         sin, attention: Attention):
     b, s, _ = x.shape
-    q = F.linear(x, lp["wq"][li]).reshape(b, s, cfg.num_attention_heads,
-                                          cfg.head_dim)
-    k = F.linear(x, lp["wk"][li]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    v = F.linear(x, lp["wv"][li]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+    if "wqkv" in lp:
+        # fused serving layout: one product, then the q/k/v column slices
+        # (v made contiguous: the kernels take contiguous tensors)
+        h_sz = cfg.num_attention_heads * cfg.head_dim
+        kv_sz = cfg.kv_heads * cfg.head_dim
+        qkv = _proj(lp, li, "wqkv", x, attention)
+        q = qkv[..., :h_sz]
+        k = qkv[..., h_sz:h_sz + kv_sz]
+        v = qkv[..., h_sz + kv_sz:].contiguous()
+    else:
+        q = _proj(lp, li, "wq", x, attention)
+        k = _proj(lp, li, "wk", x, attention)
+        v = _proj(lp, li, "wv", x, attention)
+    q = q.reshape(b, s, cfg.num_attention_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.kv_heads, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(lp: LlamaLayers, li: int, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(F.linear(x, lp["w_gate"][li]).to(torch.float32))
-    up = F.linear(x, lp["w_up"][li]).to(torch.float32)
-    return F.linear((gate * up).to(x.dtype), lp["w_down"][li])
+def _mlp(lp: LlamaLayers, li: int, x: torch.Tensor,
+         attention: Attention) -> torch.Tensor:
+    if "w_gateup" in lp:
+        gu = _proj(lp, li, "w_gateup", x, attention)
+        f = gu.shape[-1] // 2
+        gate = F.silu(gu[..., :f].to(torch.float32))
+        up = gu[..., f:].to(torch.float32)
+    else:
+        gate = F.silu(_proj(lp, li, "w_gate", x, attention).to(torch.float32))
+        up = _proj(lp, li, "w_up", x, attention).to(torch.float32)
+    return _proj(lp, li, "w_down", (gate * up).to(x.dtype), attention)
 
 
 def _attn(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention):
     """Cacheless causal self-attention over the block."""
     b, s, h = x.shape
-    q, k, v = _qkv(lp, li, x, cfg, cos, sin)
+    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention)
     mask = None if attn_mask is None else attn_mask > 0
     out = prefill_attention(q, k, v, mask, causal=True, attention=attention)
-    return F.linear(out.reshape(b, s, h), lp["wo"][li])
+    return _proj(lp, li, "wo", out.reshape(b, s, h), attention)
 
 
 def _layer(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention):
@@ -137,7 +305,7 @@ def _layer(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention):
     eps = cfg.rms_norm_eps
     x = x + _attn(lp, li, rms_norm(x, lp["attn_norm"][li], eps), cfg, cos,
                   sin, attn_mask, attention)
-    return x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps))
+    return x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps), attention)
 
 
 def _use_remat(remat) -> bool:
@@ -155,28 +323,49 @@ def _use_remat(remat) -> bool:
                      "(use True/'full', 'dots', or False)")
 
 
+def _quantize_kv(x: torch.Tensor):
+    """(B, S, H, D) -> int8 values and per-(row, slot, head) absmax scales
+    (llama.py:387-392): fp32 scale max(amax, 1e-6) / 127, values
+    round(x / scale) with that fp32 scale, the scale stored bf16."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
 def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: int,
                  kv_valid, attention: Attention):
-    """Write this chunk's K/V into layer ``li`` of the cache at slot
-    ``cache_index``, then attend: one token against the whole cache, or a
-    prefill chunk causally within itself (the cache beyond the chunk is
-    empty: the engine prefills at slot 0)."""
+    """Write this chunk's K/V (an int8 cache: quantized, with their scales)
+    into layer ``li`` of the cache at slot ``cache_index``, then attend: one
+    token against the whole cache, or a prefill chunk causally within
+    itself on its unquantized K/V (the cache beyond the chunk is empty: the
+    engine prefills at slot 0)."""
     b, s, h = x.shape
-    q, k, v = _qkv(lp, li, x, cfg, cos, sin)
+    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention)
     if cache_index + s > cache.max_len:
         raise ValueError(f"writing {s} slots at {cache_index} overruns a "
                          f"cache of {cache.max_len}")
-    cache.k[li, :, cache_index:cache_index + s] = k
-    cache.v[li, :, cache_index:cache_index + s] = v
+    at = slice(cache_index, cache_index + s)
+    if cache.k_scale is not None:
+        # K and V quantized in one pass (half the launches of two)
+        (kq, vq), (ks, vs) = _quantize_kv(torch.stack((k, v)))
+        cache.k_scale[li, :, at] = ks
+        cache.v_scale[li, :, at] = vs
+        cache.k[li, :, at] = kq
+        cache.v[li, :, at] = vq
+    else:
+        cache.k[li, :, at] = k
+        cache.v[li, :, at] = v
     if s == 1:
         if kv_valid is None:
             raise ValueError("decode needs the (B, Smax) kv_valid mask")
-        out = attention.decode(q, cache.k, cache.v, li, kv_valid)
+        out = attention.decode(q, cache.k, cache.v, li, kv_valid,
+                               cache.k_scale, cache.v_scale)
     else:
         chunk_valid = kv_valid[:, :s] if kv_valid is not None else None
         out = prefill_attention(q, k, v, chunk_valid, causal=True,
                                 attention=attention)
-    return F.linear(out.reshape(b, s, h), lp["wo"][li])
+    return _proj(lp, li, "wo", out.reshape(b, s, h), attention)
 
 
 def forward_hidden(params: LlamaWeights, cfg: TextConfig,
@@ -237,15 +426,21 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
         hn = rms_norm(x, lp["attn_norm"][li], eps)
         x = x + _attn_cached(lp, li, hn, cfg, cos, sin, cache, cache_index,
                              kv_valid, attention)
-        x = x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps))
+        x = x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps),
+                     attention)
     return rms_norm(x, params["final_norm"], eps), cache
 
 
-def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor
-                       ) -> torch.Tensor:
-    """fp32 logits (llama.py:787): the product in the weights' dtype, then
-    cast."""
-    return (hidden @ params["lm_head"]).to(torch.float32)
+def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
+                       attention: Attention = KERNELS) -> torch.Tensor:
+    """fp32 logits (llama.py:777-787): a float ``lm_head`` multiplies in
+    the weights' dtype, then casts; an int8 one ((out, in), see
+    ``ops/quant.py``) takes `_int8_linear` with its (1, vocab) scale."""
+    w = params["lm_head"]
+    if w.dtype != torch.int8:
+        return (hidden @ w).to(torch.float32)
+    return _int8_linear(hidden, w, params["lm_head_scale"].reshape(-1),
+                        attention)
 
 
 def forward(params: LlamaWeights, cfg: TextConfig,
@@ -255,4 +450,4 @@ def forward(params: LlamaWeights, cfg: TextConfig,
     """Cacheless forward: (B, S, H) -> fp32 logits (B, S, V)."""
     hidden, _ = forward_hidden(params, cfg, inputs_embeds, attn_mask,
                                attention=attention, remat=remat)
-    return logits_from_hidden(params, hidden)
+    return logits_from_hidden(params, hidden, attention)

@@ -3,14 +3,15 @@ and the choice between the CUDA kernels and their plain versions.
 
 `mha_attention` and `decode_attention` are the plain functions the JAX
 package falls back to (CLIP attention always runs `mha_attention`, as the
-JAX tower forces ``use_flash=False``).  The LLaMA decoder reaches attention
-through an `Attention` pair instead: `KERNELS` (the default) holds the
-prefill attention with the flash kernels in both directions
-(`FlashAttention`: K1 forward, K2 backward) and the decode kernel's
-wrapper, which take their plain versions for tensors on the CPU and launch
-the kernels for CUDA tensors; `PLAIN` holds the plain versions themselves,
-differentiated by autograd, for comparing a run on the card with the
-kernels against one without.
+JAX tower forces ``use_flash=False``).  The LLaMA decoder reaches its
+kernels through an `Attention` choice instead: `KERNELS` (the default)
+holds the prefill attention with the flash kernels in both directions
+(`FlashAttention`: K1 forward, K2 backward), the decode kernel's wrapper
+(K3, bf16 or int8 cache) and the int8 GEMV's (K4, the quantized
+projections of a few rows), which take their plain versions for tensors on
+the CPU and launch the kernels for CUDA tensors; `PLAIN` holds the plain
+versions themselves, differentiated by autograd, for comparing a run on
+the card with the kernels against one without.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
 from valley_tpu_torch.ops.flash_attention import (flash_attention_autograd,
                                                   flash_attention_plain)
+from valley_tpu_torch.ops.quant import int8_matvec, int8_matvec_plain
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -63,26 +65,35 @@ def mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     length_mask: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, length_mask: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain single-token attention against one layer's (B, Smax, Hkv, D)
-    cache; ``length_mask`` (B, Smax) bool marks valid slots."""
+    cache; ``length_mask`` (B, Smax) bool marks valid slots.  With an int8
+    cache, ``k_scale``/``v_scale`` (B, Smax, Hkv) multiply the logits and
+    the probabilities, never the cache values."""
+    scales = [None if s is None else s[None] for s in (k_scale, v_scale)]
     return decode_attention_plain(q, k_cache[None], v_cache[None], 0,
-                                  length_mask)
+                                  length_mask, *scales)
 
 
 class Attention(NamedTuple):
-    """The two attention functions of the LLaMA decoder's cached paths.
+    """The kernels of the LLaMA decoder's paths, or their plain versions.
 
     prefill(q, k, v, kv_mask, causal=...) with equal head counts;
-    decode(q, k_all, v_all, li, valid) over the stacked cache.
+    decode(q, k_all, v_all, li, valid, k_scale=None, v_scale=None) over
+    the stacked cache; matvec(x, w, scale) the int8 GEMV of (B <=
+    ``quant.MAX_ROWS``, K) rows against an (F, K) int8 weight.
     """
     prefill: Callable[..., torch.Tensor]
     decode: Callable[..., torch.Tensor]
+    matvec: Callable[..., torch.Tensor]
 
 
-KERNELS = Attention(flash_attention_autograd, decode_attention_stacked)
-PLAIN = Attention(flash_attention_plain, decode_attention_plain)
+KERNELS = Attention(flash_attention_autograd, decode_attention_stacked,
+                    int8_matvec)
+PLAIN = Attention(flash_attention_plain, decode_attention_plain,
+                  int8_matvec_plain)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,16 +2,18 @@
 (``csrc/decode_attn.cu``), its plain PyTorch version, and the wrapper that
 runs one or the other.
 
-Counterpart of ``valley_tpu/ops/decode_pallas.py`` (bf16 cache), whose
-oracle is ``valley_tpu/ops/attention.py:decode_attention`` over layer
-``li``.  The wrapper takes the plain version for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.
+Counterpart of ``valley_tpu/ops/decode_pallas.py`` (bf16 cache, and the
+int8 cache with per-(layer, row, slot, head) bf16 scales), whose oracle is
+``valley_tpu/ops/attention.py:decode_attention`` over layer ``li``.  The
+wrapper takes the plain version for tensors on the CPU; for CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -21,16 +23,28 @@ NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
 
 
+def _head_scale(s: torch.Tensor) -> torch.Tensor:
+    """(B, Smax, Hkv) slot scales -> (B, Hkv, 1, Smax) fp32 factors for
+    the grouped (B, Hkv, n_rep, Smax) logits (attention.py:69-74 repeats
+    them over the query heads instead)."""
+    return s.to(torch.float32).transpose(1, 2)[:, :, None, :]
+
+
 def decode_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
                            v_all: torch.Tensor, li: int,
-                           valid: torch.Tensor) -> torch.Tensor:
+                           valid: torch.Tensor,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """One-token attention against layer ``li`` of the stacked cache.
 
     q: (B, 1, H, D); k_all/v_all: (L, B, Smax, Hkv, D); valid: (B, Smax)
-    bool, True for attendable slots.  fp32 logits, -1e9 on invalid slots,
-    fp32 softmax, probabilities cast to the cache dtype before PV, fp32
-    accumulation; returns (B, 1, H, D) in q.dtype.  Query head j reads kv
-    head j // (H // Hkv), as ``_repeat_kv`` lays them out.
+    bool, True for attendable slots; k_scale/v_scale: (L, B, Smax, Hkv)
+    for an int8 cache.  The cache is cast to q's dtype; fp32 logits (times
+    the K scales), -1e9 on invalid slots, fp32 softmax, probabilities
+    (times the V scales) cast to q's dtype before PV, fp32 accumulation;
+    returns (B, 1, H, D) in q.dtype.  Query head j reads kv head
+    j // (H // Hkv), as ``_repeat_kv`` lays them out.
     """
     b, _, h, d = q.shape
     hkv = k_all.shape[3]
@@ -38,9 +52,14 @@ def decode_attention_plain(q: torch.Tensor, k_all: torch.Tensor,
     v = v_all[li].to(q.dtype)
     qg = q.float().reshape(b, hkv, h // hkv, d)
     logits = torch.einsum("bgrd,bsgd->bgrs", qg, k.float()) * d ** -0.5
+    if k_scale is not None:
+        logits = logits * _head_scale(k_scale[li])
     logits = logits.masked_fill(~valid[:, None, None, :], NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.einsum("bgrs,bsgd->bgrd", probs.float(), v.float())
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * _head_scale(v_scale[li])
+    out = torch.einsum("bgrs,bsgd->bgrd", probs.to(v.dtype).float(),
+                       v.float())
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
@@ -56,6 +75,10 @@ def _lib():
                                      vp, vp, vp, i, i, i, i, i, i, i,
                                      ctypes.c_float, vp]
     lib.decode_attn_bf16.restype = i
+    lib.decode_attn_int8.argtypes = [vp, vp, vp, vp, vp, vp,
+                                     ctypes.c_longlong, vp, vp, vp, vp, i, i,
+                                     i, i, i, i, i, ctypes.c_float, vp]
+    lib.decode_attn_int8.restype = i
     lib.decode_attn_chunk.restype = i
     lib.decode_attn_max_rep.restype = i
     lib.chunk = lib.decode_attn_chunk()
@@ -63,11 +86,17 @@ def _lib():
     return lib
 
 
-def _check(q, k_all, v_all, li, valid, max_rep):
-    if (q.dtype != torch.bfloat16 or k_all.dtype != torch.bfloat16
-            or v_all.dtype != torch.bfloat16):
-        raise TypeError(f"decode kernel takes a bf16 query and cache, got "
-                        f"{q.dtype}, {k_all.dtype}, {v_all.dtype}")
+def _check(q, k_all, v_all, li, valid, max_rep, k_scale=None,
+           v_scale=None):
+    quant = k_scale is not None or v_scale is not None
+    cache = torch.int8 if quant else torch.bfloat16
+    if (q.dtype != torch.bfloat16 or k_all.dtype != cache
+            or v_all.dtype != cache):
+        raise TypeError(
+            f"decode kernel takes a bf16 query with a bf16 cache, or an int8 "
+            f"cache with its K and V scales; got q {q.dtype}, cache "
+            f"{k_all.dtype}/{v_all.dtype}, "
+            f"{'with' if quant else 'without'} scales")
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"want q (B, 1, H, D), got {tuple(q.shape)}")
     if k_all.dim() != 5 or k_all.shape != v_all.shape:
@@ -92,7 +121,17 @@ def _check(q, k_all, v_all, li, valid, max_rep):
         raise ValueError("valid must have unit stride along Smax")
     if valid.device != q.device:
         raise ValueError(f"valid is on {valid.device}, q on {q.device}")
-    for name, t in (("q", q), ("k_all", k_all), ("v_all", v_all)):
+    tensors = [("q", q), ("k_all", k_all), ("v_all", v_all)]
+    if quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if t is None or t.dtype != torch.bfloat16 \
+                    or t.shape != k_all.shape[:4]:
+                raise ValueError(
+                    f"{name} must be bf16 (L, B, Smax, Hkv) = "
+                    f"{tuple(k_all.shape[:4])}, got "
+                    f"{None if t is None else (t.dtype, tuple(t.shape))}")
+            tensors.append((name, t))
+    for name, t in tensors:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -103,21 +142,26 @@ def _check(q, k_all, v_all, li, valid, max_rep):
 
 def decode_attention_stacked(q: torch.Tensor, k_all: torch.Tensor,
                              v_all: torch.Tensor, li: int,
-                             valid: torch.Tensor) -> torch.Tensor:
+                             valid: torch.Tensor,
+                             k_scale: Optional[torch.Tensor] = None,
+                             v_scale: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Decode attention for layer ``li`` read in place from the stacked
     cache.  Same arguments and result as `decode_attention_plain`.
 
     CPU tensors run the plain version.  CUDA tensors must be a contiguous
-    bf16 query and cache with head_dim 16, 32, 64 or 128 and at most 8 query
-    heads per kv head; they run the kernel, and anything else raises.
+    bf16 query with a bf16 cache, or with an int8 cache and its bf16
+    (L, B, Smax, Hkv) scales, head_dim 16, 32, 64 or 128 and at most 8
+    query heads per kv head; they run the kernel, and anything else raises.
     Each kernel launch adds one to ``decode_attention_stacked.launches``.
     """
     if q.device.type == "cpu":
-        return decode_attention_plain(q, k_all, v_all, li, valid)
+        return decode_attention_plain(q, k_all, v_all, li, valid, k_scale,
+                                      v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no decode attention for device {q.device}")
     lib = _lib()
-    _check(q, k_all, v_all, li, valid, lib.max_rep)
+    _check(q, k_all, v_all, li, valid, lib.max_rep, k_scale, v_scale)
     b, _, h, d = q.shape
     _, _, smax, hkv, _ = k_all.shape
     n_split = -(-smax // lib.chunk)
@@ -128,12 +172,18 @@ def decode_attention_stacked(q: torch.Tensor, k_all: torch.Tensor,
     part_l = torch.empty((b, h, n_split), dtype=torch.float32, device=dev)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.decode_attn_bf16(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), valid.data_ptr(),
-        valid.stride(0), part_acc.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), out.data_ptr(), int(li), b, smax, hkv, h // hkv,
-        d, n_split, d ** -0.5, stream)
-    _build.check(err, "decode_attn_bf16")
+    tail = (valid.data_ptr(), valid.stride(0), part_acc.data_ptr(),
+            part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), int(li), b,
+            smax, hkv, h // hkv, d, n_split, d ** -0.5, stream)
+    if k_scale is None:
+        err = lib.decode_attn_bf16(q.data_ptr(), k_all.data_ptr(),
+                                   v_all.data_ptr(), *tail)
+        _build.check(err, "decode_attn_bf16")
+    else:
+        err = lib.decode_attn_int8(q.data_ptr(), k_all.data_ptr(),
+                                   v_all.data_ptr(), k_scale.data_ptr(),
+                                   v_scale.data_ptr(), *tail)
+        _build.check(err, "decode_attn_int8")
     decode_attention_stacked.launches += 1
     return out
 
