@@ -4,10 +4,11 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It builds the CUDA kernels from ``valley_tpu_torch/csrc``, holds each
-kernel against its plain PyTorch version at the shapes the Valley-7B paths
-give it (K1 and K3 before serving, K4 and K3's int8-cache branch before
-int8 serving, K2 before training, each with a planted fault that must fail
-the check), and drives the port's three paths at full width and depth with
+kernel against its plain PyTorch version at the shapes the Valley-7B and
+Valley-13B paths give it (K1 and K3 before serving, K4 and K3's int8-cache
+branch before int8 serving, K5 with K1 and K3-int8 at 13B shapes before
+int4 serving, K2 before training, each with a planted fault that must fail
+the check), and drives the port's four paths at full width and depth with
 random bf16 weights from a seed, each path in a process of its own, one
 after the other:
 
@@ -20,6 +21,12 @@ after the other:
   int8 KV cache, the same question; checks that the path went through K1,
   K3's int8 branch and K4 (the int8 decode GEMV, lm_head included) and
   compares its logits with the same path on the plain versions;
+- int4 serving, the JAX package's one-card Valley-13B setup: random
+  Valley-13B weights fused and quantized to int4gp on the card (group-128
+  scales, nibble-packed), an int8 KV cache, the same question; checks that
+  the path went through K1, K3's int8 branch and K5 (the grouped-int4
+  decode GEMV, lm_head included) and compares its logits with the same path
+  on the plain versions;
 - training: Valley-7B stage 1 (frozen backbone, projector and input
   embeddings trained, the stage-1 recipe's optimizer settings) through
   ``Trainer.train_step`` on 16 synthetic rows from the port's collator and
@@ -79,6 +86,14 @@ LOGIT_TOL = 0.15
 # two logits lie 0.0154 apart, under the 0.062 the paths differ by, and the
 # kernels pick the other one (the token line still prints).
 INT8_LOGIT_TOL = 0.3
+# The int4 slice's logits through the kernels (K1, K3-int8, K5) against the
+# same path on their plain versions, at the prefill and three
+# teacher-forced decode steps: both prefill through the same dequantized
+# products, so they differ by the attention kernels' roundings and, in
+# decode, K5's summation order, through 40 layers and an int8 cache.  H100
+# readings of this script: 0.0678 at the prefill (largest logit 4.96),
+# 0.0743-0.0816 at the decode steps; the bar is about twice that.
+INT4_LOGIT_TOL = 0.16
 # The training slice's first step through the kernels against the same
 # step on the plain attention functions (bf16 model, fp32 loss): the
 # kernels' one-ulp differences in the attention outputs and gradients
@@ -101,7 +116,8 @@ BENCH_TOKENS = dict(im_patch=31996, im_start=31997, im_end=31998,
 KERNEL_NAMES = {"K1": ("flash_fwd_kernel",),
                 "K3": ("decode_split_kernel", "decode_combine_kernel"),
                 "K3-int8": ("decode_split_kernel", "decode_combine_kernel"),
-                "K4": ("int8_matvec_kernel",)}
+                "K4": ("int8_matvec_kernel",),
+                "K5": ("int4_matvec_kernel",)}
 # Profiler kernel names by kind, for the training step's breakdown
 KERNEL_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
@@ -266,17 +282,19 @@ def library_attention_ms(q, k, v, kv_mask, causal: bool, dout=None,
     return profile_device(fn, iters)[0]
 
 
-def flash_cases(gen):
-    """(name, q, k, v, kv_mask, causal): the 7B prefill shape first."""
+def flash_cases(gen, heads: int = 32, model: str = "7b"):
+    """(name, q, k, v, kv_mask, causal): the prefill shape of a model with
+    ``heads`` heads of 128 first."""
     def qkv(b, s, h, d):
         return [torch.randn((b, s, h, d), generator=gen, device="cuda")
                 .bfloat16() for _ in range(3)]
 
     cases = []
-    q, k, v = qkv(1, 512, 32, 128)
+    q, k, v = qkv(1, 512, heads, 128)
     mask = torch.ones((1, 512), dtype=torch.bool, device="cuda")
     mask[:, 473:] = False                      # a prompt padded to 512
-    cases.append(("7b_prefill_S512_D128", q, k, v, mask, True))
+    cases.append((f"{model}_prefill_S512_H{heads}_D128", q, k, v, mask,
+                  True))
     q, k, v = qkv(2, 300, 4, 64)
     mask = torch.ones((2, 300), dtype=torch.bool, device="cuda")
     mask[0, 283:] = False
@@ -644,9 +662,9 @@ def library_matvec_ms(x, ws, scale, iters: int) -> tuple:
 K4_SHAPES_7B = (("wqkv", 4096, 12288), ("wo", 4096, 4096),
                 ("w_gateup", 4096, 22016), ("w_down", 11008, 4096),
                 ("lm_head", 4096, 32000))
-# Bytes of weight copies K4's timing walks: decode walks 6.6 GB of
+# Bytes of weight copies a GEMV's timing walks: decode walks 6.6 GB of
 # weights per token, so a call finds none of its weight in L2
-K4_TIMING_BYTES = 2_500_000_000
+TIMING_BYTES = 2_500_000_000
 TIME_KEYS = ("ms", "plain_ms", "loop_ms", "plain_loop_ms", "bound_ms",
              "library_ms")
 
@@ -691,7 +709,7 @@ def k4_phase(gen, layers: int) -> tuple:
             # L2 keeps of a cyclic walk (on an H100, a walk of a few
             # hundred MB read faster than the HBM's 3.35 TB/s)
             ws = [w] + [w.clone() for _ in range(
-                -(-K4_TIMING_BYTES // w.numel()) - 1)]
+                -(-TIMING_BYTES // w.numel()) - 1)]
             it = iter(range(10 ** 9))
             t = kernel_times(
                 lambda: int8_matvec(x, ws[next(it) % len(ws)], scale),
@@ -724,11 +742,13 @@ def k4_phase(gen, layers: int) -> tuple:
     return err_max, avg
 
 
-def decode_int8_cases(gen, smax_7b: int, prompt_len: int, bucket: int):
+def decode_int8_cases(gen, smax_7b: int, prompt_len: int, bucket: int,
+                      layers: int = 32, heads: int = 32, model: str = "7b"):
     """(name, q, k, k_scale, v, v_scale, li, valid, hole): int8 caches
     quantized by the port's `_quantize_kv` from N(0, 1) bf16 K/V, as decode
-    writes them; the 7B decode shape first, with the hole [prompt_len,
-    bucket) that decode leaves in the mask."""
+    writes them; the decode shape of a model with ``layers`` layers and
+    ``heads`` heads of 128 first, with the hole [prompt_len, bucket) that
+    decode leaves in the mask."""
     from valley_tpu_torch.models.llama import _quantize_kv
 
     def make(n_layers, b, smax, h, hkv, d):
@@ -743,12 +763,12 @@ def decode_int8_cases(gen, smax_7b: int, prompt_len: int, bucket: int):
         return out
 
     cases = []
-    t = make(32, 1, smax_7b, 32, 32, 128)
+    t = make(layers, 1, smax_7b, heads, heads, 128)
     valid = torch.zeros((1, smax_7b), dtype=torch.bool, device="cuda")
     valid[:, :prompt_len] = True               # the prompt
     valid[:, bucket:bucket + 40] = True        # 40 decoded tokens
-    cases.append(("7b_decode_L32_S%d_D128_hole" % smax_7b, *t, 17, valid,
-                  (prompt_len, bucket)))
+    cases.append((f"{model}_decode_L{layers}_H{heads}_S{smax_7b}_D128_hole",
+                  *t, 17, valid, (prompt_len, bucket)))
     for name, geo in (("gqa_rep2_D64", (3, 1, 200, 8, 4, 64)),
                       ("gqa_rep4_D128", (3, 1, 300, 16, 4, 128)),
                       ("batch2_S640_D128", (3, 2, 640, 8, 8, 128))):
@@ -760,17 +780,16 @@ def decode_int8_cases(gen, smax_7b: int, prompt_len: int, bucket: int):
     return cases
 
 
-def k3_int8_phase(gen, smax: int, prompt_len: int, bucket: int) -> tuple:
-    """K3's int8-cache branch against its plain version on the cases of
-    `decode_int8_cases`; planted faults (the V scales taken as ones, and
-    the hole attended) on the 7B case, which is timed walking its layers.
-    Returns (max error, times)."""
+def k3_int8_phase(cases) -> tuple:
+    """K3's int8-cache branch against its plain version on ``cases``
+    (`decode_int8_cases`); planted faults (the V scales taken as ones, and
+    the hole attended) on the first case, a model's decode shape, which is
+    timed walking its layers.  Returns (max error, times)."""
     from valley_tpu_torch.ops.decode_attention import (
         decode_attention_plain, decode_attention_stacked)
 
     err_max, times = 0.0, None
-    for name, q, k, ks, v, vs, li, valid, hole in decode_int8_cases(
-            gen, smax, prompt_len, bucket):
+    for name, q, k, ks, v, vs, li, valid, hole in cases:
         out = decode_attention_stacked(q, k, v, li, valid, ks, vs)
         torch.cuda.synchronize()
         ref = decode_attention_plain(q, k, v, li, valid, ks, vs)
@@ -1086,15 +1105,15 @@ def k3_phase(gen, smax: int, prompt_len: int, bucket: int) -> tuple:
     return k3_err, k3_t
 
 
-def valley_7b_weights(cfg):
-    """Valley-7B's random bf16 weights on the card, from seed 0."""
+def random_weights(cfg, model: str = "valley_7b"):
+    """The model's random bf16 weights on the card, from seed 0."""
     from valley_tpu_torch.models import valley
 
     t0 = time.perf_counter()
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                                 torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    print(f"valley_7b random bf16 weights: "
+    print(f"{model} random bf16 weights: "
           f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
           f"params in {time.perf_counter() - t0:.1f} s")
     return params
@@ -1119,7 +1138,7 @@ def serve_path(smi: str, gen) -> list:
     k3_err, k3_t = k3_phase(gen, SMAX, PROMPT_LEN, BUCKET)
     cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
     layers, steps = cfg.text.num_hidden_layers, NEW_TOKENS - 1
-    counts = serve_slice("slice", cfg, valley_7b_weights(cfg), smi,
+    counts = serve_slice("slice", cfg, random_weights(cfg), smi,
                          torch.bfloat16, {
                              "K1": (flash_attention, layers),
                              "K3": (decode_attention_stacked, layers * steps),
@@ -1146,10 +1165,11 @@ def serve_int8_path(smi: str, gen) -> list:
     cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
     layers, steps = cfg.text.num_hidden_layers, NEW_TOKENS - 1
     k4_err, k4_t = k4_phase(gen, layers)
-    k3q_err, k3q_t = k3_int8_phase(gen, SMAX, PROMPT_LEN, BUCKET)
+    k3q_err, k3q_t = k3_int8_phase(decode_int8_cases(gen, SMAX, PROMPT_LEN,
+                                                     BUCKET))
     gc.collect()
     torch.cuda.empty_cache()
-    params = valley_7b_weights(cfg)
+    params = random_weights(cfg)
     t0 = time.perf_counter()
     params = quantize_llama_params(fuse_llama_params(params), act8=True)
     torch.cuda.synchronize()
@@ -1175,6 +1195,192 @@ def serve_int8_path(smi: str, gen) -> list:
              "launches": counts["K4"], "max_abs_err": k4_err, **k4_t}]
 
 
+def int4_weight(gen, f: int, k: int, group: int):
+    """An (F, K/2) packed int4 weight and its (F, K/group) bf16 scales (per
+    channel (F,) for group 0), quantized by the port's quantizer from
+    N(0, 1) / sqrt(K) bf16 values, as the serving tree's random weights
+    are."""
+    from valley_tpu_torch.ops.quant import pack_int4, quantize_tensor
+
+    w = torch.randn((f, k), generator=gen, device="cuda") * k ** -0.5
+    q, scale = quantize_tensor(w.bfloat16(), bits=4, group_size=group)
+    return pack_int4(q), scale
+
+
+def library_int4_matvec_ms(x, w, scale, copies: int, iters: int,
+                           ref) -> tuple:
+    """Device ms of one library call on K5's inputs, walking ``copies``
+    copies of the weight as the kernel's timing does, and its label: torch's
+    int4 weight-only product (``_weight_int4pack_mm``, group 128, zero
+    points 0, a per-channel scale repeated over the groups) on the same
+    values in its own packing.  A yardstick only: the port never calls it.
+    Returns (None, why) where this torch does not run it on the card."""
+    from valley_tpu_torch.ops.quant import unpack_int4
+
+    f, k = w.shape[0], x.shape[1]
+    try:
+        u = unpack_int4(w).to(torch.int32) + 8       # [0, 15], zero point 8
+        packed = torch._convert_weight_to_int4pack(
+            (u[:, 0::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+        s = scale.reshape(f, -1).repeat_interleave(
+            k // 128 // scale.reshape(f, -1).shape[1], dim=1)
+        sz = torch.stack((s.t(), torch.zeros_like(s.t())), dim=-1)
+        out = torch._weight_int4pack_mm(x, packed, 128, sz.contiguous())
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        why = str(e).splitlines()[0][:100]
+        print(f"K5 yardstick: torch._weight_int4pack_mm does not run here "
+              f"({why}): library time none")
+        return None, f"none: {why}"
+    ps = [packed] + [packed.clone() for _ in range(copies - 1)]
+    it = iter(range(10 ** 9))
+    fn = lambda: torch._weight_int4pack_mm(  # noqa: E731
+        x, ps[next(it) % len(ps)], 128, sz)
+    ms = profile_device(fn, iters)[0]
+    label = (f"torch._weight_int4pack_mm, max abs diff from the plain "
+             f"version {max_err(out, ref):.3e}")
+    return ms, label
+
+
+# Valley-13B's fused int4gp serving weights, (name, K, F, group): the decode
+# GEMVs of one layer at group 128, then the per-channel lm_head
+K5_SHAPES_13B = (("wqkv", 5120, 15360, 128), ("wo", 5120, 5120, 128),
+                 ("w_gateup", 5120, 27648, 128), ("w_down", 13824, 5120, 128),
+                 ("lm_head", 5120, 32000, 0))
+
+
+def k5_phase(gen, layers: int) -> tuple:
+    """K5 against its plain version on the five Valley-13B weights at B =
+    1, at the row limit with G = 108 and on 7B's G = 86 at an odd F; a
+    planted fault (the group scales shifted by one group); each 13B weight
+    timed walking copies of it past the 50 MB L2.  Returns (max error,
+    times per call averaged over one decode token's GEMVs: ``layers`` x the
+    four layer weights, then lm_head)."""
+    from valley_tpu_torch.ops.quant import (MAX_ROWS, int4_matvec,
+                                            int4_matvec_plain)
+
+    cases = [(f"13b_{n}_B1", 1, k, f, g) for n, k, f, g in K5_SHAPES_13B] + [
+        ("rows8_K13824_G108", MAX_ROWS, 13824, 5120, 128),
+        ("B3_K11008_G86_F1001", 3, 11008, 1001, 128)]
+    err_max, per_weight, label = 0.0, {}, None
+    for name, b, k, f, group in cases:
+        x = torch.randn((b, k), generator=gen, device="cuda").bfloat16()
+        w, scale = int4_weight(gen, f, k, group)
+        out = int4_matvec(x, w, scale)
+        torch.cuda.synchronize()
+        ref = int4_matvec_plain(x, w, scale)
+        err, tol = max_err(out, ref), tolerance(ref)
+        check(out.dtype == torch.float32 and tuple(out.shape) == (b, f)
+              and bool(torch.isfinite(out).all()),
+              f"K5 {name}: dtype, shape or not finite")
+        check(err <= tol, f"K5 {name}: max abs err {err} > {tol}")
+        err_max = max(err_max, err)
+        line = f"K5 int4_matvec {name}: max_abs_err {err:.3e} (tol {tol:.3e})"
+        if name == "13b_wqkv_B1":
+            # planted fault: a kernel that read each group's scale from the
+            # group before must fail the check
+            fault = max_err(int4_matvec(x, w, scale.roll(1, dims=1)
+                                        .contiguous()), ref)
+            check(fault > tol, f"K5 {name}: shifted group scales moved the "
+                  f"output by {fault} only, within the tolerance {tol}")
+            line += f"; scales shifted by one group instead: {fault:.3e} "\
+                "(must fail)"
+        if name.startswith("13b_"):
+            # copies of the weight, walked in turn, far past the 50 MB L2
+            n = -(-TIMING_BYTES // w.numel())
+            ws = [w] + [w.clone() for _ in range(n - 1)]
+            it = iter(range(10 ** 9))
+            t = kernel_times(
+                lambda: int4_matvec(x, ws[next(it) % len(ws)], scale),
+                lambda: int4_matvec_plain(x, ws[next(it) % len(ws)], scale),
+                iters=20)
+            del ws
+            # bytes: the packed weight, x, the scales and the fp32 output
+            # once
+            n_bytes = w.numel() + 2 * b * k + 2 * scale.numel() + 4 * b * f
+            add_bound(t, bound(n_bytes, 2 * b * k * f), f"K5 {name}")
+            t["library_ms"], label = library_int4_matvec_ms(x, w, scale, n,
+                                                            20, ref)
+            per_weight[name.split("_B1")[0][4:]] = t
+            lib = "none" if t["library_ms"] is None else \
+                f"{t['library_ms']:.4f} ms"
+            line += (f" {fmt_times(t)} ({w.numel() / t['ms'] / 1e6:.1f} GB/s "
+                     f"of packed weights); bound {t['bound_ms']:.4f} ms ("
+                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB), library "
+                     f"{lib} ({label})")
+        print(line)
+        del x, w, scale, out, ref
+    calls = 4 * layers + 1
+    token = {key: None if any(t[key] is None for t in per_weight.values())
+             else layers * sum(per_weight[n][key] for n, *_ in
+                               K5_SHAPES_13B[:4]) + per_weight["lm_head"][key]
+             for key in TIME_KEYS}
+    avg = {key: None if v is None else v / calls for key, v in token.items()}
+    avg["bound_by"] = "bytes"
+    avg["library_call"] = label
+    lib = "none" if token["library_ms"] is None else \
+        f"{token['library_ms']:.4f} ms"
+    print(f"K5 int4_matvec per decode token ({calls} calls: {layers} x "
+          f"wqkv, wo, w_gateup, w_down, then lm_head): device "
+          f"{token['ms']:.4f} ms vs plain {token['plain_ms']:.4f} ms; bound "
+          f"{token['bound_ms']:.4f} ms; library {lib}")
+    return err_max, avg
+
+
+def serve_int4_path(smi: str, gen) -> list:
+    """Valley-13B served int4gp, the JAX package's one-card 13B setup
+    (bench.py:216-231,272-274; worker --quantize int4gp --fused --kv-cache
+    int8): K5, and K1 and K3-int8 at the 13B shapes, against their plain
+    versions, then the slice on random weights fused and quantized on the
+    card (group-128 scales, nibble-packed), with an int8 KV cache.  Returns
+    its kernels entries."""
+    from valley_tpu_torch import SpecialTokens, valley_13b
+    from valley_tpu_torch.models.llama import fuse_llama_params
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.quant import (int4_matvec, int8_matvec,
+                                            parse_quant_mode,
+                                            quantize_llama_params)
+
+    cfg = valley_13b(tokens=SpecialTokens(**BENCH_TOKENS))
+    text = cfg.text
+    layers, steps = text.num_hidden_layers, NEW_TOKENS - 1
+    k5_err, k5_t = k5_phase(gen, layers)
+    k1_err, k1_t = k1_phase(flash_cases(gen, text.num_attention_heads,
+                                        "13b")[:1])
+    k3q_err, k3q_t = k3_int8_phase(decode_int8_cases(
+        gen, SMAX, PROMPT_LEN, BUCKET, layers, text.kv_heads, "13b")[:1])
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = random_weights(cfg, "valley_13b")
+    t0 = time.perf_counter()
+    knobs = parse_quant_mode("int4gp")
+    params = quantize_llama_params(fuse_llama_params(params),
+                                   bits=knobs["bits"],
+                                   group_size=knobs["group_size"])
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for n, p in
+                       params["llama"].named_parameters() if n != "embed")
+    print(f"int4 slice: fused and quantized (int4gp) in "
+          f"{time.perf_counter() - t0:.1f} s; decoder and lm_head weights "
+          f"{weight_bytes / 1e9:.3f} GB (a decode token reads them once: "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)")
+    counts = serve_slice("int4 slice", cfg, params, smi, torch.int8, {
+        "K1": (flash_attention, layers),
+        "K3-int8": (decode_attention_stacked, layers * steps),
+        "K5": (int4_matvec, 4 * layers * steps + NEW_TOKENS),
+        "K4": (int8_matvec, 0)}, INT4_LOGIT_TOL, same_token=True)
+    return [{**K1_SRC, "name": "flash_fwd_int4", "path": "serve_int4",
+             "launches": counts["K1"], "max_abs_err": k1_err, **k1_t},
+            {**K3_SRC, "name": "decode_attn_int4", "path": "serve_int4",
+             "launches": counts["K3-int8"], "max_abs_err": k3q_err,
+             **k3q_t},
+            {"name": "int4_matvec", "route": "cuda",
+             "source": "valley_tpu_torch/csrc/int4_matvec.cu",
+             "replaces": "tools/exp_int4_group.py:91", "path": "serve_int4",
+             "launches": counts["K5"], "max_abs_err": k5_err, **k5_t}]
+
+
 def train_path(smi: str, gen) -> list:
     """K2 (and K1 at the training shape) against the plain versions, then
     the training slice.  Returns its kernels entries."""
@@ -1192,11 +1398,11 @@ def train_path(smi: str, gen) -> list:
 
 
 # Each path runs in a process of its own, one after the other: each frees
-# its 7B model by exiting, and each gets a fresh profiler (on an H100 with
+# its model by exiting, and each gets a fresh profiler (on an H100 with
 # torch 2.11, traces taken in one process after both serving paths came
 # back short of events, then empty)
 PATHS = {"serve": serve_path, "serve_int8": serve_int8_path,
-         "train": train_path}
+         "serve_int4": serve_int4_path, "train": train_path}
 
 
 def nvidia_smi() -> str:
@@ -1252,8 +1458,8 @@ def main(argv=None) -> int:
                 kernels += json.load(f)
     # one entry per kernel and path: ``launches`` is that path's count
     # (serving: one request; training: the three timed updates), the times
-    # and bound are at the shape that path gives the kernel (K4: per call,
-    # averaged over one decode token's GEMVs)
+    # and bound are at the shape that path gives the kernel (K4, K5: per
+    # call, averaged over one decode token's GEMVs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -15,7 +15,9 @@ logits have unit spread and attending a wrong slot moves the output by far
 more than the tolerance (the decode test plants that fault and checks it
 is caught).  The int8 GEMV (K4) and the int8-cache decode attention are
 held to the same bar, each with a planted fault (a scale vector shifted
-by one channel; the V scales replaced by ones) that must fail it.
+by one channel; the V scales replaced by ones) that must fail it, and so is
+the grouped-int4 GEMV (K5), whose fault is its group scales shifted by one
+group.
 """
 
 import numpy as np
@@ -35,8 +37,10 @@ from valley_tpu_torch.ops.flash_attention import (FlashAttention,
                                                   flash_attention_bwd,
                                                   flash_attention_bwd_plain,
                                                   flash_attention_plain)
-from valley_tpu_torch.ops.quant import (int8_matvec, int8_matvec_plain,
-                                        quantize_llama_params, quantize_tensor)
+from valley_tpu_torch.ops.quant import (int4_matvec, int4_matvec_plain,
+                                        int8_matvec, int8_matvec_plain,
+                                        pack_int4, quantize_llama_params,
+                                        quantize_tensor)
 from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
 REL_TOL = 2 ** -6
@@ -383,6 +387,91 @@ def test_tiny_int8_serving_on_the_card(gen):
     assert decode_attention_stacked.launches - counts[1] == \
         layers * (new - 1)
     assert int8_matvec.launches - counts[2] == 4 * layers * (new - 1) + new
+    # the tiny model's logits are O(1); the kernels round bf16 in other
+    # places than the plain versions (two ulps at the largest output)
+    lk, lp = (e.prefill([prompt], None, gcfg).logits for e in engines)
+    assert (lk - lp).abs().max().item() <= 0.05
+
+
+def _int4_weight(gen, f, k, group):
+    """An (F, K/2) packed int4 weight and its (F, K/group) bf16 scales (per
+    channel (F,) for group 0), quantized from N(0, 1) / sqrt(K) bf16 values
+    as the serving tree's are."""
+    w = (torch.randn((f, k), generator=gen, device="cuda") * k ** -0.5)
+    q, scale = quantize_tensor(w.bfloat16(), bits=4, group_size=group)
+    return pack_int4(q), scale
+
+
+@pytest.mark.parametrize("b,k,f,group", [
+    (1, 5120, 15360, 128), (8, 11008, 4096, 128), (1, 13824, 5120, 128),
+    (1, 5120, 32000, 0), (3, 64, 33, 0), (2, 128, 64, 32), (5, 96, 40, 16)])
+def test_int4_matvec_kernel_matches_plain(gen, b, k, f, group):
+    """Valley-13B's G 40 (K 5120) and G 108 (K 13824) and 7B's G 86 (K
+    11008) at group 128, the per-channel lm_head, tiny widths, and a group
+    of 16 (scales per 8-weight word)."""
+    x = _randn(gen, b, k)
+    w, scale = _int4_weight(gen, f, k, group)
+    before = int4_matvec.launches
+    out = int4_matvec(x, w, scale)
+    torch.cuda.synchronize()
+    assert int4_matvec.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, f)
+    ref = int4_matvec_plain(x, w, scale)
+    err, tol = _err_and_tol(out, ref)
+    assert err <= tol
+    # planted fault: the scales shifted by one group (per channel: by one
+    # output channel)
+    shifted = scale.roll(1, dims=-1) if scale.dim() == 2 else scale.roll(1)
+    fault, _ = _err_and_tol(int4_matvec(x, w, shifted.contiguous()), ref)
+    assert fault > tol
+
+
+def test_int4_matvec_kernel_refuses_what_it_cannot_take(gen):
+    k = 256
+    x = _randn(gen, 1, k)
+    w, scale = _int4_weight(gen, 64, k, 128)
+    with pytest.raises(TypeError):
+        int4_matvec(x.float(), w, scale)
+    with pytest.raises(TypeError):
+        int4_matvec(x, w.view(torch.int8), scale)
+    buf = _randn(gen, k + 2)
+    with pytest.raises(ValueError, match="aligned"):
+        int4_matvec(buf[2:].view(1, k), w, scale)
+    with pytest.raises(ValueError, match="rows"):
+        int4_matvec(_randn(gen, 9, k), w, scale)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        int4_matvec(x[:, :48].contiguous(), w[:, :24].contiguous(),
+                    scale[:, :1].contiguous())
+
+
+def test_tiny_int4gp_serving_on_the_card(gen):
+    """Fused int4 weights with group-32 scales and an int8 cache on the
+    card: per request K1 runs once per layer (prefill), K3 once per layer
+    and decode step, K5 four times per layer and decode step plus once per
+    token for lm_head, K4 never; the prefill logits agree with the plain
+    versions'."""
+    cfg = valley_tiny()
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    params = quantize_llama_params(llama.fuse_llama_params(params), bits=4,
+                                   group_size=32)
+    new = 6
+    engines = [Engine(cfg, params, buckets=(128,), max_new_tokens=new,
+                      cache_dtype=torch.int8, steps_per_call=2,
+                      attention=a) for a in (KERNELS, PLAIN)]
+    prompt = np.random.default_rng(0).integers(5, 400, 90).tolist()
+    gcfg = GenerationConfig(max_new_tokens=new)
+    counts = (flash_attention.launches, decode_attention_stacked.launches,
+              int4_matvec.launches, int8_matvec.launches)
+    toks = [int(t[0]) for t in engines[0].generate_tokens(
+        [prompt], None, gcfg, eos_ids=[-1])]
+    layers = cfg.text.num_hidden_layers
+    assert len(toks) == new
+    assert flash_attention.launches - counts[0] == layers
+    assert decode_attention_stacked.launches - counts[1] == \
+        layers * (new - 1)
+    assert int4_matvec.launches - counts[2] == 4 * layers * (new - 1) + new
+    assert int8_matvec.launches == counts[3]
     # the tiny model's logits are O(1); the kernels round bf16 in other
     # places than the plain versions (two ulps at the largest output)
     lk, lp = (e.prefill([prompt], None, gcfg).logits for e in engines)

@@ -73,7 +73,9 @@ JAX_PACKAGE_IMPORT = r"^\s*(import|from)\s+valley_tpu(\.|\s|$)"
 # the functions of chip_smoke.py that may call a library kernel, each for
 # the yardstick ``library_ms``, timed and used nowhere in the port
 LIBRARY_TIMERS = {"scaled_dot_product_attention": "library_attention_ms",
-                  "_weight_int8pack_mm": "library_matvec_ms"}
+                  "_weight_int8pack_mm": "library_matvec_ms",
+                  "_weight_int4pack_mm": "library_int4_matvec_ms",
+                  "_convert_weight_to_int4pack": "library_int4_matvec_ms"}
 
 
 def test_port_sources_avoid_jax_and_library_attention():
@@ -82,6 +84,7 @@ def test_port_sources_avoid_jax_and_library_attention():
     no library attention kernel and no torch.compile in the port."""
     banned = [r"^\s*(import|from)\s+jax\b", JAX_PACKAGE_IMPORT,
               r"scaled_dot_product_attention", r"_weight_int8pack_mm",
+              r"_weight_int4pack_mm", r"_convert_weight_to_int4pack",
               r"torch\.compile", r"flash_attn", r"cudnn\."]
     for path in PACKAGE.rglob("*.py"):
         text = path.read_text()

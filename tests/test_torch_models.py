@@ -78,11 +78,14 @@ def test_weights_from_bf16_tree(cfg):
 
 
 @pytest.mark.parametrize("mutate,match", [
-    ("fused", "fused"), ("int8", "quantized"), ("lora", "LoRA")])
+    ("fused", "fused"), ("int8", "quantized"), ("w4a8", "W4A8"),
+    ("lora", "LoRA")])
 def test_weights_refuse_unported_trees(jparams, mutate, match):
-    """The fused layout and per-channel int8 convert (tests/
-    test_torch_quant.py); a half-fused tree (wqkv beside unfused MLP
-    projections) and nibble-packed int4 do not, nor do LoRA factors."""
+    """The fused layout, int8 and int4 trees convert (tests/
+    test_torch_quant.py, tests/test_torch_int4.py); a half-fused tree
+    (wqkv beside unfused MLP projections), an int8 vision tower, grouped
+    W4A8 (a packed weight with a ``_scale_a8`` scale) and LoRA factors do
+    not."""
     tree = jax.device_get(jparams)
     tree = {**tree, "llama": {**tree["llama"],
                               "layers": dict(tree["llama"]["layers"])}}
@@ -91,8 +94,17 @@ def test_weights_refuse_unported_trees(jparams, mutate, match):
         lay["wqkv"] = np.concatenate([lay.pop("wq"), lay.pop("wk"),
                                       lay.pop("wv")], axis=1)
     elif mutate == "int8":
+        tree["vision"] = {**tree["vision"],
+                          "layers": dict(tree["vision"]["layers"])}
+        vl = tree["vision"]["layers"]
+        vl["wq"] = np.zeros(np.shape(vl["wq"]), np.int8)
+        vl["wq_scale"] = np.ones(np.shape(vl["wq"])[:1] + (1,)
+                                 + np.shape(vl["wq"])[-1:], np.float32)
+    elif mutate == "w4a8":
         shape = lay["wq"].shape
         lay["wq"] = np.zeros(shape[:-1] + (shape[-1] // 2,), np.uint8)
+        lay["wq_scale_a8"] = np.ones(shape[:-1] + (shape[-1] // 32,),
+                                     np.float32)
     else:
         lay["wq_lora_a"] = np.zeros((2, 64, 4), np.float32)
     with pytest.raises(NotImplementedError, match=match):

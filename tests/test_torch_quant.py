@@ -101,9 +101,17 @@ def test_quantizer_matches_jax_bit_for_bit(cfg, mode, fused, dtype):
 
 
 def test_unserved_modes_raise():
-    for mode in ("int4", "int4g", "int4gp", "int4ga8", "int4gpa8"):
+    """The grouped W4A8 modes and the vision quantizer are not ported; the
+    int4 weight-only modes parse to the JAX knobs."""
+    for mode in ("int4ga8", "int4gpa8"):
         with pytest.raises(NotImplementedError, match=mode):
             quant.parse_quant_mode(mode)
+    for mode in ("int4", "int4g", "int4gp"):
+        assert quant.parse_quant_mode(mode) == jquant.parse_quant_mode(mode)
+    with pytest.raises(NotImplementedError, match="W4A8"):
+        quant.quantize_llama_params(None, act8=True, bits=4, group_size=128)
+    with pytest.raises(NotImplementedError, match="grouped int8"):
+        quant.quantize_llama_params(None, bits=8, group_size=128)
     with pytest.raises(ValueError, match="unknown"):
         quant.parse_quant_mode("fp8")
     with pytest.raises(NotImplementedError, match="vision"):

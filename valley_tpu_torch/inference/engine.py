@@ -89,10 +89,10 @@ class Engine:
     ``cache_dtype=torch.int8`` keeps the KV cache in int8 with per-slot,
     per-head bf16 scales (`llama.init_cache`), as the JAX engine does for
     ``jnp.int8``; the weights may be fused (`llama.fuse_llama_params`) and
-    int8 (`ops.quant.quantize_llama_params`).  ``attention`` picks the CUDA
-    kernels (default; tensors on the CPU take their plain versions) or the
-    plain versions (`ops.attention.PLAIN`), for comparing the two on the
-    card.
+    int8 or packed int4 (`ops.quant.quantize_llama_params`).
+    ``attention`` picks the CUDA kernels (default; tensors on the CPU take
+    their plain versions) or the plain versions (`ops.attention.PLAIN`),
+    for comparing the two on the card.
     """
 
     def __init__(self, cfg: ValleyConfig, params: valley.ValleyWeights,

@@ -2,7 +2,7 @@
 
 python -m valley_tpu_torch.inference.run_valley --model-name random:tiny \
     --video-file v.mp4 --query "Describe the video." \
-    [--quantize int8a8 --fused --kv-cache int8] [--device cpu]
+    [--quantize int8a8|int4gp --fused --kv-cache int8] [--device cpu]
 
 ``random:tiny`` builds the tiny test configuration with random weights and
 the byte tokenizer.  Loading a Hugging Face Valley checkpoint is not ported
@@ -10,7 +10,7 @@ yet (the JAX package's loader, ``valley_tpu.utils.hf_bridge``, imports jax).
 It runs on the card; without one it stops unless ``--device cpu`` is
 given.  ``--fused``, ``--quantize`` and ``--kv-cache`` are the serving
 worker's options (``valley_tpu/serve/model_worker.py``), applied in its
-order: fuse, then quantize, then choose the cache.
+order: fuse, then quantize (and pack int4), then choose the cache.
 """
 
 from __future__ import annotations
@@ -41,8 +41,11 @@ def load_model(model_name: str, device: Optional[str] = None,
                kv_cache: str = "bf16"):
     """Build (engine, tokenizer) on ``device`` (default the card; without
     one this raises unless the caller asks for ``"cpu"``).  ``fused`` takes
-    the fused serving layout, ``quantize`` (``int8`` or ``int8a8``) the
-    int8 weights, ``kv_cache="int8"`` the int8 KV cache."""
+    the fused serving layout, ``quantize`` (a mode of
+    ``quant.SERVED_MODES``: ``int8``, ``int8a8``, ``int4``, ``int4g``,
+    ``int4gp``) the quantized weights, ``kv_cache="int8"`` the int8 KV
+    cache.  At the tiny widths (64, 128) group-128 scales fall back to per
+    channel where 128 does not divide the contraction axis, as in JAX."""
     if device is None:
         device = "cuda"
     if torch.device(device).type == "cuda" and \
@@ -68,8 +71,10 @@ def load_model(model_name: str, device: Optional[str] = None,
     if fused:
         params = llama.fuse_llama_params(params)
     if quantize:
-        params = quantize_llama_params(
-            params, act8=parse_quant_mode(quantize)["act8"])
+        knobs = parse_quant_mode(quantize)
+        params = quantize_llama_params(params, act8=knobs["act8"],
+                                       bits=knobs["bits"],
+                                       group_size=knobs["group_size"])
     engine = Engine(cfg, params, buckets=buckets,
                     max_new_tokens=max_new_tokens,
                     cache_dtype=torch.int8 if kv_cache == "int8"
@@ -89,8 +94,10 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     parser.add_argument("--quantize", type=str, default=None,
                         choices=list(SERVED_MODES),
-                        help="per-channel int8 decoder weights; int8a8 "
-                             "also runs W8A8 prefill")
+                        help="quantized decoder weights: per-channel "
+                             "int8 (int8a8 also runs W8A8 prefill), or "
+                             "nibble-packed int4 per channel (int4) or with "
+                             "group-128 scales (int4g, int4gp)")
     parser.add_argument("--kv-cache", type=str, default="bf16",
                         choices=["bf16", "int8"],
                         help="KV-cache dtype")

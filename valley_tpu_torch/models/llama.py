@@ -4,7 +4,7 @@
 Weights keep the JAX package's stacked layout: every per-layer tensor has a
 leading layer axis, projections are stored (L, out, in) and a bf16
 ``lm_head`` (in, out), so converting a JAX tree is a dtype and device copy
-(an int8 ``lm_head`` is stored (out, in): see ``ops/quant.py``).  The KV
+(a quantized ``lm_head`` is stored (out, in): see ``ops/quant.py``).  The KV
 cache is the same stacked (L, B, Smax, Hkv, D) buffer, bf16/fp32 or int8
 with (L, B, Smax, Hkv) bf16 scales; this port writes it in place.  RMSNorm,
 rotary and softmax run in fp32 exactly where the JAX package runs them.
@@ -13,11 +13,12 @@ Ported: the cacheless forward (training, with full per-layer
 rematerialisation as an option), bucketed prefill at ``cache_index`` 0 and
 single-token decode over the stacked cache, for one stream (B = 1); the
 fused serving layout (``wqkv``, ``w_gateup``), per-channel int8 projections
-(decode GEMVs through K4, W8A8 prefill for ``*_scale_a8`` trees) and the
-int8 KV cache.  Not ported yet, and refused with NotImplementedError: the
-``"dots"`` remat policy, the ``cross_valid`` extend branch, batched (B > 1)
-cached inference, per-row cache slots, grouped or int4 quantization, a
-half-fused layout and LoRA.
+(decode GEMVs through K4, W8A8 prefill for ``*_scale_a8`` trees), nibble-
+packed int4 projections with group or channel scales (decode GEMVs through
+K5) and the int8 KV cache.  Not ported yet, and refused with
+NotImplementedError: the ``"dots"`` remat policy, the ``cross_valid``
+extend branch, batched (B > 1) cached inference, per-row cache slots,
+grouped W4A8, a half-fused layout and LoRA.
 """
 
 from __future__ import annotations
@@ -33,22 +34,25 @@ from valley_tpu_torch.config import TextConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import KERNELS, Attention, \
     prefill_attention
-from valley_tpu_torch.ops.quant import MAX_ROWS, int8_matvec_plain
+from valley_tpu_torch.ops.quant import (MAX_ROWS, int4_dequantize,
+                                        int8_matvec_plain)
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
+QUANTIZED = (torch.int8, torch.uint8)   # int8, and nibble-packed int4
 # Each layout's projections, in the order its parameters are registered
 ATTN_PROJ = {False: ("wq", "wk", "wv", "wo"), True: ("wqkv", "wo")}
 MLP_PROJ = {False: ("w_gate", "w_up", "w_down"), True: ("w_gateup", "w_down")}
 
 
 def _with_scale(tensors, names) -> list:
-    """``names``, each int8 one followed by its scale's name
-    (``<name>_scale_a8`` where the tensors hold it, else ``<name>_scale``)."""
+    """``names``, each quantized one (int8 or packed int4) followed by its
+    scale's name (``<name>_scale_a8`` where the tensors hold it, else
+    ``<name>_scale``)."""
     out = []
     for n in names:
         out.append(n)
         t = tensors.get(n)
-        if t is not None and t.dtype == torch.int8:
+        if t is not None and t.dtype in QUANTIZED:
             out.append(n + ("_scale_a8" if n + "_scale_a8" in tensors
                             else "_scale"))
     return out
@@ -57,7 +61,8 @@ def _with_scale(tensors, names) -> list:
 class LlamaLayers(Weights):
     """The stacked decoder layers: the unfused projections or the fused
     serving layout (``wqkv``, ``w_gateup``), each int8 projection with its
-    (L, out) bf16 scale."""
+    (L, out) bf16 scale, each packed int4 one ((L, out, in/2) uint8) with
+    its (L, out) or grouped (L, out, in/group) bf16 scale."""
     NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
              "w_up", "w_down")
 
@@ -75,14 +80,14 @@ class LlamaLayers(Weights):
 
 
 class LlamaWeights(Weights):
-    """Embedding, layers, final norm and ``lm_head`` (int8: with its
-    (1, vocab) bf16 ``lm_head_scale``)."""
+    """Embedding, layers, final norm and ``lm_head`` (int8 or packed int4:
+    with its (1, vocab) bf16 ``lm_head_scale``)."""
     NAMES = ("embed", "layers", "final_norm", "lm_head")
 
     @classmethod
     def expected_names(cls, tensors) -> tuple:
         head = tensors.get("lm_head")
-        if head is not None and head.dtype == torch.int8:
+        if head is not None and head.dtype in QUANTIZED:
             return cls.NAMES + ("lm_head_scale",)
         return cls.NAMES
 
@@ -164,7 +169,7 @@ def fuse_llama_params(params):
     layers = params["llama"]["layers"]
     if "wqkv" in layers:
         return params
-    if any(layers[n].dtype == torch.int8 for n in ("wq", "w_gate")):
+    if any(layers[n].dtype in QUANTIZED for n in ("wq", "w_gate")):
         raise ValueError("fuse before quantizing")
     lt = {n: p.data for n, p in layers.named_parameters(recurse=False)}
     for names, out in ((("wq", "wk", "wv"), "wqkv"),
@@ -218,14 +223,22 @@ def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(x.shape[:-1] + (o,)).to(x.dtype)
 
 
-def _int8_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                 attention: Attention) -> torch.Tensor:
-    """fp32 x @ dequant(w)^T for an (out, in) int8 w and its (out,) scale:
-    up to `MAX_ROWS` rows (the product of x's leading dims) through the int8
-    GEMV ``attention.matvec`` (K4), more through the dequantized product
-    `int8_matvec_plain`, which is what the JAX package leaves to XLA."""
+def _quant_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                  attention: Attention) -> torch.Tensor:
+    """x @ dequant(w)^T for an (out, in) int8 w with its (out,) scale, or
+    an (out, in/2) nibble-packed int4 w with its (out, G) group or (out,)
+    channel scale.  Up to `MAX_ROWS` rows (the product of x's leading dims)
+    go through the GEMV ``attention.matvec`` (K4 or K5 by w's dtype), fp32
+    out.  More rows (prefill) take the product the JAX package leaves to
+    XLA, so the port leaves it to the library: int8 through
+    `int8_matvec_plain` (fp32 out); int4 dequantizes the layer's matrix and
+    takes ``F.linear`` in x's dtype (the grouped einsum, llama.py:311-317),
+    rounding the dequantized weight to x's dtype where JAX keeps fp32
+    per-group partial sums."""
     rows = x.numel() // x.shape[-1]
     if rows > MAX_ROWS:
+        if w.dtype == torch.uint8:
+            return F.linear(x, int4_dequantize(w, scale, x.dtype))
         return int8_matvec_plain(x, w, scale)
     y = attention.matvec(x.reshape(rows, x.shape[-1]), w, scale)
     return y.reshape(x.shape[:-1] + (w.shape[0],))
@@ -234,26 +247,19 @@ def _int8_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 def _proj(lp: LlamaLayers, li: int, name: str, x: torch.Tensor,
           attention: Attention) -> torch.Tensor:
     """x @ W^T for layer ``li``'s (out, in) projection ``name``
-    (llama.py:246-335).  An int8 weight with its per-out-channel scale
-    takes `_w8a8_dot` with a ``_scale_a8`` scale and a sequence axis of at
-    least `_A8_MIN_SEQ`, else `_int8_linear`.  The result takes x's
-    dtype."""
+    (llama.py:246-335).  A quantized weight (int8 or packed int4) takes
+    `_quant_linear`, except an int8 one with a ``_scale_a8`` scale and a
+    sequence axis of at least `_A8_MIN_SEQ`, which takes `_w8a8_dot`.  The
+    result takes x's dtype."""
     w = lp[name]
-    if w.dtype != torch.int8:
-        if w.dtype == torch.uint8:
-            raise NotImplementedError(
-                f"{name} is nibble-packed (uint8): int4 serving is not "
-                "ported yet")
+    if w.dtype not in QUANTIZED:
         return F.linear(x, w[li])
     a8 = lp.get(name + "_scale_a8")
     scale = (lp[name + "_scale"] if a8 is None else a8)[li]
     w = w[li]
-    if scale.dim() != 1:
-        raise NotImplementedError(
-            f"{name}: grouped scales (int4g/int4gp) are not ported yet")
     if a8 is not None and x.dim() >= 2 and x.shape[-2] >= _A8_MIN_SEQ:
         return _w8a8_dot(x, w, scale)
-    return _int8_linear(x, w, scale, attention).to(x.dtype)
+    return _quant_linear(x, w, scale, attention).to(x.dtype)
 
 
 def _qkv(lp: LlamaLayers, li: int, x: torch.Tensor, cfg: TextConfig, cos,
@@ -434,13 +440,14 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
 def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
                        attention: Attention = KERNELS) -> torch.Tensor:
     """fp32 logits (llama.py:777-787): a float ``lm_head`` multiplies in
-    the weights' dtype, then casts; an int8 one ((out, in), see
-    ``ops/quant.py``) takes `_int8_linear` with its (1, vocab) scale."""
+    the weights' dtype, then casts; a quantized one ((out, in), packed for
+    int4, see ``ops/quant.py``) takes `_quant_linear` with its (1, vocab)
+    scale."""
     w = params["lm_head"]
-    if w.dtype != torch.int8:
+    if w.dtype not in QUANTIZED:
         return (hidden @ w).to(torch.float32)
-    return _int8_linear(hidden, w, params["lm_head_scale"].reshape(-1),
-                        attention)
+    return _quant_linear(hidden, w, params["lm_head_scale"].reshape(-1),
+                         attention).to(torch.float32)
 
 
 def forward(params: LlamaWeights, cfg: TextConfig,

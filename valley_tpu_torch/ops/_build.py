@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "int8_matvec")
+SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "int8_matvec",
+           "int4_matvec")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

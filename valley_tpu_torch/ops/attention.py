@@ -7,11 +7,12 @@ JAX tower forces ``use_flash=False``).  The LLaMA decoder reaches its
 kernels through an `Attention` choice instead: `KERNELS` (the default)
 holds the prefill attention with the flash kernels in both directions
 (`FlashAttention`: K1 forward, K2 backward), the decode kernel's wrapper
-(K3, bf16 or int8 cache) and the int8 GEMV's (K4, the quantized
-projections of a few rows), which take their plain versions for tensors on
-the CPU and launch the kernels for CUDA tensors; `PLAIN` holds the plain
-versions themselves, differentiated by autograd, for comparing a run on
-the card with the kernels against one without.
+(K3, bf16 or int8 cache), the int8 GEMV's (K4) and the grouped-int4
+GEMV's (K5), the quantized projections of a few rows, which take their
+plain versions for tensors on the CPU and launch the kernels for CUDA
+tensors; `PLAIN` holds the plain versions themselves, differentiated by
+autograd, for comparing a run on the card with the kernels against one
+without.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
 from valley_tpu_torch.ops.flash_attention import (flash_attention_autograd,
                                                   flash_attention_plain)
-from valley_tpu_torch.ops.quant import int8_matvec, int8_matvec_plain
+from valley_tpu_torch.ops.quant import quant_matvec, quant_matvec_plain
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -82,8 +83,10 @@ class Attention(NamedTuple):
 
     prefill(q, k, v, kv_mask, causal=...) with equal head counts;
     decode(q, k_all, v_all, li, valid, k_scale=None, v_scale=None) over
-    the stacked cache; matvec(x, w, scale) the int8 GEMV of (B <=
-    ``quant.MAX_ROWS``, K) rows against an (F, K) int8 weight.
+    the stacked cache; matvec(x, w, scale) the GEMV of (B <=
+    ``quant.MAX_ROWS``, K) rows against an (F, K) int8 weight with an (F,)
+    scale, or an (F, K/2) packed int4 one with (F, G) group or (F,)
+    channel scales, chosen by w's dtype.
     """
     prefill: Callable[..., torch.Tensor]
     decode: Callable[..., torch.Tensor]
@@ -91,9 +94,9 @@ class Attention(NamedTuple):
 
 
 KERNELS = Attention(flash_attention_autograd, decode_attention_stacked,
-                    int8_matvec)
+                    quant_matvec)
 PLAIN = Attention(flash_attention_plain, decode_attention_plain,
-                  int8_matvec_plain)
+                  quant_matvec_plain)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
