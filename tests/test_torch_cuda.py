@@ -17,7 +17,10 @@ is caught).  The int8 GEMV (K4) and the int8-cache decode attention are
 held to the same bar, each with a planted fault (a scale vector shifted
 by one channel; the V scales replaced by ones) that must fail it, and so is
 the grouped-int4 GEMV (K5), whose fault is its group scales shifted by one
-group.
+group, and the bf16 GEMV (K6), whose fault is every row reading row 0's
+activations.  The read-bandwidth probe (K7), a sum over an array, is held
+to 1e-5 of its result on positive inputs; its fault drops the last block
+of rows.
 """
 
 import numpy as np
@@ -27,11 +30,14 @@ import torch
 from valley_tpu_torch import valley_tiny
 from valley_tpu_torch.data.dataset import (DataCollatorForSupervisedDataset,
                                            DataLoader)
+from valley_tpu_torch.inference.continuous import ContinuousEngine, _drain
 from valley_tpu_torch.inference.engine import Engine, GenerationConfig
 from valley_tpu_torch.models import llama, valley
 from valley_tpu_torch.ops.attention import KERNELS, PLAIN
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
+from valley_tpu_torch.ops.matvec import bf16_matvec, bf16_matvec_plain
+from valley_tpu_torch.ops.read_bw import read_sum, read_sum_plain
 from valley_tpu_torch.ops.flash_attention import (FlashAttention,
                                                   flash_attention,
                                                   flash_attention_bwd,
@@ -476,3 +482,138 @@ def test_tiny_int4gp_serving_on_the_card(gen):
     # places than the plain versions (two ulps at the largest output)
     lk, lp = (e.prefill([prompt], None, gcfg).logits for e in engines)
     assert (lk - lp).abs().max().item() <= 0.05
+
+
+@pytest.mark.parametrize("b,k,f,kf", [
+    (1, 4096, 12288, False), (8, 4096, 22016, False), (8, 11008, 4096, False),
+    (1, 4096, 32000, True), (8, 4096, 32000, True), (3, 64, 33, False),
+    (5, 64, 33, True), (2, 128, 1001, True), (7, 4096, 1001, False)]
+    + [(b, 256, 200, kf) for b in range(1, 9) for kf in (False, True)])
+def test_bf16_matvec_kernel_matches_plain(gen, b, k, f, kf):
+    """Valley-7B's fused projections, w_down and lm_head (K, F), rows 1 to
+    8 in both layouts, odd F in both; the planted fault (every row reading
+    row 0's activations) must fail; each row's result is bit-equal to the
+    same row alone (the summation order does not depend on B)."""
+    x = _randn(gen, b, k)
+    w = (_randn(gen, k, f) if kf else _randn(gen, f, k)) * k ** -0.5
+    before = bf16_matvec.launches
+    out = bf16_matvec(x, w, kf)
+    torch.cuda.synchronize()
+    assert bf16_matvec.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, f)
+    ref = bf16_matvec_plain(x, w, kf)
+    err, tol = _err_and_tol(out, ref)
+    assert err <= tol
+    for r in range(b):
+        assert torch.equal(bf16_matvec(x[r:r + 1].contiguous(), w, kf)[0],
+                           out[r])
+    if b > 1:
+        fault, _ = _err_and_tol(bf16_matvec(
+            x[:1].expand(b, k).contiguous(), w, kf), ref)
+        assert fault > tol
+
+
+@pytest.mark.parametrize("b,k,f,kf", [
+    (1, 4096, 4096, False), (8, 512, 1000, True), (3, 256, 33, True)])
+def test_bf16_matvec_rounded_products_match_plain(gen, b, k, f, kf):
+    """The T3 variant: each product rounded to bf16, summed in fp32."""
+    x = _randn(gen, b, k)
+    w = (_randn(gen, k, f) if kf else _randn(gen, f, k)) * k ** -0.5
+    out = bf16_matvec(x, w, kf, round_products=True)
+    ref = bf16_matvec_plain(x, w, kf, round_products=True)
+    err, tol = _err_and_tol(out, ref)
+    assert err <= tol
+    assert not torch.equal(out, bf16_matvec(x, w, kf))
+
+
+def test_bf16_matvec_kernel_refuses_what_it_cannot_take(gen):
+    k = 256
+    x = _randn(gen, 1, k)
+    w = _randn(gen, 64, k)
+    with pytest.raises(ValueError, match="rows"):
+        bf16_matvec(_randn(gen, 9, k), w)
+    buf = _randn(gen, k + 2)
+    with pytest.raises(ValueError, match="aligned"):
+        bf16_matvec(buf[2:].view(1, k), w)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bf16_matvec(x[:, :60].contiguous(), w[:, :60].contiguous())
+    with pytest.raises(TypeError):
+        bf16_matvec(x.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        bf16_matvec(x, _randn(gen, k, 64).t())
+    with pytest.raises(ValueError, match="no backward"):
+        bf16_matvec(x.requires_grad_(), w)
+    with torch.no_grad():
+        bf16_matvec(x, w)
+
+
+@pytest.mark.parametrize("n,d", [(4096, 2048), (1000, 3), (8, 128),
+                                 (65536, 128)])
+def test_read_sum_kernel_matches_plain(gen, n, d):
+    """Positive inputs, so the sum is far from 0: 1e-5 of it is a few fp32
+    ulps per partial.  The planted fault drops the last 8 rows."""
+    x = torch.rand((n, d), generator=gen, device="cuda").bfloat16()
+    seed = torch.tensor([[0.5]], device="cuda")
+    before = read_sum.launches
+    out = read_sum(x, seed)
+    torch.cuda.synchronize()
+    assert read_sum.launches == before + 1
+    assert out.shape == (1, 1) and out.dtype == torch.float32
+    ref = read_sum_plain(x, seed)
+    tol = 1e-5 * ref.abs().item()
+    assert (out - ref).abs().item() <= tol
+    if n > 8:
+        fault = (read_sum(x[:-8], seed) - ref).abs().item()
+        assert fault > tol
+
+
+def test_read_sum_kernel_refuses_what_it_cannot_take(gen):
+    x = torch.rand((64, 64), generator=gen, device="cuda").bfloat16()
+    seed = torch.ones((1, 1), device="cuda")
+    with pytest.raises(TypeError):
+        read_sum(x.float(), seed)
+    with pytest.raises(ValueError, match="contiguous"):
+        read_sum(x.t(), seed)
+    with pytest.raises(ValueError, match="aligned"):
+        read_sum(x.reshape(-1)[1:4001].view(40, 100), seed)
+
+
+def test_tiny_pool_on_the_card(gen):
+    """A three-row pool of the fused bf16 tiny model with an int8 cache on
+    the card: K1 runs once per layer per admission prefill, K3 once per
+    layer per pooled step, K6 four times per layer per pooled step plus
+    once per step and once per admission for lm_head; a request that joins
+    mid-flight leaves the tokens of the row already decoding as they were
+    when it ran alone (every kernel's rows are independent)."""
+    cfg = valley_tiny()
+    params = llama.fuse_llama_params(valley.init_params(
+        cfg, torch.Generator("cuda").manual_seed(0), torch.bfloat16, "cuda"))
+    eng = Engine(cfg, params, buckets=(64, 128), max_new_tokens=16,
+                 cache_dtype=torch.int8, steps_per_call=2)
+    rng = np.random.default_rng(0)
+    a, b = (rng.integers(5, 400, n).tolist() for n in (90, 30))
+    pool = ContinuousEngine(eng, rows=3, bucket=128, extra_slots=32,
+                            steps_per_call=2)
+    try:
+        alone = list(_drain(pool.submit(a, max_new_tokens=12, eos_id=-1),
+                            timeout=120))
+        counts = (flash_attention.launches, decode_attention_stacked.launches,
+                  bf16_matvec.launches)
+        steps, prefills = pool.steps_run, len(pool.prefill_sizes)
+        qa = pool.submit(a, max_new_tokens=12, eos_id=-1)
+        got_a = [qa.get(timeout=120)]
+        qb = pool.submit(b, max_new_tokens=6, eos_id=-1)
+        got_b = list(_drain(qb, timeout=120))
+        got_a += list(_drain(qa, timeout=120))
+        torch.cuda.synchronize()
+        steps = pool.steps_run - steps
+        prefills = len(pool.prefill_sizes) - prefills
+    finally:
+        pool.close()
+    layers = cfg.text.num_hidden_layers
+    assert got_a == alone and len(got_b) == 6
+    assert prefills == 2 and steps >= 11
+    assert flash_attention.launches - counts[0] == layers * prefills
+    assert decode_attention_stacked.launches - counts[1] == layers * steps
+    assert bf16_matvec.launches - counts[2] == \
+        (4 * layers + 1) * steps + prefills

@@ -45,6 +45,31 @@ print(json.dumps({"jax": "jax" in sys.modules, "out": out}))
     assert isinstance(got["out"][0], str)
 
 
+def test_pool_and_batch_runner_run_without_jax():
+    """The serving pool, the batch runner and the new kernel modules import
+    and serve two pooled requests on the CPU without loading jax or the
+    JAX package."""
+    got = _run("""
+import json, sys
+from valley_tpu_torch.inference import batch_infer
+from valley_tpu_torch.inference.continuous import ContinuousEngine, _drain
+from valley_tpu_torch.inference.run_valley import load_model
+from valley_tpu_torch.ops import matvec, read_bw
+engine, tk = load_model("random:tiny", "cpu", buckets=(64,),
+                        max_new_tokens=4, steps_per_call=2)
+pool = ContinuousEngine(engine, rows=2)
+qs = [pool.submit(tk.encode(t), max_new_tokens=3, eos_id=-1)
+      for t in ("hello", "a longer question")]
+out = [list(_drain(q, timeout=60)) for q in qs]
+pool.close()
+loaded = sorted(n for n in sys.modules
+                if n == "jax" or n.startswith("jax.") or n == "valley_tpu"
+                or n.startswith("valley_tpu."))
+print(json.dumps({"loaded": loaded, "lens": [len(o) for o in out]}))
+""")
+    assert got == {"loaded": [], "lens": [3, 3]}
+
+
 def test_kernel_modules_import_without_triton_or_nvcc():
     """The kernel modules import, and run their plain versions on CPU
     tensors, with triton unimportable and no nvcc on PATH; nothing is
@@ -63,6 +88,12 @@ flash_attention_bwd(q, q, q, None, out, lse, q, causal=True)
 decode_attention_stacked(q[:, :1], torch.zeros((1, 1, 4, 2, 16)),
                          torch.zeros((1, 1, 4, 2, 16)), 0,
                          torch.ones((1, 4), dtype=torch.bool))
+from valley_tpu_torch.ops.matvec import bf16_matvec, matvec
+from valley_tpu_torch.ops.read_bw import read_sum
+x = torch.zeros((2, 16), dtype=torch.bfloat16)
+bf16_matvec(x, torch.zeros((16, 8), dtype=torch.bfloat16), kf=True)
+matvec(x, torch.zeros((8, 16), dtype=torch.bfloat16))
+read_sum(x, torch.ones(()))
 print(json.dumps({"loaded": _build.load.cache_info().currsize}))
 """, {"PATH": "/usr/bin:/bin", "CUDA_HOME": "/nonexistent"})
     assert got == {"loaded": 0}

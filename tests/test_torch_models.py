@@ -309,8 +309,15 @@ def test_unported_branches_raise(cfg, tparams):
     tc = cfg.text
     x = torch.zeros((2, 4, tc.hidden_size))
     cache = llama.init_cache(tc, 2, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="B > 1"):
-        llama.forward_hidden(tparams["llama"], tc, x, cache=cache)
+    # batched cached inference is ported now: B = 2 prefills at slot 0
+    valid = torch.ones((2, 8), dtype=torch.bool)
+    hidden, _ = llama.forward_hidden(tparams["llama"], tc, x, cache=cache,
+                                     kv_valid=valid)
+    assert hidden.shape == x.shape and bool(torch.isfinite(hidden).all())
+    with pytest.raises(ValueError, match="per-row cache slots"):
+        llama.forward_hidden(tparams["llama"], tc, x[:, :1], cache=cache,
+                             cache_index=torch.zeros(3, dtype=torch.long),
+                             kv_valid=valid)
     with pytest.raises(NotImplementedError, match="cross_valid"):
         llama.forward_hidden(tparams["llama"], tc, x[:1],
                              cache=llama.init_cache(tc, 1, 8),

@@ -1,5 +1,7 @@
 """Streaming inference engine, the PyTorch counterpart of
-``valley_tpu/inference/engine.py`` for one stream.
+``valley_tpu/inference/engine.py``: a batch of ragged prompts prefilled
+together and decoded in lockstep (the continuous-batching pool built on it
+is ``inference/continuous.py``).
 
 The cache state is the JAX engine's: the prompt is right-padded to a length
 bucket and prefilled at slot 0; decode writes from slot ``bucket`` on,
@@ -119,13 +121,17 @@ class Engine:
         raise ValueError(f"prompt length {length} exceeds largest bucket "
                          f"{self.buckets[-1]}")
 
-    def _prepare_images(self, images) -> Optional[torch.Tensor]:
-        """Host media -> device frames.  uint8 frames move as uint8 and are
-        normalised on the device; float frames move as bf16."""
+    def _prepare_images(self, images, batch: int) -> Optional[torch.Tensor]:
+        """Host media (``batch``, T, 3, H, W) -> device frames, or None for
+        text-only prompts.  uint8 frames move as uint8 and are normalised
+        on the device; float frames move as bf16."""
         if images is None:
             return None
         t = images if isinstance(images, torch.Tensor) \
             else torch.from_numpy(np.asarray(images))
+        if t.dim() != 5 or t.shape[0] != batch:
+            raise ValueError(f"want frames ({batch}, T, 3, H, W) for {batch} "
+                             f"prompts, got {tuple(t.shape)}")
         if t.dtype != torch.uint8:
             t = t.to(torch.float32).to(torch.bfloat16)
         return t.to(self.device)
@@ -139,7 +145,11 @@ class Engine:
     @torch.inference_mode()
     def _prefill(self, ids: torch.Tensor, images: Optional[torch.Tensor],
                  prompt_len: torch.Tensor, generator: torch.Generator,
-                 gen: GenerationConfig, cache_len: int):
+                 temperature, top_p, do_sample: bool, cache_len: int):
+        """Prefill (B, bucket) ids into a fresh cache of ``cache_len``
+        slots (JAX _prefill_impl, engine.py:257-286) and sample each row's
+        first token; ``temperature``/``top_p`` are scalars or per-row (B,)
+        tensors.  Returns (tokens (B,), logits (B, V), cache, valid)."""
         cfg = self.cfg
         embeds = valley.build_inputs_embeds(self.params, cfg, ids, images)
         cache = llama.init_cache(cfg.text, ids.shape[0], cache_len,
@@ -153,8 +163,7 @@ class Engine:
             -1, 1, hidden.shape[-1]))                          # (B, 1, H)
         logits = llama.logits_from_hidden(self.params["llama"], last,
                                           self.attention)[:, 0]
-        tok = sample_token(logits, generator, gen.temperature, gen.top_p,
-                           gen.do_sample)
+        tok = sample_token(logits, generator, temperature, top_p, do_sample)
         return tok, logits, cache, kv_valid
 
     @torch.inference_mode()
@@ -185,8 +194,9 @@ class Engine:
     def prefill(self, input_ids: Sequence[Sequence[int]], images=None,
                 gen: Optional[GenerationConfig] = None,
                 generator: Optional[torch.Generator] = None) -> Prefilled:
-        """Pad the prompts to their bucket and prefill them (with the
-        frames, if any): the first token, its logits and the cache."""
+        """Pad the prompts to the bucket of the longest and prefill them
+        together (with their (B, T, 3, H, W) frames, if any): each row's
+        first token, its logits and the cache."""
         gen = gen or GenerationConfig()
         if not input_ids or any(len(x) == 0 for x in input_ids):
             raise ValueError("every prompt must contain at least one token")
@@ -199,8 +209,9 @@ class Engine:
             ids[i, :len(row)] = row
         tok, logits, cache, valid = self._prefill(
             torch.from_numpy(ids).to(self.device),
-            self._prepare_images(images),
-            torch.from_numpy(lens).to(self.device), generator, gen,
+            self._prepare_images(images, len(input_ids)),
+            torch.from_numpy(lens).to(self.device), generator,
+            gen.temperature, gen.top_p, gen.do_sample,
             bucket + self.max_new_tokens + self.steps_per_call)
         return Prefilled(tok, logits, cache, valid, bucket)
 
@@ -209,7 +220,10 @@ class Engine:
                         gen: Optional[GenerationConfig] = None,
                         eos_ids: Sequence[int] = (2,),
                         ) -> Iterator[np.ndarray]:
-        """Yield one (B,) int32 token array per generated step."""
+        """Yield one (B,) int32 token array per generated step for the B
+        ragged prompts, decoded in lockstep until every row has stopped
+        (a row's tokens after its eos are the model's and are still
+        yielded, as in JAX)."""
         gen = gen or GenerationConfig()
         generator = torch.Generator(self.device).manual_seed(gen.seed)
         state = self.prefill(input_ids, images, gen, generator)

@@ -38,13 +38,15 @@ DEFAULT_SYSTEM_PROMPT = (
 def load_model(model_name: str, device: Optional[str] = None,
                buckets=(512, 1024, 2048), max_new_tokens: int = 1024,
                quantize: Optional[str] = None, fused: bool = False,
-               kv_cache: str = "bf16"):
+               kv_cache: str = "bf16", steps_per_call: int = 4,
+               decode_ramp=()):
     """Build (engine, tokenizer) on ``device`` (default the card; without
     one this raises unless the caller asks for ``"cpu"``).  ``fused`` takes
     the fused serving layout, ``quantize`` (a mode of
     ``quant.SERVED_MODES``: ``int8``, ``int8a8``, ``int4``, ``int4g``,
     ``int4gp``) the quantized weights, ``kv_cache="int8"`` the int8 KV
-    cache.  At the tiny widths (64, 128) group-128 scales fall back to per
+    cache; ``steps_per_call`` and ``decode_ramp`` set the engine's decode
+    chunks.  At the tiny widths (64, 128) group-128 scales fall back to per
     channel where 128 does not divide the contraction axis, as in JAX."""
     if device is None:
         device = "cuda"
@@ -78,7 +80,8 @@ def load_model(model_name: str, device: Optional[str] = None,
     engine = Engine(cfg, params, buckets=buckets,
                     max_new_tokens=max_new_tokens,
                     cache_dtype=torch.int8 if kv_cache == "int8"
-                    else torch.bfloat16)
+                    else torch.bfloat16, steps_per_call=steps_per_call,
+                    decode_ramp=decode_ramp)
     return engine, tokenizer
 
 

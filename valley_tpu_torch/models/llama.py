@@ -11,20 +11,24 @@ rotary and softmax run in fp32 exactly where the JAX package runs them.
 
 Ported: the cacheless forward (training, with full per-layer
 rematerialisation as an option), bucketed prefill at ``cache_index`` 0 and
-single-token decode over the stacked cache, for one stream (B = 1); the
-fused serving layout (``wqkv``, ``w_gateup``), per-channel int8 projections
-(decode GEMVs through K4, W8A8 prefill for ``*_scale_a8`` trees), nibble-
-packed int4 projections with group or channel scales (decode GEMVs through
-K5) and the int8 KV cache.  Not ported yet, and refused with
-NotImplementedError: the ``"dots"`` remat policy, the ``cross_valid``
-extend branch, batched (B > 1) cached inference, per-row cache slots,
-grouped W4A8, a half-fused layout and LoRA.
+single-token decode over the stacked cache, for any number of rows B, with
+one slot for every row or a slot per row (continuous batching: rows that
+joined at different times write at their own slots); the fused serving
+layout (``wqkv``, ``w_gateup``), the decode GEMVs of up to ``MAX_ROWS``
+rows (bf16 projections and ``lm_head`` through K6, per-channel int8
+through K4, nibble-packed int4 with group or channel scales through K5),
+W8A8 prefill for ``*_scale_a8`` trees and the int8 KV cache.  Not ported
+yet, and refused with NotImplementedError: the ``"dots"`` remat policy,
+the ``cross_valid`` extend branch (sessions, speculation), grouped W4A8, a
+half-fused layout and LoRA.  The JAX package's split of batched decode
+into a carried and a sliced cache (llama.py:538-548) works around a TPU
+layout choice and has no counterpart: one cached form serves every B.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +41,8 @@ from valley_tpu_torch.ops.attention import KERNELS, Attention, \
 from valley_tpu_torch.ops.quant import (MAX_ROWS, int4_dequantize,
                                         int8_matvec_plain)
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+Slots = Union[int, torch.Tensor]   # one cache slot, or one per row (B,)
 
 QUANTIZED = (torch.int8, torch.uint8)   # int8, and nibble-packed int4
 # Each layout's projections, in the order its parameters are registered
@@ -223,43 +229,51 @@ def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
     return out.reshape(x.shape[:-1] + (o,)).to(x.dtype)
 
 
-def _quant_linear(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                  attention: Attention) -> torch.Tensor:
-    """x @ dequant(w)^T for an (out, in) int8 w with its (out,) scale, or
-    an (out, in/2) nibble-packed int4 w with its (out, G) group or (out,)
-    channel scale.  Up to `MAX_ROWS` rows (the product of x's leading dims)
-    go through the GEMV ``attention.matvec`` (K4 or K5 by w's dtype), fp32
-    out.  More rows (prefill) take the product the JAX package leaves to
-    XLA, so the port leaves it to the library: int8 through
-    `int8_matvec_plain` (fp32 out); int4 dequantizes the layer's matrix and
-    takes ``F.linear`` in x's dtype (the grouped einsum, llama.py:311-317),
-    rounding the dequantized weight to x's dtype where JAX keeps fp32
-    per-group partial sums."""
+def _linear(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
+            attention: Attention, kf: bool = False) -> torch.Tensor:
+    """x @ W^T for an (out, in) weight ``w`` (``kf``: x @ W for the
+    (in, out) float ``lm_head``), with its scale where w is quantized: the
+    one router of the decoder's products, by w's storage and the rows (the
+    product of x's leading dims).
+
+    Up to `MAX_ROWS` rows of a bf16, int8 or packed int4 weight go through
+    the GEMV ``attention.matvec`` (K6, K4 or K5 by w's dtype), fp32 out; a
+    bf16 product whose operands track a gradient does not, since K6 has no
+    backward.  Every other product is one the JAX package leaves to XLA, so
+    the port leaves it to the library: a float weight takes ``F.linear``
+    (``x @ w``) in x's dtype; int8 `int8_matvec_plain` (fp32 out); int4
+    dequantizes the layer's matrix and takes ``F.linear`` in x's dtype (the
+    grouped einsum, llama.py:311-317), rounding the dequantized weight to
+    x's dtype where JAX keeps fp32 per-group partial sums.  fp32 weights
+    (the CPU's trees) take the library product at every row count."""
     rows = x.numel() // x.shape[-1]
-    if rows > MAX_ROWS:
-        if w.dtype == torch.uint8:
-            return F.linear(x, int4_dequantize(w, scale, x.dtype))
+    tracks_grad = torch.is_grad_enabled() and (x.requires_grad
+                                               or w.requires_grad)
+    if rows <= MAX_ROWS and (w.dtype in QUANTIZED or (
+            w.dtype == torch.bfloat16 and not tracks_grad)):
+        y = attention.matvec(x.reshape(rows, x.shape[-1]), w, scale, kf)
+        return y.reshape(x.shape[:-1] + (y.shape[-1],))
+    if w.dtype == torch.uint8:
+        return F.linear(x, int4_dequantize(w, scale, x.dtype))
+    if w.dtype == torch.int8:
         return int8_matvec_plain(x, w, scale)
-    y = attention.matvec(x.reshape(rows, x.shape[-1]), w, scale)
-    return y.reshape(x.shape[:-1] + (w.shape[0],))
+    return x @ w if kf else F.linear(x, w)
 
 
 def _proj(lp: LlamaLayers, li: int, name: str, x: torch.Tensor,
           attention: Attention) -> torch.Tensor:
     """x @ W^T for layer ``li``'s (out, in) projection ``name``
-    (llama.py:246-335).  A quantized weight (int8 or packed int4) takes
-    `_quant_linear`, except an int8 one with a ``_scale_a8`` scale and a
-    sequence axis of at least `_A8_MIN_SEQ`, which takes `_w8a8_dot`.  The
-    result takes x's dtype."""
-    w = lp[name]
-    if w.dtype not in QUANTIZED:
-        return F.linear(x, w[li])
-    a8 = lp.get(name + "_scale_a8")
-    scale = (lp[name + "_scale"] if a8 is None else a8)[li]
-    w = w[li]
-    if a8 is not None and x.dim() >= 2 and x.shape[-2] >= _A8_MIN_SEQ:
-        return _w8a8_dot(x, w, scale)
-    return _quant_linear(x, w, scale, attention).to(x.dtype)
+    (llama.py:246-335) through `_linear`, except an int8 weight with a
+    ``_scale_a8`` scale and a sequence axis of at least `_A8_MIN_SEQ`,
+    which takes `_w8a8_dot`.  The result takes x's dtype."""
+    w = lp[name][li]
+    scale = None
+    if w.dtype in QUANTIZED:
+        a8 = lp.get(name + "_scale_a8")
+        scale = (lp[name + "_scale"] if a8 is None else a8)[li]
+        if a8 is not None and x.dim() >= 2 and x.shape[-2] >= _A8_MIN_SEQ:
+            return _w8a8_dot(x, w, scale)
+    return _linear(x, w, scale, attention).to(x.dtype)
 
 
 def _qkv(lp: LlamaLayers, li: int, x: torch.Tensor, cfg: TextConfig, cos,
@@ -339,29 +353,39 @@ def _quantize_kv(x: torch.Tensor):
     return q, scale.to(torch.bfloat16)
 
 
-def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: int,
+def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: Slots,
                  kv_valid, attention: Attention):
     """Write this chunk's K/V (an int8 cache: quantized, with their scales)
-    into layer ``li`` of the cache at slot ``cache_index``, then attend: one
-    token against the whole cache, or a prefill chunk causally within
-    itself on its unquantized K/V (the cache beyond the chunk is empty: the
-    engine prefills at slot 0)."""
+    into layer ``li`` of the cache at slot ``cache_index``, or at each
+    row's own slot for a (B,) ``cache_index``, then attend: one token
+    against the whole cache, or a prefill chunk causally within itself on
+    its unquantized K/V (the cache beyond the chunk is empty: the engine
+    prefills at slot 0)."""
     b, s, h = x.shape
     q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention)
-    if cache_index + s > cache.max_len:
-        raise ValueError(f"writing {s} slots at {cache_index} overruns a "
-                         f"cache of {cache.max_len}")
-    at = slice(cache_index, cache_index + s)
+    if isinstance(cache_index, torch.Tensor):
+        # per-row slots.  jax.lax.dynamic_update_slice clamps a start into
+        # [0, Smax - S] (JAX _cache_write, llama.py:395-405), and the pool
+        # relies on it: it parks idle rows at slot Smax - 1 and still
+        # advances them every step, so their writes land in the last slot
+        start = cache_index.clamp(0, cache.max_len - s)
+        at = (torch.arange(b, device=x.device)[:, None],
+              start[:, None] + torch.arange(s, device=x.device)[None, :])
+    else:
+        if cache_index + s > cache.max_len:
+            raise ValueError(f"writing {s} slots at {cache_index} overruns a "
+                             f"cache of {cache.max_len}")
+        at = (slice(None), slice(cache_index, cache_index + s))
     if cache.k_scale is not None:
         # K and V quantized in one pass (half the launches of two)
         (kq, vq), (ks, vs) = _quantize_kv(torch.stack((k, v)))
-        cache.k_scale[li, :, at] = ks
-        cache.v_scale[li, :, at] = vs
-        cache.k[li, :, at] = kq
-        cache.v[li, :, at] = vq
+        cache.k_scale[li][at] = ks
+        cache.v_scale[li][at] = vs
+        cache.k[li][at] = kq
+        cache.v[li][at] = vq
     else:
-        cache.k[li, :, at] = k
-        cache.v[li, :, at] = v
+        cache.k[li][at] = k.to(cache.k.dtype)
+        cache.v[li][at] = v.to(cache.v.dtype)
     if s == 1:
         if kv_valid is None:
             raise ValueError("decode needs the (B, Smax) kv_valid mask")
@@ -379,7 +403,7 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
                    attn_mask: Optional[torch.Tensor] = None,
                    positions: Optional[torch.Tensor] = None,
                    cache: Optional[KVCache] = None,
-                   cache_index: int = 0,
+                   cache_index: Slots = 0,
                    kv_valid: Optional[torch.Tensor] = None,
                    cross_valid: Optional[torch.Tensor] = None,
                    attention: Attention = KERNELS, remat=False):
@@ -388,9 +412,10 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     inputs_embeds: (B, S, H).  attn_mask: (B, S) padding mask of the
     cacheless path.  positions: (B, S) rotary positions (default arange,
     plus ``cache_index`` with a cache).  With a cache, the chunk is written
-    at slot ``cache_index`` and ``kv_valid`` (B, Smax) marks attendable
-    slots.  ``attention`` picks the kernels (default) or their plain
-    versions.  ``remat`` (cacheless path only): True/"full" wraps each
+    at slot ``cache_index``, an int or a (B,) tensor of per-row slots
+    (clamped into the cache, as JAX's dynamic_update_slice clamps), and
+    ``kv_valid`` (B, Smax) marks attendable slots.  ``attention`` picks
+    the kernels (default) or their plain versions.  ``remat`` (cacheless path only): True/"full" wraps each
     layer in `torch.utils.checkpoint`, so the backward recomputes its
     forward (the attention forward then runs twice per layer).
     """
@@ -403,17 +428,18 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
             "the cross_valid extend branch (multi-turn KV reuse, speculative "
             "verification) is not ported yet")
     if cache is not None:
-        if b != 1:
-            raise NotImplementedError(
-                "batched (B > 1) cached inference is not ported yet: the "
-                "port serves one stream")
         if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
-            raise NotImplementedError("per-row cache slots are not ported")
-        cache_index = int(cache_index)
+            if tuple(cache_index.shape) != (b,):
+                raise ValueError(f"per-row cache slots of shape "
+                                 f"{tuple(cache_index.shape)} for {b} rows")
+            cache_index = cache_index.to(inputs_embeds.device, torch.int64)
+        else:
+            cache_index = int(cache_index)
     if positions is None:
-        base = torch.arange(s, device=inputs_embeds.device)
+        base = torch.arange(s, device=inputs_embeds.device)[None, :]
         if cache is not None:
-            base = base + cache_index
+            base = base + (cache_index[:, None] if isinstance(
+                cache_index, torch.Tensor) else cache_index)
         positions = base.expand(b, s)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
@@ -439,15 +465,14 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
 
 def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
                        attention: Attention = KERNELS) -> torch.Tensor:
-    """fp32 logits (llama.py:777-787): a float ``lm_head`` multiplies in
-    the weights' dtype, then casts; a quantized one ((out, in), packed for
-    int4, see ``ops/quant.py``) takes `_quant_linear` with its (1, vocab)
-    scale."""
+    """fp32 logits (llama.py:777-787) through `_linear`: a float
+    ``lm_head`` is stored (in, out), a quantized one ((out, in), packed for
+    int4, see ``ops/quant.py``) comes with its (1, vocab) scale."""
     w = params["lm_head"]
     if w.dtype not in QUANTIZED:
-        return (hidden @ w).to(torch.float32)
-    return _quant_linear(hidden, w, params["lm_head_scale"].reshape(-1),
-                         attention).to(torch.float32)
+        return _linear(hidden, w, None, attention, kf=True).to(torch.float32)
+    return _linear(hidden, w, params["lm_head_scale"].reshape(-1),
+                   attention).to(torch.float32)
 
 
 def forward(params: LlamaWeights, cfg: TextConfig,

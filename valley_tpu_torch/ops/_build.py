@@ -16,13 +16,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "int8_matvec",
-           "int4_matvec")
+           "int4_matvec", "bf16_matvec", "read_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -96,3 +97,14 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the launch count of a kernel's
+    wrapper.  The serving pool launches kernels from two threads, and the
+    interpreter lock does not make ``+= 1`` atomic."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1

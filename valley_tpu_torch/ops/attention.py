@@ -7,10 +7,10 @@ JAX tower forces ``use_flash=False``).  The LLaMA decoder reaches its
 kernels through an `Attention` choice instead: `KERNELS` (the default)
 holds the prefill attention with the flash kernels in both directions
 (`FlashAttention`: K1 forward, K2 backward), the decode kernel's wrapper
-(K3, bf16 or int8 cache), the int8 GEMV's (K4) and the grouped-int4
-GEMV's (K5), the quantized projections of a few rows, which take their
-plain versions for tensors on the CPU and launch the kernels for CUDA
-tensors; `PLAIN` holds the plain versions themselves, differentiated by
+(K3, bf16 or int8 cache) and the decode GEMVs' (`ops.matvec.matvec`: the
+bf16 GEMV K6, the int8 GEMV K4 and the grouped-int4 GEMV K5 by the
+weight's storage), the projections of a few rows, which take their plain
+versions for tensors on the CPU and launch the kernels for CUDA tensors; `PLAIN` holds the plain versions themselves, differentiated by
 autograd, for comparing a run on the card with the kernels against one
 without.
 """
@@ -25,7 +25,7 @@ from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
 from valley_tpu_torch.ops.flash_attention import (flash_attention_autograd,
                                                   flash_attention_plain)
-from valley_tpu_torch.ops.quant import quant_matvec, quant_matvec_plain
+from valley_tpu_torch.ops.matvec import matvec, matvec_plain
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -83,10 +83,11 @@ class Attention(NamedTuple):
 
     prefill(q, k, v, kv_mask, causal=...) with equal head counts;
     decode(q, k_all, v_all, li, valid, k_scale=None, v_scale=None) over
-    the stacked cache; matvec(x, w, scale) the GEMV of (B <=
-    ``quant.MAX_ROWS``, K) rows against an (F, K) int8 weight with an (F,)
-    scale, or an (F, K/2) packed int4 one with (F, G) group or (F,)
-    channel scales, chosen by w's dtype.
+    the stacked cache; matvec(x, w, scale=None, kf=False) the GEMV of (B
+    <= ``quant.MAX_ROWS``, K) rows against a bf16 weight, (F, K) or (K, F)
+    with ``kf``, an (F, K) int8 weight with an (F,) scale, or an (F, K/2)
+    packed int4 one with (F, G) group or (F,) channel scales, chosen by
+    w's dtype.
     """
     prefill: Callable[..., torch.Tensor]
     decode: Callable[..., torch.Tensor]
@@ -94,9 +95,9 @@ class Attention(NamedTuple):
 
 
 KERNELS = Attention(flash_attention_autograd, decode_attention_stacked,
-                    quant_matvec)
+                    matvec)
 PLAIN = Attention(flash_attention_plain, decode_attention_plain,
-                  quant_matvec_plain)
+                  matvec_plain)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -184,7 +184,7 @@ def decode_attention_stacked(q: torch.Tensor, k_all: torch.Tensor,
                                    v_all.data_ptr(), k_scale.data_ptr(),
                                    v_scale.data_ptr(), *tail)
         _build.check(err, "decode_attn_int8")
-    decode_attention_stacked.launches += 1
+    _build.count_launch(decode_attention_stacked)
     return out
 
 

@@ -137,7 +137,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lse.data_ptr(), b, h, sq, sk, d, int(causal), d ** -0.5,
                     stream)
     _build.check(err, "flash_fwd_bf16")
-    flash_attention.launches += 1
+    _build.count_launch(flash_attention)
     return (out, lse) if return_lse else out
 
 
@@ -231,7 +231,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
                         int(causal), d ** -0.5, stream)
     _build.check(err, "flash_bwd_bf16")
-    flash_attention_bwd.launches += 1
+    _build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

@@ -235,9 +235,9 @@ def dequant_matmul(x: torch.Tensor, w: torch.Tensor,
     return int8_matvec_plain(x, w.t(), scale.reshape(-1)).to(x.dtype)
 
 
-# The kernels' row limit (MAX_ROWS in csrc/int8_matvec.cu and
-# csrc/int4_matvec.cu), for the callers that choose between a GEMV kernel
-# and a matrix product on any device
+# The GEMV kernels' row limit (MAX_ROWS in csrc/int8_matvec.cu,
+# csrc/int4_matvec.cu and csrc/bf16_matvec.cu), for the callers that choose
+# between a GEMV kernel and a matrix product on any device
 MAX_ROWS = 8
 
 
@@ -310,7 +310,7 @@ def int8_matvec(x: torch.Tensor, w: torch.Tensor,
     err = lib.int8_matvec_bf16(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                                out.data_ptr(), b, k, f, stream)
     _build.check(err, "int8_matvec_bf16")
-    int8_matvec.launches += 1
+    _build.count_launch(int8_matvec)
     return out
 
 
@@ -430,24 +430,8 @@ def int4_matvec(x: torch.Tensor, w: torch.Tensor,
     err = lib.int4_matvec_bf16(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                                out.data_ptr(), b, k, f, g, stream)
     _build.check(err, "int4_matvec_bf16")
-    int4_matvec.launches += 1
+    _build.count_launch(int4_matvec)
     return out
 
 
 int4_matvec.launches = 0
-
-
-def quant_matvec(x: torch.Tensor, w: torch.Tensor,
-                 scale: torch.Tensor) -> torch.Tensor:
-    """The decode GEMV of w's storage: `int4_matvec` (K5) for a packed
-    uint8 w, `int8_matvec` (K4) for an int8 one."""
-    return (int4_matvec if w.dtype == torch.uint8 else int8_matvec)(
-        x, w, scale)
-
-
-def quant_matvec_plain(x: torch.Tensor, w: torch.Tensor,
-                       scale: torch.Tensor) -> torch.Tensor:
-    """`quant_matvec`'s plain version: `int4_matvec_plain` or
-    `int8_matvec_plain` by w's storage."""
-    return (int4_matvec_plain if w.dtype == torch.uint8
-            else int8_matvec_plain)(x, w, scale)
