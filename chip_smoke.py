@@ -9,10 +9,10 @@ Valley-13B paths give it (K1 and K3 before serving, K4 and K3's int8-cache
 branch before int8 serving, K5 with K1 and K3-int8 at 13B shapes before
 int4 serving, K2 before training, each with a planted fault that must fail
 the check; K6, the bf16 decode GEMV, at the shapes of both bf16 serving
-paths and K7, the read-bandwidth probe, on 2 GB before batched serving),
-and drives the port's five paths at full width and depth with random bf16
-weights from a seed, each path in a process of its own, one after the
-other:
+paths and K7, the read-bandwidth probe, on 2 GB before batched serving;
+T4-T7, the decode-attention lab, on the conversation's cache), and drives
+the port's paths at full width and depth with random bf16 weights from a
+seed, five processes one after the other:
 
 - serving: one 8-frame video question with Valley-7B through
   ``Engine.generate_tokens``; checks that the path went through K1, K3 and
@@ -38,6 +38,25 @@ other:
   the path went through K1, K3's int8 branch and K5 (the grouped-int4
   decode GEMV, lm_head included) and compares its logits with the same path
   on the plain versions;
+- in the same process, on the same weights, the multi-turn video
+  conversation (``ChatSession`` over an engine with batch_infer's buckets
+  and max_new_tokens, a 2052-slot session cache): the video question, then
+  two follow-ups framed as ``run_valley_conv`` frames them, 64 greedy
+  tokens each; checks the launches of K1, K3-int8 and K5 against the
+  session's own count of prefills, extends and decode steps and the
+  session's valid mask, and prints per turn the time to first token, the
+  prefill's or extend's device time and decode wall and device busy per
+  token, beside re-prefilling the whole conversation; compares the logits
+  at turn 2's extend and three teacher-forced decode steps with the plain
+  versions; runs a session that must compact its cache (the packed slots
+  checked bit for bit, turn 3's extend against the same extend
+  uncompacted) and two ``PrefixCache`` spawns; then the decode-attention
+  lab: T4 (head-major, 8 or 16 heads a block), T5 (one head a block), T6
+  (T4 on the stacked cache) and T7 (K3's structure cut stage by stage,
+  stages 0-4), with K3 and K3-int8 beside them, each held against its plain
+  version with a planted fault and timed beside its bound and SDPA's
+  forward, on the session's real cache and mask and at the TPU tools' shape
+  (L32 S640 H32, 500 valid);
 - training: Valley-7B stage 1 (frozen backbone, projector and input
   embeddings trained, the stage-1 recipe's optimizer settings) through
   ``Trainer.train_step`` on 16 synthetic rows from the port's collator and
@@ -65,6 +84,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -144,7 +164,10 @@ KERNEL_NAMES = {"K1": ("flash_fwd_kernel",),
                 "K3-int8": ("decode_split_kernel", "decode_combine_kernel"),
                 "K4": ("int8_matvec_kernel",),
                 "K5": ("int4_matvec_kernel",),
-                "K6": ("bf16_matvec_fk_kernel", "bf16_matvec_kf_kernel")}
+                "K6": ("bf16_matvec_fk_kernel", "bf16_matvec_kf_kernel"),
+                "T4": ("t4_head_chunked_kernel",),
+                "T5": ("t5_per_head_kernel",), "T6": ("t6_stacked_kernel",),
+                "T7": ("t7_stage_kernel", "t7_combine_kernel")}
 # Profiler kernel names by kind, for the training step's breakdown
 KERNEL_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
@@ -990,7 +1013,8 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     check(int(states[0].token[0]) == toks[0], f"{tag}: prefill is not "
           "repeatable")
     forced = toks[:DECODE_CHECK_STEPS]
-    logits = [[s.logits[0]] + decode_logits(e, s, len(prompt), forced)
+    logits = [[s.logits[0]] + decode_logits(e, s.cache, s.valid, s.bucket,
+                                            len(prompt), forced)
               for e, s in zip((engine, plain_engine), states)]
     for i, (lk, lp) in enumerate(zip(*logits)):
         where = "prefill" if i == 0 else f"decode step {i}"
@@ -1014,23 +1038,23 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     return counts
 
 
-def decode_logits(engine, state, prompt_len: int, tokens):
-    """fp32 logits of teacher-forced decode steps after ``state``'s
-    prefill: step i feeds ``tokens[i]`` at slot bucket + i and rotary
-    position prompt_len + i, as ``Engine._decode`` does."""
+def decode_logits(engine, cache, valid, slot0: int, pos0: int, tokens):
+    """fp32 logits of teacher-forced decode steps on a cache (written in
+    place; ``valid`` is not): step i feeds ``tokens[i]`` at slot slot0 + i
+    and rotary position pos0 + i, as ``Engine._decode`` does."""
     from valley_tpu_torch.models import llama
 
     p, text, dev = engine.params["llama"], engine.cfg.text, engine.device
-    valid = state.valid.clone()
+    valid = valid.clone()
     out = []
     with torch.inference_mode():
         for i, t in enumerate(tokens):
-            slot = state.bucket + i
+            slot = slot0 + i
             valid[:, slot] = True
             hidden, _ = llama.forward_hidden(
                 p, text, llama.embed(p, torch.tensor([[t]], device=dev)),
-                positions=torch.tensor([[prompt_len + i]], device=dev),
-                cache=state.cache, cache_index=slot, kv_valid=valid,
+                positions=torch.tensor([[pos0 + i]], device=dev),
+                cache=cache, cache_index=slot, kv_valid=valid,
                 attention=engine.attention)
             out.append(llama.logits_from_hidden(p, hidden,
                                                 engine.attention)[0, 0])
@@ -1157,7 +1181,7 @@ K3_SRC = dict(route="cuda", source="valley_tpu_torch/csrc/decode_attn.cu",
               replaces="valley_tpu/ops/decode_pallas.py:68")
 
 
-def serve_path(smi: str, gen) -> list:
+def serve_path(smi: str, gen, work: Path) -> list:
     """The bf16 serving path: K1 and K3 against their plain versions, then
     the slice.  Returns its kernels entries."""
     from valley_tpu_torch import SpecialTokens, valley_7b
@@ -1187,7 +1211,7 @@ def serve_path(smi: str, gen) -> list:
              "launches": counts["K6"], "max_abs_err": k6_err, **k6_t}]
 
 
-def serve_int8_path(smi: str, gen) -> list:
+def serve_int8_path(smi: str, gen, work: Path) -> list:
     """The int8 serving flagship: K1 at the prefill shape, K4 and K3's
     int8-cache branch against their plain versions, then the slice on the
     same random weights fused and quantized to int8a8 on the card, with an
@@ -1365,13 +1389,404 @@ def k5_phase(gen, layers: int) -> tuple:
     return err_max, avg
 
 
-def serve_int4_path(smi: str, gen) -> list:
+# The conversation slice, BASELINE.json config 3 (Valley-13B multi-turn
+# video conversation), on the int4 slice's weights: an Engine with
+# batch_infer's buckets and max_new_tokens, so a session cache holds
+# 512 + 256 + 4 * (256 + 64) + 4 = 2052 slots (ChatSession's default room,
+# engine.py:883-890), an int8 cache, three turns of 64 greedy tokens
+CONV_BUCKETS = (512, 1024, 2048)
+CONV_MAX_NEW = 256
+CONV_SMAX = 512 + CONV_MAX_NEW + 4 * (CONV_MAX_NEW + 64) + 4
+# the follow-up questions, framed as run_valley_conv frames a later turn
+CONV_QUESTIONS = ("And then?", "Describe the second half of the clip.")
+# a second session of 512 + 256 + 16 + 4 = 788 slots compacts at turn 3
+CONV_COMPACT_EXTRA = 16
+# decode steps profiled after each turn's prefill or extend
+CONV_PROFILE_STEPS = 4
+# PrefixCache: a 60-token system prompt, then the video, then questions
+PREFIX_SYSTEM, PREFIX_NEW = 60, 16
+# The conversation's logits through the kernels (K5, then K3-int8 and K5)
+# against the same session state run on the plain versions, at turn 2's
+# extend and three teacher-forced decode steps; and turn 3's extend from a
+# compacted cache against the same extend on the uncompacted one.  The
+# extend itself is plain attention over the int8 cache dequantized, and
+# products of more than 8 rows are the dequantized int4 ones, on both
+# sides, so they differ by K5's lm_head there and by K3-int8 and K5 in
+# decode; compacting moves the extend's softmax sums into another order.
+# Readings of this script on an H100 80GB HBM3 at 700 W: 4.8e-07 at the
+# extend, 0.070-0.081 at the decode steps, 0.077 compacted vs not; the bar
+# is about twice that.
+CONV_LOGIT_TOL = 0.16
+
+
+def follow_up_ids(question: str) -> list:
+    """A later turn's ids as run_valley_conv makes them: the v1 template's
+    framing, the byte tokenizer, no BOS."""
+    from valley_tpu_torch.conversation import conv_templates
+    from valley_tpu_torch.tokenizer import ByteFallbackTokenizer
+
+    conv, tk = conv_templates["v1"], ByteFallbackTokenizer()
+    ids = tk.encode(f" {conv.roles[0]}: {question}{conv.sep}"
+                    f"{conv.roles[1]}:")
+    return ids[1:] if ids and ids[0] == tk.bos_token_id else ids
+
+
+def clone_state(state) -> tuple:
+    """A copy of a ChatSession's state (cache, valid, length, slot,
+    pending) that the session's later writes do not reach."""
+    from valley_tpu_torch.models.llama import KVCache
+
+    cache, valid, seq, slot, pending = state
+    return (KVCache(*(None if x is None else x.clone() for x in (
+        cache.k, cache.v, cache.k_scale, cache.v_scale))), valid.clone(),
+        seq, slot, pending)
+
+
+def converse(sess, turns, snapshots=None) -> list:
+    """Each turn through ``sess.chat`` (64 greedy tokens, no stop), the
+    state before it copied into ``snapshots`` (None before the first).
+    Returns [(reply, first-token s, wall s)], host clock around ``chat``."""
+    out = []
+    for ids, images in turns:
+        if snapshots is not None:
+            snapshots.append(clone_state(sess._state) if sess.started
+                             else None)
+        first = []
+
+        def on_token(_):
+            if not first:
+                first.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reply = sess.chat(ids, images=images, eos_ids=[-1],
+                          on_token=on_token)
+        out.append((reply, first[0] - t0, time.perf_counter() - t0))
+    return out
+
+
+def compare_logits(tag: str, points, tol: float) -> None:
+    """(where, kernels' logits, plain logits) at each point: within
+    ``tol``; the same greedy token wherever the plain path's top-2 margin
+    exceeds the paths' difference."""
+    for where, lk, lp in points:
+        check(bool(torch.isfinite(lk).all()), f"{tag}: {where} not finite")
+        diff = max_err(lk, lp)
+        top2 = torch.topk(lp, 2).values
+        margin = (top2[0] - top2[1]).item()
+        tk, tp = int(lk.argmax()), int(lp.argmax())
+        checked = "checked" if margin > diff else \
+            "not checked: under the difference"
+        print(f"{tag}: {where} logits max abs diff {diff:.4e} (tol {tol}; "
+              f"max |logit| {lp.abs().max().item():.3f}), greedy token "
+              f"{tk} vs {tp} (top-2 margin {margin:.4f}, {checked})")
+        check(diff <= tol, f"{tag}: {where} logits beyond tolerance")
+        if margin > diff:
+            check(tk == tp, f"{tag}: {where}: different greedy tokens")
+
+
+def conv_slice(cfg, params, smi: str) -> tuple:
+    """The conversation slice on the int4 slice's weights: a warm-up, then
+    the main path, three turns of one `ChatSession` (bench.py's video
+    question, two follow-ups) with the launches of K1, K3-int8 and K5
+    against the session's own count of prefills, extends and decode steps;
+    per turn the first token's wall, the prefill's or extend's device time
+    and decode wall and device busy per token; the time to first token if
+    the whole conversation were prefilled again; kernels vs plain logits at
+    turn 2; a session that compacts; two `PrefixCache` spawns.  Returns
+    (counts, the session's final cache and valid mask)."""
+    from valley_tpu_torch.inference.engine import (ChatSession, Engine,
+                                                   GenerationConfig,
+                                                   PrefixCache,
+                                                   _compact_cache,
+                                                   _grow_cache)
+    from valley_tpu_torch.ops.attention import PLAIN
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.matvec import bf16_matvec
+    from valley_tpu_torch.ops.quant import int4_matvec, int8_matvec
+    from valley_tpu_torch.tools.decode_attn_lab import conversation_valid
+
+    tag = "conv"
+    layers, vocab = cfg.text.num_hidden_layers, cfg.text.vocab_size
+    engine = Engine(cfg, params, buckets=CONV_BUCKETS,
+                    max_new_tokens=CONV_MAX_NEW, cache_dtype=torch.int8)
+    gen = GenerationConfig(max_new_tokens=NEW_TOKENS, do_sample=False)
+    prompt, frames = bench_request(cfg, BUCKET)
+    turns = [(prompt, frames)] + [(follow_up_ids(q), None)
+                                  for q in CONV_QUESTIONS]
+    # warm-up: the extend's shapes, once
+    converse(ChatSession(engine, GenerationConfig(max_new_tokens=4)), turns)
+
+    kernels = {"K1": flash_attention, "K3-int8": decode_attention_stacked,
+               "K5": int4_matvec, "K4": int8_matvec, "K6": bf16_matvec}
+    sess = ChatSession(engine, gen)
+    snaps: list = []
+    for fn in kernels.values():
+        fn.launches = 0
+    results = converse(sess, turns, snaps)               # the main path
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    replies = [r for r, _, _ in results]
+    check((sess.prefills, sess.extends, sess.decode_steps)
+          == (1, 2, 3 * (NEW_TOKENS - 1)),
+          f"{tag}: session ran {sess.prefills} prefills, {sess.extends} "
+          f"extends, {sess.decode_steps} decode steps")
+    want = {"K1": layers * sess.prefills,
+            "K3-int8": layers * sess.decode_steps,
+            "K5": (4 * layers + 1) * sess.decode_steps + sess.prefills
+            + sess.extends, "K4": 0, "K6": 0}
+    for k, n in want.items():
+        check(counts[k] == n, f"{tag}: {k} launched {counts[k]} times, "
+              f"want {n}")
+    for r in replies:
+        check(len(r) == NEW_TOKENS and all(0 <= t < vocab for t in r),
+              f"{tag}: a reply of {len(r)} tokens or bad ids")
+    chunks = [len(ids) + 1 for ids, _ in turns[1:]]   # + the pending token
+    cache, valid = sess._state[:2]
+    check(cache.max_len == CONV_SMAX, f"{tag}: session cache {cache.max_len}")
+    check(torch.equal(valid.cpu(), conversation_valid(
+        CONV_SMAX, len(prompt), BUCKET, chunks, NEW_TOKENS)),
+        f"{tag}: the session's valid mask")
+    print(f"{tag}: Valley-13B int4gp, int8 cache, session of {CONV_SMAX} "
+          f"slots ({int(valid.sum())} valid after 3 turns); turn 1 the "
+          f"{len(prompt)}-token video question, turns 2-3 chunks of "
+          f"{chunks} tokens; {NEW_TOKENS} greedy tokens a turn; session "
+          f"counts: {sess.prefills} prefill, {sess.extends} extends, "
+          f"{sess.decode_steps} decode steps; launches " + " ".join(
+              f"{k} {n}" for k, n in counts.items()))
+
+    # per turn: the prefill's or extend's device time and decode device
+    # busy per token, each profiled on a copy of the state before the turn
+    for i, ((ids, images), snap, (_, first, wall)) in enumerate(
+            zip(turns, snaps, results)):
+        s = ChatSession(engine, gen)
+        s._state = snap
+        start_dev = profile_device(lambda: s._start_turn(ids, images))[0]
+        tok, _, c, v, seq, slot = s._start_turn(ids, images)
+        dec_dev, top, _ = profile_device(lambda: engine._decode(
+            c, v, tok, slot, torch.tensor([seq], device="cuda"), s.generator,
+            gen, CONV_PROFILE_STEPS))
+        share = {k: sum(t for n, t in top if any(
+            key in n for key in KERNEL_NAMES[k])) / dec_dev
+            for k in ("K3-int8", "K5")}
+        dec_dev /= CONV_PROFILE_STEPS
+        wall_tok = (wall - first) / (NEW_TOKENS - 1) * 1e3
+        inside = ", ".join(f"{k} {100 * f:.1f}%" for k, f in share.items())
+        what = "video -> first token" if i == 0 else "follow-up -> first token"
+        print(f"{tag} turn {i + 1}: {what} {first * 1e3:.2f} ms wall, "
+              f"{'prefill' if i == 0 else 'extend'} device {start_dev:.2f} "
+              f"ms; decode wall {wall_tok:.3f} ms/token, device busy "
+              f"{dec_dev:.3f} ms/token (idle share "
+              f"{1 - dec_dev / wall_tok:.3f}; of the decode device time: "
+              f"{inside}) on {smi}")
+        del s, c, v
+
+    # the reference's way: the whole conversation prefilled again each turn
+    full = prompt
+    engine.prefill([prompt + replies[0] + turns[1][0]], frames, gen)  # warm
+    for i in (1, 2):
+        full = full + replies[i - 1] + turns[i][0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = engine.prefill([full], frames, gen)
+        int(st.token[0])
+        print(f"{tag} turn {i + 1}: re-prefilling the {len(full)}-token "
+              f"conversation (bucket {st.bucket}) instead: first token "
+              f"{(time.perf_counter() - t0) * 1e3:.2f} ms wall, against "
+              f"{results[i][1] * 1e3:.2f} ms through the session")
+        del st
+
+    # kernels vs plain on the state before turn 2: its extend, then three
+    # decode steps fed turn 2's tokens
+    plain = Engine(cfg, params, buckets=CONV_BUCKETS,
+                   max_new_tokens=CONV_MAX_NEW, cache_dtype=torch.int8,
+                   attention=PLAIN)
+    forced = replies[1][:DECODE_CHECK_STEPS]
+    logits = []
+    for eng in (engine, plain):
+        s = ChatSession(eng, gen)
+        s._state = clone_state(snaps[1])
+        _, lg, c, v, seq, slot = s._start_turn(turns[1][0], None)
+        logits.append([lg[0]] + decode_logits(eng, c, v, slot, seq, forced))
+        del s, c, v
+    compare_logits(f"{tag} kernels vs plain", [
+        ("turn 2 extend" if i == 0 else f"turn 2 decode step {i}", a, b)
+        for i, (a, b) in enumerate(zip(*logits))], CONV_LOGIT_TOL)
+    del plain, logits, snaps
+
+    # a session too short for turn 3 without compaction
+    cs = ChatSession(engine, gen, extra_slots=CONV_COMPACT_EXTRA)
+    r1 = cs.chat(prompt, images=frames, eos_ids=[-1])
+    check(r1 == replies[0], f"{tag} compaction: turn 1 differs from the "
+          "main session's")
+    cs.chat(turns[1][0], eos_ids=[-1])
+    snap3 = clone_state(cs._state)
+    r3 = cs.chat(turns[2][0], eos_ids=[-1])
+    check(cs.compactions == 1 and len(r3) == NEW_TOKENS,
+          f"{tag} compaction: {cs.compactions} compactions")
+    c3, v3 = clone_state(snap3)[:2]
+    packed, _, n_valid = _compact_cache(c3, v3)
+    keep = v3[0].nonzero()[:, 0]
+    check(int(n_valid[0]) == len(keep) and all(
+        torch.equal(getattr(packed, n)[:, 0, :len(keep)],
+                    getattr(c3, n)[:, 0, keep])
+        for n in ("k", "v", "k_scale", "v_scale")),
+        f"{tag} compaction: the packed slots are not the valid ones in order")
+    ext = []
+    for grow in (False, True):
+        s = ChatSession(engine, gen)
+        st = clone_state(snap3)
+        if grow:
+            st = (*_grow_cache(st[0], st[1], CONV_SMAX), *st[2:])
+        s._state = st
+        ext.append(s._start_turn(turns[2][0], None)[1][0])
+        check(s.compactions == (0 if grow else 1), f"{tag} compaction")
+        del s, st
+    print(f"{tag} compaction: a session of {snap3[0].max_len} slots, at slot "
+          f"{snap3[3]} before turn 3, packs its {len(keep)} live slots to the "
+          f"front (K, V and scales in order, bit for bit)")
+    compare_logits(f"{tag} compaction", [
+        ("turn 3 extend, compacted vs not", ext[0], ext[1])], CONV_LOGIT_TOL)
+    del cs, snap3, c3, v3, packed, ext
+
+    # PrefixCache: the system prompt and the video prefilled once, two
+    # questions spawned from it, and a third spawn repeating the first
+    rng = np.random.default_rng(2)
+    tok = cfg.tokens
+    span = [tok.im_start] + [tok.im_patch] * cfg.num_patches + \
+        [tok.im_end] + [tok.vi_start] + [tok.vi_frame] * 8 + [tok.vi_end]
+    prefix = [1] + rng.integers(5, 30000, PREFIX_SYSTEM).tolist() + span
+    pgen = GenerationConfig(max_new_tokens=PREFIX_NEW, do_sample=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pc = PrefixCache(engine, prefix, images=frames, gen=pgen)
+    torch.cuda.synchronize()
+    prefix_s = time.perf_counter() - t0
+    frag = clone_state((pc._frag, pc._valid, 0, 0, None))[0]
+    questions = [follow_up_ids("What is in the video?"),
+                 follow_up_ids("Which colour dominates?")]
+    answers, firsts = [], []
+    for q in questions + questions[:1]:
+        out = converse(pc.spawn(), [(q, None)])
+        answers.append(out[0][0])
+        firsts.append(out[0][1])
+    check(all(len(a) == PREFIX_NEW and all(0 <= t < vocab for t in a)
+              for a in answers), f"{tag} prefix: replies")
+    check(answers[2] == answers[0], f"{tag} prefix: a spawn after another "
+          "session ran answers differently")
+    check(all(torch.equal(getattr(pc._frag, n), getattr(frag, n))
+              for n in ("k", "v", "k_scale", "v_scale")),
+          f"{tag} prefix: a session wrote the stored fragment")
+    engine.prefill([prefix + questions[0]], frames, pgen)     # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    int(engine.prefill([prefix + questions[0]], frames, pgen).token[0])
+    full_s = time.perf_counter() - t0
+    print(f"{tag} prefix: {len(prefix)}-token prefix (system prompt, video) "
+          f"prefilled once in {prefix_s * 1e3:.2f} ms wall; spawned "
+          f"questions of {[len(q) for q in questions]} tokens: first token "
+          f"{', '.join(f'{f * 1e3:.2f}' for f in firsts)} ms wall, against "
+          f"{full_s * 1e3:.2f} ms prefilling prefix and question together; "
+          f"the third spawn (the first question again, after the second "
+          f"ran) answers as the first; the fragment unchanged")
+    del pc, frag
+    return counts, sess._state[0], sess._state[1]
+
+
+def lab_phase(x, smi: str, path: str) -> list:
+    """T4-T7 (every hc, every stage) and K3 (bf16; int8 on the int8 cache
+    ``x`` came from) on the lab input ``x``: one pass of every variant over
+    every layer with the launches counted; each held against its plain
+    version with its planted fault (`decode_attn_lab.check`), T7 stage 3
+    against K3's function; each timed walking the layers beside its plain
+    version, its bound and SDPA's forward on the same layout.  Returns the
+    kernels entries."""
+    from valley_tpu_torch.tools import decode_attn_lab as lab
+
+    variants = lab.variants(x)
+    n_layers, b, s, h, d = x.k.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wrappers = {v.wrapper for v in variants}
+    for w in wrappers:
+        w.launches = 0
+    for v in variants:                  # the lab's pass over the layers
+        for li in range(n_layers):
+            v.run(li)
+    torch.cuda.synchronize()
+    launches = {w: w.launches for w in wrappers}
+    per = {w: sum(v.wrapper is w for v in variants) * n_layers
+           for w in wrappers}
+    for w in wrappers:
+        check(launches[w] == per[w], f"lab {x.name}: {w.__name__} launched "
+              f"{launches[w]} times in the pass, want {per[w]}")
+    n_valid = int(x.valid.sum())
+    print(f"lab {x.name}: L{n_layers} B{b} S{s} H{h} D{d}, {n_valid} valid "
+          f"slots, {sms} SMs; one pass of every variant over the layers: "
+          + ", ".join(f"{w.__name__} {n}" for w, n in launches.items()))
+    # SDPA's forward, a yardstick only, on each layout at the middle layer
+    library = {
+        "head-major": library_attention_ms(
+            x.q, x.k_hm[x.li].transpose(1, 2), x.v_hm[x.li].transpose(1, 2),
+            x.valid, False, iters=20),
+        "slot-major": library_attention_ms(x.q, x.k[x.li], x.v[x.li],
+                                           x.valid, False, iters=20)}
+    entries, stage_ms = [], {}
+    for v in variants:
+        err, tol, fault = lab.check(x, v)
+        run, plain = lab.walk(v.run, n_layers), lab.walk(v.plain, n_layers)
+        ms, top, _ = profile_device(run, 20)
+        traced = [n for n, _ in top]
+        check(any(key in n for n in traced for key in KERNEL_NAMES[
+            v.name[:2]]), f"lab {x.name} {v.name}: its kernel is not in the "
+            f"profiler's trace ({traced})")
+        t = {"ms": ms, "plain_ms": profile_device(plain, 20)[0],
+             "loop_ms": time_ms(run, 20), "plain_loop_ms": time_ms(plain, 20)}
+        need = x.need_bytes(v)
+        add_bound(t, bound(need, x.need_flops()), f"lab {x.name} {v.name}")
+        layout = "head-major" if v.name[:2] in ("T4", "T5", "T6") \
+            else "slot-major"
+        t["library_ms"] = library[layout]
+        t["library_call"] = f"SDPA forward, {layout} layer in bf16"
+        gbps = x.layer_bytes(v) / t["ms"] / 1e6
+        print(f"lab {x.name} {v.name}: max_abs_err {err:.3e} (tol "
+              f"{tol:.3e}); {v.fault_what} instead: {fault:.3e} (must fail); "
+              f"{fmt_times(t)}; {gbps:.1f} GB/s of the layer's "
+              f"{x.layer_bytes(v) / 1e6:.2f} MB of K/V; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{need / 1e6:.2f} MB of valid slots); "
+              f"library {t['library_ms']:.4f} ms; {lab.grid_text(v, sms)}")
+        entry = {"name": f"{v.key}_{x.name}", "route": "cuda",
+                 "source": v.source, "replaces": v.replaces, "path": path,
+                 "launches": n_layers, "max_abs_err": err, **t,
+                 "grid_blocks": v.blocks, "combine_blocks": v.combine,
+                 "blocks_per_sm": v.blocks / sms, "read_gb_per_s": gbps}
+        if v.name.startswith("T7"):
+            stage_ms[int(v.name[-1])] = t
+        else:
+            entries.append(entry)
+        if v.name == "T7 stage 3":
+            t7 = entry
+    errs = lab.stage3_against_k3(x)
+    print(f"lab {x.name}: T7 stage 3 against decode_attention_plain with the "
+          f"matching mask {errs[0]:.3e}, against K3 {errs[1]:.3e}")
+    print("lab " + lab.stage_line(x.name, {k: t["ms"] for k, t in
+                                           stage_ms.items()}) + f" on {smi}")
+    t7["launches"] = len(lab.STAGES) * n_layers
+    t7["stages_ms"] = {str(k): t["ms"] for k, t in stage_ms.items()}
+    t7["stages_plain_ms"] = {str(k): t["plain_ms"]
+                             for k, t in stage_ms.items()}
+    entries.append(t7)
+    return entries
+
+
+def serve_int4_path(smi: str, gen, work: Path) -> list:
     """Valley-13B served int4gp, the JAX package's one-card 13B setup
     (bench.py:216-231,272-274; worker --quantize int4gp --fused --kv-cache
     int8): K5, and K1 and K3-int8 at the 13B shapes, against their plain
     versions, then the slice on random weights fused and quantized on the
-    card (group-128 scales, nibble-packed), with an int8 KV cache.  Returns
-    its kernels entries."""
+    card (group-128 scales, nibble-packed), with an int8 KV cache; then,
+    on the same weights, the conversation (`conv_slice`), whose cache it
+    saves in ``work`` for the lab.  Returns its kernels entries."""
     from valley_tpu_torch import SpecialTokens, valley_13b
     from valley_tpu_torch.models.llama import fuse_llama_params
     from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
@@ -1410,15 +1825,57 @@ def serve_int4_path(smi: str, gen) -> list:
         "K5": (int4_matvec, 4 * layers * steps + NEW_TOKENS),
         "K4": (int8_matvec, 0), "K6": (bf16_matvec, 0)}, INT4_LOGIT_TOL,
         same_token=True)
-    return [{**K1_SRC, "name": "flash_fwd_int4", "path": "serve_int4",
-             "launches": counts["K1"], "max_abs_err": k1_err, **k1_t},
-            {**K3_SRC, "name": "decode_attn_int4", "path": "serve_int4",
-             "launches": counts["K3-int8"], "max_abs_err": k3q_err,
-             **k3q_t},
-            {"name": "int4_matvec", "route": "cuda",
-             "source": "valley_tpu_torch/csrc/int4_matvec.cu",
-             "replaces": "tools/exp_int4_group.py:91", "path": "serve_int4",
-             "launches": counts["K5"], "max_abs_err": k5_err, **k5_t}]
+    k5_src = {"route": "cuda",
+              "source": "valley_tpu_torch/csrc/int4_matvec.cu",
+              "replaces": "tools/exp_int4_group.py:91"}
+    entries = [{**K1_SRC, "name": "flash_fwd_int4", "path": "serve_int4",
+                "launches": counts["K1"], "max_abs_err": k1_err, **k1_t},
+               {**K3_SRC, "name": "decode_attn_int4", "path": "serve_int4",
+                "launches": counts["K3-int8"], "max_abs_err": k3q_err,
+                **k3q_t},
+               {**k5_src, "name": "int4_matvec", "path": "serve_int4",
+                "launches": counts["K5"], "max_abs_err": k5_err, **k5_t}]
+
+    # the conversation on the same weights; its cache and launches go to
+    # the lab's process (`lab_conv_path`)
+    t0 = time.perf_counter()
+    conv_counts, cache, valid = conv_slice(cfg, params, smi)
+    torch.save({"k": cache.k, "k_scale": cache.k_scale, "v": cache.v,
+                "v_scale": cache.v_scale, "valid": valid,
+                "counts": conv_counts}, work / CONV_CACHE)
+    print(f"conv: {time.perf_counter() - t0:.1f} s wall", flush=True)
+    return entries + [
+        {**K1_SRC, "name": "flash_fwd_conv", "path": "serve_conv",
+         "launches": conv_counts["K1"], "max_abs_err": k1_err, **k1_t},
+        {**k5_src, "name": "int4_matvec_conv", "path": "serve_conv",
+         "launches": conv_counts["K5"], "max_abs_err": k5_err, **k5_t}]
+
+
+def lab_conv_path(smi: str, gen, work: Path) -> list:
+    """The decode-attention lab on the conversation's cache, which the
+    int4 path's process saved: every lab kernel, and the conversation's
+    K3-int8 entry with that shape's reading and the conversation's
+    launches."""
+    from valley_tpu_torch.tools import decode_attn_lab as lab
+
+    saved = torch.load(work / CONV_CACHE, map_location="cuda")
+    x = lab.conv_inputs(saved["k"], saved["k_scale"], saved["v"],
+                        saved["v_scale"], saved["valid"], gen)
+    entries = lab_phase(x, smi, "serve_conv, lab on the conversation's cache")
+    k3c = next(e for e in entries if e["name"] == "decode_attn_int8_lab_conv")
+    return entries + [
+        {**K3_SRC, "name": "decode_attn_conv", "path": "serve_conv",
+         "launches": saved["counts"]["K3-int8"], **{
+             k: k3c[k] for k in ("max_abs_err", "bound_by", "library_call")
+             + TIME_KEYS}}]
+
+
+def lab_tools_path(smi: str, gen, work: Path) -> list:
+    """The decode-attention lab at the TPU tools' shape."""
+    from valley_tpu_torch.tools import decode_attn_lab as lab
+
+    return lab_phase(lab.tools_inputs(gen), smi,
+                     "serve_conv, lab at the tools' shape")
 
 
 K6_SRC = dict(name="bf16_matvec", route="cuda",
@@ -1436,8 +1893,8 @@ K6_SHAPES_FUSED = (("wqkv", 4096, 12288, False, 1),
                    ("w_gateup", 4096, 22016, False, 1),
                    ("w_down", 11008, 4096, False, 1),
                    ("lm_head", 4096, 32000, True, 0))
-GEMV_NAMES = ("int8_matvec", "int4_matvec", "bf16_matvec",
-              "bf16_matvec_serve", "bf16_matvec_round")
+GEMV_NAMES = ("int8_matvec", "int4_matvec", "int4_matvec_conv",
+              "bf16_matvec", "bf16_matvec_serve", "bf16_matvec_round")
 
 
 def bf16_weight(gen, k: int, f: int, kf: bool) -> torch.Tensor:
@@ -1878,7 +2335,8 @@ def batch_slice(cfg, params, smi: str) -> dict:
         step = next(j for j, (a, b) in enumerate(zip(alone, toks)) if a != b)
         state = engine.prefill([p], f, gcfg)
         lg = state.logits[0] if step == 0 else decode_logits(
-            engine, state, len(p), alone[:step])[-1]
+            engine, state.cache, state.valid, state.bucket, len(p),
+            alone[:step])[-1]
         top2 = torch.topk(lg, 2).values
         margin = (top2[0] - top2[1]).item()
         print(f"batch slice: request {i} parts from its run alone at step "
@@ -1891,7 +2349,7 @@ def batch_slice(cfg, params, smi: str) -> dict:
     return counts
 
 
-def serve_batch_path(smi: str, gen) -> list:
+def serve_batch_path(smi: str, gen, work: Path) -> list:
     """Batched serving, batch_infer's configuration: K7 (the card's read
     rate), K6 and its T3 variant at the fused Valley-7B shapes (rows 8 and
     1), K1 and K3-int8 at the pool's shapes, against their plain versions;
@@ -1939,7 +2397,7 @@ def serve_batch_path(smi: str, gen) -> list:
              **k7_t}]
 
 
-def train_path(smi: str, gen) -> list:
+def train_path(smi: str, gen, work: Path) -> list:
     """K2 (and K1 at the training shape) against the plain versions, then
     the training slice.  Returns its kernels entries."""
     k2_err, k2_t, k1_train = k2_phase(gen)
@@ -1958,10 +2416,16 @@ def train_path(smi: str, gen) -> list:
 # Each path runs in a process of its own, one after the other: each frees
 # its model by exiting, and each gets a fresh profiler (on an H100 with
 # torch 2.11, traces taken in one process after both serving paths came
-# back short of events, then empty)
+# back short of events, then empty; so did the lab's, run after the
+# conversation in the int4 path's process).  Each is given the run's
+# scratch directory.
 PATHS = {"serve": serve_path, "serve_batch": serve_batch_path,
          "serve_int8": serve_int8_path, "serve_int4": serve_int4_path,
+         "lab_conv": lab_conv_path, "lab_tools": lab_tools_path,
          "train": train_path}
+# Where the int4 path leaves the conversation's cache for the lab's process,
+# in the run's scratch directory
+CONV_CACHE = "conv_cache.pt"
 
 
 def nvidia_smi() -> str:
@@ -1993,7 +2457,8 @@ def main(argv=None) -> int:
 
     if args.path:
         entries = PATHS[args.path](nvidia_smi(),
-                                   torch.Generator("cuda").manual_seed(0))
+                                   torch.Generator("cuda").manual_seed(0),
+                                   Path(args.out).parent)
         check("jax" not in sys.modules, "the port imported jax")
         with open(args.out, "w") as f:
             json.dump(entries, f)
@@ -2024,7 +2489,7 @@ def main(argv=None) -> int:
     probe = next(e for e in kernels if e["name"] == "read_sum")
     ceiling = max(probe["read_gb_per_s"], probe["library_read_gb_per_s"])
     for e in kernels:
-        if e["name"] in GEMV_NAMES:
+        if e["name"] in GEMV_NAMES or "lab" in e["path"]:
             e["ceiling_bound_ms"] = e["bound_ms"] * HBM_BYTES_PER_S / (
                 ceiling * 1e9)
             print(f"{e['name']} ({e['path']}): device {e['ms']:.4f} ms per "

@@ -20,7 +20,9 @@ the grouped-int4 GEMV (K5), whose fault is its group scales shifted by one
 group, and the bf16 GEMV (K6), whose fault is every row reading row 0's
 activations.  The read-bandwidth probe (K7), a sum over an array, is held
 to 1e-5 of its result on positive inputs; its fault drops the last block
-of rows.
+of rows.  The decode-attention lab's kernels (T4-T7, ``ops/decode_lab.py``)
+are held to the same bar against their plain versions, each with a planted
+fault, and T7's stage 3 against K3.
 """
 
 import numpy as np
@@ -31,8 +33,10 @@ from valley_tpu_torch import valley_tiny
 from valley_tpu_torch.data.dataset import (DataCollatorForSupervisedDataset,
                                            DataLoader)
 from valley_tpu_torch.inference.continuous import ContinuousEngine, _drain
-from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+from valley_tpu_torch.inference.engine import (ChatSession, Engine,
+                                               GenerationConfig)
 from valley_tpu_torch.models import llama, valley
+from valley_tpu_torch.ops import decode_lab
 from valley_tpu_torch.ops.attention import KERNELS, PLAIN
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
@@ -617,3 +621,146 @@ def test_tiny_pool_on_the_card(gen):
     assert decode_attention_stacked.launches - counts[1] == layers * steps
     assert bf16_matvec.launches - counts[2] == \
         (4 * layers + 1) * steps + prefills
+
+
+def _lab_inputs(gen, n_layers, b, s, h, d, hole=True):
+    """q (B, 1, H, D) and a slot-major (L, B, S, H, D) cache of N(0, 1)
+    values, its head-major copy, and a mask with a hole (valid prompt,
+    invalid padding, valid decoded slots) as the -1e9 bias."""
+    q = _randn(gen, b, 1, h, d)
+    k = _randn(gen, n_layers, b, s, h, d)
+    v = _randn(gen, n_layers, b, s, h, d)
+    valid = torch.zeros((b, s), dtype=torch.bool, device="cuda")
+    valid[:, :3 * s // 8] = True
+    valid[:, s // 2:s // 2 + (s // 4 if hole else s // 2)] = True
+    bias = torch.where(valid, 0.0, -1e9).float()
+    hm = [x.permute(0, 1, 3, 2, 4).contiguous() for x in (k, v)]
+    return q, k, v, hm[0], hm[1], valid, bias
+
+
+@pytest.mark.parametrize("b,s,h,d", [(1, 640, 32, 128), (2, 300, 8, 64),
+                                     (1, 2052, 40, 128)])
+def test_head_major_lab_kernels_match_plain(gen, b, s, h, d):
+    """T4 (hc 8 and 16, the last block ragged where hc does not divide H),
+    T5 and T6 (layer 1 of 3) against `attn_head_major_plain`; the planted
+    fault, every masked slot attended, must fail."""
+    q, _, _, k, v, _, bias = _lab_inputs(gen, 3, b, s, h, d)
+    ref = decode_lab.attn_head_major_plain(q, k[1], v[1], bias)
+    bad = torch.zeros_like(bias)
+    runs = [(decode_lab.attn_per_head, lambda bb: decode_lab.attn_per_head(
+        q, k[1], v[1], bb))]
+    for hc in (8, 16):
+        runs += [(decode_lab.attn_head_chunked,
+                  lambda bb, hc=hc: decode_lab.attn_head_chunked(
+                      q, k[1], v[1], bb, hc)),
+                 (decode_lab.attn_stacked_head_major,
+                  lambda bb, hc=hc: decode_lab.attn_stacked_head_major(
+                      q, k, v, bb, 1, hc))]
+    for wrapper, run in runs:
+        before = wrapper.launches
+        out = run(bias)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert out.dtype == torch.float32 and out.shape == ref.shape
+        err, tol = _err_and_tol(out, ref)
+        assert err <= tol
+        assert _err_and_tol(run(bad), ref)[0] > tol
+
+
+@pytest.mark.parametrize("b,s,h,d", [(1, 640, 32, 128), (2, 300, 8, 64),
+                                     (1, 2052, 40, 128)])
+@pytest.mark.parametrize("stage", decode_lab.STAGES)
+def test_stage_lab_kernel_matches_plain(gen, b, s, h, d, stage):
+    """T7 at each stage on layer 1 of 3 against `attn_stage_plain`, with its
+    planted fault: the next layer read (stage 0), the D^-1/2 scale lost
+    (stage 1), every masked slot attended (stages 2-4)."""
+    q, k, v, _, _, _, bias = _lab_inputs(gen, 3, b, s, h, d)
+    q3 = q[:, 0].contiguous()
+    before = decode_lab.attn_stage.launches
+    out = decode_lab.attn_stage(q3, k, v, bias, 1, stage)
+    torch.cuda.synchronize()
+    assert decode_lab.attn_stage.launches == before + 1
+    ref = decode_lab.attn_stage_plain(q3, k, v, bias, 1, stage)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    err, tol = _err_and_tol(out, ref)
+    assert err <= tol
+    if stage == 0:
+        assert torch.equal(out, ref)
+        bad = decode_lab.attn_stage(q3, k, v, bias, 2, 0)
+    elif stage == 1:
+        bad = decode_lab.attn_stage(q3 * d ** 0.5, k, v, bias, 1, 1)
+    else:
+        bad = decode_lab.attn_stage(q3, k, v, torch.zeros_like(bias), 1,
+                                    stage)
+    assert _err_and_tol(bad, ref)[0] > tol
+
+
+def test_stage3_lab_kernel_is_k3_with_a_bias(gen):
+    """T7 stage 3 computes K3's bf16 function: against K3 and its plain
+    version with the matching boolean mask."""
+    q, k, v, _, _, valid, bias = _lab_inputs(gen, 3, 1, 2052, 40, 128)
+    got = decode_lab.attn_stage(q[:, 0].contiguous(), k, v, bias, 1, 3)
+    ref = decode_attention_plain(q, k, v, 1, valid)[:, 0]
+    err, tol = _err_and_tol(got, ref)
+    assert err <= tol
+    assert _err_and_tol(got, decode_attention_stacked(q, k, v, 1,
+                                                      valid)[:, 0])[0] <= tol
+
+
+def test_lab_kernels_give_the_mean_of_v_on_a_fully_masked_row(gen):
+    """Row 1's every slot carries the -1e9 bias: the tools' softmax is
+    uniform, so T4-T6 and T7 stage 3 return V's mean over the slots."""
+    q, k, v, khm, vhm, _, bias = _lab_inputs(gen, 2, 2, 300, 8, 128)
+    bias[1] = -1e9
+    mean = v[1, 1].float().mean(dim=0)                     # (H, D)
+    outs = [decode_lab.attn_head_chunked(q, khm[1], vhm[1], bias, 8),
+            decode_lab.attn_per_head(q, khm[1], vhm[1], bias),
+            decode_lab.attn_stacked_head_major(q, khm, vhm, bias, 1, 16)]
+    for out in outs:
+        err, tol = _err_and_tol(out[1, 0], mean)
+        assert err <= tol
+    staged = decode_lab.attn_stage(q[:, 0].contiguous(), k, v, bias, 1, 3)
+    err, tol = _err_and_tol(staged[1], mean)
+    assert err <= tol
+
+
+def test_lab_kernels_refuse_what_they_cannot_take(gen):
+    q, k, v, khm, vhm, _, bias = _lab_inputs(gen, 2, 1, 64, 4, 128)
+    with pytest.raises(ValueError, match="slots"):
+        big = _randn(gen, 1, 4, 13000, 128)
+        decode_lab.attn_per_head(q, big, big, torch.zeros((1, 13000),
+                                                          device="cuda"))
+    with pytest.raises(ValueError, match="S >= H"):
+        decode_lab.attn_stage(_randn(gen, 1, 80, 128), _randn(
+            gen, 1, 1, 64, 80, 128), _randn(gen, 1, 1, 64, 80, 128),
+            torch.zeros((1, 64), device="cuda"), 0, 3)
+    with pytest.raises(TypeError):
+        decode_lab.attn_per_head(q, khm[0], vhm[0], bias.bfloat16())
+    with pytest.raises(IndexError):
+        decode_lab.attn_stage(q[:, 0].contiguous(), k, v, bias, 2, 3)
+
+
+def test_tiny_chat_session_on_the_card(gen):
+    """Two turns of a `ChatSession` on the tiny bf16 model with a bf16
+    cache on the card: K1 once per layer for the prefill, K3 once per layer
+    per decode step, K6 seven times per layer per decode step plus one
+    lm_head row per step, prefill and extend (the extend's chunk of 16+
+    rows goes to cuBLAS and its attention is the plain one)."""
+    cfg = valley_tiny()
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    eng = Engine(cfg, params, buckets=(64, 128), max_new_tokens=8,
+                 steps_per_call=3)
+    gcfg = GenerationConfig(max_new_tokens=6)
+    sess = ChatSession(eng, gcfg)
+    counts = (flash_attention.launches, decode_attention_stacked.launches,
+              bf16_matvec.launches)
+    prompt = np.random.default_rng(0).integers(5, 400, 40).tolist()
+    r1 = sess.chat(prompt, eos_ids=[-1])
+    r2 = sess.chat([70, 71, 72], eos_ids=[-1])
+    layers = cfg.text.num_hidden_layers
+    assert len(r1) == len(r2) == 6
+    assert (sess.prefills, sess.extends, sess.decode_steps) == (1, 1, 10)
+    assert flash_attention.launches - counts[0] == layers
+    assert decode_attention_stacked.launches - counts[1] == layers * 10
+    assert bf16_matvec.launches - counts[2] == (7 * layers + 1) * 10 + 2

@@ -70,6 +70,37 @@ print(json.dumps({"loaded": loaded, "lens": [len(o) for o in out]}))
     assert got == {"loaded": [], "lens": [3, 3]}
 
 
+def test_conversation_and_lab_run_without_jax():
+    """The conversation REPL's module, the lab's module and the session
+    code import, and a two-turn session and the lab kernels' plain versions
+    run on the CPU, without loading jax or the JAX package."""
+    got = _run("""
+import json, sys
+import torch
+from valley_tpu_torch.inference import ChatSession, GenerationConfig
+from valley_tpu_torch.inference import run_valley_conv
+from valley_tpu_torch.inference.run_valley import load_model
+from valley_tpu_torch.ops import decode_lab
+from valley_tpu_torch.tools import decode_attn_lab
+engine, tk = load_model("random:tiny", "cpu", buckets=(64,),
+                        max_new_tokens=4)
+sess = ChatSession(engine, GenerationConfig(max_new_tokens=3))
+replies = [sess.chat(tk.encode(t), eos_ids=[-1]) for t in ("hi", "more")]
+q = torch.zeros((1, 1, 2, 64), dtype=torch.bfloat16)
+k = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16)
+decode_lab.attn_head_chunked(q, k, k, torch.zeros((1, 8)), 8)
+decode_lab.attn_stage(q[:, 0], k[None].transpose(2, 3).contiguous(),
+                      k[None].transpose(2, 3).contiguous(),
+                      torch.zeros((1, 8)), 0, 3)
+loaded = sorted(n for n in sys.modules
+                if n == "jax" or n.startswith("jax.") or n == "valley_tpu"
+                or n.startswith("valley_tpu."))
+print(json.dumps({"loaded": loaded, "lens": [len(r) for r in replies],
+                  "extends": sess.extends}))
+""")
+    assert got == {"loaded": [], "lens": [3, 3], "extends": 1}
+
+
 def test_kernel_modules_import_without_triton_or_nvcc():
     """The kernel modules import, and run their plain versions on CPU
     tensors, with triton unimportable and no nvcc on PATH; nothing is

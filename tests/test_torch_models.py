@@ -318,7 +318,13 @@ def test_unported_branches_raise(cfg, tparams):
         llama.forward_hidden(tparams["llama"], tc, x[:, :1], cache=cache,
                              cache_index=torch.zeros(3, dtype=torch.long),
                              kv_valid=valid)
-    with pytest.raises(NotImplementedError, match="cross_valid"):
-        llama.forward_hidden(tparams["llama"], tc, x[:1],
-                             cache=llama.init_cache(tc, 1, 8),
-                             cross_valid=torch.ones((1, 8), dtype=bool))
+    # the cross_valid extend branch is ported now (tests/test_torch_session
+    # holds it against JAX); it needs a cache to extend
+    cross = torch.zeros((1, 8), dtype=torch.bool)
+    cross[:, :2] = True
+    hidden, _ = llama.forward_hidden(tparams["llama"], tc, x[:1],
+                                     cache=llama.init_cache(tc, 1, 8),
+                                     cache_index=2, cross_valid=cross)
+    assert bool(torch.isfinite(hidden).all())
+    with pytest.raises(ValueError, match="cross_valid"):
+        llama.forward_hidden(tparams["llama"], tc, x[:1], cross_valid=cross)

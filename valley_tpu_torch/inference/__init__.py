@@ -1,6 +1,7 @@
 """Inference of the PyTorch port: the engine, `completion()` and the
 offline CLI."""
 
-from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+from valley_tpu_torch.inference.engine import (ChatSession, Engine,
+                                               GenerationConfig, PrefixCache)
 
-__all__ = ["Engine", "GenerationConfig"]
+__all__ = ["ChatSession", "Engine", "GenerationConfig", "PrefixCache"]

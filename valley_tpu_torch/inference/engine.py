@@ -1,7 +1,8 @@
 """Streaming inference engine, the PyTorch counterpart of
 ``valley_tpu/inference/engine.py``: a batch of ragged prompts prefilled
 together and decoded in lockstep (the continuous-batching pool built on it
-is ``inference/continuous.py``).
+is ``inference/continuous.py``), and multi-turn conversations that keep
+their cache across turns (`ChatSession`, `PrefixCache`).
 
 The cache state is the JAX engine's: the prompt is right-padded to a length
 bucket and prefilled at slot 0; decode writes from slot ``bucket`` on,
@@ -191,6 +192,38 @@ class Engine:
             seq_len = seq_len + 1
         return torch.stack(toks), seq_len
 
+    @torch.inference_mode()
+    def _extend(self, cache: llama.KVCache, valid: torch.Tensor,
+                ids: torch.Tensor, new_len: torch.Tensor,
+                seq_len: torch.Tensor, slot0: llama.Slots,
+                generator: torch.Generator, temperature, top_p,
+                do_sample: bool):
+        """Append a right-padded (B, C) chunk of conversation tokens to a
+        session's cache at slot ``slot0`` (JAX _extend_impl,
+        engine.py:319-343): rotary positions ``seq_len + arange(C)``, the
+        chunk attending every valid slot and itself causally, its first
+        ``new_len`` slots marked valid (the pad slots stay invalid), and
+        each row's next token sampled from its last real token's logits.
+        The cache is written in place; ``valid`` is not (a new mask is
+        returned, so the same chunk can be appended again to the same
+        state).  Returns (tokens (B,), logits (B, V), cache, valid,
+        seq_len + new_len)."""
+        p = self.params["llama"]
+        c = ids.shape[1]
+        positions = seq_len[:, None] + torch.arange(c, device=self.device)
+        hidden, cache = llama.forward_hidden(
+            p, self.cfg.text, llama.embed(p, ids), positions=positions,
+            cache=cache, cache_index=slot0, cross_valid=valid,
+            attention=self.attention)
+        rel = torch.arange(cache.max_len, device=self.device)[None, :] - \
+            torch.as_tensor(slot0, device=self.device).reshape(-1, 1)
+        valid = valid | ((rel >= 0) & (rel < new_len[:, None]))
+        last = torch.gather(hidden, 1, (new_len - 1)[:, None, None].expand(
+            -1, 1, hidden.shape[-1]))
+        logits = llama.logits_from_hidden(p, last, self.attention)[:, 0]
+        tok = sample_token(logits, generator, temperature, top_p, do_sample)
+        return tok, logits, cache, valid, seq_len + new_len
+
     def prefill(self, input_ids: Sequence[Sequence[int]], images=None,
                 gen: Optional[GenerationConfig] = None,
                 generator: Optional[torch.Generator] = None) -> Prefilled:
@@ -311,3 +344,278 @@ def _apply_stops(text: str, stops: Sequence[str]) -> tuple[bool, str]:
         if idx >= 0:
             return True, text[:idx]
     return False, text
+
+
+# -- multi-turn sessions ----------------------------------------------------
+
+@torch.inference_mode()
+def _trim_valid(valid: torch.Tensor, keep_below: int, drop_until: int
+                ) -> None:
+    """Invalidate slots [keep_below, drop_until) in place (engine.py:681-687):
+    tokens decoded past the stopping point must not reach later turns."""
+    valid[:, keep_below:drop_until] = False
+
+
+@torch.inference_mode()
+def _compact_cache(cache: llama.KVCache, valid: torch.Tensor):
+    """Pack each row's valid slots to the front, in their order
+    (engine.py:690-708): a stable permutation of the slot axis applied to
+    K, V and the scales, reclaiming the chunks' pow-2 padding and trimmed
+    slots.  Decode attention does not see slot order (rotary positions live
+    in the stored K; validity is the mask).  Returns (cache, valid,
+    n_valid (B,)), new tensors."""
+    order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)
+    rows = torch.arange(valid.shape[0], device=valid.device)[:, None]
+
+    def gather(x):
+        return None if x is None else x[:, rows, order]
+
+    cache = llama.KVCache(*(gather(x) for x in (cache.k, cache.v,
+                                                cache.k_scale,
+                                                cache.v_scale)))
+    n_valid = valid.sum(dim=1)
+    slots = torch.arange(valid.shape[1], device=valid.device)
+    return cache, slots[None, :] < n_valid[:, None], n_valid
+
+
+@torch.inference_mode()
+def _grow_cache(frag: llama.KVCache, valid: torch.Tensor, total_len: int):
+    """Fresh session-size buffers (slot axis 2) holding a prefix fragment at
+    the front (engine.py:560-574): a session decoding into them never
+    writes the stored fragment."""
+    def grow(x):
+        if x is None:
+            return None
+        out = x.new_zeros(x.shape[:2] + (total_len,) + x.shape[3:])
+        out[:, :, :x.shape[2]] = x
+        return out
+
+    new_valid = valid.new_zeros((valid.shape[0], total_len))
+    new_valid[:, :valid.shape[1]] = valid
+    return llama.KVCache(*(grow(x) for x in (frag.k, frag.v, frag.k_scale,
+                                             frag.v_scale))), new_valid
+
+
+class ChatSession:
+    """Multi-turn generation with the KV cache kept across turns (B = 1), the
+    counterpart of JAX's ``ChatSession`` (engine.py:711-892).
+
+    The first turn prefills into a cache with room for later turns; each
+    later turn appends only its new tokens (`Engine._extend`) instead of
+    prefilling the whole conversation again.  Pass the new token ids of
+    each turn, framed as the conversation template frames them (the '###'
+    separators: deltas are tokenized alone).  Tokens decoded past an eos or
+    a stop string are trimmed from the cache.  The session samples from a
+    ``torch.Generator`` seeded from ``gen.seed``.  ``prefills``,
+    ``extends``, ``decode_steps`` and ``compactions`` count what it ran.
+    """
+
+    def __init__(self, engine: Engine, gen: Optional[GenerationConfig] = None,
+                 extra_slots: Optional[int] = None):
+        self.engine = engine
+        self.gen = gen or GenerationConfig()
+        self.generator = torch.Generator(engine.device).manual_seed(
+            self.gen.seed)
+        # (cache, valid, conversation length, next free slot, pending token)
+        self._state = None
+        self.extra_slots = extra_slots
+        # room the JAX session keeps beyond gen.max_new_tokens to pad its last
+        # fused call up to a compiled size (engine.py:736); eager decode pads
+        # nothing, but the same room keeps the cache size and the turns that
+        # compact the JAX session's
+        self._decode_slack = engine.steps_per_call
+        self.prefills = self.extends = self.decode_steps = 0
+        self.compactions = 0
+
+    @property
+    def started(self) -> bool:
+        return self._state is not None
+
+    @torch.inference_mode()
+    def chat(self, new_ids: Sequence[int], images=None, tokenizer=None,
+             eos_ids: Sequence[int] = (2,), on_token=None) -> list:
+        """Run one turn; returns the kept reply ids (the eos kept, anything
+        after it and any stop string removed).  ``on_token(id)`` sees each
+        token as it reaches the host (a few past the stop included).  With
+        a ``tokenizer``, the stop strings of ``gen.stop`` apply."""
+        tok, _, cache, valid, seq, slot = self._start_turn(new_ids, images)
+        decode_start = slot
+        max_new = min(self.gen.max_new_tokens, self.engine.max_new_tokens)
+        eos_arr = np.asarray(eos_ids)
+        tokens, slot = self._decode_loop(cache, valid, tok, seq, slot,
+                                         max_new, eos_arr, tokenizer,
+                                         on_token)
+        kept = self._kept_count(tokens, eos_arr, tokenizer)
+        pending = tokens[kept - 1] if kept == len(tokens) else None
+        # decode wrote the KV of tokens[i] at decode_start + i when it fed
+        # it back; a last kept token never fed back (pending) has no slot
+        # yet: the next turn writes it
+        commit = decode_start + kept - (1 if pending is not None else 0)
+        _trim_valid(valid, commit, slot)
+        self._state = (cache, valid, seq + kept, commit, pending)
+        return tokens[:kept]
+
+    @torch.inference_mode()
+    def _start_turn(self, new_ids, images):
+        """The turn's prefill (first turn) or extend, compacting the cache
+        first where the turn would not fit.  Leaves ``_state`` as it was.
+        Returns (first token (1,), its logits, cache, valid, conversation
+        length, next free slot)."""
+        eng, gen = self.engine, self.gen
+        if self._state is None:
+            return self._first_turn(new_ids, images)
+        if images is not None:
+            raise ValueError("media is only supported on the first turn")
+        cache, valid, seq, slot, pending = self._state
+        # the previous turn's last token was sampled but never fed back:
+        # it opens this turn's chunk, at position seq - 1
+        chunk = ([pending] if pending is not None else []) + list(new_ids)
+        start = seq - (1 if pending is not None else 0)
+        c = len(chunk)
+        cb = 1 << max(4, (max(c, 2) - 1).bit_length())   # pow2 >= 16
+        budget = gen.max_new_tokens + self._decode_slack
+        if slot + cb + budget > cache.max_len:
+            cache, valid, n_valid = _compact_cache(cache, valid)
+            slot = int(n_valid[0])
+            self.compactions += 1
+        if slot + cb + budget > cache.max_len:
+            raise RuntimeError(
+                f"session cache exhausted (slot={slot} live tokens, need "
+                f"{cb + gen.max_new_tokens}, max={cache.max_len}); start a "
+                "new ChatSession")
+        ids = torch.zeros((1, cb), dtype=torch.long)
+        ids[0, :c] = torch.tensor(chunk)
+        dev = eng.device
+        tok, logits, cache, valid, _ = eng._extend(
+            cache, valid, ids.to(dev), torch.tensor([c], device=dev),
+            torch.tensor([start], device=dev), slot, self.generator,
+            gen.temperature, gen.top_p, gen.do_sample)
+        self.extends += 1
+        return tok, logits, cache, valid, start + c, slot + cb
+
+    def _first_turn(self, new_ids, images):
+        eng, gen = self.engine, self.gen
+        n = len(new_ids)
+        bucket = eng.pick_bucket(n)
+        ids = torch.zeros((1, bucket), dtype=torch.long)
+        ids[0, :n] = torch.tensor(list(new_ids))
+        # later turns need room: each takes a pow-2 chunk and its reply
+        extra = self.extra_slots
+        if extra is None:
+            extra = 4 * (eng.max_new_tokens + 64)
+        tok, logits, cache, valid = eng._prefill(
+            ids.to(eng.device), eng._prepare_images(images, 1),
+            torch.tensor([n], device=eng.device), self.generator,
+            gen.temperature, gen.top_p, gen.do_sample,
+            bucket + eng.max_new_tokens + extra + self._decode_slack)
+        self.prefills += 1
+        return tok, logits, cache, valid, n, bucket
+
+    def _decode_loop(self, cache, valid, tok, seq: int, slot: int,
+                     max_new: int, eos_arr, tokenizer, on_token):
+        """Decode in chunks (the engine's ramp, then ``steps_per_call``)
+        until an eos, a stop string or ``max_new`` tokens.  Every token but
+        a last one never fed back has its KV at consecutive slots from
+        ``slot``.  Returns (tokens, the next free slot)."""
+        eng, gen = self.engine, self.gen
+        t0 = int(tok[0])
+        tokens = [t0]
+        if on_token:
+            on_token(t0)
+        stopped = t0 in eos_arr
+        sched = eng._ramp_iter()
+        while len(tokens) < max_new and not stopped:
+            # eager steps: the last chunk runs exactly the steps left, where
+            # JAX pads it up to a compiled size and trims the surplus
+            n_steps = min(next(sched), max_new - len(tokens))
+            # the pending input tokens[-1] sits at position seq + len - 1
+            toks, _ = eng._decode(cache, valid, tok, slot, torch.tensor(
+                [seq + len(tokens) - 1], device=eng.device), self.generator,
+                gen, n_steps)
+            slot += n_steps
+            self.decode_steps += n_steps
+            tok = toks[-1]
+            for t in toks[:, 0].tolist():
+                tokens.append(t)
+                if on_token:
+                    on_token(t)
+                if t in eos_arr:
+                    stopped = True
+                    break
+            if not stopped and tokenizer is not None and gen.stop:
+                # this chunk plus a straddle window, not the whole reply
+                text = tokenizer.decode(tokens[-(n_steps + _STOP_WINDOW):],
+                                        skip_special_tokens=True)
+                stopped = any(s in text for s in gen.stop)
+        return tokens, slot
+
+    def _kept_count(self, tokens, eos_arr, tokenizer) -> int:
+        kept = len(tokens)
+        for i, t in enumerate(tokens):
+            if t in eos_arr:
+                kept = i + 1      # the eos stays, as the turn's terminator
+                break
+        if tokenizer is not None and self.gen.stop:
+            i = find_stop_index(tokens[:kept], self.gen.stop, tokenizer)
+            if i is not None:
+                kept = min(kept, i)
+        return kept
+
+
+class PrefixCache:
+    """A shared prompt prefix (system prompt and media) prefilled once, from
+    which sessions are spawned (engine.py:577-649): many questions about one
+    video pay the vision tower and the prefix's prefill once, and each
+    spawned session only extends by its question.
+
+    Only the prefix's ``bucket``-slot fragment is kept; each `spawn` copies
+    it into fresh session-size buffers.
+    """
+
+    def __init__(self, engine: Engine, prefix_ids: Sequence[int],
+                 images=None, gen: Optional[GenerationConfig] = None,
+                 extra_slots: Optional[int] = None):
+        self.engine = engine
+        self.gen = gen or GenerationConfig()
+        self.prefix_ids = [int(t) for t in prefix_ids]
+        eng = engine
+        n = len(self.prefix_ids)
+        bucket = eng.pick_bucket(n)
+        ids = torch.zeros((1, bucket), dtype=torch.long)
+        ids[0, :n] = torch.tensor(self.prefix_ids)
+        self._extra = extra_slots if extra_slots is not None \
+            else 4 * (eng.max_new_tokens + 64)
+        # prefill only: the sampled token is dropped (each session goes on
+        # with its own question)
+        _tok, _lg, cache, valid = eng._prefill(
+            ids.to(eng.device), eng._prepare_images(images, 1),
+            torch.tensor([n], device=eng.device),
+            torch.Generator(eng.device).manual_seed(self.gen.seed),
+            self.gen.temperature, self.gen.top_p, False,
+            bucket + eng.max_new_tokens + self._extra + eng.steps_per_call)
+        self._frag = llama.KVCache(*(
+            None if x is None else x[:, :, :bucket].clone()
+            for x in (cache.k, cache.v, cache.k_scale, cache.v_scale)))
+        self._valid = valid[:, :bucket].clone()
+        self._seq = n
+        self._slot = bucket
+
+    @torch.inference_mode()
+    def spawn(self, gen: Optional[GenerationConfig] = None,
+              speculative: bool = False, seed: Optional[int] = None
+              ) -> ChatSession:
+        """A new session whose cache holds the prefix.  Pass only the new
+        tokens (the question, framed with the separators) to its
+        ``chat``."""
+        if speculative:
+            raise NotImplementedError(
+                "speculative sessions (SpecChatSession) are not ported yet: "
+                "ROADMAP §1 item 5")
+        sess = ChatSession(self.engine, gen or self.gen)
+        if seed is not None:
+            sess.generator.manual_seed(seed)
+        total = (self._slot + self.engine.max_new_tokens + self._extra
+                 + sess._decode_slack)
+        cache, valid = _grow_cache(self._frag, self._valid, total)
+        sess._state = (cache, valid, self._seq, self._slot, None)
+        return sess

@@ -17,12 +17,14 @@ joined at different times write at their own slots); the fused serving
 layout (``wqkv``, ``w_gateup``), the decode GEMVs of up to ``MAX_ROWS``
 rows (bf16 projections and ``lm_head`` through K6, per-channel int8
 through K4, nibble-packed int4 with group or channel scales through K5),
-W8A8 prefill for ``*_scale_a8`` trees and the int8 KV cache.  Not ported
-yet, and refused with NotImplementedError: the ``"dots"`` remat policy,
-the ``cross_valid`` extend branch (sessions, speculation), grouped W4A8, a
-half-fused layout and LoRA.  The JAX package's split of batched decode
-into a carried and a sliced cache (llama.py:538-548) works around a TPU
-layout choice and has no counterpart: one cached form serves every B.
+W8A8 prefill for ``*_scale_a8`` trees, the int8 KV cache, and the
+``cross_valid`` extend branch (a chunk appended to a session's cache
+attends every valid slot and itself causally: multi-turn KV reuse).  Not
+ported yet, and refused with NotImplementedError: the ``"dots"`` remat
+policy, grouped W4A8, a half-fused layout and LoRA.  The JAX package's
+split of batched decode into a carried and a sliced cache
+(llama.py:538-548) works around a TPU layout choice and has no
+counterpart: one cached form serves every B.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from valley_tpu_torch.config import TextConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import KERNELS, Attention, \
-    prefill_attention
+    mha_attention, prefill_attention
 from valley_tpu_torch.ops.quant import (MAX_ROWS, int4_dequantize,
                                         int8_matvec_plain)
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
@@ -353,14 +355,44 @@ def _quantize_kv(x: torch.Tensor):
     return q, scale.to(torch.bfloat16)
 
 
+def _cache_layer(cache: KVCache, li: int, dtype: torch.dtype):
+    """Layer ``li``'s (B, Smax, Hkv, D) K and V in ``dtype``; an int8 cache
+    dequantized as ``k * k_scale`` in that dtype (llama.py:408-417)."""
+    ck, cv = cache.k[li], cache.v[li]
+    if cache.k_scale is None:
+        return ck, cv
+    return (ck.to(dtype) * cache.k_scale[li][..., None].to(dtype),
+            cv.to(dtype) * cache.v_scale[li][..., None].to(dtype))
+
+
+def _extend_bias(cross_valid: torch.Tensor, cache_index: Slots, s: int
+                 ) -> torch.Tensor:
+    """(B, 1, S, Smax) additive bias of a chunk of ``s`` tokens written at
+    ``cache_index`` (scalar or per row, unclamped as in JAX): 0 where a
+    query attends, -1e9 elsewhere.  Query i attends every ``cross_valid``
+    slot and the chunk's slots up to its own (llama.py:482-494)."""
+    b, smax = cross_valid.shape
+    dev = cross_valid.device
+    slots = torch.arange(smax, device=dev)
+    ci = torch.as_tensor(cache_index, device=dev).reshape(-1).expand(b)
+    rel = slots[None, :] - ci[:, None]                    # (B, Smax)
+    in_chunk = (rel >= 0) & (rel < s)
+    causal = rel[:, None, :] <= torch.arange(s, device=dev)[None, :, None]
+    mask = cross_valid[:, None, :] | (in_chunk[:, None, :] & causal)
+    return torch.where(mask[:, None], 0.0, -1e9)
+
+
 def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: Slots,
-                 kv_valid, attention: Attention):
+                 kv_valid, attention: Attention, cross_bias=None):
     """Write this chunk's K/V (an int8 cache: quantized, with their scales)
     into layer ``li`` of the cache at slot ``cache_index``, or at each
     row's own slot for a (B,) ``cache_index``, then attend: one token
-    against the whole cache, or a prefill chunk causally within itself on
-    its unquantized K/V (the cache beyond the chunk is empty: the engine
-    prefills at slot 0)."""
+    against the whole cache; with ``cross_bias`` (`_extend_bias`), a chunk
+    appended to a session's cache against every valid slot and itself
+    causally, through the plain `mha_attention` over the layer read back
+    (dequantized) from the cache, as JAX does (``use_flash=False``); or a
+    prefill chunk causally within itself on its unquantized K/V (the cache
+    beyond the chunk is empty: the engine prefills at slot 0)."""
     b, s, h = x.shape
     q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention)
     if isinstance(cache_index, torch.Tensor):
@@ -391,6 +423,9 @@ def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: Slots,
             raise ValueError("decode needs the (B, Smax) kv_valid mask")
         out = attention.decode(q, cache.k, cache.v, li, kv_valid,
                                cache.k_scale, cache.v_scale)
+    elif cross_bias is not None:
+        ck, cv = _cache_layer(cache, li, q.dtype)
+        out = mha_attention(q, ck, cv, cross_bias)
     else:
         chunk_valid = kv_valid[:, :s] if kv_valid is not None else None
         out = prefill_attention(q, k, v, chunk_valid, causal=True,
@@ -414,7 +449,9 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     plus ``cache_index`` with a cache).  With a cache, the chunk is written
     at slot ``cache_index``, an int or a (B,) tensor of per-row slots
     (clamped into the cache, as JAX's dynamic_update_slice clamps), and
-    ``kv_valid`` (B, Smax) marks attendable slots.  ``attention`` picks
+    ``kv_valid`` (B, Smax) marks attendable slots; a chunk of more than one
+    token given ``cross_valid`` (B, Smax), the slots valid before it, is
+    appended to a session's cache (`_attn_cached`).  ``attention`` picks
     the kernels (default) or their plain versions.  ``remat`` (cacheless path only): True/"full" wraps each
     layer in `torch.utils.checkpoint`, so the backward recomputes its
     forward (the attention forward then runs twice per layer).
@@ -423,10 +460,8 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     use_remat = _use_remat(remat)
     if use_remat and cache is not None:
         raise ValueError("remat applies to the cacheless forward only")
-    if cross_valid is not None:
-        raise NotImplementedError(
-            "the cross_valid extend branch (multi-turn KV reuse, speculative "
-            "verification) is not ported yet")
+    if cross_valid is not None and cache is None:
+        raise ValueError("cross_valid extends a cache: pass the cache")
     if cache is not None:
         if isinstance(cache_index, torch.Tensor) and cache_index.ndim:
             if tuple(cache_index.shape) != (b,):
@@ -443,6 +478,9 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
         positions = base.expand(b, s)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                             cfg.rope_scaling)
+    # one bias for every layer (JAX builds it per layer, inside the scan)
+    cross_bias = _extend_bias(cross_valid, cache_index, s) \
+        if cross_valid is not None and s > 1 else None
 
     lp = params["layers"]
     eps = cfg.rms_norm_eps
@@ -457,7 +495,7 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
             continue
         hn = rms_norm(x, lp["attn_norm"][li], eps)
         x = x + _attn_cached(lp, li, hn, cfg, cos, sin, cache, cache_index,
-                             kv_valid, attention)
+                             kv_valid, attention, cross_bias)
         x = x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps),
                      attention)
     return rms_norm(x, params["final_norm"], eps), cache
