@@ -64,13 +64,18 @@ seed, five processes one after the other:
   launches per step, and the first step's loss and gradients against the
   same step on the plain attention functions.
 
+Then the card tests, ``tests/test_torch_cuda.py`` (each kernel against its
+plain version at small shapes, the tiny models end to end), in a process
+of their own; a failing test fails the script.
+
 TF32 is off for matmuls and cuDNN, so fp32 references are fp32.  Every
 phase prints its lines; a failed check raises and the script exits
 non-zero.  The line before the last is a JSON object with one entry for
 each kernel on each path: its launches on that path, error, device time
 beside its plain version's, its bound and the library's time, at the shape
 that path gives it (each decode GEMV also with the bound at the read rate
-K7 measured); the last line is
+K7 measured; K1 and K2 also with their rate over the attended pairs and
+their time over the library's); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -156,8 +161,6 @@ NEW_TOKENS = 64
 # cache holds bucket + max_new_tokens + steps_per_call slots
 PROMPT_LEN, BUCKET = 473, 512
 SMAX = BUCKET + NEW_TOKENS + NEW_TOKENS - 1
-BENCH_TOKENS = dict(im_patch=31996, im_start=31997, im_end=31998,
-                    vi_frame=31999, vi_start=31994, vi_end=31995)
 # Profiler kernel names of each kernel of the serving paths
 KERNEL_NAMES = {"K1": ("flash_fwd_kernel",),
                 "K3": ("decode_split_kernel", "decode_combine_kernel"),
@@ -304,12 +307,24 @@ def attention_bound(q, k, kv_mask, causal, products: int,
                     extra_bytes: int) -> dict:
     """Bound of an attention call: ``products`` matrix products of 2*D
     operations per attended pair and head; bytes are q/k/v/out (plus
-    ``extra_bytes``) read or written once, and the mask."""
+    ``extra_bytes``) read or written once, and the mask.  Also returns
+    those operations as ``ops``."""
     b, sq, h, d = q.shape
     pairs = attended_pairs(kv_mask, sq, causal) * h
     n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + \
         kv_mask.numel() + extra_bytes
-    return bound(n_bytes, products * 2 * d * pairs)
+    ops = products * 2 * d * pairs
+    return {**bound(n_bytes, ops), "ops": ops}
+
+
+def attention_rates(times: dict) -> str:
+    """Put beside an attention kernel's times its rate over the attended
+    pairs' operations (``tflop_per_s``) and its time over the library
+    call's (``library_ratio``); returns them for the kernel's line."""
+    times["tflop_per_s"] = times["ops"] / (times["ms"] * 1e-3) / 1e12
+    times["library_ratio"] = times["ms"] / times["library_ms"]
+    return (f"; {times['tflop_per_s']:.1f} TFLOP/s over the attended "
+            f"pairs, {times['library_ratio']:.2f}x the library's time")
 
 
 def library_attention_ms(q, k, v, kv_mask, causal: bool, dout=None,
@@ -390,8 +405,8 @@ def k2_phase(gen) -> tuple:
     7B training shape, where K1 is also checked and timed.  Returns (K2's
     max error, K2's times, K1's error and times at the training shape)."""
     from valley_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain)
+        _kernel_delta, attention_delta, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
 
     k2_err, k2_t, k1 = 0.0, None, None
     for name, q, k, v, g, mask, causal in flash_bwd_cases(gen):
@@ -413,7 +428,8 @@ def k2_phase(gen) -> tuple:
                                                     iters=5)
             print(f"K1 flash_fwd {name}: max_abs_err {err:.3e} (tol "
                   f"{tol:.3e}) {fmt_times(k1)}; bound {k1['bound_ms']:.4f} "
-                  f"ms ({k1['bound_by']}), library {k1['library_ms']:.4f} ms")
+                  f"ms ({k1['bound_by']}), library {k1['library_ms']:.4f} ms"
+                  + attention_rates(k1))
             del ref
         got = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=causal)
         torch.cuda.synchronize()
@@ -465,45 +481,25 @@ def k2_phase(gen) -> tuple:
                                                       dout=g, iters=5)
             line += (f" {fmt_times(k2_t)}; bound {k2_t['bound_ms']:.4f} ms "
                      f"({k2_t['bound_by']}), library {k2_t['library_ms']:.4f}"
-                     f" ms")
+                     f" ms" + attention_rates(k2_t))
+            # two passes and no atomics: a second call gives the same bits
+            again = flash_attention_bwd(q, k, v, mask, out, lse, g,
+                                        causal=causal)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            check(same, f"K2 {name}: a second call gave other bits")
+            line += "; a second call bit-identical"
+            del again
+            # delta = rowsum(dO * O) inside K2's time: its kernel against
+            # the eager PyTorch reduction it replaced
+            k2_t["delta_ms"] = profile_device(
+                lambda: _kernel_delta(out, g), 5)[0]
+            k2_t["torch_delta_ms"] = profile_device(
+                lambda: attention_delta(out, g), 5)[0]
+            line += (f"; delta {k2_t['delta_ms']:.4f} ms (attention_delta "
+                     f"{k2_t['torch_delta_ms']:.4f} ms)")
         print(line)
         del q, k, v, g, out, lse, got, ref
     return k2_err, k2_t, k1
-
-
-class TrainRows:
-    """The training slice's synthetic rows, made with numpy from a seed:
-    ``n`` rows of 300-512 tokens (the first exactly 512), a masked prompt
-    holding the media span, the first half videos of ``frames`` frames and
-    the second half single images (the collator pads their frame axis)."""
-
-    def __init__(self, cfg, n: int = 16, seq: int = 512, frames: int = 8):
-        rng = np.random.default_rng(0)
-        tok = cfg.tokens
-        span = [tok.im_start] + [tok.im_patch] * cfg.num_patches + \
-            [tok.im_end] + [tok.vi_start] + [tok.vi_frame] * frames + \
-            [tok.vi_end]
-        size = cfg.vision.image_size
-        lengths = rng.integers(300, seq + 1, n)
-        lengths[0] = seq
-        self.items = []
-        for i, length in enumerate(lengths):
-            ids = rng.integers(5, 30000, size=int(length))
-            ids[0] = 1
-            ids[1:1 + len(span)] = span
-            labels = ids.copy()
-            labels[:1 + len(span) + int(rng.integers(4, 24))] = -100
-            t = frames if i < n // 2 else 1
-            self.items.append(dict(
-                input_ids=ids, labels=labels,
-                image=rng.standard_normal((t, 3, size, size)).astype(
-                    np.float32)))
-
-    def __len__(self):
-        return len(self.items)
-
-    def __getitem__(self, i):
-        return self.items[i]
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -514,15 +510,16 @@ def train_phase(smi: str) -> tuple:
     """Valley-7B stage 1 on the card through `Trainer`: the first step's
     loss and gradients against the plain attention functions, one warm-up
     update, then three timed updates on the same batch with the launch
-    counts read around them, then one profiled update.  Returns the K1 and
-    K2 launches of the three timed updates."""
+    counts read around them, then one profiled update.  Returns the K1, K2
+    and K2's delta-kernel launches of the three timed updates."""
     from valley_tpu_torch import SpecialTokens, valley_7b
     from valley_tpu_torch.data.dataset import (
         DataCollatorForSupervisedDataset, DataLoader)
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS, TrainRows
     from valley_tpu_torch.models import valley
     from valley_tpu_torch.ops.attention import KERNELS, PLAIN
-    from valley_tpu_torch.ops.flash_attention import (flash_attention,
-                                                      flash_attention_bwd)
+    from valley_tpu_torch.ops.flash_attention import (
+        _kernel_delta, flash_attention, flash_attention_bwd)
     from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
     cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
@@ -589,6 +586,7 @@ def train_phase(smi: str) -> tuple:
     torch.cuda.synchronize()
     flash_attention.launches = 0
     flash_attention_bwd.launches = 0
+    _kernel_delta.launches = 0
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(3):                                # the main path
@@ -599,15 +597,19 @@ def train_phase(smi: str) -> tuple:
         losses.append(m["loss"])
         check(m["updated"], "train: a step did not update")
     n_k1, n_k2 = flash_attention.launches, flash_attention_bwd.launches
+    n_delta = _kernel_delta.launches
     peak = torch.cuda.max_memory_allocated()
     print(f"train: losses {[round(x, 5) for x in losses]} (warm-up, then 3 "
-          f"updates); launches over 3 updates K1 {n_k1} K2 {n_k2}")
+          f"updates); launches over 3 updates K1 {n_k1} K2 {n_k2} (each "
+          f"after one of K2's delta kernel: {n_delta})")
     check(all(np.isfinite(losses)), "train: loss not finite")
     check(losses[-1] < losses[0], "train: the loss did not fall")
     check(n_k1 == 3 * 2 * layers,
           f"K1 launched {n_k1} times in 3 updates, want {3 * 2 * layers}")
     check(n_k2 == 3 * layers,
           f"K2 launched {n_k2} times in 3 updates, want {3 * layers}")
+    check(n_delta == n_k2, f"K2's delta kernel launched {n_delta} times, "
+          f"K2 {n_k2}")
     for name, p in params.named_parameters():
         same = torch.equal(p.detach().cpu(), before[name])
         check(same == (name not in names),
@@ -644,7 +646,7 @@ def train_phase(smi: str) -> tuple:
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
-    return n_k1, n_k2
+    return n_k1, n_k2, n_delta
 
 
 def decode_cases(gen, smax_7b: int, prompt_len: int, bucket: int):
@@ -1097,7 +1099,7 @@ def k1_phase(cases) -> tuple:
                                                       iters=20)
             line += (f" {fmt_times(k1_t)}; bound {k1_t['bound_ms']:.4f} ms "
                      f"({k1_t['bound_by']}), library {k1_t['library_ms']:.4f}"
-                     f" ms")
+                     f" ms" + attention_rates(k1_t))
         print(line)
     return k1_err, k1_t
 
@@ -1185,6 +1187,7 @@ def serve_path(smi: str, gen, work: Path) -> list:
     """The bf16 serving path: K1 and K3 against their plain versions, then
     the slice.  Returns its kernels entries."""
     from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS
     from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
     from valley_tpu_torch.ops.flash_attention import flash_attention
     from valley_tpu_torch.ops.matvec import bf16_matvec
@@ -1217,6 +1220,7 @@ def serve_int8_path(smi: str, gen, work: Path) -> list:
     same random weights fused and quantized to int8a8 on the card, with an
     int8 KV cache.  Returns its kernels entries."""
     from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS
     from valley_tpu_torch.models.llama import fuse_llama_params
     from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
     from valley_tpu_torch.ops.flash_attention import flash_attention
@@ -1788,6 +1792,7 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
     on the same weights, the conversation (`conv_slice`), whose cache it
     saves in ``work`` for the lab.  Returns its kernels entries."""
     from valley_tpu_torch import SpecialTokens, valley_13b
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS
     from valley_tpu_torch.models.llama import fuse_llama_params
     from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
     from valley_tpu_torch.ops.flash_attention import flash_attention
@@ -2356,6 +2361,7 @@ def serve_batch_path(smi: str, gen, work: Path) -> list:
     then the slice on random Valley-7B bf16 weights, fused.  Returns its
     kernels entries."""
     from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS
     from valley_tpu_torch.models.llama import fuse_llama_params
     from valley_tpu_torch.ops.matvec import bf16_matvec
 
@@ -2403,14 +2409,14 @@ def train_path(smi: str, gen, work: Path) -> list:
     k2_err, k2_t, k1_train = k2_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
-    train_k1, train_k2 = train_phase(smi)
+    train_k1, train_k2, train_delta = train_phase(smi)
     return [{**K1_SRC, "name": "flash_fwd_train", "path": "train",
              "launches": train_k1, **k1_train},
             {"name": "flash_bwd", "route": "cuda",
              "source": "valley_tpu_torch/csrc/flash_bwd.cu",
              "replaces": "valley_tpu/ops/flash_attention.py:183",
-             "path": "train", "launches": train_k2, "max_abs_err": k2_err,
-             **k2_t}]
+             "path": "train", "launches": train_k2,
+             "delta_launches": train_delta, "max_abs_err": k2_err, **k2_t}]
 
 
 # Each path runs in a process of its own, one after the other: each frees
@@ -2483,6 +2489,12 @@ def main(argv=None) -> int:
                   flush=True)
             with open(out) as f:
                 kernels += json.load(f)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "pytest", "tests/test_torch_cuda.py",
+                    "-m", "cuda", "--noconftest", "-q", "-p",
+                    "no:cacheprovider"], check=True,
+                   cwd=Path(__file__).resolve().parent)
+    print(f"card tests: {time.perf_counter() - t0:.1f} s wall", flush=True)
     # the decode GEMVs against the read rate K7 measured (the faster of
     # K7 and torch.sum on 2.15 GB): ``ceiling_bound_ms`` is the bound at
     # that rate, beside ``bound_ms`` at the datasheet's 3.35 TB/s

@@ -76,23 +76,51 @@ def _err_and_tol(out, ref):
             REL_TOL * ref.float().abs().max().item())
 
 
-@pytest.mark.parametrize("b,s,h,d,causal,tail", [
-    (1, 512, 32, 128, True, 39), (2, 300, 4, 64, True, 17),
-    (1, 77, 2, 32, False, 0), (2, 130, 4, 16, True, 5)])
-def test_flash_kernel_matches_plain(gen, b, s, h, d, causal, tail):
+def _flash_mask(b, s, lengths, hole):
+    """(B, S) bool: row i attends its first lengths[i] keys, less the keys
+    in [hole[0], hole[1]) of every row."""
+    mask = torch.arange(s, device="cuda")[None, :] < torch.tensor(
+        lengths, device="cuda")[:, None]
+    if hole is not None:
+        mask[:, hole[0]:hole[1]] = False
+    return mask
+
+
+# (b, s, h, d, causal, per-row key lengths, masked hole): every head dim;
+# S not a multiple of 64 and S < 16; rows of different lengths; a hole
+# that masks a whole 64-key tile inside a row (tile skipping); a hole at
+# the start, so that causal rows attend nothing; fully masked rows
+FLASH_CASES = [
+    (1, 512, 32, 128, True, (473,), None), (2, 300, 4, 64, True, (283, 283),
+                                            None),
+    (1, 77, 2, 32, False, (77,), None), (2, 130, 4, 16, True, (125, 125),
+                                         None),
+    (3, 100, 2, 64, True, (100, 37, 64), None),
+    (1, 9, 2, 128, True, (9,), None), (2, 13, 4, 16, False, (13, 5), None),
+    (2, 200, 2, 32, False, (200, 150), (64, 128)),
+    (2, 320, 2, 128, True, (320, 250), (70, 200)),
+    (1, 200, 2, 64, True, (200,), (0, 80)),
+    (2, 96, 2, 64, False, (70, 0), None),
+    (3, 130, 2, 128, True, (0, 130, 0), None)]
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,lengths,hole", FLASH_CASES)
+def test_flash_kernel_matches_plain(gen, b, s, h, d, causal, lengths, hole):
     q, k, v = (_randn(gen, b, s, h, d) for _ in range(3))
-    mask = torch.ones((b, s), dtype=torch.bool, device="cuda")
-    if tail:
-        mask[:, s - tail:] = False
+    mask = _flash_mask(b, s, lengths, hole)
     before = flash_attention.launches
     out, lse = flash_attention(q, k, v, mask, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref, ref_lse = flash_attention_plain(q, k, v, mask, causal=causal,
                                          return_lse=True)
+    assert bool(torch.isfinite(out.float()).all())
     err, tol = _err_and_tol(out, ref)
     assert err <= tol
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert bool((out[i] == 0).all())   # a row with no key is 0
 
 
 def test_flash_kernel_refuses_what_it_cannot_take(gen):
@@ -133,25 +161,30 @@ def test_decode_kernel_matches_plain_with_mask_hole(gen, b, smax, h, hkv, d):
     assert fault > tol
 
 
-def _bwd_inputs(gen, b, s, h, d, causal, lengths):
+def _bwd_inputs(gen, b, s, h, d, causal, lengths, hole=None):
     q, k, v, g = (_randn(gen, b, s, h, d) for _ in range(4))
-    mask = torch.arange(s, device="cuda")[None, :] < torch.tensor(
-        lengths, device="cuda")[:, None]
+    mask = _flash_mask(b, s, lengths, hole)
     out, lse = flash_attention(q, k, v, mask, causal=causal, return_lse=True)
     return q, k, v, g, mask, out, lse
 
 
-@pytest.mark.parametrize("b,s,h,d,causal,lengths", [
-    (2, 512, 8, 128, True, (512, 317)), (2, 300, 4, 64, True, (283, 300)),
-    (1, 77, 2, 32, False, (77,)), (2, 130, 4, 16, True, (125, 130)),
-    (2, 96, 2, 64, False, (70, 0))])
-def test_flash_bwd_kernel_matches_plain(gen, b, s, h, d, causal, lengths):
+@pytest.mark.parametrize("b,s,h,d,causal,lengths,hole", [
+    (2, 512, 8, 128, True, (512, 317), None), (2, 300, 4, 64, True,
+                                               (283, 300), None),
+    (1, 77, 2, 32, False, (77,), None), (2, 130, 4, 16, True, (125, 130),
+                                         None),
+    (2, 96, 2, 64, False, (70, 0), None)] + FLASH_CASES[4:])
+def test_flash_bwd_kernel_matches_plain(gen, b, s, h, d, causal, lengths,
+                                        hole):
     q, k, v, g, mask, out, lse = _bwd_inputs(gen, b, s, h, d, causal,
-                                             lengths)
-    before = flash_attention_bwd.launches
+                                             lengths, hole)
+    from valley_tpu_torch.ops.flash_attention import _kernel_delta
+
+    before = flash_attention_bwd.launches, _kernel_delta.launches
     got = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=causal)
     torch.cuda.synchronize()
-    assert flash_attention_bwd.launches == before + 1
+    assert flash_attention_bwd.launches == before[0] + 1
+    assert _kernel_delta.launches == before[1] + 1
     ref = flash_attention_bwd_plain(q, k, v, mask, out, lse, g,
                                     causal=causal)
     for a, r in zip(got, ref):
@@ -165,6 +198,35 @@ def test_flash_bwd_kernel_matches_plain(gen, b, s, h, d, causal, lengths):
         assert bool((got[2][i, n:] == 0).all())
         if n == 0:
             assert bool((got[0][i] == 0).all())
+    if hole is not None:
+        # so do the keys of the hole
+        assert bool((got[1][:, hole[0]:hole[1]] == 0).all())
+        assert bool((got[2][:, hole[0]:hole[1]] == 0).all())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bwd_delta_kernel_matches_plain(gen, d):
+    """K2's delta kernel against `attention_delta`: the products of bf16
+    values are exact in fp32, so only the order of the fp32 sums differs."""
+    from valley_tpu_torch.ops.flash_attention import (_kernel_delta,
+                                                      attention_delta)
+
+    out, g = _randn(gen, 2, 77, 3, d), _randn(gen, 2, 77, 3, d)
+    got, ref = _kernel_delta(out, g), attention_delta(out, g)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (6, 77)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_flash_bwd_kernel_is_deterministic(gen):
+    """Two passes with no atomics: two calls on the same inputs give the
+    same bits."""
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, 2, 512, 8, 128, True,
+                                             (512, 317))
+    first = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=True)
+    second = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_flash_bwd_kernel_that_ignored_the_mask_fails(gen):

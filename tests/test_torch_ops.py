@@ -228,6 +228,101 @@ def test_flash_bwd_wrapper_on_cpu_is_plain_and_counts_nothing():
                             torch.zeros((2, 8), device="meta"), meta)
 
 
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
+def _emulate_flash_kernels(q, k, v, mask, g, causal, bk=64):
+    """The CUDA kernels' arithmetic written out in fp32 on the CPU: K1's
+    online softmax over key tiles of ``bk`` with P carried into P V as two
+    bf16 terms, hi = bf16(P) and lo = bf16(P - hi) (running max and
+    denominator in fp32, the output rounded to bf16),
+    then K2's formulas from that output and lse with P rounded to bf16
+    before dV and dS before dK and dQ.  Inputs (B, S, H, D) fp32 holding
+    bf16 values; returns (out, dq, dk, dv) in fp32."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    qh, kh, vh, gh = (x.permute(0, 2, 1, 3) for x in (q, k, v, g))
+    allowed = mask[:, None, None, :]
+    if causal:
+        allowed = allowed & torch.ones((s, s), dtype=torch.bool).tril()
+    logits = qh @ kh.transpose(-1, -2) * scale              # (B, H, S, S)
+    m = torch.full((b, h, s), -1e9)
+    den = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, bk):
+        st = torch.where(allowed[..., k0:k0 + bk], logits[..., k0:k0 + bk],
+                         float("-inf"))
+        m_new = torch.maximum(m, st.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(st - m_new[..., None])
+        den = den * alpha + p.sum(-1)
+        hi = _bf16_round(p)
+        acc = acc * alpha[..., None] + hi @ vh[..., k0:k0 + bk, :] + \
+            _bf16_round(p - hi) @ vh[..., k0:k0 + bk, :]
+        m = m_new
+    den = den.clamp_min(1e-30)
+    out = _bf16_round(acc / den[..., None])                  # (B, H, S, D)
+    lse = m + torch.log(den)
+    p = torch.where(allowed, torch.exp(logits - lse[..., None]), 0.0)
+    delta = (gh * out).sum(-1, keepdim=True)
+    dv = _bf16_round(p).transpose(-1, -2) @ gh
+    ds = p * (gh @ vh.transpose(-1, -2) - delta) * scale
+    dq = _bf16_round(ds) @ kh
+    dk = _bf16_round(ds).transpose(-1, -2) @ qh
+    return tuple(_bf16_round(x.permute(0, 2, 1, 3))
+                 for x in (out, dq, dk, dv))
+
+
+def test_flash_kernel_rounding_emulated_matches_jax():
+    """The kernels' new rounding points (P as two bf16 terms before P V;
+    P to bf16 before dV; dS to bf16 before dK and dQ), emulated tile by
+    tile at 64-key tiles, against the JAX oracle and jax.grad through it:
+    7B's head dim, S 512, two heads, N(0, 1) bf16 inputs, causal with a
+    39-key padded tail.  Measured max|diff| / max|ref|: out 1.4e-3, dq
+    4.0e-3, dk 3.7e-3, dv 2.9e-3 (the fp32 plain versions: 1.4e-3 to
+    2.4e-3).  Against those plain versions, as the card's kernel checks
+    compare, the emulation lies 6.9e-4 (out), 3.9e-3, 6.1e-3 and 4.5e-3
+    off: the prediction for the card, under its bar 2^-6 = 1.56e-2."""
+    rng = np.random.default_rng(20)
+    q, k, v, g = (rng.standard_normal((1, 512, 2, 128)).astype(np.float32)
+                  for _ in range(4))
+    q, k, v, g = (_np(torch.from_numpy(x).bfloat16()) for x in (q, k, v, g))
+    mask = np.ones((1, 512), bool)
+    mask[0, 473:] = False
+    got = _emulate_flash_kernels(*(torch.from_numpy(x) for x in (q, k, v)),
+                                 torch.from_numpy(mask), torch.from_numpy(g),
+                                 True)
+    jmask = jnp.asarray(mask)
+    want_out = _xla_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jmask, True)
+    want = (want_out,) + _jax_grads(lambda q_, k_, v_: _xla_attention(
+        q_, k_, v_, jmask, True), (q, k, v), g)
+    for name, a, w in zip(("out", "dq", "dk", "dv"), got, want):
+        assert _rel_err(a, w) <= 2 ** -6, (name, _rel_err(a, w))
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library name hashes the shared headers too: editing a
+    header of ``csrc`` must not load a library built from the old one."""
+    from valley_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert before["flash_fwd"] == _build.library_path("flash_fwd")
+    header = csrc / "flash_common.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert after["flash_fwd"] != before["flash_fwd"]
+    assert after["flash_bwd"] != before["flash_bwd"]
+    assert all(p.parent == _build.BUILD_DIR for p in after.values())
+
+
 def _decode_inputs(rng, b, s, h, hkv, d, n_layers=3):
     q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
     k = rng.standard_normal((n_layers, b, s, hkv, d)).astype(np.float32) * .5

@@ -3,210 +3,244 @@
 // Replaces: valley_tpu/ops/flash_attention.py `_fwd_kernel` (the Pallas TPU
 // kernel launched by `_flash_fwd_impl`), the prefill attention of the LLaMA
 // decoder.  Same semantics: scale d^-1/2, a (B, Sk) key-validity mask, an
-// optional causal mask, fp32 running max / denominator / accumulator, P kept
-// in fp32 for PV, per-row logsumexp written in fp32 for a backward pass.
-// A row whose keys are all masked outputs 0 (denominator clamped at 1e-30).
+// optional causal mask, fp32 running max / denominator / accumulator, per-row
+// logsumexp written in fp32 for a backward pass.  A row whose keys are all
+// masked outputs 0 (denominator clamped at 1e-30).  The one new rounding
+// point: P enters the P V product as two bf16 terms, hi = bf16(P) and
+// lo = bf16(P - hi), 16 bits of it (the sums stay fp32).  One term, 8 bits,
+// changes 5-7 % of the bf16 outputs against an fp32 reference and moves a
+// W8A8 model's logits by int8 steps; two terms change ~0.03 %.
 //
-// What bounds it on the H100: arithmetic.  At the Valley-7B prefill shape
-// (S=512, H=32, D=128, causal) one layer needs ~2.1 GFLOP against ~17 MB of
-// q/k/v/o traffic.  This first version multiplies on the CUDA cores in fp32
-// (no tensor cores), so the fp32 FMA rate and shared-memory bandwidth bound
-// it, not device memory.
+// What bounds it on the H100: at S <= 2048 the bytes (q/k/v/o once:
+// ~4 MB a layer at the Valley-7B prefill, 5 us at 3.35 TB/s) bound it on
+// paper; in practice latency does: a block walks its key tiles one after
+// another, each warp rereads the streamed tile from shared memory for its
+// own 16 rows, and the registers and 87 KB of shared memory a block leave
+// 8 warps on an SM.  The products are ~2 GFLOP a layer (P V's twice over,
+// for P's two terms).
 //
-// What the design does about it: the (S, S) logits never leave the SM.  One
-// block of 256 threads owns 64 query rows of one (batch, head); K and V
-// stream through shared memory in 64-row tiles that all 64 query rows reuse;
-// each thread keeps a 4x4 block of logits and a 4 x D/16 block of the output
-// in registers; the softmax statistics of a row live in the 16 lanes of one
-// half-warp, so row reductions are register shuffles.  Causal tiles above the
-// diagonal are never loaded.  Ragged S is masked inside the kernel: no
-// padding copy.  Shared-memory rows are padded by one float so that column
-// walks hit distinct banks.  Tensor cores (mma.sync / wgmma) and TMA are
-// later work.
+// What the design does about it: one block of 4 warps owns 64 query rows
+// of one (batch, head), each warp 16 rows.  Q is read once into registers as
+// mma A fragments (ldmatrix).  K and V stream through a 2-stage ring of bf16
+// tiles of 64 keys filled by cp.async (the next tile loads while this one
+// is multiplied).  S = Q K^T and O += P V run on the tensor cores
+// (mma.sync m16n8k16 bf16, fp32 sums): K through ldmatrix as the B operand,
+// V through ldmatrix.trans; S's accumulator fragments are scaled,
+// exponentiated with exp2f (scale * log2 e folded in), split into two bf16
+// terms and repacked in registers as the A fragments of P V, so P never
+// touches shared memory.  Row max and sum are quad shuffles.  The key mask
+// becomes one bit per key in shared memory (warp ballots) at the start: a
+// key tile with no attended key is never loaded, a tile fully attended and
+// off the diagonal takes no per-element predicate, and causal tiles above
+// the diagonal are never loaded.  The grid is (B*H, query tiles) with the heaviest query
+// tiles (the last, under causal) launched first.  Ragged S is masked inside
+// the kernel (zero-filled copies past the edge): no padding copy.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // key rows per tile
-constexpr int NT = 256;       // threads per block: 16 row groups x 16 lanes
-constexpr float NEG = -1e9f;  // running-max floor (flash_attention.py _NEG_INF)
+using flash::pitch;
 
+constexpr int BQ = 64;   // query rows per block
+constexpr int BK = 64;   // key rows per tile
+constexpr int NT = 128;  // 4 warps of 16 query rows
+
+// Q, two stages of K and V, then the key bit words.
 template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-}
-
-// Rows [r0, r0 + rows) of a (S, row_stride) bf16 matrix -> fp32 shared
-// memory with row pitch `pitch`; rows at or past S read as zero.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
-                                          int r0, int S, long long row_stride,
-                                          float* dst, int pitch, int tid) {
-  constexpr int VEC = 8;  // 8 bf16 = 16 bytes per load
-  constexpr int PER_ROW = D / VEC;
-  for (int idx = tid; idx < ROWS * PER_ROW; idx += NT) {
-    const int r = idx / PER_ROW;
-    const int c = (idx % PER_ROW) * VEC;
-    float* o = dst + r * pitch + c;
-    if (r0 + r < S) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + (long long)(r0 + r) * row_stride + c);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VEC / 2; ++j) {
-        const float2 f = __bfloat1622float2(h2[j]);
-        o[2 * j] = f.x;
-        o[2 * j + 1] = f.y;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) o[j] = 0.f;
-    }
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+size_t smem_bytes(int sk) {
+  return 2 * pitch<D>() * (BQ + 4 * BK) + 8 * ((sk + BK - 1) / BK);
 }
 
 // q/out: (B, Sq, H, D); k/v: (B, Sk, H, D), all contiguous bf16.
-// kv_mask: (B, Sk) bytes, row b at kv_mask + b * mask_stride, nonzero = attend.
-// lse: (B*H, Sq) fp32.  Grid (ceil(Sq/BQ), B*H).
+// kv_mask: (B, Sk) bytes, row b at kv_mask + b * mask_stride, nonzero =
+// attend.  lse: (B*H, Sq) fp32.  Grid (B*H, ceil(Sq/BQ)).
 template <int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
+__global__ void __launch_bounds__(NT, 2) flash_fwd_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const uint8_t* __restrict__ kv_mask,
     long long mask_stride, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ lse, int H, int Sq, int Sk, int causal, float scale) {
-  constexpr int QP = D + 1;   // padded pitch of the Q and K tiles
-  constexpr int PP = BK + 1;  // padded pitch of the P tile
-  constexpr int DC = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;          // BQ x QP
-  float* sK = sQ + BQ * QP;  // BK x QP
-  float* sV = sK + BK * QP;  // BK x D
-  float* sP = sV + BK * D;   // BQ x PP
+    float* __restrict__ lse, int H, int Sq, int Sk, int causal,
+    float scale_log2) {
+  constexpr int P = pitch<D>();
+  constexpr int KS = D / 16;  // k-steps of Q K^T
+  constexpr int DB = D / 8;   // n-blocks of the output
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sK = sQ + BQ * P;      // 2 stages
+  __nv_bfloat16* sV = sK + 2 * BK * P;  // 2 stages
+  uint32_t* bits = reinterpret_cast<uint32_t*>(sV + 2 * BK * P);
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest first
   const int tid = threadIdx.x;
-  const int tx = tid % 16;  // column lane inside the half-warp
-  const int ty = tid / 16;  // row group: rows ty*4 .. ty*4+3
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const long long rs = (long long)H * D;  // elements between consecutive s
   const __nv_bfloat16* qb = q + (long long)b * Sq * rs + (long long)h * D;
   const __nv_bfloat16* kb = k + (long long)b * Sk * rs + (long long)h * D;
   const __nv_bfloat16* vb = v + (long long)b * Sk * rs + (long long)h * D;
-  const uint8_t* mb = kv_mask + (long long)b * mask_stride;
-
-  load_tile<D, BQ>(qb, q0, Sq, rs, sQ, QP, tid);
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
 
   const int q_end = min(Sq, q0 + BQ);
   // causal: keys at or past q_end are masked for every row of this block
   const int k_end = causal ? min(Sk, q_end) : Sk;
+  const int n_kt = (k_end + BK - 1) / BK;
 
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();  // the previous tile's sK/sV are consumed
-    load_tile<D, BK>(kb, k0, Sk, rs, sK, QP, tid);
-    load_tile<D, BK>(vb, k0, Sk, rs, sV, D, tid);
+  flash::load_tile<D, BQ, NT>(qb, q0, Sq, rs, sQ, tid);
+  flash::cp_async_commit();
+  flash::mask_words<NT>(kv_mask + (long long)b * mask_stride, Sk, bits,
+                        2 * n_kt, tid);
+  __syncthreads();
+  auto live = [&](int t) { return (bits[2 * t] | bits[2 * t + 1]) != 0u; };
+
+  int kt = 0;
+  while (kt < n_kt && !live(kt)) ++kt;
+  int stage = 0;
+  if (kt < n_kt) {
+    flash::load_tile<D, BK, NT>(kb, kt * BK, Sk, rs, sK, tid);
+    flash::load_tile<D, BK, NT>(vb, kt * BK, Sk, rs, sV, tid);
+  }
+  flash::cp_async_commit();
+  flash::cp_async_wait<1>();  // the Q tile has landed
+  __syncthreads();
+
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    flash::load_a<P>(qf[ks], sQ + warp * 16 * P + ks * 16, lane);
+
+  float o[DB][4];
+#pragma unroll
+  for (int j = 0; j < DB; ++j)
+    o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  const float neg2 = flash::NEG * flash::LOG2E;
+  float m2[2] = {neg2, neg2};  // running max in the log2 domain
+  float l[2] = {0.f, 0.f};     // this thread's share of the denominator
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
+  const int c0 = 2 * (lane & 3);                   // columns c0, c0 + 1
+
+  while (kt < n_kt) {
+    int nxt = kt + 1;
+    while (nxt < n_kt && !live(nxt)) ++nxt;
+    if (nxt < n_kt) {
+      flash::load_tile<D, BK, NT>(kb, nxt * BK, Sk, rs,
+                                  sK + (stage ^ 1) * BK * P, tid);
+      flash::load_tile<D, BK, NT>(vb, nxt * BK, Sk, rs,
+                                  sV + (stage ^ 1) * BK * P, tid);
+    }
+    flash::cp_async_commit();
+    flash::cp_async_wait<1>();  // tile kt has landed
     __syncthreads();
+    const __nv_bfloat16* tK = sK + stage * BK * P;
+    const __nv_bfloat16* tV = sV + stage * BK * P;
 
-    float s[4][4];
+    // S = Q K^T: 16 rows x 64 keys per warp
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * QP + d];
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bf[4];
+        flash::load_b_nk<P>(bf, tK + np * 16 * P + ks * 16, lane);
+        flash::mma(s[2 * np], qf[ks], bf[0], bf[1]);
+        flash::mma(s[2 * np + 1], qf[ks], bf[2], bf[3]);
+      }
+
+    const int k0 = kt * BK;
+    const uint32_t* tb = bits + 2 * kt;
+    const bool diag = causal && k0 + BK - 1 > q0;
+    if ((tb[0] & tb[1]) == 0xffffffffu && !diag) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * QP + d];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale_log2;
+    } else {
+      // masked logits are -inf: they never raise the running max (floored
+      // at NEG) and their probability is exactly 0
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + c0 + (e & 1);
+          const int row = row0 + 8 * (e >> 1);
+          const bool ok = flash::key_bit(tb, col) &&
+                          (!causal || k0 + col <= row);
+          s[j][e] = ok ? s[j][e] * scale_log2 : -INFINITY;
+        }
     }
 
+    // online softmax; rows row0 (e = 0, 1) and row0 + 8 (e = 2, 3)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+    for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < Sk && mb[col] != 0 && (!causal || col <= row);
-        // masked logits are -inf: they never raise the running max (floored
-        // at NEG) and their probability is exactly 0
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.f;
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+      const float m_new = fmaxf(m2[r], flash::quad_max(mx));
+      const float alpha = exp2f(m2[r] - m_new);
+      m2[r] = m_new;
+      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(ty * 4 + i) * PP + tx + 16 * j] = p;
-        ps += p;
-      }
-      l[i] = l[i] * alpha + half_warp_sum(ps);
-      m[i] = m_new;
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[j][e] = exp2f(s[j][e] - m_new);
+          sum += s[j][e];
+        }
+      l[r] = l[r] * alpha + sum;
+#pragma unroll
+      for (int j = 0; j < DB; ++j) {
+        o[j][2 * r] *= alpha;
+        o[j][2 * r + 1] *= alpha;
+      }
     }
-    __syncwarp();  // a row's P is written and read by one half-warp
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * PP + c];
+    for (int kk = 0; kk < 4; ++kk) {
+      // P as two bf16 terms, hi = bf16(P) and lo = bf16(P - hi): 16 of its
+      // bits reach P V, where one term carries 8.  lo's products are added
+      // first (tools/flash_numerics.py holds this order against the others)
+      uint32_t pa[4], pl[4];
+      flash::c_to_a2(pa, pl, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) {
-        const float vv = sV[c * D + tx + 16 * cc];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(pv[i], vv, acc[i][cc]);
+      for (int dp = 0; dp < DB / 2; ++dp) {
+        uint32_t bf[4];
+        flash::load_b_kn<P>(bf, tV + kk * 16 * P + dp * 16, lane);
+        flash::mma(o[2 * dp], pl, bf[0], bf[1]);
+        flash::mma(o[2 * dp + 1], pl, bf[2], bf[3]);
+        flash::mma(o[2 * dp], pa, bf[0], bf[1]);
+        flash::mma(o[2 * dp + 1], pa, bf[2], bf[3]);
       }
     }
+    __syncthreads();  // this stage is consumed before it is refilled
+    kt = nxt;
+    stage ^= 1;
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const float denom = fmaxf(flash::quad_sum(l[r]), 1e-30f);
     if (row >= Sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);  // fully masked rows -> 0
-    __nv_bfloat16* o = out + (long long)b * Sq * rs + (long long)row * rs +
-                       (long long)h * D;
+    const float inv = 1.f / denom;
+    __nv_bfloat16* orow = out + (long long)b * Sq * rs + (long long)row * rs +
+                          (long long)h * D + c0;
 #pragma unroll
-    for (int cc = 0; cc < DC; ++cc)
-      o[tx + 16 * cc] = __float2bfloat16(acc[i][cc] / denom);
-    if (tx == 0) lse[(long long)bh * Sq + row] = m[i] + logf(denom);
+    for (int j = 0; j < DB; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+    if ((lane & 3) == 0)
+      // a row that attended nothing keeps the natural-log floor exactly
+      lse[(long long)bh * Sq + row] =
+          (m2[r] == neg2 ? flash::NEG : m2[r] * flash::LN2) + logf(denom);
   }
 }
 
@@ -214,21 +248,22 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            long long mask_stride, void* out, void* lse, int B, int H, int Sq,
            int Sk, int causal, float scale, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<D>();
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        flash::MAX_SMEM);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  const size_t bytes = smem_bytes<D>(Sk);
+  if (bytes > (size_t)flash::MAX_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   flash_fwd_kernel<D><<<grid, NT, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(kv_mask),
       mask_stride, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), H,
-      Sq, Sk, causal, scale);
+      Sq, Sk, causal, scale * flash::LOG2E);
   return (int)cudaGetLastError();
 }
 

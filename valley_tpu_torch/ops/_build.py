@@ -2,9 +2,10 @@
 shared libraries with a plain C interface, and load them with ctypes.
 
 Each library is built at first use into ``valley_tpu_torch/build/`` under a
-name keyed by a hash of its source and the compiler flags, so an edited
-source builds anew and an unchanged one loads at once.  Nothing here runs
-at import: the CPU tests import every module on a machine with no nvcc.
+name keyed by a hash of its source, the shared headers and the compiler
+flags, so an edited source or header builds anew and an unchanged one loads
+at once.  Nothing here runs at import: the CPU tests import every module on
+a machine with no nvcc.
 """
 
 from __future__ import annotations
@@ -42,9 +43,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, every
+    shared header in ``csrc`` (a source may include any of them) and the
+    flags, so editing a header builds its includers anew."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

@@ -29,10 +29,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """fp32 softmax(QK^T d^-1/2)V with the kernel's semantics.
 
     q: (B, Sq, H, D); k/v: (B, Sk, H, D); kv_mask: (B, Sk) bool, True =
-    attend (None = all).  Everything runs in fp32, as the kernel keeps P in
-    fp32 for PV; the output takes q's dtype.  A row with no key to attend
-    outputs 0.  With ``return_lse`` also returns the (B*H, Sq) fp32
-    logsumexp.
+    attend (None = all).  Everything runs in fp32 (the kernel carries P
+    into its tensor-core P V product as two bf16 terms); the output takes
+    q's dtype.  A row with no key to attend outputs 0.  With
+    ``return_lse`` also returns the (B*H, Sq) fp32 logsumexp.
     """
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -73,6 +73,34 @@ def _bwd_kernel():
                    i, i, i, i, i, i, ctypes.c_float, vp]
     fn.restype = i
     return fn
+
+
+@functools.cache
+def _delta_kernel_fn():
+    fn = _build.load("flash_bwd").flash_bwd_delta_bf16
+    vp = ctypes.c_void_p
+    i = ctypes.c_int
+    fn.argtypes = [vp, vp, vp, i, i, i, i, vp]
+    fn.restype = i
+    return fn
+
+
+def _kernel_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """`attention_delta` of CUDA bf16 tensors by K2's delta kernel: one
+    pass over out and dout, where the eager PyTorch reduction writes and
+    rereads fp32 copies of both.  Each launch adds one to
+    ``_kernel_delta.launches``."""
+    b, sq, h, d = out.shape
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    _build.check(_delta_kernel_fn()(out.data_ptr(), dout.data_ptr(),
+                                    delta.data_ptr(), b, h, sq, d, stream),
+                 "flash_bwd_delta_bf16")
+    _build.count_launch(_kernel_delta)
+    return delta
+
+
+_kernel_delta.launches = 0
 
 
 def _check(q, k, v, kv_mask, causal):
@@ -192,10 +220,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors run the plain version.  CUDA tensors take the forward
     kernel's checks, plus bf16 contiguous ``out``/``dout`` shaped like q and
-    a contiguous fp32 (B*H, Sq) ``lse``; they run the kernel (delta is a
-    PyTorch reduction, as the JAX package leaves it to XLA), and anything
-    else raises.  Each kernel launch adds one to
-    ``flash_attention_bwd.launches``.
+    a contiguous fp32 (B*H, Sq) ``lse``; they run the kernel (delta, which
+    the JAX package leaves to XLA, by a kernel of its own in the same
+    source), and anything else raises.  Each call launches the delta
+    kernel (counted in ``_kernel_delta.launches``), then K2's kernel, which
+    adds one to ``flash_attention_bwd.launches``.
     """
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, kv_mask, out, lse, dout,
@@ -220,7 +249,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"device, got {lse.dtype} {tuple(lse.shape)}")
     if kv_mask is None:
         kv_mask = torch.ones((b, sk), dtype=torch.bool, device=q.device)
-    delta = attention_delta(out, dout)
+    delta = _kernel_delta(out, dout)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
