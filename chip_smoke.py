@@ -52,9 +52,9 @@ seed, five processes one after the other:
   checked bit for bit, turn 3's extend against the same extend
   uncompacted) and two ``PrefixCache`` spawns; then the decode-attention
   lab: T4 (head-major, 8 or 16 heads a block), T5 (one head a block), T6
-  (T4 on the stacked cache) and T7 (K3's structure cut stage by stage,
-  stages 0-4), with K3 and K3-int8 beside them, each held against its plain
-  version with a planted fault and timed beside its bound and SDPA's
+  (T4 on the stacked cache) and T7 (the first K3's structure cut stage by
+  stage, stages 0-4), with K3 and K3-int8 beside them, each held against
+  its plain version with a planted fault and timed beside its bound and SDPA's
   forward, on the session's real cache and mask and at the TPU tools' shape
   (L32 S640 H32, 500 valid);
 - training: Valley-7B stage 1 (frozen backbone, projector and input
@@ -98,7 +98,7 @@ import torch
 # REL_TOL * max|ref|, two bf16 ulps at the largest output.  Both sides
 # compute in fp32 from the same bf16 inputs and round the output to bf16;
 # they differ in summation order and, for decode, in where probabilities are
-# rounded to bf16 (per 64-slot chunk in the kernel, after the global softmax
+# rounded to bf16 (per chunk of slots in the kernel, after the global softmax
 # in the plain version).  A CPU emulation of the kernel's rounding at the 7B
 # decode shape differs from the plain version by up to 0.65% of max|ref|.
 # Inputs are N(0, 1), so logits have unit spread and the output depends on
@@ -163,11 +163,12 @@ PROMPT_LEN, BUCKET = 473, 512
 SMAX = BUCKET + NEW_TOKENS + NEW_TOKENS - 1
 # Profiler kernel names of each kernel of the serving paths
 KERNEL_NAMES = {"K1": ("flash_fwd_kernel",),
-                "K3": ("decode_split_kernel", "decode_combine_kernel"),
-                "K3-int8": ("decode_split_kernel", "decode_combine_kernel"),
+                "K3": ("decode_attn_kernel", "decode_merge_kernel"),
+                "K3-int8": ("decode_attn_kernel", "decode_merge_kernel"),
                 "K4": ("int8_matvec_kernel",),
                 "K5": ("int4_matvec_kernel",),
-                "K6": ("bf16_matvec_fk_kernel", "bf16_matvec_kf_kernel"),
+                "K6": ("bf16_matvec_mma_kernel", "bf16_matvec_kf_mma_kernel",
+                       "bf16_matvec_kf_kernel"),
                 "T4": ("t4_head_chunked_kernel",),
                 "T5": ("t5_per_head_kernel",), "T6": ("t6_stacked_kernel",),
                 "T7": ("t7_stage_kernel", "t7_combine_kernel")}
@@ -325,6 +326,30 @@ def attention_rates(times: dict) -> str:
     times["library_ratio"] = times["ms"] / times["library_ms"]
     return (f"; {times['tflop_per_s']:.1f} TFLOP/s over the attended "
             f"pairs, {times['library_ratio']:.2f}x the library's time")
+
+
+def k3_traffic_text(q, k, valid, quant: bool) -> str:
+    """What K3's design reads on this data, worked out from the mask and
+    the library's chunk, not measured, for the readable lines only: the
+    valid slots' K and V rows (int8 and their two bf16 scales, or bf16),
+    the mask, q, and the fp32 partials (m, l, PV) that each chunk with a
+    valid slot writes and the merge reads back; and the share of its (row,
+    chunk) blocks with no valid slot, which read no K, V or scale."""
+    from valley_tpu_torch.ops.decode_attention import _lib
+
+    chunk = _lib().chunk
+    b, smax = valid.shape
+    hkv, d = k.shape[3], k.shape[4]
+    n_split = -(-smax // chunk)
+    padded = torch.zeros((b, n_split * chunk), dtype=torch.bool,
+                         device=valid.device)
+    padded[:, :smax] = valid
+    live = int(padded.view(b, n_split, chunk).any(dim=-1).sum())
+    rows = 2 * int(valid.sum()) * hkv * (d + 2 if quant else 2 * d)
+    partials = 2 * live * q.shape[2] * (d + 2) * 4
+    read = rows + partials + valid.numel() + q.numel() * q.element_size()
+    return (f"its design reads {read / 1e6:.2f} MB and skips "
+            f"{100 * (1 - live / (b * n_split)):.1f} % of its chunks")
 
 
 def library_attention_ms(q, k, v, kv_mask, causal: bool, dout=None,
@@ -894,8 +919,8 @@ def k3_int8_phase(cases) -> tuple:
             times["library_call"] = "SDPA over the layer in bf16"
             layer_bytes = 2 * k[0].numel() + 2 * ks[0].numel() * 2
             line += (f" {fmt_times(times)} ({layer_bytes / 1e6:.2f} MB of "
-                     f"K/V and scales per call: "
-                     f"{layer_bytes / times['ms'] / 1e6:.1f} GB/s); bound "
+                     f"K/V and scales in the layer; "
+                     f"{k3_traffic_text(q, k, valid, True)}); bound "
                      f"{times['bound_ms']:.4f} ms ({times['bound_by']}, "
                      f"{need / 1e6:.2f} MB of valid slots), library "
                      f"{times['library_ms']:.4f} ms (SDPA over the layer in "
@@ -1153,10 +1178,11 @@ def k3_phase(gen, smax: int, prompt_len: int, bucket: int) -> tuple:
             k3_t["library_ms"] = library_attention_ms(
                 q, k[li], v[li], valid, False, iters=64)
             line += (f" {fmt_times(k3_t)} ({kv_bytes / 1e6:.2f} MB of K/V "
-                     f"per call: {kv_bytes / k3_t['ms'] / 1e6:.1f} GB/s of "
-                     f"the card's 3350); bound {k3_t['bound_ms']:.4f} ms "
-                     f"({k3_t['bound_by']}, {need / 1e6:.2f} MB of valid "
-                     f"slots), library {k3_t['library_ms']:.4f} ms")
+                     f"in the layer; {k3_traffic_text(q, k, valid, False)}); "
+                     f"bound "
+                     f"{k3_t['bound_ms']:.4f} ms ({k3_t['bound_by']}, "
+                     f"{need / 1e6:.2f} MB of valid slots), library "
+                     f"{k3_t['library_ms']:.4f} ms")
         print(line)
         del k, v
     return k3_err, k3_t
@@ -1752,10 +1778,14 @@ def lab_phase(x, smi: str, path: str) -> list:
         t["library_ms"] = library[layout]
         t["library_call"] = f"SDPA forward, {layout} layer in bf16"
         gbps = x.layer_bytes(v) / t["ms"] / 1e6
+        traffic = ""
+        if v.name.startswith("K3"):
+            traffic = "; " + k3_traffic_text(x.q, x.k, x.valid,
+                                             v.name == "K3-int8")
         print(f"lab {x.name} {v.name}: max_abs_err {err:.3e} (tol "
               f"{tol:.3e}); {v.fault_what} instead: {fault:.3e} (must fail); "
               f"{fmt_times(t)}; {gbps:.1f} GB/s of the layer's "
-              f"{x.layer_bytes(v) / 1e6:.2f} MB of K/V; bound "
+              f"{x.layer_bytes(v) / 1e6:.2f} MB of K/V{traffic}; bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
               f"{need / 1e6:.2f} MB of valid slots); "
               f"library {t['library_ms']:.4f} ms; {lab.grid_text(v, sms)}")
@@ -1979,7 +2009,9 @@ def k6_phase(gen, shapes, rows: int, layers: int,
     print(f"{tag} per decode step at B{rows} ({calls} calls: {layers} x "
           f"{', '.join(sh[0] for sh in shapes if sh[-1])}, then lm_head): device "
           f"{step['ms']:.4f} ms vs plain {step['plain_ms']:.4f} ms; bound "
-          f"{step['bound_ms']:.4f} ms; library {step['library_ms']:.4f} ms")
+          f"{step['bound_ms']:.4f} ms ({step['bound_ms'] / step['ms']:.3f} "
+          f"of it); library {step['library_ms']:.4f} ms (cuBLAS bf16; K6 "
+          f"{step['ms'] / step['library_ms']:.3f}x its time)")
     return err_max, avg, step
 
 

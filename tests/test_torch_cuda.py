@@ -8,7 +8,7 @@ inside the fixture, at run time).  On a machine with a card:
 Tolerance: max abs error <= 2^-6 * max|ref|, two bf16 ulps at the largest
 output.  Both sides compute in fp32 from the same bf16 inputs and round the
 output to bf16; the decode kernel also rounds probabilities to bf16 per
-64-slot chunk rather than after the global softmax.  The backward kernel
+chunk of slots rather than after the global softmax.  The backward kernel
 is held to the same bar on each of dq, dk and dv, with the forward
 kernel's out and lse as both sides' inputs.  Inputs are N(0, 1), so
 logits have unit spread and attending a wrong slot moves the output by far
@@ -420,6 +420,127 @@ def test_decode_int8_kernel_matches_plain(gen, b, smax, h, hkv, d):
     assert fault > tol
 
 
+def _decode_inputs(gen, b, smax, h, hkv, d, quant, n_layers=3):
+    """q and a bf16 cache, or an int8 cache with its (K, V) scales."""
+    q = _randn(gen, b, 1, h, d)
+    if quant:
+        k, ks, v, vs = _int8_cache(gen, n_layers, b, smax, hkv, d)
+        return q, k, v, (ks, vs)
+    return (q, _randn(gen, n_layers, b, smax, hkv, d),
+            _randn(gen, n_layers, b, smax, hkv, d), ())
+
+
+def _decode_against_plain(q, k, v, scales, valid, li=1):
+    """K3 once (one counted launch) against its plain version; returns
+    (out, ref, tol)."""
+    before = decode_attention_stacked.launches
+    out = decode_attention_stacked(q, k, v, li, valid, *scales)
+    torch.cuda.synchronize()
+    assert decode_attention_stacked.launches == before + 1
+    ref = decode_attention_plain(q, k, v, li, valid, *scales)
+    assert bool(torch.isfinite(out.float()).all())
+    err, tol = _err_and_tol(out, ref)
+    assert err <= tol
+    return out, ref, tol
+
+
+def _skip_pattern(name, smax):
+    """(B, Smax) masks for K3's chunk skipping (chunks of 64 or 128 slots:
+    the patterns hold for both); Smax is a multiple of neither."""
+    if name == "row_with_no_valid_slot":
+        valid = torch.zeros((2, smax), dtype=torch.bool, device="cuda")
+        valid[0, :smax // 3] = True
+    elif name == "empty_chunks_start_middle_tail":
+        valid = torch.zeros((1, smax), dtype=torch.bool, device="cuda")
+        for a, e in ((140, 200), (400, 420), (500, 510)):
+            valid[:, a:e] = True        # 128-slot chunks 0, 2, 4, 5 empty;
+                                        # 64-slot 0, 1, 4, 5, 8-10
+    elif name == "only_the_last_slot":  # a parked pool row
+        valid = torch.zeros((2, smax), dtype=torch.bool, device="cuda")
+        valid[:, smax - 1] = True
+    elif name == "a_chunk_whose_only_valid_slot_is_its_last":
+        valid = torch.zeros((1, smax), dtype=torch.bool, device="cuda")
+        valid[:, :10] = True
+        valid[:, 255] = True
+    else:                               # ragged rows of a pool of 8
+        lens = torch.tensor([smax, 1, 63, 64, 65, 129, 300, 2],
+                            device="cuda")
+        valid = torch.arange(smax, device="cuda")[None, :] < lens[:, None]
+        valid[6, 100:200] = False       # and a hole
+    return valid
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("pattern", [
+    "row_with_no_valid_slot", "empty_chunks_start_middle_tail",
+    "only_the_last_slot", "a_chunk_whose_only_valid_slot_is_its_last",
+    "ragged_rows_B8"])
+def test_decode_kernel_skips_masked_chunks_exactly(gen, quant, pattern):
+    """Chunks with no valid slot are skipped and partly valid ones load
+    only their valid rows; a row with no valid slot gives the plain
+    version's result, V's mean (times bf16 1/Smax and the V scale)."""
+    smax = 128 * 5 + 13
+    valid = _skip_pattern(pattern, smax)
+    b = valid.shape[0]
+    q, k, v, scales = _decode_inputs(gen, b, smax, 8, 4, 128, quant)
+    out, ref, tol = _decode_against_plain(q, k, v, scales, valid)
+    if pattern == "row_with_no_valid_slot" and not quant:
+        mean = v[1, 1].float().mean(dim=0)                  # (Hkv, D)
+        got = out[1, 0].float().reshape(4, 2, 128)
+        assert (got - mean[:, None, :]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("n_rep", [1, 2, 3, 4, 8])
+def test_decode_kernel_every_rep_and_head_dim(gen, quant, d, n_rep):
+    """The REP paths (1, 2, 4, 8; 3 takes 4 with a head masked) at every
+    head dim, with the decode mask's hole and a ragged second row."""
+    smax, hkv = 200, 2
+    valid = torch.zeros((2, smax), dtype=torch.bool, device="cuda")
+    valid[:, :70] = True
+    valid[0, 96:150] = True
+    q, k, v, scales = _decode_inputs(gen, 2, smax, hkv * n_rep, hkv, d,
+                                     quant)
+    _decode_against_plain(q, k, v, scales, valid)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_is_deterministic(gen, quant):
+    """The chunks of each (row, kv head) are merged in chunk order: two
+    calls give the same bits, at the pool's row lengths."""
+    smax = 2304
+    lens = torch.tensor([505] * 6 + [72, 1532], device="cuda")
+    valid = torch.arange(smax, device="cuda")[None, :] < lens[:, None]
+    q, k, v, scales = _decode_inputs(gen, 8, smax, 32, 32, 128, quant)
+    out, _, _ = _decode_against_plain(q, k, v, scales, valid)
+    again = decode_attention_stacked(q, k, v, 1, valid, *scales)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_kernel_that_dropped_a_lone_slot_fails(gen, quant):
+    """Planted fault: a kernel that dropped a chunk holding one valid slot
+    (the same as that slot masked) must fail the bar.  The lone slot's key
+    follows its query head, so it carries most of the probability."""
+    smax, li = 461, 1
+    valid = torch.zeros((1, smax), dtype=torch.bool, device="cuda")
+    valid[:, :100] = True
+    valid[:, 200] = True      # the one valid slot of its chunk (64 or 128)
+    q, k, v, scales = _decode_inputs(gen, 1, smax, 4, 4, 64, quant)
+    if quant:
+        k[li, 0, 200] = 127
+        q[0, 0] = 1.0
+    else:
+        k[li, 0, 200] = q[0, 0] * 3
+    _, ref, tol = _decode_against_plain(q, k, v, scales, valid, li)
+    dropped = valid.clone()
+    dropped[:, 200] = False
+    fault, _ = _err_and_tol(decode_attention_stacked(q, k, v, li, dropped,
+                                                     *scales), ref)
+    assert fault > tol
+
+
 def test_decode_kernel_refuses_mismatched_cache_and_scales(gen):
     q = _randn(gen, 1, 1, 4, 32)
     k, ks, v, vs = _int8_cache(gen, 2, 1, 64, 4, 32)
@@ -553,13 +674,18 @@ def test_tiny_int4gp_serving_on_the_card(gen):
 @pytest.mark.parametrize("b,k,f,kf", [
     (1, 4096, 12288, False), (8, 4096, 22016, False), (8, 11008, 4096, False),
     (1, 4096, 32000, True), (8, 4096, 32000, True), (3, 64, 33, False),
-    (5, 64, 33, True), (2, 128, 1001, True), (7, 4096, 1001, False)]
+    (5, 64, 33, True), (2, 128, 1001, True), (7, 4096, 1001, False),
+    (8, 4096, 1000, False), (1, 4096, 1000, False), (8, 512, 1000, True)]
+    + [(b, k, 1000, kf) for b in (1, 8) for k in (72, 4104)
+       for kf in (False, True)]
     + [(b, 256, 200, kf) for b in range(1, 9) for kf in (False, True)])
 def test_bf16_matvec_kernel_matches_plain(gen, b, k, f, kf):
     """Valley-7B's fused projections, w_down and lm_head (K, F), rows 1 to
-    8 in both layouts, odd F in both; the planted fault (every row reading
-    row 0's activations) must fail; each row's result is bit-equal to the
-    same row alone (the summation order does not depend on B)."""
+    8 in both layouts, odd F and F not a multiple of 16 in both, K not a
+    multiple of 32 (72, 4104) at 1 and 8 rows; the planted fault (every
+    row reading row 0's activations) must fail; each row's result is
+    bit-equal to the same row alone (the summation order does not depend
+    on B)."""
     x = _randn(gen, b, k)
     w = (_randn(gen, k, f) if kf else _randn(gen, f, k)) * k ** -0.5
     before = bf16_matvec.launches
@@ -577,6 +703,22 @@ def test_bf16_matvec_kernel_matches_plain(gen, b, k, f, kf):
         fault, _ = _err_and_tol(bf16_matvec(
             x[:1].expand(b, k).contiguous(), w, kf), ref)
         assert fault > tol
+
+
+@pytest.mark.parametrize("k,f", [(4096, 12288), (4096, 4096),
+                                 (4096, 22016), (11008, 4096)])
+def test_bf16_matvec_rows_are_independent_at_fused_shapes(gen, k, f):
+    """Valley-7B's fused (F, K) weights at every B from 1 to 8: each row's
+    result is bit-equal to the same row alone, whatever rows join it."""
+    x = _randn(gen, 8, k)
+    w = _randn(gen, f, k) * k ** -0.5
+    alone = [bf16_matvec(x[r:r + 1].contiguous(), w)[0] for r in range(8)]
+    err, tol = _err_and_tol(torch.stack(alone), bf16_matvec_plain(x, w))
+    assert err <= tol
+    for b in range(1, 9):
+        out = bf16_matvec(x[:b].contiguous(), w)
+        for r in range(b):
+            assert torch.equal(out[r], alone[r])
 
 
 @pytest.mark.parametrize("b,k,f,kf", [

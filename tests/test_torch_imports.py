@@ -71,8 +71,8 @@ print(json.dumps({"loaded": loaded, "lens": [len(o) for o in out]}))
 
 
 def test_conversation_and_lab_run_without_jax():
-    """The conversation REPL's module, the lab's and K1's numerics tools
-    and the session code import, and a two-turn session and the lab kernels' plain versions
+    """The conversation REPL's module, the lab's, K1's numerics and K3's
+    variants tools and the session code import, and a two-turn session and the lab kernels' plain versions
     run on the CPU, without loading jax or the JAX package."""
     got = _run("""
 import json, sys
@@ -81,7 +81,8 @@ from valley_tpu_torch.inference import ChatSession, GenerationConfig
 from valley_tpu_torch.inference import run_valley_conv
 from valley_tpu_torch.inference.run_valley import load_model
 from valley_tpu_torch.ops import decode_lab
-from valley_tpu_torch.tools import decode_attn_lab, flash_numerics
+from valley_tpu_torch.tools import (decode_attn_lab, decode_variants,
+                                    flash_numerics)
 engine, tk = load_model("random:tiny", "cpu", buckets=(64,),
                         max_new_tokens=4)
 sess = ChatSession(engine, GenerationConfig(max_new_tokens=3))

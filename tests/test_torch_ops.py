@@ -376,6 +376,115 @@ def test_decode_plain_matches_jax_oracle_fp32(geo):
     assert torch.equal(per_layer, got)
 
 
+def _chunked_decode(q, k, v, valid, chunk, skip, k_scale=None,
+                    v_scale=None):
+    """K3's algorithm (``csrc/decode_attn.cu``) on one layer, in torch: the
+    slots split into chunks of ``chunk``; per chunk and query head the max,
+    the sum and the unnormalised PV (probabilities times the V scale, in
+    q's dtype, the cache's after its cast), each summed slot by slot in
+    slot order; then the chunks merged in chunk order.  With ``skip`` a
+    chunk with no valid slot of its row is an empty marker (m = -inf,
+    l = 0) that the merge leaves out, a partly valid chunk adds only its
+    valid slots, and a row with no valid slot at all takes the plain
+    softmax's uniform result from V; without it every slot is summed with
+    its -1e9 logit.  q (B, 1, H, D); k, v
+    (B, Smax, Hkv, D); valid (B, Smax); scales (B, Smax, Hkv)."""
+    b, _, h, d = q.shape
+    smax, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    kf, vf = k.to(q.dtype).float(), v.to(q.dtype).float()
+    qg = q.float().reshape(b, hkv, rep, d)
+    logits = torch.einsum("bgrd,bsgd->bgrs", qg, kf) * d ** -0.5
+    vs = torch.ones((b, smax, hkv)) if v_scale is None else v_scale.float()
+    if k_scale is not None:
+        logits = logits * k_scale.float().transpose(1, 2)[:, :, None, :]
+    ok = valid[:, None, None, :].expand_as(logits)
+    logits = logits.masked_fill(~ok, -1e9)
+    parts = []
+    for s0 in range(0, smax, chunk):
+        lg, okc = logits[..., s0:s0 + chunk], ok[..., s0:s0 + chunk]
+        live = okc.any(dim=-1)                                # (B, Hkv, R)
+        m = (lg.masked_fill(~okc, -torch.inf) if skip else lg).amax(-1)
+        l, acc = torch.zeros_like(m), torch.zeros((b, hkv, rep, d))
+        for j in range(lg.shape[-1]):
+            p = torch.exp(lg[..., j] - m)
+            pv = (p * vs[:, None, s0 + j, :].transpose(1, 2)
+                  ).to(q.dtype).float()
+            term_l, term = p, pv[..., None] * vf[:, s0 + j][:, :, None, :]
+            if skip:
+                term_l = torch.where(okc[..., j], term_l, 0.0)
+                term = torch.where(okc[..., j, None], term, 0.0)
+            l, acc = l + term_l, acc + term
+        if skip:
+            m = torch.where(live, m, -torch.inf)
+            l = torch.where(live, l, 0.0)
+            acc = torch.where(live[..., None], acc, 0.0)
+        parts.append((m, l, acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    num, den = torch.zeros((b, hkv, rep, d)), torch.zeros_like(mx)
+    for m, l, acc in parts:
+        w = torch.exp(m - mx)
+        if skip:   # an empty marker adds nothing
+            w = torch.where(m == -torch.inf, 0.0, w)
+        num, den = num + w[..., None] * acc, den + w * l
+    out = num / den[..., None]
+    if skip:   # no valid slot in the row: the uniform softmax, V's mean
+        u = (vs.transpose(1, 2) / smax).to(q.dtype).float()   # (B, Hkv, S)
+        mean = torch.einsum("bgs,bsgd->bgd", u, vf)[:, :, None, :]
+        empty = (mx == -torch.inf)[..., None]
+        out = torch.where(empty, mean.expand_as(out), out)
+    return out.reshape(b, 1, h, d).to(q.dtype)
+
+
+def _pool_pattern(smax):
+    """The pool's and the conversation's masks scaled down: rows with 1/5,
+    1/30 and 2/3 of the slots valid from slot 0, a row with none, and a
+    conversation row (prompt, bucket hole, chunk and reply spans)."""
+    valid = np.zeros((5, smax), bool)
+    for row, frac in enumerate((1 / 5, 1 / 30, 2 / 3)):
+        valid[row, :max(1, int(smax * frac))] = True
+    for a, n in ((0, 95), (128, 7), (144, 31), (192, 15)):
+        valid[4, a:a + n] = True
+    return valid
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("hkv,chunk", [(4, 128), (2, 64), (1, 16)])
+def test_decode_chunk_skipping_matches_jax_oracle_fp32(quant, hkv, chunk):
+    """K3's split with empty chunks skipped, empty-chunk markers, the merge
+    in chunk order and the all-masked fallback, emulated in fp32: within
+    1e-5 of the JAX oracle on every row (the all-masked row gives V's
+    mean), and bit for bit the same emulation without skipping on every
+    row with a valid slot."""
+    rng = np.random.default_rng(11)
+    n_layers, b, smax, h, d, li = 3, 5, 300, 4, 32, 1
+    valid = _pool_pattern(smax)
+    q = rng.standard_normal((b, 1, h, d)).astype(np.float32)
+    if quant:
+        k, v = (rng.integers(-127, 128, (n_layers, b, smax, hkv, d),
+                             dtype=np.int8) for _ in range(2))
+        ks, vs = (rng.uniform(0.002, 0.02, (n_layers, b, smax, hkv))
+                  .astype(np.float32) for _ in range(2))
+        scales = (jnp.asarray(ks[li]), jnp.asarray(vs[li]))
+        tscales = (torch.from_numpy(ks[li]), torch.from_numpy(vs[li]))
+    else:
+        k, v = (rng.standard_normal((n_layers, b, smax, hkv, d))
+                .astype(np.float32) * .5 for _ in range(2))
+        scales, tscales = (None, None), (None, None)
+    want = jattn.decode_attention(jnp.asarray(q), jnp.asarray(k[li]),
+                                  jnp.asarray(v[li]), jnp.asarray(valid),
+                                  *scales)
+    tq, tk, tv, tvalid = (torch.from_numpy(a) for a in (q, k[li], v[li],
+                                                        valid))
+    got = _chunked_decode(tq, tk, tv, tvalid, chunk, True, *tscales)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
+    full = _chunked_decode(tq, tk, tv, tvalid, chunk, False, *tscales)
+    rows = valid.any(axis=1)
+    assert not rows.all()
+    assert torch.equal(got[torch.from_numpy(rows)],
+                       full[torch.from_numpy(rows)])
+
+
 @pytest.mark.parametrize("causal,with_bias,hkv", [
     (True, True, 4), (False, False, 2), (True, False, 1)])
 def test_mha_attention_matches_jax(causal, with_bias, hkv):

@@ -15,37 +15,63 @@
 // B = 1, 8 at B = 8), far under the card's ~295 FLOP/byte ridge, so the
 // floor is 2 F K bytes / 3.35 TB/s (Valley-7B fused: 30 us for wqkv, 78 us
 // for lm_head, 3.94 ms for one step's 13.2 GB of decoder and lm_head
-// weights).  At 8 rows a step's fp32 FMAs come to ~106 GFLOP, ~1.6 ms on
-// the CUDA cores' 67 TFLOP/s, so a weight converted once per row would make
-// arithmetic the limit: each weight is loaded and converted once and used
-// for every row.
+// weights).  But on the CUDA cores every 16-byte weight vector costs B x 8
+// fp32 FMAs, 8 bf16 -> fp32 converts and B 16-byte reads of x from L1: at
+// B = 8 that issue rate, not memory, set the pace (58 % of the bound).
 //
-// What the design does about it.  (F, K): one warp per output row streams
-// the row in 16-byte vectors (8 bf16 per lane per load), four loads in
-// flight per lane, with the streaming cache hint (the weights do not fit L2
-// and are not reread within a call); x (at most 8 x 11008 bf16, ~176 KB) is
-// reread by every warp through the read-only path; a warp shuffle reduces
-// the row.  (K, F): each thread owns 8 neighbouring outputs (one 16-byte
-// vector along F, so a warp reads 512 contiguous bytes of a row of w), a
-// block's 16 warps split K between them, and the 16 partial sums of an
-// output are added in shared memory in a fixed order; an F that is not a
-// multiple of 8 takes one output per thread and 2-byte loads.
+// What the design does about it.  The multiply-adds run on the tensor
+// cores, one path for every B.  (F, K), the decoder's projections: a warp
+// takes 16 output rows and mma.sync.m16n8k16 (bf16 operands, fp32 sums)
+// with N = 8 = MAX_ROWS activation rows, rows past B zero.  A sum over k
+// may take k in any order as long as x takes the same order, so lane
+// (g = lane / 4, t = lane % 4) loads VPL = 2 neighbouring 16-byte vectors
+// of weight rows g and g + 8 straight from device memory (streaming loads;
+// the quad of lanes of a row covers a whole 128-byte line) and uses each
+// vector's 8 values as its A fragments of two k16 steps (values 0-3 the
+// first, 4-7 the second), and the 16 bytes of x row g at the same offset
+// as its B fragments: no shared-memory staging, no ldmatrix, and x's L1
+// traffic is half the weight bytes.  Each warp issues its next MU groups'
+// loads before the products of the ones it holds (double buffering by
+// hand: left alone, the compiler issued each group's loads just before
+// its products, and a warp waited on memory once per group).  The 8 warps
+// of a block split K between them (F = 4096 still gives 16 warps an SM)
+// and add their C fragments in shared memory in warp order.  An F that is
+// not a multiple of 16 and a K that is not a multiple of VPL x 32 take
+// clamped loads whose values are zeroed (zeros add nothing).  (K, F),
+// lm_head: the same products and schedule, 4 warps a block; a lane's
+// 16-byte vectors now run along F, so each 32-bit word of them, taken over
+// the warp, is an 8 x 8 (k x output) tile that movmatrix transposes into
+// an A fragment (outputs as rows), k in natural order.  An F that is not a
+// multiple of 8 (or an odd K) and the T3 variant stay on the CUDA cores:
+// each thread owns 8 neighbouring outputs (one 16-byte vector along F, so
+// a warp reads 512 contiguous bytes of a row of w), a block's 16 warps
+// split K, and the 16 partial sums of an output are added in shared memory
+// in a fixed order; an F that is not a multiple of 8 takes one output per
+// thread and 2-byte loads; T3's (F, K) kernel is a warp per output row.
 //
 // The order in which an output's products are summed depends on K and F
-// only, never on B: a row's result does not change when other rows join
-// the call (decode stays row-independent in a batch).
+// only, never on B, and a tensor-core product's column is a function of
+// that column of x alone: a row's result does not change when other rows
+// join the call (decode stays row-independent in a batch).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
 constexpr int MAX_ROWS = 8;   // activation rows B a launch takes
-constexpr int NT = 256;       // (F, K): threads per block (8 warps, 8 rows)
+constexpr int NT = 256;       // T3's (F, K): threads a block (8 warps)
 constexpr int NW = NT / 32;
 constexpr int UNROLL = 4;     // 16-byte weight loads in flight per lane
 constexpr int KS = 16;        // (K, F): warps of a block, each a K slice
+constexpr int MW = 8;         // (F, K) mma: warps of a block, each a K slice
+constexpr int MU = 2;         // mma kernels: steps in flight a warp
+constexpr int VPL = 2;        // mma kernels: neighbouring vectors a lane loads
+constexpr int MWK = 4;        // (K, F) mma: warps of a block, each a K slice
+static_assert(MAX_ROWS == 8, "the mma's N is the 8 activation rows");
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -94,8 +120,232 @@ __device__ __forceinline__ void fma_vec(const uint4& wv,
   }
 }
 
-// x: (B, K) bf16; w: (F, K) bf16; y: (B, F) fp32.  Grid ceil(F / NW); warp
-// `threadIdx.x / 32` of block i owns row i*NW + warp.
+// 16 bytes of a weight row, streamed (evict first).
+__device__ __forceinline__ uint4 ld_w(const uint4* p) { return __ldcs(p); }
+
+// A lane's share of one step of the (F, K) mma kernel: for each of MU
+// groups of 4 VPL vectors (a row's 32 VPL values), VPL neighbouring 16-byte
+// vectors of weight rows g and g + 8 and of x row g.
+constexpr int GV = 4 * VPL;            // vectors a group spans (a row)
+struct Frag {
+  uint4 a0[MU][VPL], a1[MU][VPL], bx[MU][VPL];
+};
+
+__device__ __forceinline__ void load_frag(Frag& f, const uint4* w0,
+                                          const uint4* w1, const uint4* xr,
+                                          int j0, int t, int nvec) {
+#pragma unroll
+  for (int u = 0; u < MU; ++u)
+#pragma unroll
+    for (int h = 0; h < VPL; ++h) {
+      const int v = min((j0 + u) * GV + VPL * t + h, nvec - 1);
+      f.a0[u][h] = ld_w(w0 + v);
+      f.a1[u][h] = ld_w(w1 + v);
+      f.bx[u][h] = __ldg(xr + v);
+    }
+}
+
+// The products of a loaded step: what lies past K, F or B is zeroed first.
+__device__ __forceinline__ void mma_frag(float (&c)[4], Frag& f, int j0,
+                                         int t, int nvec, bool ok0, bool ok1,
+                                         bool okx) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int u = 0; u < MU; ++u)
+#pragma unroll
+    for (int h = 0; h < VPL; ++h) {
+      const bool in = (j0 + u) * GV + VPL * t + h < nvec;
+      if (!(in && ok0)) f.a0[u][h] = zero;
+      if (!(in && ok1)) f.a1[u][h] = zero;
+      if (!(in && okx)) f.bx[u][h] = zero;
+      const uint32_t lo[4] = {f.a0[u][h].x, f.a1[u][h].x, f.a0[u][h].y,
+                              f.a1[u][h].y};
+      flash::mma(c, lo, f.bx[u][h].x, f.bx[u][h].y);
+      const uint32_t hi[4] = {f.a0[u][h].z, f.a1[u][h].z, f.a0[u][h].w,
+                              f.a1[u][h].w};
+      flash::mma(c, hi, f.bx[u][h].z, f.bx[u][h].w);
+    }
+}
+
+// x: (B, K) bf16; w: (F, K) bf16; y: (B, F) fp32; K a multiple of 8.  Grid
+// ceil(F / 16), MW warps a block: block i owns outputs 16 i .. 16 i + 15,
+// warp w the groups w MU .. w MU + MU - 1, then those MW MU further on.
+__global__ void __launch_bounds__(MW * 32) bf16_matvec_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    float* __restrict__ y, int B, int K, int F) {
+  __shared__ float part[MW][4][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int o0 = blockIdx.x * 16;
+  const bool ok0 = o0 + g < F, ok1 = o0 + g + 8 < F, okx = g < B;
+  const uint4* w0 = reinterpret_cast<const uint4*>(
+      w + (long long)min(o0 + g, F - 1) * K);
+  const uint4* w1 = reinterpret_cast<const uint4*>(
+      w + (long long)min(o0 + g + 8, F - 1) * K);
+  const uint4* xr =
+      reinterpret_cast<const uint4*>(x + (long long)min(g, B - 1) * K);
+  const int nvec = K / 8;               // 16-byte vectors a row
+  const int ngroup = (nvec + GV - 1) / GV;
+
+  // the next step's loads are issued before this step's products: left to
+  // itself the compiler issues each step's loads just before their
+  // products, and a warp then waits on memory once per step
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  Frag cur;
+  int j0 = warp * MU;
+  if (j0 < ngroup) load_frag(cur, w0, w1, xr, j0, t, nvec);
+  for (; j0 < ngroup; j0 += MW * MU) {
+    Frag nxt;
+    const int jn = j0 + MW * MU;
+    if (jn < ngroup) load_frag(nxt, w0, w1, xr, jn, t, nvec);
+    mma_frag(c, cur, j0, t, nvec, ok0, ok1, okx);
+    cur = nxt;
+  }
+
+  // c0, c1: row g, x rows 2t, 2t + 1; c2, c3: row g + 8, the same
+#pragma unroll
+  for (int i = 0; i < 4; ++i) part[warp][i][lane] = c[i];
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    const int n = threadIdx.x / 16, m = threadIdx.x % 16;
+    const int src = (m % 8) * 4 + n / 2, i = (m / 8) * 2 + n % 2;
+    float s = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < MW; ++ww) s += part[ww][i][src];
+    if (n < B && o0 + m < F) y[(long long)n * F + o0 + m] = s;
+  }
+}
+
+// An 8 x 8 tile of 16-bit values, one 32-bit word a lane (row lane / 4,
+// columns 2 (lane % 4) and 2 (lane % 4) + 1), transposed across the warp.
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t v) {
+  uint32_t r;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(r) : "r"(v));
+  return r;
+}
+
+// (K, F) on the tensor cores, lm_head's layout.  A step is 16 rows of w
+// (k0 .. k0 + 15) and the block's 32 VPL outputs: lane (g, t) loads VPL
+// neighbouring 16-byte vectors of rows k0 + g and k0 + 8 + g at outputs
+// o0 + 8 (VPL t + h) .. + 7.  Word j of vector h, taken over the warp, is
+// an 8 x 8 (k x output) tile whose column pair t holds outputs
+// o0 + 8 (VPL t + h) + 2 j + {0, 1}; movmatrix turns it into the A
+// fragment of those 8 outputs (rows) over 8 k (columns), in natural k
+// order, so x's B fragments are its plain 4-byte words.  Tiles 2p and
+// 2p + 1 (tile index 4 h + j) are product p's rows 0-7 and 8-15.
+constexpr int KT = 4 * VPL;            // output tiles of 8 a step
+struct FragKF {
+  uint4 w0[MU][VPL], w1[MU][VPL];      // rows k0 + g, k0 + 8 + g
+  uint32_t b0[MU], b1[MU];             // x row g at k0 + 2t, k0 + 8 + 2t
+};
+
+__device__ __forceinline__ void load_kf(FragKF& f,
+                                        const __nv_bfloat16* __restrict__ w,
+                                        const uint32_t* __restrict__ xw,
+                                        int j0, int g, int t, int o0, int K,
+                                        int F) {
+#pragma unroll
+  for (int u = 0; u < MU; ++u) {
+    const int k0 = (j0 + u) * 16;
+    const long long r0 = min(k0 + g, K - 1), r1 = min(k0 + 8 + g, K - 1);
+#pragma unroll
+    for (int h = 0; h < VPL; ++h) {
+      const int oc = min(o0 + 8 * (VPL * t + h), F - 8);
+      f.w0[u][h] = ld_w(reinterpret_cast<const uint4*>(w + r0 * F + oc));
+      f.w1[u][h] = ld_w(reinterpret_cast<const uint4*>(w + r1 * F + oc));
+    }
+    f.b0[u] = __ldg(xw + min(k0 + 2 * t, K - 2) / 2);
+    f.b1[u] = __ldg(xw + min(k0 + 8 + 2 * t, K - 2) / 2);
+  }
+}
+
+__device__ __forceinline__ void mma_kf(float (&c)[2 * VPL][4], FragKF& f,
+                                       int j0, int g, int t, int o0, int K,
+                                       int F, bool okx) {
+#pragma unroll
+  for (int u = 0; u < MU; ++u) {
+    const int k0 = (j0 + u) * 16;
+    const bool in0 = k0 + g < K, in1 = k0 + 8 + g < K;
+    uint32_t a0[KT], a1[KT];   // tile 4 h + j over k-block 0, then 1
+#pragma unroll
+    for (int h = 0; h < VPL; ++h) {
+      const bool col = o0 + 8 * (VPL * t + h) < F;
+      const uint32_t v0[4] = {f.w0[u][h].x, f.w0[u][h].y, f.w0[u][h].z,
+                              f.w0[u][h].w};
+      const uint32_t v1[4] = {f.w1[u][h].x, f.w1[u][h].y, f.w1[u][h].z,
+                              f.w1[u][h].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        a0[4 * h + j] = transpose8x8(col && in0 ? v0[j] : 0u);
+        a1[4 * h + j] = transpose8x8(col && in1 ? v1[j] : 0u);
+      }
+    }
+    const uint32_t b0 = okx && k0 + 2 * t < K ? f.b0[u] : 0u;
+    const uint32_t b1 = okx && k0 + 8 + 2 * t < K ? f.b1[u] : 0u;
+#pragma unroll
+    for (int p = 0; p < 2 * VPL; ++p) {
+      const uint32_t a[4] = {a0[2 * p], a0[2 * p + 1], a1[2 * p],
+                             a1[2 * p + 1]};
+      flash::mma(c[p], a, b0, b1);
+    }
+  }
+}
+
+// x: (B, K) bf16, K even; w: (K, F) bf16, F a multiple of 8; y: (B, F)
+// fp32.  Grid ceil(F / (32 VPL)), MWK warps a block: block i owns outputs
+// 32 VPL i .. + 32 VPL - 1, warp w the 16-row steps w MU .. w MU + MU - 1,
+// then those MWK MU further on; the warps' sums are added in warp order.
+__global__ void __launch_bounds__(MWK * 32) bf16_matvec_kf_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    float* __restrict__ y, int B, int K, int F) {
+  __shared__ float part[MWK][2 * VPL][4][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int o0 = blockIdx.x * 32 * VPL;
+  const bool okx = g < B;
+  const uint32_t* xw =
+      reinterpret_cast<const uint32_t*>(x + (long long)min(g, B - 1) * K);
+  const int nstep = (K + 15) / 16;
+
+  float c[2 * VPL][4];
+#pragma unroll
+  for (int p = 0; p < 2 * VPL; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[p][i] = 0.f;
+  FragKF cur;
+  int j0 = warp * MU;
+  if (j0 < nstep) load_kf(cur, w, xw, j0, g, t, o0, K, F);
+  for (; j0 < nstep; j0 += MWK * MU) {
+    FragKF nxt;
+    const int jn = j0 + MWK * MU;
+    if (jn < nstep) load_kf(nxt, w, xw, jn, g, t, o0, K, F);
+    mma_kf(c, cur, j0, g, t, o0, K, F, okx);
+    cur = nxt;
+  }
+
+#pragma unroll
+  for (int p = 0; p < 2 * VPL; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) part[warp][p][i][lane] = c[p][i];
+  __syncthreads();
+  // product p's row m is column m % 8 of tile T = 2 p + m / 8 (h = T / 4,
+  // j = T % 4): output o0 + 8 (VPL (m % 8) / 2 + h) + 2 j + m % 2
+  for (int e = threadIdx.x; e < 8 * 32 * VPL; e += MWK * 32) {
+    const int n = e / (32 * VPL), q = e % (32 * VPL);
+    const int p = q / 16, m = q % 16;
+    const int tile = 2 * p + m / 8, h = tile / 4, j = tile % 4;
+    const int o = o0 + 8 * (VPL * ((m % 8) / 2) + h) + 2 * j + m % 2;
+    const int src = (m % 8) * 4 + n / 2, i = (m / 8) * 2 + n % 2;
+    float s = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < MWK; ++ww) s += part[ww][p][i][src];
+    if (n < B && o < F) y[(long long)n * F + o] = s;
+  }
+}
+
+// The T3 variant on (F, K): x: (B, K) bf16; w: (F, K) bf16; y: (B, F)
+// fp32.  Grid ceil(F / NW); warp `threadIdx.x / 32` of block i owns row
+// i*NW + warp.
 template <int B, bool ROUND>
 __global__ void __launch_bounds__(NT) bf16_matvec_fk_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
@@ -210,9 +460,12 @@ int launch(const void* x, const void* w, void* y, int K, int F, int kf,
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const __nv_bfloat16*>(w);
   auto* yf = static_cast<float*>(y);
-  if (!kf) {
-    bf16_matvec_fk_kernel<B, ROUND><<<(F + NW - 1) / NW, NT, 0, stream>>>(
-        xb, wb, yf, K, F);
+  if (!kf) {   // T3 only: the plain (F, K) product takes the mma kernel
+    if constexpr (ROUND)
+      bf16_matvec_fk_kernel<B, true><<<(F + NW - 1) / NW, NT, 0, stream>>>(
+          xb, wb, yf, K, F);
+    else
+      return (int)cudaErrorInvalidValue;
   } else if (F % 8 == 0) {
     bf16_matvec_kf_kernel<B, 8, ROUND>
         <<<(F + 255) / 256, dim3(32, KS), 0, stream>>>(xb, wb, yf, K, F);
@@ -251,6 +504,19 @@ extern "C" int bf16_matvec(const void* x, const void* w, void* y, int B,
   if (B < 1 || B > MAX_ROWS || K <= 0 || F <= 0 || (!kf && K % 8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  if (!kf && !round) {
+    bf16_matvec_mma_kernel<<<(F + 15) / 16, MW * 32, 0, st>>>(
+        xb, wb, static_cast<float*>(y), B, K, F);
+    return (int)cudaGetLastError();
+  }
+  if (kf && !round && F % 8 == 0 && K % 2 == 0) {
+    bf16_matvec_kf_mma_kernel<<<(F + 32 * VPL - 1) / (32 * VPL), MWK * 32,
+                                0, st>>>(xb, wb, static_cast<float*>(y), B,
+                                         K, F);
+    return (int)cudaGetLastError();
+  }
   return round ? dispatch<true>(x, w, y, B, K, F, kf, st)
                : dispatch<false>(x, w, y, B, K, F, kf, st);
 }

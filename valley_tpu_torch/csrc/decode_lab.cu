@@ -11,10 +11,11 @@
 //   T6  tools/exp_attn_pallas3.py `decode_attn_stacked`: T4 over the
 //       stacked (L, B, H, S, D) cache, layer `li` addressed by offset.
 //   T7  tools/exp_kernel_ablate.py `make_kernel(stage)`: the fused decode
-//       kernel cut stage by stage, here built on K3's own structure
-//       (csrc/decode_attn.cu: a block per (row, head, 64-slot chunk), the
-//       chunk's max, sum and unnormalised PV in fp32, then a combine
-//       kernel) over the port's slot-major (L, B, S, H, D) cache with an
+//       kernel cut stage by stage, here built on the first K3's structure
+//       (the first csrc/decode_attn.cu, since redesigned: a block per
+//       (row, head, 64-slot chunk) reading every slot, the chunk's max, sum
+//       and unnormalised PV in fp32, then a combine kernel) over the
+//       port's slot-major (L, B, S, H, D) cache with an
 //       additive bias in place of K3's boolean mask.  Stage 0 reads K and V
 //       and writes k[0:H, head 0] + v[0:H, head 0] (the tool's
 //       k_flat[0:H, 0:D] + v_flat[0:H, 0:D]); 1 adds the QK logits and
@@ -53,9 +54,9 @@ namespace {
 constexpr int HM_NT = 256;          // threads per head-major block
 constexpr int HM_NW = HM_NT / 32;
 constexpr int MAX_S = 12000;        // slots of one head's logits in shared memory
-constexpr int NT = 128;             // T7: K3's block
+constexpr int NT = 128;             // T7: the first K3's block
 constexpr int NW = NT / 32;
-constexpr int CHUNK = 64;           // T7: K3's slots per block
+constexpr int CHUNK = 64;           // T7: the first K3's slots per block
 constexpr int TSTRIDE = 8;          // T7 stage 4: floats between slots of P^T
 
 __device__ __forceinline__ float warp_sum(float x) {

@@ -6,7 +6,10 @@ Counterpart of ``valley_tpu/ops/decode_pallas.py`` (bf16 cache, and the
 int8 cache with per-(layer, row, slot, head) bf16 scales), whose oracle is
 ``valley_tpu/ops/attention.py:decode_attention`` over layer ``li``.  The
 wrapper takes the plain version for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises.  A block per (row, kv head, chunk of
+``chunk`` slots) skips what the mask leaves out and writes its chunk's
+partials to the wrapper's scratch; a second kernel merges each (row, kv
+head)'s chunks in chunk order.
 """
 
 from __future__ import annotations
@@ -68,7 +71,12 @@ def _lib():
     """The built library, with its compile-time constants read once:
     ``chunk`` (cache slots per block) and ``max_rep`` (query heads per kv
     head)."""
-    lib = _build.load("decode_attn")
+    return configure(_build.load("decode_attn"))
+
+
+def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a library built from
+    ``csrc/decode_attn.cu`` and read its constants; returns it."""
     vp = ctypes.c_void_p
     i = ctypes.c_int
     lib.decode_attn_bf16.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp,

@@ -219,9 +219,9 @@ def attn_stacked_head_major(q: torch.Tensor, k_all: torch.Tensor,
 
 def attn_stage(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                bias: torch.Tensor, li: int, stage: int = 3) -> torch.Tensor:
-    """T7 at ``stage``: `attn_stage_plain`'s function through K3's structure
-    (a block per row, head and 64-slot chunk, then a combine kernel, which
-    stage 0 leaves empty).  Each call adds one to
+    """T7 at ``stage``: `attn_stage_plain`'s function through the first K3's
+    structure (a block per row, head and 64-slot chunk, then a combine
+    kernel, which stage 0 leaves empty).  Each call adds one to
     ``attn_stage.launches``."""
     if stage not in STAGES:
         raise ValueError(f"stage must be one of {STAGES}, got {stage}")

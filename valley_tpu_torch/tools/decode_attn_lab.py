@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from valley_tpu_torch.ops import decode_attention
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
 from valley_tpu_torch.ops.decode_lab import (STAGES, attn_head_chunked,
@@ -218,13 +219,14 @@ def variants(x: LabInputs) -> list:
             lambda i, st=st: attn_stage_plain(x.q3, x.k, x.v, x.bias, i, st),
             fault[0], fault[1], b * h * n_split, 0 if st == 0 else b * h))
     k3_src = "valley_tpu_torch/csrc/decode_attn.cu"
+    k3_blocks = b * h * -(-s // decode_attention._lib().chunk)
     out.append(Variant(
         "K3", "decode_attn_lab", "valley_tpu/ops/decode_pallas.py:68",
         decode_attention_stacked,
         lambda i: decode_attention_stacked(x.q, x.k, x.v, i, x.valid),
         lambda i: decode_attention_plain(x.q, x.k, x.v, i, x.valid),
         lambda: decode_attention_stacked(x.q, x.k, x.v, li, open_valid),
-        "the masked slots attended", b * h * n_split, b * h, k3_src))
+        "the masked slots attended", k3_blocks, b * h, k3_src))
     if x.int8 is not None:
         kq, ks, vq, vs = x.int8
         out.append(Variant(
@@ -235,7 +237,7 @@ def variants(x: LabInputs) -> list:
             lambda i: decode_attention_plain(x.q, kq, vq, i, x.valid, ks, vs),
             lambda: decode_attention_stacked(x.q, kq, vq, li, open_valid, ks,
                                              vs),
-            "the masked slots attended", b * h * n_split, b * h, k3_src))
+            "the masked slots attended", k3_blocks, b * h, k3_src))
     return out
 
 
@@ -289,21 +291,23 @@ def walk(fn: Callable, n_layers: int) -> Callable:
 
 def device_ms(fn: Callable, iters: int) -> float:
     """Device ms per call of ``fn`` from the profiler: every kernel's and
-    copy's time over ``iters`` calls."""
+    copy's time over ``iters`` calls.  A trace that holds no device time
+    is taken again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA"))
-    if total <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total / 1e3 / iters
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA"))
+        if total > 0:
+            return total / 1e3 / iters
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def grid_text(var: Variant, sms: int) -> str:
