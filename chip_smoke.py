@@ -15,29 +15,38 @@ the port's paths at full width and depth with random bf16 weights from a
 seed, five processes one after the other:
 
 - serving: one 8-frame video question with Valley-7B through
-  ``Engine.generate_tokens``; checks that the path went through K1, K3 and
-  K6 (every bf16 decode product, lm_head included) and compares its logits
-  at the prefill and at three decode steps with the same path run on the
-  plain versions;
+  ``Engine.generate_tokens``, its 63 decode steps one replay of a CUDA
+  graph; checks that the path went through K1, K3 and K6 (every bf16
+  decode product, lm_head included), that the eager step gives the same
+  tokens and launches (decode wall, device busy and idle share printed for
+  both, with the capture's time and memory), that a sampled graph draws
+  fresh numbers each replay and repeats them under a seed, and compares
+  its logits at the prefill and at three decode steps with the same path
+  run on the plain versions;
 - batched serving, ``batch_infer``'s configuration: Valley-7B bf16 weights
   fused, an int8 KV cache, a ``ContinuousEngine`` of 8 rows taking 12
   requests at once (8 video questions, 4 text prompts of 40 to 1500
-  tokens, two of them sampled); checks the launches of K1, K3's int8
-  branch and K6 against the pool's own count of prefills and pooled steps,
-  the pooled logits at three teacher-forced steps against the plain
-  versions, and each greedy request's tokens against the same request
-  alone through ``Engine.generate_tokens``;
+  tokens, two of them sampled), each pooled chunk one replay of a CUDA
+  graph; checks the launches of K1, K3's int8 branch and K6 against the
+  pool's own count of prefills and pooled steps, every greedy request's
+  tokens against the same traffic through an eager pool (aggregate rate
+  and the pooled step's wall, device busy and idle share printed for
+  both), the pooled logits at three teacher-forced steps against the
+  plain versions, and each greedy request's tokens against the same
+  request alone through ``Engine.generate_tokens``;
 - int8 serving, the serving flagship of the JAX package: the same weights
   fused (``wqkv``, ``w_gateup``) and quantized to int8a8 on the card, an
-  int8 KV cache, the same question; checks that the path went through K1,
-  K3's int8 branch and K4 (the int8 decode GEMV, lm_head included) and
-  compares its logits with the same path on the plain versions;
+  int8 KV cache, the same question (by graph, and by the eager step as on
+  the bf16 path); checks that the path went through K1, K3's int8 branch
+  and K4 (the int8 decode GEMV, lm_head included) and compares its logits
+  with the same path on the plain versions;
 - int4 serving, the JAX package's one-card Valley-13B setup: random
   Valley-13B weights fused and quantized to int4gp on the card (group-128
-  scales, nibble-packed), an int8 KV cache, the same question; checks that
-  the path went through K1, K3's int8 branch and K5 (the grouped-int4
-  decode GEMV, lm_head included) and compares its logits with the same path
-  on the plain versions;
+  scales, nibble-packed), an int8 KV cache, the same question (by graph,
+  and by the eager step as on the bf16 path); checks that the path went
+  through K1, K3's int8 branch and K5 (the grouped-int4 decode GEMV,
+  lm_head included) and compares its logits with the same path on the
+  plain versions;
 - in the same process, on the same weights, the multi-turn video
   conversation (``ChatSession`` over an engine with batch_infer's buckets
   and max_new_tokens, a 2052-slot session cache): the video question, then
@@ -945,15 +954,80 @@ def bench_request(cfg, bucket: int):
     return prompt, frames
 
 
+def pool_bytes(handle):
+    """Bytes the caching allocator's segments of the graph memory pool
+    ``handle`` hold, or None where its snapshot names no pool."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == tuple(handle))
+
+
+def graph_memory(engine) -> tuple:
+    """(bytes of the memory pool of ``engine``'s decode graphs, or None;
+    bytes of their static decode states)."""
+    state_bytes = 0
+    for g in engine.graph_sets.values():
+        st = g.state
+        for t in (st.cache.k, st.cache.v, st.cache.k_scale, st.cache.v_scale,
+                  st.valid):
+            if t is not None:
+                state_bytes += t.numel() * t.element_size()
+    return pool_bytes(engine._graph_pool), state_bytes
+
+
+def fmt_mb(n) -> str:
+    return "not measured" if n is None else f"{n / 1e6:.1f} MB"
+
+
+def sampled_graph_check(tag: str, engine, prompt, frames, new: int) -> None:
+    """A sampled request through the graphs twice under one seed gives the
+    same tokens; its graph replayed on the same state draws other tokens
+    each replay, and the same again after its generator is seeded
+    again."""
+    from valley_tpu_torch.inference.engine import GenerationConfig
+
+    sg = GenerationConfig(max_new_tokens=new, do_sample=True,
+                          temperature=1.0, top_p=0.9, seed=5)
+    runs = [[int(t[0]) for t in engine.generate_tokens([prompt], frames, sg,
+                                                       eos_ids=[-1])]
+            for _ in range(2)]
+    check(runs[0] == runs[1], f"{tag}: a sampled request repeated under its "
+          "seed gave other tokens")
+    graphs = next(g for g in engine.graph_sets.values()
+                  if (new - 1, True) in g.keys())
+    saved = graphs.state.snapshot()
+    outs = []
+    for seed in (None, None, 11, 11):
+        if seed is not None:
+            graphs.generator.manual_seed(seed)
+        graphs.state.restore(saved)
+        outs.append(graphs.run(new - 1, True).clone())
+    graphs.state.restore(saved)
+    fresh = int((outs[0] != outs[1]).sum())
+    check(fresh > 0 and torch.equal(outs[2], outs[3]), f"{tag}: sampled "
+          f"graph replays: {fresh} tokens differ between two replays, "
+          f"seeded replays equal {torch.equal(outs[2], outs[3])}")
+    print(f"{tag}: sampled graph (temperature 1.0, top_p 0.9): two requests "
+          f"under seed 5 give the same {new} tokens; two replays of its "
+          f"{new - 1}-step graph on the same state differ in {fresh} of "
+          f"{new - 1} tokens, two replays after seeding 11 agree in all")
+
+
 def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
-                kernels: dict, logit_tol: float, same_token: bool) -> dict:
+                kernels: dict, logit_tol: float, same_token: bool,
+                sampled: bool = False) -> dict:
     """One `bench_request` through ``Engine.generate_tokens`` (64 greedy
-    tokens, one stream), after a warm-up request.  ``kernels`` maps a
-    label to (wrapper, launches the request must make): every count is set
-    to 0 just before the request and read just after.  Then the breakdown
-    (profiled prefill and request) and the logits through the kernels
-    against the same path on the plain versions, at the prefill and three
-    teacher-forced decode steps, within ``logit_tol`` and, with
+    tokens, one stream, each decode chunk a replay of a CUDA graph), after
+    a warm-up request that captures the graph.  ``kernels`` maps a label
+    to (wrapper, launches the request must make): every count is set to 0
+    just before the request and read just after.  Then the same request
+    through the eager step (``eager=True``): the same tokens and launches.
+    Then the breakdown (profiled prefill and requests, graph and eager),
+    with ``sampled`` `sampled_graph_check`, and the logits through the
+    kernels against the same path on the plain versions, at the prefill and
+    three teacher-forced decode steps, within ``logit_tol`` and, with
     ``same_token``, picking the same greedy token.  Returns the counts."""
     from valley_tpu_torch.inference.engine import Engine, GenerationConfig
     from valley_tpu_torch.models import valley
@@ -967,17 +1041,19 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     engine = Engine(cfg, params, buckets=(bucket,), max_new_tokens=new,
                     steps_per_call=steps, cache_dtype=cache_dtype)
 
-    def run():
+    def run(eager=False):
         t0 = time.perf_counter()
         t_first, toks = None, []
         for t in engine.generate_tokens([prompt], frames, gcfg,
-                                        eos_ids=[-1]):
+                                        eos_ids=[-1], eager=eager):
             if t_first is None:
                 t_first = time.perf_counter() - t0
             toks.append(int(t[0]))
         return t_first, time.perf_counter() - t0, toks
 
-    run()   # warm-up: lazy CUDA / cuBLAS initialisation
+    run()   # warm-up: lazy CUDA initialisation, the decode graph's capture
+    capture_s = sum(g.capture_s for g in engine.graph_sets.values())
+    graph_bytes, state_bytes = graph_memory(engine)
     for fn, _ in kernels.values():
         fn.launches = 0
     t_first, total, toks = run()           # the main path
@@ -989,16 +1065,37 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     for k, (_, want) in kernels.items():
         check(counts[k] == want, f"{tag}: {k} launched {counts[k]} times, "
               f"want {want}")
+    check(list(engine.graph_sets) == [(1, bucket + new + steps)]
+          and list(engine.graph_sets[(1, bucket + new + steps)].keys())
+          == [(steps, False)], f"{tag}: graphs {engine.graph_sets}")
     decode_tps = (new - 1) / (total - t_first)
     print(f"{tag}: prompt {len(prompt)} tokens in bucket {bucket}, 8 frames "
-          f"{size}px uint8, {new} greedy tokens, {cache_dtype} KV cache; "
-          f"launches " + " ".join(f"{k} {n}" for k, n in counts.items()))
+          f"{size}px uint8, {new} greedy tokens, {cache_dtype} KV cache, "
+          f"decode by one replay of a {steps}-step CUDA graph; launches "
+          + " ".join(f"{k} {n}" for k, n in counts.items()))
     print(f"{tag}: video->first-token {t_first:.4f} s, decode "
           f"{decode_tps:.2f} tok/s ({1e3 / decode_tps:.3f} ms/token) on "
           f"{smi}")
 
+    # the reference: the same request through the eager step
+    run(eager=True)
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    e_first, e_total, e_toks = run(eager=True)
+    e_counts = {k: fn.launches for k, (fn, _) in kernels.items()}
+    check(e_toks == toks, f"{tag}: the graph's tokens differ from the eager "
+          f"step's at step {next((i for i, (a, b) in enumerate(zip(toks, e_toks)) if a != b), None)}")
+    check(e_counts == counts, f"{tag}: eager launches {e_counts}, graph "
+          f"{counts}")
+    print(f"{tag}: the eager step gives the graph's {new} tokens and "
+          f"launches; decode {(e_total - e_first) / steps * 1e3:.3f} "
+          f"ms/token eager against {(total - t_first) / steps * 1e3:.3f} by "
+          f"graph; capture of the graph {capture_s:.3f} s, its memory pool "
+          f"{fmt_mb(graph_bytes)}, the static decode state (cache and mask) "
+          f"{fmt_mb(state_bytes)}")
+
     # where the time goes: device busy time of the prefill and of a whole
-    # request, against the unprofiled wall times above
+    # request, graph and eager, against the unprofiled wall times above
     frames_dev = torch.from_numpy(frames).cuda()
     vision_ms = time_ms(lambda: valley.encode_images(params, cfg, frames_dev),
                         iters=3, warmup=1)
@@ -1007,17 +1104,27 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     prefill_dev, prefill_top, _ = profile_device(
         lambda: engine.prefill([prompt], frames, gcfg))
     run_dev, top, _ = profile_device(run)
+    e_run_dev, _, _ = profile_device(lambda: run(eager=True))
     decode_dev = (run_dev - prefill_dev) / (new - 1)
+    e_decode_dev = (e_run_dev - prefill_dev) / (new - 1)
     wall_tok = (total - t_first) / (new - 1) * 1e3
+    e_wall_tok = (e_total - e_first) / (new - 1) * 1e3
+    k3_in = sum(t for name, t in top if "decode_attn_kernel" in name)
+    check(k3_in > 0, f"{tag}: the profiler saw no K3 inside the graph's "
+          "replay")
     shares = ", ".join(f"{name[:48]} {100 * ms / run_dev:.1f}%"
                        for name, ms in top[:8])
     print(f"{tag} breakdown: video->first-token wall {t_first * 1e3:.2f} ms, "
           f"prefill device {prefill_dev:.2f} ms (vision tower device "
-          f"{vision_dev:.2f} ms, wall {vision_ms:.2f} ms); decode wall "
-          f"{wall_tok:.3f} ms/token, device busy {decode_dev:.3f} ms/token "
-          f"(idle share {1 - decode_dev / wall_tok:.3f}); request device "
-          f"busy {run_dev:.2f} ms of {total * 1e3:.2f} ms wall; top kernels: "
-          f"{shares}")
+          f"{vision_dev:.2f} ms, wall {vision_ms:.2f} ms); decode by graph: "
+          f"wall {wall_tok:.3f} ms/token, device busy {decode_dev:.3f} "
+          f"ms/token (idle share {1 - decode_dev / wall_tok:.3f}); eager: "
+          f"wall {e_wall_tok:.3f} ms/token, device busy {e_decode_dev:.3f} "
+          f"ms/token (idle share {1 - e_decode_dev / e_wall_tok:.3f}); "
+          f"request device busy {run_dev:.2f} ms of {total * 1e3:.2f} ms "
+          f"wall (graph); top kernels: {shares}")
+    if sampled:
+        sampled_graph_check(tag, engine, prompt, frames, new)
     print(f"{tag} breakdown: prefill top kernels: " + ", ".join(
         f"{name[:48]} {ms:.2f} ms" for name, ms in prefill_top[:8]))
     inside = []
@@ -1231,7 +1338,7 @@ def serve_path(smi: str, gen, work: Path) -> list:
                              "K6": (bf16_matvec, 7 * layers * steps
                                     + NEW_TOKENS),
                              "K4": (int8_matvec, 0)}, LOGIT_TOL,
-                         same_token=True)
+                         same_token=True, sampled=True)
     return [{**K1_SRC, "path": "serve", "launches": counts["K1"],
              "max_abs_err": k1_err, **k1_t},
             {**K3_SRC, "name": "decode_attn", "path": "serve",
@@ -2235,13 +2342,43 @@ def pooled_logits(engine, pool, ids, frames, lens, feed=None) -> tuple:
     return out, fed
 
 
+def pooled_step(tag: str, engine, pool, ids, frames, lens) -> tuple:
+    """The pooled step of ``pool`` (closed) with its 8 rows after a batched
+    prefill of the 8 video prompts: one chunk of `BATCH_STEPS` to warm,
+    three timed on the host clock, one profiled.  Returns (wall ms, device
+    busy ms, top kernels, device ms of the chunk) a step.  By graph the
+    device is busy nearly all the wall, so the idle share (the two taken
+    from different chunks) may read a little under 0."""
+    with torch.inference_mode():
+        tok, _, cache, valid = engine._prefill(
+            ids, engine._prepare_images(frames, 8), lens,
+            torch.Generator("cuda").manual_seed(0),
+            torch.zeros(8, device="cuda"), torch.ones(8, device="cuda"),
+            False, pool.smax)
+        for b in range(8):
+            pool._insert(cache, valid, tok, int(lens[b]), b, b)
+        del cache
+        pool._temps[:] = 0.0
+        pool._decode_chunk(BATCH_STEPS)                  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pool._decode_chunk(BATCH_STEPS).cpu()
+        wall_step = (time.perf_counter() - t0) / (3 * BATCH_STEPS) * 1e3
+        dev, top, _ = profile_device(lambda: pool._decode_chunk(BATCH_STEPS))
+    return wall_step, dev / BATCH_STEPS, top, dev
+
+
 def batch_slice(cfg, params, smi: str) -> dict:
     """``batch_infer``'s configuration on Valley-7B: 12 requests at once
-    through a `ContinuousEngine` of 8 rows (after a warm-up pair); the
-    launches of K1, K3-int8 and K6 against the pool's count of prefills
-    and pooled steps; aggregate tokens/s; the pooled step's device time and
-    its kernels; the pooled logits against the plain versions; each greedy
-    request's tokens against the same request alone.  Returns the
+    through a `ContinuousEngine` of 8 rows (after a warm-up pair that
+    captures its decode graph), each pooled chunk one replay of a CUDA
+    graph; the launches of K1, K3-int8 and K6 against the pool's count of
+    prefills and pooled steps; aggregate tokens/s; the same traffic through
+    an eager pool (``eager=True``): every greedy request's tokens the
+    graph pool's; the pooled step's wall and device time and its kernels,
+    graph and eager; the pooled logits against the plain versions; each
+    greedy request's tokens against the same request alone.  Returns the
     counts."""
     from valley_tpu_torch.inference.continuous import ContinuousEngine, _drain
     from valley_tpu_torch.inference.engine import Engine, GenerationConfig
@@ -2255,46 +2392,72 @@ def batch_slice(cfg, params, smi: str) -> dict:
     engine = Engine(cfg, params, buckets=BATCH_BUCKETS,
                     max_new_tokens=BATCH_MAX_NEW, cache_dtype=torch.int8,
                     steps_per_call=BATCH_STEPS)
-    pool = ContinuousEngine(engine, rows=BATCH_ROWS, admit_batch=4)
-    check(pool.smax == 2048 + BATCH_MAX_NEW, f"pool smax {pool.smax}")
     reqs = batch_requests(cfg)
-    # warm-up: lazy CUDA / cuBLAS initialisation at two admission buckets
-    for q in (pool.submit(reqs[0][0], reqs[0][1], max_new_tokens=4,
-                          eos_id=-1),
-              pool.submit(reqs[10][0], max_new_tokens=4, eos_id=-1)):
-        list(_drain(q, timeout=600))
-    torch.cuda.synchronize()
     kernels = {"K1": flash_attention, "K3-int8": decode_attention_stacked,
                "K6": bf16_matvec, "K4": int8_matvec, "K5": int4_matvec}
-    steps0, groups0 = pool.steps_run, len(pool.prefill_sizes)
-    for fn in kernels.values():
-        fn.launches = 0
-    results, wall = run_traffic(pool, reqs, NEW_TOKENS)    # the main path
-    counts = {k: fn.launches for k, fn in kernels.items()}
-    steps = pool.steps_run - steps0
-    groups = pool.prefill_sizes[groups0:]
-    pool.close()
-    for (toks, _, _), (p, f, t) in zip(results, reqs):
-        check(len(toks) == NEW_TOKENS and all(
-            0 <= x < cfg.text.vocab_size for x in toks),
-            f"batch slice: a request gave {len(toks)} tokens or bad ids")
-    check(sum(groups) == len(reqs), f"batch slice: admissions {groups}")
-    want = {"K1": layers * len(groups), "K3-int8": layers * steps,
-            "K6": (4 * layers + 1) * steps + len(groups), "K4": 0, "K5": 0}
-    for k, n in want.items():
-        check(counts[k] == n, f"batch slice: {k} launched {counts[k]} "
-              f"times, want {n}")
-    firsts = sorted(r[1] for r in results)
-    n_tok = sum(len(r[0]) for r in results)
-    print(f"batch slice: {len(reqs)} requests (8 video x 473 tokens + 8 "
-          f"frames, text of 40/200/700/1500 tokens, 2 sampled), "
-          f"{NEW_TOKENS} new tokens each, pool of {BATCH_ROWS} rows x "
-          f"{pool.smax} slots (int8 cache); {len(groups)} admission prefills "
-          f"of {groups} rows, {steps} pooled steps; launches " + " ".join(
-              f"{k} {n}" for k, n in counts.items()))
-    print(f"batch slice: aggregate {n_tok / wall:.2f} tok/s ({n_tok} tokens "
-          f"in {wall:.3f} s wall), first tokens at {firsts[0]:.3f}-"
-          f"{firsts[-1]:.3f} s, on {smi}")
+    pools, runs = {}, {}
+    for mode in ("graph", "eager"):
+        pool = ContinuousEngine(engine, rows=BATCH_ROWS, admit_batch=4,
+                                eager=mode == "eager")
+        pools[mode] = pool
+        check(pool.smax == 2048 + BATCH_MAX_NEW, f"pool smax {pool.smax}")
+        # warm-up: lazy CUDA / cuBLAS initialisation at two admission
+        # buckets, and the capture of the pooled chunk's graph
+        for q in (pool.submit(reqs[0][0], reqs[0][1], max_new_tokens=4,
+                              eos_id=-1),
+                  pool.submit(reqs[10][0], max_new_tokens=4, eos_id=-1)):
+            list(_drain(q, timeout=600))
+        torch.cuda.synchronize()
+        steps0, groups0 = pool.steps_run, len(pool.prefill_sizes)
+        for fn in kernels.values():
+            fn.launches = 0
+        results, wall = run_traffic(pool, reqs, NEW_TOKENS)   # main path
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        steps = pool.steps_run - steps0
+        groups = pool.prefill_sizes[groups0:]
+        pool.close()
+        runs[mode] = (results, wall, counts, steps, groups)
+        for (toks, _, _), (p, f, t) in zip(results, reqs):
+            check(len(toks) == NEW_TOKENS and all(
+                0 <= x < cfg.text.vocab_size for x in toks),
+                f"batch slice {mode}: a request gave {len(toks)} tokens or "
+                "bad ids")
+        check(sum(groups) == len(reqs), f"batch slice {mode}: admissions "
+              f"{groups}")
+        want = {"K1": layers * len(groups), "K3-int8": layers * steps,
+                "K6": (4 * layers + 1) * steps + len(groups), "K4": 0,
+                "K5": 0}
+        for k, n in want.items():
+            check(counts[k] == n, f"batch slice {mode}: {k} launched "
+                  f"{counts[k]} times, want {n}")
+        firsts = sorted(r[1] for r in results)
+        n_tok = sum(len(r[0]) for r in results)
+        print(f"batch slice {mode}: {len(reqs)} requests (8 video x 473 "
+              f"tokens + 8 frames, text of 40/200/700/1500 tokens, 2 "
+              f"sampled), {NEW_TOKENS} new tokens each, pool of {BATCH_ROWS} "
+              f"rows x {pool.smax} slots (int8 cache), "
+              f"{'each chunk one replay of a CUDA graph' if mode == 'graph' else 'eager steps'}"
+              f"; {len(groups)} admission prefills of {groups} rows, {steps} "
+              f"pooled steps; launches " + " ".join(
+                  f"{k} {n}" for k, n in counts.items()))
+        print(f"batch slice {mode}: aggregate {n_tok / wall:.2f} tok/s "
+              f"({n_tok} tokens in {wall:.3f} s wall), first tokens at "
+              f"{firsts[0]:.3f}-{firsts[-1]:.3f} s, on {smi}")
+    graph_pool = pools["graph"]
+    check(set(graph_pool._graphs.keys()) == {(BATCH_STEPS, True)},
+          f"batch slice: pool graphs {list(graph_pool._graphs.keys())}")
+    results, wall, counts, steps, groups = runs["graph"]
+    e_results, _, _, _, e_groups = runs["eager"]
+    check(groups == e_groups, f"batch slice: admission groups {groups} "
+          f"(graph) and {e_groups} (eager)")
+    for i, ((toks, _, _), (e_toks, _, _), (_, _, t)) in enumerate(
+            zip(results, e_results, reqs)):
+        if not t:
+            check(toks == e_toks, f"batch slice: greedy request {i} differs "
+                  f"between the graph pool and the eager pool")
+    print(f"batch slice: every greedy request (10 of 12) gives the eager "
+          f"pool's tokens through the graph pool; its graph captured in "
+          f"{graph_pool._graphs.capture_s:.3f} s")
 
     # the pooled step: 8 rows after a batched prefill of the video prompts
     video = reqs[:8]
@@ -2304,34 +2467,30 @@ def batch_slice(cfg, params, smi: str) -> dict:
     ids = ids.cuda()
     lens = torch.tensor([len(p) for p, _, _ in video], device="cuda")
     frames = np.concatenate([f for _, f, _ in video])
-    with torch.inference_mode():
-        tok, _, cache, valid = engine._prefill(
-            ids, engine._prepare_images(frames, 8), lens,
-            torch.Generator("cuda").manual_seed(0), torch.zeros(8,
-                                                                device="cuda"),
-            torch.ones(8, device="cuda"), False, pool.smax)
-        pool._cache, pool._valid, pool._token = cache, valid, tok
-        pool._slot, pool._seq = lens.clone(), lens.clone()
-        pool._temps[:] = 0.0
-        pool._decode_chunk(BATCH_STEPS)                  # warm
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pool._decode_chunk(BATCH_STEPS)
-        torch.cuda.synchronize()
-        wall_step = (time.perf_counter() - t0) / BATCH_STEPS * 1e3
-        dev, top, _ = profile_device(lambda: pool._decode_chunk(BATCH_STEPS))
-    dev_step = dev / BATCH_STEPS
-    inside = []
-    for k in ("K3-int8", "K6"):
-        ms = sum(t for name, t in top
-                 if any(key in name for key in KERNEL_NAMES[k]))
-        inside.append(f"{k} {ms / BATCH_STEPS:.3f} ms ({100 * ms / dev:.1f}%)")
-    print(f"batch slice breakdown: pooled step of 8 rows wall {wall_step:.3f} "
-          f"ms, device busy {dev_step:.3f} ms (idle share "
-          f"{1 - dev_step / wall_step:.3f}): " + ", ".join(inside)
-          + "; top kernels: " + ", ".join(
-              f"{name[:40]} {100 * ms / dev:.1f}%" for name, ms in top[:8]))
-    pool._cache = cache = None
+    steps_of = {}
+    for mode in ("graph", "eager"):
+        steps_of[mode] = pooled_step(f"batch slice {mode}", engine,
+                                     pools[mode], ids, frames, lens)
+    check(steps_of["graph"][3] > 0 and any(
+        "decode_attn_kernel" in name for name, _ in steps_of["graph"][2]),
+        "batch slice: the profiler saw no K3 inside the pooled graph")
+    for mode, (wall_step, dev_step, top, dev) in steps_of.items():
+        inside = []
+        for k in ("K3-int8", "K6"):
+            ms = sum(t for name, t in top
+                     if any(key in name for key in KERNEL_NAMES[k]))
+            inside.append(f"{k} {ms / BATCH_STEPS:.3f} ms "
+                          f"({100 * ms / dev:.1f}%)")
+        print(f"batch slice breakdown ({mode}): pooled step of 8 rows wall "
+              f"{wall_step:.3f} ms, device busy {dev_step:.3f} ms (idle "
+              f"share {1 - dev_step / wall_step:.3f}): " + ", ".join(inside)
+              + "; top kernels: " + ", ".join(
+                  f"{name[:40]} {100 * ms / dev:.1f}%"
+                  for name, ms in top[:8]))
+    print(f"batch slice: the pooled graph's memory pool "
+          f"{fmt_mb(pool_bytes(graph_pool._graphs.pool))}")
+    pool = graph_pool
+    del pools, steps_of
     gc.collect()
     torch.cuda.empty_cache()
 

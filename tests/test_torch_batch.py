@@ -509,9 +509,10 @@ def test_idle_row_parks_at_the_last_slot(jeng, teng):
         p = list(range(15, 35))
         assert _collect(c.submit(p, max_new_tokens=12,
                                  eos_id=-1)) == _solo(jeng, p, 12)
-        idle = 1 if c._slot[0] < c.smax - 1 else 0
-        assert int(c._slot[idle]) >= c.smax - 1 + 10
-        written = (c._cache.k[0, idle].abs().sum(dim=(-1, -2)) != 0)
+        state = c._state
+        idle = 1 if state.slot[0] < c.smax - 1 else 0
+        assert int(state.slot[idle]) >= c.smax - 1 + 10
+        written = (state.cache.k[0, idle].abs().sum(dim=(-1, -2)) != 0)
         assert written.nonzero().flatten().tolist() == [c.smax - 1]
     finally:
         c.close()
@@ -684,3 +685,73 @@ def test_batch_infer_loaders_and_refusals(tmp_path, monkeypatch):
     args.device = None
     with pytest.raises(RuntimeError, match="--device cpu"):
         batch_infer.run_batch(args)
+
+
+def test_batch_infer_frame_buckets_match_jax(tmp_path, media_dir,
+                                             monkeypatch):
+    """``--frame-buckets 2,4`` with 3-frame videos and a one-frame image
+    (padded to 4 and 2 frames, the padding masked out of the pooling):
+    greedy answers identical to the JAX ``batch_infer``'s on the same
+    random:tiny weights (the JAX worker's, made from JAX's key 0)."""
+    from valley_tpu.inference import batch_infer as jbatch
+    from valley_tpu.tokenizer import ByteFallbackTokenizer
+    from valley_tpu_torch.inference import run_valley
+
+    jcfg = C.valley_tiny().replace(
+        tokens=ByteFallbackTokenizer().special_tokens())
+    tree = jax.device_get(jvalley.init_params(jcfg, jax.random.key(0),
+                                              jnp.float32))
+    monkeypatch.setattr(run_valley.valley, "init_params",
+                        lambda *a, **k: from_jax_params(tree, "cpu",
+                                                        torch.float32))
+    reqs = [{"id": "t1", "query": "hello there"},
+            {"id": "v1", "video": str(media_dir / "clip"),
+             "query": "Describe the video."},
+            {"id": "i1", "image": str(media_dir / "img.png"),
+             "query": "What is shown?"}]
+    extra = ["--frame-buckets", "2,4", "--num-frames", "3"]
+    outs = []
+    for side, parse in (("jax", jbatch.build_parser().parse_args),
+                        ("torch", None)):
+        d = tmp_path / side
+        d.mkdir()
+        _write_jsonl(d / "in.jsonl", reqs)
+        if parse is None:
+            args = _args(d, extra)
+            assert batch_infer.frame_buckets(args) == (2, 4)
+            summary = batch_infer.run_batch(args)
+        else:
+            args = parse(_jax_argv(d, extra))
+            summary = jbatch.run_batch(args)
+        assert summary["ran"] == 3 and summary["errors"] == 0
+        outs.append({json.loads(line)["id"]: json.loads(line)
+                     for line in open(d / "out.jsonl")})
+    for rid in ("t1", "v1", "i1"):
+        assert outs[1][rid]["response"] == outs[0][rid]["response"], rid
+        assert outs[1][rid]["tokens"] == outs[0][rid]["tokens"], rid
+
+
+def _jax_argv(d, extra):
+    """`_args`' command line for the JAX batch_infer (no --device)."""
+    return ["--model-path", "random:tiny",
+            "--input", str(d / "in.jsonl"), "--output", str(d / "out.jsonl"),
+            "--rows", "2", "--admit-batch", "1", "--buckets", "128",
+            "--kv-cache", "bf16", "--max-new-tokens", "8",
+            "--steps-per-call", "4", "--num-frames", "2", "--system-prompt",
+            "sys", "--inflight", "4", *extra]
+
+
+def test_batch_infer_frame_bucket_flag():
+    """``off`` and empty mean exact frame counts; ``--num-frames`` past
+    the buckets is added as one (model_worker.py:992-999)."""
+    def fb(value, frames=8):
+        return batch_infer.frame_buckets(batch_infer.build_parser()
+                                         .parse_args(["--input", "i",
+                                                      "--output", "o",
+                                                      "--model-path", "m",
+                                                      "--frame-buckets",
+                                                      value, "--num-frames",
+                                                      str(frames)]))
+    assert fb("") is None and fb("off") is None and fb(" OFF ") is None
+    assert fb("1,4,8") == (1, 4, 8)
+    assert fb("1,4", 6) == (1, 4, 6)

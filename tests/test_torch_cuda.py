@@ -556,9 +556,11 @@ def test_decode_kernel_refuses_mismatched_cache_and_scales(gen):
 
 def test_tiny_int8_serving_on_the_card(gen):
     """The int8a8 fused tree with an int8 cache on the card: per request
-    K1 runs once per layer (prefill), K3 once per layer and decode step,
-    K4 four times per layer and decode step plus once per token for
-    lm_head; the prefill logits agree with the plain versions'."""
+    (after a first one that captured the graphs) K1 runs once per layer
+    (prefill), K3 once per layer and decode step, K4 four times per layer
+    and decode step plus once per step and once for the prefill for
+    lm_head, the steps those of the padded schedule (2, 2, then 1 padded
+    to 2); the prefill logits agree with the plain versions'."""
     cfg = valley_tiny()
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                                 torch.bfloat16, "cuda")
@@ -570,16 +572,19 @@ def test_tiny_int8_serving_on_the_card(gen):
                       attention=a) for a in (KERNELS, PLAIN)]
     prompt = np.random.default_rng(0).integers(5, 400, 90).tolist()
     gcfg = GenerationConfig(max_new_tokens=new)
+    first = [int(t[0]) for t in engines[0].generate_tokens(
+        [prompt], None, gcfg, eos_ids=[-1])]
     counts = (flash_attention.launches, decode_attention_stacked.launches,
               int8_matvec.launches)
+    steps0 = engines[0].steps_run
     toks = [int(t[0]) for t in engines[0].generate_tokens(
         [prompt], None, gcfg, eos_ids=[-1])]
+    steps = engines[0].steps_run - steps0
     layers = cfg.text.num_hidden_layers
-    assert len(toks) == new
+    assert len(toks) == new and toks == first and steps == 6
     assert flash_attention.launches - counts[0] == layers
-    assert decode_attention_stacked.launches - counts[1] == \
-        layers * (new - 1)
-    assert int8_matvec.launches - counts[2] == 4 * layers * (new - 1) + new
+    assert decode_attention_stacked.launches - counts[1] == layers * steps
+    assert int8_matvec.launches - counts[2] == (4 * layers + 1) * steps + 1
     # the tiny model's logits are O(1); the kernels round bf16 in other
     # places than the plain versions (two ulps at the largest output)
     lk, lp = (e.prefill([prompt], None, gcfg).logits for e in engines)
@@ -639,9 +644,10 @@ def test_int4_matvec_kernel_refuses_what_it_cannot_take(gen):
 
 def test_tiny_int4gp_serving_on_the_card(gen):
     """Fused int4 weights with group-32 scales and an int8 cache on the
-    card: per request K1 runs once per layer (prefill), K3 once per layer
-    and decode step, K5 four times per layer and decode step plus once per
-    token for lm_head, K4 never; the prefill logits agree with the plain
+    card: per request (after a first one that captured the graphs) K1 runs
+    once per layer (prefill), K3 once per layer and decode step, K5 four
+    times per layer and decode step plus once per step and once for the
+    prefill for lm_head, K4 never; the prefill logits agree with the plain
     versions'."""
     cfg = valley_tiny()
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
@@ -654,16 +660,19 @@ def test_tiny_int4gp_serving_on_the_card(gen):
                       attention=a) for a in (KERNELS, PLAIN)]
     prompt = np.random.default_rng(0).integers(5, 400, 90).tolist()
     gcfg = GenerationConfig(max_new_tokens=new)
+    first = [int(t[0]) for t in engines[0].generate_tokens(
+        [prompt], None, gcfg, eos_ids=[-1])]
     counts = (flash_attention.launches, decode_attention_stacked.launches,
               int4_matvec.launches, int8_matvec.launches)
+    steps0 = engines[0].steps_run
     toks = [int(t[0]) for t in engines[0].generate_tokens(
         [prompt], None, gcfg, eos_ids=[-1])]
+    steps = engines[0].steps_run - steps0
     layers = cfg.text.num_hidden_layers
-    assert len(toks) == new
+    assert len(toks) == new and toks == first and steps == 6
     assert flash_attention.launches - counts[0] == layers
-    assert decode_attention_stacked.launches - counts[1] == \
-        layers * (new - 1)
-    assert int4_matvec.launches - counts[2] == 4 * layers * (new - 1) + new
+    assert decode_attention_stacked.launches - counts[1] == layers * steps
+    assert int4_matvec.launches - counts[2] == (4 * layers + 1) * steps + 1
     assert int8_matvec.launches == counts[3]
     # the tiny model's logits are O(1); the kernels round bf16 in other
     # places than the plain versions (two ulps at the largest output)
@@ -968,3 +977,171 @@ def test_tiny_chat_session_on_the_card(gen):
     assert flash_attention.launches - counts[0] == layers
     assert decode_attention_stacked.launches - counts[1] == layers * 10
     assert bf16_matvec.launches - counts[2] == (7 * layers + 1) * 10 + 2
+
+
+# -- decode by CUDA graph -----------------------------------------------------
+
+
+def _tiny_tree(kind):
+    """The tiny model's bf16 tree as served: bf16 unfused, fused int8a8, or
+    fused int4gp with group-32 scales."""
+    cfg = valley_tiny()
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    if kind == "int8a8":
+        params = quantize_llama_params(llama.fuse_llama_params(params),
+                                       act8=True)
+    elif kind == "int4gp":
+        params = quantize_llama_params(llama.fuse_llama_params(params),
+                                       bits=4, group_size=32)
+    return cfg, params
+
+
+GRAPH_TREES = {"bf16": torch.bfloat16, "int8a8": torch.int8,
+               "int4gp": torch.int8}
+COUNTED = (flash_attention, decode_attention_stacked, bf16_matvec,
+           int8_matvec, int4_matvec)
+
+
+def _counted(fn):
+    """(fn(), the launches of every counted wrapper during it)."""
+    before = [w.launches for w in COUNTED]
+    out = fn()
+    torch.cuda.synchronize()
+    return out, [w.launches - b for w, b in zip(COUNTED, before)]
+
+
+@pytest.mark.parametrize("kind", list(GRAPH_TREES))
+def test_graph_decode_matches_eager_decode(gen, kind):
+    """`generate_tokens` on the card decodes by graph replay: at B = 1 and
+    ragged B = 3, two different requests in a row replay the same graphs
+    (no new capture) and each gives the tokens of a fresh eager run, with
+    the eager run's launches and decode steps (ramp 2, then 4, the
+    10-token request's last chunk of 3 padded to 4)."""
+    cfg, params = _tiny_tree(kind)
+    eng = Engine(cfg, params, buckets=(64, 128), max_new_tokens=12,
+                 cache_dtype=GRAPH_TREES[kind], steps_per_call=4,
+                 decode_ramp=(2,))
+    gcfg = GenerationConfig(max_new_tokens=10)
+    rng = np.random.default_rng(1)
+    # both requests of a batch size in the 128 bucket: one cache length
+    batches = {1: [[rng.integers(5, 400, 90).tolist()],
+                   [rng.integers(5, 400, 110).tolist()]],
+               3: [[rng.integers(5, 400, n).tolist() for n in (9, 70, 40)],
+                   [rng.integers(5, 400, n).tolist() for n in (100, 3, 21)]]}
+
+    def run(prompts, eager):
+        return np.stack(list(eng.generate_tokens(prompts, None, gcfg,
+                                                 eos_ids=[-1], eager=eager)))
+
+    for b, (first, second) in batches.items():
+        run(first, False)                               # captures
+        keys = {k: set(g.keys()) for k, g in eng.graph_sets.items()}
+        for prompts in (first, second):
+            steps0 = eng.steps_run
+            graph, graph_n = _counted(lambda: run(prompts, False))
+            graph_steps = eng.steps_run - steps0
+            eager, eager_n = _counted(lambda: run(prompts, True))
+            assert graph.shape == (10, b)
+            np.testing.assert_array_equal(graph, eager)
+            assert graph_n == eager_n and graph_steps == 10
+            assert eng.steps_run - steps0 == 2 * graph_steps
+        assert {k: set(g.keys()) for k, g in eng.graph_sets.items()} == keys
+    assert {k[0] for k in eng.graph_sets} == {1, 3}
+    # one static state per key: a second live request on it raises
+    live = eng.generate_tokens(batches[1][0], None, gcfg, eos_ids=[-1])
+    next(live)
+    with pytest.raises(RuntimeError, match="bound to one state"):
+        next(eng.generate_tokens(batches[1][1], None, gcfg, eos_ids=[-1]))
+    assert len(list(live)) == 9
+
+
+def test_sampled_graph_draws_fresh_numbers_and_repeats_by_seed(gen):
+    """A sampled graph replayed on the same state draws other tokens each
+    replay, and the same tokens after its generator is seeded again."""
+    cfg, params = _tiny_tree("bf16")
+    eng = Engine(cfg, params, buckets=(64,), max_new_tokens=8,
+                 steps_per_call=8)
+    gcfg = GenerationConfig(max_new_tokens=8, do_sample=True,
+                            temperature=3.0, seed=7)
+    prompt = np.random.default_rng(2).integers(5, 400, 30).tolist()
+    a = [int(t[0]) for t in eng.generate_tokens([prompt], None, gcfg,
+                                                eos_ids=[-1])]
+    b = [int(t[0]) for t in eng.generate_tokens([prompt], None, gcfg,
+                                                eos_ids=[-1])]
+    assert a == b                                   # same seed, same draw
+    graphs = eng.graph_sets[(1, 64 + 8 + 8)]
+    state = graphs.state
+    saved = state.snapshot()
+    outs = []
+    for seed in (None, None, 123, 123):
+        if seed is not None:
+            graphs.generator.manual_seed(seed)
+        state.restore(saved)
+        outs.append(graphs.run(8, True).clone())
+    assert not torch.equal(outs[0], outs[1])        # fresh numbers
+    assert torch.equal(outs[2], outs[3])            # repeated by seed
+
+
+def test_graph_pool_matches_the_eager_pool(gen):
+    """The pool's graphs give every greedy request the tokens of the same
+    traffic through the eager pool, with the same launches per step."""
+    cfg, params = _tiny_tree("bf16")
+    params = llama.fuse_llama_params(params)
+    eng = Engine(cfg, params, buckets=(64, 128), max_new_tokens=16,
+                 cache_dtype=torch.int8, steps_per_call=4)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(5, 400, n).tolist(), t)
+            for n, t in ((90, 0.0), (30, 0.0), (50, 0.9), (12, 0.0))]
+    results = []
+    for eager in (False, True):
+        pool = ContinuousEngine(eng, rows=3, bucket=128, extra_slots=32,
+                                steps_per_call=4, decode_ramp=(2,),
+                                eager=eager)
+        try:
+            assert pool.graphs_on == (not eager)
+            pool.warmup()
+            steps0 = pool.steps_run
+            before = decode_attention_stacked.launches
+            queues = [pool.submit(p, temperature=t, max_new_tokens=10,
+                                  eos_id=-1) for p, t in reqs]
+            toks = [list(_drain(q, timeout=120)) for q in queues]
+            torch.cuda.synchronize()
+            steps = pool.steps_run - steps0
+            assert decode_attention_stacked.launches - before == \
+                cfg.text.num_hidden_layers * steps
+            if not eager:
+                assert set(pool._graphs.keys()) == {(2, True), (4, True)}
+        finally:
+            pool.close()
+        results.append(toks)
+    for (_, t), g, e in zip(reqs, *results):
+        assert len(g) == len(e) == 10
+        if t == 0.0:
+            assert g == e
+
+
+def test_a_synchronising_step_makes_capture_raise(gen):
+    """A decode wrapper that synchronises with the host inside the step
+    cannot be captured: `generate_tokens` raises and does not decode
+    eagerly instead."""
+    cfg, params = _tiny_tree("bf16")
+
+    def syncing_decode(*a, **k):
+        torch.cuda.synchronize()
+        return decode_attention_stacked(*a, **k)
+
+    eng = Engine(cfg, params, buckets=(64,), max_new_tokens=4,
+                 steps_per_call=2,
+                 attention=KERNELS._replace(decode=syncing_decode))
+    prompt = np.random.default_rng(4).integers(5, 400, 20).tolist()
+    with pytest.raises(RuntimeError):
+        list(eng.generate_tokens([prompt], None,
+                                 GenerationConfig(max_new_tokens=4),
+                                 eos_ids=[-1]))
+    assert not any(g.keys() for g in eng.graph_sets.values())
+    # the same engine decodes eagerly when asked by name
+    toks = list(eng.generate_tokens([prompt], None,
+                                    GenerationConfig(max_new_tokens=4),
+                                    eos_ids=[-1], eager=True))
+    assert len(toks) == 4

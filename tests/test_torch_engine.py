@@ -328,3 +328,173 @@ def test_run_valley_cli_int8_serving_on_frame_dir(tmp_path, capsys):
     lay = eng.params["llama"]["layers"]
     assert lay["wqkv"].dtype == torch.int8 and "wqkv_scale_a8" in lay
     assert eng.cache_dtype == torch.int8
+
+
+# -- the decode schedule, frame buckets and warmup ---------------------------
+
+
+@pytest.mark.parametrize("ramp,spc", [((), 1), ((), 4), ((2,), 4),
+                                      ((2, 3), 4), ((1, 6), 8),
+                                      ((3, 3, 5), 2)])
+def test_tail_steps_equal_jax(jparams, tparams, cfg, ramp, spc):
+    """`_tail_steps` over every (want, room) of a grid, against JAX's."""
+    jeng = jengine.Engine(cfg, jparams, buckets=(64,), max_new_tokens=NEW,
+                          cache_dtype=jnp.float32, use_flash=False,
+                          steps_per_call=spc, decode_ramp=ramp)
+    teng = engine.Engine(cfg, tparams, buckets=(64,), max_new_tokens=NEW,
+                         cache_dtype=torch.float32, steps_per_call=spc,
+                         decode_ramp=ramp)
+    assert teng._sched_sizes == jeng._sched_sizes
+    for want in range(1, 20):
+        for room in range(0, 24):
+            assert teng._tail_steps(want, room) == \
+                jeng._tail_steps(want, room), (want, room)
+
+
+TAIL_CACHES = {"fp32": (jnp.float32, torch.float32),
+               "bf16": (jnp.bfloat16, torch.bfloat16),
+               "int8": (jnp.int8, torch.int8)}
+
+
+def _spy_chunks(eng, name):
+    """Record the ``n_steps`` of every decode chunk ``eng`` runs through
+    its method ``name`` (JAX ``_decode``, the port's ``_decode_chunk``)."""
+    sizes = []
+    orig = getattr(eng, name)
+
+    def spy(*a, **k):
+        sizes.append(k["n_steps"] if "n_steps" in k else a[1])
+        return orig(*a, **k)
+
+    setattr(eng, name, spy)
+    return sizes
+
+
+@pytest.mark.parametrize("cache", list(TAIL_CACHES))
+@pytest.mark.parametrize("b", [1, 3])
+def test_every_tail_gives_jax_tokens_and_chunks(cfg, jparams, tparams, cache,
+                                                b):
+    """``steps_per_call=4``, ``decode_ramp=(2, 3)`` and max_new_tokens 1 to
+    13, so the final chunk pads up from every remainder: the tokens kept,
+    and the size of every chunk run (padded tails included), are JAX's.
+    The port's chunks run the step its graphs capture, eagerly."""
+    jdt, tdt = TAIL_CACHES[cache]
+    jeng = jengine.Engine(cfg, jparams, buckets=(64,), max_new_tokens=13,
+                          cache_dtype=jdt, use_flash=False, steps_per_call=4,
+                          decode_ramp=(2, 3))
+    teng = engine.Engine(cfg, tparams, buckets=(64,), max_new_tokens=13,
+                         cache_dtype=tdt, steps_per_call=4,
+                         decode_ramp=(2, 3))
+    jsizes = _spy_chunks(jeng, "_decode")
+    tsizes = _spy_chunks(teng, "_decode_chunk")
+    rng = np.random.default_rng(30 + b)
+    if b == 1:
+        prompts, images = [_media_prompt(cfg, 2, 11, 31)], _frames(cfg, 2, 31)
+    else:
+        prompts, images = [rng.integers(5, 400, n).tolist()
+                           for n in (9, 40, 23)], None
+    for new in range(1, 14):
+        jsizes.clear()
+        tsizes.clear()
+        steps0 = teng.steps_run
+        want = np.stack(list(jeng.generate_tokens(
+            prompts, images, jengine.GenerationConfig(max_new_tokens=new),
+            eos_ids=[-1])))
+        got = np.stack(list(teng.generate_tokens(
+            prompts, images, engine.GenerationConfig(max_new_tokens=new),
+            eos_ids=[-1])))
+        assert got.shape == (new, b)
+        np.testing.assert_array_equal(got, want)
+        assert tsizes == jsizes, new
+        assert teng.steps_run - steps0 == sum(jsizes)
+
+
+@pytest.fixture(scope="module")
+def bucket_engines(cfg, jparams, tparams):
+    return (jengine.Engine(cfg, jparams, buckets=(64,), max_new_tokens=NEW,
+                           cache_dtype=jnp.float32, use_flash=False,
+                           steps_per_call=4, frame_buckets=(2, 4, 8)),
+            engine.Engine(cfg, tparams, buckets=(64,), max_new_tokens=NEW,
+                          cache_dtype=torch.float32, steps_per_call=4,
+                          frame_buckets=(2, 4, 8)))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_frame_buckets_match_jax(cfg, teng, bucket_engines, dtype):
+    """A 3-frame video with ``frame_buckets=(2, 4, 8)`` pads to 4 frames,
+    the fourth masked out of the pooling: the tokens are JAX's, the fp32
+    prefill logits within 1e-5 of its, and within 1e-5 of an engine
+    without frame buckets (masked pooling ignores the padding)."""
+    jeng, tb = bucket_engines
+    prompt, images = _media_prompt(cfg, 3, 14, 40), _frames(cfg, 3, 40,
+                                                              dtype)
+    media = tb._prepare_images(images, 1)
+    assert tuple(media.frames.shape[:2]) == (1, 4)
+    assert media.frame_mask.tolist() == [[True, True, True, False]]
+    gen = engine.GenerationConfig(max_new_tokens=NEW)
+    want = _tokens(jeng, prompt, images,
+                   jengine.GenerationConfig(max_new_tokens=NEW))
+    assert _tokens(tb, prompt, images, gen) == want
+    ids = np.zeros((1, 64), np.int32)
+    ids[0, :len(prompt)] = prompt
+    imgs, frame_mask, has = jeng._prepare_images(images, 1)
+    _, jlogits, _, _ = jeng._prefill(
+        jeng.params, jnp.asarray(ids), imgs,
+        jnp.asarray([len(prompt)], jnp.int32), jax.random.key(0), 1.0, 1.0,
+        frame_mask, bucket=64, cache_len=64 + NEW + 4, do_sample=False,
+        has_images=has)
+    got = tb.prefill([prompt], images).logits.numpy()
+    np.testing.assert_allclose(got, np.asarray(jlogits), atol=1e-5)
+    np.testing.assert_allclose(got, teng.prefill([prompt], images)
+                               .logits.numpy(), atol=1e-5)
+
+
+def test_frames_past_the_last_bucket_keep_their_count(cfg, bucket_engines):
+    """Past the largest bucket the frame axis stays as it is, all valid
+    (JAX engine.py:440-442)."""
+    media = bucket_engines[1]._prepare_images(_frames(cfg, 9, 41), 1)
+    assert tuple(media.frames.shape[:2]) == (1, 9)
+    assert bool(media.frame_mask.all())
+
+
+def test_warmup_visits_what_jax_warms(cfg, jparams, tparams):
+    """`Engine.warmup` runs the prefill of every (batch, bucket, frame
+    bucket or text, greedy and sampled) and every decode chunk size that
+    JAX's does, in the same order (on the card each decode chunk size is
+    a graph it captures)."""
+    kw = dict(buckets=(64,), max_new_tokens=NEW, steps_per_call=4,
+              decode_ramp=(2,), frame_buckets=(2, 4))
+    jeng = jengine.Engine(cfg, jparams, cache_dtype=jnp.float32,
+                          use_flash=False, **kw)
+    teng = engine.Engine(cfg, tparams, cache_dtype=torch.float32, **kw)
+    jseen, tseen = [], []
+    jprefill, jdecode = jeng._prefill, jeng._decode
+    tprefill, tchunk = teng._prefill, teng._decode_chunk
+
+    def jp(params, ids, images, *a, **k):
+        jseen.append(("prefill", ids.shape, images.shape[1]
+                      if k["has_images"] else None, k["do_sample"]))
+        return jprefill(params, ids, images, *a, **k)
+
+    def jd(params, cache, valid, token, *a, **k):
+        jseen.append(("decode", token.shape[0], k["n_steps"],
+                      k["do_sample"]))
+        return jdecode(params, cache, valid, token, *a, **k)
+
+    def tp(ids, media, *a, **k):
+        tseen.append(("prefill", tuple(ids.shape), None if media is None
+                      else media.frames.shape[1], a[4]))
+        return tprefill(ids, media, *a, **k)
+
+    def tc(state, n_steps, do_sample, *a, **k):
+        tseen.append(("decode", state.rows, n_steps, do_sample))
+        return tchunk(state, n_steps, do_sample, *a, **k)
+
+    jeng._prefill, jeng._decode = jp, jd
+    teng._prefill, teng._decode_chunk = tp, tc
+    jeng.warmup(batch_sizes=(1, 2))
+    teng.warmup(batch_sizes=(1, 2))
+    assert tseen == jseen
+    assert {s for s in tseen if s[0] == "decode"} == {
+        ("decode", b, n, m) for b in (1, 2) for n in (2, 4)
+        for m in (False, True)}

@@ -39,9 +39,13 @@ unless ``--device cpu`` is given.  Only ``random:tiny`` loads (the
 checkpoint loader is not ported).  The decode GEMV kernels take at most
 ``ops.quant.MAX_ROWS`` (8) rows, so a pool of more ``--rows`` decodes its
 projections through the library's matrix product, the same shape rule by
-which prefill's many rows do.  Not ported, and refused: ``--speculative``,
-``--vision-tower``, ``--lora-path``, ``--quantize-vision``,
-``--frame-buckets`` and ``--tensor-parallel`` above 1.
+which prefill's many rows do.  ``--frame-buckets 1,4,8`` pads each
+video's frames to the smallest bucket that holds them (``off`` or empty:
+exact counts; ``--num-frames`` is added as a bucket where it exceeds
+them), as the JAX worker's ``load_engine`` does, and the pool is warmed at
+those buckets.  Not ported, and refused: ``--speculative``,
+``--vision-tower``, ``--lora-path``, ``--quantize-vision`` and
+``--tensor-parallel`` above 1.
 """
 
 from __future__ import annotations
@@ -140,13 +144,25 @@ def _refuse_unported(args) -> None:
                                   "the pool is not ported yet")
     for flag, value in (("--vision-tower", args.vision_tower),
                         ("--lora-path", args.lora_path),
-                        ("--quantize-vision", args.quantize_vision),
-                        ("--frame-buckets", args.frame_buckets)):
+                        ("--quantize-vision", args.quantize_vision)):
         if value:
             raise NotImplementedError(f"{flag} is not ported yet")
     if args.tensor_parallel != 1:
         raise NotImplementedError("--tensor-parallel above 1 is not ported "
                                   "yet: the port serves from one card")
+
+
+def frame_buckets(args):
+    """``--frame-buckets`` as the engine takes it (model_worker.py:992-999):
+    None for ``off`` or empty, else the buckets, with ``--num-frames``
+    added where it exceeds them."""
+    fb = (args.frame_buckets or "").strip()
+    if fb.lower() == "off" or not fb:
+        return None
+    fbt = tuple(int(b) for b in fb.split(","))
+    if args.num_frames > max(fbt):
+        fbt = fbt + (int(args.num_frames),)
+    return fbt
 
 
 def run_batch(args) -> dict:
@@ -176,11 +192,15 @@ def run_batch(args) -> dict:
         max_new_tokens=args.max_new_tokens, quantize=args.quantize,
         fused=args.fused, kv_cache=args.kv_cache,
         steps_per_call=args.steps_per_call,
-        decode_ramp=tuple(int(s) for s in args.decode_ramp.split(",") if s))
+        decode_ramp=tuple(int(s) for s in args.decode_ramp.split(",") if s),
+        frame_buckets=frame_buckets(args), raw_media=bool(args.raw_pixels))
     cfg = engine.cfg
     pool = ContinuousEngine(engine, rows=args.rows,
                             admit_batch=args.admit_batch)
-    pool.warmup(frames=tuple(sorted({args.num_frames, 1})) + (0,))
+    # model_worker.py:1225-1226: the engine's frame buckets where it has
+    # them
+    pool.warmup(frames=engine.frame_buckets
+                or tuple(sorted({args.num_frames, 1})) + (0,))
 
     out_lock = threading.Lock()
     out_f = open(args.output, "a")

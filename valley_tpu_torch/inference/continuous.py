@@ -31,9 +31,19 @@ Not ported: speculative decoding in the pool and admission from a
 ``PrefixCache`` (``speculative=True`` and ``submit(prefix=...)`` raise
 NotImplementedError).
 
-PyTorch runs eagerly, so a pooled decode chunk is ``steps`` single-token
-steps (a ``ramp`` of shorter chunks while a young row is in the pool), with
-one device-to-host copy of the chunk's tokens, as ``Engine._decode`` does.
+A pooled decode chunk is ``steps`` single-token steps (a ``ramp`` of
+shorter chunks while a young row is in the pool), with one device-to-host
+copy of the chunk's tokens.  On the card the chunk is one replay of a CUDA
+graph of ``n_steps`` steps over the pool's state (``inference/graphs.py``),
+one graph per chunk size, as the JAX pool compiles one executable per
+``n_steps``: the state is fixed and the pool always samples.  The graphs
+are captured by the decode loop the first time a size runs (`warmup` runs
+every size), holding ``_prefill_lock``: capture is global, so no other
+thread may make a CUDA call meanwhile, and every CUDA call of the prefill
+thread is made under that lock.  A failed chunk resets the pool's state
+and drops its graphs, which are captured again.  On the CPU, or with
+``eager=True``, the same steps run eagerly.
+
 Two threads drive the device, the prefill thread and the decode loop.
 Both launch on the same current stream, so a parked cache that the prefill
 thread wrote is complete before the decode loop's copy of it runs, in
@@ -53,7 +63,8 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from valley_tpu_torch.inference.engine import Engine, sample_token
+from valley_tpu_torch.inference.engine import Engine
+from valley_tpu_torch.inference.graphs import DecodeGraphs, DecodeState
 from valley_tpu_torch.models import llama
 
 logger = logging.getLogger(__name__)
@@ -81,7 +92,8 @@ class ContinuousEngine:
 
     ``steps_run`` counts the pooled decode steps run and
     ``prefill_sizes`` the rows of each admission prefill, so a caller can
-    tell how many launches the pool's kernels made."""
+    tell how many launches the pool's kernels made.  ``eager=True`` decodes
+    without graphs on the card (the reference the graphs are held to)."""
 
     def __init__(self, engine: Engine, rows: int = 4,
                  bucket: Optional[int] = None,
@@ -90,7 +102,8 @@ class ContinuousEngine:
                  decode_ramp: Optional[Any] = None,
                  speculative: bool = False,
                  spec: Optional[Any] = None,
-                 admit_batch: int = 4):
+                 admit_batch: int = 4,
+                 eager: bool = False):
         if speculative or spec is not None:
             raise NotImplementedError(
                 "speculative decoding in the pool is not ported yet")
@@ -110,8 +123,10 @@ class ContinuousEngine:
         self._decode_gen = torch.Generator(dev).manual_seed(0)
         self._prefill_gen = torch.Generator(dev).manual_seed(1)
         # prefills run in the prefill thread, and in the caller's during
-        # `warmup`: one at a time, so they share the generator safely
+        # `warmup`: one at a time, so they share the generator safely; the
+        # decode loop holds it while it captures a graph
         self._prefill_lock = threading.Lock()
+        self.graphs_on = dev.type == "cuda" and not eager
         self.steps_run = 0
         self.prefill_sizes: List[int] = []
 
@@ -145,19 +160,17 @@ class ContinuousEngine:
         self._thread.start()
 
     def _reset_pool(self):
-        """(Re)build the pool's device state; also the recovery path after
-        a failed decode chunk, which may have left the cache half written."""
-        cfg, rows, dev = self.engine.cfg, self.rows, self.engine.device
-        self._cache = llama.init_cache(cfg.text, rows, self.smax,
-                                       self.engine.cache_dtype, dev)
-        self._valid = torch.zeros((rows, self.smax), dtype=torch.bool,
-                                  device=dev)
-        self._seq = torch.zeros((rows,), dtype=torch.int64, device=dev)
-        self._slot = torch.full((rows,), self.smax - 1, dtype=torch.int64,
-                                device=dev)
-        self._token = torch.zeros((rows,), dtype=torch.int64, device=dev)
-        self._temps = np.zeros((rows,), np.float32)
-        self._top_ps = np.ones((rows,), np.float32)
+        """(Re)build the pool's device state and drop its graphs (captured
+        again at their next chunk); also the recovery path after a failed
+        decode chunk, which may have left the cache half written."""
+        eng = self.engine
+        self._state = DecodeState.empty(eng.cfg.text, self.rows, self.smax,
+                                        eng.cache_dtype, eng.device)
+        self._graphs = DecodeGraphs(self._state, eng._step,
+                                    self._decode_gen) \
+            if self.graphs_on else None
+        self._temps = np.zeros((self.rows,), np.float32)
+        self._top_ps = np.ones((self.rows,), np.float32)
 
     # -- device state transforms (JAX continuous.py:220-279) ---------------
 
@@ -165,41 +178,31 @@ class ContinuousEngine:
         """``n_steps`` pooled single-token steps; every row writes at its
         own slot (clamped into the cache for parked rows) and samples with
         its own temperature/top_p.  Returns the tokens (n_steps, rows)."""
-        eng = self.engine
-        p, text, dev = eng.params["llama"], eng.cfg.text, eng.device
-        rows = torch.arange(self.rows, device=dev)
-        temps = torch.from_numpy(self._temps).to(dev)
-        top_ps = torch.from_numpy(self._top_ps).to(dev)
-        token, slot, seq = self._token, self._slot, self._seq
-        toks = []
-        for _ in range(n_steps):
-            self._valid[rows, slot.clamp(max=self.smax - 1)] = True
-            hidden, _ = llama.forward_hidden(
-                p, text, llama.embed(p, token[:, None]),
-                positions=seq[:, None], cache=self._cache, cache_index=slot,
-                kv_valid=self._valid, attention=eng.attention)
-            logits = llama.logits_from_hidden(p, hidden, eng.attention)[:, 0]
-            token = sample_token(logits, self._decode_gen, temps, top_ps,
-                                 do_sample=True)
-            toks.append(token)
-            seq, slot = seq + 1, slot + 1
-            self.steps_run += 1
-        self._token, self._slot, self._seq = token, slot, seq
-        return torch.stack(toks)
+        s = self._state
+        s.temperature.copy_(torch.from_numpy(self._temps))
+        s.top_p.copy_(torch.from_numpy(self._top_ps))
+        if self._graphs is not None and \
+                (n_steps, True) not in self._graphs.keys():
+            with self._prefill_lock:
+                self._graphs.capture(n_steps, True)
+        self.steps_run += n_steps
+        return self.engine._decode_chunk(s, n_steps, True, self._decode_gen,
+                                         self._graphs)
 
     def _insert(self, row_cache: llama.KVCache, row_valid: torch.Tensor,
                 row_tok: torch.Tensor, n: int, src: int, b: int) -> None:
         """Copy row ``src`` of a parked batch cache (values and any int8
         scales), its validity and first token into pool row ``b``; decode
         writes start right after the prompt, at slot ``n``."""
+        s = self._state
         for name in ("k", "v", "k_scale", "v_scale"):
-            dst = getattr(self._cache, name)
+            dst = getattr(s.cache, name)
             if dst is not None:
                 dst[:, b].copy_(getattr(row_cache, name)[:, src])
-        self._valid[b].copy_(row_valid[src])
-        self._token[b] = row_tok[src]
-        self._slot[b] = n
-        self._seq[b] = n
+        s.valid[b].copy_(row_valid[src])
+        s.token[b] = row_tok[src]
+        s.slot[b] = n
+        s.seq[b] = n
 
     # -- public API --------------------------------------------------------
 
@@ -223,10 +226,10 @@ class ContinuousEngine:
     def warmup(self, frames=0) -> None:
         """Run every admission-bucket prefill (at every batched admission
         size, greedy and sampled) and every pooled chunk size once, as the
-        JAX pool does to compile them; here it initialises the device
-        libraries and builds the kernels before traffic arrives.
-        ``frames``: a frame count or a sequence of them (0: text only,
-        always included)."""
+        JAX pool does to compile them; here it builds the kernels and, on
+        the card, captures the graph of every chunk size before traffic
+        arrives.  ``frames``: a frame count or a sequence of them (0: text
+        only, always included)."""
         frame_list = ((frames,) if isinstance(frames, int) else
                       tuple(frames)) or (0,)
         if 0 not in frame_list:
@@ -257,6 +260,9 @@ class ContinuousEngine:
                             for _ in _drain(r.out):
                                 pass
         new = 1 + sum(self.ramp) + self.steps
+        # one request alone first: it decodes every ramp size, then steps
+        for _ in _drain(self.submit([2, 3], max_new_tokens=new, eos_id=-1)):
+            pass
         queues = [self.submit(list(range(2, 2 + b)), images=images,
                               max_new_tokens=new, eos_id=-1,
                               temperature=temp)
@@ -386,11 +392,13 @@ class ContinuousEngine:
             if any(a.dtype != np.uint8 for a in arrs):
                 arrs = [np.asarray(a, np.float32) for a in arrs]
             images = np.concatenate(arrs, axis=0)
-        temps = torch.tensor([r.temperature for r in group],
-                             dtype=torch.float32, device=dev)
-        top_ps = torch.tensor([r.top_p for r in group], dtype=torch.float32,
-                              device=dev)
+        # every CUDA call of a prefill is made under the lock (see the
+        # module docstring)
         with self._prefill_lock:
+            temps = torch.tensor([r.temperature for r in group],
+                                 dtype=torch.float32, device=dev)
+            top_ps = torch.tensor([r.top_p for r in group],
+                                  dtype=torch.float32, device=dev)
             tok, _logits, cache, valid = eng._prefill(
                 torch.from_numpy(ids).to(dev),
                 eng._prepare_images(images, b),

@@ -11,21 +11,32 @@ while the rotary position is the true sequence length, so slots
 the (B, Smax) ``valid`` mask, never a length.  The cache holds ``bucket +
 max_new_tokens + steps_per_call`` slots, as in the JAX engine.
 
-PyTorch runs eagerly, so each decode step is one forward pass; tokens are
-handed to the caller in chunks of ``steps_per_call`` (after a
-``decode_ramp`` of shorter chunks), with one device-to-host copy per
-chunk, as the JAX engine's fused decode calls do.
+Tokens are decoded in chunks of ``steps_per_call`` steps (after a
+``decode_ramp`` of shorter chunks), with one device-to-host copy per chunk,
+as the JAX engine's fused decode calls do.  On the card each chunk of
+`Engine.generate_tokens` is one replay of a CUDA graph holding its
+``n_steps`` steps (``inference/graphs.py``), one graph per (batch, cache
+length, ``n_steps``, ``do_sample``), the keys JAX compiles an executable
+for; `Engine.warmup` captures them all.  A final chunk shorter than a
+scheduled size is padded up to one (`Engine._tail_steps`) and its surplus
+tokens dropped, so requests of any ``max_new_tokens`` replay the same
+graphs.  On the CPU, or when a caller asks with ``eager=True``, the same
+step runs eagerly, one forward pass per token.  Sessions (`ChatSession`,
+`PrefixCache`) decode eagerly: their caches grow and compact, and a graph
+is bound to fixed buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Optional, Sequence
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from valley_tpu_torch.config import ValleyConfig
+from valley_tpu_torch.inference.graphs import (DecodeGraphs, DecodeState,
+                                               decode_step)
 from valley_tpu_torch.models import llama, valley
 from valley_tpu_torch.ops.attention import KERNELS, Attention
 
@@ -71,8 +82,20 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator,
     temperature = torch.as_tensor(temperature, dtype=torch.float32,
                                   device=logits.device)
     probs = torch.softmax(filter_logits(logits, temperature, top_p), dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    # torch.multinomial(probs, 1)'s one-sample draw written out (the same
+    # numbers from the same generator): argmax of p / q, q ~ Exp(1).  It
+    # makes no check of probs that could read the device from the host, so
+    # a CUDA graph can capture it.
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    sampled = torch.argmax(probs / noise, dim=-1)
     return torch.where(temperature < 1e-4, greedy, sampled)
+
+
+class Media(NamedTuple):
+    """A prompt batch's frames on the device, and the (B, T) frame mask of
+    frame bucketing (None without it)."""
+    frames: torch.Tensor
+    frame_mask: Optional[torch.Tensor]
 
 
 @dataclasses.dataclass
@@ -96,6 +119,15 @@ class Engine:
     ``attention`` picks the CUDA kernels (default; tensors on the CPU take
     their plain versions) or the plain versions (`ops.attention.PLAIN`),
     for comparing the two on the card.
+
+    ``frame_buckets`` pads the frame axis of a request's media to the
+    smallest bucket that holds it and masks the padding out of temporal
+    pooling (None: exact frame counts); ``raw_media`` says that requests
+    carry uint8 frames, which only `warmup` reads.  ``steps_run`` counts
+    the decode steps its chunks ran (padded tails, sessions' and pools'
+    steps included; not a capture's warm-up step).  On the card, the graphs
+    of `generate_tokens` are kept for each (batch, cache length) with the
+    decode state they are bound to (`graph_sets`), in one memory pool.
     """
 
     def __init__(self, cfg: ValleyConfig, params: valley.ValleyWeights,
@@ -104,7 +136,9 @@ class Engine:
                  cache_dtype: torch.dtype = torch.bfloat16,
                  steps_per_call: int = 4,
                  decode_ramp: Sequence[int] = (),
-                 attention: Attention = KERNELS):
+                 attention: Attention = KERNELS,
+                 frame_buckets: Optional[Sequence[int]] = None,
+                 raw_media: bool = False):
         self.cfg = cfg
         self.params = params
         self.device = params["llama"]["embed"].device
@@ -113,7 +147,17 @@ class Engine:
         self.cache_dtype = cache_dtype
         self.steps_per_call = max(1, steps_per_call)
         self.decode_ramp = tuple(int(s) for s in decode_ramp if int(s) > 0)
+        # the chunk sizes decode ever runs: short tails pad up to one
+        # (`_tail_steps`), so each is one graph per (batch, cache length)
+        self._sched_sizes = tuple(
+            sorted(set(self.decode_ramp) | {self.steps_per_call}))
         self.attention = attention
+        self.frame_buckets = tuple(sorted(frame_buckets)) \
+            if frame_buckets else None
+        self.raw_media = raw_media
+        self.steps_run = 0
+        self.graph_sets: Dict[Tuple[int, int], DecodeGraphs] = {}
+        self._graph_pool = None
 
     def pick_bucket(self, length: int) -> int:
         for b in self.buckets:
@@ -122,10 +166,13 @@ class Engine:
         raise ValueError(f"prompt length {length} exceeds largest bucket "
                          f"{self.buckets[-1]}")
 
-    def _prepare_images(self, images, batch: int) -> Optional[torch.Tensor]:
-        """Host media (``batch``, T, 3, H, W) -> device frames, or None for
-        text-only prompts.  uint8 frames move as uint8 and are normalised
-        on the device; float frames move as bf16."""
+    def _prepare_images(self, images, batch: int) -> Optional[Media]:
+        """Host media (``batch``, T, 3, H, W) -> `Media` on the device, or
+        None for text-only prompts.  uint8 frames move as uint8 and are
+        normalised on the device; float frames move as bf16.  With
+        ``frame_buckets`` the frame axis is padded with zero frames to the
+        smallest bucket that holds T (T itself past the largest) and the
+        (B, T_bucket) frame mask marks the real ones (JAX engine.py:419-450)."""
         if images is None:
             return None
         t = images if isinstance(images, torch.Tensor) \
@@ -135,7 +182,17 @@ class Engine:
                              f"prompts, got {tuple(t.shape)}")
         if t.dtype != torch.uint8:
             t = t.to(torch.float32).to(torch.bfloat16)
-        return t.to(self.device)
+        mask = None
+        if self.frame_buckets:
+            n = t.shape[1]
+            tb = next((fb for fb in self.frame_buckets if n <= fb), n)
+            if tb != n:
+                t = torch.cat([t, t.new_zeros((batch, tb - n)
+                                              + tuple(t.shape[2:]))], dim=1)
+            mask = torch.zeros((batch, tb), dtype=torch.bool)
+            mask[:, :n] = True
+            mask = mask.to(self.device)
+        return Media(t.to(self.device), mask)
 
     def _ramp_iter(self) -> Iterator[int]:
         """Tokens per decode chunk: the ramp once, then steps_per_call."""
@@ -143,18 +200,40 @@ class Engine:
         while True:
             yield self.steps_per_call
 
+    def _tail_steps(self, want: int, room: int) -> int:
+        """The size of a final chunk that needs only ``want`` more tokens,
+        with ``room`` cache slots left (JAX engine.py:355-374): the smallest
+        scheduled size that covers ``want`` and fits, else the exact
+        remainder.  The surplus tokens are dropped; greedy tokens do not
+        depend on the chunking.  The cache's ``steps_per_call`` spare slots
+        leave room for every scheduled size."""
+        for s in self._sched_sizes:
+            if want <= s <= room:
+                return s
+        return max(1, min(want, room))
+
     @torch.inference_mode()
-    def _prefill(self, ids: torch.Tensor, images: Optional[torch.Tensor],
+    def _prefill(self, ids: torch.Tensor, media: Optional[Media],
                  prompt_len: torch.Tensor, generator: torch.Generator,
-                 temperature, top_p, do_sample: bool, cache_len: int):
-        """Prefill (B, bucket) ids into a fresh cache of ``cache_len``
-        slots (JAX _prefill_impl, engine.py:257-286) and sample each row's
-        first token; ``temperature``/``top_p`` are scalars or per-row (B,)
-        tensors.  Returns (tokens (B,), logits (B, V), cache, valid)."""
+                 temperature, top_p, do_sample: bool, cache_len: int,
+                 cache: Optional[llama.KVCache] = None):
+        """Prefill (B, bucket) ids (with their `_prepare_images` media)
+        into a fresh cache of ``cache_len`` slots, or into ``cache`` (its
+        slots past the bucket are left as they are: ``valid`` masks them),
+        as JAX _prefill_impl (engine.py:257-286) does, and sample each
+        row's first token; ``temperature``/``top_p`` are scalars or per-row
+        (B,) tensors.  Returns (tokens (B,), logits (B, V), cache,
+        valid)."""
         cfg = self.cfg
-        embeds = valley.build_inputs_embeds(self.params, cfg, ids, images)
-        cache = llama.init_cache(cfg.text, ids.shape[0], cache_len,
-                                 self.cache_dtype, self.device)
+        frames, frame_mask = media or (None, None)
+        embeds = valley.build_inputs_embeds(self.params, cfg, ids, frames,
+                                            frame_mask)
+        if cache is None:
+            cache = llama.init_cache(cfg.text, ids.shape[0], cache_len,
+                                     self.cache_dtype, self.device)
+        elif cache.max_len != cache_len:
+            raise ValueError(f"a cache of {cache.max_len} slots, want "
+                             f"{cache_len}")
         slots = torch.arange(cache_len, device=self.device)
         kv_valid = slots[None, :] < prompt_len[:, None]       # (B, Smax)
         hidden, cache = llama.forward_hidden(
@@ -167,30 +246,51 @@ class Engine:
         tok = sample_token(logits, generator, temperature, top_p, do_sample)
         return tok, logits, cache, kv_valid
 
+    def _step(self, state: DecodeState, generator, do_sample: bool):
+        """One decode step of ``state``, in place (`graphs.decode_step`)."""
+        return decode_step(self.params["llama"], self.cfg.text,
+                           self.attention, state, generator, do_sample)
+
+    @torch.inference_mode()
+    def _decode_chunk(self, state: DecodeState, n_steps: int,
+                      do_sample: bool, generator,
+                      graphs: Optional[DecodeGraphs] = None) -> torch.Tensor:
+        """``n_steps`` steps of ``state``: one replay of ``graphs``' graph,
+        or (without ``graphs``) the same steps run eagerly.  Returns the
+        tokens (n_steps, B)."""
+        self.steps_run += n_steps
+        if graphs is not None:
+            return graphs.run(n_steps, do_sample)
+        return torch.stack([self._step(state, generator, do_sample)
+                            for _ in range(n_steps)])
+
     @torch.inference_mode()
     def _decode(self, cache: llama.KVCache, valid: torch.Tensor,
                 token: torch.Tensor, slot: int, seq_len: torch.Tensor,
                 generator: torch.Generator, gen: GenerationConfig,
                 n_steps: int):
-        """``n_steps`` single-token steps from slot ``slot``; ``seq_len``
-        (B,) is the rotary position of the incoming token.  Updates the
-        cache and ``valid`` in place.  Returns (tokens (n_steps, B),
-        seq_len)."""
-        p = self.params["llama"]
-        toks = []
-        for i in range(n_steps):
-            valid[:, slot + i] = True
-            hidden, cache = llama.forward_hidden(
-                p, self.cfg.text, llama.embed(p, token[:, None]),
-                positions=seq_len[:, None], cache=cache,
-                cache_index=slot + i, kv_valid=valid,
-                attention=self.attention)
-            logits = llama.logits_from_hidden(p, hidden, self.attention)[:, 0]
-            token = sample_token(logits, generator, gen.temperature,
-                                 gen.top_p, gen.do_sample)
-            toks.append(token)
-            seq_len = seq_len + 1
-        return torch.stack(toks), seq_len
+        """``n_steps`` eager single-token steps from slot ``slot``;
+        ``seq_len`` (B,) is the rotary position of the incoming token.
+        Updates the cache and ``valid`` in place.  Returns (tokens
+        (n_steps, B), seq_len)."""
+        state = DecodeState.start(cache, valid, token, seq_len, slot,
+                                  gen.temperature, gen.top_p)
+        toks = self._decode_chunk(state, n_steps, gen.do_sample, generator)
+        return toks, state.seq
+
+    @torch.inference_mode()
+    def graphs_for(self, batch: int, cache_len: int) -> DecodeGraphs:
+        """The graphs of decode at (``batch``, ``cache_len``) with the
+        static state they are bound to, made at first use (on the card)."""
+        key = (batch, cache_len)
+        if key not in self.graph_sets:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self.graph_sets[key] = DecodeGraphs(
+                DecodeState.empty(self.cfg.text, batch, cache_len,
+                                  self.cache_dtype, self.device),
+                self._step, torch.Generator(self.device), self._graph_pool)
+        return self.graph_sets[key]
 
     @torch.inference_mode()
     def _extend(self, cache: llama.KVCache, valid: torch.Tensor,
@@ -224,27 +324,32 @@ class Engine:
         tok = sample_token(logits, generator, temperature, top_p, do_sample)
         return tok, logits, cache, valid, seq_len + new_len
 
-    def prefill(self, input_ids: Sequence[Sequence[int]], images=None,
-                gen: Optional[GenerationConfig] = None,
-                generator: Optional[torch.Generator] = None) -> Prefilled:
-        """Pad the prompts to the bucket of the longest and prefill them
-        together (with their (B, T, 3, H, W) frames, if any): each row's
-        first token, its logits and the cache."""
-        gen = gen or GenerationConfig()
+    def _pad(self, input_ids: Sequence[Sequence[int]]):
+        """Right-pad the prompts to the bucket of the longest: (ids
+        (B, bucket), lengths (B,)) on the device, and the bucket."""
         if not input_ids or any(len(x) == 0 for x in input_ids):
             raise ValueError("every prompt must contain at least one token")
-        if generator is None:
-            generator = torch.Generator(self.device).manual_seed(gen.seed)
         lens = np.array([len(x) for x in input_ids], np.int64)
         bucket = self.pick_bucket(int(lens.max()))
         ids = np.zeros((len(input_ids), bucket), np.int64)
         for i, row in enumerate(input_ids):
             ids[i, :len(row)] = row
+        return (torch.from_numpy(ids).to(self.device),
+                torch.from_numpy(lens).to(self.device), bucket)
+
+    def prefill(self, input_ids: Sequence[Sequence[int]], images=None,
+                gen: Optional[GenerationConfig] = None,
+                generator: Optional[torch.Generator] = None) -> Prefilled:
+        """Pad the prompts to the bucket of the longest and prefill them
+        together (with their (B, T, 3, H, W) frames, if any) into a cache
+        of their own: each row's first token, its logits and the cache."""
+        gen = gen or GenerationConfig()
+        ids, lens, bucket = self._pad(input_ids)
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(gen.seed)
         tok, logits, cache, valid = self._prefill(
-            torch.from_numpy(ids).to(self.device),
-            self._prepare_images(images, len(input_ids)),
-            torch.from_numpy(lens).to(self.device), generator,
-            gen.temperature, gen.top_p, gen.do_sample,
+            ids, self._prepare_images(images, len(input_ids)), lens,
+            generator, gen.temperature, gen.top_p, gen.do_sample,
             bucket + self.max_new_tokens + self.steps_per_call)
         return Prefilled(tok, logits, cache, valid, bucket)
 
@@ -252,23 +357,66 @@ class Engine:
                         images=None,
                         gen: Optional[GenerationConfig] = None,
                         eos_ids: Sequence[int] = (2,),
-                        ) -> Iterator[np.ndarray]:
+                        eager: bool = False) -> Iterator[np.ndarray]:
         """Yield one (B,) int32 token array per generated step for the B
         ragged prompts, decoded in lockstep until every row has stopped
         (a row's tokens after its eos are the model's and are still
-        yielded, as in JAX)."""
+        yielded, as in JAX).
+
+        On the card each decode chunk is a replay of the CUDA graph of
+        (B, cache length, chunk size, ``gen.do_sample``), captured at
+        first use (`warmup` captures them all), into whose static state the
+        prompt is prefilled; ``eager=True`` runs the same steps eagerly on
+        a cache of the request's own instead (the reference the graphs are
+        held to).  On the CPU the steps always run eagerly."""
         gen = gen or GenerationConfig()
-        generator = torch.Generator(self.device).manual_seed(gen.seed)
-        state = self.prefill(input_ids, images, gen, generator)
-        tok, cache, valid = state.token, state.cache, state.valid
-        seq_len = torch.tensor([len(x) for x in input_ids],
-                               device=self.device)
-        slot = state.bucket   # the prompt chunk occupied [0, bucket)
+        ids, lens, bucket = self._pad(input_ids)
+        b = len(input_ids)
+        media = self._prepare_images(images, b)
+        # steps_per_call spare slots: the final chunk can always pad up to
+        # a scheduled size (JAX engine.py:501-507)
+        cache_len = bucket + self.max_new_tokens + self.steps_per_call
+        graphs = None
+        if self.device.type == "cuda" and not eager:
+            graphs = self.graphs_for(b, cache_len)
+            if graphs.in_use:
+                raise RuntimeError(
+                    f"another generate_tokens of this engine is decoding "
+                    f"{b} prompts at cache length {cache_len}: its graphs "
+                    "are bound to one state; finish or close it first")
+            graphs.in_use = True
+        try:
+            yield from self._generate(ids, lens, bucket, media, cache_len,
+                                      gen, eos_ids, graphs)
+        finally:
+            if graphs is not None:
+                graphs.in_use = False
+
+    def _generate(self, ids, lens, bucket: int, media, cache_len: int,
+                  gen: GenerationConfig, eos_ids,
+                  graphs: Optional[DecodeGraphs]) -> Iterator[np.ndarray]:
+        b = ids.shape[0]
+        # the prompt chunk occupies slots [0, bucket); decode starts there
+        if graphs is not None:
+            generator = graphs.generator.manual_seed(gen.seed)
+            state = graphs.state
+            tok, _, _, valid = self._prefill(
+                ids, media, lens, generator, gen.temperature, gen.top_p,
+                gen.do_sample, cache_len, cache=state.cache)
+            state.load(valid, tok, lens, bucket, gen.temperature, gen.top_p)
+        else:
+            generator = torch.Generator(self.device).manual_seed(gen.seed)
+            tok, _, cache, valid = self._prefill(
+                ids, media, lens, generator, gen.temperature, gen.top_p,
+                gen.do_sample, cache_len)
+            state = DecodeState.start(cache, valid, tok, lens, bucket,
+                                      gen.temperature, gen.top_p)
+        slot = bucket
 
         max_new = min(gen.max_new_tokens, self.max_new_tokens)
         if max_new <= 0:
             return
-        alive = np.ones(len(input_ids), bool)
+        alive = np.ones(b, bool)
         eos_arr = np.asarray(eos_ids)
         tok_np = tok.cpu().numpy().astype(np.int32)
         yield tok_np
@@ -276,18 +424,52 @@ class Engine:
         step = 1
         sched = self._ramp_iter()
         while step < max_new and alive.any():
-            n_steps = min(next(sched), max_new - step)
-            toks, seq_len = self._decode(cache, valid, tok, slot, seq_len,
-                                         generator, gen, n_steps)
+            want = max_new - step
+            n_steps = next(sched)
+            if n_steps > want:    # the final chunk: pad to a scheduled size
+                n_steps = self._tail_steps(want, cache_len - slot)
+            toks = self._decode_chunk(state, n_steps, gen.do_sample,
+                                      generator, graphs)
             slot += n_steps
-            tok = toks[-1]
             toks_np = toks.cpu().numpy().astype(np.int32)   # (n_steps, B)
-            for i in range(n_steps):
+            for i in range(min(n_steps, want)):
                 if not alive.any():
                     return
                 yield toks_np[i]
                 alive &= ~np.isin(toks_np[i], eos_arr)
                 step += 1
+
+    def warmup(self, batch_sizes: Sequence[int] = (1,),
+               frames: Optional[int] = None, with_images: bool = True,
+               sampled: bool = True) -> None:
+        """Run one request of every (batch size, bucket, frame bucket or
+        text, greedy and sampled) through the whole decode schedule (every
+        ramp size and ``steps_per_call``), as JAX engine.py:376-417 does to
+        compile every executable real traffic hits: on the card that
+        captures every graph `generate_tokens` replays.  ``frames`` is the
+        frame count to warm without ``frame_buckets`` (default 1)."""
+        new = min(1 + sum(self.decode_ramp) + self.steps_per_call,
+                  self.max_new_tokens)
+        gens = [GenerationConfig(max_new_tokens=new, do_sample=False)]
+        if sampled:
+            gens.append(GenerationConfig(max_new_tokens=new, do_sample=True,
+                                         temperature=0.7))
+        frame_counts = self.frame_buckets if (with_images
+                                              and self.frame_buckets) \
+            else (frames or 1,)
+        size = self.cfg.vision.image_size
+        media_dt = np.uint8 if self.raw_media else np.float32
+        for b in batch_sizes:
+            for bucket in self.buckets:
+                prompt = [[1] * (bucket // 2) for _ in range(b)]
+                media_passes = ([None] if not with_images else
+                                [np.zeros((b, t, 3, size, size), media_dt)
+                                 for t in frame_counts] + [None])
+                for images in media_passes:
+                    for gen in gens:
+                        for _ in self.generate_tokens(prompt, images, gen,
+                                                      eos_ids=[-1]):
+                            pass
 
     def generate(self, tokenizer, input_ids: Sequence[int], images=None,
                  gen: Optional[GenerationConfig] = None) -> Iterator[str]:

@@ -1,0 +1,206 @@
+"""Fused decode calls as CUDA graphs: the PyTorch counterpart of the JAX
+engine's jitted ``n_steps`` decode scan (``valley_tpu/inference/engine.py``
+``_decode_impl``) and of the JAX pool's (``continuous.py`` ``_decode_impl``).
+
+`DecodeState` holds every tensor a decode step reads and advances: the KV
+cache, the (B, Smax) ``valid`` mask, each row's token, rotary position and
+cache slot, and its temperature and top_p.  `decode_step` runs one step on
+it in place, with no host synchronisation, no host-to-device copy and no
+Python number that depends on the request, so the same step runs eagerly
+(on the CPU, or when a caller asks for it by name) and inside a capture.
+
+`DecodeGraphs` captures ``n_steps`` such steps into one CUDA graph per
+(``n_steps``, ``do_sample``) and replays it: one launch of the whole chunk,
+where the eager loop makes some forty launches per layer and step from
+Python.  The graphs are bound to the addresses of one `DecodeState`, so a
+caller refills that state in place before each replay (and may not replace
+its tensors).  Every graph of an owner shares one memory pool
+(`torch.cuda.graph_pool_handle`).  A failed capture raises: there is no
+fallback to the eager loop.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from valley_tpu_torch.models import llama
+from valley_tpu_torch.ops import _build
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """The tensors a decode step reads and advances in place (B rows)."""
+    cache: llama.KVCache
+    valid: torch.Tensor        # (B, Smax) bool: attendable slots
+    token: torch.Tensor        # (B,) int64: the token fed to the next step
+    seq: torch.Tensor          # (B,) int64: its rotary position
+    slot: torch.Tensor         # (B,) int64: the cache slot it is written to
+    temperature: torch.Tensor  # (B,) fp32
+    top_p: torch.Tensor        # (B,) fp32
+
+    @classmethod
+    def empty(cls, cfg, rows: int, smax: int, cache_dtype,
+              device) -> "DecodeState":
+        """A zeroed state: every row at slot ``smax - 1``, greedy."""
+        def vec(fill, dtype):
+            return torch.full((rows,), fill, dtype=dtype, device=device)
+
+        return cls(llama.init_cache(cfg, rows, smax, cache_dtype, device),
+                   torch.zeros((rows, smax), dtype=torch.bool,
+                               device=device),
+                   vec(0, torch.int64), vec(0, torch.int64),
+                   vec(smax - 1, torch.int64), vec(0.0, torch.float32),
+                   vec(1.0, torch.float32))
+
+    @classmethod
+    def start(cls, cache, valid, token, seq, slot: int, temperature: float,
+              top_p: float) -> "DecodeState":
+        """A state over ``cache`` and ``valid`` (advanced in place) whose
+        rows feed copies of ``token`` at positions ``seq``, all at cache
+        slot ``slot`` with one temperature and top_p."""
+        b, dev = token.shape[0], token.device
+        return cls(cache, valid, token.clone(), seq.clone(),
+                   torch.full((b,), slot, dtype=torch.int64, device=dev),
+                   torch.full((b,), temperature, dtype=torch.float32,
+                              device=dev),
+                   torch.full((b,), top_p, dtype=torch.float32, device=dev))
+
+    @torch.inference_mode()
+    def load(self, valid, token, seq, slot: int, temperature: float,
+             top_p: float) -> None:
+        """Refill the state in place, as `start` would make it (the cache
+        is the caller's to write)."""
+        self.valid.copy_(valid)
+        self.token.copy_(token)
+        self.seq.copy_(seq)
+        self.slot.fill_(slot)
+        self.temperature.fill_(temperature)
+        self.top_p.fill_(top_p)
+
+    @property
+    def rows(self) -> int:
+        return self.token.shape[0]
+
+    def _small(self) -> Tuple[torch.Tensor, ...]:
+        return (self.valid, self.token, self.seq, self.slot)
+
+    def snapshot(self) -> Tuple[torch.Tensor, ...]:
+        """Copies of everything but the cache: enough to run the same
+        steps again after `restore`, since a step writes its slot of the
+        cache before it reads it."""
+        return tuple(t.clone() for t in self._small())
+
+    @torch.inference_mode()
+    def restore(self, saved: Tuple[torch.Tensor, ...]) -> None:
+        for t, v in zip(self._small(), saved):
+            t.copy_(v)
+
+
+def decode_step(params, cfg, attention, state: DecodeState,
+                generator: Optional[torch.Generator],
+                do_sample: bool) -> torch.Tensor:
+    """One single-token step of every row, in place: mark each row's slot
+    valid (clamped into the cache, as JAX's dynamic_update_slice clamps:
+    the pool parks idle rows past the end), write the token's K/V there at
+    its rotary position, attend, sample, and advance token, position and
+    slot.  Returns the sampled tokens (B,)."""
+    from valley_tpu_torch.inference.engine import sample_token
+
+    s = state
+    smax = s.valid.shape[1]
+    s.valid.scatter_(1, s.slot.clamp(max=smax - 1)[:, None], True)
+    hidden, _ = llama.forward_hidden(
+        params, cfg, llama.embed(params, s.token[:, None]),
+        positions=s.seq[:, None], cache=s.cache, cache_index=s.slot,
+        kv_valid=s.valid, attention=attention)
+    logits = llama.logits_from_hidden(params, hidden, attention)[:, 0]
+    tok = sample_token(logits, generator, s.temperature, s.top_p, do_sample)
+    s.token.copy_(tok)
+    s.seq.add_(1)
+    s.slot.add_(1)
+    return tok
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: "torch.cuda.CUDAGraph"
+    out: torch.Tensor          # (n_steps, B) int64, written by each replay
+    launches: dict             # {wrapper: launches} of one replay
+
+
+class DecodeGraphs:
+    """The CUDA graphs of fused decode chunks over one `DecodeState`.
+
+    ``step(state, generator, do_sample)`` runs `decode_step` on the state.
+    `run` replays the graph of (``n_steps``, ``do_sample``), capturing it
+    first if it is not yet captured; it returns the graph's own
+    (``n_steps``, B) token buffer, which the next replay overwrites.  A
+    sampled graph draws from ``generator``, registered with the graph, so
+    each replay draws fresh numbers from the generator's current seed and
+    offset (seed it again to repeat a draw).  ``capture_s`` sums the seconds
+    spent capturing; each replay adds the launches its capture recorded to
+    the wrappers' counts."""
+
+    def __init__(self, state: DecodeState, step: Callable[..., torch.Tensor],
+                 generator: Optional[torch.Generator], pool=None):
+        self.state = state
+        self._step = step
+        self.generator = generator
+        self.pool = pool if pool is not None else \
+            torch.cuda.graph_pool_handle()
+        self._graphs: Dict[Tuple[int, bool], _Graph] = {}
+        self.capture_s = 0.0
+        # set while a caller decodes on the state (one at a time)
+        self.in_use = False
+
+    def keys(self):
+        return self._graphs.keys()
+
+    @torch.inference_mode()
+    def run(self, n_steps: int, do_sample: bool) -> torch.Tensor:
+        entry = self._graphs.get((n_steps, do_sample))
+        if entry is None:
+            entry = self.capture(n_steps, do_sample)
+        entry.graph.replay()
+        _build.add_launches(entry.launches)
+        return entry.out
+
+    @torch.inference_mode()
+    def capture(self, n_steps: int, do_sample: bool) -> _Graph:
+        """Capture the graph of (``n_steps``, ``do_sample``); the state is
+        left as it was."""
+        t0 = time.perf_counter()
+        s = self.state
+        # one eager step first, on a side stream as capture wants: first
+        # use builds and loads the kernels' libraries and sets their
+        # attributes, none of which may happen inside a capture.  Restoring
+        # the state (and the generator) undoes it; its launches are real
+        # and count.
+        saved = s.snapshot()
+        rng = self.generator.get_state() if do_sample else None
+        side = torch.cuda.Stream(device=s.token.device)
+        side.wait_stream(torch.cuda.current_stream(s.token.device))
+        with torch.cuda.stream(side):
+            self._step(s, self.generator, do_sample)
+        torch.cuda.current_stream(s.token.device).wait_stream(side)
+        s.restore(saved)
+        if rng is not None:
+            self.generator.set_state(rng)
+        out = torch.empty((n_steps, s.rows), dtype=torch.int64,
+                          device=s.token.device)
+        graph = torch.cuda.CUDAGraph()
+        if do_sample:
+            graph.register_generator_state(self.generator)
+        with _build.recording_launches() as launches:
+            with torch.cuda.graph(graph, pool=self.pool):
+                for i in range(n_steps):
+                    out[i].copy_(self._step(s, self.generator, do_sample))
+        torch.cuda.current_stream(s.token.device).synchronize()
+        entry = _Graph(graph, out, launches)
+        self._graphs[(n_steps, do_sample)] = entry
+        self.capture_s += time.perf_counter() - t0
+        return entry

@@ -39,14 +39,14 @@ def load_model(model_name: str, device: Optional[str] = None,
                buckets=(512, 1024, 2048), max_new_tokens: int = 1024,
                quantize: Optional[str] = None, fused: bool = False,
                kv_cache: str = "bf16", steps_per_call: int = 4,
-               decode_ramp=()):
+               decode_ramp=(), frame_buckets=None, raw_media: bool = False):
     """Build (engine, tokenizer) on ``device`` (default the card; without
     one this raises unless the caller asks for ``"cpu"``).  ``fused`` takes
     the fused serving layout, ``quantize`` (a mode of
     ``quant.SERVED_MODES``: ``int8``, ``int8a8``, ``int4``, ``int4g``,
     ``int4gp``) the quantized weights, ``kv_cache="int8"`` the int8 KV
     cache; ``steps_per_call`` and ``decode_ramp`` set the engine's decode
-    chunks.  At the tiny widths (64, 128) group-128 scales fall back to per
+    chunks, ``frame_buckets`` and ``raw_media`` its media (`Engine`).  At the tiny widths (64, 128) group-128 scales fall back to per
     channel where 128 does not divide the contraction axis, as in JAX."""
     if device is None:
         device = "cuda"
@@ -81,7 +81,8 @@ def load_model(model_name: str, device: Optional[str] = None,
                     max_new_tokens=max_new_tokens,
                     cache_dtype=torch.int8 if kv_cache == "int8"
                     else torch.bfloat16, steps_per_call=steps_per_call,
-                    decode_ramp=decode_ramp)
+                    decode_ramp=decode_ramp, frame_buckets=frame_buckets,
+                    raw_media=raw_media)
     return engine, tokenizer
 
 

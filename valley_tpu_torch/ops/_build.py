@@ -6,10 +6,16 @@ name keyed by a hash of its source, the shared headers and the compiler
 flags, so an edited source or header builds anew and an unchanged one loads
 at once.  Nothing here runs at import: the CPU tests import every module on
 a machine with no nvcc.
+
+Every kernel wrapper counts its launches through `count_launch`.  Inside
+`recording_launches` (a CUDA graph's capture) the launches go to the
+recording instead: a capture runs nothing, and each replay of the graph
+adds the recording with `add_launches`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -106,11 +112,39 @@ def check(err: int, what: str) -> None:
 
 
 _COUNT_LOCK = threading.Lock()
+# this thread's recording of launches under capture, or None
+_RECORDING = threading.local()
 
 
 def count_launch(wrapper) -> None:
     """Add one to ``wrapper.launches``, the launch count of a kernel's
-    wrapper.  The serving pool launches kernels from two threads, and the
+    wrapper, or to this thread's recording inside `recording_launches`.
+    The serving pool launches kernels from two threads, and the
     interpreter lock does not make ``+= 1`` atomic."""
+    rec = getattr(_RECORDING, "launches", None)
+    if rec is not None:
+        rec[wrapper] = rec.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches are recorded in the dict
+    yielded ({wrapper: launches}) and not counted."""
+    if getattr(_RECORDING, "launches", None) is not None:
+        raise RuntimeError("launches are already being recorded")
+    rec: dict = {}
+    _RECORDING.launches = rec
+    try:
+        yield rec
+    finally:
+        _RECORDING.launches = None
+
+
+def add_launches(rec: dict) -> None:
+    """Count a recording's launches (one replay of what it recorded)."""
+    with _COUNT_LOCK:
+        for wrapper, n in rec.items():
+            wrapper.launches += n
