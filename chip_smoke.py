@@ -10,7 +10,9 @@ branch before int8 serving, K5 with K1 and K3-int8 at 13B shapes before
 int4 serving, K2 before training, each with a planted fault that must fail
 the check; K6, the bf16 decode GEMV, at the shapes of both bf16 serving
 paths and K7, the read-bandwidth probe, on 2 GB before batched serving;
-T4-T7, the decode-attention lab, on the conversation's cache), and drives
+T4-T7, the decode-attention lab, on the conversation's cache; the decode
+GEMVs K4, K5 and K6 also at a speculative verify round's 9 rows and at 16,
+each row bit-equal to the same row alone), and drives
 the port's paths at full width and depth with random bf16 weights from a
 seed, five processes one after the other:
 
@@ -24,7 +26,7 @@ seed, five processes one after the other:
   its logits at the prefill and at three decode steps with the same path
   run on the plain versions;
 - batched serving, ``batch_infer``'s configuration: Valley-7B bf16 weights
-  fused, an int8 KV cache, a ``ContinuousEngine`` of 8 rows taking 12
+  fused, an int8 KV cache, a ``ContinuousEngine`` of 16 rows taking 12
   requests at once (8 video questions, 4 text prompts of 40 to 1500
   tokens, two of them sampled), each pooled chunk one replay of a CUDA
   graph; checks the launches of K1, K3's int8 branch and K6 against the
@@ -66,6 +68,21 @@ seed, five processes one after the other:
   its plain version with a planted fault and timed beside its bound and SDPA's
   forward, on the session's real cache and mask and at the TPU tools' shape
   (L32 S640 H32, 500 valid);
+- speculative decoding, in the serving, int8 and int4 processes on the
+  same weights: the request through ``SpecDecoder`` by graph (JAX's
+  SpecConfig, the adaptive switch off so that every token comes from a
+  verify round), 128 greedy tokens beside the plain graph: its tokens
+  against the plain graph's (they may part only where the plain top-2
+  margin is under the path's logit bar), its launches against its rounds,
+  the first round's 9-row logits against the plain versions, a round's
+  wall and device time against a plain step and the break-even; on the
+  bf16 path also a sampled request repeated under its seed and bench.py's
+  constant-filled Valley-7B, whose rounds accept every draft; on the int4
+  path a follow-up turn through ``PrefixCache.spawn(speculative=True)``
+  against the plain spawn's; in the batched process the 12 requests
+  through ``ContinuousEngine(speculative=True)`` (launches, aggregate
+  against the plain graph pool, acceptance, pauses, the first round's
+  logits against the plain pool's first step);
 - training: Valley-7B stage 1 (frozen backbone, projector and input
   embeddings trained, the stage-1 recipe's optimizer settings) through
   ``Trainer.train_step`` on 16 synthetic rows from the port's collator and
@@ -194,7 +211,9 @@ KERNEL_KINDS = (
 # and dense bf16 tensor-core FLOP/s, for each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-# fp32 FMAs on the CUDA cores (K6 and K7 multiply and add in fp32 there)
+# fp32 on the CUDA cores: K7's adds, and what K4's and K5's FMAs alone
+# would take there (a diagnostic beside their bound, not the bound: the
+# card multiplies their types at the tensor-core peak)
 FP32_FLOP_PER_S = 67e12
 
 
@@ -233,7 +252,13 @@ def profile_device(fn, iters: int = 1, with_flops: bool = False):
     ``with_flops``).  A trace that holds no device time is taken again,
     up to three times in all, and then raises: on an H100 with torch 2.11
     one trace of this script came back without device events while the
-    same call traced alone did not."""
+    same call traced alone did not.  Every call launches the same kernels
+    and copies, so the time per call is each kernel's mean over its events
+    times its events per call (its count over ``iters``, rounded, at least
+    one): a trace that lost an event reads the calls' time all the same.
+    On one H100 with torch 2.11 every trace lost one event (nine events
+    for ten calls of one kernel), and the total over ten read a kernel
+    under its bytes bound."""
     from torch.profiler import ProfilerActivity, profile
 
     for attempt in range(1, 4):
@@ -246,16 +271,23 @@ def profile_device(fn, iters: int = 1, with_flops: bool = False):
                 fn()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        rows = [(e.key, e.self_device_time_total / 1e3) for e in events
-                if str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0]
+        device = [e for e in events if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0]
+        rows = [(e.key, e.self_device_time_total / 1e3) for e in device]
         total = sum(ms for _, ms in rows)
         if total > 0:
             break
         print(f"profiler: trace {attempt} recorded no device time")
     check(total > 0, "the profiler recorded no device time")
     flops = sum(e.flops or 0 for e in events if e.key in MATMUL_OPS)
-    return total / iters, sorted(rows, key=lambda r: -r[1]), flops / iters
+    per_call = sum(e.self_device_time_total / 1e3 / e.count
+                   * max(1, round(e.count / iters)) for e in device)
+    lost = [f"{e.key[:40]} {e.count}" for e in device if e.count % iters]
+    if lost:
+        print(f"profiler: events for {iters} calls: " + ", ".join(lost)
+              + f"; per call {per_call:.4f} ms from the events' means "
+              f"({total / iters:.4f} from the total)")
+    return per_call, sorted(rows, key=lambda r: -r[1]), flops / iters
 
 
 def kernel_times(fn, plain_fn, iters: int) -> dict:
@@ -301,6 +333,12 @@ def bound(n_bytes: float, flops: float,
     t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def cuda_core_ms(rows: int, k: int, f: int) -> float:
+    """ms that a (rows, k) x (k, f) product's FMAs take at the CUDA cores'
+    fp32 peak: what K4 and K5, CUDA-core kernels, cannot beat."""
+    return 2 * rows * k * f / FP32_FLOP_PER_S * 1e3
 
 
 def attended_pairs(kv_mask: torch.Tensor, sq: int, causal: bool) -> int:
@@ -747,6 +785,28 @@ def library_matvec_ms(x, ws, scale, iters: int) -> tuple:
     return profile_device(fn, iters)[0], label
 
 
+def dominant_bound(per_weight: dict, layers: int) -> str:
+    """What bounds one decode token's (or round's) GEMVs: the kind whose
+    weights' bounds (``layers`` calls of each layer weight, one lm_head)
+    sum to more."""
+    share = {"bytes": 0.0, "operations": 0.0}
+    for name, t in per_weight.items():
+        share[t["bound_by"]] += t["bound_ms"] * (1 if name == "lm_head"
+                                                 else layers)
+    return max(share, key=share.get)
+
+
+def rows_alone_text(fn, x, *args) -> str:
+    """Check that each row of ``fn(x, *args)`` is bit-equal to the same
+    row alone (the kernel's B = 1 code); returns the line's words."""
+    out = fn(x, *args)
+    same = all(torch.equal(fn(x[r:r + 1].contiguous(), *args)[0], out[r])
+               for r in range(x.shape[0]))
+    check(same, f"{fn.__name__} at B{x.shape[0]}: a row's result depends "
+          "on the other rows")
+    return f"; rows 1-{x.shape[0]} bit-equal to each row alone"
+
+
 # Valley-7B's fused int8 serving weights, (name, K, F): the decode GEMVs of
 # one layer, then lm_head
 K4_SHAPES_7B = (("wqkv", 4096, 12288), ("wo", 4096, 4096),
@@ -759,19 +819,22 @@ TIME_KEYS = ("ms", "plain_ms", "loop_ms", "plain_loop_ms", "bound_ms",
              "library_ms")
 
 
-def k4_phase(gen, layers: int) -> tuple:
-    """K4 against its plain version on the five Valley-7B weights at B = 1,
-    at the row limit with K = 11008 and at an odd F; a planted fault (the
-    scales shifted by one output channel); each 7B weight timed walking
-    copies of it past the 50 MB L2.  Returns (max error, times per call
-    averaged over one decode token's GEMVs: ``layers`` x the four layer
-    weights, then lm_head)."""
+def k4_phase(gen, layers: int, rows: int = 1) -> tuple:
+    """K4 against its plain version on the five Valley-7B weights at B =
+    ``rows`` (at B = 1 also at 8 rows and at the row limit with K = 11008
+    and at an odd F, and a planted fault: the scales shifted by one output
+    channel; at more rows, each row bit-equal to the same row alone); each
+    7B weight timed walking copies of it past the 50 MB L2.  Returns (max
+    error, times per call averaged over one decode token's (or verify
+    round's) GEMVs: ``layers`` x the four layer weights, then lm_head)."""
     from valley_tpu_torch.ops.quant import (MAX_ROWS, int8_matvec,
                                             int8_matvec_plain)
 
-    cases = [(f"7b_{n}_B1", 1, k, f) for n, k, f in K4_SHAPES_7B] + [
-        ("rows8_K11008", MAX_ROWS, 11008, 4096), ("B3_odd_F1001", 3, 4096,
-                                                  1001)]
+    cases = [(f"7b_{n}_B{rows}", rows, k, f) for n, k, f in K4_SHAPES_7B]
+    if rows == 1:
+        cases += [("rows8_K11008", 8, 11008, 4096),
+                  (f"rows{MAX_ROWS}_K11008", MAX_ROWS, 11008, 4096),
+                  ("B3_odd_F1001", 3, 4096, 1001)]
     err_max, per_weight, label = 0.0, {}, None
     for name, b, k, f in cases:
         x = torch.randn((b, k), generator=gen, device="cuda").bfloat16()
@@ -786,6 +849,8 @@ def k4_phase(gen, layers: int) -> tuple:
         check(err <= tol, f"K4 {name}: max abs err {err} > {tol}")
         err_max = max(err_max, err)
         line = f"K4 int8_matvec {name}: max_abs_err {err:.3e} (tol {tol:.3e})"
+        if b > 1 and name.startswith("7b_wqkv"):
+            line += rows_alone_text(int8_matvec, x, w, scale)
         if name == "7b_wqkv_B1":
             # planted fault: a kernel that read each row's scale from the
             # channel before must fail the check
@@ -805,14 +870,18 @@ def k4_phase(gen, layers: int) -> tuple:
                 lambda: int8_matvec(x, ws[next(it) % len(ws)], scale),
                 lambda: int8_matvec_plain(x, ws[next(it) % len(ws)], scale),
                 iters=20)
-            # bytes: the weight, x, the scale and the fp32 output once
+            # bytes: the weight, x, the scale and the fp32 output once;
+            # the products at the card's bf16 tensor-core peak (the type
+            # the int8 weight is widened to)
             n_bytes = f * k + 2 * b * k + 2 * f + 4 * b * f
             add_bound(t, bound(n_bytes, 2 * b * k * f), f"K4 {name}")
             t["library_ms"], label = library_matvec_ms(x, ws, scale, 20)
-            per_weight[name.split("_B1")[0][3:]] = t
+            per_weight[name.split(f"_B{rows}")[0][3:]] = t
             line += (f" {fmt_times(t)} ({f * k / t['ms'] / 1e6:.1f} GB/s of "
                      f"weights); bound {t['bound_ms']:.4f} ms ("
-                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB), library "
+                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB; the FMAs "
+                     f"alone at the CUDA-core peak "
+                     f"{cuda_core_ms(b, k, f):.4f} ms), library "
                      f"{t['library_ms']:.4f} ms ({label})")
             del ws
         print(line)
@@ -822,9 +891,11 @@ def k4_phase(gen, layers: int) -> tuple:
                                K4_SHAPES_7B[:4]) + per_weight["lm_head"][key]
              for key in TIME_KEYS}
     avg = {key: token[key] / calls for key in TIME_KEYS}
-    avg["bound_by"] = "bytes"
+    avg["bound_by"] = dominant_bound(per_weight, layers)
     avg["library_call"] = label
-    print(f"K4 int8_matvec per decode token ({calls} calls: {layers} x "
+    avg["rows"] = rows
+    print(f"K4 int8_matvec per decode token at B{rows} ({calls} calls: "
+          f"{layers} x "
           f"wqkv, wo, w_gateup, w_down, then lm_head): device "
           f"{token['ms']:.4f} ms vs plain {token['plain_ms']:.4f} ms; bound "
           f"{token['bound_ms']:.4f} ms; library {token['library_ms']:.4f} ms "
@@ -1195,6 +1266,366 @@ def decode_logits(engine, cache, valid, slot0: int, pos0: int, tokens):
     return out
 
 
+# Speculative serving (`SpecDecoder` by graph): bench's request, 128 greedy
+# tokens, JAX's SpecConfig (D = 8, ngram 4, 16 rounds a call after a probe
+# of 4) with the adaptive switch off (threshold 0), so that every token
+# comes from verify rounds and a round's cost can be read on random
+# weights, whose drafts are almost never accepted; the plain graph beside
+# it decodes in chunks of 16 steps (batch_infer's steps_per_call)
+SPEC_NEW = 128
+SPEC_STEPS = 16
+# JAX's adaptive thresholds (speculative.py:171-175), printed beside the
+# card's break-even
+JAX_THRESHOLDS = "0.40 (bf16, int8) / 1.70 (4-bit)"
+
+
+def counted(kernels: dict, fn):
+    """(fn(), {label: launches of the wrapper during it}): every count set
+    to 0 just before and read just after."""
+    for w in kernels.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: w.launches for k, w in kernels.items()}
+
+
+def first_divergence(tag: str, engine, prompt, frames, want, got,
+                     bar: float) -> str:
+    """Where ``got`` first parts from the plain graph's ``want``: the plain
+    path's top-2 margin there (teacher-forced eager steps, the graph's
+    arithmetic) must lie under ``bar``, the path's kernels-vs-plain logit
+    bar.  Returns the line's words."""
+    from valley_tpu_torch.inference.engine import GenerationConfig
+
+    if got == want:
+        return f"the same {len(got)} tokens"
+    i = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+    st = engine.prefill([prompt], frames,
+                        GenerationConfig(max_new_tokens=len(want)))
+    lg = st.logits[0] if i == 0 else decode_logits(
+        engine, st.cache, st.valid, st.bucket, len(prompt), want[:i])[-1]
+    top2 = torch.topk(lg, 2).values
+    margin = (top2[0] - top2[1]).item()
+    gap = (lg[want[i]] - lg[got[i]]).item()
+    check(margin < bar, f"{tag}: speculation parts from plain decode at "
+          f"token {i} where the plain top-2 margin is {margin} (bar {bar})")
+    return (f"the same first {i} of {len(got)} tokens, then token {got[i]} "
+            f"for the plain graph's {want[i]}, where the plain top-2 margin "
+            f"is {margin:.4f} and the two tokens' logits lie {gap:.4f} apart "
+            f"(under the path's bar {bar})")
+
+
+def verify_logits(engine, prompt, frames, first: int) -> torch.Tensor:
+    """fp32 logits (D + 1, V) of a first verify round after the prefill of
+    ``prompt``: [first, draft] written at the bucket's end and attended
+    over the cache, the draft looked up as `spec_round` does."""
+    from valley_tpu_torch.inference.engine import GenerationConfig
+    from valley_tpu_torch.inference.speculative import SpecConfig, ngram_draft
+    from valley_tpu_torch.models import llama
+
+    sp = SpecConfig()
+    p, dev = engine.params["llama"], engine.device
+    st = engine.prefill([prompt], frames, GenerationConfig())
+    with torch.inference_mode():
+        hist = torch.tensor([prompt + [first]], device=dev)
+        draft = ngram_draft(hist, torch.tensor([hist.shape[1]], device=dev),
+                            sp.draft_len, sp.ngram)
+        chunk = torch.cat([torch.tensor([[first]], device=dev), draft], 1)
+        pos = len(prompt) + torch.arange(sp.draft_len + 1, device=dev)
+        hidden, _ = llama.forward_hidden(
+            p, engine.cfg.text, llama.embed(p, chunk), positions=pos[None],
+            cache=st.cache, cache_index=torch.tensor([st.bucket], device=dev),
+            cross_valid=st.valid, attention=engine.attention)
+        return llama.logits_from_hidden(p, hidden, engine.attention)[0]
+
+
+def timed_captures(graphs) -> dict:
+    """Record the seconds of each capture of ``graphs`` by its key."""
+    caps, capture = {}, graphs.capture
+
+    def timed(n, do_sample):
+        t0 = time.perf_counter()
+        entry = capture(n, do_sample)
+        caps[(n, do_sample)] = time.perf_counter() - t0
+        return entry
+
+    graphs.capture = timed
+    return caps
+
+
+def spec_run(dec, prompt, frames, gcfg) -> tuple:
+    """One request through ``dec``: (first-token s, total s, tokens, each
+    counted round's tokens, rounds run on the card)."""
+    log, ran = [], [0]
+    count, rounds = dec._count, dec._rounds
+
+    def rec(rounds=0, emitted=0, disabled=0):
+        if rounds:
+            log.append(emitted)
+        count(rounds, emitted, disabled)
+
+    def run_rounds(state, n_rounds, *a, **k):
+        ran[0] += n_rounds
+        return rounds(state, n_rounds, *a, **k)
+
+    dec._count, dec._rounds = rec, run_rounds
+    try:
+        t0 = time.perf_counter()
+        t_first, toks = None, []
+        for t in dec.generate_tokens(prompt, frames, gcfg, eos_ids=[-1]):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            toks.append(t)
+        return t_first, time.perf_counter() - t0, toks, log, ran[0]
+    finally:
+        dec._count, dec._rounds = count, rounds
+
+
+def plain_run(engine, prompt, frames, gcfg) -> tuple:
+    """One request through ``engine``'s graphs: (first-token s, total s,
+    tokens, decode steps run)."""
+    steps0 = engine.steps_run
+    t0 = time.perf_counter()
+    t_first, toks = None, []
+    for t in engine.generate_tokens([prompt], frames, gcfg, eos_ids=[-1]):
+        if t_first is None:
+            t_first = time.perf_counter() - t0
+        toks.append(int(t[0]))
+    return t_first, time.perf_counter() - t0, toks, engine.steps_run - steps0
+
+
+def spec_slice(tag: str, cfg, params, smi: str, cache_dtype, kernels: dict,
+               per_round: dict, logit_tol: float) -> dict:
+    """bench's request through `SpecDecoder` by graph beside the plain
+    graph (`SPEC_NEW` greedy tokens each, after a warm-up request of each
+    that captures their graphs): the tokens against the plain graph's by
+    `first_divergence`; the launches (``kernels``: label -> wrapper) against
+    ``per_round`` (label -> (launches a round, launches of the prefill));
+    the first verify round's (D + 1)-row logits through the kernels against
+    the plain versions within ``logit_tol``; rounds, tokens, accepted
+    drafts; wall and device ms a round against a plain step, the
+    break-even; each capture's seconds and the graphs' memory.  Returns the
+    spec request's launches."""
+    from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+    from valley_tpu_torch.inference.speculative import (SpecConfig,
+                                                        SpecDecoder)
+    from valley_tpu_torch.ops.attention import PLAIN
+
+    t_slice = time.perf_counter()
+    prompt, frames = bench_request(cfg, 512)
+    gcfg = GenerationConfig(max_new_tokens=SPEC_NEW, do_sample=False)
+    engine = Engine(cfg, params, buckets=(512,), max_new_tokens=SPEC_NEW,
+                    steps_per_call=SPEC_STEPS, cache_dtype=cache_dtype)
+    sp = SpecConfig(disable_below=0.0)
+    dec = SpecDecoder(engine, sp)
+    cache_len = 512 + SPEC_NEW + sp.rounds_per_call * (sp.draft_len + 1)
+    caps = timed_captures(dec.graphs_for(512, cache_len))
+    plain_run(engine, prompt, frames, gcfg)             # captures
+    spec_run(dec, prompt, frames, gcfg)                 # captures
+    (p_first, p_total, want, _), _ = counted(
+        kernels, lambda: plain_run(engine, prompt, frames, gcfg))
+    (t_first, total, got, log, ran), counts = counted(
+        kernels, lambda: spec_run(dec, prompt, frames, gcfg))
+    check(len(got) == SPEC_NEW and all(0 <= t < cfg.text.vocab_size
+                                       for t in got), f"{tag}: tokens")
+    for k, (a_round, a_prefill) in per_round.items():
+        want_n = a_round * ran + a_prefill
+        check(counts[k] == want_n, f"{tag}: {k} launched {counts[k]} times "
+              f"in {ran} rounds, want {want_n}")
+    print(f"{tag}: bench's request through SpecDecoder by graph (D "
+          f"{sp.draft_len}, ngram {sp.ngram}, probe {sp.probe_rounds} then "
+          f"{sp.rounds_per_call} rounds a replay), {SPEC_NEW} greedy tokens: "
+          f"{len(log)} rounds emit them ({ran} run on the card, the last "
+          f"call's surplus dropped), {sum(log) / len(log) - 1:.3f} accepted "
+          f"drafts a round, tokens a round {sorted(set(log))}; launches "
+          + " ".join(f"{k} {n}" for k, n in counts.items()))
+    print(f"{tag}: against the plain graph: "
+          + first_divergence(tag, engine, prompt, frames, want, got,
+                             logit_tol))
+
+    # a round's cost against a plain step: wall over the requests above,
+    # device time of one more replay of each graph on the state the
+    # request left (the steady call's rounds, a chunk's steps)
+    plain_graphs = engine.graph_sets[(1, 512 + SPEC_NEW + SPEC_STEPS)]
+    step_dev = profile_device(lambda: plain_graphs.run(
+        SPEC_STEPS, False))[0] / SPEC_STEPS
+    r_dev, top, _ = profile_device(lambda: dec.graph_sets[
+        (512, cache_len)].run(sp.rounds_per_call, False))
+    round_dev = r_dev / sp.rounds_per_call
+    step_wall = (p_total - p_first) / (len(want) - 1) * 1e3
+    round_wall = (total - t_first) / ran * 1e3
+    print(f"{tag}: a verify round {round_wall:.3f} ms wall, {round_dev:.3f} "
+          f"ms device; a plain step {step_wall:.3f} ms wall, {step_dev:.3f} "
+          f"ms device: a round costs {round_wall / step_wall:.3f}x a step "
+          f"(device {round_dev / step_dev:.3f}x), so the break-even is "
+          f"{round_wall / step_wall - 1:.3f} accepted drafts a round (device "
+          f"{round_dev / step_dev - 1:.3f}; JAX's thresholds "
+          f"{JAX_THRESHOLDS}); decode {(len(got) - 1) / (total - t_first):.2f}"
+          f" tok/s by rounds against {(len(want) - 1) / (p_total - p_first):.2f}"
+          f" plain, on {smi}")
+    print(f"{tag}: a round's top kernels: " + ", ".join(
+        f"{name[:44]} {100 * ms / r_dev:.1f}%" for name, ms in top[:8]))
+    graph_bytes, state_bytes = graph_memory(engine)
+    hist_bytes = sum(g.state.hist.numel() * 8 for g in dec.graph_sets.values())
+    print(f"{tag}: captures " + ", ".join(
+        f"{n} rounds {'sampled' if ds else 'greedy'} {t:.3f} s"
+        for (n, ds), t in sorted(caps.items())) + f"; the engine's graph "
+          f"memory pool (plain and round graphs) {fmt_mb(graph_bytes)}, "
+          f"static decode states {fmt_mb(state_bytes)}, token histories "
+          f"{hist_bytes} bytes")
+
+    # the first verify round: kernels against the plain versions
+    plain_engine = Engine(cfg, params, buckets=(512,),
+                          max_new_tokens=SPEC_NEW, steps_per_call=SPEC_STEPS,
+                          cache_dtype=cache_dtype, attention=PLAIN)
+    lk = verify_logits(engine, prompt, frames, got[0])
+    lp = verify_logits(plain_engine, prompt, frames, got[0])
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (
+        sp.draft_len + 1, cfg.text.vocab_size), f"{tag}: verify logits")
+    diff = max_err(lk, lp)
+    print(f"{tag}: the first verify round's {sp.draft_len + 1}-row logits, "
+          f"kernels vs plain: max abs diff {diff:.4e} (tol {logit_tol}; max "
+          f"|logit| {lp.abs().max().item():.3f}); greedy tokens agree in "
+          f"{int((lk.argmax(-1) == lp.argmax(-1)).sum())} of "
+          f"{sp.draft_len + 1} rows")
+    check(diff <= logit_tol, f"{tag}: verify logits beyond tolerance")
+    del plain_engine, lk, lp
+    print(f"{tag}: {time.perf_counter() - t_slice:.1f} s wall", flush=True)
+    return {"engine": engine, "dec": dec, "prompt": prompt,
+            "frames": frames, "counts": counts, "rounds": ran,
+            "round_ms": round_dev, "step_ms": step_dev}
+
+
+def spec_sampled_check(tag: str, sl: dict) -> None:
+    """One sampled request through the round graphs twice under one seed:
+    the same tokens; under another seed, other tokens."""
+    from valley_tpu_torch.inference.engine import GenerationConfig
+
+    runs = []
+    for seed in (5, 5, 6):
+        g = GenerationConfig(max_new_tokens=32, do_sample=True,
+                             temperature=1.0, top_p=0.9, seed=seed)
+        runs.append(spec_run(sl["dec"], sl["prompt"], sl["frames"], g)[2])
+    check(runs[0] == runs[1], f"{tag}: a sampled request repeated under its "
+          "seed gave other tokens")
+    check(runs[0] != runs[2], f"{tag}: seeds 5 and 6 gave the same tokens")
+    print(f"{tag}: a sampled request (temperature 1.0, top_p 0.9, 32 "
+          f"tokens) by round graphs gives the same tokens twice under seed "
+          f"5 and {sum(a != b for a, b in zip(runs[0], runs[2]))} other "
+          f"tokens under seed 6")
+
+
+def full_acceptance(cfg, params, smi: str) -> None:
+    """bench.py's constant-filled Valley-7B (bench.py:243-250: every weight
+    0.008, so every logit ties and greedy emits token 0 forever, which the
+    n-gram lookup drafts): rounds against the plain graph, the card's
+    ceiling for D = 8.  ``params`` is overwritten."""
+    from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+    from valley_tpu_torch.inference.speculative import (SpecConfig,
+                                                        SpecDecoder)
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for prm in params.parameters():
+            prm.fill_(0.008)
+    prompt, frames = bench_request(cfg, 512)
+    gcfg = GenerationConfig(max_new_tokens=SPEC_NEW, do_sample=False)
+    engine = Engine(cfg, params, buckets=(512,), max_new_tokens=SPEC_NEW,
+                    steps_per_call=SPEC_STEPS)
+    dec = SpecDecoder(engine, SpecConfig())
+    plain_run(engine, prompt, frames, gcfg)
+    spec_run(dec, prompt, frames, gcfg)
+    p_first, p_total, want, _ = plain_run(engine, prompt, frames, gcfg)
+    t_first, total, got, log, ran = spec_run(dec, prompt, frames, gcfg)
+    d1 = dec.spec.draft_len + 1
+    p_tps = (len(want) - 1) / (p_total - p_first)
+    s_tps = (len(got) - 1) / (total - t_first)
+    check(got == want, f"full acceptance: rounds gave other tokens than the "
+          f"plain graph: {got[:12]} against {want[:12]}")
+    if set(want) == {want[0]}:
+        # rounds 1-3 find no 2-token match of the history's tail (token,
+        # token) before it holds three of them; from round 4 on every draft
+        # is the token
+        check(log[:3] == [1, 1, 1] and set(log[3:]) == {d1}, f"full "
+              f"acceptance: tokens a round {log}")
+        why = (f"rounds 1-3 emit one token each (the history holds no "
+               f"2-token match of its tail before), every later round all "
+               f"{d1}")
+    else:
+        # the ties are not exact: check the bookkeeping instead
+        check(sum(log) >= SPEC_NEW and all(1 <= n <= d1 for n in log),
+              f"full acceptance: tokens a round {log}")
+        why = (f"the logits do not tie exactly (greedy tokens "
+               f"{sorted(set(want))[:8]}), so acceptance is partial: tokens "
+               f"a round {log}")
+    print(f"full acceptance (bench.py's constant-filled Valley-7B, bf16): "
+          f"{len(log)} rounds emit the plain graph's {SPEC_NEW} tokens "
+          f"({ran} run); {why}; decode {s_tps:.2f} tok/s by rounds against "
+          f"{p_tps:.2f} plain ({s_tps / p_tps:.2f}x), on {smi}; "
+          f"{time.perf_counter() - t0:.1f} s wall")
+
+
+def spec_conv(cfg, params, smi: str) -> dict:
+    """A follow-up turn through `PrefixCache.spawn(speculative=True)` (a
+    `SpecChatSession`, rounds kept on: threshold 0) on the int4 slice's
+    weights, beside a plain spawn: bench's video prefix, the first
+    conversation question, 64 greedy tokens each; its tokens against the
+    plain turn's (at a first divergence, the plain session's top-2 margin
+    there, by extending the question and the turn so far, must lie under
+    the int4 bar).  Returns the speculative turn's launches."""
+    from valley_tpu_torch.inference.engine import (Engine, GenerationConfig,
+                                                   PrefixCache)
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.quant import int4_matvec
+
+    t_conv = time.perf_counter()
+    prompt, frames = bench_request(cfg, 512)
+    gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, do_sample=False)
+    engine = Engine(cfg, params, buckets=(512,), max_new_tokens=NEW_TOKENS,
+                    cache_dtype=torch.int8, steps_per_call=SPEC_STEPS)
+    pc = PrefixCache(engine, prompt, frames, gcfg)
+    question = follow_up_ids(CONV_QUESTIONS[0])
+    want = pc.spawn().chat(question, eos_ids=[-1])
+    sess = pc.spawn(speculative=True)
+    sess._decoder.spec.disable_below = 0.0
+    rounds0 = sess._decoder.total_rounds
+    kernels = {"K1": flash_attention, "K5": int4_matvec}
+    t0 = time.perf_counter()
+    got, counts = counted(kernels, lambda: sess.chat(question, eos_ids=[-1]))
+    dt = time.perf_counter() - t0
+    rounds = sess._decoder.total_rounds - rounds0
+    line = f"the same {len(got)} tokens"
+    if got != want:
+        i = next(j for j, (a, b) in enumerate(zip(want, got)) if a != b)
+        cache, valid, seq, slot, _ = pc.spawn()._state
+        chunk = question + want[:i]
+        cb = 1 << max(4, (len(chunk) - 1).bit_length())
+        ids = torch.zeros((1, cb), dtype=torch.long)
+        ids[0, :len(chunk)] = torch.tensor(chunk)
+        dev = engine.device
+        _, lg, *_ = engine._extend(
+            cache, valid, ids.to(dev), torch.tensor([len(chunk)], device=dev),
+            torch.tensor([seq], device=dev), slot,
+            torch.Generator(dev).manual_seed(0), 1.0, 1.0, False)
+        top2 = torch.topk(lg[0], 2).values
+        margin = (top2[0] - top2[1]).item()
+        check(margin < INT4_LOGIT_TOL, f"spec conv: the speculative turn "
+              f"parts from the plain turn at token {i} where the plain "
+              f"top-2 margin is {margin}")
+        line = (f"the same first {i} of {len(got)} tokens, then {got[i]} for "
+                f"{want[i]}, where the plain session's top-2 margin is "
+                f"{margin:.4f} (bar {INT4_LOGIT_TOL})")
+    print(f"spec conv: a follow-up turn through PrefixCache.spawn("
+          f"speculative=True) (SpecChatSession, eager rounds, threshold 0): "
+          f"{len(got)} tokens in {rounds} rounds, {dt:.3f} s wall; against "
+          f"the plain spawn's turn: {line}; launches "
+          + " ".join(f"{k} {n}" for k, n in counts.items()) + f", on {smi}; "
+          f"{time.perf_counter() - t_conv:.1f} s wall")
+    check(counts["K5"] > 0, "spec conv: no K5 launch")
+    del engine, pc, sess
+    return counts
+
+
 def k1_phase(cases) -> tuple:
     """K1 against its plain version on ``cases`` (`flash_cases`), the
     first timed.  Returns (max error, times)."""
@@ -1331,7 +1762,13 @@ def serve_path(smi: str, gen, work: Path) -> list:
     cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
     layers, steps = cfg.text.num_hidden_layers, NEW_TOKENS - 1
     k6_err, k6_t, _ = k6_phase(gen, K6_SHAPES_SERVE, 1, layers)
-    counts = serve_slice("slice", cfg, random_weights(cfg), smi,
+    # a verify round's 9 rows, and a 16-row pool step
+    k6v_err, k6v_t, _ = k6_phase(gen, K6_SHAPES_SERVE, 9, layers)
+    (k6w_err, k6w_t, _), k6w_n = counted(
+        {"K6": bf16_matvec},
+        lambda: k6_phase(gen, K6_SHAPES_SERVE, 16, layers))
+    params = random_weights(cfg)
+    counts = serve_slice("slice", cfg, params, smi,
                          torch.bfloat16, {
                              "K1": (flash_attention, layers),
                              "K3": (decode_attention_stacked, layers * steps),
@@ -1339,12 +1776,30 @@ def serve_path(smi: str, gen, work: Path) -> list:
                                     + NEW_TOKENS),
                              "K4": (int8_matvec, 0)}, LOGIT_TOL,
                          same_token=True, sampled=True)
+    sl = spec_slice("spec slice", cfg, params, smi, torch.bfloat16, {
+        "K1": flash_attention, "K3": decode_attention_stacked,
+        "K6": bf16_matvec, "K4": int8_matvec}, {
+        "K1": (0, layers), "K3": (0, 0), "K6": (7 * layers + 1, 1),
+        "K4": (0, 0)}, LOGIT_TOL)
+    spec_sampled_check("spec slice", sl)
+    spec_counts = sl["counts"]
+    del sl
+    gc.collect()
+    full_acceptance(cfg, params, smi)
     return [{**K1_SRC, "path": "serve", "launches": counts["K1"],
              "max_abs_err": k1_err, **k1_t},
             {**K3_SRC, "name": "decode_attn", "path": "serve",
              "launches": counts["K3"], "max_abs_err": k3_err, **k3_t},
             {**K6_SRC, "name": "bf16_matvec_serve", "path": "serve",
-             "launches": counts["K6"], "max_abs_err": k6_err, **k6_t}]
+             "launches": counts["K6"], "max_abs_err": k6_err, **k6_t},
+            {**K1_SRC, "name": "flash_fwd_spec", "path": "serve_spec",
+             "launches": spec_counts["K1"], "max_abs_err": k1_err, **k1_t},
+            {**K6_SRC, "name": "bf16_matvec_verify", "path": "serve_spec",
+             "launches": spec_counts["K6"], "max_abs_err": k6v_err,
+             **k6v_t},
+            {**K6_SRC, "name": "bf16_matvec_B16",
+             "path": "serve, GEMV phase only (a 16-row pool step)",
+             "launches": k6w_n["K6"], "max_abs_err": k6w_err, **k6w_t}]
 
 
 def serve_int8_path(smi: str, gen, work: Path) -> list:
@@ -1364,6 +1819,9 @@ def serve_int8_path(smi: str, gen, work: Path) -> list:
     cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
     layers, steps = cfg.text.num_hidden_layers, NEW_TOKENS - 1
     k4_err, k4_t = k4_phase(gen, layers)
+    k4v_err, k4v_t = k4_phase(gen, layers, 9)
+    (k4w_err, k4w_t), k4w_n = counted({"K4": int8_matvec},
+                                      lambda: k4_phase(gen, layers, 16))
     k3q_err, k3q_t = k3_int8_phase(decode_int8_cases(gen, SMAX, PROMPT_LEN,
                                                      BUCKET))
     gc.collect()
@@ -1383,15 +1841,32 @@ def serve_int8_path(smi: str, gen, work: Path) -> list:
         "K3-int8": (decode_attention_stacked, layers * steps),
         "K4": (int8_matvec, 4 * layers * steps + NEW_TOKENS),
         "K6": (bf16_matvec, 0)}, INT8_LOGIT_TOL, same_token=False)
+    sl = spec_slice("int8 spec slice", cfg, params, smi, torch.int8, {
+        "K1": flash_attention, "K3-int8": decode_attention_stacked,
+        "K4": int8_matvec, "K6": bf16_matvec}, {
+        "K1": (0, layers), "K3-int8": (0, 0), "K4": (4 * layers + 1, 1),
+        "K6": (0, 0)}, INT8_LOGIT_TOL)
+    spec_counts = sl["counts"]
+    del sl
+    k4_src = {"route": "cuda",
+              "source": "valley_tpu_torch/csrc/int8_matvec.cu",
+              "replaces": "valley_tpu/ops/quant.py:455"}
     return [{**K1_SRC, "name": "flash_fwd_int8", "path": "serve_int8",
              "launches": counts["K1"], "max_abs_err": k1_err, **k1_t},
             {**K3_SRC, "name": "decode_attn_int8", "path": "serve_int8",
              "launches": counts["K3-int8"], "max_abs_err": k3q_err,
              **k3q_t},
-            {"name": "int8_matvec", "route": "cuda",
-             "source": "valley_tpu_torch/csrc/int8_matvec.cu",
-             "replaces": "valley_tpu/ops/quant.py:455", "path": "serve_int8",
-             "launches": counts["K4"], "max_abs_err": k4_err, **k4_t}]
+            {**k4_src, "name": "int8_matvec", "path": "serve_int8",
+             "launches": counts["K4"], "max_abs_err": k4_err, **k4_t},
+            {**K1_SRC, "name": "flash_fwd_int8_spec",
+             "path": "serve_int8_spec", "launches": spec_counts["K1"],
+             "max_abs_err": k1_err, **k1_t},
+            {**k4_src, "name": "int8_matvec_verify",
+             "path": "serve_int8_spec", "launches": spec_counts["K4"],
+             "max_abs_err": k4v_err, **k4v_t},
+            {**k4_src, "name": "int8_matvec_B16",
+             "path": "serve_int8, GEMV phase only (a 16-row pool step)",
+             "launches": k4w_n["K4"], "max_abs_err": k4w_err, **k4w_t}]
 
 
 def int4_weight(gen, f: int, k: int, group: int):
@@ -1448,19 +1923,24 @@ K5_SHAPES_13B = (("wqkv", 5120, 15360, 128), ("wo", 5120, 5120, 128),
                  ("lm_head", 5120, 32000, 0))
 
 
-def k5_phase(gen, layers: int) -> tuple:
+def k5_phase(gen, layers: int, rows: int = 1) -> tuple:
     """K5 against its plain version on the five Valley-13B weights at B =
-    1, at the row limit with G = 108 and on 7B's G = 86 at an odd F; a
-    planted fault (the group scales shifted by one group); each 13B weight
-    timed walking copies of it past the 50 MB L2.  Returns (max error,
-    times per call averaged over one decode token's GEMVs: ``layers`` x the
-    four layer weights, then lm_head)."""
+    ``rows`` (at B = 1 also at 8 rows and at the row limit with G = 108 and
+    on 7B's G = 86 at an odd F, and a planted fault: the group scales
+    shifted by one group; at more rows, each row bit-equal to the same row
+    alone); each 13B weight timed walking copies of it past the 50 MB L2.
+    Returns (max error, times per call averaged over one decode token's (or
+    verify round's) GEMVs: ``layers`` x the four layer weights, then
+    lm_head)."""
     from valley_tpu_torch.ops.quant import (MAX_ROWS, int4_matvec,
                                             int4_matvec_plain)
 
-    cases = [(f"13b_{n}_B1", 1, k, f, g) for n, k, f, g in K5_SHAPES_13B] + [
-        ("rows8_K13824_G108", MAX_ROWS, 13824, 5120, 128),
-        ("B3_K11008_G86_F1001", 3, 11008, 1001, 128)]
+    cases = [(f"13b_{n}_B{rows}", rows, k, f, g)
+             for n, k, f, g in K5_SHAPES_13B]
+    if rows == 1:
+        cases += [("rows8_K13824_G108", 8, 13824, 5120, 128),
+                  (f"rows{MAX_ROWS}_K13824_G108", MAX_ROWS, 13824, 5120, 128),
+                  ("B3_K11008_G86_F1001", 3, 11008, 1001, 128)]
     err_max, per_weight, label = 0.0, {}, None
     for name, b, k, f, group in cases:
         x = torch.randn((b, k), generator=gen, device="cuda").bfloat16()
@@ -1475,6 +1955,8 @@ def k5_phase(gen, layers: int) -> tuple:
         check(err <= tol, f"K5 {name}: max abs err {err} > {tol}")
         err_max = max(err_max, err)
         line = f"K5 int4_matvec {name}: max_abs_err {err:.3e} (tol {tol:.3e})"
+        if b > 1 and name.startswith("13b_wqkv"):
+            line += rows_alone_text(int4_matvec, x, w, scale)
         if name == "13b_wqkv_B1":
             # planted fault: a kernel that read each group's scale from the
             # group before must fail the check
@@ -1495,17 +1977,19 @@ def k5_phase(gen, layers: int) -> tuple:
                 iters=20)
             del ws
             # bytes: the packed weight, x, the scales and the fp32 output
-            # once
+            # once; the products at the card's bf16 tensor-core peak
             n_bytes = w.numel() + 2 * b * k + 2 * scale.numel() + 4 * b * f
             add_bound(t, bound(n_bytes, 2 * b * k * f), f"K5 {name}")
             t["library_ms"], label = library_int4_matvec_ms(x, w, scale, n,
                                                             20, ref)
-            per_weight[name.split("_B1")[0][4:]] = t
+            per_weight[name.split(f"_B{rows}")[0][4:]] = t
             lib = "none" if t["library_ms"] is None else \
                 f"{t['library_ms']:.4f} ms"
             line += (f" {fmt_times(t)} ({w.numel() / t['ms'] / 1e6:.1f} GB/s "
                      f"of packed weights); bound {t['bound_ms']:.4f} ms ("
-                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB), library "
+                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB; the FMAs "
+                     f"alone at the CUDA-core peak "
+                     f"{cuda_core_ms(b, k, f):.4f} ms), library "
                      f"{lib} ({label})")
         print(line)
         del x, w, scale, out, ref
@@ -1515,11 +1999,13 @@ def k5_phase(gen, layers: int) -> tuple:
                                K5_SHAPES_13B[:4]) + per_weight["lm_head"][key]
              for key in TIME_KEYS}
     avg = {key: None if v is None else v / calls for key, v in token.items()}
-    avg["bound_by"] = "bytes"
+    avg["bound_by"] = dominant_bound(per_weight, layers)
     avg["library_call"] = label
+    avg["rows"] = rows
     lib = "none" if token["library_ms"] is None else \
         f"{token['library_ms']:.4f} ms"
-    print(f"K5 int4_matvec per decode token ({calls} calls: {layers} x "
+    print(f"K5 int4_matvec per decode token at B{rows} ({calls} calls: "
+          f"{layers} x "
           f"wqkv, wo, w_gateup, w_down, then lm_head): device "
           f"{token['ms']:.4f} ms vs plain {token['plain_ms']:.4f} ms; bound "
           f"{token['bound_ms']:.4f} ms; library {lib}")
@@ -1942,6 +2428,9 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
     text = cfg.text
     layers, steps = text.num_hidden_layers, NEW_TOKENS - 1
     k5_err, k5_t = k5_phase(gen, layers)
+    k5v_err, k5v_t = k5_phase(gen, layers, 9)
+    (k5w_err, k5w_t), k5w_n = counted({"K5": int4_matvec},
+                                      lambda: k5_phase(gen, layers, 16))
     k1_err, k1_t = k1_phase(flash_cases(gen, text.num_attention_heads,
                                         "13b")[:1])
     k3q_err, k3q_t = k3_int8_phase(decode_int8_cases(
@@ -1967,6 +2456,15 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
         "K5": (int4_matvec, 4 * layers * steps + NEW_TOKENS),
         "K4": (int8_matvec, 0), "K6": (bf16_matvec, 0)}, INT4_LOGIT_TOL,
         same_token=True)
+    sl = spec_slice("int4 spec slice", cfg, params, smi, torch.int8, {
+        "K1": flash_attention, "K3-int8": decode_attention_stacked,
+        "K5": int4_matvec, "K4": int8_matvec, "K6": bf16_matvec}, {
+        "K1": (0, layers), "K3-int8": (0, 0), "K5": (4 * layers + 1, 1),
+        "K4": (0, 0), "K6": (0, 0)}, INT4_LOGIT_TOL)
+    spec_counts = sl["counts"]
+    del sl
+    gc.collect()
+    conv_spec = spec_conv(cfg, params, smi)
     k5_src = {"route": "cuda",
               "source": "valley_tpu_torch/csrc/int4_matvec.cu",
               "replaces": "tools/exp_int4_group.py:91"}
@@ -1976,7 +2474,19 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
                 "launches": counts["K3-int8"], "max_abs_err": k3q_err,
                 **k3q_t},
                {**k5_src, "name": "int4_matvec", "path": "serve_int4",
-                "launches": counts["K5"], "max_abs_err": k5_err, **k5_t}]
+                "launches": counts["K5"], "max_abs_err": k5_err, **k5_t},
+               {**K1_SRC, "name": "flash_fwd_int4_spec",
+                "path": "serve_int4_spec", "launches": spec_counts["K1"],
+                "max_abs_err": k1_err, **k1_t},
+               {**k5_src, "name": "int4_matvec_verify",
+                "path": "serve_int4_spec", "launches": spec_counts["K5"],
+                "max_abs_err": k5v_err, **k5v_t},
+               {**k5_src, "name": "int4_matvec_B16",
+                "path": "serve_int4, GEMV phase only (a 16-row pool step)",
+                "launches": k5w_n["K5"], "max_abs_err": k5w_err, **k5w_t},
+               {**k5_src, "name": "int4_matvec_spec_conv",
+                "path": "serve_conv_spec", "launches": conv_spec["K5"],
+                "max_abs_err": k5v_err, **k5v_t}]
 
     # the conversation on the same weights; its cache and launches go to
     # the lab's process (`lab_conv_path`)
@@ -2036,7 +2546,11 @@ K6_SHAPES_FUSED = (("wqkv", 4096, 12288, False, 1),
                    ("w_down", 11008, 4096, False, 1),
                    ("lm_head", 4096, 32000, True, 0))
 GEMV_NAMES = ("int8_matvec", "int4_matvec", "int4_matvec_conv",
-              "bf16_matvec", "bf16_matvec_serve", "bf16_matvec_round")
+              "bf16_matvec", "bf16_matvec_serve", "bf16_matvec_round",
+              "bf16_matvec_verify", "bf16_matvec_B16", "bf16_matvec_B8",
+              "int8_matvec_verify",
+              "int8_matvec_B16", "int4_matvec_verify", "int4_matvec_B16",
+              "int4_matvec_spec_conv")
 
 
 def bf16_weight(gen, k: int, f: int, kf: bool) -> torch.Tensor:
@@ -2085,6 +2599,8 @@ def k6_phase(gen, shapes, rows: int, layers: int,
               f"{tag} {name}: dtype, shape or not finite")
         check(err <= tol, f"{tag} {name} B{rows}: max abs err {err} > {tol}")
         err_max = max(err_max, err)
+        alone = rows_alone_text(bf16_matvec, x, w, kf) \
+            if rows > 8 and name == shapes[0][0] else ""
         ws = [w] + [w.clone() for _ in range(
             -(-TIMING_BYTES // (2 * w.numel())) - 1)]
         it = iter(range(10 ** 9))
@@ -2093,10 +2609,10 @@ def k6_phase(gen, shapes, rows: int, layers: int,
                                 round_products),
             lambda: bf16_matvec_plain(x, ws[next(it) % len(ws)], kf,
                                       round_products), iters=10)
-        # bytes: the weight, x and the fp32 output once; fp32 FMAs
+        # bytes: the weight, x and the fp32 output once; the products at
+        # the bf16 tensor-core peak
         n_bytes = 2 * w.numel() + 2 * rows * k + 4 * rows * f
-        add_bound(t, bound(n_bytes, 2 * rows * k * f, FP32_FLOP_PER_S),
-                  f"{tag} {name}")
+        add_bound(t, bound(n_bytes, 2 * rows * k * f), f"{tag} {name}")
         t["library_ms"] = library_linear_ms(x, ws, kf, 10)
         per_weight[name] = t
         print(f"{tag} {name} B{rows} ({'(K, F)' if kf else '(F, K)'} "
@@ -2104,7 +2620,7 @@ def k6_phase(gen, shapes, rows: int, layers: int,
               f"{fmt_times(t)} ({2 * w.numel() / t['ms'] / 1e6:.1f} GB/s of "
               f"weights); bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
               f"{n_bytes / 1e6:.2f} MB), library {t['library_ms']:.4f} ms "
-              f"(cuBLAS bf16)")
+              f"(cuBLAS bf16){alone}")
         del ws, x, w, out, ref
     calls = sum(layers * c if c else 1 for *_, c in shapes)
     step = {key: sum(per_weight[n][key] * (layers * c if c else 1)
@@ -2214,15 +2730,15 @@ def flash_batch_case(gen):
 
 
 def pool_decode_int8_case(gen, smax: int, layers: int = 32):
-    """K3-int8 at the pool's shape: 8 rows of an int8 cache of ``smax``
-    slots, quantized by `_quantize_kv` from N(0, 1) bf16 K/V, each row with
-    its own valid length (6 video rows of 473 + 32 tokens, text rows of 40
-    and 1500 + 32: decode writes right after the prompt, so no row has a
-    hole); the 'hole' planted as a fault is [505, 1532), valid only in the
-    last row."""
+    """K3-int8 at the pool's shape: `BATCH_ROWS` rows of an int8 cache of
+    ``smax`` slots, quantized by `_quantize_kv` from N(0, 1) bf16 K/V, each
+    row with its own valid length (video rows of 473 + 32 tokens, text rows
+    of 40 and 1500 + 32: decode writes right after the prompt, so no row
+    has a hole); the 'hole' planted as a fault is [505, 1532), valid only
+    in the last row."""
     from valley_tpu_torch.models.llama import _quantize_kv
 
-    b, h, d = 8, 32, 128
+    b, h, d = BATCH_ROWS, 32, 128
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").bfloat16()
     out = [q]
     for _ in range(2):
@@ -2234,19 +2750,19 @@ def pool_decode_int8_case(gen, smax: int, layers: int = 32):
             c[li], sc[li] = _quantize_kv(torch.randn(
                 (b, smax, h, d), generator=gen, device="cuda").bfloat16())
         out += [c, sc]
-    lens = torch.tensor([505] * 6 + [72, 1532], device="cuda")
+    lens = torch.tensor([505] * (b - 2) + [72, 1532], device="cuda")
     valid = torch.arange(smax, device="cuda")[None, :] < lens[:, None]
-    return (f"7b_pool_decode_L{layers}_B8_S{smax}_D128", *out, 17, valid,
+    return (f"7b_pool_decode_L{layers}_B{b}_S{smax}_D128", *out, 17, valid,
             (505, 1532))
 
 
-# batch_infer's defaults (valley_tpu/inference/batch_infer.py:272-287) at the
-# kernels' 8 rows: buckets, the engine's max_new_tokens (the pool's extra
-# slots), steps per decode chunk
+# batch_infer's defaults (valley_tpu/inference/batch_infer.py:257,272-287):
+# buckets, the engine's max_new_tokens (the pool's extra slots), steps per
+# decode chunk, the pool's rows
 BATCH_BUCKETS = (512, 1024, 2048)
 BATCH_MAX_NEW = 256
 BATCH_STEPS = 16
-BATCH_ROWS = 8
+BATCH_ROWS = 16
 
 
 def batch_requests(cfg) -> list:
@@ -2270,6 +2786,17 @@ def batch_requests(cfg) -> list:
         reqs.append(([1] + rng.integers(5, 30000, size=n - 1).tolist(), None,
                      temp))
     return reqs
+
+
+def pool_rows(reqs, dev) -> tuple:
+    """The 8 video requests of `batch_requests`, repeated to fill the pool's
+    `BATCH_ROWS` rows: (ids (rows, 512) on ``dev``, frames, lengths)."""
+    video = [reqs[i % 8] for i in range(BATCH_ROWS)]
+    ids = torch.zeros((BATCH_ROWS, 512), dtype=torch.int64)
+    for i, (p, _, _) in enumerate(video):
+        ids[i, :len(p)] = torch.tensor(p)
+    lens = torch.tensor([len(p) for p, _, _ in video], device=dev)
+    return ids.to(dev), np.concatenate([f for _, f, _ in video]), lens
 
 
 def run_traffic(pool, reqs, new: int) -> tuple:
@@ -2309,8 +2836,8 @@ def run_traffic(pool, reqs, new: int) -> tuple:
 
 
 def pooled_logits(engine, pool, ids, frames, lens, feed=None) -> tuple:
-    """The pool's fp32 logits (8, V) after a batched prefill of the 8 video
-    prompts into a cache of the pool's ``smax`` slots, then at three
+    """The pool's fp32 logits (rows, V) after a batched prefill of the video
+    prompts ``ids`` into a cache of the pool's ``smax`` slots, then at three
     teacher-forced pooled steps (per-row slots and positions at each row's
     length, as the pool decodes after compaction), fed ``feed`` or the
     greedy tokens of each step.  Returns (logits, the tokens fed)."""
@@ -2318,15 +2845,16 @@ def pooled_logits(engine, pool, ids, frames, lens, feed=None) -> tuple:
 
     dev = engine.device
     p, text = engine.params["llama"], engine.cfg.text
+    n = ids.shape[0]
     with torch.inference_mode():
-        zeros = torch.zeros(8, device=dev)
+        zeros = torch.zeros(n, device=dev)
         tok, lg, cache, valid = engine._prefill(
-            ids, engine._prepare_images(frames, 8), lens,
+            ids, engine._prepare_images(frames, n), lens,
             torch.Generator(dev).manual_seed(0), zeros, zeros + 1, False,
             pool.smax)
         out, fed = [lg], []
         seq = lens.clone()
-        rows = torch.arange(8, device=dev)
+        rows = torch.arange(n, device=dev)
         for i in range(DECODE_CHECK_STEPS):
             t = feed[i] if feed is not None else out[-1].argmax(-1)
             fed.append(t)
@@ -2342,37 +2870,44 @@ def pooled_logits(engine, pool, ids, frames, lens, feed=None) -> tuple:
     return out, fed
 
 
-def pooled_step(tag: str, engine, pool, ids, frames, lens) -> tuple:
-    """The pooled step of ``pool`` (closed) with its 8 rows after a batched
-    prefill of the 8 video prompts: one chunk of `BATCH_STEPS` to warm,
-    three timed on the host clock, one profiled.  Returns (wall ms, device
-    busy ms, top kernels, device ms of the chunk) a step.  By graph the
-    device is busy nearly all the wall, so the idle share (the two taken
-    from different chunks) may read a little under 0."""
+def pooled_step(engine, pool, ids, frames, lens, spec: bool = False) -> tuple:
+    """The pooled step (``spec``: the pooled verify round, each row's
+    history its prompt and first token) of ``pool`` (closed) with every row
+    filled by a batched prefill of the video prompts ``ids``: one chunk of
+    `BATCH_STEPS` to warm, three timed on the host clock, one profiled.
+    Returns (wall ms, device busy ms, top kernels, device ms of the chunk)
+    a step.  By graph the device is busy nearly all the wall, so the idle
+    share (the two taken from different chunks) may read a little under
+    0."""
+    n = ids.shape[0]
     with torch.inference_mode():
         tok, _, cache, valid = engine._prefill(
-            ids, engine._prepare_images(frames, 8), lens,
+            ids, engine._prepare_images(frames, n), lens,
             torch.Generator("cuda").manual_seed(0),
-            torch.zeros(8, device="cuda"), torch.ones(8, device="cuda"),
+            torch.zeros(n, device="cuda"), torch.ones(n, device="cuda"),
             False, pool.smax)
-        for b in range(8):
+        for b in range(n):
             pool._insert(cache, valid, tok, int(lens[b]), b, b)
+            if spec:
+                pool._state.load_hist(b, ids[b, :int(lens[b])].tolist(),
+                                      tok[b])
         del cache
         pool._temps[:] = 0.0
-        pool._decode_chunk(BATCH_STEPS)                  # warm
+        chunk = pool._spec_chunk if spec else pool._decode_chunk
+        chunk(BATCH_STEPS)                               # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            pool._decode_chunk(BATCH_STEPS).cpu()
+            chunk(BATCH_STEPS).cpu()
         wall_step = (time.perf_counter() - t0) / (3 * BATCH_STEPS) * 1e3
-        dev, top, _ = profile_device(lambda: pool._decode_chunk(BATCH_STEPS))
+        dev, top, _ = profile_device(lambda: chunk(BATCH_STEPS))
     return wall_step, dev / BATCH_STEPS, top, dev
 
 
 def batch_slice(cfg, params, smi: str) -> dict:
     """``batch_infer``'s configuration on Valley-7B: 12 requests at once
-    through a `ContinuousEngine` of 8 rows (after a warm-up pair that
-    captures its decode graph), each pooled chunk one replay of a CUDA
+    through a `ContinuousEngine` of `BATCH_ROWS` rows (after a warm-up pair
+    that captures its decode graph), each pooled chunk one replay of a CUDA
     graph; the launches of K1, K3-int8 and K6 against the pool's count of
     prefills and pooled steps; aggregate tokens/s; the same traffic through
     an eager pool (``eager=True``): every greedy request's tokens the
@@ -2459,18 +2994,11 @@ def batch_slice(cfg, params, smi: str) -> dict:
           f"pool's tokens through the graph pool; its graph captured in "
           f"{graph_pool._graphs.capture_s:.3f} s")
 
-    # the pooled step: 8 rows after a batched prefill of the video prompts
-    video = reqs[:8]
-    ids = torch.zeros((8, 512), dtype=torch.int64)
-    for i, (p, _, _) in enumerate(video):
-        ids[i, :len(p)] = torch.tensor(p)
-    ids = ids.cuda()
-    lens = torch.tensor([len(p) for p, _, _ in video], device="cuda")
-    frames = np.concatenate([f for _, f, _ in video])
+    # the pooled step: every row after a batched prefill of video prompts
+    ids, frames, lens = pool_rows(reqs, engine.device)
     steps_of = {}
     for mode in ("graph", "eager"):
-        steps_of[mode] = pooled_step(f"batch slice {mode}", engine,
-                                     pools[mode], ids, frames, lens)
+        steps_of[mode] = pooled_step(engine, pools[mode], ids, frames, lens)
     check(steps_of["graph"][3] > 0 and any(
         "decode_attn_kernel" in name for name, _ in steps_of["graph"][2]),
         "batch slice: the profiler saw no K3 inside the pooled graph")
@@ -2481,7 +3009,8 @@ def batch_slice(cfg, params, smi: str) -> dict:
                      if any(key in name for key in KERNEL_NAMES[k]))
             inside.append(f"{k} {ms / BATCH_STEPS:.3f} ms "
                           f"({100 * ms / dev:.1f}%)")
-        print(f"batch slice breakdown ({mode}): pooled step of 8 rows wall "
+        print(f"batch slice breakdown ({mode}): pooled step of {BATCH_ROWS} "
+              f"rows wall "
               f"{wall_step:.3f} ms, device busy {dev_step:.3f} ms (idle "
               f"share {1 - dev_step / wall_step:.3f}): " + ", ".join(inside)
               + "; top kernels: " + ", ".join(
@@ -2504,15 +3033,17 @@ def batch_slice(cfg, params, smi: str) -> dict:
     for i, (a, b) in enumerate(zip(lk, lp)):
         where = "batched prefill" if i == 0 else f"pooled step {i}"
         check(bool(torch.isfinite(a).all()) and a.shape == (
-            8, cfg.text.vocab_size), f"batch slice: {where} logits")
+            BATCH_ROWS, cfg.text.vocab_size), f"batch slice: {where} logits")
         diff = max_err(a, b)
         top2 = torch.topk(b, 2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).min().item()
         agree = int((a.argmax(-1) == b.argmax(-1)).sum())
-        print(f"batch slice: {where} logits (8 rows) kernels vs plain max abs "
+        print(f"batch slice: {where} logits ({BATCH_ROWS} rows) kernels vs "
+              f"plain max abs "
               f"diff {diff:.4e} (tol {BATCH_LOGIT_TOL}; max |logit| "
               f"{b.abs().max().item():.3f}), greedy tokens agree in {agree} "
-              f"of 8 rows (smallest plain top-2 margin {margin:.4f})")
+              f"of {BATCH_ROWS} rows (smallest plain top-2 margin "
+              f"{margin:.4f})")
         check(diff <= BATCH_LOGIT_TOL, f"batch slice: {where} logits beyond "
               "tolerance")
     del lk, lp, plain_engine
@@ -2542,15 +3073,159 @@ def batch_slice(cfg, params, smi: str) -> dict:
               f"from its run alone at step {step} with margin {margin}")
     print(f"batch slice: {same} of 10 greedy requests give the tokens of "
           f"their run alone (Engine.generate_tokens, B = 1)")
+    return counts, sum(len(r[0]) for r in results) / wall
+
+
+def pool_verify_logits(engine, pool, ids, frames, lens) -> torch.Tensor:
+    """fp32 logits (rows, D + 1, V) of the speculative pool's first verify
+    round after a batched prefill of the video prompts ``ids``: each row's
+    [token, draft] at its own slot (its prompt length), the draft looked up
+    in the row's history (prompt and greedy token) as `spec_round` does."""
+    from valley_tpu_torch.inference.speculative import ngram_draft
+    from valley_tpu_torch.models import llama
+
+    dev = engine.device
+    p, text = engine.params["llama"], engine.cfg.text
+    sp, n = pool._spec, ids.shape[0]
+    with torch.inference_mode():
+        zeros = torch.zeros(n, device=dev)
+        tok, _, cache, valid = engine._prefill(
+            ids, engine._prepare_images(frames, n), lens,
+            torch.Generator(dev).manual_seed(0), zeros, zeros + 1, False,
+            pool.smax)
+        hist = torch.zeros((n, pool.hist_max), dtype=torch.int64, device=dev)
+        hist[:, :ids.shape[1]] = ids
+        hist.scatter_(1, lens[:, None], tok[:, None])
+        draft = ngram_draft(hist, lens + 1, sp.draft_len, sp.ngram)
+        chunk = torch.cat([tok[:, None], draft], dim=1)
+        pos = lens[:, None] + torch.arange(sp.draft_len + 1, device=dev)
+        hidden, _ = llama.forward_hidden(
+            p, text, llama.embed(p, chunk), positions=pos, cache=cache,
+            cache_index=lens, cross_valid=valid, attention=engine.attention)
+        return llama.logits_from_hidden(p, hidden, engine.attention)
+
+
+def spec_pool_slice(cfg, params, smi: str, plain_tps: float) -> dict:
+    """``batch_infer --speculative``'s pool: the 12 requests through a
+    `BATCH_ROWS`-row `ContinuousEngine(speculative=True)` with JAX's
+    SpecConfig (adaptive: below 0.40 accepted drafts a round the pool
+    pauses and re-probes every 32 chunks), after two warm-up requests that
+    capture the round graph and the plain graph; the launches of K1,
+    K3-int8 and K6 against the pool's prefills and plain steps (a round's
+    rows x (D + 1) rows take the library's products and the plain
+    attention); aggregate tok/s against the plain graph pool's
+    ``plain_tps``, acceptance, pauses and re-probes; with every row filled,
+    the pooled round's wall and device time against the same pool's plain
+    step, and so its break-even; the first verify round's logits (each
+    row's first) against the plain pool's first step's within the pooled
+    bar.  Returns the launches."""
+    from valley_tpu_torch.inference.continuous import ContinuousEngine, _drain
+    from valley_tpu_torch.inference.engine import Engine
+    from valley_tpu_torch.inference.speculative import resolved_disable_below
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.matvec import bf16_matvec
+
+    t_pool = time.perf_counter()
+    layers = cfg.text.num_hidden_layers
+    engine = Engine(cfg, params, buckets=BATCH_BUCKETS,
+                    max_new_tokens=BATCH_MAX_NEW, cache_dtype=torch.int8,
+                    steps_per_call=BATCH_STEPS)
+    reqs = batch_requests(cfg)
+    pool = ContinuousEngine(engine, rows=BATCH_ROWS, admit_batch=4,
+                            speculative=True)
+    try:
+        # warm-up: the round graph's capture at the first chunk, then,
+        # speculation paused, the plain graph's
+        for q in (pool.submit(reqs[0][0], reqs[0][1], max_new_tokens=4,
+                              eos_id=-1),
+                  pool.submit(reqs[10][0], max_new_tokens=4, eos_id=-1)):
+            list(_drain(q, timeout=600))
+        pool.pause_speculation(1 << 30)
+        list(_drain(pool.submit(reqs[10][0], max_new_tokens=4, eos_id=-1),
+                    timeout=600))
+        torch.cuda.synchronize()
+        check(list(pool._spec_graphs.keys()) == [(BATCH_STEPS, True)]
+              and list(pool._graphs.keys()) == [(BATCH_STEPS, True)],
+              f"spec pool: warm-up captured {list(pool._spec_graphs.keys())}"
+              f" rounds and {list(pool._graphs.keys())} plain")
+        pool.reset_speculation()
+        steps0, rounds0 = pool.steps_run, pool.rounds_run
+        groups0 = len(pool.prefill_sizes)
+        kernels = {"K1": flash_attention, "K3-int8": decode_attention_stacked,
+                   "K6": bf16_matvec}
+        (results, wall), counts = counted(
+            kernels, lambda: run_traffic(pool, reqs, NEW_TOKENS))
+        steps = pool.steps_run - steps0
+        rounds = pool.rounds_run - rounds0
+        groups = pool.prefill_sizes[groups0:]
+        want = {"K1": layers * len(groups), "K3-int8": layers * steps,
+                "K6": (4 * layers + 1) * steps + len(groups)}
+        for k, n in want.items():
+            check(counts[k] == n, f"spec pool: {k} launched {counts[k]} "
+                  f"times, want {n}")
+        check(rounds > 0 and counts["K1"] > 0, f"spec pool: {rounds} "
+              f"rounds, K1 launched {counts['K1']} times")
+        n_tok = sum(len(r[0]) for r in results)
+        check(n_tok == len(reqs) * NEW_TOKENS, f"spec pool: {n_tok} tokens")
+        acc = pool.spec_emitted / max(1, pool.spec_rounds) - 1
+        print(f"spec pool: {len(reqs)} requests through a {BATCH_ROWS}-row "
+              f"ContinuousEngine(speculative=True) (int8 cache, D "
+              f"{pool._spec.draft_len}): {rounds} verify rounds and {steps} "
+              f"plain steps in chunks of {BATCH_STEPS}; {pool.spec_rounds} "
+              f"row rounds accept {acc:.3f} drafts each; "
+              f"{pool.spec_disables} pauses, {pool.spec_reprobes} re-probes; "
+              f"aggregate {n_tok / wall:.2f} tok/s against the plain graph "
+              f"pool's {plain_tps:.2f}; the round graph captured in "
+              f"{pool._spec_graphs.capture_s:.3f} s, the graphs' memory pool "
+              f"{fmt_mb(pool_bytes(pool._graphs.pool))}; launches "
+              + " ".join(f"{k} {n}" for k, n in counts.items())
+              + f", on {smi}")
+    finally:
+        pool.close()
+
+    # the pooled round against the pooled step, both by graph on this pool
+    # with every row filled: the break-even in accepted drafts a row round
+    ids, frames, lens = pool_rows(reqs, engine.device)
+    s_wall, s_dev, _, _ = pooled_step(engine, pool, ids, frames, lens)
+    r_wall, r_dev, r_top, r_all = pooled_step(engine, pool, ids, frames,
+                                              lens, spec=True)
+    threshold = resolved_disable_below(pool._spec, engine)
+    print(f"spec pool: a pooled verify round of {BATCH_ROWS} rows x "
+          f"{pool._spec.draft_len + 1} tokens {r_wall:.3f} ms wall, "
+          f"{r_dev:.3f} ms device; a pooled step {s_wall:.3f} ms wall, "
+          f"{s_dev:.3f} ms device: a round costs {r_wall / s_wall:.3f}x a "
+          f"step (device {r_dev / s_dev:.3f}x), so the break-even is "
+          f"{r_wall / s_wall - 1:.3f} accepted drafts a row round (device "
+          f"{r_dev / s_dev - 1:.3f}; the pool's threshold {threshold:.2f}); "
+          f"the round's top kernels: " + ", ".join(
+              f"{name[:40]} {100 * ms / r_all:.1f}%"
+              for name, ms in r_top[:5]) + f", on {smi}")
+    check(r_dev > 0 and s_dev > 0, "spec pool: no device time")
+
+    lv = pool_verify_logits(engine, pool, ids, frames, lens)
+    ls, _ = pooled_logits(engine, pool, ids, frames, lens)
+    check(bool(torch.isfinite(lv).all()), "spec pool: verify logits")
+    diff = max_err(lv[:, 0], ls[1])
+    print(f"spec pool: the first verify round's logits ({BATCH_ROWS} rows x "
+          f"{lv.shape[1]}; each row's first against the plain pool's first "
+          f"pooled step) max abs diff {diff:.4e} (tol {BATCH_LOGIT_TOL}), "
+          f"greedy tokens agree in "
+          f"{int((lv[:, 0].argmax(-1) == ls[1].argmax(-1)).sum())} of "
+          f"{BATCH_ROWS}")
+    check(diff <= BATCH_LOGIT_TOL, "spec pool: verify logits beyond the "
+          "pooled bar")
+    print(f"spec pool: {time.perf_counter() - t_pool:.1f} s wall",
+          flush=True)
     return counts
 
 
 def serve_batch_path(smi: str, gen, work: Path) -> list:
     """Batched serving, batch_infer's configuration: K7 (the card's read
-    rate), K6 and its T3 variant at the fused Valley-7B shapes (rows 8 and
-    1), K1 and K3-int8 at the pool's shapes, against their plain versions;
-    then the slice on random Valley-7B bf16 weights, fused.  Returns its
-    kernels entries."""
+    rate), K6 and its T3 variant at the fused Valley-7B shapes (the pool's
+    rows; K6 also at 1 and 8), K1 and K3-int8 at the pool's shapes, against their plain
+    versions; then the slice on random Valley-7B bf16 weights, fused, and
+    the speculative pool.  Returns its kernels entries."""
     from valley_tpu_torch import SpecialTokens, valley_7b
     from valley_tpu_torch.data.synthetic import BENCH_TOKENS
     from valley_tpu_torch.models.llama import fuse_llama_params
@@ -2565,6 +3240,10 @@ def serve_batch_path(smi: str, gen, work: Path) -> list:
     k6_err, k6_t, _ = k6_phase(gen, K6_SHAPES_FUSED, BATCH_ROWS, layers)
     k6_err = max(k6_err, k6_phase(gen, K6_SHAPES_FUSED, 1, layers)[0],
                  k6_checks(gen))
+    # at 8 rows, the pool's width before it reached batch_infer's 16
+    b8_launches = bf16_matvec.launches
+    k6b8_err, k6b8_t, _ = k6_phase(gen, K6_SHAPES_FUSED, 8, layers)
+    b8_launches = bf16_matvec.launches - b8_launches
     round_launches = bf16_matvec.launches
     k6r_err, k6r_t, _ = k6_phase(gen, K6_SHAPES_FUSED, BATCH_ROWS, layers,
                                  round_products=True)
@@ -2575,14 +3254,30 @@ def serve_batch_path(smi: str, gen, work: Path) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     params = fuse_llama_params(random_weights(cfg))
-    counts = batch_slice(cfg, params, smi)
-    return [{**K1_SRC, "name": "flash_fwd_batch", "path": "serve_batch",
+    counts, plain_tps = batch_slice(cfg, params, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_counts = spec_pool_slice(cfg, params, smi, plain_tps)
+    spec_entries = [
+        {**K1_SRC, "name": "flash_fwd_spec_pool", "path": "serve_batch_spec",
+         "launches": spec_counts["K1"], "max_abs_err": k1_err, **k1_t},
+        {**K3_SRC, "name": "decode_attn_int8_spec_pool",
+         "path": "serve_batch_spec", "launches": spec_counts["K3-int8"],
+         "max_abs_err": k3q_err, **k3q_t},
+        {**K6_SRC, "name": "bf16_matvec_spec_pool",
+         "path": "serve_batch_spec", "launches": spec_counts["K6"],
+         "max_abs_err": k6_err, **k6_t}]
+    return [e for e in spec_entries if e["launches"]] + [
+            {**K1_SRC, "name": "flash_fwd_batch", "path": "serve_batch",
              "launches": counts["K1"], "max_abs_err": k1_err, **k1_t},
             {**K3_SRC, "name": "decode_attn_int8_batch",
              "path": "serve_batch", "launches": counts["K3-int8"],
              "max_abs_err": k3q_err, **k3q_t},
             {**K6_SRC, "path": "serve_batch", "launches": counts["K6"],
              "max_abs_err": k6_err, **k6_t},
+            {**K6_SRC, "name": "bf16_matvec_B8",
+             "path": "serve_batch, GEMV phase only (an 8-row pool step)",
+             "launches": b8_launches, "max_abs_err": k6b8_err, **k6b8_t},
             {**K6_SRC, "name": "bf16_matvec_round",
              "replaces": "tools/exp_pallas_gemv2.py:73",
              "path": "serve_batch, GEMV phase only (not on the main path)",

@@ -519,8 +519,16 @@ def test_idle_row_parks_at_the_last_slot(jeng, teng):
 
 
 def test_unported_pool_options_raise(teng):
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ContinuousEngine(teng, rows=1, speculative=True)
+    """Admission from a PrefixCache is refused; the speculative pool, once
+    refused, is built with JAX's SpecConfig defaults and a history row of
+    smax + D + 1 tokens."""
+    spec = ContinuousEngine(teng, rows=1, bucket=64, extra_slots=8,
+                            speculative=True)
+    try:
+        assert spec._spec.draft_len == 8 and spec._spec.ngram == 4
+        assert spec._state.hist.shape == (1, spec.smax + 9)
+    finally:
+        spec.close()
     c = ContinuousEngine(teng, rows=1, bucket=64, extra_slots=8)
     try:
         with pytest.raises(NotImplementedError, match="PrefixCache"):
@@ -677,8 +685,12 @@ def test_batch_infer_loaders_and_refusals(tmp_path, monkeypatch):
         '{"id": "a"}\n{"broken json\n{"noid": 1}\n')
     assert batch_infer._done_ids(str(tmp_path / "out.jsonl")) == {"a"}
     _write_jsonl(tmp_path / "in.jsonl", [{"id": "q", "query": "hi"}])
-    with pytest.raises(NotImplementedError, match="speculative"):
-        batch_infer.run_batch(_args(tmp_path, ["--speculative"]))
+    # --speculative, once refused, answers
+    summary = batch_infer.run_batch(_args(tmp_path, ["--speculative"]))
+    assert summary["ran"] == 1 and summary["errors"] == 0
+    (tmp_path / "out.jsonl").unlink()
+    with pytest.raises(NotImplementedError, match="lora"):
+        batch_infer.run_batch(_args(tmp_path, ["--lora-path", "x"]))
     # without --device cpu it wants the card, and there is none here
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _args(tmp_path)

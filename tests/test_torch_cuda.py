@@ -35,6 +35,7 @@ from valley_tpu_torch.data.dataset import (DataCollatorForSupervisedDataset,
 from valley_tpu_torch.inference.continuous import ContinuousEngine, _drain
 from valley_tpu_torch.inference.engine import (ChatSession, Engine,
                                                GenerationConfig)
+from valley_tpu_torch.inference.speculative import SpecConfig, SpecDecoder
 from valley_tpu_torch.models import llama, valley
 from valley_tpu_torch.ops import decode_lab
 from valley_tpu_torch.ops.attention import KERNELS, PLAIN
@@ -360,7 +361,7 @@ def test_int8_matvec_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError, match="multiple of 16"):
         int8_matvec(x[:, :24].contiguous(), w[:, :24].contiguous(), scale)
     with pytest.raises(ValueError, match="rows"):
-        int8_matvec(_randn(gen, 9, 4096), w, scale)
+        int8_matvec(_randn(gen, 17, 4096), w, scale)
     with pytest.raises(TypeError):
         int8_matvec(x.float(), w, scale)
     with pytest.raises(ValueError, match="contiguous"):
@@ -636,7 +637,7 @@ def test_int4_matvec_kernel_refuses_what_it_cannot_take(gen):
     with pytest.raises(ValueError, match="aligned"):
         int4_matvec(buf[2:].view(1, k), w, scale)
     with pytest.raises(ValueError, match="rows"):
-        int4_matvec(_randn(gen, 9, k), w, scale)
+        int4_matvec(_randn(gen, 17, k), w, scale)
     with pytest.raises(ValueError, match="multiple of 32"):
         int4_matvec(x[:, :48].contiguous(), w[:, :24].contiguous(),
                     scale[:, :1].contiguous())
@@ -748,7 +749,7 @@ def test_bf16_matvec_kernel_refuses_what_it_cannot_take(gen):
     x = _randn(gen, 1, k)
     w = _randn(gen, 64, k)
     with pytest.raises(ValueError, match="rows"):
-        bf16_matvec(_randn(gen, 9, k), w)
+        bf16_matvec(_randn(gen, 17, k), w)
     buf = _randn(gen, k + 2)
     with pytest.raises(ValueError, match="aligned"):
         bf16_matvec(buf[2:].view(1, k), w)
@@ -957,8 +958,9 @@ def test_tiny_chat_session_on_the_card(gen):
     """Two turns of a `ChatSession` on the tiny bf16 model with a bf16
     cache on the card: K1 once per layer for the prefill, K3 once per layer
     per decode step, K6 seven times per layer per decode step plus one
-    lm_head row per step, prefill and extend (the extend's chunk of 16+
-    rows goes to cuBLAS and its attention is the plain one)."""
+    lm_head row per step, prefill and extend, and seven times per layer for
+    the extend's 16-row chunk (up to 16 rows take the GEMV; the extend's
+    attention is the plain one)."""
     cfg = valley_tiny()
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                                 torch.bfloat16, "cuda")
@@ -976,7 +978,8 @@ def test_tiny_chat_session_on_the_card(gen):
     assert (sess.prefills, sess.extends, sess.decode_steps) == (1, 1, 10)
     assert flash_attention.launches - counts[0] == layers
     assert decode_attention_stacked.launches - counts[1] == layers * 10
-    assert bf16_matvec.launches - counts[2] == (7 * layers + 1) * 10 + 2
+    assert bf16_matvec.launches - counts[2] == \
+        (7 * layers + 1) * 10 + 2 + 7 * layers
 
 
 # -- decode by CUDA graph -----------------------------------------------------
@@ -1145,3 +1148,151 @@ def test_a_synchronising_step_makes_capture_raise(gen):
                                     GenerationConfig(max_new_tokens=4),
                                     eos_ids=[-1], eager=True))
     assert len(toks) == 4
+
+
+# -- speculative verify rounds ------------------------------------------------
+
+VERIFY_ROWS = (9, 12, 16)
+
+
+def _alone_equal(fn, x, *args):
+    """Each row of fn(x, ...) is bit-equal to the same row alone."""
+    out = fn(x, *args)
+    for r in range(x.shape[0]):
+        assert torch.equal(fn(x[r:r + 1].contiguous(), *args)[0], out[r])
+    return out
+
+
+@pytest.mark.parametrize("b", VERIFY_ROWS)
+@pytest.mark.parametrize("k,f,kf", [
+    (4096, 12288, False), (11008, 4096, False), (4096, 32000, True),
+    (4096, 1000, False), (72, 1000, True), (64, 33, True)])
+def test_bf16_matvec_verify_rows_match_plain(gen, b, k, f, kf):
+    """K6 at a verify round's 9 rows, 12 and 16 (two n8 tiles; an F not a
+    multiple of 8 in (K, F) takes two CUDA-core launches): the plain
+    version's result within the bar, each row bit-equal to the same row
+    alone, and the planted fault (every row reading row 0's activations)
+    caught."""
+    x = _randn(gen, b, k)
+    w = (_randn(gen, k, f) if kf else _randn(gen, f, k)) * k ** -0.5
+    before = bf16_matvec.launches
+    out = bf16_matvec(x, w, kf)
+    torch.cuda.synchronize()
+    assert bf16_matvec.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (b, f)
+    err, tol = _err_and_tol(out, bf16_matvec_plain(x, w, kf))
+    assert err <= tol
+    _alone_equal(lambda xx, ww: bf16_matvec(xx, ww, kf), x, w)
+    fault, _ = _err_and_tol(bf16_matvec(x[:1].expand(b, k).contiguous(), w,
+                                        kf), bf16_matvec_plain(x, w, kf))
+    assert fault > tol
+
+
+@pytest.mark.parametrize("b", VERIFY_ROWS)
+@pytest.mark.parametrize("k,f", [(4096, 12288), (11008, 4096),
+                                 (4096, 32000), (64, 33)])
+def test_int8_matvec_verify_rows_match_plain(gen, b, k, f):
+    """K4's 9-16-row template: the plain version within the bar, each row
+    bit-equal to the same row alone (the B = 1 template), the shifted
+    scales caught."""
+    x = _randn(gen, b, k)
+    w, scale = _int8_weight(gen, f, k)
+    ref = int8_matvec_plain(x, w, scale)
+    err, tol = _err_and_tol(_alone_equal(int8_matvec, x, w, scale), ref)
+    assert err <= tol
+    fault, _ = _err_and_tol(int8_matvec(x, w, scale.roll(1)), ref)
+    assert fault > tol
+
+
+@pytest.mark.parametrize("b", VERIFY_ROWS)
+@pytest.mark.parametrize("k,f,group", [
+    (5120, 15360, 128), (13824, 5120, 128), (5120, 32000, 0),
+    (11008, 4096, 128), (96, 40, 16)])
+def test_int4_matvec_verify_rows_match_plain(gen, b, k, f, group):
+    """K5's 9-16-row template (one row a warp) at Valley-13B's and 7B's
+    widths, per channel and with 8-weight groups: the plain version within
+    the bar, each row bit-equal to the same row alone (the B = 1 template,
+    four rows a warp), the shifted group scales caught."""
+    x = _randn(gen, b, k)
+    w, scale = _int4_weight(gen, f, k, group)
+    ref = int4_matvec_plain(x, w, scale)
+    err, tol = _err_and_tol(_alone_equal(int4_matvec, x, w, scale), ref)
+    assert err <= tol
+    shifted = scale.roll(1, dims=-1) if scale.dim() == 2 else scale.roll(1)
+    fault, _ = _err_and_tol(int4_matvec(x, w, shifted.contiguous()), ref)
+    assert fault > tol
+
+
+@pytest.mark.parametrize("kind", list(GRAPH_TREES))
+def test_speculative_graph_rounds_match_eager_rounds(gen, kind):
+    """`SpecDecoder` on the card replays one graph per (R, do_sample): two
+    requests in a row give the tokens and launches of the same rounds run
+    eagerly, greedy with every round kept (threshold 0) and with the
+    adaptive fallback to the engine's decode graph (threshold 10); a
+    sampled request repeats under its seed."""
+    cfg, params = _tiny_tree(kind)
+    eng = Engine(cfg, params, buckets=(64, 128), max_new_tokens=24,
+                 cache_dtype=GRAPH_TREES[kind], steps_per_call=4)
+    rng = np.random.default_rng(5)
+    prompts = [[1] + [7, 8, 9, 7, 8, 9, 7, 8] * 10,
+               rng.integers(5, 400, 100).tolist()]
+    for threshold in (0.0, 10.0):
+        dec = SpecDecoder(eng, SpecConfig(draft_len=4, rounds_per_call=3,
+                                          probe_rounds=2,
+                                          disable_below=threshold))
+
+        def run(prompt, eager, **kw):
+            return list(dec.generate_tokens(
+                prompt, None, GenerationConfig(max_new_tokens=24, **kw),
+                eos_ids=[-1], eager=eager))
+
+        run(prompts[0], False)                      # captures
+        for prompt in prompts:
+            graph, graph_n = _counted(lambda: run(prompt, False))
+            eager, eager_n = _counted(lambda: run(prompt, True))
+            assert len(graph) == 24 and graph == eager
+            assert graph_n == eager_n
+        sampled = [run(prompts[1], False, do_sample=True, temperature=0.9,
+                       seed=s) for s in (3, 3, 4)]
+        assert sampled[0] == sampled[1] != sampled[2]
+    keys = {k: set(g.keys()) for k, g in dec.graph_sets.items()}
+    assert set(keys) == {(128, 128 + 24 + 3 * 5)}
+    assert keys[(128, 152 + 15)] == {(2, False), (3, False), (2, True),
+                                     (3, True)}
+
+
+def test_speculative_graph_pool_matches_the_eager_pool(gen):
+    """The speculative pool's round graphs give every greedy request the
+    tokens of the same traffic through the eager speculative pool."""
+    cfg, params = _tiny_tree("bf16")
+    params = llama.fuse_llama_params(params)
+    eng = Engine(cfg, params, buckets=(64, 128), max_new_tokens=16,
+                 cache_dtype=torch.int8, steps_per_call=4)
+    rng = np.random.default_rng(3)
+    reqs = [([1] + [7, 8, 9] * 20, 0.0), (rng.integers(5, 400, 30).tolist(),
+                                          0.0),
+            (rng.integers(5, 400, 50).tolist(), 0.9)]
+    results = []
+    for eager in (False, True):
+        pool = ContinuousEngine(eng, rows=3, bucket=128, extra_slots=48,
+                                steps_per_call=4, decode_ramp=(2,),
+                                speculative=True, eager=eager,
+                                spec=SpecConfig(draft_len=4,
+                                                rounds_per_call=2,
+                                                disable_below=0.0))
+        try:
+            pool.warmup()
+            queues = [pool.submit(p, temperature=t, max_new_tokens=12,
+                                  eos_id=-1) for p, t in reqs]
+            toks = [list(_drain(q, timeout=120)) for q in queues]
+            assert pool.rounds_run > 0
+            if not eager:
+                assert {(2, True), (4, True)} <= set(
+                    pool._spec_graphs.keys())
+        finally:
+            pool.close()
+        results.append(toks)
+    for (_, t), g, e in zip(reqs, *results):
+        assert len(g) == len(e) == 12
+        if t == 0.0:
+            assert g == e

@@ -161,6 +161,32 @@ def test_int4_matvec_plain_matches_pallas_grouped(n, k):
                                rtol=0, atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("rows", [9, 16])
+def test_int4_matvec_plain_matches_pallas_grouped_at_verify_rows(rows):
+    """A speculative verify round's 9 rows and 16 rows: the Pallas grouped
+    GEMV takes one row, so each row goes through it alone (interpret mode)
+    against the port's plain version of all the rows at once, within 1e-5
+    of the largest output."""
+    mod = _exp_int4_group()
+    rng = np.random.default_rng(rows)
+    n, k = 256, 512
+    g = k // 128
+    x = jnp.asarray(rng.standard_normal((rows, k)), jnp.bfloat16)
+    w8 = rng.integers(-7, 8, (n, k)).astype(np.int8)
+    s = jnp.asarray(rng.standard_normal((n, g)) * .01 + 1, jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.concatenate([np.asarray(mod._with_dims(
+            mod.pallas_grouped, x[r:r + 1], jnp.asarray(w8).astype(jnp.int4),
+            None, s, n, k, g)) for r in range(rows)])
+    got = quant.int4_matvec(torch.from_numpy(_np(x)).bfloat16(),
+                            quant.pack_int4(torch.from_numpy(w8)),
+                            torch.from_numpy(_np(s)).bfloat16())
+    assert got.dtype == torch.float32 and got.shape == (rows, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert quant.int4_matvec.launches == 0
+
+
 @pytest.fixture(scope="module")
 def int4_trees(cfg):
     """Fused int4gp JAX trees (fp32 float leaves) at group 32 and per

@@ -48,7 +48,8 @@ def _bf16(rng, shape, scale=1.0):
 
 
 @pytest.mark.parametrize("rows,h,f", [(1, 256, 384), (8, 512, 256),
-                                      (3, 384, 128)])
+                                      (3, 384, 128), (9, 256, 384),
+                                      (16, 512, 256)])
 def test_bf16_matvec_plain_matches_pallas_t1(rows, h, f):
     """T1 takes w (H, F), the (K, F) layout; the port's plain version takes
     it with ``kf`` and its transpose without.  fp32 outputs agree to 1e-5
@@ -196,7 +197,7 @@ class _Spy:
         return Attention(KERNELS.prefill, KERNELS.decode, self.matvec)
 
 
-@pytest.mark.parametrize("rows", [1, 3, 8, 9, 64])
+@pytest.mark.parametrize("rows", [1, 3, 8, 9, 16, 17, 64])
 def test_router_sends_few_bf16_rows_to_the_gemv(rows):
     """Up to MAX_ROWS rows of a bf16 weight (both layouts) take the GEMV,
     fp32 out; more take the library's product in x's dtype; an fp32 weight
@@ -263,3 +264,32 @@ def test_proj_and_logits_route_bf16_decode_through_matvec():
     torch.testing.assert_close(
         logits, (x.float() @ params["lm_head"].float()), atol=1e-5,
         rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [9, 16, 17])
+@pytest.mark.parametrize("storage", ["int8", "int4"])
+def test_router_sends_quantized_verify_rows_to_the_gemv(rows, storage):
+    """A speculative verify round's 9 rows and a 16-row pool step of an
+    int8 or packed-int4 weight take the GEMV (K4 or K5), fp32 out; 17 rows
+    take the library's path (int8: the plain product; int4: the
+    dequantized matrix), whose result agrees."""
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.standard_normal((1, rows, 64)).astype(
+        np.float32)).bfloat16()
+    wf = torch.from_numpy(rng.standard_normal((48, 64)).astype(
+        np.float32) / 8).bfloat16()
+    if storage == "int8":
+        w, scale = quant.quantize_tensor(wf)
+    else:
+        w, scale = quant.quantize_tensor(wf, bits=4, group_size=32)
+        w = quant.pack_int4(w)
+    spy = _Spy()
+    with torch.no_grad():
+        y = llama._linear(x, w, scale, spy.attention())
+    gemv = rows <= quant.MAX_ROWS
+    assert spy.rows == ([(rows, w.dtype, False)] if gemv else [])
+    assert y.shape == (1, rows, 48)
+    assert y.dtype == (torch.float32 if gemv or storage == "int8"
+                       else torch.bfloat16)
+    want = mv.matvec_plain(x[0], w, scale)
+    torch.testing.assert_close(y[0].float(), want, atol=0.05, rtol=0.02)

@@ -120,7 +120,9 @@ def test_unserved_modes_raise():
 
 
 @pytest.mark.parametrize("b,k,f,block_f", [(1, 256, 384, 128),
-                                           (3, 512, 200, 512)])
+                                           (3, 512, 200, 512),
+                                           (9, 256, 384, 128),
+                                           (16, 512, 200, 512)])
 def test_int8_matvec_plain_matches_jax_kernel(b, k, f, block_f):
     """JAX's Pallas kernel (interpret mode) takes w (in, out) and a (1, F)
     scale; the port's takes w (out, in) and an (F,) scale.  fp32 outputs

@@ -303,10 +303,20 @@ def test_prefix_cache_spawns_identical_to_jax(cfg, trees, media):
 
 
 def test_speculative_spawn_is_not_ported(cfg, trees):
+    """Once refused; now `spawn(speculative=True)` gives a SpecChatSession
+    whose lookup history starts with the prefix and whose turn equals the
+    plain spawn's."""
+    from valley_tpu_torch.inference.speculative import SpecChatSession
+
     _, teng = _engines(cfg, trees)
-    pc = engine.PrefixCache(teng, list(range(10, 20)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pc.spawn(speculative=True)
+    pc = engine.PrefixCache(teng, list(range(10, 20)),
+                            gen=engine.GenerationConfig(max_new_tokens=5,
+                                                        do_sample=False))
+    sess = pc.spawn(speculative=True)
+    assert isinstance(sess, SpecChatSession)
+    assert sess._hist == list(range(10, 20))
+    assert sess.chat([30, 31], eos_ids=[-1]) == \
+        pc.spawn().chat([30, 31], eos_ids=[-1])
 
 
 def _frame_dir(path, n=4):

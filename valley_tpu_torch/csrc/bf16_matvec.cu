@@ -7,8 +7,9 @@
 // (T3: each product rounded to bf16, the products summed in fp32).
 //   w (F, K), the decoder's projections:  y[b, o] = sum_k x[b, k] * w[o, k]
 //   w (K, F), T1's layout and lm_head's:  y[b, o] = sum_k x[b, k] * w[k, o]
-// bf16 activations (B <= 8 rows), bf16 weights, fp32 products and sums,
-// fp32 output.
+// bf16 activations (B <= 16 rows: a decode step of up to 8 rows, or a
+// speculative verify round of D + 1 = 9 tokens), bf16 weights, fp32
+// products and sums, fp32 output.
 //
 // What bounds it on the H100: device-memory bytes.  Each weight is read
 // once per call and used for B multiply-adds (2 FLOP per 2-byte weight at
@@ -22,7 +23,9 @@
 // What the design does about it.  The multiply-adds run on the tensor
 // cores, one path for every B.  (F, K), the decoder's projections: a warp
 // takes 16 output rows and mma.sync.m16n8k16 (bf16 operands, fp32 sums)
-// with N = 8 = MAX_ROWS activation rows, rows past B zero.  A sum over k
+// with N = 8 activation rows, rows past B zero; 9 to 16 rows take a second
+// n8 tile (NT8 = 2) whose products reuse each lane's A (weight) fragments,
+// so the weights are still read once.  A sum over k
 // may take k in any order as long as x takes the same order, so lane
 // (g = lane / 4, t = lane % 4) loads VPL = 2 neighbouring 16-byte vectors
 // of weight rows g and g + 8 straight from device memory (streaming loads;
@@ -42,7 +45,8 @@
 // 16-byte vectors now run along F, so each 32-bit word of them, taken over
 // the warp, is an 8 x 8 (k x output) tile that movmatrix transposes into
 // an A fragment (outputs as rows), k in natural order.  An F that is not a
-// multiple of 8 (or an odd K) and the T3 variant stay on the CUDA cores:
+// multiple of 8 (or an odd K) and the T3 variant stay on the CUDA cores
+// (9 to 16 rows there: two launches, rows 0-7 and the rest):
 // each thread owns 8 neighbouring outputs (one 16-byte vector along F, so
 // a warp reads 512 contiguous bytes of a row of w), a block's 16 warps
 // split K, and the 16 partial sums of an output are added in shared memory
@@ -62,7 +66,8 @@
 
 namespace {
 
-constexpr int MAX_ROWS = 8;   // activation rows B a launch takes
+constexpr int MAX_ROWS = 16;  // activation rows B a launch takes
+constexpr int N8 = 8;         // the mma's N: activation rows of one tile
 constexpr int NT = 256;       // T3's (F, K): threads a block (8 warps)
 constexpr int NW = NT / 32;
 constexpr int UNROLL = 4;     // 16-byte weight loads in flight per lane
@@ -71,7 +76,7 @@ constexpr int MW = 8;         // (F, K) mma: warps of a block, each a K slice
 constexpr int MU = 2;         // mma kernels: steps in flight a warp
 constexpr int VPL = 2;        // mma kernels: neighbouring vectors a lane loads
 constexpr int MWK = 4;        // (K, F) mma: warps of a block, each a K slice
-static_assert(MAX_ROWS == 8, "the mma's N is the 8 activation rows");
+static_assert(MAX_ROWS == 2 * N8, "at most two n8 tiles of rows");
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -125,14 +130,18 @@ __device__ __forceinline__ uint4 ld_w(const uint4* p) { return __ldcs(p); }
 
 // A lane's share of one step of the (F, K) mma kernel: for each of MU
 // groups of 4 VPL vectors (a row's 32 VPL values), VPL neighbouring 16-byte
-// vectors of weight rows g and g + 8 and of x row g.
+// vectors of weight rows g and g + 8 and of x row g (and g + 8 with a
+// second tile of rows, NT8 = 2).
 constexpr int GV = 4 * VPL;            // vectors a group spans (a row)
+template <int NT8>
 struct Frag {
-  uint4 a0[MU][VPL], a1[MU][VPL], bx[MU][VPL];
+  uint4 a0[MU][VPL], a1[MU][VPL], bx[NT8][MU][VPL];
 };
 
-__device__ __forceinline__ void load_frag(Frag& f, const uint4* w0,
-                                          const uint4* w1, const uint4* xr,
+template <int NT8>
+__device__ __forceinline__ void load_frag(Frag<NT8>& f, const uint4* w0,
+                                          const uint4* w1,
+                                          const uint4* (&xr)[NT8],
                                           int j0, int t, int nvec) {
 #pragma unroll
   for (int u = 0; u < MU; ++u)
@@ -141,14 +150,17 @@ __device__ __forceinline__ void load_frag(Frag& f, const uint4* w0,
       const int v = min((j0 + u) * GV + VPL * t + h, nvec - 1);
       f.a0[u][h] = ld_w(w0 + v);
       f.a1[u][h] = ld_w(w1 + v);
-      f.bx[u][h] = __ldg(xr + v);
+#pragma unroll
+      for (int n = 0; n < NT8; ++n) f.bx[n][u][h] = __ldg(xr[n] + v);
     }
 }
 
 // The products of a loaded step: what lies past K, F or B is zeroed first.
-__device__ __forceinline__ void mma_frag(float (&c)[4], Frag& f, int j0,
-                                         int t, int nvec, bool ok0, bool ok1,
-                                         bool okx) {
+// Each tile of rows takes the same A fragments and the same k order.
+template <int NT8>
+__device__ __forceinline__ void mma_frag(float (&c)[NT8][4], Frag<NT8>& f,
+                                         int j0, int t, int nvec, bool ok0,
+                                         bool ok1, bool (&okx)[NT8]) {
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
   for (int u = 0; u < MU; ++u)
@@ -157,58 +169,80 @@ __device__ __forceinline__ void mma_frag(float (&c)[4], Frag& f, int j0,
       const bool in = (j0 + u) * GV + VPL * t + h < nvec;
       if (!(in && ok0)) f.a0[u][h] = zero;
       if (!(in && ok1)) f.a1[u][h] = zero;
-      if (!(in && okx)) f.bx[u][h] = zero;
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+        if (!(in && okx[n])) f.bx[n][u][h] = zero;
       const uint32_t lo[4] = {f.a0[u][h].x, f.a1[u][h].x, f.a0[u][h].y,
                               f.a1[u][h].y};
-      flash::mma(c, lo, f.bx[u][h].x, f.bx[u][h].y);
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+        flash::mma(c[n], lo, f.bx[n][u][h].x, f.bx[n][u][h].y);
       const uint32_t hi[4] = {f.a0[u][h].z, f.a1[u][h].z, f.a0[u][h].w,
                               f.a1[u][h].w};
-      flash::mma(c, hi, f.bx[u][h].z, f.bx[u][h].w);
+#pragma unroll
+      for (int n = 0; n < NT8; ++n)
+        flash::mma(c[n], hi, f.bx[n][u][h].z, f.bx[n][u][h].w);
     }
 }
 
-// x: (B, K) bf16; w: (F, K) bf16; y: (B, F) fp32; K a multiple of 8.  Grid
-// ceil(F / 16), MW warps a block: block i owns outputs 16 i .. 16 i + 15,
-// warp w the groups w MU .. w MU + MU - 1, then those MW MU further on.
+// x: (B, K) bf16; w: (F, K) bf16; y: (B, F) fp32; K a multiple of 8; B at
+// most 8 NT8.  Grid ceil(F / 16), MW warps a block: block i owns outputs
+// 16 i .. 16 i + 15, warp w the groups w MU .. w MU + MU - 1, then those
+// MW MU further on.
+template <int NT8>
 __global__ void __launch_bounds__(MW * 32) bf16_matvec_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     float* __restrict__ y, int B, int K, int F) {
-  __shared__ float part[MW][4][32];
+  __shared__ float part[MW][4 * NT8][32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int o0 = blockIdx.x * 16;
-  const bool ok0 = o0 + g < F, ok1 = o0 + g + 8 < F, okx = g < B;
+  const bool ok0 = o0 + g < F, ok1 = o0 + g + 8 < F;
+  bool okx[NT8];
+  const uint4* xr[NT8];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n) {
+    okx[n] = N8 * n + g < B;
+    xr[n] = reinterpret_cast<const uint4*>(
+        x + (long long)min(N8 * n + g, B - 1) * K);
+  }
   const uint4* w0 = reinterpret_cast<const uint4*>(
       w + (long long)min(o0 + g, F - 1) * K);
   const uint4* w1 = reinterpret_cast<const uint4*>(
       w + (long long)min(o0 + g + 8, F - 1) * K);
-  const uint4* xr =
-      reinterpret_cast<const uint4*>(x + (long long)min(g, B - 1) * K);
   const int nvec = K / 8;               // 16-byte vectors a row
   const int ngroup = (nvec + GV - 1) / GV;
 
   // the next step's loads are issued before this step's products: left to
   // itself the compiler issues each step's loads just before their
   // products, and a warp then waits on memory once per step
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  Frag cur;
+  float c[NT8][4];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
+  Frag<NT8> cur;
   int j0 = warp * MU;
   if (j0 < ngroup) load_frag(cur, w0, w1, xr, j0, t, nvec);
   for (; j0 < ngroup; j0 += MW * MU) {
-    Frag nxt;
+    Frag<NT8> nxt;
     const int jn = j0 + MW * MU;
     if (jn < ngroup) load_frag(nxt, w0, w1, xr, jn, t, nvec);
     mma_frag(c, cur, j0, t, nvec, ok0, ok1, okx);
     cur = nxt;
   }
 
-  // c0, c1: row g, x rows 2t, 2t + 1; c2, c3: row g + 8, the same
+  // tile n's c0, c1: row g, x rows 8n + 2t, 8n + 2t + 1; c2, c3: row g + 8
 #pragma unroll
-  for (int i = 0; i < 4; ++i) part[warp][i][lane] = c[i];
+  for (int n = 0; n < NT8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) part[warp][4 * n + i][lane] = c[n][i];
   __syncthreads();
-  if (threadIdx.x < 128) {
+  if (threadIdx.x < 128 * NT8) {
     const int n = threadIdx.x / 16, m = threadIdx.x % 16;
-    const int src = (m % 8) * 4 + n / 2, i = (m / 8) * 2 + n % 2;
+    const int nn = n % N8;
+    const int src = (m % 8) * 4 + nn / 2;
+    const int i = 4 * (n / N8) + (m / 8) * 2 + nn % 2;
     float s = 0.f;
 #pragma unroll
     for (int ww = 0; ww < MW; ++ww) s += part[ww][i][src];
@@ -234,16 +268,18 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t v) {
 // order, so x's B fragments are its plain 4-byte words.  Tiles 2p and
 // 2p + 1 (tile index 4 h + j) are product p's rows 0-7 and 8-15.
 constexpr int KT = 4 * VPL;            // output tiles of 8 a step
+template <int NT8>
 struct FragKF {
   uint4 w0[MU][VPL], w1[MU][VPL];      // rows k0 + g, k0 + 8 + g
-  uint32_t b0[MU], b1[MU];             // x row g at k0 + 2t, k0 + 8 + 2t
+  // x row 8n + g at k0 + 2t, k0 + 8 + 2t
+  uint32_t b0[NT8][MU], b1[NT8][MU];
 };
 
-__device__ __forceinline__ void load_kf(FragKF& f,
-                                        const __nv_bfloat16* __restrict__ w,
-                                        const uint32_t* __restrict__ xw,
-                                        int j0, int g, int t, int o0, int K,
-                                        int F) {
+template <int NT8>
+__device__ __forceinline__ void load_kf(
+    FragKF<NT8>& f, const __nv_bfloat16* __restrict__ w,
+    const uint32_t* (&xw)[NT8], int j0, int g, int t, int o0, int K,
+    int F) {
 #pragma unroll
   for (int u = 0; u < MU; ++u) {
     const int k0 = (j0 + u) * 16;
@@ -254,14 +290,19 @@ __device__ __forceinline__ void load_kf(FragKF& f,
       f.w0[u][h] = ld_w(reinterpret_cast<const uint4*>(w + r0 * F + oc));
       f.w1[u][h] = ld_w(reinterpret_cast<const uint4*>(w + r1 * F + oc));
     }
-    f.b0[u] = __ldg(xw + min(k0 + 2 * t, K - 2) / 2);
-    f.b1[u] = __ldg(xw + min(k0 + 8 + 2 * t, K - 2) / 2);
+#pragma unroll
+    for (int n = 0; n < NT8; ++n) {
+      f.b0[n][u] = __ldg(xw[n] + min(k0 + 2 * t, K - 2) / 2);
+      f.b1[n][u] = __ldg(xw[n] + min(k0 + 8 + 2 * t, K - 2) / 2);
+    }
   }
 }
 
-__device__ __forceinline__ void mma_kf(float (&c)[2 * VPL][4], FragKF& f,
-                                       int j0, int g, int t, int o0, int K,
-                                       int F, bool okx) {
+template <int NT8>
+__device__ __forceinline__ void mma_kf(float (&c)[NT8][2 * VPL][4],
+                                       FragKF<NT8>& f, int j0, int g, int t,
+                                       int o0, int K, int F,
+                                       bool (&okx)[NT8]) {
 #pragma unroll
   for (int u = 0; u < MU; ++u) {
     const int k0 = (j0 + u) * 16;
@@ -280,43 +321,55 @@ __device__ __forceinline__ void mma_kf(float (&c)[2 * VPL][4], FragKF& f,
         a1[4 * h + j] = transpose8x8(col && in1 ? v1[j] : 0u);
       }
     }
-    const uint32_t b0 = okx && k0 + 2 * t < K ? f.b0[u] : 0u;
-    const uint32_t b1 = okx && k0 + 8 + 2 * t < K ? f.b1[u] : 0u;
 #pragma unroll
-    for (int p = 0; p < 2 * VPL; ++p) {
-      const uint32_t a[4] = {a0[2 * p], a0[2 * p + 1], a1[2 * p],
-                             a1[2 * p + 1]};
-      flash::mma(c[p], a, b0, b1);
+    for (int n = 0; n < NT8; ++n) {
+      const uint32_t b0 = okx[n] && k0 + 2 * t < K ? f.b0[n][u] : 0u;
+      const uint32_t b1 = okx[n] && k0 + 8 + 2 * t < K ? f.b1[n][u] : 0u;
+#pragma unroll
+      for (int p = 0; p < 2 * VPL; ++p) {
+        const uint32_t a[4] = {a0[2 * p], a0[2 * p + 1], a1[2 * p],
+                               a1[2 * p + 1]};
+        flash::mma(c[n][p], a, b0, b1);
+      }
     }
   }
 }
 
-// x: (B, K) bf16, K even; w: (K, F) bf16, F a multiple of 8; y: (B, F)
-// fp32.  Grid ceil(F / (32 VPL)), MWK warps a block: block i owns outputs
-// 32 VPL i .. + 32 VPL - 1, warp w the 16-row steps w MU .. w MU + MU - 1,
-// then those MWK MU further on; the warps' sums are added in warp order.
+// x: (B, K) bf16, K even, B at most 8 NT8; w: (K, F) bf16, F a multiple of
+// 8; y: (B, F) fp32.  Grid ceil(F / (32 VPL)), MWK warps a block: block i
+// owns outputs 32 VPL i .. + 32 VPL - 1, warp w the 16-row steps
+// w MU .. w MU + MU - 1, then those MWK MU further on; the warps' sums are
+// added in warp order.
+template <int NT8>
 __global__ void __launch_bounds__(MWK * 32) bf16_matvec_kf_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     float* __restrict__ y, int B, int K, int F) {
-  __shared__ float part[MWK][2 * VPL][4][32];
+  __shared__ float part[MWK][NT8][2 * VPL][4][32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int o0 = blockIdx.x * 32 * VPL;
-  const bool okx = g < B;
-  const uint32_t* xw =
-      reinterpret_cast<const uint32_t*>(x + (long long)min(g, B - 1) * K);
+  bool okx[NT8];
+  const uint32_t* xw[NT8];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n) {
+    okx[n] = N8 * n + g < B;
+    xw[n] = reinterpret_cast<const uint32_t*>(
+        x + (long long)min(N8 * n + g, B - 1) * K);
+  }
   const int nstep = (K + 15) / 16;
 
-  float c[2 * VPL][4];
+  float c[NT8][2 * VPL][4];
 #pragma unroll
-  for (int p = 0; p < 2 * VPL; ++p)
+  for (int n = 0; n < NT8; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) c[p][i] = 0.f;
-  FragKF cur;
+    for (int p = 0; p < 2 * VPL; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[n][p][i] = 0.f;
+  FragKF<NT8> cur;
   int j0 = warp * MU;
   if (j0 < nstep) load_kf(cur, w, xw, j0, g, t, o0, K, F);
   for (; j0 < nstep; j0 += MWK * MU) {
-    FragKF nxt;
+    FragKF<NT8> nxt;
     const int jn = j0 + MWK * MU;
     if (jn < nstep) load_kf(nxt, w, xw, jn, g, t, o0, K, F);
     mma_kf(c, cur, j0, g, t, o0, K, F, okx);
@@ -324,21 +377,24 @@ __global__ void __launch_bounds__(MWK * 32) bf16_matvec_kf_mma_kernel(
   }
 
 #pragma unroll
-  for (int p = 0; p < 2 * VPL; ++p)
+  for (int n = 0; n < NT8; ++n)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) part[warp][p][i][lane] = c[p][i];
+    for (int p = 0; p < 2 * VPL; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[warp][n][p][i][lane] = c[n][p][i];
   __syncthreads();
   // product p's row m is column m % 8 of tile T = 2 p + m / 8 (h = T / 4,
-  // j = T % 4): output o0 + 8 (VPL (m % 8) / 2 + h) + 2 j + m % 2
-  for (int e = threadIdx.x; e < 8 * 32 * VPL; e += MWK * 32) {
+  // j = T % 4): output o0 + 8 (VPL (m % 8) / 2 + h) + 2 j + m % 2; x row
+  // n is column n % 8 of row tile n / 8
+  for (int e = threadIdx.x; e < N8 * NT8 * 32 * VPL; e += MWK * 32) {
     const int n = e / (32 * VPL), q = e % (32 * VPL);
-    const int p = q / 16, m = q % 16;
+    const int p = q / 16, m = q % 16, nn = n % N8;
     const int tile = 2 * p + m / 8, h = tile / 4, j = tile % 4;
     const int o = o0 + 8 * (VPL * ((m % 8) / 2) + h) + 2 * j + m % 2;
-    const int src = (m % 8) * 4 + n / 2, i = (m / 8) * 2 + n % 2;
+    const int src = (m % 8) * 4 + nn / 2, i = (m / 8) * 2 + nn % 2;
     float s = 0.f;
 #pragma unroll
-    for (int ww = 0; ww < MWK; ++ww) s += part[ww][p][i][src];
+    for (int ww = 0; ww < MWK; ++ww) s += part[ww][n / N8][p][i][src];
     if (n < B && o < F) y[(long long)n * F + o] = s;
   }
 }
@@ -476,9 +532,19 @@ int launch(const void* x, const void* w, void* y, int K, int F, int kf,
   return (int)cudaGetLastError();
 }
 
+// The CUDA-core kernels, rows 0 .. 7 (9 to 16 rows: two launches, the
+// second over rows 8 ..).
 template <bool ROUND>
 int dispatch(const void* x, const void* w, void* y, int B, int K, int F,
              int kf, cudaStream_t st) {
+  if (B > N8) {
+    const int err = dispatch<ROUND>(x, w, y, N8, K, F, kf, st);
+    if (err) return err;
+    return dispatch<ROUND>(static_cast<const __nv_bfloat16*>(x) +
+                               (long long)N8 * K,
+                           w, static_cast<float*>(y) + (long long)N8 * F,
+                           B - N8, K, F, kf, st);
+  }
   switch (B) {
     case 1: return launch<1, ROUND>(x, w, y, K, F, kf, st);
     case 2: return launch<2, ROUND>(x, w, y, K, F, kf, st);
@@ -506,15 +572,23 @@ extern "C" int bf16_matvec(const void* x, const void* w, void* y, int B,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  float* yf = static_cast<float*>(y);
   if (!kf && !round) {
-    bf16_matvec_mma_kernel<<<(F + 15) / 16, MW * 32, 0, st>>>(
-        xb, wb, static_cast<float*>(y), B, K, F);
+    const int grid = (F + 15) / 16;
+    if (B <= N8)
+      bf16_matvec_mma_kernel<1><<<grid, MW * 32, 0, st>>>(xb, wb, yf, B, K, F);
+    else
+      bf16_matvec_mma_kernel<2><<<grid, MW * 32, 0, st>>>(xb, wb, yf, B, K, F);
     return (int)cudaGetLastError();
   }
   if (kf && !round && F % 8 == 0 && K % 2 == 0) {
-    bf16_matvec_kf_mma_kernel<<<(F + 32 * VPL - 1) / (32 * VPL), MWK * 32,
-                                0, st>>>(xb, wb, static_cast<float*>(y), B,
-                                         K, F);
+    const int grid = (F + 32 * VPL - 1) / (32 * VPL);
+    if (B <= N8)
+      bf16_matvec_kf_mma_kernel<1><<<grid, MWK * 32, 0, st>>>(xb, wb, yf, B,
+                                                             K, F);
+    else
+      bf16_matvec_kf_mma_kernel<2><<<grid, MWK * 32, 0, st>>>(xb, wb, yf, B,
+                                                             K, F);
     return (int)cudaGetLastError();
   }
   return round ? dispatch<true>(x, w, y, B, K, F, kf, st)

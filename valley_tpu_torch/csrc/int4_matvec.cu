@@ -12,11 +12,14 @@
 // inputs contiguous; the scale is (F, G).
 //
 // What bounds it on the H100: device-memory bytes.  Each weight byte holds
-// two weights and is read once per call for 2B multiply-adds each (B <= 8),
-// ~4 FLOP per byte at B = 1, far under the card's ~295 FLOP/byte ridge, so
-// the floor is (F * K / 2 + 2 * F * G) bytes / 3.35 TB/s (Valley-13B fused
-// at group 128: 12.1 us for wqkv, 21.8 us for w_gateup, 24.5 us for the
-// per-channel lm_head, 1.98 ms for one token's weights).
+// two weights and is read once per call for 2B multiply-adds each (B <= 16:
+// a decode step of up to 8 rows or of batch_infer's 16-row pool, or a
+// speculative verify round of D + 1 = 9 tokens), ~4 FLOP per byte at B = 1,
+// far under the card's ~295 FLOP/byte ridge, so the floor is (F * K / 2 +
+// 2 * F * G) bytes / 3.35 TB/s (Valley-13B fused at group 128: 12.1 us for
+// wqkv, 21.8 us for w_gateup, 24.5 us for the per-channel lm_head, 1.98 ms
+// for one token's weights).  From 9 rows on the fp32 FMAs on the CUDA
+// cores (2B per weight byte) take longer than the bytes at 67 TFLOP/s.
 //
 // What the design does about it: as the int8 GEMV (int8_matvec.cu), a
 // warp streams its rows in 16-byte vectors (32 weights per lane per load),
@@ -34,6 +37,16 @@
 // multiple of 8 only: per 8-weight word), the group found by a multiply-high
 // instead of a division; a per-channel scale (G = 1) is applied once to the
 // row's sum.  A warp shuffle reduces the row.
+//
+// 9 to 16 rows (`int4_matvec_rows_kernel`): a warp per row rereading every
+// row of x from L1/L2 for every weight vector (64 bytes of x per 16 bytes
+// of weights and row) held the rows at a seventeenth of their bound, so a
+// block of 8 warps stages x through shared memory a chunk of 1024 inputs
+// at a time, laid out so that a warp's reads of one word's 8 inputs are
+// 512 contiguous bytes, and each warp takes two output rows, so that each
+// x read serves both.  A lane still takes the vectors lane, lane + 32, ...
+// of its rows in order, with the same FMAs and scale multiply-adds, so a
+// row's result is bit-identical at every B (alone, among 8 rows or 16).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,7 +58,11 @@ namespace {
 // blocks for the 132 SMs (8 warps made 160, two on 28 SMs, one elsewhere)
 constexpr int NT = 64;
 constexpr int NW = NT / 32;
-constexpr int MAX_ROWS = 8;   // activation rows B a launch takes
+constexpr int MAX_ROWS = 16;  // activation rows B a launch takes
+constexpr int EXACT = 8;      // up to this B, one template per B
+constexpr int NWB = 8;        // 9-16 rows: warps a block
+constexpr int RW = 2;         // 9-16 rows: output rows a warp
+constexpr int CV = 32;        // 9-16 rows: vectors of a row a chunk
 constexpr int UNROLL = 4;     // 16-byte loads in flight per lane at R = 1
 constexpr int MAX_K = 1 << 19;  // `group_of` is exact below it
 
@@ -227,6 +244,152 @@ __global__ void __launch_bounds__(NT) int4_matvec_kernel(
   }
 }
 
+// x: (nb, K) bf16 with 9 <= nb <= 16; w: (F, K/2) uint8; scale: (F, G)
+// bf16; y: (nb, F) fp32.  Grid ceil(F / (NWB RW)); warp `threadIdx.x / 32`
+// of block i owns rows (i NWB + warp) RW .. + RW - 1 (a row past F rereads
+// row F - 1 and stores nothing).  Chunk c holds inputs 1024 c .. 1024 c +
+// 1023 of every x row in shared memory, xs[b][j][lane] = x[b, 32 v + 8 j ..
+// + 7] for the vector v = 32 c + lane that lane takes in that chunk; a
+// lane's products of a vector are `fma_vec`'s, in its order.
+template <int SCALES>
+__global__ void __launch_bounds__(NWB * 32) int4_matvec_rows_kernel(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const __nv_bfloat16* __restrict__ scale, float* __restrict__ y, int K,
+    int F, int G, int nb) {
+  __shared__ uint4 xs[MAX_ROWS][4][CV];       // 32 KB
+  const int lane = threadIdx.x % 32;
+  const int row0 = (blockIdx.x * NWB + threadIdx.x / 32) * RW;
+  const bool active = row0 < F;
+  const int nvec = K / 32, nchunk = (nvec + CV - 1) / CV;
+  const uint32_t d = (K / G) / (SCALES == PER_WORD ? 8 : 32);
+  const uint32_t m = (uint32_t)((0x100000000ull + d - 1) / d);
+  const uint4* wr[RW];
+  const __nv_bfloat16* sr[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r) {
+    const int row = min(row0 + r, F - 1);
+    wr[r] = reinterpret_cast<const uint4*>(w + (long long)row * (K / 2));
+    sr[r] = scale + (long long)row * G;
+  }
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  float acc[RW][MAX_ROWS];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int b = 0; b < MAX_ROWS; ++b) acc[r][b] = 0.f;
+
+  // the next chunk's weights are loaded before this chunk's products
+  uint4 cur[RW], nxt[RW];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+    cur[r] = active && lane < nvec ? __ldcs(wr[r] + lane) : zero;
+  for (int c = 0; c < nchunk; ++c) {
+    const int v = c * CV + lane;
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+      nxt[r] = active && v + CV < nvec ? __ldcs(wr[r] + v + CV) : zero;
+    __syncthreads();   // every warp is done with the last chunk
+    for (int i = threadIdx.x; i < MAX_ROWS * 4 * CV; i += NWB * 32) {
+      const int b = i / (4 * CV), q = i % (4 * CV);
+      const int k = c * CV * 32 + 8 * q;
+      if (b < nb && k < K)
+        xs[b][q % 4][q / 4] = __ldg(reinterpret_cast<const uint4*>(
+            x + (long long)b * K + k));
+    }
+    __syncthreads();
+    if (active && v < nvec) {
+      float part[RW][MAX_ROWS];
+#pragma unroll
+      for (int r = 0; r < RW; ++r)
+#pragma unroll
+        for (int b = 0; b < MAX_ROWS; ++b) part[r][b] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float wf[RW][8];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) i4x8_to_f32(word(cur[r], j), wf[r]);
+#pragma unroll
+        for (int b = 0; b < MAX_ROWS; ++b) {
+          if (b >= nb) break;
+          const uint4 xa = xs[b][j][lane];
+          float xf[8];
+          bf16x2_to_f32(xa.x, xf);
+          bf16x2_to_f32(xa.y, xf + 2);
+          bf16x2_to_f32(xa.z, xf + 4);
+          bf16x2_to_f32(xa.w, xf + 6);
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            float p = part[r][b];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) p = fmaf(xf[e], wf[r][e], p);
+            part[r][b] = p;
+          }
+        }
+        if (SCALES == PER_WORD) {
+          const uint32_t g = group_of(4 * v + j, d, m);
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            const float s = __bfloat162float(sr[r][g]);
+#pragma unroll
+            for (int b = 0; b < MAX_ROWS; ++b) {
+              acc[r][b] = fmaf(part[r][b], s, acc[r][b]);
+              part[r][b] = 0.f;
+            }
+          }
+        }
+      }
+      if (SCALES != PER_WORD) {
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          const float s = SCALES == PER_VECTOR
+              ? __bfloat162float(sr[r][group_of(v, d, m)]) : 1.f;
+#pragma unroll
+          for (int b = 0; b < MAX_ROWS; ++b)
+            acc[r][b] = fmaf(part[r][b], s, acc[r][b]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RW; ++r) cur[r] = nxt[r];
+  }
+
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int b = 0; b < MAX_ROWS; ++b) acc[r][b] = warp_sum(acc[r][b]);
+  if (lane == 0 && active) {
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      if (row0 + r >= F) break;
+      const float s = SCALES == PER_ROW ? __bfloat162float(sr[r][0]) : 1.f;
+#pragma unroll
+      for (int b = 0; b < MAX_ROWS; ++b)
+        if (b < nb) y[(long long)b * F + row0 + r] = acc[r][b] * s;
+    }
+  }
+}
+
+// The 9-16-row kernel of the scales' kind.
+int launch_rows(const void* x, const void* w, const void* scale, void* y,
+                int K, int F, int G, int nb, cudaStream_t stream) {
+  const dim3 grid((F + NWB * RW - 1) / (NWB * RW));
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  const auto* sp = static_cast<const __nv_bfloat16*>(scale);
+  float* yp = static_cast<float*>(y);
+  if (G == 1)
+    int4_matvec_rows_kernel<PER_ROW><<<grid, NWB * 32, 0, stream>>>(
+        xp, wp, sp, yp, K, F, G, nb);
+  else if ((K / G) % 32 == 0)
+    int4_matvec_rows_kernel<PER_VECTOR><<<grid, NWB * 32, 0, stream>>>(
+        xp, wp, sp, yp, K, F, G, nb);
+  else
+    int4_matvec_rows_kernel<PER_WORD><<<grid, NWB * 32, 0, stream>>>(
+        xp, wp, sp, yp, K, F, G, nb);
+  return (int)cudaGetLastError();
+}
+
 template <int B, int R>
 int launch(const void* x, const void* w, const void* scale, void* y, int K,
            int F, int G, cudaStream_t stream) {
@@ -262,6 +425,7 @@ extern "C" int int4_matvec_bf16(const void* x, const void* w,
       G <= 0 || K % G || (K / G) % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B > EXACT) return launch_rows(x, w, scale, y, K, F, G, B, st);
   switch (B) {
     // rows per warp: as many as the registers hold at B rows of x
     case 1: return launch<1, 4>(x, w, scale, y, K, F, G, st);

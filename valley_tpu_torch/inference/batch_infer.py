@@ -37,15 +37,18 @@ The flags and defaults are the JAX module's (``--rows 16 --fused
 weights unless ``--quantize``).  It runs on the card; without one it stops
 unless ``--device cpu`` is given.  Only ``random:tiny`` loads (the
 checkpoint loader is not ported).  The decode GEMV kernels take at most
-``ops.quant.MAX_ROWS`` (8) rows, so a pool of more ``--rows`` decodes its
+``ops.quant.MAX_ROWS`` (16) rows, so a pool of more ``--rows`` decodes its
 projections through the library's matrix product, the same shape rule by
-which prefill's many rows do.  ``--frame-buckets 1,4,8`` pads each
+which prefill's many rows and speculative verify rounds of more than 16
+rows do.  ``--speculative`` decodes by n-gram self-speculation per row
+(``ContinuousEngine(speculative=True)``, the JAX defaults of
+``SpecConfig``).  ``--frame-buckets 1,4,8`` pads each
 video's frames to the smallest bucket that holds them (``off`` or empty:
 exact counts; ``--num-frames`` is added as a bucket where it exceeds
 them), as the JAX worker's ``load_engine`` does, and the pool is warmed at
-those buckets.  Not ported, and refused: ``--speculative``,
-``--vision-tower``, ``--lora-path``, ``--quantize-vision`` and
-``--tensor-parallel`` above 1.
+those buckets.  Not ported, and refused: ``--vision-tower``,
+``--lora-path``, ``--quantize-vision`` and ``--tensor-parallel`` above
+1.
 """
 
 from __future__ import annotations
@@ -139,9 +142,6 @@ def _prepare(req: dict, cfg, num_frames: int, frame_mode: str,
 
 
 def _refuse_unported(args) -> None:
-    if args.speculative:
-        raise NotImplementedError("--speculative: speculative decoding in "
-                                  "the pool is not ported yet")
     for flag, value in (("--vision-tower", args.vision_tower),
                         ("--lora-path", args.lora_path),
                         ("--quantize-vision", args.quantize_vision)):
@@ -196,7 +196,8 @@ def run_batch(args) -> dict:
         frame_buckets=frame_buckets(args), raw_media=bool(args.raw_pixels))
     cfg = engine.cfg
     pool = ContinuousEngine(engine, rows=args.rows,
-                            admit_batch=args.admit_batch)
+                            admit_batch=args.admit_batch,
+                            speculative=bool(args.speculative))
     # model_worker.py:1225-1226: the engine's frame buckets where it has
     # them
     pool.warmup(frames=engine.frame_buckets
@@ -286,7 +287,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output", required=True,
                         help="answers JSONL; appended, resumable")
     parser.add_argument("--rows", type=int, default=16,
-                        help="pool rows (more than 8 decode through the "
+                        help="pool rows (more than 16 decode through the "
                              "library's matrix product)")
     parser.add_argument("--inflight", type=int, default=0,
                         help="max submitted-but-unfinished requests "
@@ -295,7 +296,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--top-p", type=float, default=1.0)
     parser.add_argument("--system-prompt", default=DEFAULT_SYSTEM_PROMPT)
     parser.add_argument("--speculative", action="store_true",
-                        help="not ported yet (refused)")
+                        help="n-gram self-speculation per row (a latency "
+                             "lever)")
     parser.add_argument("--admit-batch", type=int, default=4)
     parser.add_argument("--device", default=None,
                         help="cuda (default) or cpu")

@@ -25,18 +25,28 @@ As in the JAX pool:
   frame count and sampling mode) prefill as one call of a power-of-two
   size up to ``admit_batch``;
 * prompt-pad compaction: decode writes start at slot ``len(prompt)``, so a
-  row supports ``smax - len(prompt)`` new tokens.
+  row supports ``smax - len(prompt)`` new tokens;
+* speculative mode (``speculative=True``): each pooled "step" is a verify
+  round (`graphs.spec_round`) that drafts per row from the row's own token
+  history and advances each row by its own 1 + m accepted tokens; greedy
+  rows verify against their argmax as a point mass, so one graph serves
+  any mix of greedy and sampled rows.  When the pool's acceptance EMA
+  falls below `speculative.resolved_disable_below` the pool decodes plain
+  chunks (still appending to the histories) and re-probes every
+  ``reprobe_chunks`` chunks.  At B (D + 1) rows the verify products are
+  plain matrix products, which the JAX package leaves to XLA and the port
+  to the library.
 
-Not ported: speculative decoding in the pool and admission from a
-``PrefixCache`` (``speculative=True`` and ``submit(prefix=...)`` raise
-NotImplementedError).
+Not ported: admission from a ``PrefixCache`` (``submit(prefix=...)``
+raises NotImplementedError).
 
-A pooled decode chunk is ``steps`` single-token steps (a ``ramp`` of
-shorter chunks while a young row is in the pool), with one device-to-host
-copy of the chunk's tokens.  On the card the chunk is one replay of a CUDA
-graph of ``n_steps`` steps over the pool's state (``inference/graphs.py``),
-one graph per chunk size, as the JAX pool compiles one executable per
-``n_steps``: the state is fixed and the pool always samples.  The graphs
+A pooled decode chunk is ``steps`` single-token steps or verify rounds (a
+``ramp`` of shorter chunks while a young row is in the pool), with one
+device-to-host copy of the chunk's tokens.  On the card the chunk is one
+replay of a CUDA graph of ``n_steps`` steps (or rounds) over the pool's
+state (``inference/graphs.py``), one graph per chunk size and kind, as the
+JAX pool compiles one executable per ``n_steps``: the state is fixed and
+the pool always samples.  The graphs
 are captured by the decode loop the first time a size runs (`warmup` runs
 every size), holding ``_prefill_lock``: capture is global, so no other
 thread may make a CUDA call meanwhile, and every CUDA call of the prefill
@@ -64,7 +74,10 @@ import numpy as np
 import torch
 
 from valley_tpu_torch.inference.engine import Engine
-from valley_tpu_torch.inference.graphs import DecodeGraphs, DecodeState
+from valley_tpu_torch.inference.graphs import (DecodeGraphs, DecodeState,
+                                               SpecState, spec_round)
+from valley_tpu_torch.inference.speculative import (SpecConfig,
+                                                    resolved_disable_below)
 from valley_tpu_torch.models import llama
 
 logger = logging.getLogger(__name__)
@@ -90,10 +103,14 @@ class ContinuousEngine:
     ``engine``'s weights; `submit` queues a request and returns the queue
     its tokens arrive on (then `_DONE`, or an exception and `_DONE`).
 
-    ``steps_run`` counts the pooled decode steps run and
-    ``prefill_sizes`` the rows of each admission prefill, so a caller can
-    tell how many launches the pool's kernels made.  ``eager=True`` decodes
-    without graphs on the card (the reference the graphs are held to)."""
+    ``steps_run`` counts the pooled decode steps run, ``rounds_run`` the
+    pooled verify rounds and ``prefill_sizes`` the rows of each admission
+    prefill, so a caller can tell how many launches the pool's kernels
+    made; ``spec_rounds``, ``spec_emitted``, ``spec_disables`` and
+    ``spec_reprobes`` are the speculative telemetry (row rounds, their
+    tokens, pauses, re-probes).
+    ``eager=True`` decodes without graphs on the card (the reference the
+    graphs are held to)."""
 
     def __init__(self, engine: Engine, rows: int = 4,
                  bucket: Optional[int] = None,
@@ -104,9 +121,6 @@ class ContinuousEngine:
                  spec: Optional[Any] = None,
                  admit_batch: int = 4,
                  eager: bool = False):
-        if speculative or spec is not None:
-            raise NotImplementedError(
-                "speculative decoding in the pool is not ported yet")
         self.engine = engine
         self.rows = rows
         self.bucket = bucket or engine.buckets[-1]
@@ -128,7 +142,27 @@ class ContinuousEngine:
         self._prefill_lock = threading.Lock()
         self.graphs_on = dev.type == "cuda" and not eager
         self.steps_run = 0
+        self.rounds_run = 0
         self.prefill_sizes: List[int] = []
+
+        # speculative mode (JAX continuous.py:103-131): a round emits 1 ..
+        # D + 1 tokens per row; the history holds a row's prompt and every
+        # token it emitted
+        self._spec = (spec or SpecConfig()) if speculative else None
+        if self._spec is not None:
+            self.hist_max = self.smax + self._spec.draft_len + 1
+        # the pool-wide acceptance-adaptive control: below break-even the
+        # pool decodes plain chunks and re-probes every reprobe_chunks
+        self._spec_live = True
+        self._plain_left = 0
+        self._acc_ema: Optional[float] = None
+        self._warming = False
+        self.spec_rounds = 0
+        self.spec_emitted = 0
+        self.spec_disables = 0
+        self.spec_reprobes = 0
+        # warmup's chunk sizes, overriding the ramp for the next chunks
+        self._force_chunks: List[int] = []
 
         self._active: List[Optional[_Request]] = [None] * rows
         self._reset_pool()
@@ -166,28 +200,68 @@ class ContinuousEngine:
         eng = self.engine
         self._state = DecodeState.empty(eng.cfg.text, self.rows, self.smax,
                                         eng.cache_dtype, eng.device)
-        self._graphs = DecodeGraphs(self._state, eng._step,
-                                    self._decode_gen) \
-            if self.graphs_on else None
+        if self._spec is not None:
+            self._state = SpecState.over(self._state, self.hist_max)
+        self._graphs = self._spec_graphs = None
+        if self.graphs_on:
+            self._graphs = DecodeGraphs(self._state, eng._step,
+                                        self._decode_gen)
+            if self._spec is not None:
+                self._spec_graphs = DecodeGraphs(
+                    self._state, self._spec_step, self._decode_gen,
+                    self._graphs.pool)
         self._temps = np.zeros((self.rows,), np.float32)
         self._top_ps = np.ones((self.rows,), np.float32)
 
     # -- device state transforms (JAX continuous.py:220-279) ---------------
 
+    def _load_sampling(self, graphs: Optional[DecodeGraphs],
+                       n_steps: int) -> None:
+        """Refill the rows' temperature/top_p, and capture ``graphs``'
+        graph of ``n_steps`` if it is not yet captured."""
+        s = self._state
+        s.temperature.copy_(torch.from_numpy(self._temps))
+        s.top_p.copy_(torch.from_numpy(self._top_ps))
+        if graphs is not None and (n_steps, True) not in graphs.keys():
+            with self._prefill_lock:
+                graphs.capture(n_steps, True)
+
     def _decode_chunk(self, n_steps: int) -> torch.Tensor:
         """``n_steps`` pooled single-token steps; every row writes at its
         own slot (clamped into the cache for parked rows) and samples with
         its own temperature/top_p.  Returns the tokens (n_steps, rows)."""
-        s = self._state
-        s.temperature.copy_(torch.from_numpy(self._temps))
-        s.top_p.copy_(torch.from_numpy(self._top_ps))
-        if self._graphs is not None and \
-                (n_steps, True) not in self._graphs.keys():
-            with self._prefill_lock:
-                self._graphs.capture(n_steps, True)
+        self._load_sampling(self._graphs, n_steps)
         self.steps_run += n_steps
-        return self.engine._decode_chunk(s, n_steps, True, self._decode_gen,
-                                         self._graphs)
+        return self.engine._decode_chunk(self._state, n_steps, True,
+                                         self._decode_gen, self._graphs)
+
+    def _spec_step(self, state: SpecState, generator, do_sample: bool):
+        eng = self.engine
+        return spec_round(eng.params["llama"], eng.cfg.text, eng.attention,
+                          state, generator, do_sample, self._spec.draft_len,
+                          self._spec.ngram)
+
+    def _spec_chunk(self, n_steps: int) -> torch.Tensor:
+        """``n_steps`` pooled verify rounds (JAX continuous.py:281-350):
+        each row drafts from its own history and advances by its own 1 + m.
+        Returns (n_steps, rows, D + 2): each round's tokens and counts."""
+        self._load_sampling(self._spec_graphs, n_steps)
+        self.rounds_run += n_steps
+        if self._spec_graphs is not None:
+            return self._spec_graphs.run(n_steps, True)
+        return torch.stack([self._spec_step(self._state, self._decode_gen,
+                                            True) for _ in range(n_steps)])
+
+    def _append_hist(self, toks: torch.Tensor) -> None:
+        """Append a plain chunk's tokens (n_steps, rows) to every row's
+        history, so that a re-probe drafts from fresh context (JAX
+        continuous.py:365-377; a start near the end clamps)."""
+        s = self._state
+        n = toks.shape[0]
+        start = s.hist_len.clamp(max=self.hist_max - n)
+        s.hist.scatter_(1, start[:, None] + torch.arange(
+            n, device=toks.device), toks.t())
+        s.hist_len.add_(n)
 
     def _insert(self, row_cache: llama.KVCache, row_valid: torch.Tensor,
                 row_tok: torch.Tensor, n: int, src: int, b: int) -> None:
@@ -228,8 +302,32 @@ class ContinuousEngine:
         size, greedy and sampled) and every pooled chunk size once, as the
         JAX pool does to compile them; here it builds the kernels and, on
         the card, captures the graph of every chunk size before traffic
-        arrives.  ``frames``: a frame count or a sequence of them (0: text
-        only, always included)."""
+        arrives (in speculative mode every round count and the plain
+        fallback's chunks too).  ``frames``: a frame count or a sequence of
+        them (0: text only, always included)."""
+        self._warming = True   # the adaptive control must not switch modes
+        try:
+            self._warmup_body(frames)
+        finally:
+            self._warming = False
+            self.reset_speculation()
+
+    def pause_speculation(self, chunks: int) -> None:
+        """Decode the next ``chunks`` chunks plain, then re-probe, as the
+        adaptive control does below its threshold."""
+        self._spec_live = False
+        self._plain_left = chunks
+
+    def reset_speculation(self) -> None:
+        """Speculate again from the next chunk, with no acceptance history
+        and the telemetry at 0 (after a warm-up)."""
+        self._spec_live = True
+        self._plain_left = 0
+        self._acc_ema = None
+        self.spec_rounds = self.spec_emitted = self.spec_disables = 0
+        self.spec_reprobes = 0
+
+    def _warmup_body(self, frames) -> None:
         frame_list = ((frames,) if isinstance(frames, int) else
                       tuple(frames)) or (0,)
         if 0 not in frame_list:
@@ -273,6 +371,25 @@ class ContinuousEngine:
         for outq in queues:
             for _ in _drain(outq):
                 pass
+        if self._spec is not None:
+            # a round emits 1 .. D + 1 tokens, so the token-counted ramp
+            # above visits the round counts by acceptance: force one chunk
+            # of every scheduled size, with a budget no such chunk can
+            # exhaust (JAX continuous.py:483-512)
+            sizes = sorted(set(self.ramp) | {self.steps})
+            short = list(range(2, 2 + self._admission_buckets[0]))
+            self._force_chunks = list(sizes)
+            for _ in _drain(self.submit(
+                    short, max_new_tokens=sum(sizes)
+                    * (self._spec.draft_len + 1) + 2, eos_id=-1)):
+                pass
+            # and the plain fallback's chunks
+            self.pause_speculation(1 << 30)
+            self._force_chunks = list(sizes)
+            for _ in _drain(self.submit(short, max_new_tokens=sum(sizes) + 2,
+                                        eos_id=-1)):
+                pass
+            self._force_chunks = []
 
     def close(self, timeout: float = 30.0) -> None:
         """Stop both threads; every request not finished gets an error."""
@@ -417,7 +534,10 @@ class ContinuousEngine:
     def _next_chunk(self) -> int:
         """Steps of the next pooled decode chunk: the smallest
         next-scheduled size over active rows, a ramp entry while any row is
-        inside the ramp, ``steps`` once every row has matured."""
+        inside the ramp, ``steps`` once every row has matured (warmup's
+        forced sizes first)."""
+        if self._force_chunks:
+            return self._force_chunks.pop(0)
         if not self.ramp:
             return self.steps
         best = self.steps
@@ -470,6 +590,12 @@ class ContinuousEngine:
         self._top_ps[b] = req.top_p
         # cap generation to the slots left after the (compacted) prompt
         req.max_new_tokens = min(req.max_new_tokens, self.smax - n)
+        if self._spec is not None:
+            # a round writes D + 1 slots: keep the window in the cache
+            req.max_new_tokens = min(
+                req.max_new_tokens, self.smax - n - (self._spec.draft_len + 1))
+            # the row's history: its prompt and first token
+            self._state.load_hist(b, req.input_ids, tok[src])
 
     def _finish_if_done(self, b: int, tok: int):
         req = self._active[b]
@@ -501,14 +627,34 @@ class ContinuousEngine:
             if all(r is None for r in self._active):
                 continue
             n_steps = self._next_chunk()
+            use_spec = self._spec is not None
+            if use_spec and not self._spec_live:
+                # paused: plain chunks until the re-probe countdown ends
+                use_spec = False
+                self._plain_left -= 1
+                if self._plain_left <= 0:
+                    self._spec_live = True
+                    self.spec_reprobes += 1
+            active = [b for b in range(self.rows)
+                      if self._active[b] is not None]
+            counts = None
             try:
-                toks_np = self._decode_chunk(n_steps).cpu().numpy()
+                if use_spec:
+                    out = self._spec_chunk(n_steps).cpu().numpy()
+                    toks_np, counts = out[..., :-1], out[..., -1]
+                else:
+                    toks = self._decode_chunk(n_steps)
+                    if self._spec is not None:
+                        self._append_hist(toks)
+                    toks_np = toks.cpu().numpy()
             except Exception as e:  # noqa: BLE001 -- deliver, don't die
                 logger.exception("decode chunk failed")
                 self._fail_active(e)
                 # the cache may be half written
                 self._reset_pool()
                 continue
+            if counts is not None:
+                self._observe(counts[:, active])
             for step in range(toks_np.shape[0]):
                 for b in range(self.rows):
                     req = self._active[b]
@@ -516,10 +662,37 @@ class ContinuousEngine:
                         continue
                     # tokens decoded after a row finished within the chunk
                     # are dropped (they stay masked off for the next request)
-                    t = int(toks_np[step, b])
-                    req.out.put(t)
-                    req.emitted += 1
-                    self._finish_if_done(b, t)
+                    row = [int(toks_np[step, b])] if counts is None else \
+                        toks_np[step, b, :counts[step, b]].tolist()
+                    for t in row:
+                        req.out.put(t)
+                        req.emitted += 1
+                        self._finish_if_done(b, t)
+                        if self._active[b] is None:
+                            break
+
+    def _observe(self, counts: np.ndarray) -> None:
+        """Acceptance telemetry and the adaptive decision over the rows
+        active when the chunk began (JAX continuous.py:873-902): counts
+        (n_steps, active rows) of tokens per row round."""
+        if counts.size == 0:
+            return
+        acc = float(np.mean(counts - 1))
+        self.spec_rounds += counts.size
+        self.spec_emitted += int(counts.sum())
+        self._acc_ema = acc if self._acc_ema is None else \
+            self._acc_ema + 0.2 * (acc - self._acc_ema)
+        threshold = resolved_disable_below(self._spec, self.engine)
+        if self._spec.adaptive and not self._warming and \
+                self._acc_ema < threshold:
+            self._spec_live = False
+            self._plain_left = self._spec.reprobe_chunks
+            self.spec_disables += 1
+            logger.info("pool speculation paused (acceptance EMA %.2f < "
+                        "%.2f); re-probe in %d chunks", self._acc_ema,
+                        threshold, self._plain_left)
+            # the probe must measure fresh traffic
+            self._acc_ema = None
 
 
 def _refuse(req: Optional[_Request], err: Exception) -> None:

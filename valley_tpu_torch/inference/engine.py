@@ -1,7 +1,8 @@
 """Streaming inference engine, the PyTorch counterpart of
 ``valley_tpu/inference/engine.py``: a batch of ragged prompts prefilled
 together and decoded in lockstep (the continuous-batching pool built on it
-is ``inference/continuous.py``), and multi-turn conversations that keep
+is ``inference/continuous.py``, speculative decoding
+``inference/speculative.py``), and multi-turn conversations that keep
 their cache across turns (`ChatSession`, `PrefixCache`).
 
 The cache state is the JAX engine's: the prompt is right-padded to a length
@@ -788,12 +789,17 @@ class PrefixCache:
               ) -> ChatSession:
         """A new session whose cache holds the prefix.  Pass only the new
         tokens (the question, framed with the separators) to its
-        ``chat``."""
+        ``chat``.  ``speculative`` spawns a `SpecChatSession` whose lookup
+        history starts with the prefix (engine.py:630-640)."""
+        gen = gen or self.gen
         if speculative:
-            raise NotImplementedError(
-                "speculative sessions (SpecChatSession) are not ported yet: "
-                "ROADMAP §1 item 5")
-        sess = ChatSession(self.engine, gen or self.gen)
+            from valley_tpu_torch.inference.speculative import \
+                SpecChatSession
+
+            sess: ChatSession = SpecChatSession(self.engine, gen)
+            sess._hist = list(self.prefix_ids)
+        else:
+            sess = ChatSession(self.engine, gen)
         if seed is not None:
             sess.generator.manual_seed(seed)
         total = (self._slot + self.engine.max_new_tokens + self._extra

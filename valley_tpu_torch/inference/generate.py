@@ -82,10 +82,13 @@ def process_response(outputs: Sequence[str]) -> List[str]:
 def completion(engine: Engine, tokenizer, video: Optional[str],
                messages: Sequence[dict],
                gen: Optional[GenerationConfig] = None,
-               frames: Optional[np.ndarray] = None) -> List[str]:
+               frames: Optional[np.ndarray] = None,
+               speculative: bool = False) -> List[str]:
     """One-shot video/image Q&A.  ``video`` is a path decoded by the data
     pipeline; or pass ``frames`` (T, 3, H, W), CLIP-normalised float or raw
-    uint8 pixels."""
+    uint8 pixels.  ``speculative`` decodes by n-gram self-speculation
+    (`speculative.SpecDecoder`: greedy tokens unchanged, sampling
+    distribution-exact)."""
     cfg: ValleyConfig = engine.cfg
     num_frames = frames.shape[0] if frames is not None else DEFAULT_NUM_FRAMES
     prompt = build_prompt(messages, cfg.num_patches, num_frames)
@@ -100,8 +103,15 @@ def completion(engine: Engine, tokenizer, video: Optional[str],
         frames = load_video_tchw(video, fixed_frame_number=num_frames,
                                  crop_size=size,
                                  scale_size=max(size * 256 // 224, size))
+    gen = gen or GenerationConfig()
+    if speculative:
+        from valley_tpu_torch.inference.speculative import SpecDecoder
+
+        chunks = SpecDecoder(engine).generate(tokenizer, input_ids,
+                                              frames[None], gen)
+    else:
+        chunks = engine.generate(tokenizer, input_ids, frames[None], gen)
     text = ""
-    for text in engine.generate(tokenizer, input_ids, frames[None],
-                                gen or GenerationConfig()):
+    for text in chunks:
         pass
     return process_response([text])

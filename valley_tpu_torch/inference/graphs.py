@@ -1,6 +1,8 @@
 """Fused decode calls as CUDA graphs: the PyTorch counterpart of the JAX
 engine's jitted ``n_steps`` decode scan (``valley_tpu/inference/engine.py``
-``_decode_impl``) and of the JAX pool's (``continuous.py`` ``_decode_impl``).
+``_decode_impl``), of the JAX pool's (``continuous.py`` ``_decode_impl``)
+and of the speculative verify rounds (``speculative.py`` ``_rounds_impl``,
+``continuous.py`` ``_spec_decode_impl``).
 
 `DecodeState` holds every tensor a decode step reads and advances: the KV
 cache, the (B, Smax) ``valid`` mask, each row's token, rotary position and
@@ -9,8 +11,14 @@ it in place, with no host synchronisation, no host-to-device copy and no
 Python number that depends on the request, so the same step runs eagerly
 (on the CPU, or when a caller asks for it by name) and inside a capture.
 
-`DecodeGraphs` captures ``n_steps`` such steps into one CUDA graph per
-(``n_steps``, ``do_sample``) and replays it: one launch of the whole chunk,
+`SpecState` adds each row's token history (the n-gram drafts' lookup
+table), and `spec_round` runs one speculative verify round on it the same
+way: draft from the history, verify the draft with one (D + 1)-token
+forward through the cache, accept, and advance each row by what it
+accepted.
+
+`DecodeGraphs` captures ``n_steps`` such steps (or rounds) into one CUDA
+graph per (``n_steps``, ``do_sample``) and replays it: one launch of the whole chunk,
 where the eager loop makes some forty launches per layer and step from
 Python.  The graphs are bound to the addresses of one `DecodeState`, so a
 caller refills that state in place before each replay (and may not replace
@@ -22,6 +30,7 @@ fallback to the eager loop.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -100,6 +109,40 @@ class DecodeState:
             t.copy_(v)
 
 
+@dataclasses.dataclass
+class SpecState(DecodeState):
+    """A `DecodeState` with each row's token history: the prompt and every
+    token emitted so far, from which `spec_round` drafts.  It may share its
+    decode tensors with a `DecodeState` (`over`), so that plain decode
+    steps and verify rounds advance the same cache and rows."""
+    hist: torch.Tensor = None      # (B, Hmax) int64
+    hist_len: torch.Tensor = None  # (B,) int64: the tokens hist holds
+
+    @classmethod
+    def over(cls, state: DecodeState, hmax: int) -> "SpecState":
+        """A state over ``state``'s tensors (shared, not copied) with a
+        zeroed (B, ``hmax``) history."""
+        dev = state.token.device
+        return cls(state.cache, state.valid, state.token, state.seq,
+                   state.slot, state.temperature, state.top_p,
+                   torch.zeros((state.rows, hmax), dtype=torch.int64,
+                               device=dev),
+                   torch.zeros((state.rows,), dtype=torch.int64, device=dev))
+
+    @torch.inference_mode()
+    def load_hist(self, row: int, ids, first: torch.Tensor) -> None:
+        """Row ``row``'s history: the prompt ``ids`` (host ints) and the
+        first sampled token ``first`` (a one-element device tensor)."""
+        n = len(ids)
+        self.hist[row].zero_()
+        self.hist[row, :n] = torch.tensor(list(ids), dtype=torch.int64)
+        self.hist[row, n:n + 1] = first.reshape(1)
+        self.hist_len[row] = n + 1
+
+    def _small(self) -> Tuple[torch.Tensor, ...]:
+        return super()._small() + (self.hist, self.hist_len)
+
+
 def decode_step(params, cfg, attention, state: DecodeState,
                 generator: Optional[torch.Generator],
                 do_sample: bool) -> torch.Tensor:
@@ -125,20 +168,80 @@ def decode_step(params, cfg, attention, state: DecodeState,
     return tok
 
 
+def spec_round(params, cfg, attention, state: SpecState,
+               generator: Optional[torch.Generator], do_sample: bool,
+               draft_len: int, ngram: int) -> torch.Tensor:
+    """One speculative verify round of every row, in place (JAX
+    speculative.py:258-318 for one row, continuous.py:281-350 for a pool):
+    draft ``draft_len`` tokens from the row's history (`ngram_draft`),
+    write the K/V of [token, draft] at the row's slots and attend them over
+    the cache (the plain attention of an appended chunk, as JAX's
+    ``use_flash=False``), take the (D + 1)-row logits, and accept: greedy,
+    the longest prefix of the draft that equals the argmax plus the argmax
+    after it; sampled, `spec_sample_round` against each row's filtered
+    distribution (a row with temperature < 1e-4 against its argmax as a
+    point mass, which reduces to the greedy rule, as the JAX pool does).
+    Marks the slots of the token and the m accepted drafts valid, writes
+    the emitted tokens into the history, and advances token, position and
+    slot by 1 + m.  Returns (B, D + 2): the D + 1 emitted tokens (the first
+    1 + m are the round's) and 1 + m in the last column."""
+    from valley_tpu_torch.inference.engine import filter_logits
+    from valley_tpu_torch.inference.speculative import (ngram_draft,
+                                                        spec_sample_round)
+
+    s = state
+    dev = s.token.device
+    d1 = draft_len + 1
+    draft = ngram_draft(s.hist, s.hist_len, draft_len, ngram)     # (B, D)
+    chunk = torch.cat([s.token[:, None], draft], dim=1)           # (B, D+1)
+    ar = torch.arange(d1, device=dev)
+    hidden, _ = llama.forward_hidden(
+        params, cfg, llama.embed(params, chunk),
+        positions=s.seq[:, None] + ar, cache=s.cache, cache_index=s.slot,
+        cross_valid=s.valid, attention=attention)
+    logits = llama.logits_from_hidden(params, hidden, attention)  # (B,D+1,V)
+    greedy = torch.argmax(logits, dim=-1)
+    if do_sample:
+        probs = torch.softmax(filter_logits(
+            logits, s.temperature[:, None], s.top_p[:, None]), dim=-1)
+        one_hot = torch.nn.functional.one_hot(
+            greedy, logits.shape[-1]).to(probs.dtype)
+        probs = torch.where((s.temperature < 1e-4)[:, None, None], one_hot,
+                            probs)
+        emit, m = spec_sample_round(probs, draft, generator)
+    else:
+        emit = greedy
+        m = torch.cumprod((draft == greedy[:, :draft_len]).long(),
+                          dim=1).sum(dim=1)
+    n_emit = m + 1
+    slots = torch.arange(s.valid.shape[1], device=dev)[None, :]
+    s.valid.logical_or_((slots >= s.slot[:, None])
+                        & (slots < (s.slot + n_emit)[:, None]))
+    # jax.lax.dynamic_update_slice clamps the start into the history
+    start = s.hist_len.clamp(max=s.hist.shape[1] - d1)
+    s.hist.scatter_(1, start[:, None] + ar, emit)
+    s.hist_len.add_(n_emit)
+    s.token.copy_(torch.gather(emit, 1, m[:, None])[:, 0])
+    s.seq.add_(n_emit)
+    s.slot.add_(n_emit)
+    return torch.cat([emit, n_emit[:, None]], dim=1)
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: "torch.cuda.CUDAGraph"
-    out: torch.Tensor          # (n_steps, B) int64, written by each replay
+    out: torch.Tensor          # (n_steps, B, ...) int64, each replay's
     launches: dict             # {wrapper: launches} of one replay
 
 
 class DecodeGraphs:
     """The CUDA graphs of fused decode chunks over one `DecodeState`.
 
-    ``step(state, generator, do_sample)`` runs `decode_step` on the state.
-    `run` replays the graph of (``n_steps``, ``do_sample``), capturing it
-    first if it is not yet captured; it returns the graph's own
-    (``n_steps``, B) token buffer, which the next replay overwrites.  A
+    ``step(state, generator, do_sample)`` runs `decode_step` (or
+    `spec_round`) on the state and returns a (B, ...) int64 result.  `run`
+    replays the graph of (``n_steps``, ``do_sample``), capturing it first
+    if it is not yet captured; it returns the graph's own (``n_steps``, B,
+    ...) buffer of the steps' results, which the next replay overwrites.  A
     sampled graph draws from ``generator``, registered with the graph, so
     each replay draws fresh numbers from the generator's current seed and
     offset (seed it again to repeat a draw).  ``capture_s`` sums the seconds
@@ -185,20 +288,31 @@ class DecodeGraphs:
         side = torch.cuda.Stream(device=s.token.device)
         side.wait_stream(torch.cuda.current_stream(s.token.device))
         with torch.cuda.stream(side):
-            self._step(s, self.generator, do_sample)
+            first = self._step(s, self.generator, do_sample)
         torch.cuda.current_stream(s.token.device).wait_stream(side)
         s.restore(saved)
         if rng is not None:
             self.generator.set_state(rng)
-        out = torch.empty((n_steps, s.rows), dtype=torch.int64,
+        out = torch.empty((n_steps,) + tuple(first.shape), dtype=torch.int64,
                           device=s.token.device)
         graph = torch.cuda.CUDAGraph()
         if do_sample:
             graph.register_generator_state(self.generator)
-        with _build.recording_launches() as launches:
-            with torch.cuda.graph(graph, pool=self.pool):
-                for i in range(n_steps):
-                    out[i].copy_(self._step(s, self.generator, do_sample))
+        # an engine and its graphs hold each other, so dead graphs wait for
+        # the cyclic collector; destroying one during a capture invalidates
+        # the capture, so they go now and the collector waits until after
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _build.recording_launches() as launches:
+                with torch.cuda.graph(graph, pool=self.pool):
+                    for i in range(n_steps):
+                        out[i].copy_(self._step(s, self.generator,
+                                                do_sample))
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream(s.token.device).synchronize()
         entry = _Graph(graph, out, launches)
         self._graphs[(n_steps, do_sample)] = entry

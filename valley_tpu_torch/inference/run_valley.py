@@ -2,7 +2,8 @@
 
 python -m valley_tpu_torch.inference.run_valley --model-name random:tiny \
     --video-file v.mp4 --query "Describe the video." \
-    [--quantize int8a8|int4gp --fused --kv-cache int8] [--device cpu]
+    [--quantize int8a8|int4gp --fused --kv-cache int8] [--speculative] \
+    [--device cpu]
 
 ``random:tiny`` builds the tiny test configuration with random weights and
 the byte tokenizer.  Loading a Hugging Face Valley checkpoint is not ported
@@ -11,6 +12,8 @@ It runs on the card; without one it stops unless ``--device cpu`` is
 given.  ``--fused``, ``--quantize`` and ``--kv-cache`` are the serving
 worker's options (``valley_tpu/serve/model_worker.py``), applied in its
 order: fuse, then quantize (and pack int4), then choose the cache.
+``--speculative`` decodes by n-gram self-speculation
+(``inference/speculative.py``).
 """
 
 from __future__ import annotations
@@ -111,6 +114,10 @@ def main(argv=None):
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--max-new-tokens", type=int, default=1024)
     parser.add_argument("--do-sample", action="store_true")
+    parser.add_argument("--speculative", action="store_true",
+                        help="n-gram self-speculative decode (greedy "
+                             "token-identical, sampling "
+                             "distribution-exact)")
     args = parser.parse_args(argv)
 
     engine, tokenizer = load_model(args.model_name, args.device,
@@ -124,7 +131,8 @@ def main(argv=None):
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature,
                            do_sample=args.do_sample)
-    response = completion(engine, tokenizer, args.video_file, messages, gen)
+    response = completion(engine, tokenizer, args.video_file, messages, gen,
+                          speculative=args.speculative)
     print(response[0])
 
 

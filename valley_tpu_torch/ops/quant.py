@@ -237,8 +237,10 @@ def dequant_matmul(x: torch.Tensor, w: torch.Tensor,
 
 # The GEMV kernels' row limit (MAX_ROWS in csrc/int8_matvec.cu,
 # csrc/int4_matvec.cu and csrc/bf16_matvec.cu), for the callers that choose
-# between a GEMV kernel and a matrix product on any device
-MAX_ROWS = 8
+# between a GEMV kernel and a matrix product on any device: a decode step of
+# batch_infer's default 16-row pool, or a speculative verify round of
+# draft_len + 1 = 9 tokens
+MAX_ROWS = 16
 
 
 @functools.cache
