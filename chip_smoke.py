@@ -191,8 +191,8 @@ SMAX = BUCKET + NEW_TOKENS + NEW_TOKENS - 1
 KERNEL_NAMES = {"K1": ("flash_fwd_kernel",),
                 "K3": ("decode_attn_kernel", "decode_merge_kernel"),
                 "K3-int8": ("decode_attn_kernel", "decode_merge_kernel"),
-                "K4": ("int8_matvec_kernel",),
-                "K5": ("int4_matvec_kernel",),
+                "K4": ("int8_matvec_mma_kernel",),
+                "K5": ("int4_matvec_mma_kernel",),
                 "K6": ("bf16_matvec_mma_kernel", "bf16_matvec_kf_mma_kernel",
                        "bf16_matvec_kf_kernel"),
                 "T4": ("t4_head_chunked_kernel",),
@@ -211,9 +211,7 @@ KERNEL_KINDS = (
 # and dense bf16 tensor-core FLOP/s, for each kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-# fp32 on the CUDA cores: K7's adds, and what K4's and K5's FMAs alone
-# would take there (a diagnostic beside their bound, not the bound: the
-# card multiplies their types at the tensor-core peak)
+# fp32 on the CUDA cores: K7's adds
 FP32_FLOP_PER_S = 67e12
 
 
@@ -333,12 +331,6 @@ def bound(n_bytes: float, flops: float,
     t_ops = flops / peak * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def cuda_core_ms(rows: int, k: int, f: int) -> float:
-    """ms that a (rows, k) x (k, f) product's FMAs take at the CUDA cores'
-    fp32 peak: what K4 and K5, CUDA-core kernels, cannot beat."""
-    return 2 * rows * k * f / FP32_FLOP_PER_S * 1e3
 
 
 def attended_pairs(kv_mask: torch.Tensor, sq: int, causal: bool) -> int:
@@ -762,27 +754,43 @@ def int8_weight(gen, f: int, k: int):
 
 
 def library_matvec_ms(x, ws, scale, iters: int) -> tuple:
-    """Device ms of one library call on K4's inputs, walking the weight
-    copies ``ws`` as the kernel's timing does, and its label.  A yardstick
-    only: the port never calls it.  torch's int8 weight-only product where
-    this torch runs it on CUDA; otherwise a bf16 GEMV over the same weight
-    dequantized (twice the bytes)."""
+    """Device ms of torch's int8 weight-only product on K4's inputs,
+    walking the weight copies ``ws`` as the kernel's timing does, and its
+    label; (None, why) where this torch does not run it on CUDA.  A
+    yardstick only: the port never calls it."""
     it = iter(range(10 ** 9))
     try:
         torch._weight_int8pack_mm(x, ws[0], scale)
-        fn = lambda: torch._weight_int8pack_mm(  # noqa: E731
-            x, ws[next(it) % len(ws)], scale)
-        label = "torch._weight_int8pack_mm"
     except (RuntimeError, NotImplementedError) as e:
+        why = str(e).splitlines()[0][:80]
         print(f"K4 yardstick: torch._weight_int8pack_mm does not run on "
-              f"CUDA here ({str(e).splitlines()[0][:80]}); timing a bf16 "
-              f"GEMV instead")
-        wb = [(w.float() * scale.float()[:, None]).bfloat16() for w in ws]
-        fn = lambda: torch.nn.functional.linear(  # noqa: E731
-            x, wb[next(it) % len(wb)])
-        label = "F.linear over the bf16 weight (bf16 GEMV, twice the bytes)"
+              f"CUDA here ({why})")
+        return None, f"none: {why}"
+    fn = lambda: torch._weight_int8pack_mm(  # noqa: E731
+        x, ws[next(it) % len(ws)], scale)
     fn()
-    return profile_device(fn, iters)[0], label
+    return profile_device(fn, iters)[0], "torch._weight_int8pack_mm"
+
+
+def bf16_linear_ms(x, w, scale, iters: int) -> float:
+    """Device ms of ``F.linear`` (cuBLAS) on K4's activations and the same
+    weight dequantized to bf16 (twice its bytes), walking copies of it past
+    the 50 MB L2 as the kernel's timing does: K4's second yardstick, since
+    torch's int8 weight-only product is a slow path at these shapes.  The
+    port never calls it."""
+    wb = (w.float() * scale.float()[:, None]).bfloat16()
+    wbs = [wb] + [wb.clone() for _ in range(
+        -(-TIMING_BYTES // (2 * wb.numel())) - 1)]
+    it = iter(range(10 ** 9))
+    fn = lambda: torch.nn.functional.linear(  # noqa: E731
+        x, wbs[next(it) % len(wbs)])
+    fn()
+    return profile_device(fn, iters)[0]
+
+
+def bound_share(t: dict) -> str:
+    """The share of its bound a kernel's device time reaches, in words."""
+    return f"{100 * t['bound_ms'] / t['ms']:.1f}% of its {t['bound_by']} bound"
 
 
 def dominant_bound(per_weight: dict, layers: int) -> str:
@@ -817,6 +825,9 @@ K4_SHAPES_7B = (("wqkv", 4096, 12288), ("wo", 4096, 4096),
 TIMING_BYTES = 2_500_000_000
 TIME_KEYS = ("ms", "plain_ms", "loop_ms", "plain_loop_ms", "bound_ms",
              "library_ms")
+# K4's yardsticks beside its own times: torch's int8 weight-only product
+# and cuBLAS over the weight dequantized to bf16
+K4_TIME_KEYS = TIME_KEYS + ("bf16_linear_ms",)
 
 
 def k4_phase(gen, layers: int, rows: int = 1) -> tuple:
@@ -876,30 +887,36 @@ def k4_phase(gen, layers: int, rows: int = 1) -> tuple:
             n_bytes = f * k + 2 * b * k + 2 * f + 4 * b * f
             add_bound(t, bound(n_bytes, 2 * b * k * f), f"K4 {name}")
             t["library_ms"], label = library_matvec_ms(x, ws, scale, 20)
+            del ws
+            t["bf16_linear_ms"] = bf16_linear_ms(x, w, scale, 20)
             per_weight[name.split(f"_B{rows}")[0][3:]] = t
+            lib = "none" if t["library_ms"] is None else \
+                f"{t['library_ms']:.4f} ms"
             line += (f" {fmt_times(t)} ({f * k / t['ms'] / 1e6:.1f} GB/s of "
                      f"weights); bound {t['bound_ms']:.4f} ms ("
-                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB; the FMAs "
-                     f"alone at the CUDA-core peak "
-                     f"{cuda_core_ms(b, k, f):.4f} ms), library "
-                     f"{t['library_ms']:.4f} ms ({label})")
-            del ws
+                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB), "
+                     f"{bound_share(t)}; library {lib} ({label}), F.linear "
+                     f"over the bf16 weight {t['bf16_linear_ms']:.4f} ms")
         print(line)
         del x, w, scale, out, ref
     calls = 4 * layers + 1
-    token = {key: layers * sum(per_weight[n][key] for n, _, _ in
+    token = {key: None if any(t[key] is None for t in per_weight.values())
+             else layers * sum(per_weight[n][key] for n, _, _ in
                                K4_SHAPES_7B[:4]) + per_weight["lm_head"][key]
-             for key in TIME_KEYS}
-    avg = {key: token[key] / calls for key in TIME_KEYS}
+             for key in K4_TIME_KEYS}
+    avg = {key: None if v is None else v / calls for key, v in token.items()}
     avg["bound_by"] = dominant_bound(per_weight, layers)
     avg["library_call"] = label
     avg["rows"] = rows
+    lib = "none" if token["library_ms"] is None else \
+        f"{token['library_ms']:.4f} ms"
     print(f"K4 int8_matvec per decode token at B{rows} ({calls} calls: "
           f"{layers} x "
           f"wqkv, wo, w_gateup, w_down, then lm_head): device "
           f"{token['ms']:.4f} ms vs plain {token['plain_ms']:.4f} ms; bound "
-          f"{token['bound_ms']:.4f} ms; library {token['library_ms']:.4f} ms "
-          f"({label})")
+          f"{token['bound_ms']:.4f} ms, {bound_share(avg)}; library "
+          f"{lib} ({label}); F.linear over the bf16 weights "
+          f"{token['bf16_linear_ms']:.4f} ms")
     return err_max, avg
 
 
@@ -1987,10 +2004,8 @@ def k5_phase(gen, layers: int, rows: int = 1) -> tuple:
                 f"{t['library_ms']:.4f} ms"
             line += (f" {fmt_times(t)} ({w.numel() / t['ms'] / 1e6:.1f} GB/s "
                      f"of packed weights); bound {t['bound_ms']:.4f} ms ("
-                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB; the FMAs "
-                     f"alone at the CUDA-core peak "
-                     f"{cuda_core_ms(b, k, f):.4f} ms), library "
-                     f"{lib} ({label})")
+                     f"{t['bound_by']}, {n_bytes / 1e6:.2f} MB), "
+                     f"{bound_share(t)}; library {lib} ({label})")
         print(line)
         del x, w, scale, out, ref
     calls = 4 * layers + 1
@@ -2008,7 +2023,8 @@ def k5_phase(gen, layers: int, rows: int = 1) -> tuple:
           f"{layers} x "
           f"wqkv, wo, w_gateup, w_down, then lm_head): device "
           f"{token['ms']:.4f} ms vs plain {token['plain_ms']:.4f} ms; bound "
-          f"{token['bound_ms']:.4f} ms; library {lib}")
+          f"{token['bound_ms']:.4f} ms, {bound_share(avg)}; library "
+          f"{lib}")
     return err_max, avg
 
 

@@ -37,7 +37,7 @@ from valley_tpu_torch.inference.engine import (ChatSession, Engine,
                                                GenerationConfig)
 from valley_tpu_torch.inference.speculative import SpecConfig, SpecDecoder
 from valley_tpu_torch.models import llama, valley
-from valley_tpu_torch.ops import decode_lab
+from valley_tpu_torch.ops import _build, decode_lab
 from valley_tpu_torch.ops.attention import KERNELS, PLAIN
 from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
@@ -335,10 +335,21 @@ def _int8_weight(gen, f, k):
     return quantize_tensor(w.bfloat16())
 
 
+# Every row count of the tensor-core GEMVs' one path (one n8 tile of rows up
+# to 8, two from 9)
+MMA_ROWS = (1, 2, 7, 8, 9, 12, 16)
+
+
 @pytest.mark.parametrize("b,k,f", [
     (1, 4096, 12288), (8, 4096, 4096), (1, 11008, 4096), (3, 64, 33),
-    (2, 16, 1), (5, 4096, 1000)])
+    (2, 16, 1), (5, 4096, 1000)]
+    # K not a multiple of a unit (64) nor of a block's step of 8 units, F
+    # not a multiple of 16
+    + [(b, k, f) for b in MMA_ROWS for k, f in ((4112, 1000), (80, 33))])
 def test_int8_matvec_kernel_matches_plain(gen, b, k, f):
+    """K4 at Valley-7B's widths and at edges of its tiling, every row count
+    of its one path: one launch, the plain version within the bar, each
+    row bit-equal to the same row alone, the shifted scales caught."""
     x = _randn(gen, b, k)
     w, scale = _int8_weight(gen, f, k)
     before = int8_matvec.launches
@@ -349,6 +360,7 @@ def test_int8_matvec_kernel_matches_plain(gen, b, k, f):
     ref = int8_matvec_plain(x, w, scale)
     err, tol = _err_and_tol(out, ref)
     assert err <= tol
+    _alone_equal(int8_matvec, x, w, scale)
     if f > 1:
         # planted fault: the scales shifted by one output channel
         fault, _ = _err_and_tol(int8_matvec(x, w, scale.roll(1)), ref)
@@ -603,11 +615,20 @@ def _int4_weight(gen, f, k, group):
 
 @pytest.mark.parametrize("b,k,f,group", [
     (1, 5120, 15360, 128), (8, 11008, 4096, 128), (1, 13824, 5120, 128),
-    (1, 5120, 32000, 0), (3, 64, 33, 0), (2, 128, 64, 32), (5, 96, 40, 16)])
+    (1, 5120, 32000, 0), (3, 64, 33, 0), (2, 128, 64, 32), (5, 96, 40, 16)]
+    # groups of 8, 16 and 32 (a k16 step split by its four chunks' groups)
+    # and per channel at a K that is not a multiple of a unit (128), group
+    # 128 at 41 units (not a multiple of a block's step of 8 units); F not
+    # a multiple of 16
+    + [(b, k, f, group) for b in MMA_ROWS
+       for k, f, group in ((160, 40, 8), (160, 40, 16), (160, 40, 32),
+                           (4128, 1000, 0), (5248, 1000, 128))])
 def test_int4_matvec_kernel_matches_plain(gen, b, k, f, group):
     """Valley-13B's G 40 (K 5120) and G 108 (K 13824) and 7B's G 86 (K
-    11008) at group 128, the per-channel lm_head, tiny widths, and a group
-    of 16 (scales per 8-weight word)."""
+    11008) at group 128, the per-channel lm_head, tiny widths, groups of 8,
+    16 and 32, and edges of the tiling at every row count of K5's one path:
+    one launch, the plain version within the bar, each row bit-equal to the
+    same row alone, the shifted group scales caught."""
     x = _randn(gen, b, k)
     w, scale = _int4_weight(gen, f, k, group)
     before = int4_matvec.launches
@@ -618,6 +639,7 @@ def test_int4_matvec_kernel_matches_plain(gen, b, k, f, group):
     ref = int4_matvec_plain(x, w, scale)
     err, tol = _err_and_tol(out, ref)
     assert err <= tol
+    _alone_equal(int4_matvec, x, w, scale)
     # planted fault: the scales shifted by one group (per channel: by one
     # output channel)
     shifted = scale.roll(1, dims=-1) if scale.dim() == 2 else scale.roll(1)
@@ -1190,14 +1212,19 @@ def test_bf16_matvec_verify_rows_match_plain(gen, b, k, f, kf):
 
 @pytest.mark.parametrize("b", VERIFY_ROWS)
 @pytest.mark.parametrize("k,f", [(4096, 12288), (11008, 4096),
-                                 (4096, 32000), (64, 33)])
+                                 (4096, 32000), (64, 33), (4096, 22016),
+                                 (4112, 1000), (11008, 1001)])
 def test_int8_matvec_verify_rows_match_plain(gen, b, k, f):
-    """K4's 9-16-row template: the plain version within the bar, each row
-    bit-equal to the same row alone (the B = 1 template), the shifted
-    scales caught."""
+    """K4 at a verify round's 9 rows, 12 and 16 (its second n8 tile), at
+    the fused 7B widths and at K and F off its tiling: one launch, the
+    plain version within the bar, each row bit-equal to the same row alone,
+    the shifted scales caught."""
     x = _randn(gen, b, k)
     w, scale = _int8_weight(gen, f, k)
     ref = int8_matvec_plain(x, w, scale)
+    before = int8_matvec.launches
+    int8_matvec(x, w, scale)
+    assert int8_matvec.launches == before + 1
     err, tol = _err_and_tol(_alone_equal(int8_matvec, x, w, scale), ref)
     assert err <= tol
     fault, _ = _err_and_tol(int8_matvec(x, w, scale.roll(1)), ref)
@@ -1207,20 +1234,59 @@ def test_int8_matvec_verify_rows_match_plain(gen, b, k, f):
 @pytest.mark.parametrize("b", VERIFY_ROWS)
 @pytest.mark.parametrize("k,f,group", [
     (5120, 15360, 128), (13824, 5120, 128), (5120, 32000, 0),
-    (11008, 4096, 128), (96, 40, 16)])
+    (11008, 4096, 128), (96, 40, 16), (5120, 27648, 128),
+    (11008, 1001, 128), (160, 40, 8), (4128, 1000, 32), (4128, 1000, 0)])
 def test_int4_matvec_verify_rows_match_plain(gen, b, k, f, group):
-    """K5's 9-16-row template (one row a warp) at Valley-13B's and 7B's
-    widths, per channel and with 8-weight groups: the plain version within
-    the bar, each row bit-equal to the same row alone (the B = 1 template,
-    four rows a warp), the shifted group scales caught."""
+    """K5 at a verify round's 9 rows, 12 and 16 (its second n8 tile), at
+    Valley-13B's and 7B's widths, per channel and with groups of 8, 16, 32
+    and 128, at K and F off its tiling: one launch, the plain version
+    within the bar, each row bit-equal to the same row alone, the shifted
+    group scales caught."""
     x = _randn(gen, b, k)
     w, scale = _int4_weight(gen, f, k, group)
     ref = int4_matvec_plain(x, w, scale)
+    before = int4_matvec.launches
+    int4_matvec(x, w, scale)
+    assert int4_matvec.launches == before + 1
     err, tol = _err_and_tol(_alone_equal(int4_matvec, x, w, scale), ref)
     assert err <= tol
     shifted = scale.roll(1, dims=-1) if scale.dim() == 2 else scale.roll(1)
     fault, _ = _err_and_tol(int4_matvec(x, w, shifted.contiguous()), ref)
     assert fault > tol
+
+
+@pytest.mark.parametrize("which", ["int8", "int4"])
+@pytest.mark.parametrize("b", [1, 9, 16])
+def test_quantized_matvec_graph_replay_is_its_eager_call(gen, which, b):
+    """K4 and K5 captured in a CUDA graph as `DecodeGraphs.capture` captures
+    a step (an eager call on a side stream first, the launches recorded,
+    not counted): each replay equals the eager call bit for bit and counts
+    one launch."""
+    k, f = 4096, 1000
+    x = _randn(gen, b, k)
+    if which == "int8":
+        fn, args = int8_matvec, _int8_weight(gen, f, k)
+    else:
+        fn, args = int4_matvec, _int4_weight(gen, f, k, 128)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(x, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _build.recording_launches() as rec:
+        with torch.cuda.graph(graph):
+            out = fn(x, *args)
+    assert rec == {fn: 1}
+    want = fn(x, *args)
+    x.copy_(_randn(gen, b, k))
+    want2 = fn(x, *args)
+    before = fn.launches
+    graph.replay()
+    _build.add_launches(rec)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(out, want2) and not torch.equal(out, want)
 
 
 @pytest.mark.parametrize("kind", list(GRAPH_TREES))

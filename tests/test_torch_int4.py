@@ -161,15 +161,18 @@ def test_int4_matvec_plain_matches_pallas_grouped(n, k):
                                rtol=0, atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("rows", [9, 16])
-def test_int4_matvec_plain_matches_pallas_grouped_at_verify_rows(rows):
-    """A speculative verify round's 9 rows and 16 rows: the Pallas grouped
-    GEMV takes one row, so each row goes through it alone (interpret mode)
+@pytest.mark.parametrize("rows,n", [(9, 256), (16, 256), (9, 257),
+                                    (16, 1001)],
+                         ids=["9", "16", "9-oddF", "16-oddF"])
+def test_int4_matvec_plain_matches_pallas_grouped_at_verify_rows(rows, n):
+    """A speculative verify round's 9 rows and 16 rows, F = 256 and odd
+    (the kernel's last 16-row tile part filled): the Pallas grouped GEMV
+    takes one row, so each row goes through it alone (interpret mode)
     against the port's plain version of all the rows at once, within 1e-5
     of the largest output."""
     mod = _exp_int4_group()
     rng = np.random.default_rng(rows)
-    n, k = 256, 512
+    k = 512
     g = k // 128
     x = jnp.asarray(rng.standard_normal((rows, k)), jnp.bfloat16)
     w8 = rng.integers(-7, 8, (n, k)).astype(np.int8)
@@ -182,6 +185,30 @@ def test_int4_matvec_plain_matches_pallas_grouped_at_verify_rows(rows):
                             quant.pack_int4(torch.from_numpy(w8)),
                             torch.from_numpy(_np(s)).bfloat16())
     assert got.dtype == torch.float32 and got.shape == (rows, n)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert quant.int4_matvec.launches == 0
+
+
+@pytest.mark.parametrize("rows", [9, 16])
+@pytest.mark.parametrize("group", [8, 16])
+def test_int4_matvec_plain_matches_jax_proj_small_groups(rows, group):
+    """Groups of 8 and 16 inputs (scales the kernel applies to each 4-input
+    chunk of a k16 step) at 9 and 16 rows and an odd F: the port's plain
+    version of the packed weight against JAX's ``_proj`` grouped branch on
+    the same int4 values and bf16 scales, fp32 activations, within 1e-5 of
+    the largest output."""
+    rng = np.random.default_rng(group + rows)
+    f, k = 201, 160
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    w8 = rng.integers(-8, 8, (f, k)).astype(np.int8)
+    s = jnp.asarray(rng.random((f, k // group)) * .02 + .01, jnp.bfloat16)
+    lp = {"wo": jnp.asarray(w8).astype(jnp.int4), "wo_scale": s}
+    want = np.asarray(jllama._proj(lp, "wo", jnp.asarray(x)))
+    got = quant.int4_matvec(torch.from_numpy(x),
+                            quant.pack_int4(torch.from_numpy(w8)),
+                            torch.from_numpy(_np(s)).bfloat16())
+    assert got.dtype == torch.float32 and got.shape == (rows, f)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
     assert quant.int4_matvec.launches == 0

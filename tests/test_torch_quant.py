@@ -122,12 +122,15 @@ def test_unserved_modes_raise():
 @pytest.mark.parametrize("b,k,f,block_f", [(1, 256, 384, 128),
                                            (3, 512, 200, 512),
                                            (9, 256, 384, 128),
-                                           (16, 512, 200, 512)])
+                                           (16, 512, 200, 512),
+                                           (9, 272, 383, 128),
+                                           (16, 4112, 1001, 512)])
 def test_int8_matvec_plain_matches_jax_kernel(b, k, f, block_f):
     """JAX's Pallas kernel (interpret mode) takes w (in, out) and a (1, F)
     scale; the port's takes w (out, in) and an (F,) scale.  fp32 outputs
     agree to 1e-5 of their largest (the same exact products, summed in
-    another order)."""
+    another order), at 1 to 16 rows, and at an odd F with a K that is not a
+    multiple of the kernel's 64-input units."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((b, k)).astype(np.float32)
     w = rng.integers(-127, 128, (k, f)).astype(np.int8)

@@ -1,9 +1,9 @@
 // Grouped int4-weight GEMV for decode, for Hopper, sm_90a, plain C interface.
 //
 // Replaces: tools/exp_int4_group.py `pallas_grouped` (the Pallas TPU kernel
-// `kern`, int4 weight tiles dequantized in VMEM), the hand-written form of
-// the grouped decode product of valley_tpu/models/llama.py `_proj`
-// (:270-317).  Same function:
+// `kern`, int4 weight tiles widened to bf16 in VMEM for one MXU dot per
+// group), the hand-written form of the grouped decode product of
+// valley_tpu/models/llama.py `_proj` (:270-317).  Same function:
 //   y[b, o] = sum_g scale[o, g] * sum_{i in group g} float(x[b, i]) * w[o, i]
 // with bf16 activations x (B, K), int4 weights in [-8, 7], bf16 scales per
 // output channel and group of K / G inputs (G = 1: per channel), fp32
@@ -11,101 +11,121 @@
 // to a byte, the low nibble first: w is (F, K/2) uint8, each output's
 // inputs contiguous; the scale is (F, G).
 //
-// What bounds it on the H100: device-memory bytes.  Each weight byte holds
-// two weights and is read once per call for 2B multiply-adds each (B <= 16:
+// What bounds it on the H100: device-memory bytes.  Each packed byte holds
+// two weights and is read once per call for B multiply-adds each (B <= 16:
 // a decode step of up to 8 rows or of batch_infer's 16-row pool, or a
-// speculative verify round of D + 1 = 9 tokens), ~4 FLOP per byte at B = 1,
-// far under the card's ~295 FLOP/byte ridge, so the floor is (F * K / 2 +
-// 2 * F * G) bytes / 3.35 TB/s (Valley-13B fused at group 128: 12.1 us for
-// wqkv, 21.8 us for w_gateup, 24.5 us for the per-channel lm_head, 1.98 ms
-// for one token's weights).  From 9 rows on the fp32 FMAs on the CUDA
-// cores (2B per weight byte) take longer than the bytes at 67 TFLOP/s.
+// speculative verify round of D + 1 = 9 tokens): 4 FLOP per byte at B = 1
+// and 64 at B = 16, far under the card's ~295 FLOP/byte ridge, so the floor
+// is (F * K / 2 + 2 * F * G) bytes / 3.35 TB/s (Valley-13B fused at group
+// 128: 12.1 us for wqkv, 21.8 us for w_gateup, 24.5 us for the per-channel
+// lm_head, 1.98 ms for one token's weights).  What keeps a kernel off that
+// floor is the work each byte brings: turning two nibbles into numbers, 2B
+// multiply-adds, and reading B rows of x for them.
 //
-// What the design does about it: as the int8 GEMV (int8_matvec.cu), a
-// warp streams its rows in 16-byte vectors (32 weights per lane per load),
-// several loads in flight per lane, with the streaming cache hint.
-// Neighbouring lanes read neighbouring vectors, so a warp's load is 512
-// contiguous bytes.  x is reread by every warp through the read-only path:
-// at one row per warp that is 4 bytes of x through L1 for each packed
-// weight byte, and it held the kernel at half its bound, so a warp takes R
-// rows (4 at B <= 2, 2 at B <= 4) and each x load and conversion serves
-// all R.  A nibble becomes an exact float with integer ops: xor 8
-// biases it to [0, 15], a mask and a byte permute place it in the low
-// mantissa byte of 2^23, and one subtraction leaves the signed value.  Each
-// 32-weight vector lies in one group when the group size is a multiple of
-// 32, so its partial sum takes the group's scale in one multiply-add (a
-// multiple of 8 only: per 8-weight word), the group found by a multiply-high
-// instead of a division; a per-channel scale (G = 1) is applied once to the
-// row's sum.  A warp shuffle reduces the row.
+// What the design does about it.  The multiply-adds run on the tensor
+// cores, in the layout of the bf16 GEMV (bf16_matvec.cu), one path for
+// every B: a warp takes 16 output rows (an m-tile) as mma.sync.m16n8k16's
+// M (bf16 operands, fp32 sums) and the activation rows as N, one n8 tile up
+// to 8 rows and a second for 9 to 16 that reuses each lane's A fragments,
+// so the weights are read and converted once whatever B.  This is the
+// Pallas kernel's arithmetic: an int4 value is exact in bf16 and a product
+// of two bf16 is exact in fp32, so only the order of the fp32 sums differs.
+//   Lane (g = lane / 4, t = lane % 4) streams 16-byte vectors of weight
+// rows g and g + 8 (streaming loads: the weights are not reread) and turns
+// them in registers straight into its A fragments: a byte permute puts a
+// nibble pair (the low nibble first, as pack_int4 lays it) in the two
+// halves of a word, one lop3 masks them, biases them by xor 8 to [0, 15]
+// and puts them in the low mantissa bits of two bf16 128.0 (0x4300), and
+// one bf16x2 fma subtracts 136: three instructions a pair, no float
+// conversion.  A unit is 128 inputs: lane t holds inputs 32 t .. 32 t + 31
+// of it (the quad of a row reads 64 contiguous bytes), and each of the
+// unit's 8 k16 steps takes 4 neighbouring inputs from each lane of the
+// quad (values 4 s .. 4 s + 3 of the lane's vector as its A columns 2t,
+// 2t+1, 2t+8, 2t+9), so a k16 step never leaves its unit and x, read as
+// its own bf16 pairs at the same inputs, is the B fragment.  The MW warps
+// of a block take a row's units in turn, AHEAD at a time, and each issues
+// its next step's loads before the products of the one it holds (left to
+// itself the compiler issues each load just before its use); at the end
+// they add their C fragments in shared memory in warp order.  At 9 to 16
+// rows x, reread by every warp for its 16 rows, cost more than the weights
+// (four bytes of x through L1 and L2 for each packed byte), so a warp takes
+// two m-tiles there and each x load serves 32 rows.  Staging the weights
+// in shared memory (cp.async, several steps ahead) was tried and was not
+// faster.  An F that is not a multiple of 16 reads row F - 1 for the rows
+// past it and stores nothing for them; the vectors of a K that is not a
+// multiple of 128 past its end are loaded clamped and zeroed.
+//   Scales, as pallas_grouped and _proj apply them: with a group size that
+// is a multiple of 128 (int4gp's 128) a unit lies in one group, so each
+// unit's products go into a C fragment of their own, which joins the row's
+// sum times the group's scale (fp32 per-group partials, never a weight
+// scaled in bf16); per channel (G = 1) the row's sum is scaled once; any
+// other multiple of 8 (tests, tiny models) splits each k16 step into the
+// four 4-input chunks of the quad, each in a product of its own (the other
+// lanes' A zeroed) times its chunk's group scale.
 //
-// 9 to 16 rows (`int4_matvec_rows_kernel`): a warp per row rereading every
-// row of x from L1/L2 for every weight vector (64 bytes of x per 16 bytes
-// of weights and row) held the rows at a seventeenth of their bound, so a
-// block of 8 warps stages x through shared memory a chunk of 1024 inputs
-// at a time, laid out so that a warp's reads of one word's 8 inputs are
-// 512 contiguous bytes, and each warp takes two output rows, so that each
-// x read serves both.  A lane still takes the vectors lane, lane + 32, ...
-// of its rows in order, with the same FMAs and scale multiply-adds, so a
-// row's result is bit-identical at every B (alone, among 8 rows or 16).
+// Sum order: per output, the units of each warp in order (within a unit
+// its k16 steps in order), then the warps in order.  It depends on K, F
+// and G only, never on B or on the m-tiles a warp takes, and a tensor-core
+// product's column is a function of that column of x alone, so a row's
+// result is bit-identical whatever other rows share the call (a
+// speculative verify round gives each row the bits of plain decode).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-// threads per block: 2 warps, so that F = 5120 at 4 rows per warp makes 640
-// blocks for the 132 SMs (8 warps made 160, two on 28 SMs, one elsewhere)
-constexpr int NT = 64;
-constexpr int NW = NT / 32;
 constexpr int MAX_ROWS = 16;  // activation rows B a launch takes
-constexpr int EXACT = 8;      // up to this B, one template per B
-constexpr int NWB = 8;        // 9-16 rows: warps a block
-constexpr int RW = 2;         // 9-16 rows: output rows a warp
-constexpr int CV = 32;        // 9-16 rows: vectors of a row a chunk
-constexpr int UNROLL = 4;     // 16-byte loads in flight per lane at R = 1
-constexpr int MAX_K = 1 << 19;  // `group_of` is exact below it
+constexpr int N8 = 8;         // the mma's N: activation rows of one tile
+constexpr int MW = 8;         // warps of a block, taking units in turn
+constexpr int AHEAD = 1;      // units a step of a warp loads at once
+constexpr int UNIT = 128;     // inputs of a unit: a quad's four vectors
+constexpr int MAX_K = 1 << 19;  // K's limit in the C interface
+static_assert(MAX_ROWS == 2 * N8, "at most two n8 tiles of rows");
 
-// Where the scales apply: one per row (G = 1), one per 32-weight vector
-// (group size a multiple of 32) or one per 8-weight word (a multiple of 8)
-enum Scales { PER_ROW, PER_VECTOR, PER_WORD };
+// Where the scales apply: once to a row's sum (G = 1), to each unit's
+// partial (group size a multiple of UNIT), or to each 4-input chunk's
+// partial (any other multiple of 8)
+enum Scales { PER_ROW, PER_UNIT, PER_CHUNK };
 
-// floor(n / d) for the d units (vectors or words) of a group, with m =
-// ceil(2^32 / d): exact for n, d < 2^16, which K < MAX_K keeps.
-__device__ __forceinline__ uint32_t group_of(uint32_t n, uint32_t d,
-                                            uint32_t m) {
-  return d == 1 ? n : __umulhi(n, m);
+constexpr uint32_t BF16X2_ONE = 0x3F803F80u;     // 1.0, 1.0
+constexpr uint32_t BF16X2_NEG136 = 0xC308C308u;  // -136.0, -136.0
+
+// a * b + c on bf16 pairs.
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// b ? a ^ c : c, bit by bit, in one instruction (the compiler splits the
+// same expression written in C into two when both b and c are constants)
+__device__ __forceinline__ uint32_t select_xor(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0x6A;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// The eight int4 of a packed word (weight 2j in the low nibble of byte j,
+// 2j + 1 in its high nibble) as four bf16 pairs h[j] = (w[2j], w[2j + 1]),
+// the first in the low half.  A nibble biased by xor 8 is the value plus 8,
+// u; in the low mantissa bits of 128.0 (0x4300) it makes 128 + u, and
+// 128 + u - 136 is the value, exact.  One lop3 masks a pair of nibbles,
+// biases them and puts them into 128.0.
+__device__ __forceinline__ void i4x8_to_bf16(uint32_t w, uint32_t (&h)[4]) {
+  const uint32_t hi = w >> 4;  // byte j's high nibble in its low nibble
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Eight int4 in a 32-bit word (weight 2j in the low nibble of byte j, 2j+1
-// in its high nibble) -> eight exact floats in weight order.  Each nibble,
-// biased to unsigned (xor 8), becomes the low mantissa byte of 2^23
-// (0x4B0000uu = 8388608 + uu); subtracting 8388608 + 8 leaves the int4.
-__device__ __forceinline__ void i4x8_to_f32(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x88888888u;
-  const uint32_t lo = u & 0x0F0F0F0Fu;
-  const uint32_t hi = (u >> 4) & 0x0F0F0F0Fu;
-  f[0] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7650)) - 8388616.f;
-  f[1] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7650)) - 8388616.f;
-  f[2] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7651)) - 8388616.f;
-  f[3] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7651)) - 8388616.f;
-  f[4] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7652)) - 8388616.f;
-  f[5] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7652)) - 8388616.f;
-  f[6] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7653)) - 8388616.f;
-  f[7] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7653)) - 8388616.f;
-}
-
-// Two bf16 in a 32-bit word (element 0 in the low half) -> two floats.
-__device__ __forceinline__ void bf16x2_to_f32(uint32_t h, float* f) {
-  f[0] = __uint_as_float(h << 16);
-  f[1] = __uint_as_float(h & 0xFFFF0000u);
+  for (int j = 0; j < 4; ++j) {
+    // byte j of w to byte 0, byte j of hi to byte 2
+    const uint32_t p = __byte_perm(w, hi, j | (4 + j) << 8);
+    h[j] = fma_bf16x2(select_xor(p, 0x000F000Fu, 0x43084308u), BF16X2_ONE,
+                      BF16X2_NEG136);
+  }
 }
 
 // The 32-bit word j of a 16-byte vector.
@@ -113,300 +133,255 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// acc[r][b] += sum over the 32 weights of vector v (inputs 32v .. 32v + 31)
-// of row r of x[b, i] * w[i], for the R rows of a warp: unscaled (PER_ROW),
-// the vector's partial times the scale of the one group it lies in
-// (PER_VECTOR), or each 8-weight word's partial times its group's
-// (PER_WORD).  Each x load and conversion serves the R rows.  A group holds
-// d vectors or words; m = ceil(2^32 / d).
-template <int B, int R, int SCALES>
-__device__ __forceinline__ void fma_vec(const uint4* wv,
-                                        const uint4* __restrict__ xv,
-                                        const __nv_bfloat16* const* sr,
-                                        int v, int K, uint32_t d, uint32_t m,
-                                        float (*acc)[B]) {
-  float part[R][B];
+// What a lane holds of AHEAD units: its vectors of weight rows g + 8 r
+// (r = 0 .. 2 MT - 1: rows g and g + 8 of each of its MT m-tiles) and, per
+// unit, their group scales.
+template <int MT>
+struct Held {
+  uint4 a[2 * MT][AHEAD];
+  // bf16 bits, made floats only where they are used, so that a warp does
+  // not wait for them when it loads them
+  unsigned short s[2 * MT][AHEAD];
+};
+
+// Lane t's loads of units u0 .. u0 + AHEAD - 1 that lie before uend: vector
+// 4 u + t of each row (clamped to the row; `products` zeroes what lies past
+// K) and, per unit, the scale of the group it lies in: floor(u / upg) for
+// upg units a group, as a multiply-high by mh = ceil(2^32 / upg), exact for
+// u and upg below 2^16 (K below MAX_K keeps them there).
+template <int MT, int MODE>
+__device__ __forceinline__ void load_units(
+    Held<MT>& h, const uint4* const (&wr)[2 * MT],
+    const unsigned short* const (&sr)[2 * MT], int u0, int uend, int t,
+    int nvec, uint32_t upg, uint32_t mh) {
 #pragma unroll
-  for (int r = 0; r < R; ++r)
+  for (int i = 0; i < AHEAD; ++i) {
+    const int u = u0 + i;
 #pragma unroll
-    for (int b = 0; b < B; ++b) part[r][b] = 0.f;
+    for (int r = 0; r < 2 * MT; ++r) {
+      h.a[r][i] = make_uint4(0u, 0u, 0u, 0u);
+      h.s[r][i] = 0;
+    }
+    if (u < uend) {
+      const int v = min(4 * u + t, nvec - 1);
+#pragma unroll
+      for (int r = 0; r < 2 * MT; ++r) h.a[r][i] = __ldcs(wr[r] + v);
+      if constexpr (MODE == PER_UNIT) {
+        const uint32_t grp = upg == 1 ? u : __umulhi(u, mh);
+#pragma unroll
+        for (int r = 0; r < 2 * MT; ++r) h.s[r][i] = __ldg(sr[r] + grp);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float bf16_bits_to_float(unsigned short b) {
+  return __uint_as_float((uint32_t)b << 16);
+}
+
+// The products of unit u, added to c: lane (g, t)'s vectors a[r] (rows
+// g + 8 r) hold inputs 128 u + 32 t .. + 31, x rows 8 n + g the same
+// inputs.  Word j of a vector holds inputs 8 j .. 8 j + 7, k16 steps 2j and
+// 2j + 1; each x load serves the MT m-tiles.  The unit's products are
+// summed apart (p), then added to c as they are (PER_ROW) or times their
+// group's scale (PER_UNIT).
+template <int NT8, int MT, int MODE>
+__device__ __forceinline__ void products(
+    float (&c)[MT][NT8][4], uint4 (&a)[2 * MT],
+    const unsigned short (&sb)[2 * MT], const uint4* const (&xr)[NT8],
+    const unsigned short* const (&sr)[2 * MT], int u, int t, int nvec,
+    int gs, int G) {
+  const int v = 4 * u + t;
+  if (v >= nvec) {   // past K: zero weights add nothing
+#pragma unroll
+    for (int r = 0; r < 2 * MT; ++r) a[r] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  const int xv = 4 * min(v, nvec - 1);
+  float p[MT][NT8][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[m][n][i] = 0.f;
+
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    float wf[R][8];
+    // x rows 8 n + g at the word's 8 inputs
+    uint4 xb[NT8];
 #pragma unroll
-    for (int r = 0; r < R; ++r) i4x8_to_f32(word(wv[r], j), wf[r]);
+    for (int n = 0; n < NT8; ++n) xb[n] = __ldg(xr[n] + xv + j);
+    uint32_t h[2 * MT][4];
 #pragma unroll
-    for (int b = 0; b < B; ++b) {
-      // 8 bf16 of row b = one 16-byte vector; K % 32 == 0 keeps it aligned
-      const uint4 xa =
-          __ldg(xv + ((long long)b * K + (long long)v * 32 + j * 8) / 8);
-      float xf[8];
-      bf16x2_to_f32(xa.x, xf);
-      bf16x2_to_f32(xa.y, xf + 2);
-      bf16x2_to_f32(xa.z, xf + 4);
-      bf16x2_to_f32(xa.w, xf + 6);
+    for (int r = 0; r < 2 * MT; ++r) i4x8_to_bf16(word(a[r], j), h[r]);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float p = part[r][b];
+    for (int e = 0; e < 2; ++e)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) p = fmaf(xf[e], wf[r][e], p);
-        part[r][b] = p;
-      }
-    }
-    if (SCALES == PER_WORD) {
-      const uint32_t g = group_of(4 * v + j, d, m);
+      for (int m = 0; m < MT; ++m) {
+        // A columns 2t, 2t+1: values 8j + 4e, + 1; columns 2t+8, 2t+9: + 2,
+        // + 3; rows g and g + 8 of m-tile m
+        const uint32_t af[4] = {h[2 * m][2 * e], h[2 * m + 1][2 * e],
+                                h[2 * m][2 * e + 1], h[2 * m + 1][2 * e + 1]};
+        if constexpr (MODE != PER_CHUNK) {
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float s = __bfloat162float(sr[r][g]);
+          for (int n = 0; n < NT8; ++n)
+            flash::mma(p[m][n], af, word(xb[n], 2 * e),
+                       word(xb[n], 2 * e + 1));
+        } else {
+          // quad lane tp's chunk: inputs 128 u + 32 tp + 8 j + 4 e .. + 3
 #pragma unroll
-        for (int b = 0; b < B; ++b) {
-          acc[r][b] = fmaf(part[r][b], s, acc[r][b]);
-          part[r][b] = 0.f;
-        }
-      }
-    }
-  }
+          for (int tp = 0; tp < 4; ++tp) {
+            const uint32_t keep = t == tp ? ~0u : 0u;
+            const uint32_t am[4] = {af[0] & keep, af[1] & keep,
+                                    af[2] & keep, af[3] & keep};
+            const int grp = min((UNIT * u + 32 * tp + 8 * j + 4 * e) / gs,
+                                G - 1);
+            const float q0 = bf16_bits_to_float(sr[2 * m][grp]);
+            const float q1 = bf16_bits_to_float(sr[2 * m + 1][grp]);
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float s = SCALES == PER_VECTOR
-        ? __bfloat162float(sr[r][group_of(v, d, m)]) : 1.f;
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-      if (SCALES != PER_WORD) acc[r][b] = fmaf(part[r][b], s, acc[r][b]);
-  }
-}
-
-// x: (B, K) bf16; w: (F, K/2) uint8; scale: (F, G) bf16; y: (B, F) fp32.
-// Grid ceil(F / (NW * R)); warp `threadIdx.x / 32` of block i owns the R
-// rows from (i * NW + warp) * R (the last warp's rows past F reread row
-// F - 1 and store nothing).
-template <int B, int R, int SCALES>
-__global__ void __launch_bounds__(NT) int4_matvec_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-    const __nv_bfloat16* __restrict__ scale, float* __restrict__ y, int K,
-    int F, int G) {
-  // vector positions each lane keeps in flight: U * R loads of 16 bytes
-  constexpr int U = R == 1 ? UNROLL : 8 / R;
-  const int lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * NW + threadIdx.x / 32) * R;
-  if (row0 >= F) return;
-  const int nvec = K / 32;
-  // vectors or words per group, and its reciprocal for `group_of`
-  const uint32_t d = (K / G) / (SCALES == PER_WORD ? 8 : 32);
-  const uint32_t m = (uint32_t)((0x100000000ull + d - 1) / d);
-  const uint4* wr[R];
-  const __nv_bfloat16* sr[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = min(row0 + r, F - 1);
-    wr[r] = reinterpret_cast<const uint4*>(w + (long long)row * (K / 2));
-    sr[r] = scale + (long long)row * G;
-  }
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
-
-  float acc[R][B];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int b = 0; b < B; ++b) acc[r][b] = 0.f;
-
-  int v = lane;
-  for (; v + 32 * (U - 1) < nvec; v += 32 * U) {
-    uint4 wv[U][R];
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-#pragma unroll
-      for (int r = 0; r < R; ++r) wv[u][r] = __ldcs(wr[r] + v + 32 * u);
-#pragma unroll
-    for (int u = 0; u < U; ++u)
-      fma_vec<B, R, SCALES>(wv[u], xv, sr, v + 32 * u, K, d, m, acc);
-  }
-  for (; v < nvec; v += 32) {
-    uint4 wv[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) wv[r] = __ldcs(wr[r] + v);
-    fma_vec<B, R, SCALES>(wv, xv, sr, v, K, d, m, acc);
-  }
-
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int b = 0; b < B; ++b) acc[r][b] = warp_sum(acc[r][b]);
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (row0 + r >= F) break;
-      const float s = SCALES == PER_ROW ? __bfloat162float(sr[r][0]) : 1.f;
-#pragma unroll
-      for (int b = 0; b < B; ++b)
-        y[(long long)b * F + row0 + r] = acc[r][b] * s;
-    }
-  }
-}
-
-// x: (nb, K) bf16 with 9 <= nb <= 16; w: (F, K/2) uint8; scale: (F, G)
-// bf16; y: (nb, F) fp32.  Grid ceil(F / (NWB RW)); warp `threadIdx.x / 32`
-// of block i owns rows (i NWB + warp) RW .. + RW - 1 (a row past F rereads
-// row F - 1 and stores nothing).  Chunk c holds inputs 1024 c .. 1024 c +
-// 1023 of every x row in shared memory, xs[b][j][lane] = x[b, 32 v + 8 j ..
-// + 7] for the vector v = 32 c + lane that lane takes in that chunk; a
-// lane's products of a vector are `fma_vec`'s, in its order.
-template <int SCALES>
-__global__ void __launch_bounds__(NWB * 32) int4_matvec_rows_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-    const __nv_bfloat16* __restrict__ scale, float* __restrict__ y, int K,
-    int F, int G, int nb) {
-  __shared__ uint4 xs[MAX_ROWS][4][CV];       // 32 KB
-  const int lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * NWB + threadIdx.x / 32) * RW;
-  const bool active = row0 < F;
-  const int nvec = K / 32, nchunk = (nvec + CV - 1) / CV;
-  const uint32_t d = (K / G) / (SCALES == PER_WORD ? 8 : 32);
-  const uint32_t m = (uint32_t)((0x100000000ull + d - 1) / d);
-  const uint4* wr[RW];
-  const __nv_bfloat16* sr[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r) {
-    const int row = min(row0 + r, F - 1);
-    wr[r] = reinterpret_cast<const uint4*>(w + (long long)row * (K / 2));
-    sr[r] = scale + (long long)row * G;
-  }
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  float acc[RW][MAX_ROWS];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int b = 0; b < MAX_ROWS; ++b) acc[r][b] = 0.f;
-
-  // the next chunk's weights are loaded before this chunk's products
-  uint4 cur[RW], nxt[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-    cur[r] = active && lane < nvec ? __ldcs(wr[r] + lane) : zero;
-  for (int c = 0; c < nchunk; ++c) {
-    const int v = c * CV + lane;
-#pragma unroll
-    for (int r = 0; r < RW; ++r)
-      nxt[r] = active && v + CV < nvec ? __ldcs(wr[r] + v + CV) : zero;
-    __syncthreads();   // every warp is done with the last chunk
-    for (int i = threadIdx.x; i < MAX_ROWS * 4 * CV; i += NWB * 32) {
-      const int b = i / (4 * CV), q = i % (4 * CV);
-      const int k = c * CV * 32 + 8 * q;
-      if (b < nb && k < K)
-        xs[b][q % 4][q / 4] = __ldg(reinterpret_cast<const uint4*>(
-            x + (long long)b * K + k));
-    }
-    __syncthreads();
-    if (active && v < nvec) {
-      float part[RW][MAX_ROWS];
-#pragma unroll
-      for (int r = 0; r < RW; ++r)
-#pragma unroll
-        for (int b = 0; b < MAX_ROWS; ++b) part[r][b] = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float wf[RW][8];
-#pragma unroll
-        for (int r = 0; r < RW; ++r) i4x8_to_f32(word(cur[r], j), wf[r]);
-#pragma unroll
-        for (int b = 0; b < MAX_ROWS; ++b) {
-          if (b >= nb) break;
-          const uint4 xa = xs[b][j][lane];
-          float xf[8];
-          bf16x2_to_f32(xa.x, xf);
-          bf16x2_to_f32(xa.y, xf + 2);
-          bf16x2_to_f32(xa.z, xf + 4);
-          bf16x2_to_f32(xa.w, xf + 6);
-#pragma unroll
-          for (int r = 0; r < RW; ++r) {
-            float p = part[r][b];
-#pragma unroll
-            for (int e = 0; e < 8; ++e) p = fmaf(xf[e], wf[r][e], p);
-            part[r][b] = p;
-          }
-        }
-        if (SCALES == PER_WORD) {
-          const uint32_t g = group_of(4 * v + j, d, m);
-#pragma unroll
-          for (int r = 0; r < RW; ++r) {
-            const float s = __bfloat162float(sr[r][g]);
-#pragma unroll
-            for (int b = 0; b < MAX_ROWS; ++b) {
-              acc[r][b] = fmaf(part[r][b], s, acc[r][b]);
-              part[r][b] = 0.f;
+            for (int n = 0; n < NT8; ++n) {
+              float q[4] = {0.f, 0.f, 0.f, 0.f};
+              flash::mma(q, am, word(xb[n], 2 * e),
+                         word(xb[n], 2 * e + 1));
+              c[m][n][0] = fmaf(q[0], q0, c[m][n][0]);
+              c[m][n][1] = fmaf(q[1], q0, c[m][n][1]);
+              c[m][n][2] = fmaf(q[2], q1, c[m][n][2]);
+              c[m][n][3] = fmaf(q[3], q1, c[m][n][3]);
             }
           }
         }
       }
-      if (SCALES != PER_WORD) {
+  }
 #pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          const float s = SCALES == PER_VECTOR
-              ? __bfloat162float(sr[r][group_of(v, d, m)]) : 1.f;
+  for (int m = 0; m < MT; ++m) {
+    if constexpr (MODE == PER_ROW) {
 #pragma unroll
-          for (int b = 0; b < MAX_ROWS; ++b)
-            acc[r][b] = fmaf(part[r][b], s, acc[r][b]);
-        }
+      for (int n = 0; n < NT8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[m][n][i] += p[m][n][i];
+    } else if constexpr (MODE == PER_UNIT) {
+      // c0, c1: output row g of the m-tile; c2, c3: row g + 8
+      const float s0 = bf16_bits_to_float(sb[2 * m]);
+      const float s1 = bf16_bits_to_float(sb[2 * m + 1]);
+#pragma unroll
+      for (int n = 0; n < NT8; ++n) {
+        c[m][n][0] = fmaf(p[m][n][0], s0, c[m][n][0]);
+        c[m][n][1] = fmaf(p[m][n][1], s0, c[m][n][1]);
+        c[m][n][2] = fmaf(p[m][n][2], s1, c[m][n][2]);
+        c[m][n][3] = fmaf(p[m][n][3], s1, c[m][n][3]);
       }
     }
+  }
+}
+
+// x: (B, K) bf16; w: (F, K/2) uint8; scale: (F, G) bf16; y: (B, F) fp32;
+// B at most 8 NT8.  Grid ceil(F / (16 MT)), MW warps a block: block i owns
+// outputs 16 MT i .. 16 MT (i + 1) - 1 (MT m-tiles of 16), warp w the
+// steps of AHEAD units w AHEAD, (MW + w) AHEAD, ... of the ceil(K / 128)
+// of a row.
+template <int NT8, int MT, int MODE>
+__global__ void __launch_bounds__(MW * 32) int4_matvec_mma_kernel(
+    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+    const __nv_bfloat16* __restrict__ scale, float* __restrict__ y, int B,
+    int K, int F, int G) {
+  __shared__ float part[MW][MT][4 * NT8][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int o0 = blockIdx.x * 16 * MT;
+  const uint4* wr[2 * MT];
+  const unsigned short* sr[2 * MT];
 #pragma unroll
-    for (int r = 0; r < RW; ++r) cur[r] = nxt[r];
+  for (int r = 0; r < 2 * MT; ++r) {
+    const long long row = min(o0 + g + 8 * r, F - 1);
+    wr[r] = reinterpret_cast<const uint4*>(w + row * (K / 2));
+    sr[r] = reinterpret_cast<const unsigned short*>(scale + row * G);
+  }
+  const uint4* xr[NT8];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+    xr[n] = reinterpret_cast<const uint4*>(
+        x + (long long)min(N8 * n + g, B - 1) * K);
+  const int nvec = K / 32;               // 16-byte vectors a row
+  const int nunit = (nvec + 3) / 4;
+  const int gs = K / G;                   // group size
+  const uint32_t upg = gs / UNIT;         // PER_UNIT: units a group
+  const uint32_t mh = upg > 1 ? (uint32_t)((0x100000000ull + upg - 1) / upg)
+                              : 0u;
+
+  float c[MT][NT8][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[m][n][i] = 0.f;
+  // warp w's j-th step: units (j MW + w) AHEAD .. + AHEAD - 1; the next
+  // step's loads are issued before this step's products
+  const int step = MW * AHEAD, uend = nunit;
+  int u0 = warp * AHEAD;
+  Held<MT> cur;
+  load_units<MT, MODE>(cur, wr, sr, u0, uend, t, nvec, upg, mh);
+  for (; u0 < uend; u0 += step) {
+    Held<MT> nxt;
+    load_units<MT, MODE>(nxt, wr, sr, u0 + step, uend, t, nvec, upg, mh);
+#pragma unroll
+    for (int i = 0; i < AHEAD; ++i)
+      if (u0 + i < uend) {
+        uint4 a[2 * MT];
+        unsigned short sb[2 * MT];
+#pragma unroll
+        for (int r = 0; r < 2 * MT; ++r) {
+          a[r] = cur.a[r][i];
+          sb[r] = cur.s[r][i];
+        }
+        products<NT8, MT, MODE>(c, a, sb, xr, sr, u0 + i, t, nvec, gs, G);
+      }
+    cur = nxt;
   }
 
+  // m-tile m, tile n: c0, c1 row g, x rows 8n + 2t, 8n + 2t + 1; c2, c3 row
+  // g + 8
 #pragma unroll
-  for (int r = 0; r < RW; ++r)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int b = 0; b < MAX_ROWS; ++b) acc[r][b] = warp_sum(acc[r][b]);
-  if (lane == 0 && active) {
+    for (int n = 0; n < NT8; ++n)
 #pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      if (row0 + r >= F) break;
-      const float s = SCALES == PER_ROW ? __bfloat162float(sr[r][0]) : 1.f;
+      for (int i = 0; i < 4; ++i) part[warp][m][4 * n + i][lane] = c[m][n][i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < 128 * NT8 * MT; e += MW * 32) {
+    const int mt = e / (128 * NT8), n = e / 16 % (8 * NT8), r = e % 16;
+    const int nn = n % N8;
+    const int src = (r % 8) * 4 + nn / 2;
+    const int i = 4 * (n / N8) + (r / 8) * 2 + nn % 2;
+    const int o = o0 + 16 * mt + r;
+    float s = 0.f;
 #pragma unroll
-      for (int b = 0; b < MAX_ROWS; ++b)
-        if (b < nb) y[(long long)b * F + row0 + r] = acc[r][b] * s;
+    for (int ww = 0; ww < MW; ++ww) s += part[ww][mt][i][src];
+    if (n < B && o < F) {
+      if constexpr (MODE == PER_ROW) s *= __bfloat162float(scale[o]);
+      y[(long long)n * F + o] = s;
     }
   }
 }
 
-// The 9-16-row kernel of the scales' kind.
-int launch_rows(const void* x, const void* w, const void* scale, void* y,
-                int K, int F, int G, int nb, cudaStream_t stream) {
-  const dim3 grid((F + NWB * RW - 1) / (NWB * RW));
+// The kernel of the scales' kind, MT m-tiles a warp.
+template <int NT8, int MT>
+int launch(const void* x, const void* w, const void* scale, void* y, int B,
+           int K, int F, int G, cudaStream_t stream) {
+  const int grid = (F + 16 * MT - 1) / (16 * MT);
   const auto* xp = static_cast<const __nv_bfloat16*>(x);
   const auto* wp = static_cast<const uint8_t*>(w);
   const auto* sp = static_cast<const __nv_bfloat16*>(scale);
   float* yp = static_cast<float*>(y);
   if (G == 1)
-    int4_matvec_rows_kernel<PER_ROW><<<grid, NWB * 32, 0, stream>>>(
-        xp, wp, sp, yp, K, F, G, nb);
-  else if ((K / G) % 32 == 0)
-    int4_matvec_rows_kernel<PER_VECTOR><<<grid, NWB * 32, 0, stream>>>(
-        xp, wp, sp, yp, K, F, G, nb);
+    int4_matvec_mma_kernel<NT8, MT, PER_ROW><<<grid, MW * 32, 0, stream>>>(
+        xp, wp, sp, yp, B, K, F, G);
+  else if ((K / G) % UNIT == 0)
+    int4_matvec_mma_kernel<NT8, MT, PER_UNIT><<<grid, MW * 32, 0, stream>>>(
+        xp, wp, sp, yp, B, K, F, G);
   else
-    int4_matvec_rows_kernel<PER_WORD><<<grid, NWB * 32, 0, stream>>>(
-        xp, wp, sp, yp, K, F, G, nb);
-  return (int)cudaGetLastError();
-}
-
-template <int B, int R>
-int launch(const void* x, const void* w, const void* scale, void* y, int K,
-           int F, int G, cudaStream_t stream) {
-  const dim3 grid((F + NW * R - 1) / (NW * R));
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* sp = static_cast<const __nv_bfloat16*>(scale);
-  float* yp = static_cast<float*>(y);
-  if (G == 1)
-    int4_matvec_kernel<B, R, PER_ROW><<<grid, NT, 0, stream>>>(xp, wp, sp,
-                                                               yp, K, F, G);
-  else if ((K / G) % 32 == 0)
-    int4_matvec_kernel<B, R, PER_VECTOR><<<grid, NT, 0, stream>>>(
-        xp, wp, sp, yp, K, F, G);
-  else
-    int4_matvec_kernel<B, R, PER_WORD><<<grid, NT, 0, stream>>>(
-        xp, wp, sp, yp, K, F, G);
+    int4_matvec_mma_kernel<NT8, MT, PER_CHUNK><<<grid, MW * 32, 0, stream>>>(
+        xp, wp, sp, yp, B, K, F, G);
   return (int)cudaGetLastError();
 }
 
@@ -425,16 +400,8 @@ extern "C" int int4_matvec_bf16(const void* x, const void* w,
       G <= 0 || K % G || (K / G) % 8)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > EXACT) return launch_rows(x, w, scale, y, K, F, G, B, st);
-  switch (B) {
-    // rows per warp: as many as the registers hold at B rows of x
-    case 1: return launch<1, 4>(x, w, scale, y, K, F, G, st);
-    case 2: return launch<2, 4>(x, w, scale, y, K, F, G, st);
-    case 3: return launch<3, 2>(x, w, scale, y, K, F, G, st);
-    case 4: return launch<4, 2>(x, w, scale, y, K, F, G, st);
-    case 5: return launch<5, 1>(x, w, scale, y, K, F, G, st);
-    case 6: return launch<6, 1>(x, w, scale, y, K, F, G, st);
-    case 7: return launch<7, 1>(x, w, scale, y, K, F, G, st);
-    default: return launch<8, 1>(x, w, scale, y, K, F, G, st);
-  }
+  // 9 to 16 rows: two m-tiles a warp, so that each x load serves 32 weight
+  // rows (a row's sums are the same whatever m-tile it lies in)
+  return B <= N8 ? launch<1, 1>(x, w, scale, y, B, K, F, G, st)
+                 : launch<2, 2>(x, w, scale, y, B, K, F, G, st);
 }

@@ -1,7 +1,8 @@
 // int8-weight GEMV for decode, for Hopper, sm_90a, plain C interface.
 //
 // Replaces: valley_tpu/ops/quant.py `_int8_matvec_kernel` (the Pallas TPU
-// kernel launched by `int8_matvec`).  Same function:
+// kernel launched by `int8_matvec`, which widens each int8 weight tile to
+// bf16 for one MXU dot with fp32 sums).  Same function:
 //   y[b, o] = scale[o] * sum_k float(x[b, k]) * float(w[o, k])
 // with bf16 activations x (B, K), int8 weights, a bf16 per-output-channel
 // scale, fp32 accumulation and fp32 output.  The Pallas kernel takes w
@@ -11,242 +12,225 @@
 // What bounds it on the H100: device-memory bytes.  Each weight byte is read
 // once per call and used for B multiply-adds (B <= 16: a decode step of up
 // to 8 rows or of batch_infer's 16-row pool, or a speculative verify round
-// of D + 1 = 9 tokens), ~2 FLOP per byte at B = 1, far under the card's
-// ~295 FLOP/byte ridge, so the floor is F * K bytes / 3.35 TB/s (Valley-7B
-// fused: 15 us for wqkv, 39 us for lm_head, 1.97 ms for one token's
-// weights).  From 9 rows on the fp32 FMAs on the CUDA cores (B per weight
-// byte) take longer than the bytes at the card's 67 TFLOP/s.
+// of D + 1 = 9 tokens), 2 FLOP per byte at B = 1 and 32 at B = 16, far under
+// the card's ~295 FLOP/byte ridge, so the floor is F * K bytes / 3.35 TB/s
+// (Valley-7B fused: 15 us for wqkv, 39 us for lm_head, 1.97 ms for one
+// token's weights).  What keeps a kernel off that floor is the work each
+// byte brings: turning it into a number, B multiply-adds, and reading B
+// rows of x for them.
 //
-// What the design does about it: one warp per output row streams the row in
-// 16-byte vectors (16 int8 per lane per load), several loads in flight per
-// lane, with the streaming cache hint (the weights do not fit L2 and are not
-// reread within a call).  x (at most 8 x 11008 bf16, ~176 KB) is reread by
-// every warp through the read-only L1/L2 path.  int8 -> fp32 takes one byte
-// permute and one add per element (the value is placed in the mantissa of
-// 2^23, exact), so the conversion stays off the slower I2F path.  A warp
-// shuffle reduces the row and lane 0 applies the scale.
+// What the design does about it.  The multiply-adds run on the tensor
+// cores, in the layout of the bf16 GEMV (bf16_matvec.cu), one path for
+// every B: a warp takes 16 output rows as mma.sync.m16n8k16's M (bf16
+// operands, fp32 sums) and the activation rows as N, one n8 tile up to 8
+// rows and a second for 9 to 16 that reuses each lane's A fragments, so the
+// weights are read and converted once whatever B.  This is the Pallas
+// kernel's arithmetic: an int8 value is exact in bf16 and a product of two
+// bf16 is exact in fp32, so only the order of the fp32 sums differs.
+//   Lane (g = lane / 4, t = lane % 4) streams 16-byte vectors of weight
+// rows g and g + 8 (streaming loads: the weights are not reread) and turns
+// them in registers straight into its A fragments, with no float
+// conversion: a byte permute puts two bytes in the low bytes of a bf16
+// pair, one lop3 keeps their low 7 bits m in the mantissa of 128.0 (0x4300:
+// 128 + m), another their sign bits s in the exponent of -128.0 (0xC300:
+// -128, or -256 where s is set), and one bf16x2 fma by 1.0 adds them:
+// m - 128 s, the byte's value, exact.  A unit is 64 inputs: lane t holds
+// inputs 16 t .. 16 t + 15 of it (the quad of a row reads 64 contiguous
+// bytes), and each of the unit's 4 k16 steps takes 4 neighbouring inputs
+// from each lane of the quad (values 4 s .. 4 s + 3 of the lane's vector as
+// its A columns 2t, 2t+1, 2t+8, 2t+9), so x, read as its own bf16 pairs at
+// the same inputs, is the B fragment.  The MW warps of a block take a row's
+// units in turn, AHEAD at a time, and each issues its next step's loads
+// before the products of the one it holds (left to itself the compiler
+// issues each load just before its use); at the end they add their C
+// fragments in shared memory in warp order, and the channel scale
+// multiplies the row's sum once, as in the Pallas kernel.  Staging the
+// weights in shared memory (cp.async, several steps ahead) was tried and
+// was not faster.  An F that is not a multiple of 16 reads row F - 1 for
+// the rows past it and stores nothing for them; the vectors of a K that is
+// not a multiple of 64 past its end are loaded clamped and zeroed.
 //
-// 9 to 16 rows (`int8_matvec_rows_kernel`): rereading every row of x from
-// L1/L2 for every weight vector (32 bytes of x per 16 bytes of weights and
-// row) held a 16-row template at a fifth of its bound, so a block of 8
-// warps stages x through shared memory a chunk of 512 inputs at a time,
-// laid out so that a warp's reads of one half-vector are 512 contiguous
-// bytes, and each warp takes two output rows, so that each x read serves
-// both.  A lane still takes the vectors lane, lane + 32, ... of its rows in
-// order, with the same FMAs, so a row's result is bit-identical at every B
-// (alone, among 8 rows or among 16).
+// Sum order: per output, the units of each warp in order (within a unit
+// its k16 steps in order), then the warps in order.  It depends on K and F
+// only, never on B, and a tensor-core product's column is a function of
+// that column of x alone, so a row's result is bit-identical whatever
+// other rows share the call (a speculative verify round gives each row the
+// bits of plain decode).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int NT = 256;       // threads per block (8 warps, 8 rows)
-constexpr int NW = NT / 32;
 constexpr int MAX_ROWS = 16;  // activation rows B a launch takes
-constexpr int EXACT = 8;      // up to this B, one template per B
-constexpr int RW = 2;         // 9-16 rows: output rows a warp
-constexpr int CV = 32;        // 9-16 rows: vectors of a row a chunk
-constexpr int UNROLL = 4;     // 16-byte weight loads in flight per lane
+constexpr int N8 = 8;         // the mma's N: activation rows of one tile
+constexpr int MW = 8;         // warps of a block, taking units in turn
+constexpr int AHEAD = 1;      // units a step of a warp loads at once
+static_assert(MAX_ROWS == 2 * N8, "at most two n8 tiles of rows");
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+constexpr uint32_t BF16X2_ONE = 0x3F803F80u;     // 1.0, 1.0
+constexpr uint32_t BF16X2_128 = 0x43004300u;     // 128.0, 128.0
+constexpr uint32_t BF16X2_NEG128 = 0xC300C300u;  // -128.0, -128.0
+
+// a * b + c on bf16 pairs.
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b,
+                                               uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-// Four int8 in a 32-bit word -> four exact floats: each byte, biased to
-// unsigned (xor 0x80), becomes the low mantissa byte of 2^23
-// (0x4B0000uu = 8388608 + uu); subtracting 8388608 + 128 leaves the int8.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
-  const uint32_t u = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
-  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
-  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
-  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+// (a & b) | c in one instruction (the compiler splits the same expression
+// written in C into two when both b and c are constants).
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b,
+                                           uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-// Two bf16 in a 32-bit word (element 0 in the low half) -> two floats.
-__device__ __forceinline__ void bf16x2_to_f32(uint32_t h, float* f) {
-  f[0] = __uint_as_float(h << 16);
-  f[1] = __uint_as_float(h & 0xFFFF0000u);
-}
-
-// acc[b] += x[b, 16v .. 16v + 15] . w_vec for every row b.
-template <int B>
-__device__ __forceinline__ void fma_vec(const uint4& wv, const uint4* __restrict__ xv,
-                                        int v, int K, float* acc) {
-  float wf[16];
-  i8x4_to_f32(wv.x, wf);
-  i8x4_to_f32(wv.y, wf + 4);
-  i8x4_to_f32(wv.z, wf + 8);
-  i8x4_to_f32(wv.w, wf + 12);
+// The four int8 of a word (weight j in byte j) as two bf16 pairs h[j] =
+// (w[2j], w[2j + 1]), the first in the low half: (128 + m) + (-128 - 128 s)
+// for a byte's low 7 bits m and its sign bit s.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t (&h)[2]) {
 #pragma unroll
-  for (int b = 0; b < B; ++b) {
-    // 16 bf16 of row b = two 16-byte vectors; K % 16 == 0 keeps them aligned
-    const long long o = ((long long)b * K + (long long)v * 16) / 8;
-    const uint4 xa = __ldg(xv + o);
-    const uint4 xb = __ldg(xv + o + 1);
-    float xf[16];
-    bf16x2_to_f32(xa.x, xf);
-    bf16x2_to_f32(xa.y, xf + 2);
-    bf16x2_to_f32(xa.z, xf + 4);
-    bf16x2_to_f32(xa.w, xf + 6);
-    bf16x2_to_f32(xb.x, xf + 8);
-    bf16x2_to_f32(xb.y, xf + 10);
-    bf16x2_to_f32(xb.z, xf + 12);
-    bf16x2_to_f32(xb.w, xf + 14);
-    float a = acc[b];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) a = fmaf(xf[e], wf[e], a);
-    acc[b] = a;
+  for (int j = 0; j < 2; ++j) {
+    // byte 2j to byte 0, byte 2j + 1 to byte 2
+    const uint32_t p = __byte_perm(w, 0u, 2 * j | (2 * j + 1) << 8);
+    h[j] = fma_bf16x2(and_or(p, 0x007F007Fu, BF16X2_128), BF16X2_ONE,
+                      and_or(p, 0x00800080u, BF16X2_NEG128));
   }
 }
 
-// x: (B, K) bf16; w: (F, K) int8; scale: (F,) bf16; y: (B, F) fp32.
-// Grid ceil(F / NW); warp `threadIdx.x / 32` of block i owns row i*NW + warp.
-template <int B>
-__global__ void __launch_bounds__(NT) int8_matvec_kernel(
+// The 32-bit word j of a 16-byte vector.
+__device__ __forceinline__ uint32_t word(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// What a lane holds of AHEAD units: its vectors of weight rows g and
+// g + 8.
+struct Held {
+  uint4 a0[AHEAD], a1[AHEAD];
+};
+
+// Lane t's loads of units u0 .. u0 + AHEAD - 1 that lie before uend: vector
+// 4 u + t of each row, clamped to the row (`products` zeroes what lies past
+// K).
+__device__ __forceinline__ void load_units(Held& h, const uint4* w0,
+                                           const uint4* w1, int u0, int uend,
+                                           int t, int nvec) {
+#pragma unroll
+  for (int i = 0; i < AHEAD; ++i) {
+    const int u = u0 + i;
+    h.a0[i] = h.a1[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (u < uend) {
+      const int v = min(4 * u + t, nvec - 1);
+      h.a0[i] = __ldcs(w0 + v);
+      h.a1[i] = __ldcs(w1 + v);
+    }
+  }
+}
+
+// The products of unit u, added to c: lane (g, t)'s vectors a0 (row g) and
+// a1 (row g + 8) hold inputs 64 u + 16 t .. + 15, x rows 8 n + g the same
+// inputs.  Word j of a vector holds inputs 4 j .. 4 j + 3, k16 step j.
+template <int NT8>
+__device__ __forceinline__ void products(float (&c)[NT8][4], uint4 a0,
+                                         uint4 a1,
+                                         const uint4* const (&xr)[NT8],
+                                         int u, int t, int nvec) {
+  const int v = 4 * u + t;
+  if (v >= nvec) {   // past K: zero weights add nothing
+    a0 = make_uint4(0u, 0u, 0u, 0u);
+    a1 = a0;
+  }
+  const int xv = 2 * min(v, nvec - 1);
+  uint4 xb[NT8][2];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) xb[n][q] = __ldg(xr[n] + xv + q);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t h0[2], h1[2];
+    i8x4_to_bf16(word(a0, j), h0);
+    i8x4_to_bf16(word(a1, j), h1);
+    // A columns 2t, 2t+1: values 4j, 4j + 1; columns 2t+8, 2t+9: + 2, + 3
+    const uint32_t a[4] = {h0[0], h1[0], h0[1], h1[1]};
+#pragma unroll
+    for (int n = 0; n < NT8; ++n)
+      flash::mma(c[n], a, word(xb[n][j / 2], 2 * (j % 2)),
+                 word(xb[n][j / 2], 2 * (j % 2) + 1));
+  }
+}
+
+// x: (B, K) bf16; w: (F, K) int8; scale: (F,) bf16; y: (B, F) fp32; B at
+// most 8 NT8.  Grid ceil(F / 16), MW warps a block: block i owns outputs
+// 16 i .. 16 i + 15, warp w the steps of AHEAD units (j MW + w) AHEAD ..
+// + AHEAD - 1 (j = 0, 1, ...) of the ceil(K / 64) of a row.
+template <int NT8>
+__global__ void __launch_bounds__(MW * 32) int8_matvec_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const __nv_bfloat16* __restrict__ scale, float* __restrict__ y, int K,
-    int F) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * NW + threadIdx.x / 32;
-  if (row >= F) return;
-  const int nvec = K / 16;
-  const uint4* wr = reinterpret_cast<const uint4*>(w + (long long)row * K);
-  const uint4* xv = reinterpret_cast<const uint4*>(x);
+    const __nv_bfloat16* __restrict__ scale, float* __restrict__ y, int B,
+    int K, int F) {
+  __shared__ float part[MW][4 * NT8][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int o0 = blockIdx.x * 16;
+  const uint4* w0 = reinterpret_cast<const uint4*>(
+      w + (long long)min(o0 + g, F - 1) * K);
+  const uint4* w1 = reinterpret_cast<const uint4*>(
+      w + (long long)min(o0 + g + 8, F - 1) * K);
+  const uint4* xr[NT8];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+    xr[n] = reinterpret_cast<const uint4*>(
+        x + (long long)min(N8 * n + g, B - 1) * K);
+  const int nvec = K / 16;               // 16-byte vectors a row
+  const int nunit = (nvec + 3) / 4;
 
-  float acc[B];
+  float c[NT8][4];
 #pragma unroll
-  for (int b = 0; b < B; ++b) acc[b] = 0.f;
-
-  int v = lane;
-  for (; v + 32 * (UNROLL - 1) < nvec; v += 32 * UNROLL) {
-    uint4 wv[UNROLL];
+  for (int n = 0; n < NT8; ++n)
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) wv[u] = __ldcs(wr + v + 32 * u);
+    for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
+  // warp w's j-th step: units (j MW + w) AHEAD .. + AHEAD - 1; the next
+  // step's loads are issued together before this step's products (a row's
+  // AHEAD units are 64 AHEAD contiguous bytes, asked for at once)
+  const int step = MW * AHEAD, uend = nunit;
+  int u0 = warp * AHEAD;
+  Held cur;
+  load_units(cur, w0, w1, u0, uend, t, nvec);
+  for (; u0 < uend; u0 += step) {
+    Held nxt;
+    load_units(nxt, w0, w1, u0 + step, uend, t, nvec);
 #pragma unroll
-    for (int u = 0; u < UNROLL; ++u) fma_vec<B>(wv[u], xv, v + 32 * u, K, acc);
-  }
-  for (; v < nvec; v += 32) fma_vec<B>(__ldcs(wr + v), xv, v, K, acc);
-
-#pragma unroll
-  for (int b = 0; b < B; ++b) acc[b] = warp_sum(acc[b]);
-  if (lane == 0) {
-    const float s = __bfloat162float(scale[row]);
-#pragma unroll
-    for (int b = 0; b < B; ++b) y[(long long)b * F + row] = acc[b] * s;
-  }
-}
-
-// x: (nb, K) bf16 with 9 <= nb <= 16; w: (F, K) int8; scale: (F,) bf16;
-// y: (nb, F) fp32.  Grid ceil(F / (NW RW)); warp `threadIdx.x / 32` of
-// block i owns rows (i NW + warp) RW ..  + RW - 1 (a row past F rereads
-// row F - 1 and stores nothing).  Chunk c holds inputs 512 c .. 512 c +
-// 511 of every x row in shared memory, xs[b][h][lane] = x[b, 16 v + 8 h ..
-// + 7] for the vector v = 32 c + lane that lane takes in that chunk.
-__global__ void __launch_bounds__(NT) int8_matvec_rows_kernel(
-    const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
-    const __nv_bfloat16* __restrict__ scale, float* __restrict__ y, int K,
-    int F, int nb) {
-  __shared__ uint4 xs[MAX_ROWS][2][CV];       // 16 KB
-  const int lane = threadIdx.x % 32;
-  const int row0 = (blockIdx.x * NW + threadIdx.x / 32) * RW;
-  const bool active = row0 < F;
-  const int nvec = K / 16, nchunk = (nvec + CV - 1) / CV;
-  const uint4* wr[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-    wr[r] = reinterpret_cast<const uint4*>(
-        w + (long long)min(row0 + r, F - 1) * K);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  float acc[RW][MAX_ROWS];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-#pragma unroll
-    for (int b = 0; b < MAX_ROWS; ++b) acc[r][b] = 0.f;
-
-  // the next chunk's weights are loaded before this chunk's products
-  uint4 cur[RW], nxt[RW];
-#pragma unroll
-  for (int r = 0; r < RW; ++r)
-    cur[r] = active && lane < nvec ? __ldcs(wr[r] + lane) : zero;
-  for (int c = 0; c < nchunk; ++c) {
-    const int v = c * CV + lane;
-#pragma unroll
-    for (int r = 0; r < RW; ++r)
-      nxt[r] = active && v + CV < nvec ? __ldcs(wr[r] + v + CV) : zero;
-    __syncthreads();   // every warp is done with the last chunk
-    for (int i = threadIdx.x; i < MAX_ROWS * 2 * CV; i += NT) {
-      const int b = i / (2 * CV), q = i % (2 * CV);
-      const int k = c * CV * 16 + 8 * q;
-      if (b < nb && k < K)
-        xs[b][q % 2][q / 2] = __ldg(reinterpret_cast<const uint4*>(
-            x + (long long)b * K + k));
-    }
-    __syncthreads();
-    if (active && v < nvec) {
-      float wf[RW][16];
-#pragma unroll
-      for (int r = 0; r < RW; ++r) {
-        i8x4_to_f32(cur[r].x, wf[r]);
-        i8x4_to_f32(cur[r].y, wf[r] + 4);
-        i8x4_to_f32(cur[r].z, wf[r] + 8);
-        i8x4_to_f32(cur[r].w, wf[r] + 12);
-      }
-#pragma unroll
-      for (int b = 0; b < MAX_ROWS; ++b) {
-        if (b >= nb) break;
-        const uint4 xa = xs[b][0][lane], xb = xs[b][1][lane];
-        float xf[16];
-        bf16x2_to_f32(xa.x, xf);
-        bf16x2_to_f32(xa.y, xf + 2);
-        bf16x2_to_f32(xa.z, xf + 4);
-        bf16x2_to_f32(xa.w, xf + 6);
-        bf16x2_to_f32(xb.x, xf + 8);
-        bf16x2_to_f32(xb.y, xf + 10);
-        bf16x2_to_f32(xb.z, xf + 12);
-        bf16x2_to_f32(xb.w, xf + 14);
-#pragma unroll
-        for (int r = 0; r < RW; ++r) {
-          float a = acc[r][b];
-#pragma unroll
-          for (int e = 0; e < 16; ++e) a = fmaf(xf[e], wf[r][e], a);
-          acc[r][b] = a;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RW; ++r) cur[r] = nxt[r];
+    for (int i = 0; i < AHEAD; ++i)
+      if (u0 + i < uend)
+        products<NT8>(c, cur.a0[i], cur.a1[i], xr, u0 + i, t, nvec);
+    cur = nxt;
   }
 
+  // tile n's c0, c1: row g, x rows 8n + 2t, 8n + 2t + 1; c2, c3: row g + 8
 #pragma unroll
-  for (int r = 0; r < RW; ++r)
+  for (int n = 0; n < NT8; ++n)
 #pragma unroll
-    for (int b = 0; b < MAX_ROWS; ++b) acc[r][b] = warp_sum(acc[r][b]);
-  if (lane == 0 && active) {
+    for (int i = 0; i < 4; ++i) part[warp][4 * n + i][lane] = c[n][i];
+  __syncthreads();
+  for (int e = threadIdx.x; e < 128 * NT8; e += MW * 32) {
+    const int n = e / 16, m = e % 16;
+    const int nn = n % N8;
+    const int src = (m % 8) * 4 + nn / 2;
+    const int i = 4 * (n / N8) + (m / 8) * 2 + nn % 2;
+    float s = 0.f;
 #pragma unroll
-    for (int r = 0; r < RW; ++r) {
-      if (row0 + r >= F) break;
-      const float s = __bfloat162float(scale[row0 + r]);
-#pragma unroll
-      for (int b = 0; b < MAX_ROWS; ++b)
-        if (b < nb) y[(long long)b * F + row0 + r] = acc[r][b] * s;
-    }
+    for (int ww = 0; ww < MW; ++ww) s += part[ww][i][src];
+    if (n < B && o0 + m < F)
+      y[(long long)n * F + o0 + m] = s * __bfloat162float(scale[o0 + m]);
   }
-}
-
-template <int B>
-int launch(const void* x, const void* w, const void* scale, void* y, int K,
-           int F, cudaStream_t stream) {
-  int8_matvec_kernel<B><<<(F + NW - 1) / NW, NT, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const __nv_bfloat16*>(scale), static_cast<float*>(y), K, F);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -263,21 +247,16 @@ extern "C" int int8_matvec_bf16(const void* x, const void* w,
   if (B < 1 || B > MAX_ROWS || K <= 0 || K % 16 || F <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B > EXACT) {
-    int8_matvec_rows_kernel<<<(F + NW * RW - 1) / (NW * RW), NT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-        static_cast<const __nv_bfloat16*>(scale), static_cast<float*>(y), K,
-        F, B);
-    return (int)cudaGetLastError();
-  }
-  switch (B) {
-    case 1: return launch<1>(x, w, scale, y, K, F, st);
-    case 2: return launch<2>(x, w, scale, y, K, F, st);
-    case 3: return launch<3>(x, w, scale, y, K, F, st);
-    case 4: return launch<4>(x, w, scale, y, K, F, st);
-    case 5: return launch<5>(x, w, scale, y, K, F, st);
-    case 6: return launch<6>(x, w, scale, y, K, F, st);
-    case 7: return launch<7>(x, w, scale, y, K, F, st);
-    default: return launch<8>(x, w, scale, y, K, F, st);
-  }
+  const int grid = (F + 15) / 16;
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const int8_t*>(w);
+  const auto* sp = static_cast<const __nv_bfloat16*>(scale);
+  float* yp = static_cast<float*>(y);
+  if (B <= N8)
+    int8_matvec_mma_kernel<1><<<grid, MW * 32, 0, st>>>(xp, wp, sp, yp, B, K,
+                                                        F);
+  else
+    int8_matvec_mma_kernel<2><<<grid, MW * 32, 0, st>>>(xp, wp, sp, yp, B, K,
+                                                        F);
+  return (int)cudaGetLastError();
 }
