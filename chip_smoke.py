@@ -14,14 +14,15 @@ T4-T7, the decode-attention lab, on the conversation's cache; the decode
 GEMVs K4, K5 and K6 also at a speculative verify round's 9 rows and at 16,
 each row bit-equal to the same row alone), and drives
 the port's paths at full width and depth with random bf16 weights from a
-seed, five processes one after the other:
+seed, eight processes one after the other:
 
 - serving: one 8-frame video question with Valley-7B through
   ``Engine.generate_tokens``, its 63 decode steps one replay of a CUDA
   graph; checks that the path went through K1, K3 and K6 (every bf16
-  decode product, lm_head included), that the eager step gives the same
-  tokens and launches (decode wall, device busy and idle share printed for
-  both, with the capture's time and memory), that a sampled graph draws
+  decode product, lm_head included), that the eager step gives the
+  graph's first 16 tokens and the launches of those steps (decode wall,
+  device busy and idle share printed for both, with the capture's time
+  and memory), that a sampled graph draws
   fresh numbers each replay and repeats them under a seed, and compares
   its logits at the prefill and at three decode steps with the same path
   run on the plain versions;
@@ -31,7 +32,8 @@ seed, five processes one after the other:
   tokens, two of them sampled), each pooled chunk one replay of a CUDA
   graph; checks the launches of K1, K3's int8 branch and K6 against the
   pool's own count of prefills and pooled steps, every greedy request's
-  tokens against the same traffic through an eager pool (aggregate rate
+  first 16 tokens against the same traffic through an eager pool
+  (aggregate rate
   and the pooled step's wall, device busy and idle share printed for
   both), the pooled logits at three teacher-forced steps against the
   plain versions, and each greedy request's tokens against the same
@@ -83,6 +85,23 @@ seed, five processes one after the other:
   through ``ContinuousEngine(speculative=True)`` (launches, aggregate
   against the plain graph pool, acceptance, pauses, the first round's
   logits against the plain pool's first step);
+- the serving stack, after the int8 path: Valley-7B's random bf16
+  weights written as a sharded Hugging Face checkpoint (bytes, seconds,
+  free disk) and read back by ``load_valley_checkpoint(quantize="int8a8",
+  fused=True)`` (seconds, GB/s, peak device memory under the bf16 tree's,
+  every tensor bit-equal to the same tree fused and quantized in memory);
+  the port's controller and worker in the process on localhost ports (the
+  JAX worker's 7B setup, one bucket and one frame bucket, warmed as
+  ``--warmup`` warms it): a stateless request through the controller's
+  proxy by the default ``SpecDecoder`` against the same call made
+  directly (text, launches of K1, K3-int8 and K4 against the decoder's
+  rounds and the engine's steps, first chunk and ms/token over HTTP
+  against direct), three questions at once against each alone, a
+  two-turn session against ``SpecChatSession``, the prefix cache against
+  its spawn, the OpenAI route against the native one, and a pooled worker
+  (the plain pool, int8a8, int8 cache) taking four requests at once, one
+  a prefix hit, each against its run alone (parting only at near ties),
+  with its launches against the pool's counters;
 - training: Valley-7B stage 1 (frozen backbone, projector and input
   embeddings trained, the stage-1 recipe's optimizer settings) through
   ``Trainer.train_step`` on 16 synthetic rows from the port's collator and
@@ -108,6 +127,7 @@ their time over the library's); the last line is
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import shutil
@@ -415,9 +435,11 @@ def library_attention_ms(q, k, v, kv_mask, causal: bool, dout=None,
     return profile_device(fn, iters)[0]
 
 
-def flash_cases(gen, heads: int = 32, model: str = "7b"):
+def flash_cases(gen, heads: int = 32, model: str = "7b",
+                prompt_len: int = PROMPT_LEN):
     """(name, q, k, v, kv_mask, causal): the prefill shape of a model with
-    ``heads`` heads of 128 first."""
+    ``heads`` heads of 128 first, a prompt of ``prompt_len`` in the 512
+    bucket."""
     def qkv(b, s, h, d):
         return [torch.randn((b, s, h, d), generator=gen, device="cuda")
                 .bfloat16() for _ in range(3)]
@@ -425,7 +447,7 @@ def flash_cases(gen, heads: int = 32, model: str = "7b"):
     cases = []
     q, k, v = qkv(1, 512, heads, 128)
     mask = torch.ones((1, 512), dtype=torch.bool, device="cuda")
-    mask[:, 473:] = False                      # a prompt padded to 512
+    mask[:, prompt_len:] = False               # a prompt padded to 512
     cases.append((f"{model}_prefill_S512_H{heads}_D128", q, k, v, mask,
                   True))
     q, k, v = qkv(2, 300, 4, 64)
@@ -1103,6 +1125,26 @@ def sampled_graph_check(tag: str, engine, prompt, frames, new: int) -> None:
           f"{new - 1} tokens, two replays after seeding 11 agree in all")
 
 
+# the eager references beside the graph paths decode this many tokens (the
+# graph's first EAGER_NEW compared, launches scaled to their steps)
+EAGER_NEW = 16
+
+
+def eager_launches(counts: dict, steps: int, eager_steps: int) -> dict:
+    """The launches of a request decoding ``eager_steps`` steps, from a
+    request's ``counts`` over ``steps`` steps: K1 launches only at the
+    prefill, K3 only in decode steps, a GEMV kernel once at the prefill
+    (lm_head) and as often in each step."""
+    out = {}
+    for k, n in counts.items():
+        pre = n if k.startswith("K1") else \
+            0 if k.startswith("K3") or not n else 1
+        check((n - pre) % steps == 0, f"{k}: {n} launches over {steps} "
+              "steps")
+        out[k] = pre + (n - pre) // steps * eager_steps
+    return out
+
+
 def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
                 kernels: dict, logit_tol: float, same_token: bool,
                 sampled: bool = False) -> dict:
@@ -1129,11 +1171,19 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     engine = Engine(cfg, params, buckets=(bucket,), max_new_tokens=new,
                     steps_per_call=steps, cache_dtype=cache_dtype)
 
-    def run(eager=False):
+    # the eager reference's engine: the same cache, its first chunk the
+    # EAGER_NEW - 1 steps the reference runs
+    eager_engine = Engine(cfg, params, buckets=(bucket,), max_new_tokens=new,
+                          steps_per_call=steps, cache_dtype=cache_dtype,
+                          decode_ramp=(EAGER_NEW - 1,))
+
+    def run(eager=False, n=new):
         t0 = time.perf_counter()
         t_first, toks = None, []
-        for t in engine.generate_tokens([prompt], frames, gcfg,
-                                        eos_ids=[-1], eager=eager):
+        g = GenerationConfig(max_new_tokens=n, do_sample=False)
+        eng = eager_engine if eager else engine
+        for t in eng.generate_tokens([prompt], frames, g, eos_ids=[-1],
+                                     eager=eager):
             if t_first is None:
                 t_first = time.perf_counter() - t0
             toks.append(int(t[0]))
@@ -1165,22 +1215,25 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
           f"{decode_tps:.2f} tok/s ({1e3 / decode_tps:.3f} ms/token) on "
           f"{smi}")
 
-    # the reference: the same request through the eager step
-    run(eager=True)
+    # the reference: the same request through the eager step, over its
+    # first EAGER_NEW tokens
+    run(eager=True, n=EAGER_NEW)
     for fn, _ in kernels.values():
         fn.launches = 0
-    e_first, e_total, e_toks = run(eager=True)
+    e_first, e_total, e_toks = run(eager=True, n=EAGER_NEW)
     e_counts = {k: fn.launches for k, (fn, _) in kernels.items()}
-    check(e_toks == toks, f"{tag}: the graph's tokens differ from the eager "
-          f"step's at step {next((i for i, (a, b) in enumerate(zip(toks, e_toks)) if a != b), None)}")
-    check(e_counts == counts, f"{tag}: eager launches {e_counts}, graph "
-          f"{counts}")
-    print(f"{tag}: the eager step gives the graph's {new} tokens and "
-          f"launches; decode {(e_total - e_first) / steps * 1e3:.3f} "
-          f"ms/token eager against {(total - t_first) / steps * 1e3:.3f} by "
-          f"graph; capture of the graph {capture_s:.3f} s, its memory pool "
-          f"{fmt_mb(graph_bytes)}, the static decode state (cache and mask) "
-          f"{fmt_mb(state_bytes)}")
+    e_steps = EAGER_NEW - 1
+    check(e_toks == toks[:EAGER_NEW], f"{tag}: the graph's tokens differ "
+          f"from the eager step's at step {next((i for i, (a, b) in enumerate(zip(toks, e_toks)) if a != b), None)}")
+    e_want = eager_launches(counts, steps, e_steps)
+    check(e_counts == e_want, f"{tag}: eager launches {e_counts}, want "
+          f"{e_want} (the graph's {counts} over {e_steps} of {steps} steps)")
+    print(f"{tag}: the eager step gives the graph's first {EAGER_NEW} "
+          f"tokens and its launches for {e_steps} steps; decode "
+          f"{(e_total - e_first) / e_steps * 1e3:.3f} ms/token eager against "
+          f"{(total - t_first) / steps * 1e3:.3f} by graph; capture of the "
+          f"graph {capture_s:.3f} s, its memory pool {fmt_mb(graph_bytes)}, "
+          f"the static decode state (cache and mask) {fmt_mb(state_bytes)}")
 
     # where the time goes: device busy time of the prefill and of a whole
     # request, graph and eager, against the unprofiled wall times above
@@ -1192,11 +1245,11 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     prefill_dev, prefill_top, _ = profile_device(
         lambda: engine.prefill([prompt], frames, gcfg))
     run_dev, top, _ = profile_device(run)
-    e_run_dev, _, _ = profile_device(lambda: run(eager=True))
+    e_run_dev, _, _ = profile_device(lambda: run(eager=True, n=EAGER_NEW))
     decode_dev = (run_dev - prefill_dev) / (new - 1)
-    e_decode_dev = (e_run_dev - prefill_dev) / (new - 1)
+    e_decode_dev = (e_run_dev - prefill_dev) / e_steps
     wall_tok = (total - t_first) / (new - 1) * 1e3
-    e_wall_tok = (e_total - e_first) / (new - 1) * 1e3
+    e_wall_tok = (e_total - e_first) / e_steps * 1e3
     k3_in = sum(t for name, t in top if "decode_attn_kernel" in name)
     check(k3_in > 0, f"{tag}: the profiler saw no K3 inside the graph's "
           "replay")
@@ -1256,7 +1309,7 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
         if same_token:
             check(same, f"{tag}: {where}: kernels and plain pick different "
                   f"tokens")
-    del engine, plain_engine, states, logits, frames_dev
+    del engine, eager_engine, plain_engine, states, logits, frames_dev
     return counts
 
 
@@ -2745,16 +2798,20 @@ def flash_batch_case(gen):
     return ("7b_batch_prefill_B4_S512_H32_D128", q, k, v, mask, True)
 
 
-def pool_decode_int8_case(gen, smax: int, layers: int = 32):
-    """K3-int8 at the pool's shape: `BATCH_ROWS` rows of an int8 cache of
-    ``smax`` slots, quantized by `_quantize_kv` from N(0, 1) bf16 K/V, each
-    row with its own valid length (video rows of 473 + 32 tokens, text rows
-    of 40 and 1500 + 32: decode writes right after the prompt, so no row
-    has a hole); the 'hole' planted as a fault is [505, 1532), valid only
-    in the last row."""
+def pool_decode_int8_case(gen, smax: int, layers: int = 32, lens=None,
+                          hole=(505, 1532)):
+    """K3-int8 at a pool's shape: a row for each of ``lens`` of an int8
+    cache of ``smax`` slots, quantized by `_quantize_kv` from N(0, 1) bf16
+    K/V, each row valid up to its length (decode writes right after the
+    prompt, so no row has a hole).  By default the batched slice's rows:
+    video rows of 473 + 32 tokens, text rows of 40 and 1500 + 32, with
+    the 'hole' planted as a fault [505, 1532), valid only in the last
+    row."""
     from valley_tpu_torch.models.llama import _quantize_kv
 
-    b, h, d = BATCH_ROWS, 32, 128
+    if lens is None:
+        lens = [505] * (BATCH_ROWS - 2) + [72, 1532]
+    b, h, d = len(lens), 32, 128
     q = torch.randn((b, 1, h, d), generator=gen, device="cuda").bfloat16()
     out = [q]
     for _ in range(2):
@@ -2766,10 +2823,10 @@ def pool_decode_int8_case(gen, smax: int, layers: int = 32):
             c[li], sc[li] = _quantize_kv(torch.randn(
                 (b, smax, h, d), generator=gen, device="cuda").bfloat16())
         out += [c, sc]
-    lens = torch.tensor([505] * (b - 2) + [72, 1532], device="cuda")
+    lens = torch.tensor(lens, device="cuda")
     valid = torch.arange(smax, device="cuda")[None, :] < lens[:, None]
     return (f"7b_pool_decode_L{layers}_B{b}_S{smax}_D128", *out, 17, valid,
-            (505, 1532))
+            hole)
 
 
 # batch_infer's defaults (valley_tpu/inference/batch_infer.py:257,272-287):
@@ -2926,8 +2983,8 @@ def batch_slice(cfg, params, smi: str) -> dict:
     that captures its decode graph), each pooled chunk one replay of a CUDA
     graph; the launches of K1, K3-int8 and K6 against the pool's count of
     prefills and pooled steps; aggregate tokens/s; the same traffic through
-    an eager pool (``eager=True``): every greedy request's tokens the
-    graph pool's; the pooled step's wall and device time and its kernels,
+    an eager pool (``eager=True``) over `EAGER_NEW` tokens: every greedy
+    request's tokens the graph pool's first; the pooled step's wall and device time and its kernels,
     graph and eager; the pooled logits against the plain versions; each
     greedy request's tokens against the same request alone.  Returns the
     counts."""
@@ -2962,14 +3019,15 @@ def batch_slice(cfg, params, smi: str) -> dict:
         steps0, groups0 = pool.steps_run, len(pool.prefill_sizes)
         for fn in kernels.values():
             fn.launches = 0
-        results, wall = run_traffic(pool, reqs, NEW_TOKENS)   # main path
+        new = NEW_TOKENS if mode == "graph" else EAGER_NEW
+        results, wall = run_traffic(pool, reqs, new)   # main path
         counts = {k: fn.launches for k, fn in kernels.items()}
         steps = pool.steps_run - steps0
         groups = pool.prefill_sizes[groups0:]
         pool.close()
         runs[mode] = (results, wall, counts, steps, groups)
         for (toks, _, _), (p, f, t) in zip(results, reqs):
-            check(len(toks) == NEW_TOKENS and all(
+            check(len(toks) == new and all(
                 0 <= x < cfg.text.vocab_size for x in toks),
                 f"batch slice {mode}: a request gave {len(toks)} tokens or "
                 "bad ids")
@@ -2985,7 +3043,7 @@ def batch_slice(cfg, params, smi: str) -> dict:
         n_tok = sum(len(r[0]) for r in results)
         print(f"batch slice {mode}: {len(reqs)} requests (8 video x 473 "
               f"tokens + 8 frames, text of 40/200/700/1500 tokens, 2 "
-              f"sampled), {NEW_TOKENS} new tokens each, pool of {BATCH_ROWS} "
+              f"sampled), {new} new tokens each, pool of {BATCH_ROWS} "
               f"rows x {pool.smax} slots (int8 cache), "
               f"{'each chunk one replay of a CUDA graph' if mode == 'graph' else 'eager steps'}"
               f"; {len(groups)} admission prefills of {groups} rows, {steps} "
@@ -3004,11 +3062,11 @@ def batch_slice(cfg, params, smi: str) -> dict:
     for i, ((toks, _, _), (e_toks, _, _), (_, _, t)) in enumerate(
             zip(results, e_results, reqs)):
         if not t:
-            check(toks == e_toks, f"batch slice: greedy request {i} differs "
-                  f"between the graph pool and the eager pool")
+            check(toks[:EAGER_NEW] == e_toks, f"batch slice: greedy request "
+                  f"{i} differs between the graph pool and the eager pool")
     print(f"batch slice: every greedy request (10 of 12) gives the eager "
-          f"pool's tokens through the graph pool; its graph captured in "
-          f"{graph_pool._graphs.capture_s:.3f} s")
+          f"pool's {EAGER_NEW} tokens (its first) through the graph pool; "
+          f"its graph captured in {graph_pool._graphs.capture_s:.3f} s")
 
     # the pooled step: every row after a batched prefill of video prompts
     ids, frames, lens = pool_rows(reqs, engine.device)
@@ -3089,7 +3147,7 @@ def batch_slice(cfg, params, smi: str) -> dict:
               f"from its run alone at step {step} with margin {margin}")
     print(f"batch slice: {same} of 10 greedy requests give the tokens of "
           f"their run alone (Engine.generate_tokens, B = 1)")
-    return counts, sum(len(r[0]) for r in results) / wall
+    return counts
 
 
 def pool_verify_logits(engine, pool, ids, frames, lens) -> torch.Tensor:
@@ -3121,16 +3179,24 @@ def pool_verify_logits(engine, pool, ids, frames, lens) -> torch.Tensor:
         return llama.logits_from_hidden(p, hidden, engine.attention)
 
 
-def spec_pool_slice(cfg, params, smi: str, plain_tps: float) -> dict:
-    """``batch_infer --speculative``'s pool: the 12 requests through a
-    `BATCH_ROWS`-row `ContinuousEngine(speculative=True)` with JAX's
+# new tokens a request in the speculative pool's traffic: its rounds cost
+# 15x a pooled step, so its 12 requests run at a sixth of the plain pool's
+# rate
+SPEC_POOL_NEW = 32
+
+
+def spec_pool_slice(cfg, params, smi: str) -> dict:
+    """``batch_infer --speculative``'s pool: the 12 requests (`SPEC_POOL_NEW`
+    new tokens each) through a `BATCH_ROWS`-row
+    `ContinuousEngine(speculative=True)` with JAX's
     SpecConfig (adaptive: below 0.40 accepted drafts a round the pool
     pauses and re-probes every 32 chunks), after two warm-up requests that
     capture the round graph and the plain graph; the launches of K1,
     K3-int8 and K6 against the pool's prefills and plain steps (a round's
     rows x (D + 1) rows take the library's products and the plain
-    attention); aggregate tok/s against the plain graph pool's
-    ``plain_tps``, acceptance, pauses and re-probes; with every row filled,
+    attention); aggregate tok/s (read beside the round-versus-step ratio:
+    the plain pool's rate is at another length), acceptance, pauses and
+    re-probes; with every row filled,
     the pooled round's wall and device time against the same pool's plain
     step, and so its break-even; the first verify round's logits (each
     row's first) against the plain pool's first step's within the pooled
@@ -3171,7 +3237,7 @@ def spec_pool_slice(cfg, params, smi: str, plain_tps: float) -> dict:
         kernels = {"K1": flash_attention, "K3-int8": decode_attention_stacked,
                    "K6": bf16_matvec}
         (results, wall), counts = counted(
-            kernels, lambda: run_traffic(pool, reqs, NEW_TOKENS))
+            kernels, lambda: run_traffic(pool, reqs, SPEC_POOL_NEW))
         steps = pool.steps_run - steps0
         rounds = pool.rounds_run - rounds0
         groups = pool.prefill_sizes[groups0:]
@@ -3183,7 +3249,8 @@ def spec_pool_slice(cfg, params, smi: str, plain_tps: float) -> dict:
         check(rounds > 0 and counts["K1"] > 0, f"spec pool: {rounds} "
               f"rounds, K1 launched {counts['K1']} times")
         n_tok = sum(len(r[0]) for r in results)
-        check(n_tok == len(reqs) * NEW_TOKENS, f"spec pool: {n_tok} tokens")
+        check(n_tok == len(reqs) * SPEC_POOL_NEW, f"spec pool: {n_tok} "
+              "tokens")
         acc = pool.spec_emitted / max(1, pool.spec_rounds) - 1
         print(f"spec pool: {len(reqs)} requests through a {BATCH_ROWS}-row "
               f"ContinuousEngine(speculative=True) (int8 cache, D "
@@ -3191,8 +3258,8 @@ def spec_pool_slice(cfg, params, smi: str, plain_tps: float) -> dict:
               f"plain steps in chunks of {BATCH_STEPS}; {pool.spec_rounds} "
               f"row rounds accept {acc:.3f} drafts each; "
               f"{pool.spec_disables} pauses, {pool.spec_reprobes} re-probes; "
-              f"aggregate {n_tok / wall:.2f} tok/s against the plain graph "
-              f"pool's {plain_tps:.2f}; the round graph captured in "
+              f"{SPEC_POOL_NEW} new tokens a request, aggregate "
+              f"{n_tok / wall:.2f} tok/s; the round graph captured in "
               f"{pool._spec_graphs.capture_s:.3f} s, the graphs' memory pool "
               f"{fmt_mb(pool_bytes(pool._graphs.pool))}; launches "
               + " ".join(f"{k} {n}" for k, n in counts.items())
@@ -3236,6 +3303,542 @@ def spec_pool_slice(cfg, params, smi: str, plain_tps: float) -> dict:
     return counts
 
 
+# The serving stack (`valley_tpu_torch/serve/`) on the int8 flagship: the
+# JAX worker's 7B setup (--quantize int8a8 --fused --kv-cache int8), one
+# bucket and one frame bucket, its weights written as a Hugging Face
+# checkpoint and quantized on load
+WORKER_BUCKET, WORKER_NEW, WORKER_STEPS = 512, 64, 32
+WORKER_SHARD_BYTES = 5_000_000_000
+WORKER_SYSTEM = "You are Valley."
+K4_SRC = dict(route="cuda", source="valley_tpu_torch/csrc/int8_matvec.cu",
+              replaces="valley_tpu/ops/quant.py:455")
+WORKER_QUESTIONS = ("Describe the video in detail.", "Who is in it?",
+                    "What happens at the end?", "Which colours dominate?")
+
+
+def id_text_tokenizer():
+    """The byte tokenizer (`ByteFallbackTokenizer`, its ids and markers),
+    its text naming every token: an ASCII byte as itself, any other id as
+    ``⟦id⟧``, read back the same way.  Random weights over 32000 ids emit
+    tokens the byte tokenizer's text drops, so text streamed by the worker
+    would not show them; with this one it names its tokens one for one, and
+    a client's next turn (its prompt and the reply's text) encodes back to
+    them, as a session's reuse needs."""
+    import re
+
+    from valley_tpu_torch.tokenizer import ByteFallbackTokenizer
+
+    class IdTextTokenizer(ByteFallbackTokenizer):
+        def decode(self, ids, skip_special_tokens: bool = True) -> str:
+            return "".join(chr(t - 3) if 3 <= t < 3 + 128 else f"⟦{t}⟧"
+                           for t in map(int, ids))
+
+        def encode(self, text: str, add_bos=None) -> list:
+            out = [1] if (self.add_bos if add_bos is None else add_bos) \
+                else []
+            for i, part in enumerate(re.split(r"⟦(\d+)⟧", text)):
+                if i % 2:
+                    out.append(int(part))
+                elif part:
+                    out += ByteFallbackTokenizer.encode(self, part, False)
+            return out
+
+    return IdTextTokenizer()
+
+
+def frame_dir(path: Path, seed: int, n: int = 8) -> str:
+    """``n`` random 224 px frames as PNG files, a video the worker's loader
+    reads (a frame directory)."""
+    from PIL import Image
+
+    path.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (224, 224, 3), np.uint8)).save(
+            path / f"{i:02d}.png")
+    return str(path)
+
+
+def worker_request(question: str, video: str, **kw) -> dict:
+    return {"model": "valley-7b", "prompt": f"{WORKER_SYSTEM}### Human: "
+            f"<video> {question}\n### Assistant:", "videos": [video],
+            "temperature": 0.0, "max_new_tokens": WORKER_NEW, **kw}
+
+
+def timed_stream(url: str, req: dict) -> tuple:
+    """(chunks, first chunk s, last chunk s) of a streamed request."""
+    from valley_tpu_torch.serve.httpd import stream_chunks
+
+    t0 = time.perf_counter()
+    chunks, first = [], None
+    for c in stream_chunks(url + "/worker_generate_stream", req,
+                           timeout=600):
+        if first is None:
+            first = time.perf_counter() - t0
+        chunks.append(c)
+    check(chunks and all(c["error_code"] == 0 for c in chunks),
+          f"worker: a request failed: {chunks[-1:]}")
+    return chunks, first, time.perf_counter() - t0
+
+
+def write_checkpoint(cfg, work: Path, tk) -> tuple:
+    """Valley-7B's random bf16 weights (seed 0, as `random_weights` makes
+    them) written as a sharded HF checkpoint.  Returns (directory, bytes
+    written, the bf16 tree's bytes)."""
+    from valley_tpu_torch.utils import hf_bridge
+
+    params = random_weights(cfg)
+    tree_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    ckpt = work / "valley7b_checkpoint"
+    free = shutil.disk_usage(work).free
+    t0 = time.perf_counter()
+    written = hf_bridge.export_valley_checkpoint(
+        cfg, params, str(ckpt), dtype=torch.bfloat16,
+        max_shard_bytes=WORKER_SHARD_BYTES)
+    write_s = time.perf_counter() - t0
+    shards = sorted(ckpt.glob("*.safetensors"))
+    check(len(shards) >= 2 and (ckpt / "model.safetensors.index.json"
+                                ).is_file(), f"checkpoint files {shards}")
+    print(f"worker checkpoint: Valley-7B bf16 ({tree_bytes / 1e9:.3f} GB "
+          f"of weights) written as {len(shards)} safetensors shards, an "
+          f"index and config.json: {written / 1e9:.3f} GB in {write_s:.1f} "
+          f"s ({written / write_s / 1e9:.2f} GB/s); free disk "
+          f"{free / 1e9:.1f} GB before, "
+          f"{shutil.disk_usage(work).free / 1e9:.1f} GB after", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ckpt, written, tree_bytes
+
+
+def load_checkpoint(cfg, ckpt: Path, written: int, tree_bytes: int, tk):
+    """Quantize-on-load: `load_valley_checkpoint(quantize="int8a8",
+    fused=True)`, its peak device memory (reset before it) under the bf16
+    tree's bytes, and every tensor bit-equal to the same bf16 tree fused
+    and quantized in memory on the card.  Returns (config, weights)."""
+    from valley_tpu_torch.models.llama import fuse_llama_params
+    from valley_tpu_torch.ops.quant import quantize_llama_params
+    from valley_tpu_torch.utils import hf_bridge
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lcfg, loaded, _ = hf_bridge.load_valley_checkpoint(
+        str(ckpt), quantize="int8a8", fused=True, tokenizer=tk)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    held = sum(p.numel() * p.element_size() for p in loaded.parameters())
+    check(peak < tree_bytes, f"worker load: peak device memory {peak} "
+          f"bytes, not under the bf16 tree's {tree_bytes}")
+    import dataclasses
+
+    check(lcfg.text == dataclasses.replace(
+        cfg.text, num_key_value_heads=cfg.text.kv_heads)
+        and lcfg.tokens == cfg.tokens and lcfg.vision == cfg.vision,
+        f"worker load: config {lcfg}")
+    print(f"worker load: load_valley_checkpoint(quantize=int8a8, fused) "
+          f"read {written / 1e9:.3f} GB in {load_s:.2f} s "
+          f"({written / load_s / 1e9:.2f} GB/s); peak device memory "
+          f"{peak / 1e9:.3f} GB above the {before / 1e9:.3f} GB held before "
+          f"(bf16 tree {tree_bytes / 1e9:.3f} GB; the loaded tree "
+          f"{held / 1e9:.3f} GB)", flush=True)
+    ref = quantize_llama_params(fuse_llama_params(random_weights(cfg)),
+                                act8=True)
+    got, want = loaded.state_dict(), ref.state_dict()
+    check(set(got) == set(want), f"worker load: tensors {sorted(got)}")
+    differ = [k for k in want if got[k].dtype != want[k].dtype
+              or not torch.equal(got[k], want[k])]
+    check(not differ, f"worker load: {differ} differ from the in-memory "
+          "quantization")
+    print(f"worker load: all {len(want)} tensors bit-equal to the same "
+          f"bf16 tree fused and quantized (int8a8) in memory on the card")
+    del ref, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lcfg, loaded
+
+
+def serve_worker_path(smi: str, gen, work: Path) -> list:
+    """The serving stack on the int8 flagship: a Valley-7B checkpoint
+    written and quantized on load, the port's controller and worker in this
+    process on localhost ports, and (a) a stateless request through the
+    controller's proxy by the default `SpecDecoder` against the same call
+    made directly, with its launches of K1, K3-int8 and K4 against the
+    decoder's rounds and the engine's steps; (b) three questions at once,
+    each its run alone; (c) a two-turn session against `SpecChatSession`
+    driven directly; (d) the prefix cache against the same spawn driven
+    directly; (e) the OpenAI route against the native one; (f) a pooled
+    worker (the plain pool, an int8 cache) taking four requests at once,
+    one a prefix hit, against each alone, with its launches against the
+    pool's counters; then K1, K3-int8 and K4 against their plain versions
+    at the shapes these requests gave them, timed.  Returns its kernels
+    entries."""
+    import threading
+
+    from valley_tpu_torch import valley_7b
+    from valley_tpu_torch.inference.continuous import ContinuousEngine
+    from valley_tpu_torch.inference.engine import (Engine, GenerationConfig,
+                                                   PrefixCache)
+    from valley_tpu_torch.inference.speculative import SpecChatSession
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.matvec import bf16_matvec
+    from valley_tpu_torch.ops.quant import int8_matvec
+    from valley_tpu_torch.serve import controller, model_worker
+    from valley_tpu_torch.serve.httpd import post_json
+
+    tk = id_text_tokenizer()
+    cfg = valley_7b(tokens=tk.special_tokens())
+    layers = cfg.text.num_hidden_layers
+    ckpt, written, tree_bytes = write_checkpoint(cfg, work, tk)
+    cfg, params = load_checkpoint(cfg, ckpt, written, tree_bytes, tk)
+    shutil.rmtree(ckpt)
+
+    # the worker's engine: --buckets 512 --frame-buckets 8 --max-new-tokens
+    # 64 and the worker's --steps-per-call 32 and --decode-ramp 2,6
+    engine = Engine(cfg, params, buckets=(WORKER_BUCKET,),
+                    max_new_tokens=WORKER_NEW, cache_dtype=torch.int8,
+                    steps_per_call=WORKER_STEPS, decode_ramp=(2, 6),
+                    frame_buckets=(8,), raw_media=True)
+    ctrl_app = controller.build_app(controller.Controller())
+    ctrl_app.host = "127.0.0.1"
+    ctrl = f"http://127.0.0.1:{ctrl_app.start()}"
+    apps = [ctrl_app]
+
+    def serve(name: str, **kw):
+        w = model_worker.ModelWorker(ctrl, "", name, engine, tk,
+                                     no_register=True, num_frames=8, **kw)
+        app = model_worker.build_app(w)
+        app.host = "127.0.0.1"
+        w.worker_addr = f"http://127.0.0.1:{app.start()}"
+        w.register_to_controller()
+        # its heartbeats, or the controller forgets it after 30 s
+        threading.Thread(target=w._heartbeat_loop, daemon=True).start()
+        apps.append(app)
+        return w
+
+    kernels = {"K1": flash_attention, "K3-int8": decode_attention_stacked,
+               "K4": int8_matvec, "K6": bf16_matvec}
+    try:
+        # the default worker (SpecDecoder for stateless requests), warmed
+        # as --warmup warms it (no plain decode graphs: stateless requests
+        # decode by the decoder's)
+        w = serve("valley-7b", speculative=True)
+        dec = w.spec_decoder
+        t0 = time.perf_counter()
+        paths = w.warmup_serving_paths()
+        held = w.register_graph_memory()
+        keys = (set(engine.graph_sets), set(dec.graph_sets))
+        print(f"worker warm-up: {time.perf_counter() - t0:.1f} s; "
+              f"warmup_serving_paths captured {paths['graphs']} graphs in "
+              f"{paths['capture_s']:.1f} s; the graphs hold {fmt_mb(held)} "
+              f"(static decode states and memory pools) at cache lengths "
+              f"{sorted(k[1] for k in keys[0])}", flush=True)
+        models = post_json(ctrl + "/list_models", {})["models"]
+        check(models == ["valley-7b"], f"controller models {models}")
+        video = frame_dir(work / "video_a", 1)
+
+        # (a) a stateless request through the controller's proxy against
+        # the decoder called directly on the same inputs
+        req = worker_request(WORKER_QUESTIONS[0], video)
+        ids, frames, gcfg, _ = w.prepare(req)
+
+        def direct_call():
+            t0 = time.perf_counter()
+            first, toks = None, []
+            with w._engine_lock:
+                for t in dec.generate_tokens(ids, frames, gcfg,
+                                             eos_ids=[tk.eos_token_id]):
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    toks.append(int(t))
+            return first, time.perf_counter() - t0, toks
+
+        # the first call may capture a count of rounds a call that the
+        # warm-up's short replies did not reach; the second is timed
+        direct_call()
+        d_first, d_total, d_toks = direct_call()
+        direct = req["prompt"] + tk.decode(d_toks)
+        rounds0, steps0 = dec.total_rounds, engine.steps_run
+        ran = [0]
+        rounds = dec._rounds
+
+        def run_rounds(state, n_rounds, *a, **k):
+            ran[0] += n_rounds
+            return rounds(state, n_rounds, *a, **k)
+
+        dec._rounds = run_rounds
+        try:
+            (chunks, h_first, h_total), counts = counted(
+                kernels, lambda: timed_stream(ctrl, req))
+        finally:
+            dec._rounds = rounds
+        steps = engine.steps_run - steps0
+        check(chunks[-1]["text"] == direct, "worker (a): the streamed text "
+              "differs from SpecDecoder.generate_tokens called directly")
+        check(len(d_toks) == WORKER_NEW, f"worker (a): {len(d_toks)} tokens")
+        want = {"K1": layers, "K3-int8": layers * steps,
+                "K4": (4 * layers + 1) * (ran[0] + steps) + 1, "K6": 0}
+        for k, n in want.items():
+            check(counts[k] == n, f"worker (a): {k} launched {counts[k]} "
+                  f"times, want {n}")
+        per_tok = [(t - f) / (WORKER_NEW - 1) * 1e3
+                   for f, t in ((h_first, h_total), (d_first, d_total))]
+        print(f"worker (a): {len(ids)}-token prompt in bucket "
+              f"{WORKER_BUCKET}, 8 frames, {WORKER_NEW} greedy tokens through "
+              f"the controller's proxy by SpecDecoder: the streamed text "
+              f"equals the direct call's; {dec.total_rounds - rounds0} "
+              f"rounds counted by the decoder ({ran[0]} run), {steps} plain "
+              f"steps; launches " + " ".join(
+                  f"{k} {n}" for k, n in counts.items()))
+        print(f"worker (a): first streamed chunk {h_first * 1e3:.2f} ms "
+              f"after the request, against the direct call's first token "
+              f"{d_first * 1e3:.2f} ms; {per_tok[0]:.3f} ms/token over HTTP "
+              f"against {per_tok[1]:.3f} direct, on {smi}", flush=True)
+        request_counts = counts
+        # a reply of another length decodes at the same cache length
+        short = timed_stream(ctrl, {**req, "max_new_tokens": 16})[0]
+        check(len(tk.encode(short[-1]["text"][len(req["prompt"]):],
+                            False)) == 16 and direct.startswith(
+                  short[-1]["text"]), "worker (a): a 16-token reply is not "
+              "the 64-token reply's start")
+
+        # (b) three questions at once, each its run alone
+        reqs = [worker_request(q, video) for q in WORKER_QUESTIONS[1:]]
+        for r in reqs:             # a reply's round counts may be new
+            timed_stream(w.worker_addr, r)
+        alone = [timed_stream(w.worker_addr, r) for r in reqs]
+        together: list = [None] * len(reqs)
+
+        def run(i):
+            together[i] = timed_stream(w.worker_addr, reqs[i])
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(reqs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        check(all(t is not None and t[0] == a[0]
+                  for t, a in zip(together, alone)),
+              "worker (b): a concurrent request differs from its run alone")
+        print(f"worker (b): three questions at once: each stream equals its "
+              f"run alone; {wall:.2f} s for the three against "
+              f"{sum(a[2] for a in alone):.2f} s one after another (the "
+              f"engine lock serializes them)")
+
+        # (c) a worker with --max-sessions: a two-turn session against
+        # SpecChatSession driven directly (sessions decode eagerly)
+        ws = serve("valley-7b-sessions", speculative=True, max_sessions=2)
+        s1 = worker_request(WORKER_QUESTIONS[0], video, session_id="c")
+        t1 = timed_stream(ws.worker_addr, s1)[0][-1]["text"]
+        # the client sends the whole conversation, its video again
+        s2 = {**s1, "prompt": t1 + "\n### Human: And then?\n### Assistant:"}
+        t2 = timed_stream(ws.worker_addr, s2)[0][-1]["text"]
+        sess = ws._sessions["c"][0]
+        check(sess.prefills == 1 and sess.extends == 1, f"worker (c): the "
+              f"session ran {sess.prefills} prefills, {sess.extends} extends")
+        ids1, frames1, g1, _ = ws.prepare(s1)
+        ids2 = ws.prepare(s2)[0]
+        extra = -(-(2 * WORKER_NEW + 256) // 512) * 512
+        ds = SpecChatSession(engine, g1, extra_slots=extra)
+        with torch.inference_mode():
+            r1 = ds.chat(ids1, images=frames1, eos_ids=[tk.eos_token_id])
+            r2 = ds.chat(ids2[len(ids1) + len(r1):],
+                         eos_ids=[tk.eos_token_id])
+        check(t1 == s1["prompt"] + tk.decode(r1) and
+              t2 == s2["prompt"] + tk.decode(r2), "worker (c): the session's "
+              "streamed turns differ from SpecChatSession driven directly")
+        print(f"worker (c): a session of two turns ({len(ids1)} then "
+              f"{len(ids2) - len(ids1) - len(r1)} new tokens, the second "
+              f"extending the kept cache) equals SpecChatSession driven "
+              f"directly ({len(r1)} and {len(r2)} tokens)")
+        del ds, sess
+
+        # (d) a worker with --prefix-cache: a miss, then a hit, against the
+        # spawn driven directly
+        wx = serve("valley-7b-prefix", speculative=True, prefix_cache=2)
+        texts = [timed_stream(wx.worker_addr, req)[0][-1]["text"]
+                 for _ in range(2)]
+        check((wx.prefix_misses, wx.prefix_hits) == (1, 1),
+              f"worker (d): prefix misses/hits {wx.prefix_misses}/"
+              f"{wx.prefix_hits}")
+        pre, suffix = wx._prefix_split(wx.prepare(req)[3], ids)
+        with torch.inference_mode():
+            pc = PrefixCache(engine, pre, frames, extra_slots=512)
+            spawned = pc.spawn(gen=gcfg, speculative=True, seed=gcfg.seed
+                               ).chat(suffix, eos_ids=[tk.eos_token_id])
+        check(texts[0] == texts[1] == req["prompt"] + tk.decode(spawned),
+              "worker (d): the prefix cache's streams differ from the spawn "
+              "driven directly")
+        print(f"worker (d): --prefix-cache: a miss and a hit ({len(pre)}-"
+              f"token prefix, {len(suffix)}-token question) both equal the "
+              f"spawn driven directly; the plain path's text "
+              f"{'equals' if texts[0] == direct else 'differs from'} it "
+              f"(a spawn extends where the plain path prefills)")
+        del pc
+
+        # (e) the OpenAI route against the native one
+        from valley_tpu_torch.serve.openai_api import _flatten_messages
+
+        msgs = [{"role": "system", "content": WORKER_SYSTEM},
+                {"role": "user", "content": [
+                    {"type": "text", "text": WORKER_QUESTIONS[0]},
+                    {"type": "video_url", "video_url": {"url": video}}]}]
+        out = post_json(w.worker_addr + "/v1/chat/completions", {
+            "messages": msgs, "temperature": 0.0,
+            "max_tokens": WORKER_NEW}, timeout=600)
+        prompt = _flatten_messages(msgs)[0]
+        native = timed_stream(w.worker_addr, {
+            "prompt": prompt, "videos": [video], "temperature": 0.0,
+            "max_new_tokens": WORKER_NEW, "stop": "###"})[0][-1]["text"]
+        check(out["choices"][0]["message"]["content"]
+              == native[len(prompt):].strip(), "worker (e): the OpenAI "
+              "route's text differs from the native route's")
+        print(f"worker (e): /v1/chat/completions gives the native route's "
+              f"text ({out['usage']['completion_tokens']} completion "
+              f"tokens)")
+        stats = post_json(w.worker_addr + "/worker_get_status", {})["stats"]
+        print(f"worker stats: {json.dumps(stats)}")
+        check((set(engine.graph_sets), set(dec.graph_sets)) == keys,
+              "worker: stateless requests made graph keys the warm-up did "
+              f"not: {sorted(engine.graph_sets)}, {sorted(dec.graph_sets)}")
+        print("worker: requests of 64 and 16 new tokens replayed the warm-up's"
+              f" {len(keys[0])} decode state(s); no key added")
+
+        # (f) a pooled worker: the plain pool (--batch-window-ms -1, as
+        # --speculative's default leaves it), int8 cache, four requests at
+        # once, one a prefix hit, each against its run alone
+        wp = serve("valley-7b-pool", batch_window_ms=-1, max_batch=4,
+                   prefix_cache=2, speculative=True, speculative_pool=False)
+        pool = wp.continuous
+        check(isinstance(pool, ContinuousEngine) and pool._spec is None,
+              "worker (f): the pool speculates by default")
+        # the first request caches its prefix and, decoding every chunk
+        # size (2, 6, 32), captures the pool's graphs
+        t0 = time.perf_counter()
+        timed_stream(wp.worker_addr, req)
+        wp.register_graph_memory()
+        print(f"worker (f): the first request {time.perf_counter() - t0:.1f} "
+              f"s, {len(pool._graphs.keys()) if pool._graphs else 0} graphs "
+              f"captured; hbm {json.dumps(wp.hbm and wp.hbm.snapshot())}",
+              flush=True)
+        rng = np.random.default_rng(4)
+        video_b = frame_dir(work / "video_b", 2)
+        text_req = {"model": "valley-7b-pool", "temperature": 0.0,
+                    "max_new_tokens": WORKER_NEW}
+        quad = [worker_request(WORKER_QUESTIONS[1], video),      # a hit
+                worker_request(WORKER_QUESTIONS[2], video_b),    # a miss
+                {**text_req, "prompt": "".join(
+                    chr(c) for c in rng.integers(97, 123, 40))},
+                {**text_req, "prompt": "".join(
+                    chr(c) for c in rng.integers(97, 123, 200))}]
+        steps0, sizes0 = pool.steps_run, len(pool.prefill_sizes)
+        chunks0, misses0 = len(pool.prefix_chunks), wp.prefix_misses
+        hits0 = wp.prefix_hits
+        got: list = [None] * 4
+
+        def run_pooled(i):
+            got[i] = timed_stream(wp.worker_addr, quad[i])
+
+        def pooled():
+            ths = [threading.Thread(target=run_pooled, args=(i,))
+                   for i in range(4)]
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+
+        t0 = time.perf_counter()
+        _, counts = counted(kernels, pooled)
+        wall = time.perf_counter() - t0
+        steps = pool.steps_run - steps0
+        admissions = len(pool.prefill_sizes) - sizes0
+        prefix_chunks = pool.prefix_chunks[chunks0:]
+        builds = wp.prefix_misses - misses0
+        check(wp.prefix_hits - hits0 == 1 and builds == 1 and
+              len(prefix_chunks) == 2, f"worker (f): {wp.prefix_hits - hits0}"
+              f" hits, {builds} builds, prefix admissions {prefix_chunks}")
+        want = {"K1": layers * (admissions + builds),
+                "K3-int8": layers * steps,
+                "K4": (4 * layers + 1) * steps + admissions + builds
+                + sum(1 + (4 * layers if c <= 16 else 0)
+                      for c in prefix_chunks), "K6": 0}
+        for k, n in want.items():
+            check(counts[k] == n, f"worker (f): {k} launched {counts[k]} "
+                  f"times, want {n}")
+        parts, pool_lens = [], []
+        for r, g in zip(quad, got):
+            p_ids, p_frames, p_gen, _ = wp.prepare(r)
+            pool_lens.append(len(p_ids) + WORKER_NEW // 2)
+            toks = tk.encode(g[0][-1]["text"][len(r["prompt"]):], False)
+            alone = [int(t[0]) for t in engine.generate_tokens(
+                [p_ids], p_frames, GenerationConfig(max_new_tokens=WORKER_NEW,
+                                                    do_sample=False),
+                eos_ids=[tk.eos_token_id])]
+            parts.append(first_divergence("worker (f)", engine, p_ids,
+                                          p_frames, alone, toks,
+                                          INT8_LOGIT_TOL))
+        print(f"worker (f): four requests at once through the pooled worker "
+              f"(4 rows, int8a8, int8 cache; one prefix hit, one prefix "
+              f"built and admitted from, two text) in {wall:.2f} s: "
+              f"{admissions} admission prefills (sizes "
+              f"{pool.prefill_sizes[sizes0:]}), {len(prefix_chunks)} "
+              f"admissions from a prefix (chunks {prefix_chunks}), {steps} "
+              f"pooled steps; launches " + " ".join(
+                  f"{k} {n}" for k, n in counts.items()))
+        for i, part in enumerate(parts):
+            print(f"worker (f): request {i} against its run alone: {part}")
+        pool_counts = counts
+        pool.close()
+        stats = post_json(wp.worker_addr + "/worker_get_status", {})["stats"]
+        print(f"worker (f) stats: {json.dumps(stats)}")
+        # the worker's kernels against their plain versions at the shapes
+        # these requests gave them: K1 at the stateless prompt's prefill
+        # (every prefill here is one prompt in the 512 bucket), K4 at a
+        # verify round's 9 rows (a request's plain steps and its prefill's
+        # lm_head take 1) and at the pool's rows, K3-int8 over the
+        # decoder's cache (its fallback steps) and over the pool's rows
+        # half-way through their replies
+        k1_err, k1_t = k1_phase(flash_cases(gen, prompt_len=len(ids))[:1])
+        k4_err, k4_t = k4_phase(gen, layers, 9)
+        k3_err, k3_t = k3_int8_phase(decode_int8_cases(
+            gen, dec.cache_len(WORKER_BUCKET), len(ids), WORKER_BUCKET)[:1])
+        k4p_err, k4p_t = k4_phase(gen, layers, pool.rows)
+        k3p_err, k3p_t = k3_int8_phase([pool_decode_int8_case(
+            gen, pool.smax, layers, pool_lens,
+            (min(pool_lens), max(pool_lens)))])
+    finally:
+        for app in apps:
+            app.shutdown()
+    # a request's verify rounds attend through the plain attention: K3
+    # runs only in the plain steps of an adaptive fallback
+    entries = [{**K1_SRC, "name": "flash_fwd_worker", "path": "serve_worker",
+                "launches": request_counts["K1"], "max_abs_err": k1_err,
+                **k1_t},
+               {**K3_SRC, "name": "decode_attn_int8_worker",
+                "path": "serve_worker", "launches": request_counts["K3-int8"],
+                "max_abs_err": k3_err, **k3_t},
+               {**K4_SRC, "name": "int8_matvec_worker",
+                "path": "serve_worker", "launches": request_counts["K4"],
+                "max_abs_err": k4_err, **k4_t},
+               {**K1_SRC, "name": "flash_fwd_worker_pool",
+                "path": "serve_worker_pool", "launches": pool_counts["K1"],
+                "max_abs_err": k1_err, **k1_t},
+               {**K3_SRC, "name": "decode_attn_int8_worker_pool",
+                "path": "serve_worker_pool",
+                "launches": pool_counts["K3-int8"], "max_abs_err": k3p_err,
+                **k3p_t},
+               {**K4_SRC, "name": "int8_matvec_worker_pool",
+                "path": "serve_worker_pool", "launches": pool_counts["K4"],
+                "max_abs_err": k4p_err, **k4p_t}]
+    return [e for e in entries if e["launches"]]
+
+
 def serve_batch_path(smi: str, gen, work: Path) -> list:
     """Batched serving, batch_infer's configuration: K7 (the card's read
     rate), K6 and its T3 variant at the fused Valley-7B shapes (the pool's
@@ -3270,10 +3873,10 @@ def serve_batch_path(smi: str, gen, work: Path) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     params = fuse_llama_params(random_weights(cfg))
-    counts, plain_tps = batch_slice(cfg, params, smi)
+    counts = batch_slice(cfg, params, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    spec_counts = spec_pool_slice(cfg, params, smi, plain_tps)
+    spec_counts = spec_pool_slice(cfg, params, smi)
     spec_entries = [
         {**K1_SRC, "name": "flash_fwd_spec_pool", "path": "serve_batch_spec",
          "launches": spec_counts["K1"], "max_abs_err": k1_err, **k1_t},
@@ -3321,6 +3924,29 @@ def train_path(smi: str, gen, work: Path) -> list:
              "delta_launches": train_delta, "max_abs_err": k2_err, **k2_t}]
 
 
+def _timed(fn):
+    """``fn``, printing its seconds when it returns (the script's time
+    budget is kept phase by phase)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+    return run
+
+
+for _name in ("k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
+              "k4_phase", "k5_phase", "k6_phase", "k6_checks", "k7_phase",
+              "random_weights", "serve_slice", "spec_slice",
+              "full_acceptance", "spec_conv", "conv_slice", "lab_phase",
+              "batch_slice", "spec_pool_slice", "train_phase",
+              "write_checkpoint", "load_checkpoint"):
+    globals()[_name] = _timed(globals()[_name])
+
+
 # Each path runs in a process of its own, one after the other: each frees
 # its model by exiting, and each gets a fresh profiler (on an H100 with
 # torch 2.11, traces taken in one process after both serving paths came
@@ -3328,7 +3954,8 @@ def train_path(smi: str, gen, work: Path) -> list:
 # conversation in the int4 path's process).  Each is given the run's
 # scratch directory.
 PATHS = {"serve": serve_path, "serve_batch": serve_batch_path,
-         "serve_int8": serve_int8_path, "serve_int4": serve_int4_path,
+         "serve_int8": serve_int8_path, "serve_worker": serve_worker_path,
+         "serve_int4": serve_int4_path,
          "lab_conv": lab_conv_path, "lab_tools": lab_tools_path,
          "train": train_path}
 # Where the int4 path leaves the conversation's cache for the lab's process,

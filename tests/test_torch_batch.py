@@ -518,10 +518,17 @@ def test_idle_row_parks_at_the_last_slot(jeng, teng):
         c.close()
 
 
-def test_unported_pool_options_raise(teng):
-    """Admission from a PrefixCache is refused; the speculative pool, once
-    refused, is built with JAX's SpecConfig defaults and a history row of
-    smax + D + 1 tokens."""
+def test_unported_pool_options_raise(cfg, jparams, tparams):
+    """Admission from a PrefixCache (``submit(prefix=...)``, refused before
+    PR 13, hence the name) gives the JAX pool's greedy tokens, fp32 and
+    with an int8 cache, for a short and a long suffix beside a plain
+    request, and the plain admission of the same prompts' tokens; the
+    speculative pool is built with JAX's SpecConfig defaults and a history
+    row of smax + D + 1 tokens."""
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.int8, torch.int8)):
+        _prefix_admission_matches_jax(cfg, jparams, tparams, jdt, tdt)
+    teng = engine.Engine(cfg, tparams, buckets=(64,), max_new_tokens=32,
+                         cache_dtype=torch.float32, steps_per_call=2)
     spec = ContinuousEngine(teng, rows=1, bucket=64, extra_slots=8,
                             speculative=True)
     try:
@@ -529,12 +536,48 @@ def test_unported_pool_options_raise(teng):
         assert spec._state.hist.shape == (1, spec.smax + 9)
     finally:
         spec.close()
-    c = ContinuousEngine(teng, rows=1, bucket=64, extra_slots=8)
+
+
+def _prefix_admission_matches_jax(cfg, jparams, tparams, jdt, tdt):
+    jeng = jengine.Engine(cfg, jparams, buckets=(64,), max_new_tokens=32,
+                          cache_dtype=jdt, use_flash=False, steps_per_call=2)
+    teng = engine.Engine(cfg, tparams, buckets=(64,), max_new_tokens=32,
+                         cache_dtype=tdt, steps_per_call=2)
+    frames = _frames(cfg, 1, 2, seed=31)
+    prefix = _media_prompt(cfg, 2, 5, seed=32)
+    suffixes = [[7, 8], np.random.default_rng(33).integers(
+        5, 400, 20).tolist()]
+    plain = _media_prompt(cfg, 2, 9, seed=34)
+    jpc = jengine.PrefixCache(jeng, prefix, frames, extra_slots=64)
+    tpc = engine.PrefixCache(teng, prefix, frames, extra_slots=64)
+    jpool = jcontinuous.ContinuousEngine(jeng, rows=2, bucket=64,
+                                         extra_slots=64, steps_per_call=2)
+    tpool = ContinuousEngine(teng, rows=2, bucket=64, extra_slots=64,
+                             steps_per_call=2)
     try:
-        with pytest.raises(NotImplementedError, match="PrefixCache"):
-            c.submit([5, 6], prefix=object())
+        got = {}
+        for name, pool, pc, drain in (
+                ("jax", jpool, jpc, jcontinuous._drain),
+                ("port", tpool, tpc, lambda q: _drain(q, timeout=TIMEOUT))):
+            qs = [pool.submit(prefix + sfx, None, 0.0, 1.0, 10, -1,
+                              prefix=pc) for sfx in suffixes]
+            qs.append(pool.submit(plain, frames, 0.0, 1.0, 10, -1))
+            got[name] = [[int(t) for t in drain(q)] for q in qs]
+        assert got["port"] == got["jax"]
+        assert all(len(t) == 10 for t in got["port"])
+        assert tpool.prefix_chunks == [16, 32]
+        # the same prompts admitted plainly, with their frames
+        plainly = [tpool.submit(prefix + sfx, frames, 0.0, 1.0, 10, -1)
+                   for sfx in suffixes]
+        assert [[int(t) for t in _drain(q, timeout=TIMEOUT)]
+                for q in plainly] == got["port"][:2]
+        with pytest.raises(ValueError, match="start with the prefix"):
+            list(_drain(tpool.submit([5] + prefix[1:] + [7], prefix=tpc),
+                        timeout=TIMEOUT))
+        with pytest.raises(ValueError, match="no suffix"):
+            list(_drain(tpool.submit(prefix, prefix=tpc), timeout=TIMEOUT))
     finally:
-        c.close()
+        tpool.close()
 
 
 def test_close_stops_both_threads(teng):

@@ -282,9 +282,17 @@ def test_run_valley_cli_on_frame_dir(tmp_path, capsys):
     assert out.endswith("\n")
 
 
-def test_run_valley_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="random:tiny"):
-        run_valley.load_model("/no/such/checkpoint", "cpu")
+def test_run_valley_refuses_checkpoints(tmp_path):
+    """Checkpoint directories load since PR 13 (tests/test_torch_serve.py
+    serves one); what is not a checkpoint or a known random model is
+    refused."""
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        run_valley.load_model(str(tmp_path / "no_such_checkpoint"), "cpu")
+    with pytest.raises(ValueError, match="random:7b"):
+        run_valley.load_model("random:huge", "cpu")
+    with pytest.raises(NotImplementedError, match="lora"):
+        run_valley.main(["--model-name", "random:tiny", "--video-file", ".",
+                         "--lora-path", "x", "--device", "cpu"])
 
 
 def _frame_dir(path, n=4):

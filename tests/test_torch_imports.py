@@ -102,6 +102,54 @@ print(json.dumps({"loaded": loaded, "lens": [len(r) for r in replies],
     assert got == {"loaded": [], "lens": [3, 3], "extends": 1}
 
 
+def test_serve_stack_runs_without_jax():
+    """The serve and utils modules import, and a tiny worker registered
+    with the controller answers a request through the controller's proxy
+    and a checkpoint written and read back by the port's own safetensors
+    code, with jax, the JAX package, ``requests``, ``safetensors`` and
+    ``transformers`` unimportable: none of them is loaded."""
+    got = _run("""
+import json, sys, tempfile
+for name in ("jax", "valley_tpu", "requests", "safetensors",
+             "transformers"):
+    sys.modules[name] = None              # any import of them now fails
+import argparse
+import torch
+from valley_tpu_torch.serve import (batcher, cli, controller, hbm, httpd,
+                                    model_worker, openai_api,
+                                    register_worker, test_message)
+from valley_tpu_torch.utils import delta, hf_bridge, logging, safetensors_io
+args = model_worker.build_parser().parse_args(
+    ["--device", "cpu", "--buckets", "64", "--max-new-tokens", "4",
+     "--no-register"])
+engine, tk = model_worker.load_engine(args)
+ctrl = controller.Controller()
+c_app = controller.build_app(ctrl)
+c_addr = f"http://localhost:{c_app.start()}"
+args.controller_address = c_addr
+worker = model_worker.make_worker(args, engine, tk)
+w_app = model_worker.build_app(worker)
+worker.worker_addr = f"http://localhost:{w_app.start()}"
+worker.register_to_controller()
+chunks = list(httpd.stream_chunks(c_addr + "/worker_generate_stream", {
+    "model": "valley", "prompt": "hi", "temperature": 0.0,
+    "max_new_tokens": 3}))
+c_app.shutdown(); w_app.shutdown()
+d = tempfile.mkdtemp()
+hf_bridge.export_valley_checkpoint(engine.cfg, engine.params, d)
+cfg, params, _ = hf_bridge.load_valley_checkpoint(
+    d, tokenizer=tk, device="cpu", dtype=torch.float32)
+want = engine.params.state_dict()
+same = all(torch.equal(t, want[k]) for k, t in params.state_dict().items())
+loaded = sorted(n for n, m in sys.modules.items() if m is not None and (
+    n.split(".")[0] in ("jax", "valley_tpu", "requests", "safetensors",
+                        "transformers")))
+print(json.dumps({"loaded": loaded, "code": chunks[-1]["error_code"],
+                  "same": same}))
+""")
+    assert got == {"loaded": [], "code": 0, "same": True}
+
+
 def test_kernel_modules_import_without_triton_or_nvcc():
     """The kernel modules import, and run their plain versions on CPU
     tensors, with triton unimportable and no nvcc on PATH; nothing is

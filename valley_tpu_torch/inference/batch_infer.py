@@ -35,8 +35,9 @@ Usage:
 The flags and defaults are the JAX module's (``--rows 16 --fused
 --kv-cache int8 --steps-per-call 16 --buckets 512,1024,2048``, bf16
 weights unless ``--quantize``).  It runs on the card; without one it stops
-unless ``--device cpu`` is given.  Only ``random:tiny`` loads (the
-checkpoint loader is not ported).  The decode GEMV kernels take at most
+unless ``--device cpu`` is given.  ``--model-path`` is a checkpoint
+directory (quantized on load with ``--quantize``) or a ``random:``
+configuration (`run_valley.load_model`).  The decode GEMV kernels take at most
 ``ops.quant.MAX_ROWS`` (16) rows, so a pool of more ``--rows`` decodes its
 projections through the library's matrix product, the same shape rule by
 which prefill's many rows and speculative verify rounds of more than 16
@@ -142,11 +143,13 @@ def _prepare(req: dict, cfg, num_frames: int, frame_mode: str,
 
 
 def _refuse_unported(args) -> None:
-    for flag, value in (("--vision-tower", args.vision_tower),
-                        ("--lora-path", args.lora_path),
-                        ("--quantize-vision", args.quantize_vision)):
+    for flag, value, item in (
+            ("--lora-path", args.lora_path, "3: LoRA"),
+            ("--quantize-vision", args.quantize_vision,
+             "6: vision quantization")):
         if value:
-            raise NotImplementedError(f"{flag} is not ported yet")
+            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP "
+                                      f"§1 item {item})")
     if args.tensor_parallel != 1:
         raise NotImplementedError("--tensor-parallel above 1 is not ported "
                                   "yet: the port serves from one card")
@@ -193,7 +196,8 @@ def run_batch(args) -> dict:
         fused=args.fused, kv_cache=args.kv_cache,
         steps_per_call=args.steps_per_call,
         decode_ramp=tuple(int(s) for s in args.decode_ramp.split(",") if s),
-        frame_buckets=frame_buckets(args), raw_media=bool(args.raw_pixels))
+        frame_buckets=frame_buckets(args), raw_media=bool(args.raw_pixels),
+        vision_tower=args.vision_tower)
     cfg = engine.cfg
     pool = ContinuousEngine(engine, rows=args.rows,
                             admit_batch=args.admit_batch,
@@ -303,7 +307,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cuda (default) or cpu")
     # engine flags: the serving worker's names and defaults
     parser.add_argument("--model-path", required=True,
-                        help="random:tiny (checkpoints are not ported)")
+                        help="a checkpoint directory, or random:tiny / "
+                             "random:7b / random:13b")
     parser.add_argument("--vision-tower", default=None)
     parser.add_argument("--lora-path", default=None)
     parser.add_argument("--quantize", default=None,

@@ -35,10 +35,13 @@ As in the JAX pool:
   chunks (still appending to the histories) and re-probes every
   ``reprobe_chunks`` chunks.  At B (D + 1) rows the verify products are
   plain matrix products, which the JAX package leaves to XLA and the port
-  to the library.
-
-Not ported: admission from a ``PrefixCache`` (``submit(prefix=...)``
-raises NotImplementedError).
+  to the library;
+* prefix admission (``submit(prefix=...)``, JAX continuous.py:571): a
+  request whose prompt starts with a `PrefixCache`'s ids admits from its
+  cached KV fragment: the fragment is padded into a row, extended by the
+  request's suffix (`Engine._extend`, a pow-2 chunk) and compacted, so the
+  row has the shape a plainly prefilled row has (slot = position = its
+  live tokens); such requests admit one at a time.
 
 A pooled decode chunk is ``steps`` single-token steps or verify rounds (a
 ``ramp`` of shorter chunks while a young row is in the pool), with one
@@ -73,7 +76,8 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from valley_tpu_torch.inference.engine import Engine
+from valley_tpu_torch.inference.engine import (Engine, _compact_cache,
+                                               _grow_cache)
 from valley_tpu_torch.inference.graphs import (DecodeGraphs, DecodeState,
                                                SpecState, spec_round)
 from valley_tpu_torch.inference.speculative import (SpecConfig,
@@ -96,6 +100,7 @@ class _Request:
     out: "queue.Queue[Any]" = dataclasses.field(
         default_factory=lambda: queue.Queue(maxsize=4096))
     emitted: int = 0
+    prefix: Any = None       # a PrefixCache its input_ids start with
 
 
 class ContinuousEngine:
@@ -104,9 +109,10 @@ class ContinuousEngine:
     its tokens arrive on (then `_DONE`, or an exception and `_DONE`).
 
     ``steps_run`` counts the pooled decode steps run, ``rounds_run`` the
-    pooled verify rounds and ``prefill_sizes`` the rows of each admission
-    prefill, so a caller can tell how many launches the pool's kernels
-    made; ``spec_rounds``, ``spec_emitted``, ``spec_disables`` and
+    pooled verify rounds, ``prefill_sizes`` the rows of each admission
+    prefill and ``prefix_chunks`` the suffix chunk of each admission from a
+    prefix (`Engine._extend`), so a caller can tell how many launches the
+    pool's kernels made; ``spec_rounds``, ``spec_emitted``, ``spec_disables`` and
     ``spec_reprobes`` are the speculative telemetry (row rounds, their
     tokens, pauses, re-probes).
     ``eager=True`` decodes without graphs on the card (the reference the
@@ -138,12 +144,15 @@ class ContinuousEngine:
         self._prefill_gen = torch.Generator(dev).manual_seed(1)
         # prefills run in the prefill thread, and in the caller's during
         # `warmup`: one at a time, so they share the generator safely; the
-        # decode loop holds it while it captures a graph
-        self._prefill_lock = threading.Lock()
+        # decode loop holds it while it captures a graph, and a serving
+        # worker while it runs the engine outside the pool (reentrant, so
+        # that such a caller may nest it)
+        self._prefill_lock = threading.RLock()
         self.graphs_on = dev.type == "cuda" and not eager
         self.steps_run = 0
         self.rounds_run = 0
         self.prefill_sizes: List[int] = []
+        self.prefix_chunks: List[int] = []
 
         # speculative mode (JAX continuous.py:103-131): a round emits 1 ..
         # D + 1 tokens per row; the history holds a row's prompt and every
@@ -285,14 +294,18 @@ class ContinuousEngine:
                eos_id: int = 2, prefix=None) -> "queue.Queue[Any]":
         """Queue a request: ``input_ids``, its (1, T, 3, H, W) frames or
         None, its sampling settings and limits.  Returns the queue its
-        tokens arrive on (read it with `_drain`)."""
-        if prefix is not None:
-            raise NotImplementedError(
-                "admission from a PrefixCache is not ported yet")
+        tokens arrive on (read it with `_drain`).  With ``prefix`` (a
+        `PrefixCache` of this pool's engine whose ids ``input_ids`` start
+        with; no ``images``: the prefix holds the media) the request admits
+        from the cached prefix, prefilling only its suffix."""
         if self._closed:
             raise RuntimeError("the pool is closed")
+        if prefix is not None and images is not None:
+            raise ValueError("a prefix request takes no images: its "
+                             "PrefixCache holds the media")
         req = _Request(list(input_ids), images, float(temperature),
-                       float(top_p), int(max_new_tokens), int(eos_id))
+                       float(top_p), int(max_new_tokens), int(eos_id),
+                       prefix=prefix)
         self._queue.put(req)
         self._wake.set()
         return req.out
@@ -453,11 +466,12 @@ class ContinuousEngine:
                 return
             head = pending.pop(0)
             group = [head]
-            if self.admit_batch > 1:
+            if head.prefix is None and self.admit_batch > 1:
                 key0 = self._admit_key(head)
                 i = 0
                 while i < len(pending) and len(group) < self.admit_batch:
-                    if self._admit_key(pending[i]) == key0:
+                    r = pending[i]
+                    if r.prefix is None and self._admit_key(r) == key0:
                         group.append(pending.pop(i))
                     else:
                         i += 1
@@ -526,8 +540,57 @@ class ContinuousEngine:
                 for i, r in enumerate(group)]
 
     def _prefill_one(self, req: _Request):
-        """A single request's admission: `_prefill_group` of one."""
+        """A single request's admission: `_prefill_from_prefix` for a
+        prefix request, else `_prefill_group` of one."""
+        if req.prefix is not None:
+            return self._prefill_from_prefix(req)
         return self._prefill_group([req])[0]
+
+    def _prefill_from_prefix(self, req: _Request):
+        """Admission from a `PrefixCache` (JAX continuous.py:571-616): the
+        cached (system prompt and media) fragment grown into a row big
+        enough for it and the suffix's pow-2 chunk, extended by the suffix
+        (`Engine._extend`, sampling the first token at the request's
+        settings), compacted and cut to the pool's ``smax`` slots.  The
+        compacted row has slot = position = its live tokens, the shape a
+        plainly prefilled row has.  Returns one ready item."""
+        eng = self.engine
+        dev = eng.device
+        pc = req.prefix
+        pre = list(pc.prefix_ids)
+        if req.input_ids[:len(pre)] != pre:
+            raise ValueError("input_ids do not start with the prefix")
+        suffix = req.input_ids[len(pre):]
+        c = len(suffix)
+        if c == 0:
+            raise ValueError("no suffix tokens after the prefix")
+        cb = 1 << max(4, (c - 1).bit_length())   # pow-2 chunk >= 16
+        # the fragment spans its whole prefix bucket: extend in a buffer
+        # holding it and the chunk, compact the padding away, then cut the
+        # row to the pool's size
+        tmp_len = max(self.smax, pc._slot + cb)
+        ids = torch.zeros((1, cb), dtype=torch.long)
+        ids[0, :c] = torch.tensor(suffix)
+        with self._prefill_lock:
+            cache, valid = _grow_cache(pc._frag, pc._valid, tmp_len)
+            tok, _logits, cache, valid, _seq = eng._extend(
+                cache, valid, ids.to(dev), torch.tensor([c], device=dev),
+                torch.tensor([pc._seq], device=dev), pc._slot,
+                self._prefill_gen, req.temperature, req.top_p,
+                req.temperature >= 1e-4)
+            cache, valid, n_valid = _compact_cache(cache, valid)
+            n = int(n_valid[0])
+            if n >= self.smax:
+                raise ValueError(f"prompt of {n} tokens leaves no decode "
+                                 f"slots (pool smax={self.smax})")
+            if tmp_len > self.smax:
+                cache = llama.KVCache(*(
+                    None if x is None else x[:, :, :self.smax]
+                    for x in (cache.k, cache.v, cache.k_scale,
+                              cache.v_scale)))
+                valid = valid[:, :self.smax]
+            self.prefix_chunks.append(cb)
+        return (req, tok, cache, valid, n, 0)
 
     # -- scheduler loop ----------------------------------------------------
 

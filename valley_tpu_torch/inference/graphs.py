@@ -34,10 +34,18 @@ import gc
 import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from valley_tpu_torch.models import llama
 from valley_tpu_torch.ops import _build
+
+
+def _per_row(value, rows: int, device) -> torch.Tensor:
+    """A sampling setting (one number, or one per row) as a (rows,) fp32
+    tensor."""
+    return torch.as_tensor(np.asarray(value, np.float32)).to(
+        device).expand(rows).clone()
 
 
 @dataclasses.dataclass
@@ -66,17 +74,16 @@ class DecodeState:
                    vec(1.0, torch.float32))
 
     @classmethod
-    def start(cls, cache, valid, token, seq, slot: int, temperature: float,
-              top_p: float) -> "DecodeState":
+    def start(cls, cache, valid, token, seq, slot: int, temperature,
+              top_p) -> "DecodeState":
         """A state over ``cache`` and ``valid`` (advanced in place) whose
         rows feed copies of ``token`` at positions ``seq``, all at cache
-        slot ``slot`` with one temperature and top_p."""
+        slot ``slot``, with a temperature and top_p for all rows or one
+        each (sequences of B)."""
         b, dev = token.shape[0], token.device
         return cls(cache, valid, token.clone(), seq.clone(),
                    torch.full((b,), slot, dtype=torch.int64, device=dev),
-                   torch.full((b,), temperature, dtype=torch.float32,
-                              device=dev),
-                   torch.full((b,), top_p, dtype=torch.float32, device=dev))
+                   _per_row(temperature, b, dev), _per_row(top_p, b, dev))
 
     @torch.inference_mode()
     def load(self, valid, token, seq, slot: int, temperature: float,
@@ -87,12 +94,13 @@ class DecodeState:
         self.token.copy_(token)
         self.seq.copy_(seq)
         self.slot.fill_(slot)
-        self.temperature.fill_(temperature)
-        self.top_p.fill_(top_p)
+        self.temperature.copy_(_per_row(temperature, self.rows, "cpu"))
+        self.top_p.copy_(_per_row(top_p, self.rows, "cpu"))
 
     @property
     def rows(self) -> int:
         return self.token.shape[0]
+
 
     def _small(self) -> Tuple[torch.Tensor, ...]:
         return (self.valid, self.token, self.seq, self.slot)

@@ -1,16 +1,18 @@
 """Offline one-shot video Q&A on the PyTorch port.
 
-python -m valley_tpu_torch.inference.run_valley --model-name random:tiny \
+python -m valley_tpu_torch.inference.run_valley --model-name <dir> \
     --video-file v.mp4 --query "Describe the video." \
     [--quantize int8a8|int4gp --fused --kv-cache int8] [--speculative] \
     [--device cpu]
 
-``random:tiny`` builds the tiny test configuration with random weights and
-the byte tokenizer.  Loading a Hugging Face Valley checkpoint is not ported
-yet (the JAX package's loader, ``valley_tpu.utils.hf_bridge``, imports jax).
-It runs on the card; without one it stops unless ``--device cpu`` is
-given.  ``--fused``, ``--quantize`` and ``--kv-cache`` are the serving
-worker's options (``valley_tpu/serve/model_worker.py``), applied in its
+``--model-name`` is a Hugging Face Valley checkpoint directory (read by
+``utils/hf_bridge.py``, its tokenizer through ``transformers``; a
+``--quantize`` mode quantizes on load), or ``random:tiny`` (the tiny test
+configuration), ``random:7b`` or ``random:13b`` (Valley-7B/13B filled with
+0.008, the JAX worker's perf weights) with the byte tokenizer.  It runs on
+the card; without one it stops unless ``--device cpu`` is given.
+``--fused``, ``--quantize`` and ``--kv-cache`` are the serving worker's
+options (``valley_tpu/serve/model_worker.py``), applied in its
 order: fuse, then quantize (and pack int4), then choose the cache.
 ``--speculative`` decodes by n-gram self-speculation
 (``inference/speculative.py``).
@@ -42,15 +44,22 @@ def load_model(model_name: str, device: Optional[str] = None,
                buckets=(512, 1024, 2048), max_new_tokens: int = 1024,
                quantize: Optional[str] = None, fused: bool = False,
                kv_cache: str = "bf16", steps_per_call: int = 4,
-               decode_ramp=(), frame_buckets=None, raw_media: bool = False):
+               decode_ramp=(), frame_buckets=None, raw_media: bool = False,
+               vision_tower: Optional[str] = None, tokenizer=None):
     """Build (engine, tokenizer) on ``device`` (default the card; without
-    one this raises unless the caller asks for ``"cpu"``).  ``fused`` takes
-    the fused serving layout, ``quantize`` (a mode of
+    one this raises unless the caller asks for ``"cpu"``).  ``model_name``
+    is a checkpoint directory (`hf_bridge.load_valley_checkpoint`: its
+    tower, else ``vision_tower``'s; its tokenizer, unless ``tokenizer`` is
+    given) or a ``random:`` configuration (module docstring).
+    ``fused`` takes the fused serving layout, ``quantize`` (a mode of
     ``quant.SERVED_MODES``: ``int8``, ``int8a8``, ``int4``, ``int4g``,
-    ``int4gp``) the quantized weights, ``kv_cache="int8"`` the int8 KV
-    cache; ``steps_per_call`` and ``decode_ramp`` set the engine's decode
-    chunks, ``frame_buckets`` and ``raw_media`` its media (`Engine`).  At the tiny widths (64, 128) group-128 scales fall back to per
-    channel where 128 does not divide the contraction axis, as in JAX."""
+    ``int4gp``) the quantized weights (a checkpoint quantizes on load),
+    ``kv_cache="int8"`` the int8 KV cache; ``steps_per_call`` and
+    ``decode_ramp`` set the engine's decode chunks, ``frame_buckets`` and
+    ``raw_media`` its media (`Engine`).  Weights are bf16 on the card,
+    where the kernels take bf16, and fp32 on the CPU.  At the tiny widths
+    (64, 128) group-128 scales fall back to per channel where 128 does not
+    divide the contraction axis, as in JAX."""
     if device is None:
         device = "cuda"
     if torch.device(device).type == "cuda" and \
@@ -59,27 +68,44 @@ def load_model(model_name: str, device: Optional[str] = None,
                            "\"cpu\") to run on the CPU")
     if kv_cache not in ("bf16", "int8"):
         raise ValueError(f"kv_cache must be bf16 or int8, got {kv_cache!r}")
-    if model_name != "random:tiny":
-        raise NotImplementedError(
-            f"cannot load {model_name!r}: loading Hugging Face Valley "
-            "checkpoints is not ported to the PyTorch package yet; use "
-            "--model-name random:tiny")
-    from valley_tpu_torch.tokenizer import ByteFallbackTokenizer
-
-    tokenizer = ByteFallbackTokenizer()
-    cfg = C.valley_tiny().replace(tokens=tokenizer.special_tokens())
-    generator = torch.Generator(device).manual_seed(0)
-    # bf16 on the card, where the kernels take bf16; fp32 on the CPU
+    knobs = parse_quant_mode(quantize) if quantize else None
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" \
         else torch.float32
-    params = valley.init_params(cfg, generator, dtype, device)
-    if fused:
-        params = llama.fuse_llama_params(params)
-    if quantize:
-        knobs = parse_quant_mode(quantize)
-        params = quantize_llama_params(params, act8=knobs["act8"],
-                                       bits=knobs["bits"],
-                                       group_size=knobs["group_size"])
+    if model_name.startswith("random:"):
+        from valley_tpu_torch.tokenizer import ByteFallbackTokenizer
+
+        tokenizer = ByteFallbackTokenizer()
+        size = model_name.split(":", 1)[1]
+        if size == "tiny":
+            cfg = C.valley_tiny().replace(tokens=tokenizer.special_tokens())
+        elif size in ("7b", "13b"):
+            cfg = C.ValleyConfig(
+                text=C.LLAMA2_13B if size == "13b" else C.LLAMA2_7B,
+                tokens=tokenizer.special_tokens())
+            dtype = torch.bfloat16
+        else:
+            raise ValueError(f"unknown model {model_name!r}: random:tiny, "
+                             "random:7b or random:13b, or a checkpoint "
+                             "directory")
+        params = valley.init_params(cfg, torch.Generator(device).manual_seed(
+            0), dtype, device)
+        if size != "tiny":
+            # the JAX worker's full-size random weights: every leaf 0.008
+            for p in params.parameters():
+                p.data.fill_(0.008)
+        if fused:
+            params = llama.fuse_llama_params(params)
+        if knobs:
+            params = quantize_llama_params(params, act8=knobs["act8"],
+                                           bits=knobs["bits"],
+                                           group_size=knobs["group_size"])
+    else:
+        from valley_tpu_torch.utils import hf_bridge
+
+        cfg, params, tokenizer = hf_bridge.load_valley_checkpoint(
+            model_name, vision_tower=vision_tower, dtype=dtype,
+            quantize=quantize, fused=fused, tokenizer=tokenizer,
+            device=device)
     engine = Engine(cfg, params, buckets=buckets,
                     max_new_tokens=max_new_tokens,
                     cache_dtype=torch.int8 if kv_cache == "int8"
@@ -91,12 +117,18 @@ def load_model(model_name: str, device: Optional[str] = None,
 
 def main(argv=None):
     parser = argparse.ArgumentParser()
-    parser.add_argument("--model-name", type=str, required=True)
+    parser.add_argument("--model-name", type=str, required=True,
+                        help="checkpoint directory, or random:tiny / "
+                             "random:7b / random:13b")
     parser.add_argument("--video-file", type=str, required=True)
     parser.add_argument("--query", type=str,
                         default="Describe the video concisely.")
     parser.add_argument("--system-prompt", type=str,
                         default=DEFAULT_SYSTEM_PROMPT)
+    parser.add_argument("--vision-tower", type=str, default=None,
+                        help="CLIP checkpoint directory for a checkpoint "
+                             "without its own tower")
+    parser.add_argument("--lora-path", type=str, default=None)
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     parser.add_argument("--quantize", type=str, default=None,
@@ -119,11 +151,15 @@ def main(argv=None):
                              "token-identical, sampling "
                              "distribution-exact)")
     args = parser.parse_args(argv)
+    if args.lora_path:
+        raise NotImplementedError(
+            "--lora-path is not ported yet (ROADMAP §1 item 3: LoRA)")
 
     engine, tokenizer = load_model(args.model_name, args.device,
                                    max_new_tokens=args.max_new_tokens,
                                    quantize=args.quantize, fused=args.fused,
-                                   kv_cache=args.kv_cache)
+                                   kv_cache=args.kv_cache,
+                                   vision_tower=args.vision_tower)
     messages = [
         {"role": "system", "content": args.system_prompt},
         {"role": "user", "content": args.query + " <video>"},

@@ -9,7 +9,8 @@ Reads questions from standard input; ``exit`` or an empty line quits, and
 The first turn carries the frames and the whole prompt; later turns send
 only their own tokens to the `ChatSession`, which keeps the cache across
 turns.  It runs on the card; without one it stops unless ``--device cpu``
-is given.  ``random:tiny`` is the only model it loads (see `run_valley`).
+is given.  ``--model-name`` is a checkpoint directory or a ``random:``
+configuration, loaded as `run_valley.load_model` loads them.
 """
 
 from __future__ import annotations
@@ -54,10 +55,9 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
-    if args.vision_tower or args.lora_path:
+    if args.lora_path:
         raise NotImplementedError(
-            "--vision-tower and --lora-path load checkpoints, which the "
-            "PyTorch package does not do yet (ROADMAP §1 items 4 and 6)")
+            "--lora-path is not ported yet (ROADMAP §1 item 3: LoRA)")
 
     from valley_tpu_torch.conversation import conv_templates
     from valley_tpu_torch.inference.engine import (ChatSession,
@@ -66,7 +66,8 @@ def main(argv=None):
     from valley_tpu_torch.inference.run_valley import load_model
 
     engine, tokenizer = load_model(args.model_name, args.device,
-                                   max_new_tokens=args.max_new_tokens)
+                                   max_new_tokens=args.max_new_tokens,
+                                   vision_tower=args.vision_tower)
     print(SHELL_UI_HEADER)
     images = load_frames(engine, args.video_file, args.num_frames)
     conv = conv_templates[args.conv_mode].copy()

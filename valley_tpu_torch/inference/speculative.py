@@ -261,6 +261,17 @@ class SpecDecoder:
                 return
             yield n_rounds, None
 
+    def cache_len(self, bucket: int) -> int:
+        """The cache slots of a prompt of ``bucket``: the engine's
+        ``max_new_tokens`` and room for a final call that overshoots it by
+        a whole call.  A function of the bucket alone, as
+        `Engine.generate_tokens`'s is, so that requests of every
+        ``max_new_tokens`` replay one set of graphs a bucket (JAX sizes the
+        cache by the request's; the slots past it stay masked)."""
+        spec = self.spec
+        return (bucket + self.engine.max_new_tokens
+                + spec.rounds_per_call * (spec.draft_len + 1))
+
     @torch.inference_mode()
     def graphs_for(self, bucket: int, cache_len: int) -> DecodeGraphs:
         """The round graphs of a prompt of ``bucket`` at ``cache_len``,
@@ -298,9 +309,7 @@ class SpecDecoder:
         ids, lens, bucket = eng._pad([prompt])
         media = eng._prepare_images(images, 1)
         max_new = min(gen.max_new_tokens, eng.max_new_tokens)
-        d1 = spec.draft_len + 1
-        # room for a final call that overshoots max_new by a whole call
-        cache_len = bucket + max_new + spec.rounds_per_call * d1
+        cache_len = self.cache_len(bucket)
         base = graphs = None
         if eng.device.type == "cuda" and not eager:
             graphs = self.graphs_for(bucket, cache_len)
