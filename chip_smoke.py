@@ -107,7 +107,18 @@ seed, eight processes one after the other:
   ``Trainer.train_step`` on 16 synthetic rows from the port's collator and
   loader; checks a falling loss, untouched frozen weights, K1 and K2
   launches per step, and the first step's loss and gradients against the
-  same step on the plain attention functions.
+  same step on the plain attention functions; then, in the same process,
+  stage 2 at batch 1 of 2048 tokens over synthetic video conversations
+  written as the recipes' JSON: LoRA through ``Trainer`` (the first step
+  and a later one against the plain attention functions, launches, the
+  update's device time by kind with the adapter products, dropout masks
+  and the layers' gradient stack as their own kinds, only adapters and
+  projector moved, the steps eval's engine refilled in place against a
+  fresh one), the LoRA recipe through the training entry point, its
+  adapter merged (logits against the unmerged adapter forward, bench's
+  request by graph from the merged tree, the generate-eval), full stage
+  2 (peak memory under 80 GB), and K1 and K2 at that shape against their
+  plain versions.
 
 Then the card tests, ``tests/test_torch_cuda.py`` (each kernel against its
 plain version at small shapes, the tiny models end to end), in a process
@@ -262,41 +273,86 @@ MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
               "aten::conv2d")
 
 
+# Traces taken of one call before it is timed by CUDA events instead
+PROFILE_ATTEMPTS = 8
+
+
+def traced(fn, iters: int, read, **kwargs):
+    """``read(prof)`` of a profiler trace, with CUDA activities, of
+    ``iters`` calls of ``fn()``; ``read`` returns (device ms, ...).  A
+    trace that holds no device time is taken again after a pause, up to
+    `PROFILE_ATTEMPTS` in all; returns None when every one was empty.  On
+    an H100 with torch 2.11 a few traces in a thousand come back without
+    device events, in runs of up to a few back-to-back traces, with CUPTI
+    torn down after each trace or not, and a trace taken again after a
+    pause has them (`valley_tpu_torch.tools.profiler_gaps` counts both).
+    In this script's runs three traces of one call in a row were empty in
+    two of some ten runs; K1's and K2's traces at the stage-2 shape
+    (`flash_stage2_phase`) came back empty 5 and 8 times in a row, with
+    pauses, in three runs of the training process, and then read the
+    CUDA events' time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        if attempt > 1:
+            time.sleep(0.25 * attempt)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA], **kwargs) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        got = read(prof)
+        if got[0] > 0:
+            return got
+        print(f"profiler: trace {attempt} recorded no device time",
+              flush=True)
+    return None
+
+
 def profile_device(fn, iters: int = 1, with_flops: bool = False):
     """Run ``fn()`` ``iters`` times under the profiler's CUDA trace.
     Returns (device ms per call summed over every kernel and copy, the
     kernels by total device ms, the FLOPs per call of `MATMUL_OPS` as the
     profiler counts them from the recorded shapes, or 0 without
-    ``with_flops``).  A trace that holds no device time is taken again,
-    up to three times in all, and then raises: on an H100 with torch 2.11
-    one trace of this script came back without device events while the
-    same call traced alone did not.  Every call launches the same kernels
-    and copies, so the time per call is each kernel's mean over its events
-    times its events per call (its count over ``iters``, rounded, at least
-    one): a trace that lost an event reads the calls' time all the same.
-    On one H100 with torch 2.11 every trace lost one event (nine events
-    for ten calls of one kernel), and the total over ten read a kernel
-    under its bytes bound."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for attempt in range(1, 4):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     record_shapes=with_flops,
-                     with_flops=with_flops) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
+    ``with_flops``).  Every call launches the same kernels and copies, so
+    the time per call is each kernel's mean over its events times its
+    events per call (its count over ``iters``, rounded, at least one): a
+    trace that lost an event reads the calls' time all the same.  On one
+    H100 with torch 2.11 every trace lost one event (nine events for ten
+    calls of one kernel), and the total over ten read a kernel under its
+    bytes bound.  A range's span on the device timeline (a user
+    annotation, such as the optimizer's ``Optimizer.step#AdamW.step``) is
+    not device time of its own: its kernels are counted.  When every trace
+    of `traced` is empty, the time per call is that of ``iters`` calls
+    between two CUDA events (launch gaps included), with no kernels and
+    no FLOPs: a caller that reads the kernels fails its own check."""
+    def read(prof):
         events = prof.key_averages()
         device = [e for e in events if str(e.device_type).endswith("CUDA")
-                  and e.self_device_time_total > 0]
-        rows = [(e.key, e.self_device_time_total / 1e3) for e in device]
-        total = sum(ms for _, ms in rows)
-        if total > 0:
-            break
-        print(f"profiler: trace {attempt} recorded no device time")
-    check(total > 0, "the profiler recorded no device time")
+                  and e.self_device_time_total > 0
+                  and not getattr(e, "is_user_annotation", False)]
+        return (sum(e.self_device_time_total for e in device) / 1e3,
+                events, device)
+
+    got = traced(fn, iters, read, record_shapes=with_flops,
+                 with_flops=with_flops)
+    if got is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / iters
+        print(f"profiler: no device time in {PROFILE_ATTEMPTS} traces; "
+              f"{ms:.4f} ms per call from CUDA events around {iters} "
+              f"calls instead", flush=True)
+        return ms, [], 0
+    total, events, device = got
+    rows = [(e.key, e.self_device_time_total / 1e3) for e in device]
     flops = sum(e.flops or 0 for e in events if e.key in MATMUL_OPS)
     per_call = sum(e.self_device_time_total / 1e3 / e.count
                    * max(1, round(e.count / iters)) for e in device)
@@ -3908,20 +3964,751 @@ def serve_batch_path(smi: str, gen, work: Path) -> list:
              **k7_t}]
 
 
+# Stage 2 (valley_tpu/configs/experiment/valley_stage2_lora.yaml and
+# valley_stage2.yaml): batch 1 of synthetic multi-turn video conversations
+# of 1985-2048 tokens, padded to 2048, the recipes' optimizer settings
+STAGE2_SEQ = 2048
+STAGE2_TRAIN_CONVS = 4
+STAGE2_EVAL_CONVS = 2
+# The first LoRA step through the kernels (K1, K2) against the same step on
+# the plain attention functions, as TRAIN_LOSS_TOL and TRAIN_GRAD_TOL hold
+# stage 1's: loss absolute, gradients relative L2 (the adapters' B and the
+# projector at step 0, where every A's gradient is exactly 0 because B is;
+# the adapters' A after one update).
+# H100 readings of this script: loss 5.82e-4 (loss 10.616; the same
+# forward without gradients on two conversations: 1.19e-3 and 7.63e-4,
+# per-token differences 1.4e-2 on average, 5.5e-2 at most, alike in every
+# quarter of the sequence: rounding through 32 layers, averaged over
+# ~1000 supervised tokens where stage 1 averages ~6000), gradients
+# 8.85e-3; the bars are about twice the largest.
+STAGE2_LOSS_TOL = 2.5e-3
+STAGE2_GRAD_TOL = 0.02
+# The merged model (bf16 W + A B s rounded once) against the unmerged
+# adapter forward (bf16 W, then the adapter branch added in bf16) on
+# bench's request, at the prefill and at three teacher-forced decode
+# steps through the engine's kernels (K1, K3, K6 over the merged weights)
+# H100 readings of this script: 0.0798 at the prefill (largest logit
+# 4.44; the adapter itself moves them by 2.01), 0.0811-0.0846 at the
+# decode steps; the bar is about twice that.
+MERGE_LOGIT_TOL = 0.17
+# The generate-eval: replies of up to 128 tokens (the steps eval's)
+EVAL_NEW = 128
+LORA_KINDS = ("LoRA adapter products", "LoRA dropout masks")
+STACK_KIND = "stacked gradients (unbind's stack)"
+
+
+def stage2_text(rng, n_chars: int) -> str:
+    """Random lower-case words of about ``n_chars`` characters."""
+    words, size = [], 0
+    while size < n_chars:
+        w = "".join(chr(97 + int(c)) for c in rng.integers(0, 26,
+                                                           rng.integers(2, 9)))
+        words.append(w)
+        size += len(w) + 1
+    return " ".join(words)
+
+
+def write_stage2_corpus(root: Path, seed: int = 0) -> dict:
+    """Synthetic stage-2 data as the recipes read it (a video JSON of
+    multi-turn conversations, each video a frame directory of 8 random
+    224 px PNGs named ``<id>.mp4`` under ``videos/webvid``), made with
+    numpy from ``seed``: `STAGE2_TRAIN_CONVS` training conversations of
+    three turns and 1985-2048 tokens with the byte tokenizer, and
+    `STAGE2_EVAL_CONVS` shorter ones of two turns for the generate-eval
+    (their prompts and 128-token replies fit the 2048 bucket).  Returns
+    the paths."""
+    rng = np.random.default_rng(seed)
+    videos = root / "videos"
+
+    def conv(cid: str, chars: list) -> dict:
+        frame_dir(videos / "webvid" / f"{cid}.mp4",
+                  seed=int(rng.integers(1 << 30)))
+        turns = []
+        for i, n in enumerate(chars):
+            value = stage2_text(rng, n)
+            if i == 0:
+                value = "<video>\n" + value
+            turns.append({"from": "gpt" if i % 2 else "human",
+                          "value": value})
+        return {"id": cid, "video": cid, "conversations": turns}
+
+    train = [conv(f"s2train{i}", [int(rng.integers(150, 250))
+                                  for _ in range(5)] + [0])
+             for i in range(STAGE2_TRAIN_CONVS)]
+    # the last reply takes what is left of the length: 1985-2048 tokens
+    for c in train:
+        used = sum(len(t["value"]) for t in c["conversations"])
+        c["conversations"][-1]["value"] = stage2_text(
+            rng, 1475 - used + int(rng.integers(0, 40)))
+    evals = [conv(f"s2eval{i}", [int(rng.integers(60, 120))
+                                 for _ in range(4)])
+             for i in range(STAGE2_EVAL_CONVS)]
+    (root / "train.json").write_text(json.dumps(train))
+    (root / "eval.json").write_text(json.dumps(evals))
+    return {"train": str(root / "train.json"),
+            "eval": str(root / "eval.json"), "videos": str(videos)}
+
+
+def stage2_dataset(tokenizer, corpus: dict, which: str):
+    """The port's dataset and collator over the ``which`` JSON of
+    `write_stage2_corpus`, as ``train/train.py`` builds them."""
+    from types import SimpleNamespace
+
+    from valley_tpu_torch.data.dataset import \
+        make_video_supervised_data_module
+
+    args = SimpleNamespace(
+        data_path=None, video_data_path=corpus[which],
+        video_folder=corpus["videos"], is_multimodal=True,
+        mm_use_im_start_end=True, conv_mode="v1", num_frames=8,
+        crop_size=224, scale_size=256, patch_size=14)
+    module = make_video_supervised_data_module(tokenizer, args)
+    return module["train_dataset"], module["data_collator"]
+
+
+def stage2_tokenizer():
+    """`id_text_tokenizer` at the recipes' model_max_length: its text
+    names every token, so eval replies of random weights read back."""
+    tok = id_text_tokenizer()
+    tok.model_max_length = STAGE2_SEQ
+    return tok
+
+
+def stage2_model(tok, seed: int):
+    """Valley-7B's random bf16 weights from ``seed`` on the card, the
+    tokenizer's marker ids."""
+    from valley_tpu_torch import valley_7b
+    from valley_tpu_torch.models import valley
+
+    cfg = valley_7b(tokens=tok.special_tokens())
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(
+        seed), torch.bfloat16, "cuda")
+    return cfg, params
+
+
+def profile_kinds(fn, r: int = 0) -> tuple:
+    """Device time of ``fn()`` by kind, under the profiler with shapes:
+    kernels by name (`KERNEL_KINDS`), then the time of three kinds moved
+    out of theirs by the ops that launched them: the LoRA adapter products
+    (every ``aten::mm`` with an operand of rank-``r`` side, forward,
+    recompute and backward), the adapter dropout masks (the (1, S, in)
+    uniform draws, compares, selects and divisions that make and apply
+    them, and their backward), and the stacked layers' gradients (the
+    ``aten::cat`` inside ``UnbindBackward0``: the one stack of the layers'
+    gradients).  Reads the trace's raw events (each kernel carries its
+    launching op's correlation id), not the profiler's Python event tree,
+    which takes tens of seconds to build for a LoRA update.  Returns
+    (device ms, {kind: ms}, top kernels)."""
+    from torch.autograd import DeviceType
+
+    def read(prof):
+        ops, unbinds, kernels = {}, [], []
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                if not getattr(e, "is_user_annotation", lambda: False)():
+                    kernels.append((e.name(), e.duration_ns() / 1e6,
+                                    e.linked_correlation_id()))
+                continue
+            if e.linked_correlation_id():
+                continue          # a runtime call, not an op
+            name = e.name()
+            if name.endswith("UnbindBackward0"):
+                unbinds.append((e.start_thread_id(), e.start_ns(),
+                                e.end_ns()))
+            elif name in ("aten::mm", "aten::uniform_", "aten::lt",
+                          "aten::where", "aten::div", "aten::cat"):
+                ops[e.correlation_id()] = (name, e.shapes(),
+                                           e.start_thread_id(), e.start_ns())
+        return sum(ms for _, ms, _ in kernels), ops, unbinds, kernels
+
+    got = traced(fn, 1, read, record_shapes=True)
+    check(got is not None, "the profiler recorded no device time")
+    total, ops, unbinds, kernels = got
+
+    def moved_kind(op):
+        name, shapes, tid, t = op
+        shapes = [tuple(x) for x in shapes if x]
+        if name == "aten::mm" and r and any(
+                len(x) == 2 and r in x for x in shapes[:2]):
+            return LORA_KINDS[0]
+        if r and name != "aten::cat" and shapes and len(shapes[0]) == 3 \
+                and shapes[0][0] == 1 and shapes[0][1] > 1:
+            return LORA_KINDS[1]
+        if name == "aten::cat" and any(u_tid == tid and lo <= t <= hi
+                                       for u_tid, lo, hi in unbinds):
+            return STACK_KIND
+        return None
+
+    kinds: dict = {}
+    per_kernel: dict = {}
+    for name, ms, corr in kernels:
+        op = ops.get(corr)
+        kind = moved_kind(op) if op else None
+        if kind is None:
+            kind = next((k for k, keys in KERNEL_KINDS if any(
+                key in name for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+        per_kernel[name] = per_kernel.get(name, 0.0) + ms
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    return total, kinds, top
+
+
+def fmt_kinds(kinds: dict, total: float) -> str:
+    return ", ".join(f"{k} {ms:.1f} ms ({100 * ms / total:.1f}%)"
+                     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]))
+
+
+def stage2_updates(tag: str, trainer, batch, layers: int, smi: str,
+                   r: int = 0) -> dict:
+    """One warm-up update, then three timed updates of ``batch`` with K1's
+    and K2's launches counted around them (2 x ``layers`` and ``layers``
+    an update), the peak device memory from before the warm-up (the
+    optimizer's state included), then one profiled update by kind.
+    Returns the counts, times and readings."""
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_bwd)
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [trainer.train_step(batch)["loss"]]     # warm-up update
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    walls = []
+    for _ in range(3):                                # the main path
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+        check(m["updated"], f"{tag}: a step did not update")
+    n_k1, n_k2 = flash_attention.launches, flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"{tag}: loss not finite")
+    check(n_k1 == 3 * 2 * layers,
+          f"{tag}: K1 launched {n_k1} times in 3 updates, want "
+          f"{3 * 2 * layers}")
+    check(n_k2 == 3 * layers,
+          f"{tag}: K2 launched {n_k2} times in 3 updates, want {3 * layers}")
+    check(peak < 80e9, f"{tag}: peak device memory {peak / 1e9:.2f} GB")
+    tokens = int(batch["attention_mask"].sum())
+    step_s = sorted(walls)[1]
+    t0 = time.perf_counter()
+    step_dev, kinds, top = profile_kinds(lambda: trainer.train_step(batch),
+                                         r)
+    print(f"{tag}: the profiled update and its trace's reading took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"{tag}: losses {[round(x, 5) for x in losses]} (warm-up, then 3 "
+          f"updates); launches over 3 updates K1 {n_k1} K2 {n_k2}")
+    print(f"{tag}: device time by kind: " + fmt_kinds(kinds, step_dev))
+    print(f"{tag}: step wall {step_s * 1e3:.1f} ms (median of 3: "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)}), "
+          f"{tokens / step_s:.0f} non-pad tokens/s, device busy "
+          f"{step_dev:.1f} ms (idle share {1 - step_dev / (step_s * 1e3):.3f}"
+          f"), peak memory {peak / 2 ** 30:.2f} GiB ({peak / 1e9:.2f} GB) on "
+          f"{smi}; top kernels: " + ", ".join(
+              f"{name[:48]} {100 * ms / step_dev:.1f}%"
+              for name, ms in top[:6]))
+    return {"k1": n_k1, "k2": n_k2, "step_s": step_s, "peak": peak,
+            "kinds": kinds, "device_ms": step_dev}
+
+
+def snapshot(params) -> dict:
+    """A device copy of each parameter of less than 64 MB; of every larger
+    one, the int64 sum of its 16-bit words (a fingerprint that an update
+    moves, with no copy of the tensor, so the check adds nothing to the
+    updates' peak memory)."""
+    return {n: p.detach().clone() if p.numel() * p.element_size() < 64e6
+            else p.detach().view(torch.int16).sum(dtype=torch.int64)
+            for n, p in params.named_parameters()}
+
+
+def unchanged_check(tag: str, params, before: dict, trainable,
+                    may_stay=()) -> None:
+    """Every frozen parameter is unchanged and every trainable one moved
+    (against `snapshot`), but those in ``may_stay``, which may keep their
+    bf16 values (printed)."""
+    stayed = []
+    for name, p in params.named_parameters():
+        b = before[name]
+        same = torch.equal(p.detach(), b) if b.dim() else bool(
+            p.detach().view(torch.int16).sum(dtype=torch.int64) == b)
+        if same and name in trainable and name in may_stay:
+            stayed.append(name)
+            continue
+        check(same == (name not in trainable),
+              f"{tag}: {name} {'unchanged' if same else 'changed'}")
+    if stayed:
+        print(f"{tag}: unchanged in bf16 though trained: {stayed}")
+
+
+def stage2_lora_phase(smi: str, corpus: dict) -> tuple:
+    """LoRA stage 2 on Valley-7B (random weights) through `Trainer` with
+    the recipe's settings over the corpus's first conversation (batch 1,
+    2048 tokens): the first step's loss and gradients against the plain
+    attention functions (B and the projector at step 0, A after one
+    update), the updates of `stage2_updates`, only the adapters and the
+    projector moved; then `train.StepEval` after a further update against
+    an engine built fresh on the same merged weights.  Returns (the
+    updates' readings, the batch's kv mask)."""
+    from valley_tpu_torch.data.dataset import DataLoader
+    from valley_tpu_torch.ops.attention import KERNELS, PLAIN
+    from valley_tpu_torch.train import lora
+    from valley_tpu_torch.train.eval_loop import eval_sample
+    from valley_tpu_torch.train.train import StepEval, _eval_engine
+    from valley_tpu_torch.train.trainer import TrainConfig, Trainer
+    from valley_tpu_torch.inference.engine import GenerationConfig
+
+    tag = "stage2 lora"
+    tok = stage2_tokenizer()
+    cfg, params = stage2_model(tok, seed=1)
+    layers = cfg.text.num_hidden_layers
+    params = lora.add_lora(params, torch.Generator("cuda").manual_seed(2),
+                           r=16, alpha=32, dtype=torch.bfloat16)
+    data, coll = stage2_dataset(tok, corpus, "train")
+    lens = [len(data[i]["input_ids"]) for i in range(len(data))]
+    check(all(STAGE2_SEQ - 64 < n <= STAGE2_SEQ for n in lens),
+          f"{tag}: conversation lengths {lens}")
+    loader = DataLoader(data, 1, coll, seed=0, num_workers=1)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    # valley_stage2_lora.yaml
+    tc = TrainConfig(output_dir=out_dir, learning_rate=5e-4,
+                     lr_scheduler_type="cosine", warmup_ratio=0.03,
+                     adam_beta1=0.9, adam_beta2=0.95, max_grad_norm=1.0,
+                     weight_decay=0.0, gradient_checkpointing=True,
+                     freeze_backbone=False, tune_mm_mlp_adapter=True,
+                     lora=True, lora_r=16, lora_alpha=32, lora_dropout=0.05,
+                     per_device_train_batch_size=1, save_steps=0, eval_num=1)
+    trainer = Trainer(cfg, tc, params, loader, total_steps=8)
+    batch = trainer.device_batch(next(iter(loader.epoch(0))))
+    b, s = batch["input_ids"].shape
+    check((b, s) == (1, STAGE2_SEQ), f"{tag}: batch {b}x{s}")
+    check(tuple(batch["images"].shape[:2]) == (1, 8), f"{tag}: 8 frames")
+    names = [n for n, lab in trainer.labels.items() if lab != "frozen"]
+    adapters = [n for n in names if lora.is_lora_key(n)]
+    check(sorted(names) == sorted(["projector.w", "projector.b"] + adapters)
+          and len(adapters) == 14, f"{tag}: trainable parameters {names}")
+    n_train = sum(p.numel() for p in params.parameters() if p.requires_grad)
+    tokens = int(batch["attention_mask"].sum())
+    print(f"{tag}: batch 1x{s}, {tokens} non-pad tokens, "
+          f"{int((batch['labels'] != -100).sum())} supervised, 8 frames; "
+          f"trainable {n_train / 1e6:.2f} M of "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B")
+    before = snapshot(params)
+
+    def kernels_vs_plain(which: list, when: str, zero: list = ()):
+        out = []
+        res = []
+        for att in (KERNELS, PLAIN):
+            trainer.attention = att
+            res.append(trainer.loss_and_grads(batch))
+        trainer.attention = KERNELS
+        (lk, _, gk), (lp, _, gp) = res
+        diff = abs(float(lk) - float(lp))
+        out.append(f"loss {float(lk):.5f} vs {float(lp):.5f} (diff "
+                   f"{diff:.2e}, tol {STAGE2_LOSS_TOL})")
+        check(diff <= STAGE2_LOSS_TOL, f"{tag}: {when} loss differs by "
+              f"{diff}")
+        order = [n for g in trainer.optimizer.param_groups
+                 for n in g["names"]]
+        errs = []
+        for name, a, c in zip(order, gk, gp):
+            check(bool(torch.isfinite(a.float()).all()),
+                  f"{tag}: {name} grad not finite")
+            if name in zero:
+                check(a.abs().max().item() == 0 and c.abs().max().item() == 0,
+                      f"{tag}: {name}'s gradient at step 0 is not 0")
+            elif name in which:
+                err = rel_l2(a, c)
+                errs.append(err)
+                check(err <= STAGE2_GRAD_TOL, f"{tag}: {when} {name} grad "
+                      f"rel L2 {err} > {STAGE2_GRAD_TOL}")
+        out.append(f"{len(errs)} gradients rel L2 <= {max(errs):.2e} (tol "
+                   f"{STAGE2_GRAD_TOL})")
+        print(f"{tag}: {when}, kernels vs plain: " + "; ".join(out))
+
+    a_names = [n for n in adapters if n.endswith("_lora_a")]
+    kernels_vs_plain([n for n in names if n not in a_names],
+                     "step 0 (B and projector; every A's gradient exactly 0)",
+                     zero=a_names)
+    readings = stage2_updates(tag, trainer, batch, layers, smi, r=16)
+    kernels_vs_plain(a_names, "after 5 updates (the adapters' A)")
+    unchanged_check(tag, params, before, set(names))
+    del before
+
+    # the steps eval: one engine across evals, refilled in place, against
+    # an engine built fresh on the same merged weights
+    eval_data, _ = stage2_dataset(tok, corpus, "eval")
+    ev = StepEval(cfg, tc, tok, eval_data)
+    ev(trainer.params, trainer.step)
+    engine = ev.engine
+    trainer.train_step(batch)                         # a further update
+    t0 = time.perf_counter()
+    metrics = ev(trainer.params, trainer.step)
+    eval_s = time.perf_counter() - t0
+    check(ev.engine is engine, f"{tag}: the steps eval rebuilt its engine")
+    fresh = _eval_engine(cfg, lora.merge_lora(trainer.params), tok, 256)
+    gen = GenerationConfig(max_new_tokens=EVAL_NEW, do_sample=False)
+    entry = eval_data.list_data_dict[0]
+    images = eval_data[0]["image"][None]
+    kept = eval_sample(engine, tok, entry, images, "v1", gen)
+    new = eval_sample(fresh, tok, entry, images, "v1", gen)
+    check(kept == new, f"{tag}: the steps eval's engine replies otherwise "
+          "than a fresh engine on the same weights")
+    # the replies stop at the template's "###" or strip to nothing (the
+    # trained adapter emits spaces), so the first turn's 128 tokens too
+    prompt = tok.encode(eval_prompt(cfg, entry))
+    toks = [[int(t[0]) for t in e.generate_tokens(
+        [prompt], images, gen, eos_ids=[-1])] for e in (engine, fresh)]
+    check(toks[0] == toks[1] and len(toks[0]) == EVAL_NEW,
+          f"{tag}: the steps eval's engine decodes otherwise than a fresh "
+          "engine on the same weights")
+    print(f"{tag}: evaluation_strategy steps after a further update: "
+          f"{metrics} in {eval_s:.2f} s ({tc.eval_num} sample, "
+          f"{len(new)} turns of up to {EVAL_NEW} tokens, replies of "
+          f"{[len(r['prediction']) for r in new]} characters); its engine, "
+          f"refilled in place, gives a fresh engine's replies and its "
+          f"{EVAL_NEW} tokens on the first turn's {len(prompt)}-token "
+          f"prompt")
+    mask = batch["attention_mask"].bool()
+    del trainer, params, batch, ev, engine, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return readings, mask
+
+
+def eval_prompt(cfg, entry: dict) -> str:
+    """The first turn's prompt of a conversation as `eval_sample` builds
+    it (the v1 template, the media span for 8 frames)."""
+    from valley_tpu_torch.conversation import conv_templates
+    from valley_tpu_torch.inference.generate import media_replace_token
+
+    conv = conv_templates["v1"].copy()
+    value = entry["conversations"][0]["value"]
+    for marker in ("<video>", "<image>"):
+        value = value.replace(marker, media_replace_token(cfg.num_patches, 8))
+    conv.append_message(conv.roles[0], value)
+    conv.append_message(conv.roles[1], None)
+    return conv.get_prompt()
+
+
+def stage2_entry_phase(smi: str, corpus: dict, work: Path) -> Path:
+    """``python -m valley_tpu_torch.train.train --conf <yaml>`` in the
+    process: the LoRA recipe on Valley-7B's random weights (model_size
+    7b, seed 0) over the training conversations, one epoch.  Checks the
+    adapter-only ``final`` and ``valley_meta.json``; returns the output
+    directory."""
+    import yaml
+
+    from valley_tpu_torch.train import train as train_mod
+    from valley_tpu_torch.utils import checkpoint as ckpt_lib
+
+    tag = "stage2 entry point"
+    out = work / "stage2_lora"
+    conf = dict(
+        model_name_or_path="", model_size="7b", data_path=None,
+        video_data_path=corpus["train"], video_folder=corpus["videos"],
+        output_dir=str(out), conv_mode="v1", freeze_backbone=False,
+        tune_mm_mlp_adapter=True, lora=True, lora_r=16, lora_alpha=32,
+        lora_save_strategy="steps", is_multimodal=True, num_train_epochs=1,
+        per_device_train_batch_size=1, save_steps=0, learning_rate=5e-4,
+        gradient_checkpointing=True, mm_vision_select_layer=-2,
+        mm_use_im_start_end=True, bf16=True, gradient_accumulation_steps=1,
+        weight_decay=0.0, warmup_ratio=0.03, lr_scheduler_type="cosine",
+        logging_steps=1, model_max_length=STAGE2_SEQ, num_frames=8)
+    path = work / "stage2_lora.yaml"
+    path.write_text(yaml.safe_dump(conf))
+    t0 = time.perf_counter()
+    train_mod.main(["--conf", str(path)])
+    took = time.perf_counter() - t0
+    meta = json.loads((out / "valley_meta.json").read_text())
+    adapter = ckpt_lib.restore_pytree(out / "final")
+    check(meta["lora"] is True, f"{tag}: valley_meta.json {meta}")
+    check(len(adapter) == 15 and all(
+        k.endswith(("_lora_a", "_lora_b")) or k == "lora_scale"
+        for k in adapter), f"{tag}: final holds {sorted(adapter)}")
+    check(any(adapter[k].float().abs().max().item() > 0 for k in adapter
+              if k.endswith("_lora_b")), f"{tag}: every B is still 0")
+    try:
+        train_mod.load_framework_checkpoint(str(out), STAGE2_SEQ, "cuda",
+                                            torch.bfloat16)
+        check(False, f"{tag}: a LoRA output loaded as a base")
+    except ValueError as e:
+        check(f"lora_path={out}/final" in str(e), f"{tag}: {e}")
+    steps = [json.loads(x)["step"] for x in
+             (out / "metrics.jsonl").read_text().splitlines()]
+    size = sum(f.stat().st_size for f in (out / "final").iterdir())
+    print(f"{tag}: {len(steps)} updates in {took:.1f} s (with the model's "
+          f"build and the end's checkpoint); final adapter-only, "
+          f"{len(adapter)} tensors, {size / 1e6:.1f} MB; valley_meta.json "
+          f"lora true; loading the output as a base names "
+          f"lora_path=<dir>/final")
+    shutil.rmtree(out / f"checkpoint-{steps[-1]}", ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def stage2_merge_phase(smi: str, corpus: dict, out: Path) -> dict:
+    """The adapter round trip: the entry point's base weights (seed 0)
+    with its ``final`` restored, merged (`lora.merge_lora`): the merged
+    model's logits against the unmerged adapter forward at bench's
+    request's prefill and three teacher-forced decode steps through the
+    engine's kernels; the request served by graph from the merged tree
+    (launches of K1, K3 and K6); then the generate-eval over the eval
+    conversations.  Returns the request's counts."""
+    from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+    from valley_tpu_torch.models import valley
+    from valley_tpu_torch.ops.decode_attention import \
+        decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.matvec import bf16_matvec
+    from valley_tpu_torch.train import lora
+    from valley_tpu_torch.train.eval_loop import generate_eval
+    from valley_tpu_torch.train.train import _eval_engine
+    from valley_tpu_torch.utils import checkpoint as ckpt_lib
+
+    tag = "stage2 merged"
+    tok = stage2_tokenizer()
+    cfg, base = stage2_model(tok, seed=0)
+    adapter = ckpt_lib.restore_pytree(out / "final", map_location="cuda")
+    unmerged = lora.load_lora(base, adapter)
+    t0 = time.perf_counter()
+    merged = lora.merge_lora(unmerged)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    prompt, frames = bench_request(cfg, BUCKET)
+    new = NEW_TOKENS
+    steps = new - 1
+    engine = Engine(cfg, merged, buckets=(BUCKET,), max_new_tokens=new,
+                    steps_per_call=steps)
+    gcfg = GenerationConfig(max_new_tokens=new, do_sample=False)
+
+    def run():
+        t0 = time.perf_counter()
+        t_first, toks = None, []
+        for t in engine.generate_tokens([prompt], frames, gcfg,
+                                        eos_ids=[-1]):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            toks.append(int(t[0]))
+        return t_first, time.perf_counter() - t0, toks
+
+    run()    # captures the decode graph
+    layers = cfg.text.num_hidden_layers
+    kernels = {"K1": (flash_attention, layers),
+               "K3": (decode_attention_stacked, layers * steps),
+               "K6": (bf16_matvec, 7 * layers * steps + 1 + steps)}
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    t_first, total, toks = run()          # the main path
+    counts = {k: fn.launches for k, (fn, _) in kernels.items()}
+    for k, (_, want) in kernels.items():
+        check(counts[k] == want, f"{tag}: {k} launched {counts[k]} times, "
+              f"want {want}")
+    check(len(toks) == new, f"{tag}: {len(toks)} tokens")
+    print(f"{tag}: merge of 7 x {layers} layers' adapters in {merge_s:.3f} s;"
+          f" bench's request by graph from the merged tree: first token "
+          f"{t_first * 1e3:.2f} ms, {(total - t_first) / steps * 1e3:.3f} "
+          f"ms/token; launches " + " ".join(f"{k} {n}"
+                                             for k, n in counts.items()))
+
+    # merged (prefill and three teacher-forced decode steps through the
+    # engine's kernels) against the unmerged adapter forward over the same
+    # tokens, cacheless
+    state = engine.prefill([prompt], frames, gcfg)
+    forced = toks[:DECODE_CHECK_STEPS]
+    got = [state.logits[0]] + decode_logits(engine, state.cache, state.valid,
+                                            state.bucket, len(prompt),
+                                            forced)
+    ids = torch.tensor([prompt + forced], device="cuda")
+    fr = torch.from_numpy(frames).cuda()
+    with torch.no_grad():
+        ref = valley.forward(unmerged, cfg, ids, fr)[0]
+        plain = valley.forward(base, cfg, ids, fr)[0]
+    n = len(prompt)
+    for i, lk in enumerate(got):
+        lr = ref[n - 1 + i]
+        where = "prefill" if i == 0 else f"decode step {i}"
+        diff = max_err(lk, lr)
+        effect = max_err(plain[n - 1 + i], lr)
+        print(f"{tag}: {where} merged vs unmerged adapter logits max abs "
+              f"diff {diff:.4e} (tol {MERGE_LOGIT_TOL}; max |logit| "
+              f"{lr.abs().max().item():.3f}; the adapter moves them by "
+              f"{effect:.4e})")
+        check(bool(torch.isfinite(lk).all()), f"{tag}: {where} not finite")
+        check(diff <= MERGE_LOGIT_TOL, f"{tag}: {where} logits beyond "
+              "tolerance")
+    del state, ref, plain, unmerged, base
+
+    # the generate-eval over the eval conversations, through the engine
+    # train/train.py builds for it (buckets 1024 and 2048, 256 new tokens)
+    eval_data, _ = stage2_dataset(tok, corpus, "eval")
+    pred = out / "eval_result.jsonl"
+    t0 = time.perf_counter()
+    metrics = generate_eval(_eval_engine(cfg, merged, tok, 256), tok,
+                            eval_data, eval_num=STAGE2_EVAL_CONVS,
+                            conv_mode="v1", prediction_file=str(pred),
+                            gen=GenerationConfig(max_new_tokens=EVAL_NEW,
+                                                 do_sample=False))
+    eval_s = time.perf_counter() - t0
+    records = [json.loads(x) for x in pred.read_text().splitlines()]
+    turns = sum(len(c["conversations"]) // 2
+                for c in eval_data.list_data_dict)
+    check(len(records) == turns and all(
+        r["reference"] for r in records), f"{tag}: generate-eval wrote "
+        f"{len(records)} of {turns} replies")
+    check(set(metrics) >= {"bleu", "rouge1", "rouge2", "rougeL"},
+          f"{tag}: metrics {metrics}")
+    print(f"{tag}: generate-eval over {STAGE2_EVAL_CONVS} conversations "
+          f"({turns} replies of up to {EVAL_NEW} tokens): {metrics}; "
+          f"{eval_s:.2f} s, {eval_s / STAGE2_EVAL_CONVS:.2f} s per sample "
+          f"(an engine's first use captures its graphs)")
+    del engine, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def stage2_full_phase(smi: str, corpus: dict) -> dict:
+    """Full stage 2 on Valley-7B (random weights) through `Trainer` with
+    valley_stage2.yaml's settings (lr 2e-5, the decoder, embeddings, head
+    and projector trained), batch 1 of 2048 tokens: the updates of
+    `stage2_updates` (peak memory under 80 GB, the optimizer's state
+    included), every trainable parameter moved and the tower not."""
+    from valley_tpu_torch.data.dataset import DataLoader
+    from valley_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    tag = "stage2 full"
+    tok = stage2_tokenizer()
+    cfg, params = stage2_model(tok, seed=1)
+    data, coll = stage2_dataset(tok, corpus, "train")
+    loader = DataLoader(data, 1, coll, seed=0, num_workers=1)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_full_")
+    tc = TrainConfig(output_dir=out_dir, learning_rate=2e-5,
+                     lr_scheduler_type="cosine", warmup_ratio=0.03,
+                     adam_beta1=0.9, adam_beta2=0.95, max_grad_norm=1.0,
+                     weight_decay=0.0, gradient_checkpointing=True,
+                     freeze_backbone=False, tune_mm_mlp_adapter=True,
+                     per_device_train_batch_size=1, save_steps=0)
+    trainer = Trainer(cfg, tc, params, loader, total_steps=8)
+    batch = trainer.device_batch(next(iter(loader.epoch(0))))
+    names = {n for n, lab in trainer.labels.items() if lab != "frozen"}
+    check(not any(n.startswith("vision.") for n in names)
+          and "llama.layers.wq" in names and "projector.w" in names,
+          f"{tag}: trainable {sorted(names)}")
+    n_train = sum(p.numel() for p in params.parameters() if p.requires_grad)
+    print(f"{tag}: batch 1x{batch['input_ids'].shape[1]}, trainable "
+          f"{n_train / 1e9:.3f} B of "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B")
+    before = snapshot(params)
+    readings = stage2_updates(tag, trainer, batch, cfg.text.num_hidden_layers,
+                              smi)
+    # the norms' weights are ones, where a bf16 step is 2^-8 to 2^-7: an
+    # update of about lr = 2e-5 rounds back to 1 (optax's bf16 update too)
+    unchanged_check(tag, params, before, names, may_stay=(
+        "llama.final_norm", "llama.layers.attn_norm",
+        "llama.layers.mlp_norm"))
+    del trainer, params, batch, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return readings
+
+
+def flash_stage2_phase(gen, mask) -> tuple:
+    """K1 and K2 at the stage-2 shape (B1 S2048 H32 D128, causal, the
+    training batch's own kv mask) against their plain versions, each with
+    a planted fault (causality ignored), timed beside its bound and SDPA's
+    time.  Returns (K1's entry, K2's entry)."""
+    from valley_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+
+    name = f"stage2_B1_S{STAGE2_SEQ}_H32_D128"
+    q, k, v, g = (torch.randn((1, STAGE2_SEQ, 32, 128), generator=gen,
+                              device="cuda").bfloat16() for _ in range(4))
+    check(not bool(mask.all()), "K1/K2 stage 2: the batch's mask has no hole")
+    out, lse = flash_attention(q, k, v, mask, causal=True, return_lse=True)
+    ref = flash_attention_plain(q, k, v, mask, causal=True)
+    err, tol = max_err(out, ref), tolerance(ref)
+    check(bool(torch.isfinite(out.float()).all()) and err <= tol,
+          f"K1 {name}: max abs err {err} > {tol}")
+    # planted fault: a kernel attending the keys after each query
+    fault = max_err(flash_attention(q, k, v, mask, causal=False), ref) / tol
+    check(fault > 1.0, f"K1 {name}: attending later keys moved out by "
+          f"{fault:.3f} of the tolerance only")
+    k1 = {"max_abs_err": err, **kernel_times(
+        lambda: flash_attention(q, k, v, mask, causal=True),
+        lambda: flash_attention_plain(q, k, v, mask, causal=True), iters=5)}
+    add_bound(k1, attention_bound(q, k, mask, True, 2, lse.numel() * 4),
+              f"K1 {name}")
+    k1["library_ms"] = library_attention_ms(q, k, v, mask, True, iters=5)
+    print(f"K1 flash_fwd {name} ({int(mask.sum())} valid): max_abs_err "
+          f"{err:.3e} (tol {tol:.3e}; attending later keys {fault:.1f}x, "
+          f"must fail) {fmt_times(k1)}; bound {k1['bound_ms']:.4f} ms "
+          f"({k1['bound_by']}), library {k1['library_ms']:.4f} ms"
+          + attention_rates(k1))
+    got = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=True)
+    rb = flash_attention_bwd_plain(q, k, v, mask, out, lse, g, causal=True)
+    k2_err = 0.0
+    for what, a, r in zip(("dq", "dk", "dv"), got, rb):
+        e, t = max_err(a, r), tolerance(r)
+        check(bool(torch.isfinite(a.float()).all()) and e <= t,
+              f"K2 {name} {what}: max abs err {e} > {t}")
+        k2_err = max(k2_err, e)
+    bad = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=False)
+    fault2 = max(max_err(a, r) / tolerance(r) for a, r in zip(bad, rb))
+    check(fault2 > 1.0, f"K2 {name}: attending later keys moved the "
+          f"gradients by {fault2:.3f} of the tolerance only")
+    k2 = {"max_abs_err": k2_err, **kernel_times(
+        lambda: flash_attention_bwd(q, k, v, mask, out, lse, g, causal=True),
+        lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse, g,
+                                          causal=True), iters=5)}
+    add_bound(k2, attention_bound(
+        q, k, mask, True, 5, (g.numel() + q.numel() + 2 * k.numel())
+        * g.element_size() + lse.numel() * 4), f"K2 {name}")
+    k2["library_ms"] = library_attention_ms(q, k, v, mask, True, dout=g,
+                                            iters=5)
+    print(f"K2 flash_bwd {name}: max_abs_err {k2_err:.3e} (attending later "
+          f"keys {fault2:.1f}x, must fail) {fmt_times(k2)}; bound "
+          f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}), library "
+          f"{k2['library_ms']:.4f} ms" + attention_rates(k2))
+    del q, k, v, g, out, lse, ref, got, rb, bad
+    return k1, k2
+
+
 def train_path(smi: str, gen, work: Path) -> list:
     """K2 (and K1 at the training shape) against the plain versions, then
-    the training slice.  Returns its kernels entries."""
+    the training slices: stage 1; LoRA stage 2 (through `Trainer`, then
+    the entry point, the adapter's merge and serving, the generate-eval);
+    full stage 2; then K1 and K2 at stage 2's shape.  Returns its kernels
+    entries."""
     k2_err, k2_t, k1_train = k2_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
     train_k1, train_k2, train_delta = train_phase(smi)
+    corpus = write_stage2_corpus(work / "stage2_corpus")
+    lora_r, mask = stage2_lora_phase(smi, corpus)
+    out = stage2_entry_phase(smi, corpus, work)
+    stage2_merge_phase(smi, corpus, out)
+    full_r = stage2_full_phase(smi, corpus)
+    k1_s2, k2_s2 = flash_stage2_phase(gen, mask)
+    k2_src = {"route": "cuda", "source": "valley_tpu_torch/csrc/flash_bwd.cu",
+              "replaces": "valley_tpu/ops/flash_attention.py:183"}
     return [{**K1_SRC, "name": "flash_fwd_train", "path": "train",
              "launches": train_k1, **k1_train},
-            {"name": "flash_bwd", "route": "cuda",
-             "source": "valley_tpu_torch/csrc/flash_bwd.cu",
-             "replaces": "valley_tpu/ops/flash_attention.py:183",
-             "path": "train", "launches": train_k2,
-             "delta_launches": train_delta, "max_abs_err": k2_err, **k2_t}]
+            {**k2_src, "name": "flash_bwd", "path": "train",
+             "launches": train_k2, "delta_launches": train_delta,
+             "max_abs_err": k2_err, **k2_t},
+            {**K1_SRC, "name": "flash_fwd_stage2", "path": "train_lora",
+             "launches": lora_r["k1"], **k1_s2},
+            {**k2_src, "name": "flash_bwd_stage2", "path": "train_lora",
+             "launches": lora_r["k2"], **k2_s2},
+            {**K1_SRC, "name": "flash_fwd_stage2", "path": "train_full",
+             "launches": full_r["k1"], **k1_s2},
+            {**k2_src, "name": "flash_bwd_stage2", "path": "train_full",
+             "launches": full_r["k2"], **k2_s2}]
 
 
 def _timed(fn):
@@ -3943,7 +4730,9 @@ for _name in ("k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
               "random_weights", "serve_slice", "spec_slice",
               "full_acceptance", "spec_conv", "conv_slice", "lab_phase",
               "batch_slice", "spec_pool_slice", "train_phase",
-              "write_checkpoint", "load_checkpoint"):
+              "write_checkpoint", "load_checkpoint", "stage2_lora_phase",
+              "stage2_entry_phase", "stage2_merge_phase",
+              "stage2_full_phase", "flash_stage2_phase"):
     globals()[_name] = _timed(globals()[_name])
 
 

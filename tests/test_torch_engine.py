@@ -283,14 +283,15 @@ def test_run_valley_cli_on_frame_dir(tmp_path, capsys):
 
 
 def test_run_valley_refuses_checkpoints(tmp_path):
-    """Checkpoint directories load since PR 13 (tests/test_torch_serve.py
-    serves one); what is not a checkpoint or a known random model is
-    refused."""
+    """Checkpoint directories load (tests/test_torch_serve.py serves one)
+    and take ``--lora-path`` (tests/test_torch_train_cli.py merges one);
+    what is not a checkpoint or a known random model is refused, and so
+    is an adapter over random weights."""
     with pytest.raises(FileNotFoundError, match="config.json"):
         run_valley.load_model(str(tmp_path / "no_such_checkpoint"), "cpu")
     with pytest.raises(ValueError, match="random:7b"):
         run_valley.load_model("random:huge", "cpu")
-    with pytest.raises(NotImplementedError, match="lora"):
+    with pytest.raises(ValueError, match="lora-path"):
         run_valley.main(["--model-name", "random:tiny", "--video-file", ".",
                          "--lora-path", "x", "--device", "cpu"])
 

@@ -82,10 +82,11 @@ def test_weights_from_bf16_tree(cfg):
     ("lora", "LoRA")])
 def test_weights_refuse_unported_trees(jparams, mutate, match):
     """The fused layout, int8 and int4 trees convert (tests/
-    test_torch_quant.py, tests/test_torch_int4.py); a half-fused tree
+    test_torch_quant.py, tests/test_torch_int4.py), and LoRA factors on
+    the unfused float layout (tests/test_torch_lora.py); a half-fused tree
     (wqkv beside unfused MLP projections), an int8 vision tower, grouped
-    W4A8 (a packed weight with a ``_scale_a8`` scale) and LoRA factors do
-    not."""
+    W4A8 (a packed weight with a ``_scale_a8`` scale) and LoRA factors
+    beside fused projections do not."""
     tree = jax.device_get(jparams)
     tree = {**tree, "llama": {**tree["llama"],
                               "layers": dict(tree["llama"]["layers"])}}
@@ -106,7 +107,12 @@ def test_weights_refuse_unported_trees(jparams, mutate, match):
         lay["wq_scale_a8"] = np.ones(shape[:-1] + (shape[-1] // 32,),
                                      np.float32)
     else:
-        lay["wq_lora_a"] = np.zeros((2, 64, 4), np.float32)
+        for n in ("wqkv", "w_gateup"):
+            names = ("wq", "wk", "wv") if n == "wqkv" else ("w_gate", "w_up")
+            lay[n] = np.concatenate([lay.pop(m) for m in names], axis=1)
+        lay["wo_lora_a"] = np.zeros((2, 64, 4), np.float32)
+        lay["wo_lora_b"] = np.zeros((2, 4, 64), np.float32)
+        lay["lora_scale"] = np.full((2, 1, 1), 2.0, np.float32)
     with pytest.raises(NotImplementedError, match=match):
         from_jax_params(tree)
 

@@ -415,11 +415,14 @@ def _args(**kw):
 
 
 def test_refusals_name_their_roadmap_items():
-    for kw, item in ((dict(lora_path="x"), "item 3"),
-                     (dict(tensor_parallel=2), "item 8"),
+    for kw, item in ((dict(tensor_parallel=2), "item 8"),
                      (dict(quantize_vision="int8"), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             worker_mod.load_engine(_args(**kw))
+    # --lora-path merges into a checkpoint's weights (tests/
+    # test_torch_train_cli.py), not random ones
+    with pytest.raises(ValueError, match="lora-path"):
+        worker_mod.load_engine(_args(lora_path="x"))
     with pytest.raises(NotImplementedError, match="int4ga8"):
         worker_mod.load_engine(_args(quantize="int4ga8"))
     args = worker_mod.build_parser().parse_args([])

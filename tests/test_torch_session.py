@@ -361,6 +361,7 @@ def test_run_valley_conv_wants_the_card_without_device_cpu(tmp_path,
     with pytest.raises(RuntimeError, match="--device cpu"):
         run_valley_conv.main(["--model-name", "random:tiny", "--video-file",
                               _frame_dir(tmp_path)])
-    with pytest.raises(NotImplementedError, match="lora"):
+    # an adapter merges into a checkpoint's weights, not random ones
+    with pytest.raises(ValueError, match="lora-path"):
         run_valley_conv.main(["--model-name", "random:tiny", "--video-file",
-                              ".", "--lora-path", "x"])
+                              ".", "--lora-path", "x", "--device", "cpu"])

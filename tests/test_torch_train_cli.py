@@ -186,19 +186,171 @@ def test_cli_stage1_then_stage2_on_cpu(corpus):
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
     from valley_tpu_torch.train.train import train
 
-    for key, value in (("lora", True), ("export_hf", True),
-                       ("mesh_model", 2), ("offload_optimizer", True),
-                       ("evaluation_strategy", "steps")):
+    for key, value in (("mesh_model", 2), ("offload_optimizer", True),
+                       ("report_to", "wandb")):
         conf = _conf(corpus, f"refuse_{key}",
                      output_dir=str(tmp_path / key), **{key: value})
         with pytest.raises(NotImplementedError):
             train(conf, "cpu")
-    hf_dir = tmp_path / "hf"
-    hf_dir.mkdir()
-    with pytest.raises(NotImplementedError, match="Hugging Face"):
-        train(_conf(corpus, "refuse_hf", output_dir=str(tmp_path / "o"),
-                    model_name_or_path=str(hf_dir)), "cpu")
+    with pytest.raises(ValueError, match="dropout_rng_impl"):
+        train(_conf(corpus, "refuse_rng", output_dir=str(tmp_path / "r"),
+                    lora=True, dropout_rng_impl="philox"), "cpu")
     if not torch.cuda.is_available():
         # the default device is the card, with no quiet fallback
         with pytest.raises(RuntimeError, match="--device cpu"):
             train(_conf(corpus, "nocard", output_dir=str(tmp_path / "c")))
+
+
+@pytest.fixture(scope="module")
+def hf_base(tmp_path_factory):
+    """A tiny Valley Hugging Face checkpoint (the port's fp32 export of
+    random weights) with a 600-word WordLevel tokenizer, as
+    tests/test_torch_serve.py writes one."""
+    pytest.importorskip("transformers")
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordLevel
+    from tokenizers.pre_tokenizers import Whitespace
+
+    from valley_tpu_torch.utils import hf_bridge
+
+    cfg = C.valley_tiny()
+    params = valley.init_params(cfg, torch.Generator().manual_seed(5),
+                                torch.float32, "cpu")
+    tok = tmp_path_factory.mktemp("tok")
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({f"w{i}": i for i in range(3, 600)})
+    wl = Tokenizer(WordLevel(vocab, unk_token="<unk>"))
+    wl.pre_tokenizer = Whitespace()
+    wl.save(str(tok / "tokenizer.json"))
+    (tok / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "unk_token": "<unk>",
+        "bos_token": "<s>", "eos_token": "</s>", "model_max_length": 512}))
+    d = tmp_path_factory.mktemp("hf_base")
+    hf_bridge.export_valley_checkpoint(cfg, params, str(d),
+                                       tokenizer_src=str(tok))
+    return d
+
+
+def test_cli_lora_chain_serves_like_jax(corpus, hf_base, tmp_path,
+                                        monkeypatch, capsys):
+    """Stage 1 from a Hugging Face checkpoint with ``export_hf``, LoRA
+    stage 2 from stage 1's output (adapter snapshots, the generate-eval
+    after training), then ``run_valley --model-name <the export>
+    --lora-path <stage 2>/final``: the served model's greedy tokens equal
+    JAX's ``load_valley_checkpoint`` of the export followed by
+    ``merge_lora(load_lora(...))`` of the same adapter arrays."""
+    import dataclasses
+
+    import jax.numpy as jnp
+
+    from valley_tpu import config as JC
+    from valley_tpu.inference import engine as jengine
+    from valley_tpu.train import lora as jlora
+    from valley_tpu.utils import hf_bridge as jbridge
+    from valley_tpu_torch.inference import run_valley
+    from valley_tpu_torch.inference.engine import GenerationConfig
+    from valley_tpu_torch.train import train as train_mod
+    from valley_tpu_torch.utils import checkpoint as ckpt_lib
+
+    s1 = _conf(corpus, "chain1", output_dir=str(tmp_path / "out1"),
+               model_name_or_path=str(hf_base), freeze_backbone=True,
+               tune_mm_mlp_adapter=True, export_hf=True)
+    run = _cli(s1, "--device", "cpu")
+    assert run.returncode == 0, run.stderr
+    hf = tmp_path / "out1" / "hf"
+    for name in ("config.json", "tokenizer.json", "model.safetensors"):
+        assert (hf / name).exists(), name
+
+    out2 = tmp_path / "out2"
+    s2 = _conf(corpus, "chain2", output_dir=str(out2),
+               model_name_or_path=str(tmp_path / "out1"),
+               freeze_backbone=False, tune_mm_mlp_adapter=True, lora=True,
+               lora_r=4, lora_alpha=8, lora_lr=2e-3,
+               lora_save_strategy="steps", save_steps=2,
+               predict_with_generate=True, eval_num=2,
+               generation_max_length=8)
+    train_mod.main(["--conf", s2, "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "trainable=" in printed                  # print_trainable_params
+    meta = json.loads((out2 / "valley_meta.json").read_text())
+    assert meta["lora"] is True
+    adapter = ckpt_lib.restore_pytree(out2 / "final")
+    assert "wq_lora_a" in adapter and "lora_scale" in adapter
+    assert all("lora" in k for k in adapter)        # adapter-only
+    assert (out2 / "adapter-2").exists() and (out2 / "adapter-4").exists()
+    assert any(adapter[k].abs().max() > 0 for k in adapter
+               if k.endswith("_lora_b"))            # B moved off zero
+    evals = [json.loads(line) for line in
+             (out2 / "metrics.jsonl").read_text().splitlines()]
+    assert "eval_bleu" in evals[-1] and evals[-1]["step"] == 4
+    assert (out2 / "eval_result.jsonl").exists()
+    with pytest.raises(ValueError, match=f"lora_path={out2}/final"):
+        train_mod.load_framework_checkpoint(str(out2), 256, "cpu",
+                                            torch.float32)
+
+    # the entry point on the merged checkpoint
+    video = str(corpus / "videos" / "webvid" / "a.mp4")
+    run_valley.main(["--model-name", str(hf), "--lora-path",
+                     str(out2 / "final"), "--video-file", video,
+                     "--device", "cpu", "--max-new-tokens", "4",
+                     "--temperature", "0"])
+    assert capsys.readouterr().out.endswith("\n")
+    engine, tok = run_valley.load_model(str(hf), "cpu", buckets=(64,),
+                                        max_new_tokens=8,
+                                        lora_path=str(out2 / "final"))
+    assert not any("lora" in n for n, _ in engine.params.named_parameters())
+
+    vis = C.valley_tiny().vision
+    monkeypatch.setattr(jbridge.C, "VisionConfig",
+                        lambda select_layer=-2, **kw: dataclasses.replace(
+                            vis, select_layer=select_layer, **kw))
+    jcfg, jp, _ = jbridge.load_valley_checkpoint(str(hf), dtype=jnp.float32)
+    jp = jlora.merge_lora(jlora.load_lora(
+        jp, {k: v.float().numpy() for k, v in adapter.items()}))
+    assert isinstance(jcfg, JC.ValleyConfig)
+    jeng = jengine.Engine(jcfg, jp, buckets=(64,), max_new_tokens=8,
+                          cache_dtype=jnp.float32, use_flash=False)
+    ids = tok.encode("w5 w6 w7 w8 w9")
+    want = [int(t[0]) for t in jeng.generate_tokens(
+        [ids], None, jengine.GenerationConfig(max_new_tokens=8,
+                                              do_sample=False),
+        eos_ids=[-1])]
+    engine.cache_dtype = torch.float32
+    got = [int(t[0]) for t in engine.generate_tokens(
+        [ids], None, GenerationConfig(max_new_tokens=8, do_sample=False),
+        eos_ids=[-1])]
+    assert got == want and len(got) == 8
+
+
+def test_cli_stage2_from_hf_with_eval_steps(corpus, hf_base, tmp_path):
+    """Full stage 2 straight from a Hugging Face checkpoint directory,
+    with the generate-eval every two updates (``evaluation_strategy:
+    steps``) through one engine whose weights are refilled in place."""
+    from valley_tpu_torch.train import train as train_mod
+    from valley_tpu_torch.utils import checkpoint as ckpt_lib
+
+    out = tmp_path / "out"
+    conf = _conf(corpus, "hf_s2", output_dir=str(out),
+                 model_name_or_path=str(hf_base), freeze_backbone=False,
+                 tune_mm_mlp_adapter=True, learning_rate=1e-4,
+                 evaluation_strategy="steps", eval_steps=2, eval_num=2)
+    built = []
+    real = train_mod._eval_engine
+
+    def counting(*args):
+        built.append(args)
+        return real(*args)
+
+    train_mod._eval_engine = counting
+    try:
+        assert train_mod.train(conf, "cpu") == 4
+    finally:
+        train_mod._eval_engine = real
+    assert len(built) == 1                # one engine for both evals
+    lines = [json.loads(line) for line in
+             (out / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in lines if "eval_bleu" in r] == [2, 4]
+    final = ckpt_lib.restore_pytree(out / "final")
+    assert "llama.layers.wq" in final and not any("lora" in k for k in final)
+    assert json.loads((out / "valley_meta.json").read_text())[
+        "tokenizer_path"] == str(hf_base)

@@ -47,9 +47,10 @@ rows do.  ``--speculative`` decodes by n-gram self-speculation per row
 video's frames to the smallest bucket that holds them (``off`` or empty:
 exact counts; ``--num-frames`` is added as a bucket where it exceeds
 them), as the JAX worker's ``load_engine`` does, and the pool is warmed at
-those buckets.  Not ported, and refused: ``--vision-tower``,
-``--lora-path``, ``--quantize-vision`` and ``--tensor-parallel`` above
-1.
+those buckets.  ``--lora-path`` merges a LoRA adapter into a checkpoint
+directory's weights before fusing and quantizing (`run_valley.load_model`).
+Not ported, and refused: ``--quantize-vision`` and ``--tensor-parallel``
+above 1.
 """
 
 from __future__ import annotations
@@ -143,13 +144,9 @@ def _prepare(req: dict, cfg, num_frames: int, frame_mode: str,
 
 
 def _refuse_unported(args) -> None:
-    for flag, value, item in (
-            ("--lora-path", args.lora_path, "3: LoRA"),
-            ("--quantize-vision", args.quantize_vision,
-             "6: vision quantization")):
-        if value:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP "
-                                      f"§1 item {item})")
+    if args.quantize_vision:
+        raise NotImplementedError("--quantize-vision is not ported yet "
+                                  "(ROADMAP §1 item 6: vision quantization)")
     if args.tensor_parallel != 1:
         raise NotImplementedError("--tensor-parallel above 1 is not ported "
                                   "yet: the port serves from one card")
@@ -197,7 +194,7 @@ def run_batch(args) -> dict:
         steps_per_call=args.steps_per_call,
         decode_ramp=tuple(int(s) for s in args.decode_ramp.split(",") if s),
         frame_buckets=frame_buckets(args), raw_media=bool(args.raw_pixels),
-        vision_tower=args.vision_tower)
+        vision_tower=args.vision_tower, lora_path=args.lora_path)
     cfg = engine.cfg
     pool = ContinuousEngine(engine, rows=args.rows,
                             admit_batch=args.admit_batch,

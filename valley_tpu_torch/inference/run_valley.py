@@ -15,7 +15,9 @@ the card; without one it stops unless ``--device cpu`` is given.
 options (``valley_tpu/serve/model_worker.py``), applied in its
 order: fuse, then quantize (and pack int4), then choose the cache.
 ``--speculative`` decodes by n-gram self-speculation
-(``inference/speculative.py``).
+(``inference/speculative.py``).  ``--lora-path`` (a checkpoint directory's
+base only) merges the adapter-only ``final`` of a LoRA run of
+``train/train.py`` into the bf16 weights before any fusing or quantizing.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def load_model(model_name: str, device: Optional[str] = None,
                quantize: Optional[str] = None, fused: bool = False,
                kv_cache: str = "bf16", steps_per_call: int = 4,
                decode_ramp=(), frame_buckets=None, raw_media: bool = False,
-               vision_tower: Optional[str] = None, tokenizer=None):
+               vision_tower: Optional[str] = None, tokenizer=None,
+               lora_path: Optional[str] = None):
     """Build (engine, tokenizer) on ``device`` (default the card; without
     one this raises unless the caller asks for ``"cpu"``).  ``model_name``
     is a checkpoint directory (`hf_bridge.load_valley_checkpoint`: its
@@ -56,7 +59,11 @@ def load_model(model_name: str, device: Optional[str] = None,
     ``int4gp``) the quantized weights (a checkpoint quantizes on load),
     ``kv_cache="int8"`` the int8 KV cache; ``steps_per_call`` and
     ``decode_ramp`` set the engine's decode chunks, ``frame_buckets`` and
-    ``raw_media`` its media (`Engine`).  Weights are bf16 on the card,
+    ``raw_media`` its media (`Engine`).  ``lora_path`` (with a checkpoint
+    directory) is an adapter saved by the port's trainer: the checkpoint
+    loads unquantized, the adapter is merged (`lora.merge_lora` of
+    `lora.load_lora`), then the weights are fused and quantized as asked,
+    in the JAX worker's order (model_worker.py:938-975).  Weights are bf16 on the card,
     where the kernels take bf16, and fp32 on the CPU.  At the tiny widths
     (64, 128) group-128 scales fall back to per channel where 128 does not
     divide the contraction axis, as in JAX."""
@@ -74,6 +81,9 @@ def load_model(model_name: str, device: Optional[str] = None,
     if model_name.startswith("random:"):
         from valley_tpu_torch.tokenizer import ByteFallbackTokenizer
 
+        if lora_path:
+            raise ValueError("--lora-path merges into a checkpoint "
+                             f"directory's weights, not {model_name!r}")
         tokenizer = ByteFallbackTokenizer()
         size = model_name.split(":", 1)[1]
         if size == "tiny":
@@ -93,6 +103,23 @@ def load_model(model_name: str, device: Optional[str] = None,
             # the JAX worker's full-size random weights: every leaf 0.008
             for p in params.parameters():
                 p.data.fill_(0.008)
+        if fused:
+            params = llama.fuse_llama_params(params)
+        if knobs:
+            params = quantize_llama_params(params, act8=knobs["act8"],
+                                           bits=knobs["bits"],
+                                           group_size=knobs["group_size"])
+    elif lora_path:
+        from valley_tpu_torch.train import lora as lora_lib
+        from valley_tpu_torch.utils import checkpoint as ckpt_lib
+        from valley_tpu_torch.utils import hf_bridge
+
+        # no quantize-on-load: the adapter merges into the float weights
+        cfg, params, tokenizer = hf_bridge.load_valley_checkpoint(
+            model_name, vision_tower=vision_tower, dtype=dtype,
+            tokenizer=tokenizer, device=device)
+        adapter = ckpt_lib.restore_pytree(lora_path, map_location=device)
+        params = lora_lib.merge_lora(lora_lib.load_lora(params, adapter))
         if fused:
             params = llama.fuse_llama_params(params)
         if knobs:
@@ -128,7 +155,9 @@ def main(argv=None):
     parser.add_argument("--vision-tower", type=str, default=None,
                         help="CLIP checkpoint directory for a checkpoint "
                              "without its own tower")
-    parser.add_argument("--lora-path", type=str, default=None)
+    parser.add_argument("--lora-path", type=str, default=None,
+                        help="adapter-only final/ of a LoRA training run, "
+                             "merged into --model-name's weights")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     parser.add_argument("--quantize", type=str, default=None,
@@ -151,15 +180,13 @@ def main(argv=None):
                              "token-identical, sampling "
                              "distribution-exact)")
     args = parser.parse_args(argv)
-    if args.lora_path:
-        raise NotImplementedError(
-            "--lora-path is not ported yet (ROADMAP §1 item 3: LoRA)")
 
     engine, tokenizer = load_model(args.model_name, args.device,
                                    max_new_tokens=args.max_new_tokens,
                                    quantize=args.quantize, fused=args.fused,
                                    kv_cache=args.kv_cache,
-                                   vision_tower=args.vision_tower)
+                                   vision_tower=args.vision_tower,
+                                   lora_path=args.lora_path)
     messages = [
         {"role": "system", "content": args.system_prompt},
         {"role": "user", "content": args.query + " <video>"},

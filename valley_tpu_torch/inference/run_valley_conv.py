@@ -55,9 +55,6 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
-    if args.lora_path:
-        raise NotImplementedError(
-            "--lora-path is not ported yet (ROADMAP §1 item 3: LoRA)")
 
     from valley_tpu_torch.conversation import conv_templates
     from valley_tpu_torch.inference.engine import (ChatSession,
@@ -67,7 +64,8 @@ def main(argv=None):
 
     engine, tokenizer = load_model(args.model_name, args.device,
                                    max_new_tokens=args.max_new_tokens,
-                                   vision_tower=args.vision_tower)
+                                   vision_tower=args.vision_tower,
+                                   lora_path=args.lora_path)
     print(SHELL_UI_HEADER)
     images = load_frames(engine, args.video_file, args.num_frames)
     conv = conv_templates[args.conv_mode].copy()

@@ -10,7 +10,8 @@ with (L, B, Smax, Hkv) bf16 scales; this port writes it in place.  RMSNorm,
 rotary and softmax run in fp32 exactly where the JAX package runs them.
 
 Ported: the cacheless forward (training, with full per-layer
-rematerialisation as an option), bucketed prefill at ``cache_index`` 0 and
+rematerialisation as an option, and LoRA adapters with their training-time
+dropout), bucketed prefill at ``cache_index`` 0 and
 single-token decode over the stacked cache, for any number of rows B, with
 one slot for every row or a slot per row (continuous batching: rows that
 joined at different times write at their own slots); the fused serving
@@ -21,7 +22,9 @@ W8A8 prefill for ``*_scale_a8`` trees, the int8 KV cache, and the
 ``cross_valid`` extend branch (a chunk appended to a session's cache
 attends every valid slot and itself causally: multi-turn KV reuse).  Not
 ported yet, and refused with NotImplementedError: the ``"dots"`` remat
-policy, grouped W4A8, a half-fused layout and LoRA.  The JAX package's
+policy, grouped W4A8 and a half-fused layout.  Adapters ride on the
+unfused, unquantized layout only, as in JAX (merge them first to fuse or
+quantize: ``train/lora.py``).  The JAX package's
 split of batched decode into a carried and a sliced cache
 (llama.py:538-548) works around a TPU layout choice and has no
 counterpart: one cached form serves every B.
@@ -30,7 +33,7 @@ counterpart: one cached form serves every B.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -66,11 +69,19 @@ def _with_scale(tensors, names) -> list:
     return out
 
 
+def is_lora_name(name: str) -> bool:
+    """Whether a layer tensor's name is a LoRA factor or the scale."""
+    return name.endswith(("_lora_a", "_lora_b")) or name == "lora_scale"
+
+
 class LlamaLayers(Weights):
     """The stacked decoder layers: the unfused projections or the fused
     serving layout (``wqkv``, ``w_gateup``), each int8 projection with its
     (L, out) bf16 scale, each packed int4 one ((L, out, in/2) uint8) with
-    its (L, out) or grouped (L, out, in/group) bf16 scale."""
+    its (L, out) or grouped (L, out, in/group) bf16 scale.  An unfused
+    float layout may carry LoRA adapters (llama.py:338-347): for a target
+    ``<name>``, ``<name>_lora_a`` (L, in, r) and ``<name>_lora_b`` (L, r,
+    out), with one ``lora_scale`` (L, 1, 1)."""
     NAMES = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate",
              "w_up", "w_down")
 
@@ -83,8 +94,20 @@ class LlamaLayers(Weights):
                 "projections) is not ported: fuse both with "
                 "fuse_llama_params")
         f = bool(fused)
-        return tuple(["attn_norm", *_with_scale(tensors, ATTN_PROJ[f]),
-                      "mlp_norm", *_with_scale(tensors, MLP_PROJ[f])])
+        names = ["attn_norm", *_with_scale(tensors, ATTN_PROJ[f]),
+                 "mlp_norm", *_with_scale(tensors, MLP_PROJ[f])]
+        lora = [n for n in ATTN_PROJ[f] + MLP_PROJ[f]
+                if n + "_lora_a" in tensors]
+        if lora or any(is_lora_name(n) for n in tensors):
+            if f or any(tensors[n].dtype in QUANTIZED
+                        for n in ATTN_PROJ[f] + MLP_PROJ[f]):
+                raise NotImplementedError(
+                    "LoRA adapters on a fused or quantized layout: merge "
+                    "them first (train/lora.merge_lora), as JAX's "
+                    "fuse_llama_params asks")
+            names += [n + s for n in lora for s in ("_lora_a", "_lora_b")]
+            names.append("lora_scale")
+        return tuple(names)
 
 
 class LlamaWeights(Weights):
@@ -179,6 +202,8 @@ def fuse_llama_params(params):
         return params
     if any(layers[n].dtype in QUANTIZED for n in ("wq", "w_gate")):
         raise ValueError("fuse before quantizing")
+    if "lora_scale" in layers:
+        raise ValueError("fuse before adding LoRA adapters")
     lt = {n: p.data for n, p in layers.named_parameters(recurse=False)}
     for names, out in ((("wq", "wk", "wv"), "wqkv"),
                        (("w_gate", "w_up"), "w_gateup")):
@@ -262,12 +287,44 @@ def _linear(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
     return x @ w if kf else F.linear(x, w)
 
 
-def _proj(lp: LlamaLayers, li: int, name: str, x: torch.Tensor,
-          attention: Attention) -> torch.Tensor:
+# stable per-projection ids for the adapter dropout's keys (llama.py:166)
+_PROJ_IDS = {"wq": 0, "wk": 1, "wv": 2, "wo": 3,
+             "w_gate": 4, "w_up": 5, "w_down": 6}
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new key from ``key`` and ``data``, as ``jax.random.fold_in``
+    derives one (a splitmix64 round over both, kept to 63 bits so that it
+    passes as an int64 wherever torch records arguments: a different
+    function, so the keys, and the masks drawn from them, are not JAX's)."""
+    z = (key * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def dropout_mask(key: int, shape, keep: float, device) -> torch.Tensor:
+    """The bool keep-mask of ``shape`` (True with probability ``keep``)
+    drawn from a generator seeded by ``key`` alone (torch's Philox stream
+    on the card), so a rematerialised layer draws the same bits again."""
+    gen = torch.Generator(device).manual_seed(key)
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
+          attention: Attention, lora_key: Optional[int] = None,
+          lora_dropout: float = 0.0) -> torch.Tensor:
     """x @ W^T for layer ``li``'s (out, in) projection ``name``
-    (llama.py:246-335) through `_linear`, except an int8 weight with a
+    (llama.py:246-347) through `_linear`, except an int8 weight with a
     ``_scale_a8`` scale and a sequence axis of at least `_A8_MIN_SEQ`,
-    which takes `_w8a8_dot`.  The result takes x's dtype."""
+    which takes `_w8a8_dot`.  The result takes x's dtype.  A projection
+    with adapters adds ``((x' @ A) @ B) * scale`` in x's dtype, x' being x
+    under inverted dropout (rate ``lora_dropout``, the layer's key
+    ``lora_key`` folded with the projection's id) when a key is given and
+    x itself otherwise; the JAX package computes this branch with plain
+    XLA products, and so the port with torch's."""
     w = lp[name][li]
     scale = None
     if w.dtype in QUANTIZED:
@@ -275,59 +332,86 @@ def _proj(lp: LlamaLayers, li: int, name: str, x: torch.Tensor,
         scale = (lp[name + "_scale"] if a8 is None else a8)[li]
         if a8 is not None and x.dim() >= 2 and x.shape[-2] >= _A8_MIN_SEQ:
             return _w8a8_dot(x, w, scale)
-    return _linear(x, w, scale, attention).to(x.dtype)
+    out = _linear(x, w, scale, attention).to(x.dtype)
+    a = lp.get(name + "_lora_a")
+    if a is None:
+        return out
+    xl = x
+    if lora_key is not None and lora_dropout > 0.0:
+        keep = 1.0 - lora_dropout
+        mask = dropout_mask(fold_in(lora_key, _PROJ_IDS[name]), x.shape,
+                            keep, x.device)
+        xl = torch.where(mask, x / keep, 0).to(x.dtype)
+    delta = (xl @ a[li]) @ lp[name + "_lora_b"][li]
+    return out + delta * lp["lora_scale"][li][0, 0]
 
 
-def _qkv(lp: LlamaLayers, li: int, x: torch.Tensor, cfg: TextConfig, cos,
-         sin, attention: Attention):
+def _qkv(lp: Mapping, li: int, x: torch.Tensor, cfg: TextConfig, cos,
+         sin, attention: Attention, **lora):
     b, s, _ = x.shape
     if "wqkv" in lp:
         # fused serving layout: one product, then the q/k/v column slices
         # (v made contiguous: the kernels take contiguous tensors)
         h_sz = cfg.num_attention_heads * cfg.head_dim
         kv_sz = cfg.kv_heads * cfg.head_dim
-        qkv = _proj(lp, li, "wqkv", x, attention)
+        qkv = _proj(lp, li, "wqkv", x, attention, **lora)
         q = qkv[..., :h_sz]
         k = qkv[..., h_sz:h_sz + kv_sz]
         v = qkv[..., h_sz + kv_sz:].contiguous()
     else:
-        q = _proj(lp, li, "wq", x, attention)
-        k = _proj(lp, li, "wk", x, attention)
-        v = _proj(lp, li, "wv", x, attention)
+        q = _proj(lp, li, "wq", x, attention, **lora)
+        k = _proj(lp, li, "wk", x, attention, **lora)
+        v = _proj(lp, li, "wv", x, attention, **lora)
     q = q.reshape(b, s, cfg.num_attention_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.kv_heads, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _mlp(lp: LlamaLayers, li: int, x: torch.Tensor,
-         attention: Attention) -> torch.Tensor:
+def _mlp(lp: Mapping, li: int, x: torch.Tensor, attention: Attention,
+         **lora) -> torch.Tensor:
     if "w_gateup" in lp:
-        gu = _proj(lp, li, "w_gateup", x, attention)
+        gu = _proj(lp, li, "w_gateup", x, attention, **lora)
         f = gu.shape[-1] // 2
         gate = F.silu(gu[..., :f].to(torch.float32))
         up = gu[..., f:].to(torch.float32)
     else:
-        gate = F.silu(_proj(lp, li, "w_gate", x, attention).to(torch.float32))
-        up = _proj(lp, li, "w_up", x, attention).to(torch.float32)
-    return _proj(lp, li, "w_down", (gate * up).to(x.dtype), attention)
+        gate = F.silu(_proj(lp, li, "w_gate", x, attention, **lora).to(
+            torch.float32))
+        up = _proj(lp, li, "w_up", x, attention, **lora).to(torch.float32)
+    return _proj(lp, li, "w_down", (gate * up).to(x.dtype), attention,
+                 **lora)
 
 
-def _attn(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention):
+def _attn(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention,
+          **lora):
     """Cacheless causal self-attention over the block."""
     b, s, h = x.shape
-    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention)
+    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention, **lora)
     mask = None if attn_mask is None else attn_mask > 0
     out = prefill_attention(q, k, v, mask, causal=True, attention=attention)
-    return _proj(lp, li, "wo", out.reshape(b, s, h), attention)
+    return _proj(lp, li, "wo", out.reshape(b, s, h), attention, **lora)
 
 
-def _layer(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention):
-    """One cacheless decoder layer (llama.py:526-535)."""
+def _layer(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention,
+           lora_key: Optional[int] = None, lora_dropout: float = 0.0):
+    """One cacheless decoder layer (llama.py:526-535); ``lora_key`` is the
+    layer's adapter-dropout key (`_proj`)."""
     eps = cfg.rms_norm_eps
+    lora = dict(lora_key=lora_key, lora_dropout=lora_dropout)
     x = x + _attn(lp, li, rms_norm(x, lp["attn_norm"][li], eps), cfg, cos,
-                  sin, attn_mask, attention)
-    return x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps), attention)
+                  sin, attn_mask, attention, **lora)
+    return x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps), attention,
+                    **lora)
+
+
+def _per_layer(lp: LlamaLayers) -> dict:
+    """{name: the (L, ...) stack unbound into its L layers}.  Indexing a
+    stacked parameter once per layer makes autograd write a zeroed tensor
+    the size of the whole stack for every layer and add each into the
+    gradient; the layers' views of one ``unbind`` take their gradients
+    apart and stack them once."""
+    return {n: p.unbind(0) for n, p in lp.named_parameters(recurse=False)}
 
 
 def _use_remat(remat) -> bool:
@@ -441,7 +525,9 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
                    cache_index: Slots = 0,
                    kv_valid: Optional[torch.Tensor] = None,
                    cross_valid: Optional[torch.Tensor] = None,
-                   attention: Attention = KERNELS, remat=False):
+                   attention: Attention = KERNELS, remat=False,
+                   lora_rng: Optional[int] = None,
+                   lora_dropout: float = 0.0):
     """Run the decoder stack.  Returns (hidden, cache_or_None).
 
     inputs_embeds: (B, S, H).  attn_mask: (B, S) padding mask of the
@@ -455,6 +541,9 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     the kernels (default) or their plain versions.  ``remat`` (cacheless path only): True/"full" wraps each
     layer in `torch.utils.checkpoint`, so the backward recomputes its
     forward (the attention forward then runs twice per layer).
+    ``lora_rng`` (cacheless path only): the integer key of a training
+    step's adapter dropout at rate ``lora_dropout``, folded with each
+    layer's index (None: no dropout, as at inference).
     """
     b, s, _ = inputs_embeds.shape
     use_remat = _use_remat(remat)
@@ -482,16 +571,24 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     cross_bias = _extend_bias(cross_valid, cache_index, s) \
         if cross_valid is not None and s > 1 else None
 
+    if lora_rng is not None and cache is not None:
+        raise ValueError("adapter dropout applies to the cacheless forward "
+                         "only")
     lp = params["layers"]
+    if cache is None and torch.is_grad_enabled():
+        lp = _per_layer(lp)
     eps = cfg.rms_norm_eps
     x = inputs_embeds
     for li in range(cfg.num_hidden_layers):
         if cache is None:
+            key = None if lora_rng is None else fold_in(lora_rng, li)
             if use_remat:
                 x = checkpoint(_layer, lp, li, x, cfg, cos, sin, attn_mask,
-                               attention, use_reentrant=False)
+                               attention, key, lora_dropout,
+                               use_reentrant=False)
             else:
-                x = _layer(lp, li, x, cfg, cos, sin, attn_mask, attention)
+                x = _layer(lp, li, x, cfg, cos, sin, attn_mask, attention,
+                           key, lora_dropout)
             continue
         hn = rms_norm(x, lp["attn_norm"][li], eps)
         x = x + _attn_cached(lp, li, hn, cfg, cos, sin, cache, cache_index,
@@ -516,8 +613,11 @@ def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
 def forward(params: LlamaWeights, cfg: TextConfig,
             inputs_embeds: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
-            attention: Attention = KERNELS, remat=False) -> torch.Tensor:
+            attention: Attention = KERNELS, remat=False,
+            lora_rng: Optional[int] = None,
+            lora_dropout: float = 0.0) -> torch.Tensor:
     """Cacheless forward: (B, S, H) -> fp32 logits (B, S, V)."""
     hidden, _ = forward_hidden(params, cfg, inputs_embeds, attn_mask,
-                               attention=attention, remat=remat)
+                               attention=attention, remat=remat,
+                               lora_rng=lora_rng, lora_dropout=lora_dropout)
     return logits_from_hidden(params, hidden, attention)

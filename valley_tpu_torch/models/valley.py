@@ -120,11 +120,16 @@ def forward(params: ValleyWeights, cfg: ValleyConfig,
             input_ids: torch.Tensor, images: Optional[torch.Tensor] = None,
             attn_mask: Optional[torch.Tensor] = None,
             frame_mask: Optional[torch.Tensor] = None,
-            attention: Attention = KERNELS, remat=False) -> torch.Tensor:
-    """Full cacheless forward to fp32 logits (B, S, V)."""
+            attention: Attention = KERNELS, remat=False,
+            lora_rng: Optional[int] = None,
+            lora_dropout: float = 0.0) -> torch.Tensor:
+    """Full cacheless forward to fp32 logits (B, S, V); ``lora_rng`` and
+    ``lora_dropout`` are a training step's adapter dropout
+    (`llama.forward_hidden`)."""
     embeds = build_inputs_embeds(params, cfg, input_ids, images, frame_mask)
     return llama.forward(params["llama"], cfg.text, embeds, attn_mask,
-                         attention=attention, remat=remat)
+                         attention=attention, remat=remat,
+                         lora_rng=lora_rng, lora_dropout=lora_dropout)
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -142,11 +147,13 @@ def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
 
 
 def loss_fn(params: ValleyWeights, cfg: ValleyConfig, batch, remat=True,
-            attention: Attention = KERNELS) -> torch.Tensor:
+            attention: Attention = KERNELS, lora_rng: Optional[int] = None,
+            lora_dropout: float = 0.0) -> torch.Tensor:
     """Training loss of one batch (valley.py:163-171): ``batch`` holds
     ``input_ids``, ``labels`` and optionally ``attention_mask``, ``images``
     and ``frame_mask`` tensors."""
     logits = forward(params, cfg, batch["input_ids"], batch.get("images"),
                      batch.get("attention_mask"), batch.get("frame_mask"),
-                     attention=attention, remat=remat)
+                     attention=attention, remat=remat, lora_rng=lora_rng,
+                     lora_dropout=lora_dropout)
     return shifted_cross_entropy(logits, batch["labels"])

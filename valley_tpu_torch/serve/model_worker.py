@@ -936,14 +936,11 @@ def build_app(worker: ModelWorker) -> JsonHttpServer:
 def load_engine(args):
     """Build (engine, tokenizer) from a checkpoint directory or a random
     configuration (``random:tiny``, ``random:7b``, ``random:13b``) with the
-    worker's flags (`run_valley.load_model`).  Refused, each with its
-    ROADMAP item: ``--lora-path``, ``--tensor-parallel`` above 1 and
-    ``--quantize-vision``."""
+    worker's flags (`run_valley.load_model`; ``--lora-path`` merges an
+    adapter into a checkpoint's bf16 weights before fusing and quantizing,
+    with no quantize-on-load).  Refused, each with its ROADMAP item:
+    ``--tensor-parallel`` above 1 and ``--quantize-vision``."""
     from valley_tpu_torch.inference.run_valley import load_model
-
-    if getattr(args, "lora_path", None):
-        raise NotImplementedError(
-            "--lora-path is not ported yet (ROADMAP §1 item 3: LoRA)")
     if int(getattr(args, "tensor_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             "--tensor-parallel above 1 is not ported yet (ROADMAP §1 item "
@@ -971,7 +968,8 @@ def load_engine(args):
         steps_per_call=int(getattr(args, "steps_per_call", 32) or 32),
         decode_ramp=ramp, frame_buckets=fbt,
         raw_media=bool(getattr(args, "raw_pixels", True)),
-        vision_tower=getattr(args, "vision_tower", None))
+        vision_tower=getattr(args, "vision_tower", None),
+        lora_path=getattr(args, "lora_path", None))
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -6,14 +6,22 @@ the Valley recipe on one device.
 Reads the same YAML keys as ``valley_tpu/train/train.py`` (model, data and
 training arguments) with the same meaning.  ``model_name_or_path`` may be
 ``random:*`` (or ``model_size``) for random weights from a seed, with the
-same rules as the JAX entry point, or the output directory of an earlier
-run of this entry point (``valley_config.json``, ``valley_meta.json`` and
-``final/``), which is how stage 2 starts from stage 1.  The device is the
-card unless ``--device cpu`` is given; nothing falls back to the CPU.
+same rules as the JAX entry point, a Hugging Face checkpoint directory
+(`hf_bridge.load_valley_checkpoint`), or the output directory of an
+earlier run of this entry point (``valley_config.json``,
+``valley_meta.json`` and ``final/``), which is how stage 2 starts from
+stage 1.  The device is the card unless ``--device cpu`` is given;
+nothing falls back to the CPU.
 
-Not ported yet, and refused with NotImplementedError: Hugging Face
-checkpoint directories, LoRA, ``export_hf``, ``predict_with_generate`` and
-``evaluation_strategy: steps`` (see also `trainer.check_ported`).
+Stage 2 as the recipes run it: ``lora: true`` adds adapters
+(`train/lora.py`) after the weights are built and writes an adapter-only
+``final`` (serve it with ``--lora-path <output_dir>/final`` over the base
+checkpoint); ``export_hf`` writes a Hugging Face checkpoint under
+``<output_dir>/hf`` (not with LoRA); ``evaluation_strategy: steps`` runs
+the generate-eval (`train/eval_loop.py`) every ``eval_steps`` updates and
+``predict_with_generate`` once after training, over the first
+``eval_num`` training samples.  Refused with NotImplementedError: the
+options of `trainer.check_ported`.
 """
 
 from __future__ import annotations
@@ -32,8 +40,11 @@ from valley_tpu_torch import config as C
 from valley_tpu_torch.data.dataset import (DataLoader,
                                            make_video_supervised_data_module)
 from valley_tpu_torch.models import valley
+from valley_tpu_torch.train import lora as lora_lib
 from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 from valley_tpu_torch.utils import checkpoint as ckpt_lib
+from valley_tpu_torch.utils.logging import (print_trainable_params,
+                                            rank_zero_info)
 from valley_tpu_torch.weights import from_state_dict
 
 logger = logging.getLogger(__name__)
@@ -120,8 +131,9 @@ def load_framework_checkpoint(path: str, model_max_length: int, device,
         with open(meta_path) as f:
             meta = json.load(f)
     if meta.get("lora"):
-        raise NotImplementedError(f"{path} is a LoRA output; LoRA is not "
-                                  "ported yet")
+        raise ValueError(
+            f"{path} is a LoRA output (adapter-only). Load the base "
+            f"checkpoint and pass lora_path={path}/final instead.")
     state = ckpt_lib.restore_pytree(
         os.path.join(path, meta.get("final", "final")), map_location="cpu")
     params = from_state_dict(state, device, dtype)
@@ -140,10 +152,11 @@ def load_framework_checkpoint(path: str, model_max_length: int, device,
 
 def build_model_and_tokenizer(model_args: ModelArguments, extra: dict,
                               device, dtype=torch.bfloat16, seed: int = 0):
-    """(cfg, params, tokenizer): an earlier run's output directory, or
-    random weights from ``seed`` with the rules of train.py:164-175 (the
-    tiny configuration for ``model_size: tiny`` or any ``random*`` path,
-    else LLaMA-2 7B or 13B by ``model_size``)."""
+    """(cfg, params, tokenizer): an earlier run's output directory, a
+    Hugging Face checkpoint directory (train.py:152-161), or random weights
+    from ``seed`` with the rules of train.py:164-175 (the tiny
+    configuration for ``model_size: tiny`` or any ``random*`` path, else
+    LLaMA-2 7B or 13B by ``model_size``)."""
     pooling = resolve_pooling(model_args)
     path = model_args.model_name_or_path
     max_len = int(extra.get("model_max_length", 2048))
@@ -151,8 +164,13 @@ def build_model_and_tokenizer(model_args: ModelArguments, extra: dict,
     if path and os.path.isdir(path):
         if os.path.isfile(os.path.join(path, "valley_config.json")):
             return load_framework_checkpoint(path, max_len, device, dtype)
-        raise NotImplementedError(
-            f"{path}: loading Hugging Face checkpoints is not ported yet")
+        from valley_tpu_torch.utils import hf_bridge
+
+        return hf_bridge.load_valley_checkpoint(
+            path, vision_tower=model_args.vision_tower,
+            select_layer=model_args.mm_vision_select_layer,
+            pooling=pooling, dtype=dtype, model_max_length=max_len,
+            device=device)
 
     from valley_tpu_torch.tokenizer import ByteFallbackTokenizer
 
@@ -172,21 +190,61 @@ def build_model_and_tokenizer(model_args: ModelArguments, extra: dict,
     return cfg, params, tokenizer
 
 
-def _refuse_unported(tc: TrainConfig) -> None:
-    for flag, what in ((tc.export_hf, "export_hf (the Hugging Face export)"),
-                       (tc.predict_with_generate, "predict_with_generate"),
-                       (tc.evaluation_strategy == "steps",
-                        "evaluation_strategy: steps")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported yet")
+def refresh_weights(dst: valley.ValleyWeights,
+                    src: valley.ValleyWeights) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, in place: an engine's CUDA
+    graphs replay the tensors they captured, so its weights are refilled,
+    never replaced (tensors the two trees share are left alone)."""
+    with torch.no_grad():
+        for (name, d), (_, s) in zip(dst.named_parameters(),
+                                     src.named_parameters()):
+            if d.data_ptr() != s.data_ptr():
+                d.copy_(s)
+
+
+def _eval_engine(cfg, params, tokenizer, max_new_tokens: int):
+    from valley_tpu_torch.inference.engine import Engine
+
+    max_len = getattr(tokenizer, "model_max_length", 2048)
+    return Engine(cfg, params, buckets=(min(1024, max_len), max_len),
+                  max_new_tokens=max_new_tokens)
+
+
+class StepEval:
+    """The generate-eval of ``evaluation_strategy: steps``
+    (train.py:233-258): greedy replies of up to 128 tokens to the first
+    ``eval_num`` samples of ``dataset``, through one engine kept across
+    evals (its decode graphs stay captured) whose weights are refilled in
+    place (`refresh_weights`) with the trainer's, adapters merged."""
+
+    def __init__(self, cfg, tc: TrainConfig, tokenizer, dataset,
+                 conv_mode: str = "v1"):
+        self.cfg, self.tc, self.tokenizer = cfg, tc, tokenizer
+        self.dataset, self.conv_mode = dataset, conv_mode
+        self.engine = None
+
+    def __call__(self, params: valley.ValleyWeights, step: int) -> dict:
+        from valley_tpu_torch.inference.engine import GenerationConfig
+        from valley_tpu_torch.train.eval_loop import generate_eval
+
+        p = lora_lib.merge_lora(params) if self.tc.lora else params
+        if self.engine is None:
+            self.engine = _eval_engine(self.cfg, p, self.tokenizer, 256)
+        else:
+            refresh_weights(self.engine.params, p)
+        del p
+        return generate_eval(
+            self.engine, self.tokenizer, self.dataset,
+            eval_num=self.tc.eval_num, conv_mode=self.conv_mode,
+            gen=GenerationConfig(max_new_tokens=128, do_sample=False))
 
 
 def train(conf_path: str, device: str = "cuda") -> int:
     """Train by the recipe in ``conf_path`` on ``device``; writes
-    ``final/``, ``valley_config.json`` and ``valley_meta.json`` under
-    ``output_dir``.  Returns the number of optimizer updates."""
+    ``final/`` (adapter-only with LoRA), ``valley_config.json`` and
+    ``valley_meta.json`` under ``output_dir``, and ``hf/`` with
+    ``export_hf``.  Returns the number of optimizer updates."""
     model_args, data_args, tc, extra = load_yaml_config(conf_path)
-    _refuse_unported(tc)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
@@ -197,6 +255,10 @@ def train(conf_path: str, device: str = "cuda") -> int:
     rs = float(extra.get("rope_scaling", 1.0))
     if rs != 1.0:
         cfg = cfg.replace(text=dataclasses.replace(cfg.text, rope_scaling=rs))
+    if tc.lora:
+        params = lora_lib.add_lora(
+            params, torch.Generator(device).manual_seed(1), r=tc.lora_r,
+            alpha=tc.lora_alpha, dtype=dtype)
 
     data_args.is_multimodal = data_args.is_multimodal or \
         model_args.vision_tower is not None
@@ -210,22 +272,54 @@ def train(conf_path: str, device: str = "cuda") -> int:
                         tc.per_device_train_batch_size,
                         module["data_collator"], seed=tc.seed)
 
-    trainer = Trainer(cfg, tc, params, loader)
-    n_train = sum(p.numel() for p in params.parameters() if p.requires_grad)
-    n_all = sum(p.numel() for p in params.parameters())
-    logger.info("trainable params: %d of %d (%.4f%%)", n_train, n_all,
-                100.0 * n_train / n_all)
+    step_eval = StepEval(cfg, tc, tokenizer, module["train_dataset"],
+                         data_args.conv_mode) \
+        if tc.evaluation_strategy == "steps" else None
+    trainer = Trainer(cfg, tc, params, loader, eval_fn=step_eval)
+    print_trainable_params(trainer.params, trainer.labels)
     step = trainer.train(resume=True)
+    trainer.eval_fn = step_eval = None     # frees the eval engine
 
     final_dir = os.path.join(tc.output_dir, "final")
-    ckpt_lib.save_pytree(final_dir, params.state_dict())
+    if tc.lora:
+        ckpt_lib.save_pytree(final_dir, lora_lib.split_lora(params))
+    else:
+        ckpt_lib.save_pytree(final_dir, params.state_dict())
     with open(os.path.join(tc.output_dir, "valley_config.json"), "w") as f:
         f.write(cfg.to_json())
     with open(os.path.join(tc.output_dir, "valley_meta.json"), "w") as f:
-        json.dump({"lora": False,
+        json.dump({"lora": bool(tc.lora),
                    "tokenizer_path": model_args.model_name_or_path,
                    "final": "final"}, f)
-    logger.info("training done at step %d; saved to %s", step, final_dir)
+    if tc.export_hf and not tc.lora:
+        from valley_tpu_torch.utils.hf_bridge import export_valley_checkpoint
+
+        hf_dir = os.path.join(tc.output_dir, "hf")
+        tok_src = model_args.model_name_or_path \
+            if os.path.isdir(model_args.model_name_or_path) else None
+        export_valley_checkpoint(cfg, params, hf_dir, tokenizer_src=tok_src)
+        rank_zero_info(f"HF export written to {hf_dir}", logger)
+    rank_zero_info(f"training done at step {step}; saved to {final_dir}",
+                   logger)
+
+    # the generate-eval after training, over the first eval_num training
+    # samples (train.py:293-315)
+    if tc.predict_with_generate and len(module["train_dataset"]):
+        from valley_tpu_torch.inference.engine import GenerationConfig
+        from valley_tpu_torch.train.eval_loop import generate_eval
+
+        params_eval = lora_lib.merge_lora(params) if tc.lora else params
+        engine = _eval_engine(cfg, params_eval, tokenizer,
+                              min(tc.generation_max_length, 1024))
+        pred_file = tc.prediction_file_name or os.path.join(
+            tc.output_dir, "eval_result.jsonl")
+        metrics = generate_eval(
+            engine, tokenizer, module["train_dataset"],
+            eval_num=tc.eval_num, conv_mode=data_args.conv_mode,
+            prediction_file=pred_file,
+            gen=GenerationConfig(max_new_tokens=256, do_sample=False))
+        trainer.log({"step": step, **{f"eval_{k}": v
+                                      for k, v in metrics.items()}})
     return step
 
 

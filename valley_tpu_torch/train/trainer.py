@@ -4,26 +4,36 @@
 * Parameter groups: the same labels as the JAX `label_params` ('frozen' |
   'base' | 'lora'), applied as ``requires_grad`` flags, so the backward
   computes gradients of the trainable parameters only (stage 1: projector
-  and input embeddings) while still flowing through every frozen layer.
+  and input embeddings; LoRA: the adapters and the projector) while still
+  flowing through every frozen layer.
 * The optimizer is optax's chain per label group, written for torch:
-  ``clip_by_global_norm`` on each group's own norm (g * max_norm / norm when
-  norm >= max_norm), then AdamW (`torch.optim.AdamW`, the ``foreach``
-  implementation, moments in the parameters' dtype as optax keeps them by
-  default), the learning rate of update n being ``schedule(n)``.  Frozen
+  ``clip_by_global_norm`` on each group's own norm (g / norm * max_norm
+  when norm >= max_norm, in place), then AdamW (`torch.optim.AdamW`, one
+  tensor at a time, moments in the parameters' dtype as optax keeps them
+  by default), the learning rate of update n being the group's
+  ``schedule(n)`` ('lora' from ``lora_lr`` when it is set).  Frozen
   parameters are not in the optimizer: no update, no weight decay.
 * Gradient accumulation as ``optax.MultiSteps``: the running mean of k
   micro-batch gradients, one update every k-th micro-batch; ``step``
   counts updates.  The logged loss and ``grad_norm`` (over every trainable
   gradient, before clipping) are the last micro-batch's.
-* ``trainer.log`` / ``metrics.jsonl`` lines, ``checkpoint-N`` saves and
-  auto-resume through `valley_tpu_torch.utils.checkpoint`.
+* LoRA's adapter dropout: micro-batch n's key folds n into ``seed``
+  (trainer.py:340-343, where the train state's step counts micro-batches),
+  and the forward folds in the layer and the projection
+  (`llama.dropout_mask`).  The masks come from torch's generators, not
+  JAX's ``dropout_rng_impl``: the name is checked and the bits differ.
+* ``trainer.log`` / ``metrics.jsonl`` lines, ``checkpoint-N`` saves (with
+  ``lora_save_strategy: steps``, also adapter-only ``adapter-N``),
+  auto-resume through `valley_tpu_torch.utils.checkpoint`, and the
+  ``eval_fn`` of ``evaluation_strategy: steps`` every ``eval_steps``.
 
-Options that only the JAX package's mesh, TPU or LoRA code gave are
-refused with NotImplementedError (see `check_ported`).
+Options that only the JAX package's mesh, TPU or optimizer-offload code
+gave are refused with NotImplementedError (see `check_ported`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -38,6 +48,7 @@ import torch
 from valley_tpu_torch.config import ValleyConfig
 from valley_tpu_torch.data.dataset import PrefetchLoader
 from valley_tpu_torch.models import valley
+from valley_tpu_torch.models.llama import fold_in
 from valley_tpu_torch.ops.attention import KERNELS, Attention
 from valley_tpu_torch.utils import checkpoint as ckpt_lib
 from valley_tpu_torch.weights import set_trainable
@@ -94,11 +105,17 @@ class TrainConfig:
     export_hf: bool = False
 
 
+# the JAX package's names for its dropout bit generators (jax.random's
+# PRNG implementations); the port draws every mask from torch's
+DROPOUT_RNG_IMPLS = ("rbg", "unsafe_rbg", "threefry2x32")
+
+
 def check_ported(tc: TrainConfig) -> None:
     """Refuse the options this port does not run."""
+    if tc.dropout_rng_impl not in DROPOUT_RNG_IMPLS:
+        raise ValueError(f"unknown dropout_rng_impl {tc.dropout_rng_impl!r}"
+                         f" (one of {', '.join(DROPOUT_RNG_IMPLS)})")
     refused = {
-        "lora": tc.lora and "LoRA training (train/lora.py, with its adapter "
-        "dropout and dropout_rng_impl) is not ported yet",
         "offload_optimizer": tc.offload_optimizer and "optimizer offload to "
         "host memory is not ported",
         "mesh": ((tc.mesh_data, tc.mesh_model) != (1, 1)
@@ -191,11 +208,21 @@ def make_schedule(tc: TrainConfig, total_steps: int
     return cosine
 
 
+def group_schedules(tc: TrainConfig, total_steps: int) -> dict:
+    """{group label: its schedule}: the 'lora' group's from ``lora_lr``
+    when it is set, else the base one (trainer.py:197-199)."""
+    base = make_schedule(tc, total_steps)
+    return {"base": base, "lora": base if tc.lora_lr is None
+            else make_schedule(dataclasses.replace(
+                tc, learning_rate=float(tc.lora_lr)), total_steps)}
+
+
 def make_optimizer(params: valley.ValleyWeights, tc: TrainConfig,
                    total_steps: int):
     """Label the parameters, let the trainable ones take gradients, and
     build AdamW over them, one parameter group per label.  Returns
-    (optimizer, schedule, labels)."""
+    (optimizer, the base group's schedule, labels); `group_schedules`
+    gives each group's."""
     check_ported(tc)
     sched = make_schedule(tc, total_steps)
     labels = label_params(params, tc)
@@ -210,16 +237,22 @@ def make_optimizer(params: valley.ValleyWeights, tc: TrainConfig,
                            "params": [p for _, p in named]})
     if not groups:
         raise ValueError("no trainable parameters under these flags")
+    # one tensor at a time: the weights are a few stacks, so the foreach
+    # form saves few launches, and its temporaries are the size of the whole
+    # group (13.5 GB more for a full stage 2 at 7B)
     opt = torch.optim.AdamW(groups, lr=0.0,
                             betas=(tc.adam_beta1, tc.adam_beta2),
                             eps=tc.adam_eps, weight_decay=tc.weight_decay,
-                            foreach=True)
+                            foreach=False)
     return opt, sched, labels
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    """sqrt of the sum of squares of every element, in fp32 (without an
+    fp32 copy of each gradient)."""
+    return torch.sqrt(sum(
+        torch.linalg.vector_norm(g, dtype=torch.float32).square()
+        for g in grads))
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +268,11 @@ class Trainer:
 
     def __init__(self, cfg: ValleyConfig, tc: TrainConfig,
                  params: valley.ValleyWeights, train_loader,
-                 total_steps: Optional[int] = None):
+                 total_steps: Optional[int] = None,
+                 eval_fn: Optional[Callable] = None):
+        # eval_fn(params, step) -> metrics dict, run every eval_steps
+        # updates under evaluation_strategy: steps
+        self.eval_fn = eval_fn
         self.cfg = cfg
         self.tc = tc
         self.params = params
@@ -246,8 +283,10 @@ class Trainer:
             // max(tc.gradient_accumulation_steps, 1))
         self.optimizer, self.schedule, self.labels = make_optimizer(
             params, tc, self.total_steps)
+        self.schedules = group_schedules(tc, self.total_steps)
         self._trainable = [p for g in self.optimizer.param_groups
                            for p in g["params"]]
+        self.lora_dropout = tc.lora_dropout if tc.lora else 0.0
         self.step = 0      # optimizer updates so far
         self._micro = 0    # micro-batches averaged toward the next update
         self._acc: Optional[List[torch.Tensor]] = None
@@ -273,12 +312,22 @@ class Trainer:
             out[k] = t.to(self.device)
         return out
 
+    def lora_rng(self) -> Optional[int]:
+        """The adapter-dropout key of the next micro-batch: its index
+        folded into the seed (None without dropout)."""
+        if self.lora_dropout <= 0.0:
+            return None
+        k = max(self.tc.gradient_accumulation_steps, 1)
+        return fold_in(self.tc.seed, self.step * k + self._micro)
+
     def loss_and_grads(self, batch):
         """(loss, global grad norm, [gradient of each trainable parameter,
         in optimizer order]) of one batch, without updating anything."""
         loss = valley.loss_fn(self.params, self.cfg, batch,
                               remat=self.tc.gradient_checkpointing,
-                              attention=self.attention)
+                              attention=self.attention,
+                              lora_rng=self.lora_rng(),
+                              lora_dropout=self.lora_dropout)
         grads = torch.autograd.grad(loss, self._trainable, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, self._trainable)]
@@ -308,19 +357,21 @@ class Trainer:
         return metrics
 
     def _update(self, grads: List[torch.Tensor]) -> None:
-        # One schedule for every group.  The JAX trainer gives the 'lora'
-        # group its own from ``lora_lr``; that group cannot exist while
-        # `check_ported` refuses LoRA, and needs it when train/lora.py lands.
-        lr = self.schedule(self.step)
+        # each group clipped on its own norm, in place and without a sync:
+        # g / norm * max_norm where norm >= max_norm (the divisor rounded to
+        # g's dtype, as optax's `t / g_norm * max_norm` in that dtype), else
+        # g / 1 * 1, which is g
         max_norm = self.tc.max_grad_norm
         it = iter(grads)
         for group in self.optimizer.param_groups:
             gs = [next(it) for _ in group["params"]]
             norm = global_norm(gs)
+            clip = norm >= max_norm
+            div = torch.where(clip, norm, 1.0)
+            mul = torch.where(clip, max_norm, 1.0)
             for p, g in zip(group["params"], gs):
-                p.grad = torch.where(norm < max_norm, g,
-                                     g / norm.to(g.dtype) * max_norm)
-            group["lr"] = lr
+                p.grad = g.div_(div.to(g.dtype)).mul_(mul)
+            group["lr"] = self.schedules[group["label"]](self.step)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
 
@@ -334,11 +385,18 @@ class Trainer:
         logger.info(line)
 
     def save(self, step: int) -> str:
-        return ckpt_lib.save_checkpoint(
+        path = ckpt_lib.save_checkpoint(
             self.tc.output_dir,
             {"params": self.params.state_dict(),
              "optimizer": self.optimizer.state_dict(), "step": step},
             step, keep=self.tc.save_total_limit)
+        if self.tc.lora and self.tc.lora_save_strategy == "steps":
+            from valley_tpu_torch.train import lora as lora_lib
+
+            ckpt_lib.save_pytree(
+                os.path.join(self.tc.output_dir, f"adapter-{step}"),
+                lora_lib.split_lora(self.params))
+        return path
 
     def maybe_resume(self) -> int:
         """Load the newest checkpoint-N of ``output_dir`` into the
@@ -383,5 +441,12 @@ class Trainer:
                                   time.perf_counter() - t_step, 4)})
                 if tc.save_steps and step % tc.save_steps == 0:
                     self.save(step)
+                if (self.eval_fn is not None
+                        and tc.evaluation_strategy == "steps"
+                        and tc.eval_steps and step % tc.eval_steps == 0):
+                    result = self.eval_fn(self.params, step)
+                    if result:
+                        self.log({"step": step, **{f"eval_{k}": v
+                                                   for k, v in result.items()}})
         self.save(self.step)
         return self.step

@@ -23,9 +23,12 @@ One layout differs: the port stores a quantized ``lm_head`` (out, in), or
 (out, in/2) packed, where the JAX package keeps it (in, out), or (in/2,
 out), so that every matrix a GEMV kernel reads holds each output's inputs
 contiguous; conversion transposes it both ways (its (1, vocab) scale keeps
-the JAX shape).  Trees this port cannot run yet are refused: grouped W4A8
-(``int4ga8``, ``int4gpa8``), a quantized vision tower, LoRA, or with
-temporal pooling parameters.
+the JAX shape).  LoRA adapters (``<name>_lora_a``, ``<name>_lora_b``,
+``lora_scale``) carry across on the unfused float layout, cast as the
+float leaves are; `llama.LlamaLayers` refuses them beside fused or
+quantized weights, as JAX's ``fuse_llama_params`` does.  Trees this port
+cannot run yet are refused: grouped W4A8 (``int4ga8``, ``int4gpa8``), a
+quantized vision tower, or with temporal pooling parameters.
 """
 
 from __future__ import annotations
@@ -56,10 +59,6 @@ def _check_served(tree: Mapping[str, Any], where: str) -> None:
         if isinstance(a, Mapping):
             _check_served(a, f"{where}.{name}")
             continue
-        if "_lora_" in name or name == "lora_scale":
-            raise NotImplementedError(
-                f"{where}.{name}: LoRA adapters are not ported yet; merge "
-                "them first")
         if np.asarray(a).dtype.name in ("int8", "uint8") and \
                 where.startswith("params.vision"):
             raise NotImplementedError(
