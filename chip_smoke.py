@@ -12,9 +12,10 @@ the check; K6, the bf16 decode GEMV, at the shapes of both bf16 serving
 paths and K7, the read-bandwidth probe, on 2 GB before batched serving;
 T4-T7, the decode-attention lab, on the conversation's cache; the decode
 GEMVs K4, K5 and K6 also at a speculative verify round's 9 rows and at 16,
-each row bit-equal to the same row alone), and drives
+each row bit-equal to the same row alone; K8, the grouped W4A8 product, at
+the 13B projections before the int4gpa8 request), and drives
 the port's paths at full width and depth with random bf16 weights from a
-seed, eight processes one after the other:
+seed, nine processes one after the other:
 
 - serving: one 8-frame video question with Valley-7B through
   ``Engine.generate_tokens``, its 63 decode steps one replay of a CUDA
@@ -36,7 +37,7 @@ seed, eight processes one after the other:
   (aggregate rate
   and the pooled step's wall, device busy and idle share printed for
   both), the pooled logits at three teacher-forced steps against the
-  plain versions, and each greedy request's tokens against the same
+  plain versions, and each greedy video request's tokens against the same
   request alone through ``Engine.generate_tokens``;
 - int8 serving, the serving flagship of the JAX package: the same weights
   fused (``wqkv``, ``w_gateup``) and quantized to int8a8 on the card, an
@@ -118,7 +119,21 @@ seed, eight processes one after the other:
   adapter merged (logits against the unmerged adapter forward, bench's
   request by graph from the merged tree, the generate-eval), full stage
   2 (peak memory under 80 GB), and K1 and K2 at that shape against their
-  plain versions.
+  plain versions;
+- serving variants: K8, the grouped W4A8 product of prefill chunks, at
+  Valley-13B's four fused projections at 512 and 128 rows against its
+  plain version (bit-equal; a planted fault: the group scales shifted by
+  one group), timed beside its bound and the library's int8 product
+  looped over the groups and ungrouped; both learned pooling variants at
+  Valley-7B and 13B widths (8 frames, 256 patches, with and without a
+  frame mask) on the card against the CPU; the CLIP tower over 8 frames
+  in bf16, int8 and int8a8; then bench's request through Valley-13B with
+  int4gpa8 weights (W4A8 prefill through K8, decode through K5), an
+  int8a8 tower, transformer pooling and an int8 KV cache, by graph: the
+  launches of K1, K3-int8, K5 and K8, first token and ms/token (printed
+  beside the int4 path's int4gp request), the eager step's first 16
+  tokens and launches against the graph's, the prefill's device time by
+  kernel, and its logits against the plain versions.
 
 Then the card tests, ``tests/test_torch_cuda.py`` (each kernel against its
 plain version at small shapes, the tiny models end to end), in a process
@@ -147,6 +162,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1188,12 +1204,12 @@ EAGER_NEW = 16
 
 def eager_launches(counts: dict, steps: int, eager_steps: int) -> dict:
     """The launches of a request decoding ``eager_steps`` steps, from a
-    request's ``counts`` over ``steps`` steps: K1 launches only at the
-    prefill, K3 only in decode steps, a GEMV kernel once at the prefill
+    request's ``counts`` over ``steps`` steps: K1 and K8 launches only at
+    the prefill, K3 only in decode steps, a GEMV kernel once at the prefill
     (lm_head) and as often in each step."""
     out = {}
     for k, n in counts.items():
-        pre = n if k.startswith("K1") else \
+        pre = n if k.startswith(("K1", "K8")) else \
             0 if k.startswith("K3") or not n else 1
         check((n - pre) % steps == 0, f"{k}: {n} launches over {steps} "
               "steps")
@@ -1203,7 +1219,8 @@ def eager_launches(counts: dict, steps: int, eager_steps: int) -> dict:
 
 def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
                 kernels: dict, logit_tol: float, same_token: bool,
-                sampled: bool = False) -> dict:
+                sampled: bool = False, walls: Optional[dict] = None
+                ) -> dict:
     """One `bench_request` through ``Engine.generate_tokens`` (64 greedy
     tokens, one stream, each decode chunk a replay of a CUDA graph), after
     a warm-up request that captures the graph.  ``kernels`` maps a label
@@ -1214,7 +1231,9 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
     with ``sampled`` `sampled_graph_check`, and the logits through the
     kernels against the same path on the plain versions, at the prefill and
     three teacher-forced decode steps, within ``logit_tol`` and, with
-    ``same_token``, picking the same greedy token.  Returns the counts."""
+    ``same_token``, picking the same greedy token.  Returns the counts;
+    ``walls``, where given, takes the request's first-token ms and decode
+    ms per token by graph."""
     from valley_tpu_torch.inference.engine import Engine, GenerationConfig
     from valley_tpu_torch.models import valley
     from valley_tpu_torch.ops.attention import PLAIN
@@ -1263,6 +1282,9 @@ def serve_slice(tag: str, cfg, params, smi: str, cache_dtype,
           and list(engine.graph_sets[(1, bucket + new + steps)].keys())
           == [(steps, False)], f"{tag}: graphs {engine.graph_sets}")
     decode_tps = (new - 1) / (total - t_first)
+    if walls is not None:
+        walls.update(first_token_ms=t_first * 1e3,
+                     decode_ms_per_token=1e3 / decode_tps)
     print(f"{tag}: prompt {len(prompt)} tokens in bucket {bucket}, 8 frames "
           f"{size}px uint8, {new} greedy tokens, {cache_dtype} KV cache, "
           f"decode by one replay of a {steps}-step CUDA graph; launches "
@@ -2575,12 +2597,13 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
           f"{time.perf_counter() - t0:.1f} s; decoder and lm_head weights "
           f"{weight_bytes / 1e9:.3f} GB (a decode token reads them once: "
           f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)")
+    walls = {}
     counts = serve_slice("int4 slice", cfg, params, smi, torch.int8, {
         "K1": (flash_attention, layers),
         "K3-int8": (decode_attention_stacked, layers * steps),
         "K5": (int4_matvec, 4 * layers * steps + NEW_TOKENS),
         "K4": (int8_matvec, 0), "K6": (bf16_matvec, 0)}, INT4_LOGIT_TOL,
-        same_token=True)
+        same_token=True, walls=walls)
     sl = spec_slice("int4 spec slice", cfg, params, smi, torch.int8, {
         "K1": flash_attention, "K3-int8": decode_attention_stacked,
         "K5": int4_matvec, "K4": int8_matvec, "K6": bf16_matvec}, {
@@ -2599,7 +2622,10 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
                 "launches": counts["K3-int8"], "max_abs_err": k3q_err,
                 **k3q_t},
                {**k5_src, "name": "int4_matvec", "path": "serve_int4",
-                "launches": counts["K5"], "max_abs_err": k5_err, **k5_t},
+                "launches": counts["K5"], "max_abs_err": k5_err, **k5_t,
+                "request_first_token_ms": walls["first_token_ms"],
+                "request_decode_ms_per_token":
+                    walls["decode_ms_per_token"]},
                {**K1_SRC, "name": "flash_fwd_int4_spec",
                 "path": "serve_int4_spec", "launches": spec_counts["K1"],
                 "max_abs_err": k1_err, **k1_t},
@@ -3042,8 +3068,8 @@ def batch_slice(cfg, params, smi: str) -> dict:
     an eager pool (``eager=True``) over `EAGER_NEW` tokens: every greedy
     request's tokens the graph pool's first; the pooled step's wall and device time and its kernels,
     graph and eager; the pooled logits against the plain versions; each
-    greedy request's tokens against the same request alone.  Returns the
-    counts."""
+    greedy video request's tokens against the same request alone.  Returns
+    the counts."""
     from valley_tpu_torch.inference.continuous import ContinuousEngine, _drain
     from valley_tpu_torch.inference.engine import Engine, GenerationConfig
     from valley_tpu_torch.ops.attention import PLAIN
@@ -3178,11 +3204,13 @@ def batch_slice(cfg, params, smi: str) -> dict:
               "tolerance")
     del lk, lp, plain_engine
 
-    # each greedy request against the same request alone (B = 1, kernels)
+    # each greedy video request against the same request alone (B = 1,
+    # kernels; the text requests alone would each capture a graph of
+    # another bucket, which the script's time limit does not hold)
     gcfg = GenerationConfig(max_new_tokens=NEW_TOKENS, do_sample=False)
     same = 0
     for i, ((toks, _, _), (p, f, t)) in enumerate(zip(results, reqs)):
-        if t:
+        if t or f is None:
             continue
         alone = [int(x[0]) for x in engine.generate_tokens([p], f, gcfg,
                                                            eos_ids=[-1])]
@@ -3201,8 +3229,8 @@ def batch_slice(cfg, params, smi: str) -> dict:
               f"(bar {BATCH_MARGIN_BAR})")
         check(margin < BATCH_MARGIN_BAR, f"batch slice: request {i} parts "
               f"from its run alone at step {step} with margin {margin}")
-    print(f"batch slice: {same} of 10 greedy requests give the tokens of "
-          f"their run alone (Engine.generate_tokens, B = 1)")
+    print(f"batch slice: {same} of 8 greedy video requests give the "
+          f"tokens of their run alone (Engine.generate_tokens, B = 1)")
     return counts
 
 
@@ -3237,8 +3265,8 @@ def pool_verify_logits(engine, pool, ids, frames, lens) -> torch.Tensor:
 
 # new tokens a request in the speculative pool's traffic: its rounds cost
 # 15x a pooled step, so its 12 requests run at a sixth of the plain pool's
-# rate
-SPEC_POOL_NEW = 32
+# rate (16, not the plain pool's 64, keeps the script in its time limit)
+SPEC_POOL_NEW = 16
 
 
 def spec_pool_slice(cfg, params, smi: str) -> dict:
@@ -4711,6 +4739,412 @@ def train_path(smi: str, gen, work: Path) -> list:
              "launches": full_r["k2"], **k2_s2}]
 
 
+# The serve_variants process: K8, the quantized tower, the learned pooling
+# at full width, and Valley-13B served int4gpa8 with an int8a8 tower and
+# transformer pooling.
+# Valley-13B's fused int4gpa8 projections, (name, K, F): each prefill chunk
+# runs each of them once a layer through K8
+K8_SHAPES_13B = (("wqkv", 5120, 15360), ("wo", 5120, 5120),
+                 ("w_gateup", 5120, 27648), ("w_down", 13824, 5120))
+# K8's rows: bench's 512 bucket, and the a8 gate's 128
+K8_ROWS = (512, 128)
+K8_SRC = dict(route="cuda", source="valley_tpu_torch/csrc/w4a8_group_gemm.cu",
+              replaces="valley_tpu/models/llama.py:210")
+# The H100 SXM's dense int8 tensor-core peak (NVIDIA's datasheet), K8's
+# bound for its operations
+INT8_OPS_PER_S = 1979e12
+# K8's times: its device time, its plain version's and the yardsticks'
+# (the int8 library product looped over the groups with the rescale, and
+# one ungrouped int8 product) by CUDA events, and its bound
+K8_TIME_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms",
+                "int_mm_loop_ms", "int_mm_ms")
+
+
+def w4a8_inputs(gen, t: int, k: int, f: int) -> tuple:
+    """K8's inputs at (T, K, F): per-token int8 activations of N(0, 1)
+    values with their absmax / 127 scales, as `llama._w4a8_group_dot`
+    quantizes them, and an int4 weight with group-128 scales
+    (`int4_weight`)."""
+    x = torch.randn((t, k), generator=gen, device="cuda")
+    a = x.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    xq = torch.round(x / a[:, None]).to(torch.int8)
+    return (xq, a) + int4_weight(gen, f, k, 128)
+
+
+def int_mm_yardsticks(xq, w, scale, iters: int) -> dict:
+    """Milliseconds a call (CUDA events around ``iters`` calls) of the
+    library's int8 product on K8's values (the weight unpacked to int8
+    beforehand): looped over the K/128 groups with the fp32 rescale and
+    sum (what no single call computes), and one ungrouped product over the
+    same bytes.  Yardsticks only: the port never calls them."""
+    from valley_tpu_torch.ops.quant import unpack_int4
+
+    w8 = unpack_int4(w)
+    n = scale.shape[1]
+    xs = [xq[:, g * 128:(g + 1) * 128].contiguous() for g in range(n)]
+    ws = [w8[:, g * 128:(g + 1) * 128].contiguous() for g in range(n)]
+    s = scale.float()
+
+    def looped():
+        acc = torch._int_mm(xs[0], ws[0].t()).float() * s[:, 0]
+        for g in range(1, n):
+            acc += torch._int_mm(xs[g], ws[g].t()).float() * s[:, g]
+        return acc
+
+    return {"int_mm_loop_ms": time_ms(looped, iters, 1),
+            "int_mm_ms": time_ms(lambda: torch._int_mm(xq, w8.t()), iters,
+                                 1)}
+
+
+def k8_phase(gen) -> tuple:
+    """K8 against its plain version at Valley-13B's four fused projections
+    at 512 and 128 rows (each bit-equal to the plain version, whose
+    arithmetic it repeats, and within `REL_TOL` in any case; a planted
+    fault: the group scales shifted by one group), each timed (its device
+    time by the profiler; the plain version and the library yardsticks by
+    CUDA events) beside its bound (the int8 operations at 1979 TOPS, or
+    the bytes at 3.35 TB/s).  Returns (max error, {rows: times per call
+    averaged over one layer's four products}, {rows: launches})."""
+    from valley_tpu_torch.ops.w4a8 import w4a8_group_gemm, w4a8_group_plain
+
+    err_max, avg, launches = 0.0, {}, {}
+    for rows in K8_ROWS:
+        per_shape = {}
+        w4a8_group_gemm.launches = 0
+        for name, k, f in K8_SHAPES_13B:
+            xq, a, w, scale = w4a8_inputs(gen, rows, k, f)
+            out = w4a8_group_gemm(xq, a, w, scale, torch.bfloat16)
+            torch.cuda.synchronize()
+            ref = w4a8_group_plain(xq, a, w, scale, torch.bfloat16)
+            err, tol = max_err(out, ref), tolerance(ref)
+            check(out.dtype == torch.bfloat16 and tuple(out.shape) == (rows, f)
+                  and bool(torch.isfinite(out).all()),
+                  f"K8 {name} T{rows}: dtype, shape or not finite")
+            check(err <= tol, f"K8 {name} T{rows}: max abs err {err} > {tol}")
+            err_max = max(err_max, err)
+            line = (f"K8 w4a8_group_gemm 13b_{name} T{rows} ({f}x{k}): "
+                    f"max_abs_err {err:.3e} (tol {tol:.3e}; bit-equal to the "
+                    f"plain version: {torch.equal(out, ref)})")
+            if name == "wqkv" and rows == K8_ROWS[0]:
+                fault = max_err(w4a8_group_gemm(
+                    xq, a, w, scale.roll(1, dims=1).contiguous(),
+                    torch.bfloat16), ref)
+                check(fault > tol, f"K8 {name}: shifted group scales moved "
+                      f"the output by {fault} only, within {tol}")
+                line += f"; scales shifted by one group: {fault:.3e} " \
+                    "(must fail)"
+            t = {"ms": profile_device(lambda: w4a8_group_gemm(
+                xq, a, w, scale, torch.bfloat16), 10)[0],
+                 "plain_ms": time_ms(lambda: w4a8_group_plain(
+                     xq, a, w, scale, torch.bfloat16), 3, 1)}
+            # bytes: x and its scales, the packed weight and its scales, the
+            # bf16 output, once each; the int8 operations at the int8 peak
+            n_bytes = xq.numel() + 4 * rows + w.numel() + \
+                2 * scale.numel() + 2 * rows * f
+            add_bound(t, bound(n_bytes, 2 * rows * f * k, INT8_OPS_PER_S),
+                      f"K8 {name} T{rows}")
+            t["library_ms"] = None
+            t.update(int_mm_yardsticks(xq, w, scale, 10))
+            per_shape[name] = t
+            line += (f" device {t['ms']:.4f} ms vs plain (CUDA events) "
+                     f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms "
+                     f"({t['bound_by']}), {bound_share(t)}, "
+                     f"{2 * rows * f * k / t['ms'] / 1e9:.1f} TOPS; "
+                     f"yardsticks by CUDA events: torch._int_mm over the "
+                     f"groups with the "
+                     f"rescale {t['int_mm_loop_ms']:.4f} ms, one ungrouped "
+                     f"torch._int_mm {t['int_mm_ms']:.4f} ms")
+            print(line)
+            del xq, a, w, scale, out, ref
+        launches[rows] = w4a8_group_gemm.launches
+        layer = {key: None if any(t[key] is None for t in per_shape.values())
+                 else sum(t[key] for t in per_shape.values())
+                 for key in K8_TIME_KEYS}
+        avg[rows] = {key: None if v is None else v / len(K8_SHAPES_13B)
+                     for key, v in layer.items()}
+        avg[rows]["bound_by"] = max(
+            ("bytes", "operations"), key=lambda b: sum(
+                t["bound_ms"] for t in per_shape.values()
+                if t["bound_by"] == b))
+        avg[rows]["rows"] = rows
+        avg[rows]["per_projection_ms"] = {n: t["ms"]
+                                          for n, t in per_shape.items()}
+        print(f"K8 w4a8_group_gemm per layer at T{rows} (wqkv, wo, w_gateup, "
+              f"w_down): device {layer['ms']:.4f} ms vs plain "
+              f"{layer['plain_ms']:.4f} ms; bound {layer['bound_ms']:.4f} ms "
+              f"({100 * layer['bound_ms'] / layer['ms']:.1f}%); torch._int_mm "
+              f"looped {layer['int_mm_loop_ms']:.4f} ms, ungrouped "
+              f"{layer['int_mm_ms']:.4f} ms")
+    return err_max, avg, launches
+
+
+# The learned pooling on the card against the same function on the CPU,
+# both fp32 (TF32 off), at Valley-7B's and 13B's widths: summation order
+# only.  The CPU tests hold the port to JAX within 1e-5 of the largest
+# output at tiny widths; 1e-4 leaves room for sums over 4096-5120 inputs.
+POOL_TOL = 1e-4
+POOL_FRAMES, POOL_VALID = 8, 6
+
+
+def pooling_phase(gen) -> dict:
+    """Both learned pooling variants at Valley-7B and 13B widths (T 8,
+    P 256, H 4096 and 5120; random fp32 parameters and features from the
+    run's generator), with no mask and with the last two frames masked,
+    on the card against the CPU; each timed on the card.  Returns {label:
+    device ms per call}."""
+    from valley_tpu_torch import valley_7b, valley_13b
+    from valley_tpu_torch.models import temporal
+
+    out = {}
+    for model, make in (("7b", valley_7b), ("13b", valley_13b)):
+        for method in ("temporal_importance", "temporal_transformer"):
+            cfg = make(patch_pooling_method=method)
+            tp = temporal.init_params(cfg, gen, torch.float32, "cuda")
+            tp_cpu = temporal.TemporalWeights(
+                {n: p.data.cpu() for n, p in tp.named_parameters()})
+            x = torch.randn((POOL_FRAMES, cfg.num_patches,
+                             cfg.text.hidden_size), generator=gen,
+                            device="cuda")
+            mask = torch.arange(POOL_FRAMES, device="cuda") < POOL_VALID
+            for m in (None, mask):
+                with torch.no_grad():
+                    got = temporal.pool_patches(tp, cfg, x, m)
+                    ref = temporal.pool_patches(
+                        tp_cpu, cfg, x.cpu(), None if m is None else m.cpu())
+                err = max_err(got.cpu(), ref)
+                tol = POOL_TOL * ref.abs().max().item()
+                label = f"{method} {model} {'masked' if m is not None else 'all'}"
+                check(tuple(got.shape) == tuple(x.shape[1:])
+                      and bool(torch.isfinite(got).all()),
+                      f"pooling {label}: shape or not finite")
+                check(err <= tol, f"pooling {label}: card vs CPU {err} > "
+                      f"{tol}")
+                with torch.no_grad():
+                    ms = profile_device(
+                        lambda: temporal.pool_patches(tp, cfg, x, m), 5)[0]
+                out[label] = ms
+                print(f"pooling {label} (T {POOL_FRAMES}, P "
+                      f"{cfg.num_patches}, H {cfg.text.hidden_size}, fp32"
+                      f"{f', {POOL_VALID} valid' if m is not None else ''}): "
+                      f"card vs CPU max abs diff {err:.3e} (tol {tol:.3e}); "
+                      f"device {ms:.4f} ms per call")
+            del tp, tp_cpu, x
+    return out
+
+
+# The int8 towers against the bf16 tower on the same weights and frames,
+# relative L2 over the output: per-channel int8 weights (and, for W8A8,
+# per-token int8 activations) through 23 layers.  A product that read its
+# weight transposed or skipped its scale would err by about 1 or more.
+VISION_QUANT_REL = 0.25
+
+
+def vision_quant_phase(gen) -> dict:
+    """The CLIP ViT-L/14 tower over 8 frames (2056 rows) in bf16, int8 and
+    int8a8 (the same random weights, quantized on the card), each timed
+    (device ms by the profiler and wall) and the quantized outputs against
+    the bf16 tower's.  Returns {mode: device ms}."""
+    from valley_tpu_torch import valley_13b
+    from valley_tpu_torch.models import Weights, clip_vit
+    from valley_tpu_torch.ops.quant import quantize_vision_params
+
+    class Tower(Weights):
+        NAMES = ("vision",)
+
+    vcfg = valley_13b().vision
+    size = vcfg.image_size
+    frames = torch.randn((8, 3, size, size), generator=gen,
+                         device="cuda").bfloat16()
+    out, ref = {}, None
+    for mode in (None, "int8", "int8a8"):
+        tower = Tower({"vision": clip_vit.init_params(
+            vcfg, torch.Generator("cuda").manual_seed(1), torch.bfloat16,
+            "cuda")})
+        if mode:
+            quantize_vision_params(tower, act8=mode == "int8a8")
+        fn = lambda: clip_vit.encode(tower["vision"], vcfg, frames)  # noqa
+        with torch.no_grad():
+            y = fn()
+            ms = profile_device(fn, 3)[0]
+            wall = time_ms(fn, 3, 1)
+        check(tuple(y.shape) == (8, vcfg.num_positions, vcfg.hidden_size)
+              and bool(torch.isfinite(y).all()),
+              f"tower {mode}: shape or not finite")
+        label = mode or "bf16"
+        line = (f"vision tower {label} (ViT-L/14, 8 frames of "
+                f"{vcfg.num_positions} tokens, to the -2 tap): device "
+                f"{ms:.3f} ms, wall {wall:.3f} ms")
+        if ref is None:
+            ref = y.float()
+        else:
+            rel = rel_l2(y.float(), ref)
+            check(rel <= VISION_QUANT_REL, f"tower {label}: relative L2 "
+                  f"{rel} from the bf16 tower over {VISION_QUANT_REL}")
+            line += f"; relative L2 from the bf16 tower {rel:.4f}"
+        print(line)
+        out[label] = ms
+        del tower, y
+    return out
+
+
+# The 13B int4gpa8 slice's prefill logits through the kernels (K1, K8)
+# against the same prefill on their plain versions.  Not measured before
+# this process was written; set as the int8 slice's bar (W8A8 prefill,
+# whose kernels-vs-plain readings were 0.155 at the prefill: a one-ulp
+# difference moves a quantized activation one int8 step).
+W4A8_LOGIT_TOL = 0.3
+
+
+def variant_slice(cfg, params, smi: str) -> dict:
+    """bench's request through Valley-13B int4gpa8 (an int8a8 tower,
+    transformer pooling, an int8 KV cache) by CUDA graph: launches of K1,
+    K3-int8, K5 and K8 (counts set to 0 just before the request), its 64
+    greedy tokens, first-token wall and decode ms/token; the eager step's
+    first 16 tokens and launches against the graph's; the prefill's device
+    time by kernel; the prefill logits through the kernels against the
+    plain versions within `W4A8_LOGIT_TOL`.  Returns the launches and
+    walls."""
+    from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+    from valley_tpu_torch.ops.attention import PLAIN
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.matvec import bf16_matvec
+    from valley_tpu_torch.ops.quant import int4_matvec, int8_matvec
+    from valley_tpu_torch.ops.w4a8 import w4a8_group_gemm
+
+    tag = "variant slice"
+    layers, new = cfg.text.num_hidden_layers, NEW_TOKENS
+    steps = new - 1
+    kernels = {"K1": (flash_attention, layers),
+               "K3-int8": (decode_attention_stacked, layers * steps),
+               "K5": (int4_matvec, 4 * layers * steps + new),
+               "K8": (w4a8_group_gemm, 4 * layers),
+               "K4": (int8_matvec, 0), "K6": (bf16_matvec, 0)}
+    prompt, frames = bench_request(cfg, BUCKET)
+    gcfg = GenerationConfig(max_new_tokens=new, do_sample=False)
+    engine = Engine(cfg, params, buckets=(BUCKET,), max_new_tokens=new,
+                    steps_per_call=steps, cache_dtype=torch.int8)
+    eager_engine = Engine(cfg, params, buckets=(BUCKET,), max_new_tokens=new,
+                          steps_per_call=steps, cache_dtype=torch.int8,
+                          decode_ramp=(EAGER_NEW - 1,))
+
+    def run(eager=False, n=new):
+        t0 = time.perf_counter()
+        t_first, toks = None, []
+        eng = eager_engine if eager else engine
+        for t in eng.generate_tokens(
+                [prompt], frames, GenerationConfig(max_new_tokens=n),
+                eos_ids=[-1], eager=eager):
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+            toks.append(int(t[0]))
+        return t_first, time.perf_counter() - t0, toks
+
+    run()   # warm-up: the decode graph's capture
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    t_first, total, toks = run()
+    counts = {k: fn.launches for k, (fn, _) in kernels.items()}
+    check(len(toks) == new and all(0 <= t < cfg.text.vocab_size
+                                   for t in toks), f"{tag}: tokens")
+    for k, (_, want) in kernels.items():
+        check(counts[k] == want, f"{tag}: {k} launched {counts[k]} times, "
+              f"want {want}")
+    decode_ms = (total - t_first) / steps * 1e3
+    print(f"{tag}: Valley-13B int4gpa8 (fused, group-128 scales, W4A8 "
+          f"prefill), int8a8 tower, temporal_transformer pooling, int8 KV "
+          f"cache; prompt {len(prompt)} tokens in bucket {BUCKET}, 8 frames, "
+          f"{new} greedy tokens by one replay of a {steps}-step CUDA graph; "
+          f"launches " + " ".join(f"{k} {n}" for k, n in counts.items()))
+    print(f"{tag}: video->first-token {t_first * 1e3:.2f} ms, decode "
+          f"{decode_ms:.3f} ms/token on {smi}")
+    run(eager=True, n=EAGER_NEW)
+    for fn, _ in kernels.values():
+        fn.launches = 0
+    e_first, e_total, e_toks = run(eager=True, n=EAGER_NEW)
+    e_counts = {k: fn.launches for k, (fn, _) in kernels.items()}
+    check(e_toks == toks[:EAGER_NEW], f"{tag}: the graph's tokens differ "
+          f"from the eager step's")
+    e_want = eager_launches(counts, steps, EAGER_NEW - 1)
+    check(e_counts == e_want, f"{tag}: eager launches {e_counts}, want "
+          f"{e_want}")
+    print(f"{tag}: the eager step gives the graph's first {EAGER_NEW} tokens "
+          f"and its launches; decode {(e_total - e_first) / (EAGER_NEW - 1) * 1e3:.3f} "
+          f"ms/token eager")
+    prefill_ms, top, _ = profile_device(
+        lambda: engine.prefill([prompt], frames, gcfg))
+    k8_ms = sum(t for name, t in top if "w4a8_group_gemm" in name)
+    k1_ms = sum(t for name, t in top if "flash_fwd_kernel" in name)
+    check(k8_ms > 0, f"{tag}: the profiler saw no K8 in the prefill")
+    print(f"{tag} breakdown: prefill device {prefill_ms:.2f} ms: K8 "
+          f"{k8_ms:.2f} ms ({100 * k8_ms / prefill_ms:.1f}%), K1 {k1_ms:.2f} "
+          f"ms; top kernels: " + ", ".join(
+              f"{name[:48]} {ms:.2f} ms" for name, ms in top[:10]))
+    plain = Engine(cfg, params, buckets=(BUCKET,), max_new_tokens=new,
+                   steps_per_call=steps, cache_dtype=torch.int8,
+                   attention=PLAIN)
+    lk, lp = (e.prefill([prompt], frames, gcfg).logits[0]
+              for e in (engine, plain))
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (cfg.text.vocab_size,),
+          f"{tag}: prefill logits not finite or misshapen")
+    diff = max_err(lk, lp)
+    top2 = torch.topk(lp, 2).values
+    print(f"{tag}: prefill logits kernels vs plain max abs diff {diff:.4e} "
+          f"(tol {W4A8_LOGIT_TOL}; max |logit| {lp.abs().max().item():.3f}), "
+          f"greedy token {'agrees' if int(lk.argmax()) == int(lp.argmax()) else 'differs'} "
+          f"(plain top-2 margin {(top2[0] - top2[1]).item():.4f}, not "
+          f"checked)")
+    check(diff <= W4A8_LOGIT_TOL, f"{tag}: prefill logits beyond tolerance")
+    del engine, eager_engine, plain
+    return {"counts": counts, "first_token_ms": t_first * 1e3,
+            "decode_ms_per_token": decode_ms, "prefill_device_ms": prefill_ms,
+            "k8_prefill_ms": k8_ms}
+
+
+def serve_variants_path(smi: str, gen, work: Path) -> list:
+    """The weight formats and pooling of the fourteenth slice: K8 at the
+    13B projections against its plain version, the pooling variants at 7B
+    and 13B widths against the CPU, the int8 and int8a8 towers beside the
+    bf16 one, then Valley-13B served int4gpa8 with an int8a8 tower and
+    transformer pooling (`variant_slice`).  Returns its kernels
+    entries."""
+    from valley_tpu_torch import SpecialTokens, valley_13b
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS
+    from valley_tpu_torch.models.llama import fuse_llama_params
+    from valley_tpu_torch.ops.quant import (quantize_llama_params,
+                                            quantize_vision_params)
+
+    k8_err, k8_t, k8_n = k8_phase(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pooling_phase(gen)
+    vision_quant_phase(gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = valley_13b(tokens=SpecialTokens(**BENCH_TOKENS),
+                     patch_pooling_method="temporal_transformer")
+    params = random_weights(cfg, "valley_13b")
+    t0 = time.perf_counter()
+    params = quantize_llama_params(fuse_llama_params(params), act8=True,
+                                   bits=4, group_size=128)
+    params = quantize_vision_params(params, act8=True)
+    torch.cuda.synchronize()
+    print(f"variant slice: fused and quantized (int4gpa8, int8a8 tower) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sl = variant_slice(cfg, params, smi)
+    return [{**K8_SRC, "name": "w4a8_group_gemm", "path": "serve_variants",
+             "launches": sl["counts"]["K8"], "max_abs_err": k8_err,
+             **k8_t[K8_ROWS[0]],
+             "request_first_token_ms": sl["first_token_ms"],
+             "request_decode_ms_per_token": sl["decode_ms_per_token"],
+             "request_prefill_device_ms": sl["prefill_device_ms"],
+             "request_k8_prefill_ms": sl["k8_prefill_ms"]},
+            {**K8_SRC, "name": "w4a8_group_gemm_T128",
+             "path": "serve_variants, K8 phase only (the a8 gate's 128 rows)",
+             "launches": k8_n[K8_ROWS[1]], "max_abs_err": k8_err,
+             **k8_t[K8_ROWS[1]]}]
+
+
 def _timed(fn):
     """``fn``, printing its seconds when it returns (the script's time
     budget is kept phase by phase)."""
@@ -4732,7 +5166,8 @@ for _name in ("k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
               "batch_slice", "spec_pool_slice", "train_phase",
               "write_checkpoint", "load_checkpoint", "stage2_lora_phase",
               "stage2_entry_phase", "stage2_merge_phase",
-              "stage2_full_phase", "flash_stage2_phase"):
+              "stage2_full_phase", "flash_stage2_phase", "k8_phase",
+              "pooling_phase", "vision_quant_phase", "variant_slice"):
     globals()[_name] = _timed(globals()[_name])
 
 
@@ -4746,7 +5181,7 @@ PATHS = {"serve": serve_path, "serve_batch": serve_batch_path,
          "serve_int8": serve_int8_path, "serve_worker": serve_worker_path,
          "serve_int4": serve_int4_path,
          "lab_conv": lab_conv_path, "lab_tools": lab_tools_path,
-         "train": train_path}
+         "train": train_path, "serve_variants": serve_variants_path}
 # Where the int4 path leaves the conversation's cache for the lab's process,
 # in the run's scratch directory
 CONV_CACHE = "conv_cache.pt"
@@ -4826,6 +5261,16 @@ def main(argv=None) -> int:
                   f"call, {e['bound_ms'] / e['ms']:.3f} of the bound at 3.35 "
                   f"TB/s, {e['ceiling_bound_ms'] / e['ms']:.3f} of the bound "
                   f"at the measured {ceiling:.1f} GB/s")
+    # the 13B first token of int4gp (dequantized prefill products) and of
+    # int4gpa8 (W4A8 prefill through K8) in this run
+    walls = {e["path"]: e for e in kernels if "request_first_token_ms" in e}
+    if {"serve_int4", "serve_variants"} <= set(walls):
+        a, b = walls["serve_int4"], walls["serve_variants"]
+        print(f"Valley-13B first token: int4gp {a['request_first_token_ms']:.2f}"
+              f" ms (serve_int4), int4gpa8 with an int8a8 tower and transformer "
+              f"pooling {b['request_first_token_ms']:.2f} ms (serve_variants); "
+              f"decode {a['request_decode_ms_per_token']:.3f} and "
+              f"{b['request_decode_ms_per_token']:.3f} ms/token")
     # one entry per kernel and path: ``launches`` is that path's count
     # (serving: one request; batched serving: the 12 requests; training:
     # the three timed updates; the T3 variant and K7: their phases), the

@@ -735,8 +735,11 @@ def test_batch_infer_loaders_and_refusals(tmp_path, monkeypatch):
     # an adapter merges into a checkpoint's weights, not random ones
     with pytest.raises(ValueError, match="lora-path"):
         batch_infer.run_batch(_args(tmp_path, ["--lora-path", "x"]))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        batch_infer.run_batch(_args(tmp_path, ["--quantize-vision", "int8"]))
+    # --quantize-vision, once refused, answers through the int8 tower
+    summary = batch_infer.run_batch(_args(tmp_path, ["--quantize-vision",
+                                                     "int8"]))
+    assert summary["ran"] == 1 and summary["errors"] == 0
+    (tmp_path / "out.jsonl").unlink()
     # without --device cpu it wants the card, and there is none here
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = _args(tmp_path)

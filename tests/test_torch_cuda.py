@@ -18,7 +18,10 @@ held to the same bar, each with a planted fault (a scale vector shifted
 by one channel; the V scales replaced by ones) that must fail it, and so is
 the grouped-int4 GEMV (K5), whose fault is its group scales shifted by one
 group, and the bf16 GEMV (K6), whose fault is every row reading row 0's
-activations.  The read-bandwidth probe (K7), a sum over an array, is held
+activations.  The grouped W4A8 product (K8) must equal its plain version
+bit for bit (each group's sum exact in int32 on both sides, the fp32
+steps after it in the same order, each rounded); its fault is the group
+scales shifted by one group.  The read-bandwidth probe (K7), a sum over an array, is held
 to 1e-5 of its result on positive inputs; its fault drops the last block
 of rows.  The decode-attention lab's kernels (T4-T7, ``ops/decode_lab.py``)
 are held to the same bar against their plain versions, each with a planted
@@ -52,6 +55,7 @@ from valley_tpu_torch.ops.quant import (int4_matvec, int4_matvec_plain,
                                         int8_matvec, int8_matvec_plain,
                                         pack_int4, quantize_llama_params,
                                         quantize_tensor)
+from valley_tpu_torch.ops.w4a8 import w4a8_group_gemm, w4a8_group_plain
 from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
 REL_TOL = 2 ** -6
@@ -751,6 +755,136 @@ def test_bf16_matvec_rows_are_independent_at_fused_shapes(gen, k, f):
         out = bf16_matvec(x[:b].contiguous(), w)
         for r in range(b):
             assert torch.equal(out[r], alone[r])
+
+
+def _w4a8_inputs(gen, t, k, f):
+    """Per-token int8 activations with their scales, and a packed int4
+    weight with group-128 scales, as `llama._w4a8_group_dot` gives K8."""
+    xq = torch.randint(-127, 128, (t, k), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    a = torch.rand((t,), generator=gen, device="cuda") * 0.02 + 1e-3
+    w, scale = _int4_weight(gen, f, k, 128)
+    return xq, a, w, scale
+
+
+@pytest.mark.parametrize("t,k,f", [
+    (128, 5120, 15360), (512, 5120, 5120), (128, 13824, 5120),
+    (512, 5120, 27648), (200, 256, 130), (130, 1024, 8), (1000, 384, 200)])
+def test_w4a8_group_gemm_kernel_matches_plain(gen, t, k, f):
+    """Valley-13B's fused projections at the gate (128 rows) and bench's
+    bucket (512), ragged rows and outputs (T and F not multiples of the
+    64 by 128 tile): one launch, fp32 and bf16 out bit-equal to the plain
+    version, the shifted group scales caught."""
+    xq, a, w, scale = _w4a8_inputs(gen, t, k, f)
+    before = w4a8_group_gemm.launches
+    out = w4a8_group_gemm(xq, a, w, scale, torch.float32)
+    out16 = w4a8_group_gemm(xq, a, w, scale, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert w4a8_group_gemm.launches == before + 2
+    assert out.shape == (t, f) and out.dtype == torch.float32
+    ref = w4a8_group_plain(xq, a, w, scale, torch.float32)
+    assert torch.equal(out, ref)
+    assert torch.equal(out16, ref.bfloat16())
+    _, tol = _err_and_tol(out, ref)
+    if k > 128:
+        fault, _ = _err_and_tol(w4a8_group_gemm(
+            xq, a, w, scale.roll(1, dims=-1).contiguous()), ref)
+        assert fault > tol
+
+
+def test_w4a8_group_gemm_kernel_refuses_what_it_cannot_take(gen):
+    xq, a, w, scale = _w4a8_inputs(gen, 128, 256, 64)
+    with pytest.raises(ValueError, match="at least 128 rows"):
+        w4a8_group_gemm(xq[:127].contiguous(), a[:127].contiguous(), w,
+                        scale)
+    with pytest.raises(TypeError):
+        w4a8_group_gemm(xq, a.bfloat16(), w, scale)
+    with pytest.raises(TypeError):
+        w4a8_group_gemm(xq, a, w, scale, torch.float16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        w4a8_group_gemm(xq[:, :192].contiguous(), a, w[:, :96].contiguous(),
+                        scale)
+    # groups of 64: the plain version takes them, K8 does not
+    _, s64 = quantize_tensor(torch.randn((64, 256), generator=gen,
+                                         device="cuda").bfloat16(), bits=4,
+                             group_size=64)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        w4a8_group_gemm(xq, a, w, s64)
+
+
+def test_tiny_w4a8_serving_on_the_card(gen):
+    """int4gpa8 weights (hidden 128, so the projections group), an int8a8
+    tower, transformer pooling and an int8 cache on the card: per request
+    (after a first one that captured the graphs) K8 runs four times a
+    layer (the 128-bucket prefill), K5 as int4gp's decode does, K4 never;
+    the prefill logits agree with the plain versions'."""
+    import dataclasses
+
+    from valley_tpu_torch.ops.quant import quantize_vision_params
+
+    cfg = valley_tiny(patch_pooling_method="temporal_transformer")
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text, hidden_size=128,
+                                               intermediate_size=256))
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    params = quantize_llama_params(llama.fuse_llama_params(params), bits=4,
+                                   group_size=128, act8=True)
+    params = quantize_vision_params(params, act8=True)
+    new = 6
+    engines = [Engine(cfg, params, buckets=(128,), max_new_tokens=new,
+                      cache_dtype=torch.int8, steps_per_call=2,
+                      attention=a) for a in (KERNELS, PLAIN)]
+    rng = np.random.default_rng(0)
+    tk = cfg.tokens
+    prompt = [1, tk.im_start] + [tk.im_patch] * cfg.num_patches + [
+        tk.im_end, tk.vi_start] + [tk.vi_frame] * 4 + [tk.vi_end] + \
+        rng.integers(5, 400, 90).tolist()
+    size = cfg.vision.image_size
+    frames = rng.integers(0, 256, (1, 4, 3, size, size)).astype(np.uint8)
+    gcfg = GenerationConfig(max_new_tokens=new)
+    first = [int(t[0]) for t in engines[0].generate_tokens(
+        [prompt], frames, gcfg, eos_ids=[-1])]
+    counts = (w4a8_group_gemm.launches, int4_matvec.launches,
+              int8_matvec.launches)
+    steps0 = engines[0].steps_run
+    toks = [int(t[0]) for t in engines[0].generate_tokens(
+        [prompt], frames, gcfg, eos_ids=[-1])]
+    steps = engines[0].steps_run - steps0
+    layers = cfg.text.num_hidden_layers
+    assert len(toks) == new and toks == first and steps == 6
+    assert w4a8_group_gemm.launches - counts[0] == 4 * layers
+    assert int4_matvec.launches - counts[1] == (4 * layers + 1) * steps + 1
+    assert int8_matvec.launches == counts[2]
+    lk, lp = (e.prefill([prompt], frames, gcfg).logits for e in engines)
+    assert (lk - lp).abs().max().item() <= 0.05
+
+
+@pytest.mark.parametrize("rows", [5, 40])
+def test_w8a8_tower_dot_on_the_card_matches_the_cpu(gen, rows):
+    """The tower's W8A8 product of 5 rows (one tiny frame, padded to 17
+    rows for torch._int_mm on the card) and of 40, fp32 activations,
+    against the same product on the CPU within 1e-6 of the largest (both
+    quantize by the same fp32 operations and sum exactly in int32)."""
+    from valley_tpu_torch.models import clip_vit
+    from valley_tpu_torch.ops.quant import quantize_vision_params
+
+    cfg = valley_tiny()
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                                torch.float32, "cuda")
+    lay = quantize_vision_params(params, act8=True)["vision"]["layers"]
+    cpu = clip_vit.ClipLayers({n: p.data.cpu()
+                               for n, p in lay.named_parameters()})
+    x = torch.randn((1, rows, cfg.vision.hidden_size), generator=gen,
+                    device="cuda")
+    for name in ("wq", "fc1", "fc2"):
+        xi = x if name != "fc2" else torch.randn(
+            (1, rows, cfg.vision.intermediate_size), generator=gen,
+            device="cuda")
+        got = clip_vit._dot(lay, 0, name, xi).cpu()
+        want = clip_vit._dot(cpu, 0, name, xi.cpu())
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= \
+            1e-6 * want.abs().max().item()
 
 
 @pytest.mark.parametrize("b,k,f,kf", [

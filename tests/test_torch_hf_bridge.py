@@ -238,11 +238,21 @@ def test_missing_transformers_names_the_package(ckpt, tiny_vision,
 
 
 def test_refusals(ckpt, tiny_vision):
+    """The grouped W4A8 modes, once refused, quantize on load bit-equal to
+    the JAX loader (group 32, fused; int4ga8's int8-stored tree packed by
+    the conversion), and importance pooling asked of a checkpoint that
+    holds no pooling layer raises KeyError in both loaders (checkpoints of
+    the learned pooling: tests/test_torch_temporal.py)."""
     path, _, _ = ckpt
     for mode in ("int4ga8", "int4gpa8"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            _port_load(path, quantize=mode)
-    with pytest.raises(NotImplementedError, match="not ported"):
+        _, jp, _ = _jax_load(path, mode, True, 32)
+        _, got, _ = _port_load(path, quantize=mode, quantize_group_size=32,
+                               fused=True)
+        _assert_same(got, from_jax_params(jp, dtype=torch.bfloat16))
+        assert "wqkv_scale_a8" in got["llama"]["layers"]
+    with pytest.raises(KeyError, match="pooling_layer"):
+        jbridge.load_valley_checkpoint(path, pooling="temporal_importance")
+    with pytest.raises(KeyError, match="pooling_layer"):
         _port_load(path, pooling="temporal_importance")
 
 

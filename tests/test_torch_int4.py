@@ -156,7 +156,7 @@ def test_int4_matvec_plain_matches_pallas_grouped(n, k):
                                    atol=1e-5 * np.abs(want).max())
     assert quant.int4_matvec.launches == 0
     # the dequantized matrix gives the same product
-    deq = quant.int4_dequantize(tw, ts, torch.float32)
+    deq = quant.dequantize(tw, ts, torch.float32)
     np.testing.assert_allclose((tx.float() @ deq.t()).numpy(), want,
                                rtol=0, atol=1e-5 * np.abs(want).max())
 
@@ -271,8 +271,9 @@ def test_int4_trees_convert_and_round_trip(cfg):
     and an int4gp tree taken as it is: the same port tree, and `to_numpy`
     gives the int4gp tree back bit for bit.  A per-channel int4 tree (mode
     int4: int8 storage, values in [-7, 7]) packs too, while an int8 tree
-    stays int8; a grouped tree's values outside [-7, 7] and W4A8 trees are
-    refused."""
+    stays int8; a grouped tree's values outside [-7, 7] are refused, and a
+    W4A8 tree (int4gpa8: packed, ``_scale_a8`` scales) converts to the
+    int4gp tree's bytes under its a8 scales."""
     gp = _jax_tree(cfg, 5, jnp.float32, group_size=32)
     g = _jax_tree(cfg, 5, jnp.float32, group_size=32, packed=False)
     a, b = (from_jax_params(t, "cpu", torch.bfloat16) for t in (gp, g))
@@ -315,8 +316,11 @@ def test_int4_trees_convert_and_round_trip(cfg):
         jllama.fuse_llama_params(jvalley.init_params(
             cfg, jax.random.key(5), jnp.float32)), bits=4, group_size=32,
         act8=True)))
-    with pytest.raises(NotImplementedError, match="W4A8"):
-        from_jax_params(a8, "cpu")
+    a8w = from_jax_params(a8, "cpu", torch.bfloat16)
+    for n, t in a.state_dict().items():
+        a8n = n.replace("_scale", "_scale_a8") if n.startswith(
+            "llama.layers.") else n
+        assert torch.equal(a8w.state_dict()[a8n], t), n
 
 
 @pytest.fixture(scope="module")

@@ -78,15 +78,15 @@ def test_weights_from_bf16_tree(cfg):
 
 
 @pytest.mark.parametrize("mutate,match", [
-    ("fused", "fused"), ("int8", "quantized"), ("w4a8", "W4A8"),
-    ("lora", "LoRA")])
+    ("fused", "fused"), ("int8", None), ("w4a8", None), ("lora", "LoRA")])
 def test_weights_refuse_unported_trees(jparams, mutate, match):
     """The fused layout, int8 and int4 trees convert (tests/
     test_torch_quant.py, tests/test_torch_int4.py), and LoRA factors on
-    the unfused float layout (tests/test_torch_lora.py); a half-fused tree
-    (wqkv beside unfused MLP projections), an int8 vision tower, grouped
-    W4A8 (a packed weight with a ``_scale_a8`` scale) and LoRA factors
-    beside fused projections do not."""
+    the unfused float layout (tests/test_torch_lora.py); so do an int8
+    vision tower (its leaves int8, their (L, 1, out) scales bf16) and
+    grouped W4A8 (a packed weight with a ``_scale_a8`` scale, taken as it
+    is); a half-fused tree (wqkv beside unfused MLP projections) and LoRA
+    factors beside fused projections do not."""
     tree = jax.device_get(jparams)
     tree = {**tree, "llama": {**tree["llama"],
                               "layers": dict(tree["llama"]["layers"])}}
@@ -113,6 +113,19 @@ def test_weights_refuse_unported_trees(jparams, mutate, match):
         lay["wo_lora_a"] = np.zeros((2, 64, 4), np.float32)
         lay["wo_lora_b"] = np.zeros((2, 4, 64), np.float32)
         lay["lora_scale"] = np.full((2, 1, 1), 2.0, np.float32)
+    if match is None:
+        tp = from_jax_params(tree)
+        part = tp["vision"] if mutate == "int8" else tp["llama"]
+        lt = part["layers"]
+        scale = "wq_scale" if mutate == "int8" else "wq_scale_a8"
+        assert lt["wq"].dtype == (torch.int8 if mutate == "int8"
+                                  else torch.uint8)
+        assert lt[scale].dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            lt["wq"].numpy(),
+            (tree["vision"] if mutate == "int8" else tree["llama"])[
+                "layers"]["wq"])
+        return
     with pytest.raises(NotImplementedError, match=match):
         from_jax_params(tree)
 
@@ -266,7 +279,7 @@ def test_pool_patches_matches_jax(cfg, method, masked):
     m = np.array([True, True, True, False, False]) if masked else None
     want = jtemporal.pool_patches({}, c, jnp.asarray(x),
                                   None if m is None else jnp.asarray(m))
-    got = temporal.pool_patches(c, torch.from_numpy(x),
+    got = temporal.pool_patches({}, c, torch.from_numpy(x),
                                 None if m is None else torch.from_numpy(m))
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-6)
 
@@ -275,18 +288,32 @@ def test_mean_pool_of_bf16_accumulates_in_fp32(cfg):
     x = np.random.default_rng(5).standard_normal((8, 6, 8)).astype(
         np.float32)
     want = jtemporal.pool_patches({}, cfg, jnp.asarray(x, jnp.bfloat16))
-    got = temporal.pool_patches(cfg, torch.from_numpy(x).bfloat16())
+    got = temporal.pool_patches({}, cfg, torch.from_numpy(x).bfloat16())
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
                                rtol=2 ** -8, atol=0)
 
 
 def test_unported_pooling_refused(cfg):
-    c = cfg.replace(patch_pooling_method="temporal_transformer")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        temporal.pool_patches(c, torch.zeros((2, 3, 4)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        valley.init_params(c, torch.Generator())
+    """The learned pooling variants, once refused, draw their parameters
+    with JAX's names and shapes and pool (their values against JAX:
+    tests/test_torch_temporal.py); an unknown method raises."""
+    for method in ("temporal_importance", "temporal_transformer"):
+        c = cfg.replace(patch_pooling_method=method)
+        tp = valley.init_params(c, torch.Generator().manual_seed(0),
+                                torch.float32)
+        jshapes = jax.eval_shape(
+            lambda k: jvalley.init_params(c, k, jnp.float32),
+            jax.random.key(0))["temporal"]
+        assert {n: tuple(p.shape) for n, p in
+                tp["temporal"].named_parameters()} == {
+            n: a.shape for n, a in jshapes.items()}
+        x = torch.randn((3, c.num_patches, c.text.hidden_size))
+        out = temporal.pool_patches(tp["temporal"], c, x)
+        assert out.shape == x.shape[1:] and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="unknown pooling"):
+        temporal.pool_patches({}, cfg.replace(patch_pooling_method="sum"),
+                              torch.zeros((2, 3, 4)))
 
 
 def test_splice_embeddings_multiple_spans(cfg):

@@ -101,21 +101,21 @@ def test_quantizer_matches_jax_bit_for_bit(cfg, mode, fused, dtype):
 
 
 def test_unserved_modes_raise():
-    """The grouped W4A8 modes and the vision quantizer are not ported; the
-    int4 weight-only modes parse to the JAX knobs."""
-    for mode in ("int4ga8", "int4gpa8"):
-        with pytest.raises(NotImplementedError, match=mode):
-            quant.parse_quant_mode(mode)
-    for mode in ("int4", "int4g", "int4gp"):
+    """Every mode is served now: the grouped W4A8 modes parse to the JAX
+    knobs as the others do, and so does every other mode; an unknown mode
+    raises JAX's ValueError, and act8 with per-channel int4 or grouped
+    int8 JAX's refusals (the W4A8 quantizer, grouped int8 and the vision
+    quantizer against JAX: tests/test_torch_w4a8.py,
+    tests/test_torch_vision_quant.py)."""
+    for mode in quant.QUANT_MODES:
         assert quant.parse_quant_mode(mode) == jquant.parse_quant_mode(mode)
-    with pytest.raises(NotImplementedError, match="W4A8"):
-        quant.quantize_llama_params(None, act8=True, bits=4, group_size=128)
-    with pytest.raises(NotImplementedError, match="grouped int8"):
-        quant.quantize_llama_params(None, bits=8, group_size=128)
+    assert set(quant.SERVED_MODES) == set(jquant.QUANT_MODES)
+    with pytest.raises(ValueError, match="group_size"):
+        quant.quantize_llama_params(None, act8=True, bits=4, group_size=0)
+    with pytest.raises(ValueError, match="per-channel"):
+        quant.quantize_llama_params(None, act8=True, bits=8, group_size=128)
     with pytest.raises(ValueError, match="unknown"):
         quant.parse_quant_mode("fp8")
-    with pytest.raises(NotImplementedError, match="vision"):
-        quant.quantize_vision_params(None)
     assert quant.QUANT_MODES == jquant.QUANT_MODES
 
 

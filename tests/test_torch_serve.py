@@ -415,16 +415,22 @@ def _args(**kw):
 
 
 def test_refusals_name_their_roadmap_items():
-    for kw, item in ((dict(tensor_parallel=2), "item 8"),
-                     (dict(quantize_vision="int8"), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            worker_mod.load_engine(_args(**kw))
+    """--tensor-parallel above 1 names its ROADMAP item; --quantize-vision
+    and the grouped W4A8 modes, once refused, build their engines (their
+    trees against JAX: tests/test_torch_vision_quant.py,
+    tests/test_torch_w4a8.py)."""
+    with pytest.raises(NotImplementedError, match="item 8"):
+        worker_mod.load_engine(_args(tensor_parallel=2))
+    eng, _ = worker_mod.load_engine(_args(quantize_vision="int8a8"))
+    lay = eng.params["vision"]["layers"]
+    assert lay["fc1"].dtype == torch.int8 and "fc1_scale_a8" in lay
     # --lora-path merges into a checkpoint's weights (tests/
     # test_torch_train_cli.py), not random ones
     with pytest.raises(ValueError, match="lora-path"):
         worker_mod.load_engine(_args(lora_path="x"))
-    with pytest.raises(NotImplementedError, match="int4ga8"):
-        worker_mod.load_engine(_args(quantize="int4ga8"))
+    eng, _ = worker_mod.load_engine(_args(quantize="int4ga8", fused=True))
+    lay = eng.params["llama"]["layers"]
+    assert lay["wqkv"].dtype == torch.uint8 and "wqkv_scale_a8" in lay
     args = worker_mod.build_parser().parse_args([])
     assert args.speculative is None and args.buckets == "256,512,1024,2048"
     assert args.steps_per_call == 32 and args.decode_ramp == "2,6"

@@ -48,9 +48,9 @@ video's frames to the smallest bucket that holds them (``off`` or empty:
 exact counts; ``--num-frames`` is added as a bucket where it exceeds
 them), as the JAX worker's ``load_engine`` does, and the pool is warmed at
 those buckets.  ``--lora-path`` merges a LoRA adapter into a checkpoint
-directory's weights before fusing and quantizing (`run_valley.load_model`).
-Not ported, and refused: ``--quantize-vision`` and ``--tensor-parallel``
-above 1.
+directory's weights before fusing and quantizing (`run_valley.load_model`);
+``--quantize-vision int8|int8a8`` quantizes the CLIP tower.  Not ported,
+and refused: ``--tensor-parallel`` above 1.
 """
 
 from __future__ import annotations
@@ -144,9 +144,6 @@ def _prepare(req: dict, cfg, num_frames: int, frame_mode: str,
 
 
 def _refuse_unported(args) -> None:
-    if args.quantize_vision:
-        raise NotImplementedError("--quantize-vision is not ported yet "
-                                  "(ROADMAP §1 item 6: vision quantization)")
     if args.tensor_parallel != 1:
         raise NotImplementedError("--tensor-parallel above 1 is not ported "
                                   "yet: the port serves from one card")
@@ -194,7 +191,8 @@ def run_batch(args) -> dict:
         steps_per_call=args.steps_per_call,
         decode_ramp=tuple(int(s) for s in args.decode_ramp.split(",") if s),
         frame_buckets=frame_buckets(args), raw_media=bool(args.raw_pixels),
-        vision_tower=args.vision_tower, lora_path=args.lora_path)
+        vision_tower=args.vision_tower, lora_path=args.lora_path,
+        quantize_vision=args.quantize_vision)
     cfg = engine.cfg
     pool = ContinuousEngine(engine, rows=args.rows,
                             admit_batch=args.admit_batch,
@@ -309,8 +307,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vision-tower", default=None)
     parser.add_argument("--lora-path", default=None)
     parser.add_argument("--quantize", default=None,
-                        help="int8|int8a8|int4|int4g|int4gp")
-    parser.add_argument("--quantize-vision", default=None)
+                        help="int8|int8a8|int4|int4g|int4gp|int4ga8|"
+                             "int4gpa8")
+    parser.add_argument("--quantize-vision", default=None,
+                        help="int8|int8a8: the int8 CLIP tower")
     parser.add_argument("--fused", action="store_true", default=True)
     parser.add_argument("--no-fused", dest="fused", action="store_false")
     parser.add_argument("--kv-cache", default="int8",

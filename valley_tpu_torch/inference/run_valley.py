@@ -2,7 +2,8 @@
 
 python -m valley_tpu_torch.inference.run_valley --model-name <dir> \
     --video-file v.mp4 --query "Describe the video." \
-    [--quantize int8a8|int4gp --fused --kv-cache int8] [--speculative] \
+    [--quantize int8a8|int4gp|int4gpa8 --fused --kv-cache int8] \
+    [--speculative] \
     [--device cpu]
 
 ``--model-name`` is a Hugging Face Valley checkpoint directory (read by
@@ -32,7 +33,8 @@ from valley_tpu_torch.inference.engine import Engine, GenerationConfig
 from valley_tpu_torch.inference.generate import completion
 from valley_tpu_torch.models import llama, valley
 from valley_tpu_torch.ops.quant import (SERVED_MODES, parse_quant_mode,
-                                        quantize_llama_params)
+                                        quantize_llama_params,
+                                        quantize_vision_params)
 
 DEFAULT_SYSTEM_PROMPT = (
     "You are Valley, a large language and vision assistant trained by "
@@ -48,16 +50,20 @@ def load_model(model_name: str, device: Optional[str] = None,
                kv_cache: str = "bf16", steps_per_call: int = 4,
                decode_ramp=(), frame_buckets=None, raw_media: bool = False,
                vision_tower: Optional[str] = None, tokenizer=None,
-               lora_path: Optional[str] = None):
+               lora_path: Optional[str] = None,
+               quantize_vision: Optional[str] = None):
     """Build (engine, tokenizer) on ``device`` (default the card; without
     one this raises unless the caller asks for ``"cpu"``).  ``model_name``
     is a checkpoint directory (`hf_bridge.load_valley_checkpoint`: its
     tower, else ``vision_tower``'s; its tokenizer, unless ``tokenizer`` is
     given) or a ``random:`` configuration (module docstring).
     ``fused`` takes the fused serving layout, ``quantize`` (a mode of
-    ``quant.SERVED_MODES``: ``int8``, ``int8a8``, ``int4``, ``int4g``,
-    ``int4gp``) the quantized weights (a checkpoint quantizes on load),
-    ``kv_cache="int8"`` the int8 KV cache; ``steps_per_call`` and
+    ``quant.QUANT_MODES``: ``int8``, ``int8a8``, ``int4``, ``int4g``,
+    ``int4gp``, ``int4ga8``, ``int4gpa8``) the quantized weights (a
+    checkpoint quantizes on load), ``quantize_vision`` (``int8`` or
+    ``int8a8``) the int8 CLIP tower (`quant.quantize_vision_params`, after
+    the decoder, as the JAX worker orders them), ``kv_cache="int8"`` the
+    int8 KV cache; ``steps_per_call`` and
     ``decode_ramp`` set the engine's decode chunks, ``frame_buckets`` and
     ``raw_media`` its media (`Engine`).  ``lora_path`` (with a checkpoint
     directory) is an adapter saved by the port's trainer: the checkpoint
@@ -76,6 +82,9 @@ def load_model(model_name: str, device: Optional[str] = None,
     if kv_cache not in ("bf16", "int8"):
         raise ValueError(f"kv_cache must be bf16 or int8, got {kv_cache!r}")
     knobs = parse_quant_mode(quantize) if quantize else None
+    if quantize_vision not in (None, "int8", "int8a8"):
+        raise ValueError(f"quantize_vision must be int8 or int8a8, got "
+                         f"{quantize_vision!r}")
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" \
         else torch.float32
     if model_name.startswith("random:"):
@@ -133,6 +142,9 @@ def load_model(model_name: str, device: Optional[str] = None,
             model_name, vision_tower=vision_tower, dtype=dtype,
             quantize=quantize, fused=fused, tokenizer=tokenizer,
             device=device)
+    if quantize_vision:
+        params = quantize_vision_params(params,
+                                        act8=quantize_vision == "int8a8")
     engine = Engine(cfg, params, buckets=buckets,
                     max_new_tokens=max_new_tokens,
                     cache_dtype=torch.int8 if kv_cache == "int8"
@@ -165,7 +177,8 @@ def main(argv=None):
                         help="quantized decoder weights: per-channel "
                              "int8 (int8a8 also runs W8A8 prefill), or "
                              "nibble-packed int4 per channel (int4) or with "
-                             "group-128 scales (int4g, int4gp)")
+                             "group-128 scales (int4g, int4gp; int4ga8 and "
+                             "int4gpa8 also run grouped W4A8 prefill)")
     parser.add_argument("--kv-cache", type=str, default="bf16",
                         choices=["bf16", "int8"],
                         help="KV-cache dtype")

@@ -5,7 +5,10 @@ quickGELU in fp32, and the early exit at the tapped layer (the -2 tap runs
 23 of 24 layers; the last layer and the post-LayerNorm never run).
 
 Attention is the plain `mha_attention`, as in the JAX tower
-(``use_flash=False``).  int8 tower weights are not ported yet.
+(``use_flash=False``).  The encoder's GEMMs may be int8
+(``ops/quant.quantize_vision_params``, worker ``--quantize-vision``): each
+(in, out) int8 weight with its (1, out) scale a layer, weight-only
+(``_scale``) or W8A8 (``_scale_a8``), in `_dot`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch.nn.functional as F
 from valley_tpu_torch.config import VisionConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import mha_attention
+from valley_tpu_torch.ops.quant import dequant_matmul
 
 # CLIP preprocessing statistics (the JAX tower's CLIP_MEAN / CLIP_STD).
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -25,9 +29,23 @@ CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 class ClipLayers(Weights):
+    """The stacked encoder layers; each int8 GEMM weight (L, in, out) is
+    followed by its (L, 1, out) bf16 ``<name>_scale`` or, for W8A8,
+    ``<name>_scale_a8``."""
     NAMES = ("ln1_scale", "ln1_bias", "wq", "bq", "wk", "bk", "wv", "bv",
              "wo", "bo", "ln2_scale", "ln2_bias", "fc1", "fc1_bias", "fc2",
              "fc2_bias")
+
+    @classmethod
+    def expected_names(cls, tensors) -> tuple:
+        out = []
+        for n in cls.NAMES:
+            out.append(n)
+            t = tensors.get(n)
+            if t is not None and t.dtype == torch.int8:
+                out.append(n + ("_scale_a8" if n + "_scale_a8" in tensors
+                                else "_scale"))
+        return tuple(out)
 
 
 class ClipWeights(Weights):
@@ -102,6 +120,44 @@ def _patchify(pixel_values: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
     return x.reshape(b, gh * gw, c * p * p)
 
 
+# torch._int_mm on the card takes more than this many rows
+_INT_MM_MIN_ROWS = 17
+
+
+def _dot(lp: ClipLayers, li: int, name: str, x: torch.Tensor
+         ) -> torch.Tensor:
+    """``x @ w`` for layer ``li``'s (in, out) weight ``name``
+    (clip_vit.py:102-134), in x's dtype.
+
+    An int8 weight with ``<name>_scale`` dequantizes into an fp32 product
+    (`quant.dequant_matmul`, as `llama._linear` takes an int8 weight); with
+    ``<name>_scale_a8`` (W8A8) each token quantizes to int8 by its absmax /
+    127 (clamped at 1e-6), the int8 product accumulates exactly in int32
+    and rescales by the token's and the output channel's scales in fp32.
+    The tower runs only prefill-shaped products (1 + P tokens a frame), so
+    W8A8 has no sequence gate.  The JAX package leaves this product to XLA
+    and it has no groups, so the port leaves it to the library's int8
+    product, ``torch._int_mm``, as `llama._w8a8_dot` does: its second
+    operand column-major, and on the card more than 16 rows (a smaller
+    block is padded with zero rows)."""
+    w = lp[name][li]
+    if w.dtype != torch.int8:
+        return x @ w
+    a8 = lp.get(name + "_scale_a8")
+    if a8 is None:
+        return dequant_matmul(x, w, lp[name + "_scale"][li])
+    k, o = w.shape
+    xf = x.reshape(-1, k).to(torch.float32)
+    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    xq = torch.round(xf / ascale).to(torch.int8)
+    rows = xq.shape[0]
+    if xq.is_cuda and rows < _INT_MM_MIN_ROWS:
+        xq = torch.cat([xq, xq.new_zeros((_INT_MM_MIN_ROWS - rows, k))])
+    y = torch._int_mm(xq, w.t().contiguous().t())[:rows]
+    out = y.to(torch.float32) * ascale * a8[li].to(torch.float32)
+    return out.reshape(x.shape[:-1] + (o,)).to(x.dtype)
+
+
 def _encoder_layer(lp: ClipLayers, li: int, x: torch.Tensor,
                    cfg: VisionConfig) -> torch.Tensor:
     b, s, h = x.shape
@@ -110,17 +166,19 @@ def _encoder_layer(lp: ClipLayers, li: int, x: torch.Tensor,
     residual = x
     x = layer_norm(x, lp["ln1_scale"][li], lp["ln1_bias"][li],
                    cfg.layer_norm_eps)
-    q = (x @ lp["wq"][li] + lp["bq"][li]).reshape(b, s, nh, d)
-    k = (x @ lp["wk"][li] + lp["bk"][li]).reshape(b, s, nh, d)
-    v = (x @ lp["wv"][li] + lp["bv"][li]).reshape(b, s, nh, d)
+    q = (_dot(lp, li, "wq", x) + lp["bq"][li]).reshape(b, s, nh, d)
+    k = (_dot(lp, li, "wk", x) + lp["bk"][li]).reshape(b, s, nh, d)
+    v = (_dot(lp, li, "wv", x) + lp["bv"][li]).reshape(b, s, nh, d)
     attn = mha_attention(q, k, v, causal=False)
-    x = residual + (attn.reshape(b, s, h) @ lp["wo"][li] + lp["bo"][li])
+    x = residual + (_dot(lp, li, "wo", attn.reshape(b, s, h))
+                    + lp["bo"][li])
 
     residual = x
     x = layer_norm(x, lp["ln2_scale"][li], lp["ln2_bias"][li],
                    cfg.layer_norm_eps)
-    x = _activation(x @ lp["fc1"][li] + lp["fc1_bias"][li], cfg.hidden_act)
-    return residual + (x @ lp["fc2"][li] + lp["fc2_bias"][li])
+    x = _activation(_dot(lp, li, "fc1", x) + lp["fc1_bias"][li],
+                    cfg.hidden_act)
+    return residual + (_dot(lp, li, "fc2", x) + lp["fc2_bias"][li])
 
 
 def encode(params: ClipWeights, cfg: VisionConfig,

@@ -18,11 +18,12 @@ joined at different times write at their own slots); the fused serving
 layout (``wqkv``, ``w_gateup``), the decode GEMVs of up to ``MAX_ROWS``
 rows (bf16 projections and ``lm_head`` through K6, per-channel int8
 through K4, nibble-packed int4 with group or channel scales through K5),
-W8A8 prefill for ``*_scale_a8`` trees, the int8 KV cache, and the
+W8A8 prefill for int8 ``*_scale_a8`` trees, grouped W4A8 prefill for int4
+ones (K8), grouped int8 scales, the int8 KV cache, and the
 ``cross_valid`` extend branch (a chunk appended to a session's cache
 attends every valid slot and itself causally: multi-turn KV reuse).  Not
 ported yet, and refused with NotImplementedError: the ``"dots"`` remat
-policy, grouped W4A8 and a half-fused layout.  Adapters ride on the
+policy and a half-fused layout.  Adapters ride on the
 unfused, unquantized layout only, as in JAX (merge them first to fuse or
 quantize: ``train/lora.py``).  The JAX package's
 split of batched decode into a carried and a sliced cache
@@ -43,8 +44,8 @@ from valley_tpu_torch.config import TextConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import KERNELS, Attention, \
     mha_attention, prefill_attention
-from valley_tpu_torch.ops.quant import (MAX_ROWS, int4_dequantize,
-                                        int8_matvec_plain)
+from valley_tpu_torch.ops.quant import (MAX_ROWS, dequantize,
+                                        int8_matvec_plain, unpack_int4)
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
 Slots = Union[int, torch.Tensor]   # one cache slot, or one per row (B,)
@@ -228,11 +229,19 @@ def embed(params: LlamaWeights, input_ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][input_ids]
 
 
-# W8A8 (``*_scale_a8`` trees) applies only to chunks whose sequence axis is
-# at least this long (llama.py:169-179): prefill buckets are >= 128, decode
-# steps take the dequant GEMV, so decode matches plain int8 given the same
-# cache.
+# W8A8 and W4A8 (``*_scale_a8`` trees) apply only to chunks whose sequence
+# axis is at least this long (llama.py:169-179): prefill buckets are >= 128,
+# decode steps take the dequant GEMV, so decode matches plain int8 (int4g)
+# given the same cache.
 _A8_MIN_SEQ = 128
+
+
+def _quantize_tokens(x: torch.Tensor) -> tuple:
+    """x (..., K) -> (int8 (T, K), fp32 (T, 1) scales): each token by its
+    absmax / 127, clamped at 1e-6 (llama.py:196-199)."""
+    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    return torch.round(xf / ascale).to(torch.int8), ascale
 
 
 def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
@@ -245,15 +254,31 @@ def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
     cast to x's dtype.  ``w`` is (out, in).  The JAX package leaves this
     product to XLA, outside any Pallas kernel, so the port leaves it to
     the library's int8 matrix product (``torch._int_mm``), as it leaves
-    plain large matmuls to torch."""
-    k = x.shape[-1]
-    o = w.shape[-2]
-    xf = x.reshape(-1, k).to(torch.float32)
-    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
-    xq = torch.round(xf / ascale).to(torch.int8)
+    plain large matmuls to torch.  A packed int4 ``w`` with per-channel
+    scales (int4ga8's tree where the group does not divide K) takes its
+    int4 values as int8, as JAX's does."""
+    if w.dtype == torch.uint8:
+        w = unpack_int4(w)
+    xq, ascale = _quantize_tokens(x)
     y = torch._int_mm(xq, w.t())
     out = y.to(torch.float32) * ascale * scale[None, :].to(torch.float32)
-    return out.reshape(x.shape[:-1] + (o,)).to(x.dtype)
+    return out.reshape(x.shape[:-1] + (w.shape[-2],)).to(x.dtype)
+
+
+def _w4a8_group_dot(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                    attention: Attention = KERNELS) -> torch.Tensor:
+    """Grouped W4A8 (llama.py:210-243): x quantized per token as
+    `_w8a8_dot` quantizes it, then ``attention.group_gemm`` (K8,
+    `ops.w4a8.w4a8_group_gemm`, or its plain version) against the packed
+    (out, in/2) ``w`` and its (out, in/128) group scales: each
+    group's int8 x int4 sum exact in int32, times the group's scale in fp32,
+    summed over the groups, times the token's scale, cast to x's dtype.
+    K8 sums the groups in order; XLA's reduction may take another order,
+    so the result agrees with JAX's to the rounding of an fp32 sum of K/128
+    terms."""
+    xq, ascale = _quantize_tokens(x)
+    y = attention.group_gemm(xq, ascale.reshape(-1), w, scale, x.dtype)
+    return y.reshape(x.shape[:-1] + (w.shape[0],))
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
@@ -276,12 +301,14 @@ def _linear(x: torch.Tensor, w: torch.Tensor, scale: Optional[torch.Tensor],
     rows = x.numel() // x.shape[-1]
     tracks_grad = torch.is_grad_enabled() and (x.requires_grad
                                                or w.requires_grad)
-    if rows <= MAX_ROWS and (w.dtype in QUANTIZED or (
+    grouped8 = w.dtype == torch.int8 and scale.dim() == 2 \
+        and scale.shape[0] == w.shape[0]
+    if rows <= MAX_ROWS and not grouped8 and (w.dtype in QUANTIZED or (
             w.dtype == torch.bfloat16 and not tracks_grad)):
         y = attention.matvec(x.reshape(rows, x.shape[-1]), w, scale, kf)
         return y.reshape(x.shape[:-1] + (y.shape[-1],))
-    if w.dtype == torch.uint8:
-        return F.linear(x, int4_dequantize(w, scale, x.dtype))
+    if w.dtype == torch.uint8 or grouped8:
+        return F.linear(x, dequantize(w, scale, x.dtype))
     if w.dtype == torch.int8:
         return int8_matvec_plain(x, w, scale)
     return x @ w if kf else F.linear(x, w)
@@ -317,9 +344,11 @@ def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
           attention: Attention, lora_key: Optional[int] = None,
           lora_dropout: float = 0.0) -> torch.Tensor:
     """x @ W^T for layer ``li``'s (out, in) projection ``name``
-    (llama.py:246-347) through `_linear`, except an int8 weight with a
-    ``_scale_a8`` scale and a sequence axis of at least `_A8_MIN_SEQ`,
-    which takes `_w8a8_dot`.  The result takes x's dtype.  A projection
+    (llama.py:246-347) through `_linear`, except a weight with a
+    ``_scale_a8`` scale and a sequence axis of at least `_A8_MIN_SEQ`: an
+    int4 one with group scales takes `_w4a8_group_dot`, an int8 one, or an
+    int4 one with per-channel scales, `_w8a8_dot`, as JAX routes them.  The
+    result takes x's dtype.  A projection
     with adapters adds ``((x' @ A) @ B) * scale`` in x's dtype, x' being x
     under inverted dropout (rate ``lora_dropout``, the layer's key
     ``lora_key`` folded with the projection's id) when a key is given and
@@ -331,6 +360,8 @@ def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
         a8 = lp.get(name + "_scale_a8")
         scale = (lp[name + "_scale"] if a8 is None else a8)[li]
         if a8 is not None and x.dim() >= 2 and x.shape[-2] >= _A8_MIN_SEQ:
+            if scale.dim() == w.dim():
+                return _w4a8_group_dot(x, w, scale, attention)
             return _w8a8_dot(x, w, scale)
     out = _linear(x, w, scale, attention).to(x.dtype)
     a = lp.get(name + "_lora_a")

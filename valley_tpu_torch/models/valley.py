@@ -1,6 +1,7 @@
 """The Valley multimodal model, the PyTorch counterpart of
 ``valley_tpu/models/valley.py``: CLIP tower, linear projector, temporal
-pooling and the LLaMA decoder, with the vision features spliced into the
+pooling (mean, max, or the learned importance and transformer variants) and
+the LLaMA decoder, with the vision features spliced into the
 token embeddings by a vectorised gather (no per-sample loop)."""
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ class Projector(Weights):
 
 
 class ValleyWeights(Weights):
-    NAMES = ("llama", "vision", "projector")
+    """The decoder, the tower, the projector and the temporal pooling's
+    parameters (an empty `temporal.TemporalWeights` for mean and max)."""
+    NAMES = ("llama", "vision", "projector", "temporal")
 
 
 class VisionFeatures(NamedTuple):
@@ -32,7 +35,6 @@ def init_params(cfg: ValleyConfig, generator: torch.Generator,
                 dtype=torch.bfloat16, device=None) -> ValleyWeights:
     """Random weights with the shapes and scaling of the JAX
     ``valley.init_params``, drawn from ``generator`` on ``device``."""
-    temporal.check_method(cfg)
     hv, hl = cfg.vision.hidden_size, cfg.text.hidden_size
     proj_w = torch.randn((hv, hl), generator=generator, dtype=torch.float32,
                          device=device) * hv ** -0.5
@@ -42,6 +44,7 @@ def init_params(cfg: ValleyConfig, generator: torch.Generator,
         "projector": Projector({
             "w": proj_w.to(dtype),
             "b": torch.zeros((hl,), dtype=dtype, device=device)}),
+        "temporal": temporal.init_params(cfg, generator, dtype, device),
     })
 
 
@@ -73,7 +76,7 @@ def encode_images(params: ValleyWeights, cfg: ValleyConfig,
     patch = feats[:, :, 1:, :]     # (B, T, P, H)
     cls = feats[:, :, 0, :]        # (B, T, H)
     pooled = torch.stack([
-        temporal.pool_patches(cfg, patch[i],
+        temporal.pool_patches(params["temporal"], cfg, patch[i],
                               None if frame_mask is None else frame_mask[i])
         for i in range(b)])
     return VisionFeatures(pooled=pooled, frame_cls=cls)

@@ -30,7 +30,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attn", "int8_matvec",
-           "int4_matvec", "bf16_matvec", "read_sum", "decode_lab")
+           "int4_matvec", "bf16_matvec", "read_sum", "decode_lab",
+           "w4a8_group_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

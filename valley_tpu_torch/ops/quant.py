@@ -1,29 +1,35 @@
-"""Serving quantization: the quantizer, the int8 GEMV (K4,
+"""Serving quantization: the quantizers, the int8 GEMV (K4,
 ``csrc/int8_matvec.cu``) and the grouped-int4 GEMV (K5,
 ``csrc/int4_matvec.cu``), each with its plain PyTorch version and the
-wrapper that runs one or the other.
+wrapper that runs one or the other.  The grouped W4A8 product of prefill
+chunks (K8) is in ``ops/w4a8.py``.
 
-Counterpart of ``valley_tpu/ops/quant.py`` for the int8 modes (``int8``,
-and ``int8a8``, whose prefill runs W8A8 in `llama._w8a8_dot`) and the
-weight-only int4 modes (``int4`` per channel, ``int4g`` and ``int4gp`` with
-group-128 scales): symmetric scales over the contraction axis (per output
-channel, or per group of ``group_size`` inputs), computed in the weight's
-dtype and stored bf16, exactly as the JAX quantizer does.  The grouped W4A8
-modes (``int4ga8``, ``int4gpa8``) and the vision quantizer are not ported
-and raise NotImplementedError.
+Counterpart of ``valley_tpu/ops/quant.py`` for every serving mode of its
+``QUANT_MODES``: ``int8``, and ``int8a8``, whose prefill runs W8A8 in
+`llama._w8a8_dot`; the weight-only int4 modes (``int4`` per channel,
+``int4g`` and ``int4gp`` with group-128 scales); the grouped W4A8 modes
+``int4ga8`` and ``int4gpa8``, whose chunks of at least `llama._A8_MIN_SEQ`
+rows run `llama._w4a8_group_dot` and whose decode is int4g's; grouped int8
+scales (``bits`` 8 with a ``group_size``, which no mode asks for); and the
+CLIP tower's int8 (`quantize_vision_params`, weight-only or W8A8).
+Symmetric scales over the contraction axis (per output channel, or per
+group of ``group_size`` inputs), computed in the weight's dtype and stored
+bf16, exactly as the JAX quantizer does.
 
 Layouts: layer projections stay (L, out, in), scale (L, out) per channel or
 (L, out, in/group) grouped.  The JAX package keeps a quantized ``lm_head``
 (in, out) with a (1, out) scale; the port quantizes it over the same axis
 and stores it transposed to (out, in), so every quantized matrix a GEMV
 reads holds each output's inputs contiguous (``weights.py`` converts both
-ways).  The scale keeps its JAX shape.
+ways).  The scale keeps its JAX shape.  The tower's GEMMs stay (L, in, out)
+with (L, 1, out) scales.
 
 int4 has one storage in the port: nibble-packed uint8, two values per byte
 along the contraction axis, the low nibble first (`pack_int4`, bit-equal to
 the JAX ``_pack_nibbles``), so ``int4``, ``int4g`` and ``int4gp`` differ
-only in their scales.  The JAX package's int8 storage of int4 values and
-its in-executable int4 views are TPU workarounds and have no counterpart.
+only in their scales, and ``int4ga8`` and ``int4gpa8`` are the same tree.
+The JAX package's int8 storage of int4 values and its in-executable int4
+views are TPU workarounds and have no counterpart.
 
 `int8_matvec` and `int4_matvec` are the decode GEMVs: (B, K) activations,
 B at most `MAX_ROWS`, against an (F, K) int8 or (F, K/2) packed weight.
@@ -44,8 +50,7 @@ QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                  "wqkv", "w_gateup")   # last two: fused serving layout
 
 # Serving quantization modes -> quantizer knobs (valley_tpu/ops/quant.py
-# QUANT_MODES, same rows).  The port serves the int8 modes and the
-# weight-only int4 modes.
+# QUANT_MODES, same rows)
 QUANT_MODES = {
     #            bits  group  act8   packed
     "int8":     dict(bits=8, group_size=0,   act8=False, packed=False),
@@ -56,22 +61,18 @@ QUANT_MODES = {
     "int4ga8":  dict(bits=4, group_size=128, act8=True,  packed=False),
     "int4gpa8": dict(bits=4, group_size=128, act8=True,  packed=True),
 }
-SERVED_MODES = ("int8", "int8a8", "int4", "int4g", "int4gp")
+# The modes the port serves: all of them (``packed`` changes nothing in
+# the port, which packs every int4 tree)
+SERVED_MODES = tuple(QUANT_MODES)
 
 
 def parse_quant_mode(mode: str) -> dict:
-    """Mode string -> dict(bits, group_size, act8, packed).  Modes the port
-    does not serve yet raise NotImplementedError naming the mode."""
+    """Mode string -> dict(bits, group_size, act8, packed)."""
     try:
-        knobs = dict(QUANT_MODES[mode])
+        return dict(QUANT_MODES[mode])
     except KeyError:
         raise ValueError(f"unknown quantization mode {mode!r} "
                          f"(one of {sorted(QUANT_MODES)})") from None
-    if mode not in SERVED_MODES:
-        raise NotImplementedError(
-            f"quantization mode {mode!r} is not ported yet: the port serves "
-            f"{', '.join(SERVED_MODES)}")
-    return knobs
 
 
 def _quantize_one(w: torch.Tensor, contract_axis: int = -1, bits: int = 8,
@@ -158,17 +159,31 @@ def _take(module, name: str) -> torch.Tensor:
     return t
 
 
+def check_act8(bits: int, group_size: int, act8: bool) -> None:
+    """The JAX quantizer's refusals of ``act8`` (quant.py:164-170): W4A8
+    needs group scales, and W8A8 per-channel ones."""
+    if act8 and bits == 4 and not group_size:
+        raise ValueError("act8 with bits=4 requires group_size scales "
+                         "(use int4ga8/int4gpa8: per-channel int4 has no "
+                         "W4A8 path)")
+    if act8 and bits == 8 and group_size:
+        raise ValueError("act8 with bits=8 uses per-channel scales "
+                         "(group_size=0)")
+
+
 def quantize_llama_params(params, act8: bool = False, bits: int = 8,
                           group_size: int = 0):
     """Quantize the decoder's projections (and ``lm_head``) of the port's
     `ValleyWeights` (quant.py:119-188), storing ``<name>_scale`` or, with
-    ``act8`` (W8A8 prefill, mode ``int8a8``), ``<name>_scale_a8``.
+    ``act8`` (modes ``int8a8``, ``int4ga8``, ``int4gpa8``: W8A8 or W4A8 on
+    chunks of at least `llama._A8_MIN_SEQ` rows), ``<name>_scale_a8``.
 
     ``bits`` 8 stores int8; ``bits`` 4 clips to [-7, 7] and nibble-packs
     (`pack_int4`): layers (L, out, in/2) uint8, ``lm_head`` (out, in/2).
-    ``group_size`` gives the layers grouped scales where it divides their
-    contraction axis; ``lm_head`` is per channel, as in JAX.  W4A8
-    (``act8`` with ``bits`` 4) and grouped int8 are not ported.
+    ``group_size`` gives the layers grouped scales (int4 or int8) where it
+    divides their contraction axis, else per-channel ones, as in JAX;
+    ``lm_head`` is per channel with an ``lm_head_scale``, whatever the
+    mode.  ``act8`` is refused as JAX refuses it (`check_act8`).
 
     Consumes the input, as the JAX quantizer does: each bf16 tensor is
     dropped as its quantized copy is made, so the peak is the tree plus one
@@ -176,13 +191,7 @@ def quantize_llama_params(params, act8: bool = False, bits: int = 8,
     """
     from valley_tpu_torch.models import llama
 
-    if act8 and bits == 4:
-        raise NotImplementedError("grouped W4A8 (int4ga8/int4gpa8) is not "
-                                  "ported yet")
-    if bits == 8 and group_size:
-        raise NotImplementedError("grouped int8 scales (bits=8 with a "
-                                  "group_size) are not ported: no serving "
-                                  "mode uses them")
+    check_act8(bits, group_size, act8)
     scale_key = "_scale_a8" if act8 else "_scale"
     lw = params["llama"]
     layers = lw["layers"]
@@ -208,11 +217,31 @@ def quantize_llama_params(params, act8: bool = False, bits: int = 8,
     return params
 
 
+VISION_QUANT_TARGETS = ("wq", "wk", "wv", "wo", "fc1", "fc2")
+
+
 def quantize_vision_params(params, act8: bool = False):
-    """The CLIP tower's int8 quantization (``quantize_vision_params``,
-    worker ``--quantize-vision``) is not ported yet."""
-    raise NotImplementedError("vision quantization (--quantize-vision "
-                              "int8/int8a8) is not ported yet")
+    """Quantize the frozen CLIP tower's encoder GEMMs to int8
+    (quant.py:194-219): each (L, in, out) stack over its contraction axis
+    -2, scale (L, 1, out) bf16, stored ``<name>_scale`` (weight-only, mode
+    ``int8``) or ``<name>_scale_a8`` (W8A8 on every tower call, mode
+    ``int8a8``); embeddings, norms and biases stay as they are.  Consumes
+    the input tree stack by stack, as `quantize_llama_params` does.
+    Returns ``params`` with its tower's layers replaced."""
+    from valley_tpu_torch.models import clip_vit
+
+    scale_key = "_scale_a8" if act8 else "_scale"
+    layers = params["vision"]["layers"]
+    lt = {n: _take(layers, n) for n, _ in list(
+        layers.named_parameters(recurse=False))}
+    for name in VISION_QUANT_TARGETS:
+        if name not in lt or lt[name].dtype == torch.int8:
+            continue
+        q, scale = quantize_tensor(lt.pop(name), contract_axis=-2)
+        lt[name] = q
+        lt[name + scale_key] = scale
+    params.vision.layers = clip_vit.ClipLayers(lt)
+    return params
 
 
 def int8_matvec_plain(x: torch.Tensor, w: torch.Tensor,
@@ -345,14 +374,15 @@ def int4_matvec_plain(x: torch.Tensor, w: torch.Tensor,
     return (part * s).sum(dim=-1).reshape(x.shape[:-1] + (f,))
 
 
-def int4_dequantize(w: torch.Tensor, scale: torch.Tensor,
-                    dtype: torch.dtype) -> torch.Tensor:
-    """The (F, K) weight of a packed (F, K/2) ``w`` and its (F, G) or (F,)
-    scale: the unpacked values times their group's scale in fp32, cast to
-    ``dtype``."""
+def dequantize(w: torch.Tensor, scale: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The (F, K) weight of an int8 (F, K) or packed (F, K/2) ``w`` and its
+    (F, G) or (F,) scale: the values times their group's scale in fp32,
+    cast to ``dtype``."""
     f = w.shape[0]
     s = _group_scale(scale, f)
-    wq = unpack_int4(w).to(torch.float32).reshape(f, s.shape[1], -1)
+    wq = unpack_int4(w) if w.dtype == torch.uint8 else w
+    wq = wq.to(torch.float32).reshape(f, s.shape[1], -1)
     return (wq * s[..., None]).reshape(f, -1).to(dtype)
 
 

@@ -27,7 +27,7 @@ from torch import nn
 GiB = 1 << 30
 
 # bytes a packed int4 weight's (F, K) dequantization holds at its peak in
-# `ops.quant.int4_dequantize`: the values in fp32, their scaled product in
+# `ops.quant.dequantize`: the values in fp32, their scaled product in
 # fp32 and its cast to bf16
 INT4_DEQUANT_BYTES = 4 + 4 + 2
 

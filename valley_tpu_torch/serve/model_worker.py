@@ -938,17 +938,14 @@ def load_engine(args):
     configuration (``random:tiny``, ``random:7b``, ``random:13b``) with the
     worker's flags (`run_valley.load_model`; ``--lora-path`` merges an
     adapter into a checkpoint's bf16 weights before fusing and quantizing,
-    with no quantize-on-load).  Refused, each with its ROADMAP item:
-    ``--tensor-parallel`` above 1 and ``--quantize-vision``."""
+    with no quantize-on-load; ``--quantize-vision int8|int8a8`` quantizes
+    the tower after the decoder).  Refused, with its ROADMAP item:
+    ``--tensor-parallel`` above 1."""
     from valley_tpu_torch.inference.run_valley import load_model
     if int(getattr(args, "tensor_parallel", 1) or 1) > 1:
         raise NotImplementedError(
             "--tensor-parallel above 1 is not ported yet (ROADMAP §1 item "
             "8: parallel/); the port serves from one card")
-    if getattr(args, "quantize_vision", None):
-        raise NotImplementedError(
-            "--quantize-vision is not ported yet (ROADMAP §1 item 6: "
-            "vision quantization)")
     fb = (getattr(args, "frame_buckets", "") or "").strip()
     fbt = tuple(int(b) for b in fb.split(",")) \
         if fb and fb.lower() != "off" else None
@@ -969,7 +966,8 @@ def load_engine(args):
         decode_ramp=ramp, frame_buckets=fbt,
         raw_media=bool(getattr(args, "raw_pixels", True)),
         vision_tower=getattr(args, "vision_tower", None),
-        lora_path=getattr(args, "lora_path", None))
+        lora_path=getattr(args, "lora_path", None),
+        quantize_vision=getattr(args, "quantize_vision", None))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1019,13 +1017,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--quantize", type=str, default=None,
                         choices=["int8", "int8a8", "int4", "int4g",
                                  "int4gp", "int4ga8", "int4gpa8"],
-                        help="decoder weight quantization (the port serves "
-                             "int8, int8a8, int4, int4g and int4gp; the "
-                             "grouped W4A8 modes are refused); with a "
-                             "checkpoint directory it runs on load, one "
-                             "layer at a time")
+                        help="decoder weight quantization: int8, or "
+                             "int8a8 (W8A8 prefill); int4 per channel, "
+                             "int4g/int4gp with group-128 scales, "
+                             "int4ga8/int4gpa8 also with grouped W4A8 "
+                             "prefill (int4 is nibble-packed in every "
+                             "mode); with a checkpoint directory it runs on "
+                             "load, one layer at a time")
     parser.add_argument("--quantize-vision", type=str, default=None,
-                        choices=["int8", "int8a8"])
+                        choices=["int8", "int8a8"],
+                        help="int8 CLIP tower: weight-only, or W8A8 on "
+                             "every tower product")
     parser.add_argument("--kv-cache", type=str, default="bf16",
                         choices=["bf16", "int8"])
     parser.add_argument("--batch-window-ms", type=float, default=0.0,

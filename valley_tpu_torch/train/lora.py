@@ -26,13 +26,15 @@ DEFAULT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_down", "w_up")
 def _with_layers(params: valley.ValleyWeights,
                  layers: Mapping[str, torch.Tensor]) -> valley.ValleyWeights:
     """A new tree whose decoder layers are ``layers``; every other tensor
-    (and the tower and projector modules) shared with ``params``."""
+    (and the tower, projector and temporal modules) shared with
+    ``params``."""
     lw = params["llama"]
     top = {n: p.data for n, p in lw.named_parameters(recurse=False)}
     return valley.ValleyWeights({
         "llama": llama.LlamaWeights({**top,
                                      "layers": llama.LlamaLayers(layers)}),
-        "vision": params["vision"], "projector": params["projector"]})
+        "vision": params["vision"], "projector": params["projector"],
+        "temporal": params["temporal"]})
 
 
 def _layer_tensors(params: valley.ValleyWeights) -> dict:

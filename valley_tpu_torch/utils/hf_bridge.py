@@ -20,11 +20,17 @@ moved to the card, fused (``fused``), quantized by the port's quantizer
 nibble-packed for int4, written into the quantized stacks, and the bf16
 copy is dropped; ``lm_head`` follows.  The card holds at most the
 quantized tree, the bf16 embedding, the vision tower and one bf16 layer.
-The modes are those of `quant.SERVED_MODES`; grouped W4A8 and vision
-quantization keep their refusals.
+Every mode of `quant.QUANT_MODES` quantizes on load, the grouped W4A8
+modes (``int4ga8``, ``int4gpa8``) to the same packed tree; the tower stays
+as the checkpoint holds it (``--quantize-vision`` quantizes it after the
+load, `quant.quantize_vision_params`).
 
-Mean temporal pooling only: a checkpoint of importance or transformer
-pooling is refused, as `weights.from_jax_params` refuses their parameters.
+Temporal pooling: a checkpoint whose ``config.json`` sets
+``use_patch_importance_pooling`` or ``use_delta_transformer`` loads its
+pooling layer (``model.pooling_layer.*``) or its one-layer encoder
+(``model.transformer_delta_encoder.layers.0.*`` and
+``model.position_matrix``), `convert_temporal`, and the exporter writes
+them back under those names.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 
 from valley_tpu_torch import config as C
-from valley_tpu_torch.models import clip_vit, llama, valley
+from valley_tpu_torch.models import clip_vit, llama, temporal, valley
 from valley_tpu_torch.ops import quant
 from valley_tpu_torch.utils.safetensors_io import (read_state_dict,
                                                    save_sharded)
@@ -167,15 +173,14 @@ def _quantized_llama(sd: Mapping[str, Any], cfg: C.TextConfig, dtype, device,
                      fused: bool, mode: str, group_size: int,
                      new_vocab: Optional[int]) -> Dict[str, Any]:
     """Quantize-on-load: `convert_llama`'s tree quantized in ``mode`` (a
-    mode of `quant.SERVED_MODES`), made one layer at a time on ``device``
+    mode of `quant.QUANT_MODES`), made one layer at a time on ``device``
     (see the module docstring); ``new_vocab`` resizes the embedding and
     ``lm_head`` first (`resize_token_embeddings`), as the JAX loader
     resizes before it quantizes."""
     knobs = quant.parse_quant_mode(mode)
     bits = knobs["bits"]
     group = group_size if knobs["group_size"] else 0
-    if bits == 8 and group:
-        raise NotImplementedError("grouped int8 scales are not ported")
+    quant.check_act8(bits, group, knobs["act8"])
     scale_key = "_scale_a8" if knobs["act8"] else "_scale"
     sd = _llama_sd(sd)
     n = cfg.num_hidden_layers
@@ -313,16 +318,77 @@ def convert_projector(sd: Mapping[str, Any], dtype=torch.bfloat16,
             "b": _put(sd2["bias"], dtype, device)}
 
 
+# the reference's names of the temporal encoder layer's tensors (torch
+# ``nn.TransformerEncoderLayer``), under TEMPORAL_PREFIX; True: a Linear
+# weight, stored (in, out) here and (out, in) there
+TEMPORAL_PREFIX = "model.transformer_delta_encoder.layers.0."
+TEMPORAL_KEYS = {
+    "wo": ("self_attn.out_proj.weight", True),
+    "bo": ("self_attn.out_proj.bias", False),
+    "ln1_scale": ("norm1.weight", False), "ln1_bias": ("norm1.bias", False),
+    "ln2_scale": ("norm2.weight", False), "ln2_bias": ("norm2.bias", False),
+    "ffn1": ("linear1.weight", True), "ffn1_bias": ("linear1.bias", False),
+    "ffn2": ("linear2.weight", True), "ffn2_bias": ("linear2.bias", False),
+}
+
+
 def convert_temporal(sd: Mapping[str, Any], cfg: C.ValleyConfig,
                      dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-    """Pooling-variant weights (``hf_bridge.py:222``): none for mean and max
-    pooling; the learned variants (importance, transformer) are not ported
-    and raise, as `weights.from_jax_params` does for their parameters."""
-    if cfg.patch_pooling_method in ("mean", "max"):
+    """The pooling variant's weights from a Valley state dict
+    (``hf_bridge.py:222-250``): none for mean and max; importance pooling's
+    ``model.pooling_layer`` Linear as ``pooling_w`` (P H, 1) and
+    ``pooling_b``; the transformer's encoder layer with its fused
+    ``in_proj`` split into q, k and v, each Linear (in, out), and
+    ``model.position_matrix`` (the sinusoidal table where the checkpoint
+    has none)."""
+    method = cfg.patch_pooling_method
+    if method in ("mean", "max"):
         return {}
-    raise NotImplementedError(
-        f"pooling method {cfg.patch_pooling_method!r}: learned temporal "
-        "pooling (importance / transformer) is not ported yet")
+    if method == "temporal_importance":
+        return {"pooling_w": _put(sd["model.pooling_layer.weight"], dtype,
+                                  device).t().contiguous(),
+                "pooling_b": _put(sd["model.pooling_layer.bias"], dtype,
+                                  device)}
+    p = TEMPORAL_PREFIX
+    in_w = _put(sd[p + "self_attn.in_proj_weight"], dtype, device)  # (3H, H)
+    in_b = _put(sd[p + "self_attn.in_proj_bias"], dtype, device)
+    h = in_w.shape[1]
+    out = {}
+    for i, n in enumerate("qkv"):
+        out["w" + n] = in_w[i * h:(i + 1) * h].t().contiguous()
+        out["b" + n] = in_b[i * h:(i + 1) * h].clone()
+    for ours, (theirs, transpose) in TEMPORAL_KEYS.items():
+        t = _put(sd[p + theirs], dtype, device)
+        out[ours] = t.t().contiguous() if transpose else t
+    if "model.position_matrix" in sd:
+        out["position_matrix"] = _put(sd["model.position_matrix"], dtype,
+                                      device)
+    else:
+        out["position_matrix"] = temporal.sinusoidal_position_matrix(
+            cfg.temporal_pos_len, h).to(device=device, dtype=dtype)
+    return out
+
+
+def export_temporal(tp: temporal.TemporalWeights
+                    ) -> Dict[str, torch.Tensor]:
+    """The inverse of `convert_temporal` (``hf_bridge.py:364-383``): the
+    reference's names, Linear weights (out, in), q, k and v fused into
+    ``in_proj``."""
+    if "pooling_w" in tp:
+        return {"model.pooling_layer.weight": tp["pooling_w"].data.t(),
+                "model.pooling_layer.bias": tp["pooling_b"].data}
+    if "wq" not in tp:
+        return {}
+    p = TEMPORAL_PREFIX
+    out = {p + "self_attn.in_proj_weight": torch.cat(
+               [tp["w" + n].data.t() for n in "qkv"]),
+           p + "self_attn.in_proj_bias": torch.cat(
+               [tp["b" + n].data for n in "qkv"]),
+           "model.position_matrix": tp["position_matrix"].data}
+    for ours, (theirs, transpose) in TEMPORAL_KEYS.items():
+        t = tp[ours].data
+        out[p + theirs] = t.t() if transpose else t
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +414,7 @@ def export_valley_checkpoint(cfg: C.ValleyConfig, params: valley.ValleyWeights,
     sd["model.mm_projector.weight"] = proj["w"].data.t()
     sd["model.mm_projector.bias"] = proj["b"].data
     sd.update(export_clip(params["vision"], prefix="model.vision_tower."))
+    sd.update(export_temporal(params["temporal"]))
     written = save_sharded(sd, out_dir, max_shard_bytes, dtype)
     t = cfg.text
     hf_cfg = {
@@ -499,9 +566,9 @@ def load_valley_checkpoint(path: str, vision_tower: Optional[str] = None,
     (the Valley markers of a plain LLaMA base); a tokenizer passed by the
     caller only grows them, where it holds more ids than they have rows.
 
-    ``quantize`` (a mode of `quant.SERVED_MODES`) quantizes on load, layer
+    ``quantize`` (a mode of `quant.QUANT_MODES`) quantizes on load, layer
     by layer on the card (module docstring), with ``quantize_group_size``
-    for the grouped int4 modes; ``fused`` takes the wqkv/w_gateup serving
+    for the grouped modes (the int8 modes stay per channel, as in JAX); ``fused`` takes the wqkv/w_gateup serving
     layout (before quantizing, as the worker's ``--fused`` does).
     """
     if device is None:
@@ -519,8 +586,6 @@ def load_valley_checkpoint(path: str, vision_tower: Optional[str] = None,
         pooling = "temporal_importance"
     if hf_cfg.get("use_delta_transformer"):
         pooling = "temporal_transformer"
-    if pooling not in ("mean", "max"):
-        convert_temporal({}, C.ValleyConfig(patch_pooling_method=pooling))
     own_tokenizer = tokenizer is None
     if own_tokenizer:
         tokenizer, tokens = _checkpoint_tokenizer(path, model_max_length)
@@ -566,6 +631,7 @@ def load_valley_checkpoint(path: str, vision_tower: Optional[str] = None,
         hl, hv = text_cfg.hidden_size, vis_cfg.hidden_size
         proj = {"w": torch.zeros((hv, hl), dtype=dtype, device=device),
                 "b": torch.zeros((hl,), dtype=dtype, device=device)}
+    tp = convert_temporal(sd, cfg, dtype, device)
     del sd
     if vt is None:
         vision = clip_vit.init_params(
@@ -580,5 +646,6 @@ def load_valley_checkpoint(path: str, vision_tower: Optional[str] = None,
             "layers": llama.LlamaLayers(lt["layers"])}),
         "vision": vision,
         "projector": valley.Projector(proj),
+        "temporal": temporal.TemporalWeights(tp),
     })
     return cfg, params, tokenizer

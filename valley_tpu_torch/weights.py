@@ -6,18 +6,22 @@ The port keeps the JAX layouts, so conversion is a dtype and device copy:
 dict of numpy arrays made by ``valley_tpu.models.valley.init_params`` (or a
 loaded checkpoint) into a `ValleyWeights` module, and `to_numpy` turns one
 back.  `from_state_dict` rebuilds weights saved by the port's own
-checkpoints.  Fused serving trees (``wqkv``, ``w_gateup``) and quantized
-trees (``quantize_llama_params``, modes ``int8``, ``int8a8``, ``int4``,
-``int4g``, ``int4gp``) convert too: quantized leaves keep their type and
-their ``*_scale``/``*_scale_a8`` leaves stay bf16, whatever ``dtype`` asks
-for the float leaves.
+checkpoints.  The ``temporal`` entry carries the learned pooling's
+parameters (empty for mean and max).  Fused serving trees (``wqkv``,
+``w_gateup``) and quantized trees convert too: the decoder's
+(``quantize_llama_params``, every mode of ``QUANT_MODES``) and the CLIP
+tower's (``quantize_vision_params``: int8 (L, in, out) leaves with (L, 1,
+out) scales); quantized leaves keep their type and their
+``*_scale``/``*_scale_a8`` leaves stay bf16, whatever ``dtype`` asks for
+the float leaves.
 
-The port keeps int4 nibble-packed only (``ops/quant.py``).  A JAX int4gp
-tree's uint8 leaves are taken as they are; an int4g tree (int8 storage,
-grouped scales) is packed on conversion, and so is a per-channel int4 tree
-(int8 storage, per-channel scales, every value in [-7, 7]).  A grouped
-tree's values outside [-7, 7] are refused, as the JAX
-``pack_int4_params`` refuses them.
+The port keeps int4 nibble-packed only (``ops/quant.py``).  A JAX int4gp or
+int4gpa8 tree's uint8 leaves are taken as they are; an int4g or int4ga8
+tree (int8 storage, grouped scales) is packed on conversion, and so is a
+per-channel int4 tree (int8 storage, per-channel scales, every value in
+[-7, 7]).  A grouped tree's values outside [-7, 7] are refused, as the JAX
+``pack_int4_params`` refuses them.  `to_numpy` gives int4 back packed, as
+the JAX int4gp and int4gpa8 trees hold it.
 
 One layout differs: the port stores a quantized ``lm_head`` (out, in), or
 (out, in/2) packed, where the JAX package keeps it (in, out), or (in/2,
@@ -26,9 +30,7 @@ contiguous; conversion transposes it both ways (its (1, vocab) scale keeps
 the JAX shape).  LoRA adapters (``<name>_lora_a``, ``<name>_lora_b``,
 ``lora_scale``) carry across on the unfused float layout, cast as the
 float leaves are; `llama.LlamaLayers` refuses them beside fused or
-quantized weights, as JAX's ``fuse_llama_params`` does.  Trees this port
-cannot run yet are refused: grouped W4A8 (``int4ga8``, ``int4gpa8``), a
-quantized vision tower, or with temporal pooling parameters.
+quantized weights, as JAX's ``fuse_llama_params`` does.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
-from valley_tpu_torch.models import clip_vit, llama, valley
+from valley_tpu_torch.models import clip_vit, llama, temporal, valley
 from valley_tpu_torch.models.llama import QUANTIZED
 from valley_tpu_torch.ops.quant import check_int4_range, pack_int4
 
@@ -54,38 +56,31 @@ def to_tensor(a: Any, device=None, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _check_served(tree: Mapping[str, Any], where: str) -> None:
-    for name, a in tree.items():
-        if isinstance(a, Mapping):
-            _check_served(a, f"{where}.{name}")
-            continue
-        if np.asarray(a).dtype.name in ("int8", "uint8") and \
-                where.startswith("params.vision"):
-            raise NotImplementedError(
-                f"{where}.{name}: the quantized vision tower "
-                "(quantize_vision_params) is not ported yet")
-
-
 def _holds_int4(lt: Mapping[str, Any]) -> bool:
     """Whether a JAX llama tree holds int4 weights: nibble-packed uint8
-    leaves, int8 leaves with grouped scales (only the int4 modes group),
-    or int8 leaves whose values all lie in [-7, 7] (per-channel int8 puts
-    +-127 on every row that is not all zero)."""
-    ints = []
+    leaves, or int8 leaves whose values all lie in [-7, 7], or grouped int8
+    leaves that never reach +-127.  The int8 quantizer puts +-127 at the
+    largest weight of every channel or group that is not all zero, so a
+    per-channel or grouped int8 tree reaches it; a grouped tree that does
+    not is int4 (modes int4g, int4ga8), and packing refuses its values
+    outside [-7, 7]."""
+    ints, grouped = [], False
     for level in (lt, lt["layers"]):
         for name, a in level.items():
             if isinstance(a, Mapping):
                 continue
             a = np.asarray(a)
-            scale = level.get(name + "_scale", level.get(name + "_scale_a8"))
-            if a.dtype == np.uint8 or (a.dtype == np.int8 and scale is not None
-                                       and np.ndim(scale) == a.ndim
-                                       and name != "lm_head"):
+            if a.dtype == np.uint8:
                 return True
             if a.dtype == np.int8:
                 ints.append(a)
-    return bool(ints) and all(
-        -7 <= int(a.min()) and int(a.max()) <= 7 for a in ints)
+                scale = level.get(name + "_scale",
+                                  level.get(name + "_scale_a8"))
+                grouped |= name != "lm_head" and np.ndim(scale) == a.ndim
+    if not ints:
+        return False
+    peak = max(max(-int(a.min()), int(a.max())) for a in ints)
+    return peak <= 7 or (grouped and peak < 127)
 
 
 def _cast_level(level: Mapping[str, torch.Tensor], device, dtype) -> dict:
@@ -113,6 +108,8 @@ def _assemble(tree: Mapping[str, Any], conv) -> valley.ValleyWeights:
             "layers": clip_vit.ClipLayers(conv(vt["layers"])),
         }),
         "projector": valley.Projector(conv(tree["projector"])),
+        "temporal": temporal.TemporalWeights(conv(tree.get("temporal")
+                                                  or {})),
     })
 
 
@@ -121,23 +118,16 @@ def from_jax_params(params_np: Mapping[str, Any], device=None,
     """The JAX Valley parameter tree (numpy leaves) as the port's weights
     on ``device``: float tensors cast to ``dtype``, quantized ones and
     their scales kept as int8 or uint8 and bf16, a quantized ``lm_head``
-    transposed to (out, in).  An int4 tree's int8 leaves (modes int4 and
-    int4g) are nibble-packed."""
-    _check_served(params_np, "params")
-    if params_np.get("temporal"):
-        raise NotImplementedError("temporal pooling parameters (importance "
-                                  "/ transformer pooling) are not ported yet")
+    transposed to (out, in).  An int4 tree's int8 leaves (modes int4,
+    int4g and int4ga8) are nibble-packed; the tower's int8 leaves are
+    int8."""
     int4 = _holds_int4(params_np["llama"])
-    if int4 and any(n.endswith("_scale_a8")
-                    for n in params_np["llama"]["layers"]):
-        raise NotImplementedError("grouped W4A8 trees (int4ga8/int4gpa8, "
-                                  "*_scale_a8 on int4 weights) are not "
-                                  "ported yet")
 
     def conv(level):
         out = {k: to_tensor(v) for k, v in level.items()}
+        decoder = "embed" in level or "attn_norm" in level
         for k, t in out.items():
-            if int4 and t.dtype == torch.int8:
+            if int4 and decoder and t.dtype == torch.int8:
                 # layers pack along in (the last axis); lm_head (in, out)
                 # along its first, as the JAX pack_int4_params does
                 check_int4_range(k, t)
@@ -174,8 +164,9 @@ def from_state_dict(state: Mapping[str, torch.Tensor], device=None,
 
 def to_numpy(weights: valley.ValleyWeights) -> dict:
     """The inverse of `from_jax_params`: the JAX package's nested tree of
-    numpy arrays (with its empty ``temporal`` entry), a quantized
-    ``lm_head`` back in (in, out), packed int4 in the JAX int4gp layout.
+    numpy arrays (its ``temporal`` entry empty for mean and max pooling), a
+    quantized ``lm_head`` back in (in, out), packed int4 in the JAX int4gp
+    layout.
     bf16 tensors come out as float32, which holds them exactly (numpy has
     no bfloat16)."""
     def leaf(name, t):
@@ -186,7 +177,7 @@ def to_numpy(weights: valley.ValleyWeights) -> dict:
 
     tree = _nest((name, leaf(name, t)) for name, t in
                  weights.state_dict().items())
-    return {**tree, "temporal": {}}
+    return {"temporal": {}, **tree}
 
 
 def set_trainable(weights: valley.ValleyWeights,
