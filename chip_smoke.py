@@ -124,13 +124,17 @@ seed, nine processes one after the other:
   Valley-13B's four fused projections at 512 and 128 rows against its
   plain version (bit-equal; a planted fault: the group scales shifted by
   one group), timed beside its bound and the library's int8 product
-  looped over the groups and ungrouped; both learned pooling variants at
+  looped over the groups and ungrouped, and at ragged rows and outputs
+  with groups of 32, 64, 128 and 256 (bit-equal); K8q, the per-token
+  activation quantization, bit-equal to its plain version on exact .5
+  ties, zero rows, a subnormal absmax and the 13B widths, timed beside
+  its bytes bound; both learned pooling variants at
   Valley-7B and 13B widths (8 frames, 256 patches, with and without a
   frame mask) on the card against the CPU; the CLIP tower over 8 frames
   in bf16, int8 and int8a8; then bench's request through Valley-13B with
   int4gpa8 weights (W4A8 prefill through K8, decode through K5), an
   int8a8 tower, transformer pooling and an int8 KV cache, by graph: the
-  launches of K1, K3-int8, K5 and K8, first token and ms/token (printed
+  launches of K1, K3-int8, K5, K8 and K8q, first token and ms/token (printed
   beside the int4 path's int4gp request), the eager step's first 16
   tokens and launches against the graph's, the prefill's device time by
   kernel, and its logits against the plain versions.
@@ -306,15 +310,20 @@ def traced(fn, iters: int, read, **kwargs):
     two of some ten runs; K1's and K2's traces at the stage-2 shape
     (`flash_stage2_phase`) came back empty 5 and 8 times in a row, with
     pauses, in three runs of the training process, and then read the
-    CUDA events' time."""
+    CUDA events' time.  The CPU side (the ops) is traced only where
+    ``record_shapes`` asks for the ops' shapes: its events outnumber the
+    device's several times, and reading them took tens of seconds of each
+    serving process."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA]
+    if kwargs.get("record_shapes"):
+        activities.append(ProfilerActivity.CPU)
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         if attempt > 1:
             time.sleep(0.25 * attempt)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA], **kwargs) as prof:
+        with profile(activities=activities, **kwargs) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -4750,6 +4759,12 @@ K8_SHAPES_13B = (("wqkv", 5120, 15360), ("wo", 5120, 5120),
 K8_ROWS = (512, 128)
 K8_SRC = dict(route="cuda", source="valley_tpu_torch/csrc/w4a8_group_gemm.cu",
               replaces="valley_tpu/models/llama.py:210")
+K8Q_SRC = dict(K8_SRC, replaces="valley_tpu/models/llama.py:232")
+# K8 at ragged rows and outputs and at every group size but int4gpa8's,
+# (T, K, F, group), fp32 and bf16 out; the last, 13B's wqkv grouped by 64,
+# runs the general main loop at a width the card serves
+K8_EDGE = ((130, 1024, 130, 32), (200, 256, 130, 64), (513, 512, 130, 256),
+           (300, 2048, 384, 128), (512, 5120, 15360, 64))
 # The H100 SXM's dense int8 tensor-core peak (NVIDIA's datasheet), K8's
 # bound for its operations
 INT8_OPS_PER_S = 1979e12
@@ -4760,15 +4775,16 @@ K8_TIME_KEYS = ("ms", "plain_ms", "bound_ms", "library_ms",
                 "int_mm_loop_ms", "int_mm_ms")
 
 
-def w4a8_inputs(gen, t: int, k: int, f: int) -> tuple:
+def w4a8_inputs(gen, t: int, k: int, f: int, group: int = 128) -> tuple:
     """K8's inputs at (T, K, F): per-token int8 activations of N(0, 1)
-    values with their absmax / 127 scales, as `llama._w4a8_group_dot`
-    quantizes them, and an int4 weight with group-128 scales
-    (`int4_weight`)."""
-    x = torch.randn((t, k), generator=gen, device="cuda")
-    a = x.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
-    xq = torch.round(x / a[:, None]).to(torch.int8)
-    return (xq, a) + int4_weight(gen, f, k, 128)
+    values with their absmax-times-1/127 scales, as `llama._w4a8_group_dot`
+    quantizes them (the plain version, `w4a8.quantize_tokens_plain`), and
+    an int4 weight with scales of ``group`` inputs (`int4_weight`)."""
+    from valley_tpu_torch.ops.w4a8 import quantize_tokens_plain
+
+    xq, a = quantize_tokens_plain(
+        torch.randn((t, k), generator=gen, device="cuda"))
+    return (xq, a.reshape(-1)) + int4_weight(gen, f, k, group)
 
 
 def int_mm_yardsticks(xq, w, scale, iters: int) -> dict:
@@ -4799,11 +4815,12 @@ def int_mm_yardsticks(xq, w, scale, iters: int) -> dict:
 def k8_phase(gen) -> tuple:
     """K8 against its plain version at Valley-13B's four fused projections
     at 512 and 128 rows (each bit-equal to the plain version, whose
-    arithmetic it repeats, and within `REL_TOL` in any case; a planted
-    fault: the group scales shifted by one group), each timed (its device
-    time by the profiler; the plain version and the library yardsticks by
-    CUDA events) beside its bound (the int8 operations at 1979 TOPS, or
-    the bytes at 3.35 TB/s).  Returns (max error, {rows: times per call
+    arithmetic it repeats; a planted fault: the group scales shifted by
+    one group), each timed (its device time by the profiler; the plain
+    version and the library yardsticks by CUDA events) beside its bound
+    (the int8 operations at 1979 TOPS, or the bytes at 3.35 TB/s); then
+    at `K8_EDGE` (ragged rows and outputs, groups of 32, 64, 128 and 256),
+    bit-equal in fp32 and bf16.  Returns (max error, {rows: times per call
     averaged over one layer's four products}, {rows: launches})."""
     from valley_tpu_torch.ops.w4a8 import w4a8_group_gemm, w4a8_group_plain
 
@@ -4821,6 +4838,8 @@ def k8_phase(gen) -> tuple:
                   and bool(torch.isfinite(out).all()),
                   f"K8 {name} T{rows}: dtype, shape or not finite")
             check(err <= tol, f"K8 {name} T{rows}: max abs err {err} > {tol}")
+            check(torch.equal(out, ref), f"K8 {name} T{rows}: max abs err "
+                  f"{err}, not bit-equal to the plain version")
             err_max = max(err_max, err)
             line = (f"K8 w4a8_group_gemm 13b_{name} T{rows} ({f}x{k}): "
                     f"max_abs_err {err:.3e} (tol {tol:.3e}; bit-equal to the "
@@ -4875,7 +4894,79 @@ def k8_phase(gen) -> tuple:
               f"({100 * layer['bound_ms'] / layer['ms']:.1f}%); torch._int_mm "
               f"looped {layer['int_mm_loop_ms']:.4f} ms, ungrouped "
               f"{layer['int_mm_ms']:.4f} ms")
+    for t_, k, f, group in K8_EDGE:
+        xq, a, w, scale = w4a8_inputs(gen, t_, k, f, group)
+        for dtype in (torch.float32, torch.bfloat16):
+            out = w4a8_group_gemm(xq, a, w, scale, dtype)
+            ref = w4a8_group_plain(xq, a, w, scale, dtype)
+            check(torch.equal(out, ref), f"K8 T{t_} K{k} F{f} group {group} "
+                  f"{dtype}: max abs err {max_err(out, ref)}, not bit-equal")
+        print(f"K8 w4a8_group_gemm T{t_} K{k} F{f} group {group}: fp32 and "
+              f"bf16 bit-equal to the plain version")
     return err_max, avg, launches
+
+
+# K8q's shapes: the 13B projections' inputs at bench's 512 rows (hidden
+# 5120 and w_down's 13824) and the gate's 128, bf16 as the decoder gives
+# them
+K8Q_SHAPES = ((512, 5120), (512, 13824), (128, 5120))
+
+
+def k8q_phase(gen) -> dict:
+    """K8q against the plain quantization (`w4a8.quantize_tokens_plain`),
+    bit for bit in xq and a: on exact .5 ties (fp32 and bf16), all-zero
+    rows (the 1e-6 clamp) and a subnormal absmax, on the card and on the
+    CPU, then at `K8Q_SHAPES` on the card, each timed (the profiler; the
+    plain version by CUDA events) beside its bytes bound (x read, xq and a
+    written, once each).  Returns the times at 512 rows of hidden 5120 and
+    ``max_abs_err``, the largest difference in xq or a over every case."""
+    from valley_tpu_torch.ops.w4a8 import (quantize_tokens,
+                                           quantize_tokens_plain)
+
+    ties = torch.zeros((4, 256), device="cuda")
+    ties[:, 0] = 127.0       # a scale of 1.0: the values are .5 ties
+    ties[:, 1:] = (torch.arange(255, device="cuda") % 254 - 126.5)[None]
+    ties[1] *= -1
+    sub = torch.full((2, 256), 1e-40, device="cuda")
+    sub[1, 3] = -2e-39
+    edges = {"ties fp32": ties, "ties bf16": ties.bfloat16(),
+             "zeros": torch.zeros((2, 256), device="cuda"),
+             "subnormal absmax": sub}
+    def err(xq, a, rq, ra) -> float:
+        return max(max_err(xq.cpu(), rq.cpu()), max_err(a.cpu(), ra.cpu()))
+
+    err_max = 0.0
+    for label, x in edges.items():
+        xq, a = quantize_tokens(x)
+        for rq, ra in (quantize_tokens_plain(x),
+                       quantize_tokens_plain(x.cpu())):
+            check(torch.equal(xq.cpu(), rq.cpu()) and
+                  torch.equal(a.cpu(), ra.cpu()),
+                  f"K8q {label}: not bit-equal to the plain version")
+            err_max = max(err_max, err(xq, a, rq, ra))
+    print("K8q quantize_tokens: exact .5 ties (fp32, bf16), all-zero rows "
+          "and a subnormal absmax bit-equal to the plain version on the card "
+          "and on the CPU")
+    out = None
+    for t_, k in K8Q_SHAPES:
+        x = torch.randn((t_, k), generator=gen, device="cuda").bfloat16()
+        xq, a = quantize_tokens(x)
+        rq, ra = quantize_tokens_plain(x)
+        check(torch.equal(xq, rq) and torch.equal(a, ra),
+              f"K8q T{t_} K{k}: not bit-equal to the plain version")
+        err_max = max(err_max, err(xq, a, rq, ra))
+        t = {"ms": profile_device(lambda: quantize_tokens(x), 20)[0],
+             "plain_ms": time_ms(lambda: quantize_tokens_plain(x), 20, 2)}
+        add_bound(t, bound(2 * x.numel() + xq.numel() + 4 * t_, 0),
+                  f"K8q T{t_} K{k}")
+        t["library_ms"] = None
+        print(f"K8q quantize_tokens T{t_} K{k} bf16: bit-equal to the plain "
+              f"version (xq and a); device {t['ms']:.4f} ms vs plain (CUDA "
+              f"events, about seven launches) {t['plain_ms']:.4f} ms; bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), {bound_share(t)}")
+        if out is None:
+            out = t
+    return {**out, "max_abs_err": err_max}
 
 
 # The learned pooling on the card against the same function on the CPU,
@@ -5010,7 +5101,7 @@ def variant_slice(cfg, params, smi: str) -> dict:
     from valley_tpu_torch.ops.flash_attention import flash_attention
     from valley_tpu_torch.ops.matvec import bf16_matvec
     from valley_tpu_torch.ops.quant import int4_matvec, int8_matvec
-    from valley_tpu_torch.ops.w4a8 import w4a8_group_gemm
+    from valley_tpu_torch.ops.w4a8 import quantize_tokens, w4a8_group_gemm
 
     tag = "variant slice"
     layers, new = cfg.text.num_hidden_layers, NEW_TOKENS
@@ -5019,6 +5110,7 @@ def variant_slice(cfg, params, smi: str) -> dict:
                "K3-int8": (decode_attention_stacked, layers * steps),
                "K5": (int4_matvec, 4 * layers * steps + new),
                "K8": (w4a8_group_gemm, 4 * layers),
+               "K8q": (quantize_tokens, 4 * layers),
                "K4": (int8_matvec, 0), "K6": (bf16_matvec, 0)}
     prompt, frames = bench_request(cfg, BUCKET)
     gcfg = GenerationConfig(max_new_tokens=new, do_sample=False)
@@ -5074,11 +5166,14 @@ def variant_slice(cfg, params, smi: str) -> dict:
     prefill_ms, top, _ = profile_device(
         lambda: engine.prefill([prompt], frames, gcfg))
     k8_ms = sum(t for name, t in top if "w4a8_group_gemm" in name)
+    k8q_ms = sum(t for name, t in top if "quantize_tokens" in name)
     k1_ms = sum(t for name, t in top if "flash_fwd_kernel" in name)
     check(k8_ms > 0, f"{tag}: the profiler saw no K8 in the prefill")
+    check(k8q_ms > 0, f"{tag}: the profiler saw no K8q in the prefill")
     print(f"{tag} breakdown: prefill device {prefill_ms:.2f} ms: K8 "
-          f"{k8_ms:.2f} ms ({100 * k8_ms / prefill_ms:.1f}%), K1 {k1_ms:.2f} "
-          f"ms; top kernels: " + ", ".join(
+          f"{k8_ms:.2f} ms ({100 * k8_ms / prefill_ms:.1f}%), K8q "
+          f"{k8q_ms:.3f} ms ({100 * k8q_ms / prefill_ms:.1f}%), K1 "
+          f"{k1_ms:.2f} ms; top kernels: " + ", ".join(
               f"{name[:48]} {ms:.2f} ms" for name, ms in top[:10]))
     plain = Engine(cfg, params, buckets=(BUCKET,), max_new_tokens=new,
                    steps_per_call=steps, cache_dtype=torch.int8,
@@ -5098,12 +5193,13 @@ def variant_slice(cfg, params, smi: str) -> dict:
     del engine, eager_engine, plain
     return {"counts": counts, "first_token_ms": t_first * 1e3,
             "decode_ms_per_token": decode_ms, "prefill_device_ms": prefill_ms,
-            "k8_prefill_ms": k8_ms}
+            "k8_prefill_ms": k8_ms, "k8q_prefill_ms": k8q_ms}
 
 
 def serve_variants_path(smi: str, gen, work: Path) -> list:
     """The weight formats and pooling of the fourteenth slice: K8 at the
-    13B projections against its plain version, the pooling variants at 7B
+    13B projections (and ragged shapes and other group sizes) and K8q
+    against their plain versions, the pooling variants at 7B
     and 13B widths against the CPU, the int8 and int8a8 towers beside the
     bf16 one, then Valley-13B served int4gpa8 with an int8a8 tower and
     transformer pooling (`variant_slice`).  Returns its kernels
@@ -5115,6 +5211,7 @@ def serve_variants_path(smi: str, gen, work: Path) -> list:
                                             quantize_vision_params)
 
     k8_err, k8_t, k8_n = k8_phase(gen)
+    k8q_t = k8q_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
     pooling_phase(gen)
@@ -5142,7 +5239,11 @@ def serve_variants_path(smi: str, gen, work: Path) -> list:
             {**K8_SRC, "name": "w4a8_group_gemm_T128",
              "path": "serve_variants, K8 phase only (the a8 gate's 128 rows)",
              "launches": k8_n[K8_ROWS[1]], "max_abs_err": k8_err,
-             **k8_t[K8_ROWS[1]]}]
+             **k8_t[K8_ROWS[1]]},
+            {**K8Q_SRC, "name": "quantize_tokens", "path": "serve_variants",
+             "launches": sl["counts"]["K8q"],
+             "shape": f"T{K8Q_SHAPES[0][0]} K{K8Q_SHAPES[0][1]} bf16",
+             "request_k8q_prefill_ms": sl["k8q_prefill_ms"], **k8q_t}]
 
 
 def _timed(fn):
@@ -5159,7 +5260,7 @@ def _timed(fn):
     return run
 
 
-for _name in ("k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
+for _name in ("k8q_phase", "k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
               "k4_phase", "k5_phase", "k6_phase", "k6_checks", "k7_phase",
               "random_weights", "serve_slice", "spec_slice",
               "full_acceptance", "spec_conv", "conv_slice", "lab_phase",

@@ -55,7 +55,8 @@ from valley_tpu_torch.ops.quant import (int4_matvec, int4_matvec_plain,
                                         int8_matvec, int8_matvec_plain,
                                         pack_int4, quantize_llama_params,
                                         quantize_tensor)
-from valley_tpu_torch.ops.w4a8 import w4a8_group_gemm, w4a8_group_plain
+from valley_tpu_torch.ops.w4a8 import (quantize_tokens, w4a8_group_gemm,
+                                      w4a8_group_plain)
 from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
 REL_TOL = 2 ** -6
@@ -757,13 +758,14 @@ def test_bf16_matvec_rows_are_independent_at_fused_shapes(gen, k, f):
             assert torch.equal(out[r], alone[r])
 
 
-def _w4a8_inputs(gen, t, k, f):
+def _w4a8_inputs(gen, t, k, f, group=128):
     """Per-token int8 activations with their scales, and a packed int4
-    weight with group-128 scales, as `llama._w4a8_group_dot` gives K8."""
+    weight with scales of ``group`` inputs, as `llama._w4a8_group_dot`
+    gives K8."""
     xq = torch.randint(-127, 128, (t, k), generator=gen, device="cuda",
                        dtype=torch.int8)
     a = torch.rand((t,), generator=gen, device="cuda") * 0.02 + 1e-3
-    w, scale = _int4_weight(gen, f, k, 128)
+    w, scale = _int4_weight(gen, f, k, group)
     return xq, a, w, scale
 
 
@@ -773,8 +775,8 @@ def _w4a8_inputs(gen, t, k, f):
 def test_w4a8_group_gemm_kernel_matches_plain(gen, t, k, f):
     """Valley-13B's fused projections at the gate (128 rows) and bench's
     bucket (512), ragged rows and outputs (T and F not multiples of the
-    64 by 128 tile): one launch, fp32 and bf16 out bit-equal to the plain
-    version, the shifted group scales caught."""
+    128-output by 64- or 128-token tile): one launch, fp32 and bf16 out
+    bit-equal to the plain version, the shifted group scales caught."""
     xq, a, w, scale = _w4a8_inputs(gen, t, k, f)
     before = w4a8_group_gemm.launches
     out = w4a8_group_gemm(xq, a, w, scale, torch.float32)
@@ -792,7 +794,47 @@ def test_w4a8_group_gemm_kernel_matches_plain(gen, t, k, f):
         assert fault > tol
 
 
+# (T, K, F, group): ragged rows and outputs at every group size; the last
+# three fill a 132-SM card with K8's 128-token tiles, the others take its
+# 64-token tiles (`_k8_tile`)
+K8_GROUP_SHAPES = [
+    (130, 1024, 130, 32), (200, 512, 130, 64), (513, 1024, 130, 256),
+    (130, 1536, 384, 32), (200, 2048, 256, 64), (513, 2048, 130, 256),
+    (256, 224, 130, 32), (128, 8192, 72, 4096), (130, 1024, 6398, 32),
+    (200, 2048, 8192, 64), (513, 512, 4096, 256)]
+
+
+def _k8_tile(t, f):
+    """The token tile K8 takes for T rows and F outputs on this card: 64
+    where its 128-token tiles leave SMs idle (`choose_bn`,
+    csrc/w4a8_group_gemm.cu)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_f = -(-f // 128)
+    r128 = -(-n_f * -(-t // 128) // sms)
+    r64 = -(-n_f * -(-t // 64) // sms)
+    return 64 if 70 * r64 < 100 * r128 else 128
+
+
+@pytest.mark.parametrize("t,k,f,group", K8_GROUP_SHAPES)
+def test_w4a8_group_gemm_kernel_takes_every_group_size(gen, t, k, f, group):
+    """Ragged rows (T 130, 200, 513) and outputs (F 130), groups of 32,
+    64 and 256 (and one of 4096; a K of 224, not a multiple of 128): fp32
+    and bf16 out bit-equal to the plain version."""
+    xq, a, w, scale = _w4a8_inputs(gen, t, k, f, group)
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = w4a8_group_plain(xq, a, w, scale, dtype)
+        assert torch.equal(w4a8_group_gemm(xq, a, w, scale, dtype), ref)
+
+
+def test_w4a8_group_shapes_take_both_token_tiles(gen):
+    """The shapes above reach both of K8's token tiles on this card."""
+    assert {_k8_tile(t, f) for t, _, f, _ in K8_GROUP_SHAPES} == {64, 128}
+
+
 def test_w4a8_group_gemm_kernel_refuses_what_it_cannot_take(gen):
+    """Fewer than 128 rows, wrong dtypes, scales that do not group K, and
+    groups that are not a multiple of 32 (16 here) raise; groups of 64,
+    refused until K8 took every multiple of 32, are bit-equal."""
     xq, a, w, scale = _w4a8_inputs(gen, 128, 256, 64)
     with pytest.raises(ValueError, match="at least 128 rows"):
         w4a8_group_gemm(xq[:127].contiguous(), a[:127].contiguous(), w,
@@ -801,23 +843,67 @@ def test_w4a8_group_gemm_kernel_refuses_what_it_cannot_take(gen):
         w4a8_group_gemm(xq, a.bfloat16(), w, scale)
     with pytest.raises(TypeError):
         w4a8_group_gemm(xq, a, w, scale, torch.float16)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        w4a8_group_gemm(xq[:, :192].contiguous(), a, w[:, :96].contiguous(),
-                        scale)
-    # groups of 64: the plain version takes them, K8 does not
+    with pytest.raises(ValueError, match="not a grouped W4A8 product"):
+        w4a8_group_gemm(xq, a, w, scale[:, :1].expand(64, 3).contiguous())
     _, s64 = quantize_tensor(torch.randn((64, 256), generator=gen,
                                          device="cuda").bfloat16(), bits=4,
                              group_size=64)
-    with pytest.raises(ValueError, match="multiple of 128"):
-        w4a8_group_gemm(xq, a, w, s64)
+    assert torch.equal(w4a8_group_gemm(xq, a, w, s64),
+                       w4a8_group_plain(xq, a, w, s64))
+    _, s16 = quantize_tensor(torch.randn((64, 256), generator=gen,
+                                         device="cuda").bfloat16(), bits=4,
+                             group_size=16)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        w4a8_group_gemm(xq, a, w, s16)
 
 
-def test_tiny_w4a8_serving_on_the_card(gen):
-    """int4gpa8 weights (hidden 128, so the projections group), an int8a8
-    tower, transformer pooling and an int8 cache on the card: per request
-    (after a first one that captured the graphs) K8 runs four times a
-    layer (the 128-bucket prefill), K5 as int4gp's decode does, K4 never;
-    the prefill logits agree with the plain versions'."""
+def _quantize_cases(gen):
+    """Rows for K8q: bf16 and fp32 at a 13B width, exact .5 ties (a row
+    whose absmax is 127 has the scale 1.0), all-zero rows (the 1e-6
+    clamp) and rows whose absmax is subnormal."""
+    ties = torch.zeros((4, 256), device="cuda")
+    ties[:, 0] = 127.0
+    ties[:, 1:] = (torch.arange(255, device="cuda") % 254 - 126.5)[None]
+    ties[1] *= -1
+    sub = torch.full((2, 256), 1e-40, device="cuda")
+    sub[1, 3] = -2e-39
+    return [torch.randn((130, 5120), generator=gen, device="cuda"),
+            torch.randn((3, 1, 200, 512), generator=gen,
+                        device="cuda").bfloat16(),
+            ties, ties.bfloat16(), torch.zeros((2, 256), device="cuda"),
+            sub]
+
+
+def test_quantize_tokens_kernel_matches_plain(gen):
+    """K8q bit-equal to `llama._quantize_tokens` (xq and the scales) on
+    the card and on the CPU: one launch a call, (T, K) int8 and (T, 1)
+    fp32 out."""
+    for x in _quantize_cases(gen):
+        before = quantize_tokens.launches
+        xq, a = quantize_tokens(x)
+        torch.cuda.synchronize()
+        assert quantize_tokens.launches == before + 1
+        t = x.numel() // x.shape[-1]
+        assert xq.shape == (t, x.shape[-1]) and xq.dtype == torch.int8
+        assert a.shape == (t, 1) and a.dtype == torch.float32
+        for rq, ra in (llama._quantize_tokens(x),
+                       llama._quantize_tokens(x.cpu())):
+            assert torch.equal(xq.cpu(), rq.cpu())
+            assert torch.equal(a.cpu(), ra.cpu())
+    with pytest.raises(TypeError):
+        quantize_tokens(torch.zeros((4, 256), device="cuda").half())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quantize_tokens(torch.zeros((4, 100), device="cuda"))
+
+
+@pytest.mark.parametrize("group", [128, 64])
+def test_tiny_w4a8_serving_on_the_card(gen, group):
+    """int4gpa8 weights (hidden 128, so the projections group by 128 or
+    64), an int8a8 tower, transformer pooling and an int8 cache on the
+    card: per request (after a first one that captured the graphs) K8 and
+    K8q run four times a layer (the 128-bucket prefill), K5 as int4gp's
+    decode does, K4 never; the prefill logits agree with the plain
+    versions'."""
     import dataclasses
 
     from valley_tpu_torch.ops.quant import quantize_vision_params
@@ -828,7 +914,7 @@ def test_tiny_w4a8_serving_on_the_card(gen):
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                                 torch.bfloat16, "cuda")
     params = quantize_llama_params(llama.fuse_llama_params(params), bits=4,
-                                   group_size=128, act8=True)
+                                   group_size=group, act8=True)
     params = quantize_vision_params(params, act8=True)
     new = 6
     engines = [Engine(cfg, params, buckets=(128,), max_new_tokens=new,
@@ -845,7 +931,7 @@ def test_tiny_w4a8_serving_on_the_card(gen):
     first = [int(t[0]) for t in engines[0].generate_tokens(
         [prompt], frames, gcfg, eos_ids=[-1])]
     counts = (w4a8_group_gemm.launches, int4_matvec.launches,
-              int8_matvec.launches)
+              int8_matvec.launches, quantize_tokens.launches)
     steps0 = engines[0].steps_run
     toks = [int(t[0]) for t in engines[0].generate_tokens(
         [prompt], frames, gcfg, eos_ids=[-1])]
@@ -853,10 +939,32 @@ def test_tiny_w4a8_serving_on_the_card(gen):
     layers = cfg.text.num_hidden_layers
     assert len(toks) == new and toks == first and steps == 6
     assert w4a8_group_gemm.launches - counts[0] == 4 * layers
+    assert quantize_tokens.launches - counts[3] == 4 * layers
     assert int4_matvec.launches - counts[1] == (4 * layers + 1) * steps + 1
     assert int8_matvec.launches == counts[2]
     lk, lp = (e.prefill([prompt], frames, gcfg).logits for e in engines)
     assert (lk - lp).abs().max().item() <= 0.05
+
+
+def test_w4a8_group_16_is_refused_where_the_tree_is_quantized(gen):
+    """A W4A8 tree whose groups K8 cannot take (16 inputs) is refused by
+    the quantizer on the card, before the tree is touched; the same tree
+    quantizes on the CPU (the plain version takes any group)."""
+    import dataclasses
+
+    cfg = valley_tiny()
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text, hidden_size=128,
+                                               intermediate_size=256))
+    params = llama.fuse_llama_params(valley.init_params(
+        cfg, gen, torch.bfloat16, "cuda"))
+    names = sorted(n for n, _ in params.named_parameters())
+    with pytest.raises(ValueError, match="multiple of 32"):
+        quantize_llama_params(params, bits=4, group_size=16, act8=True)
+    assert sorted(n for n, _ in params.named_parameters()) == names
+    cpu = valley.init_params(cfg, torch.Generator().manual_seed(0),
+                             torch.float32, "cpu")
+    quantize_llama_params(cpu, bits=4, group_size=16, act8=True)
+    assert cpu["llama"]["layers"]["wq_scale_a8"].shape[-1] == 128 // 16
 
 
 @pytest.mark.parametrize("rows", [5, 40])

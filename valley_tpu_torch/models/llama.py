@@ -47,6 +47,7 @@ from valley_tpu_torch.ops.attention import KERNELS, Attention, \
 from valley_tpu_torch.ops.quant import (MAX_ROWS, dequantize,
                                         int8_matvec_plain, unpack_int4)
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from valley_tpu_torch.ops.w4a8 import quantize_tokens_plain
 
 Slots = Union[int, torch.Tensor]   # one cache slot, or one per row (B,)
 
@@ -236,19 +237,17 @@ def embed(params: LlamaWeights, input_ids: torch.Tensor) -> torch.Tensor:
 _A8_MIN_SEQ = 128
 
 
-def _quantize_tokens(x: torch.Tensor) -> tuple:
-    """x (..., K) -> (int8 (T, K), fp32 (T, 1) scales): each token by its
-    absmax / 127, clamped at 1e-6 (llama.py:196-199)."""
-    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
-    return torch.round(xf / ascale).to(torch.int8), ascale
+# the plain per-token quantization of W8A8 and W4A8 (llama.py:196-199,
+# 232-235): x (..., K) -> (int8 (T, K), fp32 (T, 1) scales)
+_quantize_tokens = quantize_tokens_plain
 
 
 def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
               scale: torch.Tensor) -> torch.Tensor:
     """quant(x) @ int8 w^T -> int32, fp32 rescale (llama.py:182-207).
 
-    Activations quantize per token (row absmax / 127, clamped at 1e-6),
+    Activations quantize per token (row absmax clamped at 1e-6, times
+    fl32(1/127) as XLA compiles JAX's ``/ 127.0`` under jit),
     the int8 x int8 product accumulates exactly in int32, and the result
     rescales by (token scale x out-channel weight scale) in fp32 before the
     cast to x's dtype.  ``w`` is (out, in).  The JAX package leaves this
@@ -267,16 +266,17 @@ def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
 
 def _w4a8_group_dot(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                     attention: Attention = KERNELS) -> torch.Tensor:
-    """Grouped W4A8 (llama.py:210-243): x quantized per token as
-    `_w8a8_dot` quantizes it, then ``attention.group_gemm`` (K8,
+    """Grouped W4A8 (llama.py:210-243): x quantized per token by
+    ``attention.quantize`` (K8q, `ops.w4a8.quantize_tokens`, or
+    `_quantize_tokens`, bit-equal), then ``attention.group_gemm`` (K8,
     `ops.w4a8.w4a8_group_gemm`, or its plain version) against the packed
-    (out, in/2) ``w`` and its (out, in/128) group scales: each
-    group's int8 x int4 sum exact in int32, times the group's scale in fp32,
+    (out, in/2) ``w`` and its (out, in/gs) group scales: each group's
+    int8 x int4 sum exact in int32, times the group's scale in fp32,
     summed over the groups, times the token's scale, cast to x's dtype.
     K8 sums the groups in order; XLA's reduction may take another order,
-    so the result agrees with JAX's to the rounding of an fp32 sum of K/128
-    terms."""
-    xq, ascale = _quantize_tokens(x)
+    so the result agrees with JAX's to the rounding of an fp32 sum of
+    K/gs terms."""
+    xq, ascale = attention.quantize(x)
     y = attention.group_gemm(xq, ascale.reshape(-1), w, scale, x.dtype)
     return y.reshape(x.shape[:-1] + (w.shape[0],))
 

@@ -10,7 +10,8 @@ holds the prefill attention with the flash kernels in both directions
 (K3, bf16 or int8 cache) and the decode GEMVs' (`ops.matvec.matvec`: the
 bf16 GEMV K6, the int8 GEMV K4 and the grouped-int4 GEMV K5 by the
 weight's storage), the projections of a few rows, and the grouped W4A8
-product of prefill chunks (K8, ``ops.w4a8.w4a8_group_gemm``), which take
+product of prefill chunks (K8, ``ops.w4a8.w4a8_group_gemm``) with its
+per-token activation quantization (K8q, ``ops.w4a8.quantize_tokens``), which take
 their plain versions for tensors on the CPU and launch the kernels for CUDA
 tensors; `PLAIN` holds the plain versions themselves, differentiated by
 autograd, for comparing a run on the card with the kernels against one
@@ -28,7 +29,8 @@ from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
 from valley_tpu_torch.ops.flash_attention import (flash_attention_autograd,
                                                   flash_attention_plain)
 from valley_tpu_torch.ops.matvec import matvec, matvec_plain
-from valley_tpu_torch.ops.w4a8 import w4a8_group_gemm, w4a8_group_plain
+from valley_tpu_torch.ops.w4a8 import (quantize_tokens, quantize_tokens_plain,
+                                      w4a8_group_gemm, w4a8_group_plain)
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -91,18 +93,20 @@ class Attention(NamedTuple):
     with ``kf``, an (F, K) int8 weight with an (F,) scale, or an (F, K/2)
     packed int4 one with (F, G) group or (F,) channel scales, chosen by
     w's dtype; group_gemm(xq, a, w, scale, out_dtype) the grouped W4A8
-    product of a chunk's per-token int8 activations (`ops.w4a8`).
+    product of a chunk's per-token int8 activations, which
+    quantize(x) -> (xq, (T, 1) scales) makes (`ops.w4a8`).
     """
     prefill: Callable[..., torch.Tensor]
     decode: Callable[..., torch.Tensor]
     matvec: Callable[..., torch.Tensor]
     group_gemm: Callable[..., torch.Tensor] = w4a8_group_gemm
+    quantize: Callable[..., tuple] = quantize_tokens
 
 
 KERNELS = Attention(flash_attention_autograd, decode_attention_stacked,
-                    matvec, w4a8_group_gemm)
+                    matvec, w4a8_group_gemm, quantize_tokens)
 PLAIN = Attention(flash_attention_plain, decode_attention_plain,
-                  matvec_plain, w4a8_group_plain)
+                  matvec_plain, w4a8_group_plain, quantize_tokens_plain)
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -183,18 +183,26 @@ def quantize_llama_params(params, act8: bool = False, bits: int = 8,
     ``group_size`` gives the layers grouped scales (int4 or int8) where it
     divides their contraction axis, else per-channel ones, as in JAX;
     ``lm_head`` is per channel with an ``lm_head_scale``, whatever the
-    mode.  ``act8`` is refused as JAX refuses it (`check_act8`).
+    mode.  ``act8`` is refused as JAX refuses it (`check_act8`), and W4A8
+    on the card with groups K8 does not take (`w4a8.check_card_group`).
 
     Consumes the input, as the JAX quantizer does: each bf16 tensor is
     dropped as its quantized copy is made, so the peak is the tree plus one
     tensor.  Returns ``params`` with its ``llama`` weights replaced.
     """
     from valley_tpu_torch.models import llama
+    from valley_tpu_torch.ops.w4a8 import check_card_group
 
     check_act8(bits, group_size, act8)
     scale_key = "_scale_a8" if act8 else "_scale"
     lw = params["llama"]
     layers = lw["layers"]
+    if act8 and bits == 4:
+        # K8's groups, refused before the tree is touched
+        for name in QUANT_TARGETS:
+            if name in layers:
+                check_card_group(group_size, layers[name].shape[-1],
+                                 layers[name].device)
     lt = {n: _take(layers, n) for n, _ in list(
         layers.named_parameters(recurse=False))}
     for name in QUANT_TARGETS:

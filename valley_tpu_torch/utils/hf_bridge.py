@@ -46,6 +46,7 @@ import torch
 from valley_tpu_torch import config as C
 from valley_tpu_torch.models import clip_vit, llama, temporal, valley
 from valley_tpu_torch.ops import quant
+from valley_tpu_torch.ops.w4a8 import check_card_group
 from valley_tpu_torch.utils.safetensors_io import (read_state_dict,
                                                    save_sharded)
 
@@ -181,6 +182,11 @@ def _quantized_llama(sd: Mapping[str, Any], cfg: C.TextConfig, dtype, device,
     bits = knobs["bits"]
     group = group_size if knobs["group_size"] else 0
     quant.check_act8(bits, group, knobs["act8"])
+    if knobs["act8"] and bits == 4:
+        # K8's groups, refused before a layer is read: the projections'
+        # inputs are the hidden and the intermediate width
+        for k in (cfg.hidden_size, cfg.intermediate_size):
+            check_card_group(group, k, device)
     scale_key = "_scale_a8" if knobs["act8"] else "_scale"
     sd = _llama_sd(sd)
     n = cfg.num_hidden_layers
