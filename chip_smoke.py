@@ -254,6 +254,8 @@ KERNEL_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2 flash_bwd", ("flash_bwd_",)),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "cutlass", "splitKreduce")),
+    # the offloaded optimizer's moments, on their own streams
+    ("host-device copies", ("Memcpy HtoD", "Memcpy DtoH")),
     ("elementwise and reductions", ("elementwise", "reduce_kernel",
                                     "softmax", "index", "scatter", "gather",
                                     "cat", "copy", "Memcpy", "Memset")),
@@ -729,6 +731,12 @@ def train_phase(smi: str) -> tuple:
 
     # the first step's loss and gradients: kernels against plain attention
     loss_k, gn_k, grads_k = trainer.loss_and_grads(batch)
+    # and the "dots" remat policy's against full remat's, the same weights
+    trainer.tc.gradient_checkpointing = "dots"
+    loss_d, _, grads_d = trainer.loss_and_grads(batch)
+    trainer.tc.gradient_checkpointing = True
+    dots_first_step(names, loss_k, grads_k, loss_d, grads_d)
+    del grads_d
     trainer.attention = PLAIN
     loss_p, gn_p, grads_p = trainer.loss_and_grads(batch)
     trainer.attention = KERNELS
@@ -809,11 +817,83 @@ def train_phase(smi: str) -> tuple:
           f"{step_dev:.1f} ms (idle share {1 - step_dev / (step_s * 1e3):.3f}"
           f"), peak memory {peak / 2 ** 30:.2f} GiB, on {smi}; top kernels: "
           f"{shares}")
+    dots = dots_updates(trainer, batch, layers, smi, step_s, peak)
     del trainer, params, batch
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
-    return n_k1, n_k2, n_delta
+    return n_k1, n_k2, n_delta, dots
+
+
+def dots_first_step(names, loss_f, grads_f, loss_d, grads_d) -> None:
+    """The ``"dots"`` remat policy's first-step loss and gradients against
+    full remat's on the same weights and batch, held to the stage-1 bars
+    and said bit-equal or not: its recompute runs K1 and the elementwise
+    glue on the same inputs, and keeps the products' outputs that full
+    remat computes again."""
+    diff = abs(float(loss_d) - float(loss_f))
+    same = float(loss_d) == float(loss_f) and all(
+        torch.equal(a, b) for a, b in zip(grads_d, grads_f))
+    parts = [f"loss {float(loss_d):.6f} vs {float(loss_f):.6f} (diff "
+             f"{diff:.2e}, tol {TRAIN_LOSS_TOL})"]
+    check(diff <= TRAIN_LOSS_TOL, f"train dots: first-step loss differs from "
+          f"full remat's by {diff}")
+    for name, gd, gf in zip(names, grads_d, grads_f):
+        err = rel_l2(gd, gf)
+        parts.append(f"{name} grad rel L2 {err:.2e} (max abs "
+                     f"{max_err(gd, gf):.2e})")
+        check(err <= TRAIN_GRAD_TOL, f"train dots: {name} grad rel L2 {err} "
+              f"> {TRAIN_GRAD_TOL}")
+    print(f"train dots: first step against full remat: "
+          f"{'bit-equal' if same else 'NOT bit-equal'}; " + "; ".join(parts))
+
+
+def dots_updates(trainer, batch, layers: int, smi: str, full_s: float,
+                 full_peak: int) -> tuple:
+    """Two stage-1 updates with ``gradient_checkpointing: "dots"`` after
+    full remat's: their walls, the peak memory over them, K1's and K2's
+    launches (K1 twice a layer, its recompute, as under full remat), and
+    one profiled update by kind, beside full remat's wall and peak of this
+    run.  Returns the launches (K1, K2) of the two updates."""
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_bwd)
+
+    trainer.tc.gradient_checkpointing = "dots"
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.launches = 0
+    walls, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    n_k1, n_k2 = flash_attention.launches, flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), "train dots: loss not finite")
+    check(n_k1 == 2 * 2 * layers, f"train dots: K1 launched {n_k1} times in "
+          f"2 updates, want {2 * 2 * layers} (forward and recompute)")
+    check(n_k2 == 2 * layers, f"train dots: K2 launched {n_k2} times in 2 "
+          f"updates, want {2 * layers}")
+    step_dev, top, _ = profile_device(lambda: trainer.train_step(batch))
+    kinds: dict = {}
+    for name, ms in top:
+        kind = next((k for k, keys in KERNEL_KINDS if any(
+            key in name for key in keys)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    print(f"train dots: losses {[round(x, 5) for x in losses]}; launches "
+          f"over 2 updates K1 {n_k1} K2 {n_k2}; update walls "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms against full "
+          f"remat's {full_s * 1e3:.1f} in this run (PERF.md's earlier "
+          f"reading: 1106.7 ms); device busy {step_dev:.1f} ms (idle share "
+          f"{1 - step_dev / (walls[-1] * 1e3):.3f}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB against full remat's "
+          f"{full_peak / 2 ** 30:.2f} GiB (PERF.md's: 19.13 GiB), on {smi}")
+    print("train dots: device time by kind: " + fmt_kinds(kinds, step_dev))
+    return n_k1, n_k2
 
 
 def decode_cases(gen, smax_7b: int, prompt_len: int, bucket: int):
@@ -3553,6 +3633,107 @@ def load_checkpoint(cfg, ckpt: Path, written: int, tree_bytes: int, tk):
     return lcfg, loaded
 
 
+def web_ui_phase(smi: str, ctrl: str, worker, work: Path) -> None:
+    """The port's web UI (`serve.web_server`) against the process's
+    controller, its LOGDIR a temporary directory: the page and the model
+    list, then bench's video question as the page sends it (an mp4 of 8
+    random 224 px frames in base64), greedy, 64 tokens, through
+    ``/chat_stream`` to the default worker.  The UI runs with
+    ``--conv-mode v1``, the training recipes' template: its own default
+    (``multimodal_video``) makes a 674-token prompt of this question and
+    video, over the worker's one 512 bucket.  Checked: the video saved
+    under ``LOGDIR/serve_images`` by its md5, the chat record and a vote in
+    ``{date}-conv.json``, and the relayed text equal to the worker's own
+    stream of the same prompt and video; printed: the first relayed chunk's
+    time beside the direct call's first chunk (the second request of each,
+    the first having read the video once)."""
+    import base64
+    import hashlib
+    import urllib.request
+
+    import cv2
+
+    from valley_tpu_torch.serve import web_server
+    from valley_tpu_torch.serve.httpd import (iter_delimited, open_json,
+                                              post_json)
+
+    logdir = Path(tempfile.mkdtemp(prefix="chip_smoke_web_"))
+    web_server.LOGDIR = str(logdir)
+    app = web_server.build_app(web_server.WebServer(ctrl, conv_mode="v1"))
+    app.host = "127.0.0.1"
+    addr = f"http://127.0.0.1:{app.start()}"
+    try:
+        opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        with opener.open(addr + "/", timeout=30) as r:
+            page = r.read()
+        check(b"Valley" in page and b"tab-video" in page
+              and b"TPU" not in page, "web: the page")
+        models = post_json(addr + "/list_models", {})["models"]
+        check("valley-7b" in models, f"web: models {models}")
+        video = work / "web_video.mp4"
+        out = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"mp4v"),
+                              8, (224, 224))
+        rng = np.random.default_rng(5)
+        for _ in range(8):
+            out.write(rng.integers(0, 256, (224, 224, 3), np.uint8))
+        out.release()
+        raw = video.read_bytes()
+        page_req = {"model": "valley-7b", "text": WORKER_QUESTIONS[0],
+                    "media": base64.b64encode(raw).decode(),
+                    "media_type": "video", "temperature": 0.0,
+                    "max_new_tokens": WORKER_NEW, "history": []}
+
+        def chat():
+            t0 = time.perf_counter()
+            first, chunks = None, []
+            with open_json(addr + "/chat_stream", page_req,
+                           timeout=600) as r:
+                for c in iter_delimited(r):
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    chunks.append(json.loads(c))
+            check(chunks and all(c.get("error_code", 0) == 0
+                                 for c in chunks), f"web: {chunks[-1:]}")
+            return chunks, first, time.perf_counter() - t0
+
+        chat()
+        saved = logdir / "serve_images" / f"{hashlib.md5(raw).hexdigest()}.mp4"
+        check(saved.is_file() and saved.read_bytes() == raw,
+              f"web: the video is not saved as {saved}")
+        conv_log = next(logdir.glob("*-conv.json"))
+        rec = json.loads(conv_log.read_text().splitlines()[-1])
+        prompt = rec["prompt"]
+        direct, d_first, d_total = timed_stream(worker.worker_addr, {
+            "model": "valley-7b", "prompt": prompt, "videos": [str(saved)],
+            "temperature": 0.0, "max_new_tokens": WORKER_NEW, "stop": "###"})
+        chunks, w_first, w_total = chat()
+        answer = direct[-1]["text"][len(prompt):].strip()
+        check(chunks[-1]["text"] == answer and rec["answer"] == answer,
+              "web: the relayed text differs from the worker's own stream "
+              "of the same prompt")
+        history = [["Human", WORKER_QUESTIONS[0]], ["Assistant", answer]]
+        post_json(addr + "/vote", {"type": "upvote", "history": history})
+        vote = json.loads(conv_log.read_text().splitlines()[-1])
+        check(vote["type"] == "upvote" and vote["history"] == history,
+              f"web: the vote record {vote}")
+        n_tok = len(direct)
+        print(f"web: the page ({len(page)} bytes) and models {models}; "
+              f"bench's video question through /chat_stream (an 8-frame "
+              f"mp4 of {len(raw)} bytes saved as serve_images/{saved.name},"
+              f" a {len(prompt)}-character prompt, v1 template): {len(chunks)}"
+              f" relayed chunks ({n_tok} from the worker directly), the text "
+              f"equal to the worker's own stream; chat and vote records in "
+              f"{conv_log.name}")
+        print(f"web: first relayed chunk {w_first * 1e3:.2f} ms after the "
+              f"request, against the direct call's first chunk "
+              f"{d_first * 1e3:.2f} ms ({(w_first - d_first) * 1e3:+.2f} ms);"
+              f" last {w_total * 1e3:.1f} against {d_total * 1e3:.1f} ms, on "
+              f"{smi}", flush=True)
+    finally:
+        app.shutdown()
+        shutil.rmtree(logdir, ignore_errors=True)
+
+
 def serve_worker_path(smi: str, gen, work: Path) -> list:
     """The serving stack on the int8 flagship: a Valley-7B checkpoint
     written and quantized on load, the port's controller and worker in this
@@ -3562,7 +3743,8 @@ def serve_worker_path(smi: str, gen, work: Path) -> list:
     decoder's rounds and the engine's steps; (b) three questions at once,
     each its run alone; (c) a two-turn session against `SpecChatSession`
     driven directly; (d) the prefix cache against the same spawn driven
-    directly; (e) the OpenAI route against the native one; (f) a pooled
+    directly; (e) the OpenAI route against the native one; (g) the web UI
+    against this controller (`web_ui_phase`); (f) a pooled
     worker (the plain pool, an int8 cache) taking four requests at once,
     one a prefix hit, against each alone, with its launches against the
     pool's counters; then K1, K3-int8 and K4 against their plain versions
@@ -3802,6 +3984,9 @@ def serve_worker_path(smi: str, gen, work: Path) -> list:
               f"not: {sorted(engine.graph_sets)}, {sorted(dec.graph_sets)}")
         print("worker: requests of 64 and 16 new tokens replayed the warm-up's"
               f" {len(keys[0])} decode state(s); no key added")
+
+        # (g) the web UI against this controller and the default worker
+        web_ui_phase(smi, ctrl, w, work)
 
         # (f) a pooled worker: the plain pool (--batch-window-ms -1, as
         # --speculative's default leaves it), int8 cache, four requests at
@@ -4607,14 +4792,15 @@ def stage2_merge_phase(smi: str, corpus: dict, out: Path) -> dict:
     return counts
 
 
-def stage2_full_phase(smi: str, corpus: dict) -> dict:
+def stage2_full_phase(smi: str, corpus: dict) -> tuple:
     """Full stage 2 on Valley-7B (random weights) through `Trainer` with
     valley_stage2.yaml's settings (lr 2e-5, the decoder, embeddings, head
     and projector trained), batch 1 of 2048 tokens: the updates of
     `stage2_updates` (peak memory under 80 GB, the optimizer's state
-    included), every trainable parameter moved and the tower not."""
+    included), every trainable parameter moved and the tower not.  Returns
+    the readings and a host copy of the parameters after the updates."""
     from valley_tpu_torch.data.dataset import DataLoader
-    from valley_tpu_torch.train.trainer import TrainConfig, Trainer
+    from valley_tpu_torch.train.trainer import Trainer
 
     tag = "stage2 full"
     tok = stage2_tokenizer()
@@ -4622,13 +4808,8 @@ def stage2_full_phase(smi: str, corpus: dict) -> dict:
     data, coll = stage2_dataset(tok, corpus, "train")
     loader = DataLoader(data, 1, coll, seed=0, num_workers=1)
     out_dir = tempfile.mkdtemp(prefix="chip_smoke_full_")
-    tc = TrainConfig(output_dir=out_dir, learning_rate=2e-5,
-                     lr_scheduler_type="cosine", warmup_ratio=0.03,
-                     adam_beta1=0.9, adam_beta2=0.95, max_grad_norm=1.0,
-                     weight_decay=0.0, gradient_checkpointing=True,
-                     freeze_backbone=False, tune_mm_mlp_adapter=True,
-                     per_device_train_batch_size=1, save_steps=0)
-    trainer = Trainer(cfg, tc, params, loader, total_steps=8)
+    trainer = Trainer(cfg, stage2_full_config(out_dir), params, loader,
+                      total_steps=8)
     batch = trainer.device_batch(next(iter(loader.epoch(0))))
     names = {n for n, lab in trainer.labels.items() if lab != "frozen"}
     check(not any(n.startswith("vision.") for n in names)
@@ -4646,11 +4827,153 @@ def stage2_full_phase(smi: str, corpus: dict) -> dict:
     unchanged_check(tag, params, before, names, may_stay=(
         "llama.final_norm", "llama.layers.attn_norm",
         "llama.layers.mlp_norm"))
+    host = {n: p.detach().to("cpu") for n, p in params.named_parameters()}
     del trainer, params, batch, before
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(out_dir, ignore_errors=True)
+    return readings, host
+
+
+def stage2_full_config(out_dir: str, **kw):
+    """valley_stage2.yaml's training settings (and, with
+    ``offload_optimizer``, valley_stage2_offload.yaml's)."""
+    from valley_tpu_torch.train.trainer import TrainConfig
+
+    return TrainConfig(output_dir=out_dir, learning_rate=2e-5,
+                       lr_scheduler_type="cosine", warmup_ratio=0.03,
+                       adam_beta1=0.9, adam_beta2=0.95, max_grad_norm=1.0,
+                       weight_decay=0.0, gradient_checkpointing=True,
+                       freeze_backbone=False, tune_mm_mlp_adapter=True,
+                       per_device_train_batch_size=1, save_steps=0, **kw)
+
+
+def stage2_offload_phase(smi: str, corpus: dict, full: dict,
+                         host: dict) -> dict:
+    """Full stage 2 again with valley_stage2_offload.yaml's
+    ``offload_optimizer`` (its other settings are valley_stage2.yaml's):
+    the same weights (seed 1), batch and updates as `stage2_full_phase`,
+    the AdamW moments in pinned host memory (checked between updates) and
+    streamed to the card around each update.  Its peak device memory,
+    update wall and device time beside the on-device run's, and every
+    parameter after the updates bit-equal to that run's (``host``, its
+    copy on the host: both runs do not fit on the card at once)."""
+    from valley_tpu_torch.data.dataset import DataLoader
+    from valley_tpu_torch.train.trainer import Trainer
+
+    tag = "stage2 offload"
+    tok = stage2_tokenizer()
+    cfg, params = stage2_model(tok, seed=1)
+    data, coll = stage2_dataset(tok, corpus, "train")
+    loader = DataLoader(data, 1, coll, seed=0, num_workers=1)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_offload_")
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, stage2_full_config(out_dir,
+                                              offload_optimizer=True),
+                      params, loader, total_steps=8)
+    moments = trainer.adam_moments()
+    pinned = sum(t.numel() * t.element_size() for t in moments)
+    print(f"{tag}: {len(moments)} AdamW moments, {pinned / 1e9:.2f} GB "
+          f"({pinned / 2 ** 30:.2f} GiB), allocated pinned on the host in "
+          f"{time.perf_counter() - t0:.1f} s (the trainer's construction)")
+    check(all(t.device.type == "cpu" and t.is_pinned() for t in moments),
+          f"{tag}: a moment is not a pinned host tensor")
+    batch = trainer.device_batch(next(iter(loader.epoch(0))))
+    readings = stage2_updates(tag, trainer, batch, cfg.text.num_hidden_layers,
+                              smi)
+    after = trainer.adam_moments()
+    check(len(after) == len(moments) and all(
+        a is b and a.is_pinned() for a, b in zip(after, moments)),
+        f"{tag}: the moments are not the pinned host tensors between "
+        "updates")
+    differ = [n for n, p in params.named_parameters()
+              if not torch.equal(p.detach().to("cpu"), host[n])]
+    check(not differ, f"{tag}: parameters differ from the on-device run's "
+          f"after the same updates: {differ}")
+    print(f"{tag}: every parameter ({len(host)} tensors) bit-equal to the "
+          f"on-device run's after the same 5 updates")
+    print(f"{tag}: peak device memory {readings['peak'] / 2 ** 30:.2f} GiB "
+          f"against {full['peak'] / 2 ** 30:.2f} GiB on the device in this "
+          f"run (PERF.md's earlier reading: 59.13 GiB); update wall "
+          f"{readings['step_s'] * 1e3:.1f} ms against "
+          f"{full['step_s'] * 1e3:.1f} ms (PERF.md's: 706.2 ms), device time "
+          f"{readings['device_ms']:.1f} ms against {full['device_ms']:.1f} "
+          f"ms (the copies on their own streams counted), on {smi}")
+    del trainer, params, batch, moments, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
     return readings
+
+
+def profile_steps_phase(smi: str, work: Path) -> dict:
+    """A short stage-1 trainer at Valley-7B's width, cut to 2 layers, with
+    ``profile_steps: "1:2"``: three updates, the second traced by
+    `profiling.trace` into ``<output_dir>/trace``; the trace must hold K1's
+    and K2's kernels, K1 twice a layer (forward and recompute) and K2
+    once.  A trace without device events is taken again, as `traced`
+    takes its traces, up to `PROFILE_ATTEMPTS` runs.  Returns the
+    launches counted over the traced update."""
+    import dataclasses
+
+    from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.data.dataset import (
+        DataCollatorForSupervisedDataset, DataLoader)
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS, TrainRows
+    from valley_tpu_torch.models import valley
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_bwd)
+    from valley_tpu_torch.train.trainer import TrainConfig, Trainer
+    from valley_tpu_torch.utils import profiling
+
+    cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+    layers = 2
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text,
+                                               num_hidden_layers=layers))
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        out = work / f"profile_steps_{attempt}"
+        params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(
+            1), torch.bfloat16, "cuda")
+        loader = DataLoader(TrainRows(cfg), 16,
+                            DataCollatorForSupervisedDataset(
+                                pad_token_id=0, pad_to_multiple=64),
+                            seed=0, num_workers=1)
+        tc = TrainConfig(output_dir=str(out), learning_rate=2e-3,
+                         num_train_epochs=3, freeze_backbone=True,
+                         tune_mm_mlp_adapter=True, save_steps=0,
+                         per_device_train_batch_size=16,
+                         profile_steps="1:2")
+        trainer = Trainer(cfg, tc, params, loader)
+        k1, k2 = flash_attention.launches, flash_attention_bwd.launches
+        t0 = time.perf_counter()
+        check(trainer.train(resume=False) == 3, "profile_steps: updates")
+        k1, k2 = flash_attention.launches - k1, flash_attention_bwd.launches \
+            - k2
+        files = sorted(f.name for f in (out / "trace").iterdir())
+        counts = profiling.kernel_counts(str(out / "trace"))
+        fwd = sum(n for k, n in counts.items() if "flash_fwd_kernel" in k)
+        bwd = sum(n for k, n in counts.items() if "flash_bwd_kernel" in k)
+        shutil.rmtree(out, ignore_errors=True)
+        del trainer, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"profile_steps: 3 updates in {time.perf_counter() - t0:.1f} s "
+              f"(K1 {k1}, K2 {k2} launches), the trace "
+              f"{[f[-40:] for f in files]} under <output_dir>/trace holds "
+              f"{sum(counts.values())} kernel events, K1 {fwd}, K2 {bwd}",
+              flush=True)
+        check(len(files) == 1 and files[0].endswith(".pt.trace.json"),
+              f"profile_steps: trace files {files}")
+        check(k1 == 3 * 2 * layers and k2 == 3 * layers,
+              f"profile_steps: launches K1 {k1} K2 {k2}")
+        if counts:
+            break
+        print(f"profiler: profile_steps trace {attempt} recorded no device "
+              f"events", flush=True)
+    check(fwd == 2 * layers and bwd == layers, f"profile_steps: the traced "
+          f"update holds K1 {fwd} and K2 {bwd} kernels, want {2 * layers} "
+          f"and {layers}")
+    return {"k1": fwd, "k2": bwd}
 
 
 def flash_stage2_phase(gen, mask) -> tuple:
@@ -4717,19 +5040,23 @@ def flash_stage2_phase(gen, mask) -> tuple:
 
 def train_path(smi: str, gen, work: Path) -> list:
     """K2 (and K1 at the training shape) against the plain versions, then
-    the training slices: stage 1; LoRA stage 2 (through `Trainer`, then
+    the training slices: stage 1, with full remat and ``"dots"``; a short
+    trainer with ``profile_steps``; LoRA stage 2 (through `Trainer`, then
     the entry point, the adapter's merge and serving, the generate-eval);
-    full stage 2; then K1 and K2 at stage 2's shape.  Returns its kernels
-    entries."""
+    full stage 2, on the device and with the optimizer offloaded; then K1
+    and K2 at stage 2's shape.  Returns its kernels entries."""
     k2_err, k2_t, k1_train = k2_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
-    train_k1, train_k2, train_delta = train_phase(smi)
+    train_k1, train_k2, train_delta, dots = train_phase(smi)
+    prof = profile_steps_phase(smi, work)
     corpus = write_stage2_corpus(work / "stage2_corpus")
     lora_r, mask = stage2_lora_phase(smi, corpus)
     out = stage2_entry_phase(smi, corpus, work)
     stage2_merge_phase(smi, corpus, out)
-    full_r = stage2_full_phase(smi, corpus)
+    full_r, host = stage2_full_phase(smi, corpus)
+    off_r = stage2_offload_phase(smi, corpus, full_r, host)
+    del host
     k1_s2, k2_s2 = flash_stage2_phase(gen, mask)
     k2_src = {"route": "cuda", "source": "valley_tpu_torch/csrc/flash_bwd.cu",
               "replaces": "valley_tpu/ops/flash_attention.py:183"}
@@ -4745,7 +5072,21 @@ def train_path(smi: str, gen, work: Path) -> list:
             {**K1_SRC, "name": "flash_fwd_stage2", "path": "train_full",
              "launches": full_r["k1"], **k1_s2},
             {**k2_src, "name": "flash_bwd_stage2", "path": "train_full",
-             "launches": full_r["k2"], **k2_s2}]
+             "launches": full_r["k2"], **k2_s2},
+            {**K1_SRC, "name": "flash_fwd_stage2", "path": "train_offload",
+             "launches": off_r["k1"], **k1_s2},
+            {**k2_src, "name": "flash_bwd_stage2", "path": "train_offload",
+             "launches": off_r["k2"], **k2_s2},
+            {**K1_SRC, "name": "flash_fwd_train", "path": "train_dots",
+             "launches": dots[0], **k1_train},
+            {**k2_src, "name": "flash_bwd", "path": "train_dots",
+             "launches": dots[1], "max_abs_err": k2_err, **k2_t},
+            {**K1_SRC, "name": "flash_fwd_train",
+             "path": "train_profile_steps (2 layers, the traced update)",
+             "launches": prof["k1"], **k1_train},
+            {**k2_src, "name": "flash_bwd",
+             "path": "train_profile_steps (2 layers, the traced update)",
+             "launches": prof["k2"], "max_abs_err": k2_err, **k2_t}]
 
 
 # The serve_variants process: K8, the quantized tower, the learned pooling
@@ -5267,8 +5608,10 @@ for _name in ("k8q_phase", "k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
               "batch_slice", "spec_pool_slice", "train_phase",
               "write_checkpoint", "load_checkpoint", "stage2_lora_phase",
               "stage2_entry_phase", "stage2_merge_phase",
-              "stage2_full_phase", "flash_stage2_phase", "k8_phase",
-              "pooling_phase", "vision_quant_phase", "variant_slice"):
+              "stage2_full_phase", "stage2_offload_phase",
+              "profile_steps_phase", "flash_stage2_phase", "k8_phase",
+              "pooling_phase", "vision_quant_phase", "variant_slice",
+              "web_ui_phase"):
     globals()[_name] = _timed(globals()[_name])
 
 

@@ -333,6 +333,95 @@ def test_tiny_training_step_on_the_card(gen, tmp_path):
     assert torch.equal(params["llama"]["lm_head"], head)
 
 
+def _tiny_trainer(tmp_path, name, **kw):
+    """A tiny bf16 model's `Trainer` on the card over `_Rows`, seed 0."""
+    cfg = valley_tiny()
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                                torch.bfloat16, "cuda")
+    tc = TrainConfig(output_dir=str(tmp_path / name), learning_rate=2e-3,
+                     per_device_train_batch_size=4, save_steps=0, **kw)
+    loader = DataLoader(_Rows(cfg), 4, DataCollatorForSupervisedDataset(
+        pad_to_multiple=16), seed=0, num_workers=1)
+    trainer = Trainer(cfg, tc, params, loader, total_steps=8)
+    return trainer, trainer.device_batch(next(iter(loader.epoch(0))))
+
+
+def test_dots_remat_matches_full_on_the_card(gen, tmp_path):
+    """A stage-1 step of the tiny bf16 model through K1 and K2 with the
+    ``"dots"`` policy and with full remat: K1 twice a layer under both (its
+    recompute: a call into its own library, which no policy saves), K2
+    once, and the loss and gradients within the stage-1 bars of each other
+    (loss 1e-4, relative L2 0.05; the recompute runs the same kernels on
+    the same inputs)."""
+    trainer, batch = _tiny_trainer(tmp_path, "dots", freeze_backbone=True,
+                                   tune_mm_mlp_adapter=True)
+    layers = trainer.cfg.text.num_hidden_layers
+    out = {}
+    for policy in (True, "dots"):
+        trainer.tc.gradient_checkpointing = policy
+        k1, k2 = flash_attention.launches, flash_attention_bwd.launches
+        out[policy] = trainer.loss_and_grads(batch)
+        assert flash_attention.launches - k1 == 2 * layers
+        assert flash_attention_bwd.launches - k2 == layers
+    (lf, _, gf), (ld, _, gd) = out[True], out["dots"]
+    assert abs(float(lf) - float(ld)) <= 1e-4
+    for a, b in zip(gd, gf):
+        assert float((a.float() - b.float()).norm()) <= \
+            0.05 * float(b.float().norm())
+
+
+def test_offloaded_update_matches_on_device_on_the_card(gen, tmp_path):
+    """Three full-stage-2 updates of the tiny bf16 model with the AdamW
+    moments in pinned host memory, streamed in chunks of 4096 elements on
+    the side streams, against the same updates with the moments on the
+    card: the parameters and moments bit-equal, the moments pinned host
+    tensors between updates."""
+    runs = {}
+    for offload in (False, True):
+        trainer, batch = _tiny_trainer(tmp_path, f"off{int(offload)}",
+                                       offload_optimizer=offload,
+                                       weight_decay=0.1)
+        trainer.offload_chunk = 4096
+        for _ in range(3):
+            assert trainer.train_step(batch)["updated"]
+        runs[offload] = trainer
+    dev, off = runs[False], runs[True]
+    for t in off.adam_moments():
+        assert t.device.type == "cpu" and t.is_pinned()
+    for a, b in zip(off.adam_moments(), dev.adam_moments()):
+        assert b.is_cuda and torch.equal(a, b.cpu())
+    for (n, a), (_, b) in zip(off.params.named_parameters(),
+                              dev.params.named_parameters()):
+        assert torch.equal(a, b), n
+
+
+def test_quantizers_on_the_card_equal_the_cpu(gen):
+    """The int8 KV cache's quantizer: its scale, the absmax times
+    fl32(1/127), equals the quotient the port wrote before (``/ 127.0``,
+    which torch takes on the card as the product with the reciprocal), and
+    the values and scales equal the CPU's, bit for bit, at the 7B cache's
+    width in bf16 and fp32.  The weight quantizer's two forms (a decoder
+    stack's reciprocal product, the loader's quotient) equal the CPU's."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn((4, 512, 32, 128), generator=gen, device="cuda")
+             * 3).to(dtype)
+        q, s = llama._quantize_kv(x)
+        xf = x.float()
+        old = xf.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+        assert torch.equal(q, torch.round(xf / old[..., None]).to(torch.int8))
+        assert torch.equal(s, old.bfloat16())
+        qc, sc = llama._quantize_kv(x.cpu())
+        assert torch.equal(q.cpu(), qc) and torch.equal(s.cpu(), sc)
+    w = (torch.randn((4, 512, 1024), generator=gen, device="cuda") * 0.02)
+    for bits, group in ((8, 0), (4, 128), (8, 64)):
+        for args in ((w,), (w[0],)):
+            got = quantize_tensor(*args, bits=bits, group_size=group)
+            want = quantize_tensor(args[0].cpu(), bits=bits,
+                                   group_size=group)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), (bits, group, args[0].dim())
+
+
 def _int8_weight(gen, f, k):
     """An (F, K) int8 weight and its (F,) bf16 scale, quantized from
     N(0, 1) / sqrt(K) bf16 values as the serving tree's are."""

@@ -222,19 +222,84 @@ def test_w8a8_dot_matches_jax(dtype, shape):
                                atol=rel * np.abs(want).max())
 
 
+def _tensor(x):
+    """A torch copy of a JAX or numpy array, bf16 kept bf16."""
+    t = torch.from_numpy(_np(x))
+    return t.bfloat16() if np.asarray(x).dtype == jnp.bfloat16 else t
+
+
+# (shape, seed): the serving cache's width at 4 rows of 512 slots, and the
+# tiny config's (2 KV heads of 32, a 16-slot chunk)
+KV_SHAPES = [((4, 512, 32, 128), 0), ((2, 16, 4, 32), 5)]
+
+
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
 def test_quantize_kv_matches_jax(dtype):
-    """Identical int8 values and bf16 scales."""
-    x = jnp.asarray(np.random.default_rng(5).standard_normal(
-        (2, 16, 4, 32)) * 3, dtype)
-    wq, ws = jllama._quantize_kv(x)
-    tx = torch.from_numpy(_np(x))
-    if dtype == jnp.bfloat16:
-        tx = tx.bfloat16()
-    q, s = llama._quantize_kv(tx)
-    assert q.dtype == torch.int8 and s.dtype == torch.bfloat16
+    """Identical int8 values and bf16 scales to JAX's `_quantize_kv` under
+    jax.jit, as its engine runs it, at each of `KV_SHAPES`: XLA takes
+    JAX's ``/ 127.0`` as the product with fl32(1/127), the port writes
+    that product.  Run op by op, JAX divides: at the 7B shape in bf16 that
+    moves 885 of its 8,388,608 values, which this test must see (the
+    quotient is not the jitted form)."""
+    for shape, seed in KV_SHAPES:
+        x = jnp.asarray(np.random.default_rng(seed).standard_normal(
+            shape) * 3, dtype)
+        wq, ws = jax.jit(jllama._quantize_kv)(x)
+        q, s = llama._quantize_kv(_tensor(x))
+        assert q.dtype == torch.int8 and s.dtype == torch.bfloat16
+        np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
+        np.testing.assert_array_equal(_np(s), _np(ws))
+        if shape[1] == 512 and dtype == jnp.bfloat16:
+            eq, _ = jllama._quantize_kv(x)
+            assert _mismatches(eq, wq) == 885
+
+
+# (bits, group): int8 per channel, the int4 modes per channel and grouped,
+# and grouped int8, whose fp32 case parts from the quotient
+STACK_QUANT = [(8, 0), (4, 0), (4, 128), (8, 64), (4, 32)]
+
+
+@pytest.mark.parametrize("bits,group", STACK_QUANT)
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_stacked_quantizer_matches_jitted_jax(dtype, bits, group):
+    """A decoder stack (L, out, in) through `quant.quantize_tensor`: int8
+    values and bf16 scales identical to JAX's `quantize_tensor`, whose
+    stacks go through the jitted ``_quantize_stacked``: the scale amax
+    times fl32(1/qmax), the values round(w / scale).  The quotient (JAX's
+    numpy host quantizer) moves values of the fp32 grouped int8 stack
+    (checked, so the case tells the two forms apart)."""
+    w = jnp.asarray(np.random.default_rng(1).standard_normal(
+        (8, 512, 1024)) * 0.02, dtype)
+    wq, ws = jquant.quantize_tensor(w, bits=bits, group_size=group)
+    q, s = quant.quantize_tensor(_tensor(w), bits=bits, group_size=group)
     np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
     np.testing.assert_array_equal(_np(s), _np(ws))
+    if (bits, group, dtype) == (8, 64, np.float32):
+        hq, _ = jquant._quantize_one_host(np.asarray(w), -1, bits, group)
+        assert _mismatches(hq, wq) > 0
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_tower_w8a8_dot_matches_jitted_jax(dtype):
+    """The W8A8 tower product `clip_vit._dot` bit for bit against JAX's
+    under jax.jit, as the engine serves the tower (8 frames of 257
+    tokens): the token scale is the absmax times fl32(1/127), as XLA
+    compiles JAX's ``/ 127.0``.  JAX run op by op divides and differs in
+    thousands of outputs (checked)."""
+    from valley_tpu.models import clip_vit as jclip
+    from valley_tpu_torch.models import clip_vit
+
+    rng = np.random.default_rng(4)
+    x = jnp.asarray(rng.standard_normal((8, 257, 256)), dtype)
+    w = rng.integers(-127, 128, (1, 256, 384)).astype(np.int8)
+    sc = jnp.asarray(rng.random((1, 1, 384)) * 0.01, jnp.bfloat16)
+    lp = {"wq": jnp.asarray(w[0]), "wq_scale_a8": sc[0]}
+    want = _np(jax.jit(lambda x: jclip._dot(lp, "wq", x))(x))
+    got = clip_vit._dot({"wq": torch.from_numpy(w),
+                         "wq_scale_a8": _tensor(sc)}, 0, "wq", _tensor(x))
+    assert got.dtype == _tensor(x).dtype
+    np.testing.assert_array_equal(_np(got), want)
+    assert _mismatches(_np(jclip._dot(lp, "wq", x)), want) > 1000
 
 
 def test_init_cache_int8_has_two_scale_buffers(cfg):

@@ -186,8 +186,7 @@ def test_cli_stage1_then_stage2_on_cpu(corpus):
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
     from valley_tpu_torch.train.train import train
 
-    for key, value in (("mesh_model", 2), ("offload_optimizer", True),
-                       ("report_to", "wandb")):
+    for key, value in (("mesh_model", 2), ("report_to", "wandb")):
         conf = _conf(corpus, f"refuse_{key}",
                      output_dir=str(tmp_path / key), **{key: value})
         with pytest.raises(NotImplementedError):

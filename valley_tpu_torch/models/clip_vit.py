@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from valley_tpu_torch.config import VisionConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import mha_attention
-from valley_tpu_torch.ops.quant import dequant_matmul
+from valley_tpu_torch.ops.quant import RECIP_127, dequant_matmul
 
 # CLIP preprocessing statistics (the JAX tower's CLIP_MEAN / CLIP_STD).
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -131,9 +131,11 @@ def _dot(lp: ClipLayers, li: int, name: str, x: torch.Tensor
 
     An int8 weight with ``<name>_scale`` dequantizes into an fp32 product
     (`quant.dequant_matmul`, as `llama._linear` takes an int8 weight); with
-    ``<name>_scale_a8`` (W8A8) each token quantizes to int8 by its absmax /
-    127 (clamped at 1e-6), the int8 product accumulates exactly in int32
-    and rescales by the token's and the output channel's scales in fp32.
+    ``<name>_scale_a8`` (W8A8) each token quantizes to int8 by its absmax
+    (clamped at 1e-6) times fl32(1/127), as XLA compiles JAX's ``/ 127.0``
+    under jit where the engine serves the tower, the int8 product
+    accumulates exactly in int32 and rescales by the token's and the output
+    channel's scales in fp32.
     The tower runs only prefill-shaped products (1 + P tokens a frame), so
     W8A8 has no sequence gate.  The JAX package leaves this product to XLA
     and it has no groups, so the port leaves it to the library's int8
@@ -148,7 +150,7 @@ def _dot(lp: ClipLayers, li: int, name: str, x: torch.Tensor
         return dequant_matmul(x, w, lp[name + "_scale"][li])
     k, o = w.shape
     xf = x.reshape(-1, k).to(torch.float32)
-    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) * RECIP_127
     xq = torch.round(xf / ascale).to(torch.int8)
     rows = xq.shape[0]
     if xq.is_cuda and rows < _INT_MM_MIN_ROWS:

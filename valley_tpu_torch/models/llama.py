@@ -9,9 +9,9 @@ cache is the same stacked (L, B, Smax, Hkv, D) buffer, bf16/fp32 or int8
 with (L, B, Smax, Hkv) bf16 scales; this port writes it in place.  RMSNorm,
 rotary and softmax run in fp32 exactly where the JAX package runs them.
 
-Ported: the cacheless forward (training, with full per-layer
-rematerialisation as an option, and LoRA adapters with their training-time
-dropout), bucketed prefill at ``cache_index`` 0 and
+Ported: the cacheless forward (training, with per-layer
+rematerialisation, full or ``"dots"``, as an option, and LoRA adapters
+with their training-time dropout), bucketed prefill at ``cache_index`` 0 and
 single-token decode over the stacked cache, for any number of rows B, with
 one slot for every row or a slot per row (continuous batching: rows that
 joined at different times write at their own slots); the fused serving
@@ -22,10 +22,9 @@ W8A8 prefill for int8 ``*_scale_a8`` trees, grouped W4A8 prefill for int4
 ones (K8), grouped int8 scales, the int8 KV cache, and the
 ``cross_valid`` extend branch (a chunk appended to a session's cache
 attends every valid slot and itself causally: multi-turn KV reuse).  Not
-ported yet, and refused with NotImplementedError: the ``"dots"`` remat
-policy and a half-fused layout.  Adapters ride on the
-unfused, unquantized layout only, as in JAX (merge them first to fuse or
-quantize: ``train/lora.py``).  The JAX package's
+ported, and refused with NotImplementedError: a half-fused layout.
+Adapters ride on the unfused, unquantized layout only, as in JAX (merge
+them first to fuse or quantize: ``train/lora.py``).  The JAX package's
 split of batched decode into a carried and a sliced cache
 (llama.py:538-548) works around a TPU layout choice and has no
 counterpart: one cached form serves every B.
@@ -33,18 +32,20 @@ counterpart: one cached form serves every B.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Mapping, Optional, Union
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from valley_tpu_torch.config import TextConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import KERNELS, Attention, \
     mha_attention, prefill_attention
-from valley_tpu_torch.ops.quant import (MAX_ROWS, dequantize,
+from valley_tpu_torch.ops.quant import (MAX_ROWS, RECIP_127, dequantize,
                                         int8_matvec_plain, unpack_int4)
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from valley_tpu_torch.ops.w4a8 import quantize_tokens_plain
@@ -445,27 +446,52 @@ def _per_layer(lp: LlamaLayers) -> dict:
     return {n: p.unbind(0) for n, p in lp.named_parameters(recurse=False)}
 
 
-def _use_remat(remat) -> bool:
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy's choice for each op of a layer's forward:
+    save the output of a product with no batch dimension (``aten.mm`` and
+    ``aten.addmm``: every projection, fused or not, and the adapters'), as
+    JAX's ``dots_with_no_batch_dims_saveable``; recompute every other op
+    (the norms, rope, SwiGLU, the casts, attention's batched products)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_policy(remat) -> Optional[str]:
     """The ``remat`` knob of llama.py:640-657: True/"full" recomputes each
-    layer in the backward, False/None keeps its activations."""
+    layer in the backward, "dots" keeps its products' outputs and
+    recomputes the rest, False/None keeps every activation (None)."""
     if remat in (True, "full"):
-        return True
+        return "full"
     if remat in (False, None):
-        return False
+        return None
     if remat == "dots":
-        raise NotImplementedError(
-            'the "dots" remat policy (save matmul outputs, recompute the '
-            'elementwise glue) is not ported yet: use True/"full" or False')
+        return "dots"
     raise ValueError(f"unknown remat policy {remat!r} "
                      "(use True/'full', 'dots', or False)")
 
 
+def _checkpoint_kwargs(policy: str) -> dict:
+    """`torch.utils.checkpoint` arguments of a remat policy: "dots" passes
+    the selective-checkpoint contexts of `_dots_policy`.  K1, a call into
+    its own library that no policy sees, runs again in the recompute under
+    either policy, as JAX recomputes its Pallas call."""
+    if policy == "full":
+        return {}
+    return {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+
+
 def _quantize_kv(x: torch.Tensor):
     """(B, S, H, D) -> int8 values and per-(row, slot, head) absmax scales
-    (llama.py:387-392): fp32 scale max(amax, 1e-6) / 127, values
-    round(x / scale) with that fp32 scale, the scale stored bf16."""
+    (llama.py:387-392): fp32 scale max(amax, 1e-6) times fl32(1/127),
+    values round(x / scale) with that fp32 scale, the scale stored bf16.
+    JAX writes ``/ 127.0``, which XLA compiles under jit, as the engine
+    serves it, into the reciprocal's product (the quotient differs in the
+    last bit of some scales); on the card torch took the same product for
+    the quotient."""
     xf = x.to(torch.float32)
-    scale = xf.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-6) * RECIP_127
     q = torch.round(xf / scale[..., None]).to(torch.int8)
     return q, scale.to(torch.bfloat16)
 
@@ -569,16 +595,18 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     ``kv_valid`` (B, Smax) marks attendable slots; a chunk of more than one
     token given ``cross_valid`` (B, Smax), the slots valid before it, is
     appended to a session's cache (`_attn_cached`).  ``attention`` picks
-    the kernels (default) or their plain versions.  ``remat`` (cacheless path only): True/"full" wraps each
-    layer in `torch.utils.checkpoint`, so the backward recomputes its
-    forward (the attention forward then runs twice per layer).
+    the kernels (default) or their plain versions.  ``remat`` (cacheless
+    path only): True/"full" wraps each layer in `torch.utils.checkpoint`,
+    so the backward recomputes its forward; "dots" saves the layer's
+    products' outputs and recomputes the rest (`_dots_policy`).  The
+    attention forward runs twice per layer under either.
     ``lora_rng`` (cacheless path only): the integer key of a training
     step's adapter dropout at rate ``lora_dropout``, folded with each
     layer's index (None: no dropout, as at inference).
     """
     b, s, _ = inputs_embeds.shape
-    use_remat = _use_remat(remat)
-    if use_remat and cache is not None:
+    policy = _remat_policy(remat)
+    if policy is not None and cache is not None:
         raise ValueError("remat applies to the cacheless forward only")
     if cross_valid is not None and cache is None:
         raise ValueError("cross_valid extends a cache: pass the cache")
@@ -613,10 +641,11 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     for li in range(cfg.num_hidden_layers):
         if cache is None:
             key = None if lora_rng is None else fold_in(lora_rng, li)
-            if use_remat:
+            if policy is not None:
                 x = checkpoint(_layer, lp, li, x, cfg, cos, sin, attn_mask,
                                attention, key, lora_dropout,
-                               use_reentrant=False)
+                               use_reentrant=False,
+                               **_checkpoint_kwargs(policy))
             else:
                 x = _layer(lp, li, x, cfg, cos, sin, attn_mask, attention,
                            key, lora_dropout)

@@ -46,6 +46,10 @@ import torch
 
 from valley_tpu_torch.ops import _build
 
+# fl32(1 / 127): what XLA multiplies by where JAX writes ``/ 127.0``
+# under jit
+RECIP_127 = 1.0 / 127.0
+
 QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                  "wqkv", "w_gateup")   # last two: fused serving layout
 
@@ -76,21 +80,31 @@ def parse_quant_mode(mode: str) -> dict:
 
 
 def _quantize_one(w: torch.Tensor, contract_axis: int = -1, bits: int = 8,
-                  group_size: int = 0):
+                  group_size: int = 0, recip: bool = False):
     """Symmetric quantization over the contraction axis (quant.py:64-97):
     fp32 absmax, the scale amax/qmax (127, or 7 for ``bits`` 4) cast to
     w's dtype before ``round(w / scale)``, values clipped to +-qmax and
     stored int8, scales bf16.  With ``group_size`` (contract_axis -1 only,
     and only where it divides the axis, else per channel as in JAX) one
     scale per group: (out, K/group); per channel (out,) for contract_axis
-    -1, (1, out) for -2."""
+    -1, (1, out) for -2.
+
+    The scale's two forms follow the JAX function's callers: run op by op
+    (``lm_head``, the tower) or by the numpy host quantizer of the loader
+    (quant.py:260-281) it is the quotient amax / qmax, on the CPU and the
+    card alike (a divisor on the device: torch multiplies a CUDA tensor
+    divided by a number by the number's reciprocal); with ``recip`` it is
+    amax times fl32(1/qmax), the form XLA compiles the quotient into under
+    jit, as JAX quantizes its decoder stacks (quant.py:100)."""
     qmax = 127.0 if bits == 8 else 7.0
     k = w.shape[-1]
     grouped = bool(group_size) and contract_axis == -1 and k % group_size == 0
     if grouped:
         w = w.reshape(w.shape[:-1] + (k // group_size, group_size))
     amax = w.abs().amax(dim=contract_axis, keepdim=True).to(torch.float32)
-    scale = torch.where(amax > 0, amax / qmax,
+    q_scale = amax * (1.0 / qmax) if recip else amax / amax.new_full(
+        (), qmax)
+    scale = torch.where(amax > 0, q_scale,
                         torch.ones_like(amax)).to(w.dtype)
     q = torch.clamp(torch.round(w / scale), -qmax, qmax).to(torch.int8)
     if contract_axis == -1:
@@ -103,9 +117,10 @@ def _quantize_one(w: torch.Tensor, contract_axis: int = -1, bits: int = 8,
 def quantize_tensor(w: torch.Tensor, contract_axis: int = -1, bits: int = 8,
                     group_size: int = 0):
     """`_quantize_one`, one layer at a time for an (L, out, in) stack, so
-    the transient is one layer."""
+    the transient is one layer.  A stack's scales take the reciprocal's
+    product, as JAX's jitted ``_quantize_stacked`` computes them."""
     if w.dim() == 3 and contract_axis == -1:
-        parts = [_quantize_one(w[i], -1, bits, group_size)
+        parts = [_quantize_one(w[i], -1, bits, group_size, recip=True)
                  for i in range(w.shape[0])]
         return (torch.stack([p[0] for p in parts]),
                 torch.stack([p[1] for p in parts]))

@@ -26,14 +26,12 @@ import functools
 import torch
 
 from valley_tpu_torch.ops import _build
-from valley_tpu_torch.ops.quant import unpack_int4
+from valley_tpu_torch.ops.quant import RECIP_127, unpack_int4
 
 # K8's group sizes are multiples of this (one wgmma's 32 inputs)
 QUANTUM = 32
 # `llama._A8_MIN_SEQ`: the rows of the smallest chunk the decoder sends here
 MIN_ROWS = 128
-# fl32(1 / 127): the token's scale is its absmax times this
-RECIP_127 = 1.0 / 127.0
 
 
 def check_card_group(group_size: int, k: int, device) -> None:

@@ -22,17 +22,32 @@
   and the forward folds in the layer and the projection
   (`llama.dropout_mask`).  The masks come from torch's generators, not
   JAX's ``dropout_rng_impl``: the name is checked and the bits differ.
-* ``trainer.log`` / ``metrics.jsonl`` lines, ``checkpoint-N`` saves (with
-  ``lora_save_strategy: steps``, also adapter-only ``adapter-N``),
-  auto-resume through `valley_tpu_torch.utils.checkpoint`, and the
-  ``eval_fn`` of ``evaluation_strategy: steps`` every ``eval_steps``.
+* Optimizer offload (``offload_optimizer``, DeepSpeed's ZeRO-offload in
+  the reference, JAX's pinned-host optimizer state): the AdamW moments live
+  in pinned host memory, and each update streams them to the device a
+  chunk of rows at a time on a side stream (the next chunk's arrive while
+  the current one updates, and each goes back as soon as it is updated),
+  with the arithmetic of the on-device update, on the device
+  (`Trainer._offloaded_step`).  On the CPU the moments are ordinary host
+  tensors.
+* ``trainer.log`` / ``metrics.jsonl`` lines, with the `StepTimer` summary of
+  the micro-batches' wall times (JAX's four keys; each micro-batch ends in
+  a synchronise, as JAX's ``block_until_ready``), ``profile_steps``
+  ("a:b": a `profiling.trace` of updates a to b into
+  ``<output_dir>/trace``), ``checkpoint-N`` saves (blocking, or with
+  ``async_checkpointing`` written on a thread and committed by the next
+  save; with ``lora_save_strategy: steps``, also adapter-only
+  ``adapter-N``), auto-resume through `valley_tpu_torch.utils.checkpoint`,
+  and the ``eval_fn`` of ``evaluation_strategy: steps`` every
+  ``eval_steps``.
 
-Options that only the JAX package's mesh, TPU or optimizer-offload code
-gave are refused with NotImplementedError (see `check_ported`).
+Options that only the JAX package's mesh or wandb gave are refused with
+NotImplementedError (see `check_ported`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -44,6 +59,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.optim.adamw import adamw
 
 from valley_tpu_torch.config import ValleyConfig
 from valley_tpu_torch.data.dataset import PrefetchLoader
@@ -51,6 +67,7 @@ from valley_tpu_torch.models import valley
 from valley_tpu_torch.models.llama import fold_in
 from valley_tpu_torch.ops.attention import KERNELS, Attention
 from valley_tpu_torch.utils import checkpoint as ckpt_lib
+from valley_tpu_torch.utils import profiling
 from valley_tpu_torch.weights import set_trainable
 
 logger = logging.getLogger(__name__)
@@ -72,12 +89,15 @@ class TrainConfig:
     num_train_epochs: int = 1
     per_device_train_batch_size: int = 16
     gradient_accumulation_steps: int = 1
-    # True/"full": recompute whole layers in the backward; False: off
+    # True/"full": recompute whole layers in the backward; "dots": keep the
+    # products' outputs, recompute the rest (`llama._dots_policy`); False:
+    # off
     gradient_checkpointing: Any = True
     logging_steps: int = 1
     save_steps: int = 2400
     save_total_limit: int = 1
-    # the port's saves always block; the files are the same either way
+    # write checkpoints on a thread (the state copied to the host first);
+    # the final save blocks
     async_checkpointing: bool = False
     seed: int = 42
     freeze_backbone: bool = False
@@ -92,9 +112,11 @@ class TrainConfig:
     mesh_data: int = 1
     mesh_fsdp: int = -1
     mesh_model: int = 1
+    # the AdamW moments in pinned host memory, streamed around each update
     offload_optimizer: bool = False
     report_to: Optional[str] = None
     run_name: str = "valley"
+    # "a:b": trace updates a to b into <output_dir>/trace
     profile_steps: Optional[str] = None
     predict_with_generate: bool = False
     prediction_file_name: Optional[str] = None
@@ -116,20 +138,29 @@ def check_ported(tc: TrainConfig) -> None:
         raise ValueError(f"unknown dropout_rng_impl {tc.dropout_rng_impl!r}"
                          f" (one of {', '.join(DROPOUT_RNG_IMPLS)})")
     refused = {
-        "offload_optimizer": tc.offload_optimizer and "optimizer offload to "
-        "host memory is not ported",
         "mesh": ((tc.mesh_data, tc.mesh_model) != (1, 1)
                  or tc.mesh_fsdp not in (-1, 1))
         and f"the port trains on one device: mesh_data/mesh_fsdp/mesh_model "
         f"must be 1/-1/1, got {tc.mesh_data}/{tc.mesh_fsdp}/{tc.mesh_model}",
         "report_to": tc.report_to == "wandb" and "report_to: wandb is not "
         "ported; the trainer writes trainer.log and metrics.jsonl",
-        "profile_steps": bool(tc.profile_steps) and "profile_steps (a "
-        "jax.profiler trace) is not ported",
     }
     for what in refused.values():
         if what:
             raise NotImplementedError(what)
+    profile_range(tc.profile_steps)
+
+
+def profile_range(spec: Optional[str]):
+    """(a, b) of ``profile_steps`` "a:b" (trainer.py:443-446), or None."""
+    if not spec:
+        return None
+    try:
+        lo, hi = (int(x) for x in spec.split(":"))
+    except ValueError:
+        raise ValueError(f"profile_steps {spec!r}: want \"start:stop\", "
+                         "two update counts") from None
+    return lo, hi
 
 
 # ---------------------------------------------------------------------------
@@ -247,6 +278,27 @@ def make_optimizer(params: valley.ValleyWeights, tc: TrainConfig,
     return opt, sched, labels
 
 
+# The elements of the largest chunk of AdamW moments that an offloaded update
+# streams at once (2^26: 128 MB a bf16 moment; a layer of a 7B stack)
+OFFLOAD_CHUNK = 1 << 26
+
+
+def pinned_zeros(p: torch.Tensor) -> torch.Tensor:
+    """Zeros of ``p``'s shape and dtype in host memory, page-locked where
+    ``p`` lies on the card (so that copies to and from it run on a side
+    stream alongside the card's work); the reason is raised where it cannot
+    be had."""
+    if p.device.type != "cuda":
+        return torch.zeros(p.shape, dtype=p.dtype)
+    try:
+        return torch.zeros(p.shape, dtype=p.dtype, pin_memory=True)
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"offload_optimizer: {p.numel() * p.element_size()} bytes of "
+            f"pinned host memory for an AdamW moment could not be had "
+            f"({e}); the moments are not kept on the device instead") from e
+
+
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (without an
     fp32 copy of each gradient)."""
@@ -287,6 +339,11 @@ class Trainer:
         self._trainable = [p for g in self.optimizer.param_groups
                            for p in g["params"]]
         self.lora_dropout = tc.lora_dropout if tc.lora else 0.0
+        self.offload = tc.offload_optimizer
+        self.offload_chunk = OFFLOAD_CHUNK
+        self._copy_streams = None
+        if self.offload:
+            self._init_offloaded_state()
         self.step = 0      # optimizer updates so far
         self._micro = 0    # micro-batches averaged toward the next update
         self._acc: Optional[List[torch.Tensor]] = None
@@ -372,8 +429,134 @@ class Trainer:
             for p, g in zip(group["params"], gs):
                 p.grad = g.div_(div.to(g.dtype)).mul_(mul)
             group["lr"] = self.schedules[group["label"]](self.step)
-        self.optimizer.step()
+        if self.offload:
+            self._offloaded_step()
+        else:
+            self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
+
+    # -- optimizer offload ---------------------------------------------------
+
+    def _init_offloaded_state(self) -> None:
+        """AdamW's state of every trainable parameter, made now as
+        `torch.optim.AdamW` would at its first step (a step count of 0 on
+        the host, zero moments), the moments in pinned host memory."""
+        for p in self._trainable:
+            self.optimizer.state[p] = {
+                "step": torch.tensor(0.0),
+                "exp_avg": pinned_zeros(p),
+                "exp_avg_sq": pinned_zeros(p)}
+
+    def _chunks(self):
+        """(parameter, its group, rows) of each chunk of at most
+        ``offload_chunk`` elements (whole rows of the leading axis), in
+        optimizer order."""
+        for group in self.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                row = max(p[0].numel(), 1) if p.dim() else 1
+                per = max(self.offload_chunk // row, 1)
+                n = p.shape[0] if p.dim() else 1
+                for i in range(0, n, per):
+                    yield p, group, slice(i, min(i + per, n))
+
+    def _offloaded_step(self) -> None:
+        """The AdamW update of `torch.optim.AdamW.step` (foreach off), one
+        chunk of rows at a time: ``torch.optim.adamw.adamw`` on the chunk's
+        parameter and gradient rows and its moments' rows brought to the
+        device, each chunk from the same step count.  The arithmetic is
+        elementwise, so the result is the on-device update's bit for bit.
+        On the card, the next chunk's moments are copied in on one side
+        stream while the current chunk updates, and each updated chunk's
+        go back on another; the host waits when three chunks are in flight,
+        which bounds the device memory the moments take, and for the last
+        copy before it returns, so the host moments are whole."""
+        cuda = self.device.type == "cuda"
+        if cuda and self._copy_streams is None:
+            self._copy_streams = (torch.cuda.Stream(self.device),
+                                  torch.cuda.Stream(self.device))
+        state = self.optimizer.state
+
+        def fetch(chunk):
+            p, _, rows = chunk
+            host = state[p]["exp_avg"][rows], state[p]["exp_avg_sq"][rows]
+            if not cuda:
+                return host, host, None
+            with torch.cuda.stream(self._copy_streams[0]):
+                dev = tuple(h.to(self.device, non_blocking=True)
+                            for h in host)
+                arrived = torch.cuda.Event()
+                arrived.record()
+            return host, dev, arrived
+
+        chunks = list(self._chunks())
+        steps = {p: state[p]["step"].clone() for p, _, _ in chunks}
+        main = torch.cuda.current_stream(self.device) if cuda else None
+        in_flight = []
+        nxt = fetch(chunks[0]) if chunks else None
+        for i, chunk in enumerate(chunks):
+            p, group, rows = chunk
+            host, dev, arrived = nxt
+            if i + 1 < len(chunks):
+                nxt = fetch(chunks[i + 1])
+            if cuda:
+                main.wait_event(arrived)
+            beta1, beta2 = group["betas"]
+            adamw(
+                [p.data[rows]], [p.grad[rows]], [dev[0]], [dev[1]], [],
+                [steps[p].clone()], foreach=False, capturable=False,
+                differentiable=False, fused=None, amsgrad=group["amsgrad"],
+                beta1=beta1, beta2=beta2, lr=group["lr"],
+                weight_decay=group["weight_decay"], eps=group["eps"],
+                maximize=group["maximize"])
+            if not cuda:
+                continue
+            back = self._copy_streams[1]
+            back.wait_stream(main)
+            with torch.cuda.stream(back):
+                for h, d in zip(host, dev):
+                    h.copy_(d, non_blocking=True)
+                    d.record_stream(main)
+                    d.record_stream(back)
+                done = torch.cuda.Event()
+                done.record()
+            in_flight.append(done)
+            if len(in_flight) > 2:
+                in_flight.pop(0).synchronize()
+        for p in steps:
+            state[p]["step"] += 1
+        if cuda:
+            self._copy_streams[1].synchronize()
+
+    def adam_moments(self) -> List[torch.Tensor]:
+        """Every AdamW moment of the trainable parameters, in optimizer
+        order (empty before the first update when not offloaded)."""
+        return [t for p in self._trainable
+                for k, t in self.optimizer.state.get(p, {}).items()
+                if k != "step"]
+
+    def _load_optimizer(self, osd: dict) -> None:
+        """`torch.optim.Optimizer.load_state_dict`; offloaded, the moments
+        go straight into pinned host buffers, never through the device."""
+        if not self.offload:
+            self.optimizer.load_state_dict(osd)
+            return
+        moments = {i: {k: st.pop(k) for k in ("exp_avg", "exp_avg_sq")}
+                   for i, st in osd["state"].items()}
+        self.optimizer.load_state_dict(osd)
+        ids = [p for g in self.optimizer.param_groups for p in g["params"]]
+        for i, ms in moments.items():
+            p = ids[i]
+            for k, t in ms.items():
+                buf = pinned_zeros(p)
+                buf.copy_(t)
+                self.optimizer.state[p][k] = buf
+
+    def sync(self) -> None:
+        """Wait for the device's queue (the end of a timed step)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- loop -------------------------------------------------------------
 
@@ -384,12 +567,16 @@ class Trainer:
                 f.write(line + "\n")
         logger.info(line)
 
-    def save(self, step: int) -> str:
+    def save(self, step: int, final: bool = False) -> str:
+        """Save ``checkpoint-<step>``: blocking, or with
+        ``async_checkpointing`` (but not for the ``final`` save) copied to
+        the host here and written on a thread."""
         path = ckpt_lib.save_checkpoint(
             self.tc.output_dir,
             {"params": self.params.state_dict(),
              "optimizer": self.optimizer.state_dict(), "step": step},
-            step, keep=self.tc.save_total_limit)
+            step, keep=self.tc.save_total_limit,
+            block=final or not self.tc.async_checkpointing)
         if self.tc.lora and self.tc.lora_save_strategy == "steps":
             from valley_tpu_torch.train import lora as lora_lib
 
@@ -401,52 +588,76 @@ class Trainer:
     def maybe_resume(self) -> int:
         """Load the newest checkpoint-N of ``output_dir`` into the
         parameters and optimizer, if there is one; returns its step."""
-        restored = ckpt_lib.restore_latest(self.tc.output_dir,
-                                           map_location=self.device)
+        restored = ckpt_lib.restore_latest(
+            self.tc.output_dir,
+            map_location="cpu" if self.offload else self.device)
         if restored is None:
             return 0
         state, step = restored
         logger.info("resume from checkpoint-%d", step)
         self.params.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        self._load_optimizer(state["optimizer"])
         self.step, self._micro, self._acc = step, 0, None
         return step
 
     def train(self, resume: bool = True) -> int:
         """Run ``num_train_epochs`` over the loader; returns the number of
         optimizer updates.  A resumed run skips the micro-batches its
-        checkpoint already consumed."""
+        checkpoint already consumed.  Each micro-batch is timed to its
+        synchronise; ``profile_steps`` "a:b" traces from the micro-batch
+        that follows update a to update b (trainer.py:447-496)."""
         tc = self.tc
         accum = max(tc.gradient_accumulation_steps, 1)
         start_step = self.maybe_resume() if resume else 0
+        prof_range = profile_range(tc.profile_steps)
         seen = 0
         t0 = time.time()
-        for epoch in range(tc.num_train_epochs):
-            for batch in self.train_loader.epoch(epoch):
-                seen += 1
-                if seen <= start_step * accum:
-                    continue   # fast-forward through resumed data
-                t_step = time.perf_counter()
-                metrics = self.train_step(batch)
-                if not metrics["updated"]:
-                    continue   # mid-accumulation micro-batch
-                step = self.step
-                if step % tc.logging_steps == 0:
-                    self.log({"step": step, "epoch": epoch,
-                              "loss": metrics["loss"],
-                              "grad_norm": metrics["grad_norm"],
-                              "learning_rate": self.schedule(step),
-                              "seconds": round(time.time() - t0, 2),
-                              "step_seconds": round(
-                                  time.perf_counter() - t_step, 4)})
-                if tc.save_steps and step % tc.save_steps == 0:
-                    self.save(step)
-                if (self.eval_fn is not None
-                        and tc.evaluation_strategy == "steps"
-                        and tc.eval_steps and step % tc.eval_steps == 0):
-                    result = self.eval_fn(self.params, step)
-                    if result:
-                        self.log({"step": step, **{f"eval_{k}": v
-                                                   for k, v in result.items()}})
-        self.save(self.step)
+        timer = profiling.StepTimer()
+        tracing = False
+        with contextlib.ExitStack() as trace:
+            for epoch in range(tc.num_train_epochs):
+                for batch in self.train_loader.epoch(epoch):
+                    seen += 1
+                    if seen <= start_step * accum:
+                        continue   # fast-forward through resumed data
+                    if (prof_range and self.step == prof_range[0]
+                            and not tracing):
+                        trace.enter_context(profiling.trace(
+                            os.path.join(tc.output_dir, "trace")))
+                        tracing = True
+                    t_step = time.perf_counter()
+                    timer.start()
+                    metrics = self.train_step(batch)
+                    self.sync()
+                    timer.stop()
+                    if not metrics["updated"]:
+                        continue   # mid-accumulation micro-batch
+                    if tracing and self.step >= prof_range[1]:
+                        trace.close()
+                        tracing = False
+                    self._after_update(epoch, metrics, t0, t_step, timer)
+        self.save(self.step, final=True)
         return self.step
+
+    def _after_update(self, epoch: int, metrics: dict, t0: float,
+                      t_step: float, timer: profiling.StepTimer) -> None:
+        """The log line, the save and the eval that an update calls for."""
+        tc = self.tc
+        step = self.step
+        if step % tc.logging_steps == 0:
+            self.log({"step": step, "epoch": epoch,
+                      "loss": metrics["loss"],
+                      "grad_norm": metrics["grad_norm"],
+                      "learning_rate": self.schedule(step),
+                      "seconds": round(time.time() - t0, 2),
+                      "step_seconds": round(time.perf_counter() - t_step, 4),
+                      **{k: round(v, 4)
+                         for k, v in timer.summary().items()}})
+        if tc.save_steps and step % tc.save_steps == 0:
+            self.save(step)
+        if (self.eval_fn is not None and tc.evaluation_strategy == "steps"
+                and tc.eval_steps and step % tc.eval_steps == 0):
+            result = self.eval_fn(self.params, step)
+            if result:
+                self.log({"step": step, **{f"eval_{k}": v
+                                           for k, v in result.items()}})
