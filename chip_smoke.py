@@ -104,7 +104,8 @@ seed, nine processes one after the other:
   a prefix hit, each against its run alone (parting only at near ties),
   with its launches against the pool's counters;
 - training: Valley-7B stage 1 (frozen backbone, projector and input
-  embeddings trained, the stage-1 recipe's optimizer settings) through
+  embeddings trained, the stage-1 recipe's optimizer settings; cut to 16
+  of its 32 layers, at full width) through
   ``Trainer.train_step`` on 16 synthetic rows from the port's collator and
   loader; checks a falling loss, untouched frozen weights, K1 and K2
   launches per step, and the first step's loss and gradients against the
@@ -118,8 +119,12 @@ seed, nine processes one after the other:
   fresh one), the LoRA recipe through the training entry point, its
   adapter merged (logits against the unmerged adapter forward, bench's
   request by graph from the merged tree, the generate-eval), full stage
-  2 (peak memory under 80 GB), and K1 and K2 at that shape against their
-  plain versions;
+  2 (peak memory under 80 GB), the same full stage 2 through the sharded
+  path of ``parallel/`` at world 1 over NCCL (valley_stage2_zero3.yaml:
+  every parameter after the updates bit-equal to the unsharded run's, K1
+  and K2 launched inside), stage 1 at Valley-7B's width cut to 2 layers on
+  two ranks of the one card over gloo against world 1 (the stage-1 bars),
+  and K1 and K2 at that shape against their plain versions;
 - serving variants: K8, the grouped W4A8 product of prefill chunks, at
   Valley-13B's four fused projections at 512 and 128 rows against its
   plain version (bit-equal; a planted fault: the group scales shifted by
@@ -232,6 +237,10 @@ BATCH_LOGIT_TOL = 0.17
 BATCH_MARGIN_BAR = 0.15
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 0.05
+# The stage-1 slice's depth: Valley-7B's 32 layers cut to 16, at full width,
+# since the sharded training phases were added, to keep the script inside
+# its time (the bars above were read at 32 layers)
+TRAIN_LAYERS = 16
 DECODE_CHECK_STEPS = 3
 NEW_TOKENS = 64
 # bench.py's request: a 473-token prompt in the 512 bucket; the engine's
@@ -676,7 +685,8 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def train_phase(smi: str) -> tuple:
-    """Valley-7B stage 1 on the card through `Trainer`: the first step's
+    """Valley-7B stage 1 (cut to `TRAIN_LAYERS` layers) on the card
+    through `Trainer`: the first step's
     loss and gradients against the plain attention functions, one warm-up
     update, then three timed updates on the same batch with the launch
     counts read around them, then one profiled update.  Returns the K1, K2
@@ -691,13 +701,17 @@ def train_phase(smi: str) -> tuple:
         _kernel_delta, flash_attention, flash_attention_bwd)
     from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
+    import dataclasses
+
     cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+    cfg = cfg.replace(text=dataclasses.replace(
+        cfg.text, num_hidden_layers=TRAIN_LAYERS))
     layers = cfg.text.num_hidden_layers
     t0 = time.perf_counter()
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(1),
                                 torch.bfloat16, "cuda")
     torch.cuda.synchronize()
-    print(f"train: valley_7b random bf16 weights in "
+    print(f"train: valley_7b random bf16 weights, cut to {layers} layers, in "
           f"{time.perf_counter() - t0:.1f} s")
     loader = DataLoader(TrainRows(cfg), 16, DataCollatorForSupervisedDataset(
         pad_token_id=0, pad_to_multiple=64), seed=0, num_workers=1)
@@ -888,10 +902,11 @@ def dots_updates(trainer, batch, layers: int, smi: str, full_s: float,
           f"over 2 updates K1 {n_k1} K2 {n_k2}; update walls "
           f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms against full "
           f"remat's {full_s * 1e3:.1f} in this run (PERF.md's earlier "
-          f"reading: 1106.7 ms); device busy {step_dev:.1f} ms (idle share "
+          f"reading, at 32 layers: 1106.7 ms); device busy {step_dev:.1f} ms (idle share "
           f"{1 - step_dev / (walls[-1] * 1e3):.3f}); peak memory "
           f"{peak / 2 ** 30:.2f} GiB against full remat's "
-          f"{full_peak / 2 ** 30:.2f} GiB (PERF.md's: 19.13 GiB), on {smi}")
+          f"{full_peak / 2 ** 30:.2f} GiB (PERF.md's, at 32 layers: 19.13 "
+          f"GiB), on {smi}")
     print("train dots: device time by kind: " + fmt_kinds(kinds, step_dev))
     return n_k1, n_k2
 
@@ -4431,7 +4446,7 @@ def stage2_updates(tag: str, trainer, batch, layers: int, smi: str,
               f"{name[:48]} {100 * ms / step_dev:.1f}%"
               for name, ms in top[:6]))
     return {"k1": n_k1, "k2": n_k2, "step_s": step_s, "peak": peak,
-            "kinds": kinds, "device_ms": step_dev}
+            "kinds": kinds, "device_ms": step_dev, "steps": trainer.step}
 
 
 def snapshot(params) -> dict:
@@ -4906,6 +4921,213 @@ def stage2_offload_phase(smi: str, corpus: dict, full: dict,
     return readings
 
 
+def stage2_zero3_phase(smi: str, corpus: dict, full: dict, host: dict,
+                       work: Path) -> dict:
+    """valley_stage2_zero3.yaml on the card at world 1: a process group of
+    one over NCCL (a file store in the run's scratch directory), the
+    recipe's mesh (data 1, fsdp -1, model 1), the same weights (seed 1),
+    batch and updates as `stage2_full_phase` through the sharded path
+    (`parallel.sharding`: every sharded weight read through its gather,
+    every gradient through its reduce-scatter, the loss over the
+    all-reduced count).  At world 1 the gather is a copy, the
+    reduce-scatter sums one input and the global count is the local one,
+    so every parameter after the updates must be bit-equal to that run's
+    (``host``); its update wall, device time, idle share and peak beside
+    the unsharded run's, and K1's and K2's launches."""
+    from valley_tpu_torch.data.dataset import DataLoader
+    from valley_tpu_torch.parallel import distributed, sharding
+    from valley_tpu_torch.parallel.mesh import create_mesh
+    from valley_tpu_torch.train.trainer import Trainer
+
+    tag = "stage2 zero3"
+    check(distributed.initialize(f"file://{work}/zero3_store", 1, 0,
+                                 device="cuda"), f"{tag}: no process group")
+    try:
+        backend = torch.distributed.get_backend()
+        check(backend == "nccl", f"{tag}: backend {backend}, want nccl")
+        mesh = create_mesh(1, -1, 1, "cuda")
+        tok = stage2_tokenizer()
+        cfg, params = stage2_model(tok, seed=1)
+        data, coll = stage2_dataset(tok, corpus, "train")
+        loader = DataLoader(data, 1, coll, seed=0, num_workers=1,
+                            process_index=sharding.batch_rank(mesh),
+                            process_count=1)
+        out_dir = tempfile.mkdtemp(prefix="chip_smoke_zero3_")
+        trainer = Trainer(cfg, stage2_full_config(out_dir), params, loader,
+                          total_steps=8, mesh=mesh)
+        axes = sharding.sharding_of(params).axes
+        check("llama.layers.wq" in axes and "llama.embed" in axes
+              and "projector.w" in axes, f"{tag}: sharded {sorted(axes)}")
+        print(f"{tag}: mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"over {backend}, {len(axes)} of "
+              f"{len(list(params.named_parameters()))} parameters sharded "
+              "over fsdp, each read through its gather")
+        batch = trainer.device_batch(next(iter(loader.epoch(0))))
+        readings = stage2_updates(tag, trainer, batch,
+                                  cfg.text.num_hidden_layers, smi)
+        check(readings["steps"] == full["steps"], f"{tag}: "
+              f"{readings['steps']} updates against {full['steps']}")
+        differ = [n for n, p in params.named_parameters()
+                  if not torch.equal(p.detach().to("cpu"), host[n])]
+        check(not differ, f"{tag}: parameters differ from the unsharded "
+              f"run's after the same updates: {differ}")
+        print(f"{tag}: every parameter ({len(host)} tensors) bit-equal to "
+              f"the unsharded run's after the same {readings['steps']} "
+              "updates")
+        print(f"{tag}: update wall {readings['step_s'] * 1e3:.1f} ms against "
+              f"{full['step_s'] * 1e3:.1f} ms unsharded, device busy "
+              f"{readings['device_ms']:.1f} ms against "
+              f"{full['device_ms']:.1f} ms, idle share "
+              f"{1 - readings['device_ms'] / (readings['step_s'] * 1e3):.3f} "
+              f"against {1 - full['device_ms'] / (full['step_s'] * 1e3):.3f}, "
+              f"peak {readings['peak'] / 2 ** 30:.2f} GiB against "
+              f"{full['peak'] / 2 ** 30:.2f} GiB; K1 {readings['k1']} and K2 "
+              f"{readings['k2']} launches in 3 updates, on {smi}")
+        del trainer, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    finally:
+        distributed.shutdown()
+    return readings
+
+
+# The two-rank case: stage 1 at Valley-7B's width, cut to this many layers,
+# global batch of 16 rows (8 a rank)
+GLOO_LAYERS = 2
+GLOO_UPDATES = 3
+
+
+def gloo_stage1(rank: Optional[int], out: Path) -> dict:
+    """The stage-1 recipe at Valley-7B's width cut to `GLOO_LAYERS` layers
+    (seed 1), on the global batch of 16 `TrainRows` at a fixed geometry
+    (512 tokens, 8 frames): with ``rank`` None at world 1 with no process
+    group, else as that rank of a (1, 2, 1) mesh over gloo on the one card
+    (NCCL refuses two ranks on one device), each rank on its 8 rows.
+    Returns the first step's loss and full gradients of the trainable
+    parameters, the losses of `GLOO_UPDATES` updates after it, the full
+    trainable parameters after them and K1's and K2's launches."""
+    import dataclasses
+
+    from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.data.dataset import (
+        DataCollatorForSupervisedDataset, DataLoader)
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS, TrainRows
+    from valley_tpu_torch.models import valley
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_bwd)
+    from valley_tpu_torch.parallel import distributed, sharding
+    from valley_tpu_torch.parallel.mesh import create_mesh
+    from valley_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    mesh = None
+    if rank is not None:
+        distributed.initialize(f"file://{out}/store", 2, rank,
+                               device="cuda:0", backend="gloo")
+        mesh = create_mesh(1, 2, 1, "cuda")
+    cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+    cfg = cfg.replace(text=dataclasses.replace(
+        cfg.text, num_hidden_layers=GLOO_LAYERS))
+    params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(1),
+                                torch.bfloat16, "cuda")
+    loader = DataLoader(TrainRows(cfg), 16, DataCollatorForSupervisedDataset(
+        pad_token_id=0, pad_to_length=512, pad_frames_to=8, max_length=512),
+        seed=0, num_workers=1,
+        process_index=0 if mesh is None else sharding.batch_rank(mesh),
+        process_count=1 if mesh is None else 2)
+    tc = TrainConfig(output_dir=str(out / f"run_{rank}"), learning_rate=2e-3,
+                     lr_scheduler_type="cosine", warmup_ratio=0.03,
+                     adam_beta1=0.9, adam_beta2=0.95, max_grad_norm=1.0,
+                     gradient_checkpointing=True, freeze_backbone=True,
+                     tune_mm_mlp_adapter=True, save_steps=0,
+                     per_device_train_batch_size=16 if mesh is None else 8)
+    trainer = Trainer(cfg, tc, params, loader, total_steps=5, mesh=mesh)
+    batch = trainer.device_batch(next(iter(loader.epoch(0))))
+    names = [n for g in trainer.optimizer.param_groups for n in g["names"]]
+    loss, _, grads = trainer.loss_and_grads(batch)
+    full = {n: sharding.full_tensor(g, a, mesh).float().cpu()
+            for n, g, a in zip(names, grads, trainer.fsdp_axes)}
+    del grads
+    k1, k2 = flash_attention.launches, flash_attention_bwd.launches
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(batch)["loss"]
+              for _ in range(GLOO_UPDATES)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    trained = dict(params.named_parameters())
+    out_state = {"loss": float(loss), "grads": full, "losses": losses,
+                 "params": {n: sharding.full_tensor(
+                     trained[n].detach(), a, mesh).float().cpu()
+                     for n, a in zip(names, trainer.fsdp_axes)},
+                 "k1": flash_attention.launches - k1,
+                 "k2": flash_attention_bwd.launches - k2,
+                 "seconds": seconds, "batch": tuple(batch["input_ids"].shape)}
+    if mesh is not None:
+        distributed.shutdown()
+    return out_state
+
+
+def gloo_rank_main(rank: int, out: Path) -> None:
+    """One rank of `gloo_fsdp_phase`, in a process of its own; rank 0
+    writes what it read to ``out/rank0.pt``."""
+    got = gloo_stage1(rank, out)
+    if rank == 0:
+        torch.save(got, out / "rank0.pt")
+
+
+def gloo_fsdp_phase(smi: str, work: Path) -> None:
+    """Two ranks on the one card (gloo over CUDA tensors, a file store in
+    the run's scratch directory) at mesh (1, 2, 1) against world 1 with no
+    group, in this process, on the same weights and global batch: stage
+    1's bars of PERF.md §2 (the first step's loss within TRAIN_LOSS_TOL,
+    the projector's and embeddings' gradients within TRAIN_GRAD_TOL
+    relative L2), and the gathered trainable parameters' largest
+    difference after `GLOO_UPDATES` updates, printed."""
+    out = work / "gloo_fsdp"
+    out.mkdir()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--gloo-rank",
+                               str(r), "--out", str(out)])
+             for r in range(2)]
+    try:
+        ref = gloo_stage1(None, out)
+    finally:
+        rcs = [p.wait(timeout=600) for p in procs]
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(rcs == [0, 0], f"gloo fsdp: the ranks exited {rcs}")
+    got = torch.load(out / "rank0.pt")
+    loss_diff = abs(got["loss"] - ref["loss"])
+    parts = [f"loss {got['loss']:.5f} vs {ref['loss']:.5f} (diff "
+             f"{loss_diff:.2e}, tol {TRAIN_LOSS_TOL})"]
+    check(loss_diff <= TRAIN_LOSS_TOL, f"gloo fsdp: first-step loss differs "
+          f"by {loss_diff}")
+    check(sorted(got["grads"]) == sorted(ref["grads"]) == [
+        "llama.embed", "projector.b", "projector.w"],
+        f"gloo fsdp: trainable {sorted(got['grads'])}")
+    for name in ("projector.w", "llama.embed"):
+        err = rel_l2(got["grads"][name], ref["grads"][name])
+        parts.append(f"{name} grad rel L2 {err:.2e}")
+        check(err <= TRAIN_GRAD_TOL, f"gloo fsdp: {name} grad rel L2 {err}")
+    moved = {n: float((got["params"][n] - ref["params"][n]).abs().max())
+             for n in got["params"]}
+    check(all(np.isfinite(got["losses"])), "gloo fsdp: loss not finite")
+    check(got["k1"] == GLOO_UPDATES * 2 * GLOO_LAYERS
+          and got["k2"] == GLOO_UPDATES * GLOO_LAYERS,
+          f"gloo fsdp: rank 0 launched K1 {got['k1']} K2 {got['k2']}")
+    print(f"gloo fsdp: 7B width, {GLOO_LAYERS} layers, stage 1, global batch "
+          f"16x512 (rank 0's rows {got['batch']}), mesh (1, 2, 1) over gloo "
+          f"against world 1: " + "; ".join(parts) + f"; losses of "
+          f"{GLOO_UPDATES} updates {[round(x, 5) for x in got['losses']]} vs "
+          f"{[round(x, 5) for x in ref['losses']]}; gathered trainable "
+          f"parameters' largest difference after them: " + ", ".join(
+              f"{n} {d:.3e}" for n, d in moved.items()) +
+          f"; rank 0 launched K1 {got['k1']} and K2 {got['k2']}; "
+          f"{GLOO_UPDATES} updates {got['seconds']:.2f} s at world 2 (gloo, "
+          f"host-staged) vs {ref['seconds']:.2f} s at world 1; "
+          f"{time.perf_counter() - t0:.1f} s in all, on {smi}")
+
+
 def profile_steps_phase(smi: str, work: Path) -> dict:
     """A short stage-1 trainer at Valley-7B's width, cut to 2 layers, with
     ``profile_steps: "1:2"``: three updates, the second traced by
@@ -5043,8 +5265,10 @@ def train_path(smi: str, gen, work: Path) -> list:
     the training slices: stage 1, with full remat and ``"dots"``; a short
     trainer with ``profile_steps``; LoRA stage 2 (through `Trainer`, then
     the entry point, the adapter's merge and serving, the generate-eval);
-    full stage 2, on the device and with the optimizer offloaded; then K1
-    and K2 at stage 2's shape.  Returns its kernels entries."""
+    full stage 2, on the device, with the optimizer offloaded and through
+    the sharded path at world 1 over NCCL (valley_stage2_zero3.yaml); stage
+    1 on two ranks of the one card over gloo against world 1; then K1 and
+    K2 at stage 2's shape.  Returns its kernels entries."""
     k2_err, k2_t, k1_train = k2_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5056,7 +5280,9 @@ def train_path(smi: str, gen, work: Path) -> list:
     stage2_merge_phase(smi, corpus, out)
     full_r, host = stage2_full_phase(smi, corpus)
     off_r = stage2_offload_phase(smi, corpus, full_r, host)
+    zero3_r = stage2_zero3_phase(smi, corpus, full_r, host, work)
     del host
+    gloo_fsdp_phase(smi, work)
     k1_s2, k2_s2 = flash_stage2_phase(gen, mask)
     k2_src = {"route": "cuda", "source": "valley_tpu_torch/csrc/flash_bwd.cu",
               "replaces": "valley_tpu/ops/flash_attention.py:183"}
@@ -5077,6 +5303,10 @@ def train_path(smi: str, gen, work: Path) -> list:
              "launches": off_r["k1"], **k1_s2},
             {**k2_src, "name": "flash_bwd_stage2", "path": "train_offload",
              "launches": off_r["k2"], **k2_s2},
+            {**K1_SRC, "name": "flash_fwd_stage2", "path": "train_zero3",
+             "launches": zero3_r["k1"], **k1_s2},
+            {**k2_src, "name": "flash_bwd_stage2", "path": "train_zero3",
+             "launches": zero3_r["k2"], **k2_s2},
             {**K1_SRC, "name": "flash_fwd_train", "path": "train_dots",
              "launches": dots[0], **k1_train},
             {**k2_src, "name": "flash_bwd", "path": "train_dots",
@@ -5609,6 +5839,7 @@ for _name in ("k8q_phase", "k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
               "write_checkpoint", "load_checkpoint", "stage2_lora_phase",
               "stage2_entry_phase", "stage2_merge_phase",
               "stage2_full_phase", "stage2_offload_phase",
+              "stage2_zero3_phase", "gloo_fsdp_phase",
               "profile_steps_phase", "flash_stage2_phase", "k8_phase",
               "pooling_phase", "vision_quant_phase", "variant_slice",
               "web_ui_phase"):
@@ -5643,6 +5874,7 @@ def main(argv=None) -> int:
     parser.add_argument("--path", choices=sorted(PATHS),
                         help=argparse.SUPPRESS)
     parser.add_argument("--out", help=argparse.SUPPRESS)
+    parser.add_argument("--gloo-rank", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5658,6 +5890,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if args.gloo_rank is not None:
+        gloo_rank_main(args.gloo_rank, Path(args.out))
+        return 0
     if args.path:
         entries = PATHS[args.path](nvidia_smi(),
                                    torch.Generator("cuda").manual_seed(0),

@@ -333,8 +333,9 @@ def test_tiny_training_step_on_the_card(gen, tmp_path):
     assert torch.equal(params["llama"]["lm_head"], head)
 
 
-def _tiny_trainer(tmp_path, name, **kw):
-    """A tiny bf16 model's `Trainer` on the card over `_Rows`, seed 0."""
+def _tiny_trainer(tmp_path, name, mesh=None, **kw):
+    """A tiny bf16 model's `Trainer` on the card over `_Rows`, seed 0 (on
+    ``mesh``, sharded over it)."""
     cfg = valley_tiny()
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                                 torch.bfloat16, "cuda")
@@ -342,7 +343,7 @@ def _tiny_trainer(tmp_path, name, **kw):
                      per_device_train_batch_size=4, save_steps=0, **kw)
     loader = DataLoader(_Rows(cfg), 4, DataCollatorForSupervisedDataset(
         pad_to_multiple=16), seed=0, num_workers=1)
-    trainer = Trainer(cfg, tc, params, loader, total_steps=8)
+    trainer = Trainer(cfg, tc, params, loader, total_steps=8, mesh=mesh)
     return trainer, trainer.device_batch(next(iter(loader.epoch(0))))
 
 
@@ -393,6 +394,124 @@ def test_offloaded_update_matches_on_device_on_the_card(gen, tmp_path):
     for (n, a), (_, b) in zip(off.params.named_parameters(),
                               dev.params.named_parameters()):
         assert torch.equal(a, b), n
+
+
+def test_sharded_update_at_world_1_over_nccl_is_bit_equal(gen, tmp_path):
+    """Three full-stage-2 updates of the tiny bf16 model through the
+    sharded path (`parallel.sharding`) at world 1 over NCCL, a process
+    group of one on a file store in ``tmp_path``: K1 twice a layer and K2
+    once an update inside it, and every parameter bit-equal to the same
+    updates unsharded (the gather is a copy, the reduce-scatter sums one
+    input, the global count is the local one)."""
+    from valley_tpu_torch.parallel import distributed
+    from valley_tpu_torch.parallel.mesh import create_mesh
+
+    plain, batch = _tiny_trainer(tmp_path, "plain")
+    for _ in range(3):
+        assert plain.train_step(batch)["updated"]
+    assert distributed.initialize(f"file://{tmp_path}/store", 1, 0,
+                                  device="cuda")
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        sharded, batch = _tiny_trainer(tmp_path, "sharded",
+                                       mesh=create_mesh(1, -1, 1, "cuda"))
+        layers = sharded.cfg.text.num_hidden_layers
+        k1, k2 = flash_attention.launches, flash_attention_bwd.launches
+        for _ in range(3):
+            assert sharded.train_step(batch)["updated"]
+        assert flash_attention.launches - k1 == 3 * 2 * layers
+        assert flash_attention_bwd.launches - k2 == 3 * layers
+        for (n, a), (_, b) in zip(sharded.params.named_parameters(),
+                                  plain.params.named_parameters()):
+            assert torch.equal(a, b), n
+    finally:
+        distributed.shutdown()
+
+
+# One rank of the gloo probe: each collective the port's sharding uses (and
+# two more) on CUDA tensors of the one card, its result held to the sum it
+# must make; rank 0 prints {collective/dtype: "ok" or the error}
+GLOO_PROBE = r"""
+import json, sys
+import torch
+import torch.distributed as dist
+from valley_tpu_torch.parallel import distributed
+
+rank, store = int(sys.argv[1]), sys.argv[2]
+distributed.initialize(f"file://{store}", 2, rank, device="cuda:0",
+                       backend="gloo")
+got = {}
+for dtype in (torch.float32, torch.bfloat16):
+    def x(r):
+        return (torch.arange(8, device="cuda") + 10 * r).reshape(4, 2).to(
+            dtype)
+    full = x(0) + x(1)
+
+    def gather():
+        out = torch.empty((8, 2), device="cuda", dtype=dtype)
+        dist.all_gather_into_tensor(out, x(rank))
+        return torch.equal(out, torch.cat([x(0), x(1)]))
+
+    def scatter():
+        out = torch.empty((2, 2), device="cuda", dtype=dtype)
+        dist.reduce_scatter_tensor(out, x(rank))
+        return torch.equal(out, full[2 * rank:2 * rank + 2])
+
+    def reduce():
+        t = x(rank)
+        dist.all_reduce(t)
+        return torch.equal(t, full)
+
+    def count():
+        t = torch.full((1,), 3 + rank, device="cuda", dtype=torch.int64)
+        dist.all_reduce(t)
+        return int(t) == 7
+
+    def broadcast():
+        t = x(rank)
+        dist.broadcast(t, 0)
+        return torch.equal(t, x(0))
+
+    for name, fn in (("all_gather_into_tensor", gather),
+                     ("reduce_scatter_tensor", scatter),
+                     ("all_reduce", reduce), ("all_reduce_int64", count),
+                     ("broadcast", broadcast)):
+        try:
+            got[f"{name}/{dtype}"] = "ok" if fn() else "wrong values"
+        except Exception as e:
+            got[f"{name}/{dtype}"] = f"{type(e).__name__}: {e}"[:200]
+distributed.shutdown()
+if rank == 0:
+    print(json.dumps(got))
+"""
+
+
+def test_gloo_takes_the_sharding_collectives_on_cuda(gen, tmp_path):
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device): which collectives gloo takes for CUDA tensors, recorded in
+    the test's output; the port's sharding needs all_gather_into_tensor,
+    reduce_scatter_tensor and all_reduce (fp32, bf16, int64)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", GLOO_PROBE, str(r), str(tmp_path / "store")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root,
+        env={**os.environ, "PYTHONPATH": str(root)})
+        for r in range(2)]
+    outs = [p.communicate(timeout=300) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], outs[0][1][-2000:]
+    got = json.loads(outs[0][0].strip().splitlines()[-1])
+    print("gloo over CUDA tensors:", got)
+    for name in ("all_gather_into_tensor", "reduce_scatter_tensor",
+                 "all_reduce"):
+        for dtype in ("torch.float32", "torch.bfloat16"):
+            assert got[f"{name}/{dtype}"] == "ok", (name, dtype)
+    assert got["all_reduce_int64/torch.float32"] == "ok"
 
 
 def test_quantizers_on_the_card_equal_the_cpu(gen):

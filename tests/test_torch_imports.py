@@ -267,10 +267,14 @@ loaded = sorted(n for n in sys.modules
                 if n == "jax" or n.startswith("jax.") or n == "valley_tpu"
                 or n.startswith("valley_tpu."))
 print(json.dumps({"modules": len(names), "loaded": loaded,
-                  "updated": m["updated"], "loss": m["loss"]}))
+                  "updated": m["updated"], "loss": m["loss"],
+                  "parallel": [n for n in names if ".parallel" in n]}))
 """)
     assert got["loaded"] == []
     assert got["modules"] >= 25
+    assert got["parallel"] == [
+        "valley_tpu_torch.parallel", "valley_tpu_torch.parallel.distributed",
+        "valley_tpu_torch.parallel.mesh", "valley_tpu_torch.parallel.sharding"]
     assert got["updated"] and got["loss"] > 0
 
 

@@ -1,0 +1,533 @@
+"""The PyTorch port's ``parallel/`` (data and fsdp axes: DDP and ZeRO-3 over
+``torch.distributed``) against the JAX package, on the CPU.
+
+Process groups are gloo over a file store in ``tmp_path`` (no port is
+shared between test workers); each rank is a process of
+``tests/torch_mp_worker.py``.  World 1 without a process group runs in
+this process.
+
+Tolerances, with their reasons:
+- losses of three updates: rtol 2e-4 of JAX's single-device run and of its
+  (1, 8, 1) mesh run, JAX's own bar between its meshes
+  (tests/test_parallel_equivalence.py);
+- parameters gathered after the updates: within 2e-3 of the world-1
+  movement's largest element, with Adam eps 1e-2 above every gradient
+  element (as tests/test_torch_train.py), so a wrong reduction of the
+  gradient moves a parameter by as much as it changes it.  Readings:
+  3.0e-5 at worlds 2 and 4;
+- a process group of world 1: bit-equal to no group (the gather is a copy,
+  the reduce-scatter sums one input, the global count is the local one);
+- the global token mean: loss and gradients within 1e-6 (absolute) of
+  world 1 (fp32 summation order only);
+- grad norms: rtol 1e-5 (summation order only).
+"""
+
+import json
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.mp_worker import make_loader, synthetic_dataset
+from tests.test_parallel_equivalence import _batches
+from tests.test_torch_train_cli import _conf, corpus  # noqa: F401
+from tests.torch_mp_worker import COMMON
+from tests.torch_mp_worker import weights as port_weights
+from valley_tpu import config as C
+from valley_tpu.models import llama as jllama
+from valley_tpu.models import valley as jvalley
+from valley_tpu.ops import quant as jquant
+from valley_tpu.parallel import mesh as jmesh
+from valley_tpu.parallel import sharding as jsharding
+from valley_tpu.train import lora as jlora
+from valley_tpu.train.trainer import TrainConfig as JTrainConfig
+from valley_tpu.train.trainer import Trainer as JTrainer
+from valley_tpu_torch.data.dataset import \
+    DataCollatorForSupervisedDataset as TColl
+from valley_tpu_torch.data.dataset import DataLoader as TLoader
+from valley_tpu_torch.inference import batch_infer
+from valley_tpu_torch.inference.engine import Engine, GenerationConfig
+from valley_tpu_torch.inference.generate import completion
+from valley_tpu_torch.models import valley
+from valley_tpu_torch.parallel.mesh import mesh_sizes
+from valley_tpu_torch.parallel.sharding import fsdp_axis
+from valley_tpu_torch.train.train import load_framework_checkpoint
+from valley_tpu_torch.train.trainer import TrainConfig, check_ported
+from valley_tpu_torch.weights import from_jax_params
+
+ROOT = Path(__file__).resolve().parent.parent
+WORKER = ROOT / "tests" / "torch_mp_worker.py"
+MOVE_BAR = 2e-3
+LOSS_RTOL = 2e-4
+# the mean of the two ranks' own mean losses lands 1.08e-2 (relative) from
+# the global mean on the ragged batch (a reading of this test): at least
+# this far, 10^4 times the bar the global mean is held to
+MEAN_OF_MEANS_AT_LEAST = 1e-3
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return C.valley_tiny()
+
+
+@pytest.fixture(scope="module")
+def jparams(cfg):
+    return jax.device_get(jvalley.init_params(cfg, jax.random.key(5),
+                                              jnp.float32))
+
+
+def _bf16_round(a: np.ndarray) -> np.ndarray:
+    """The images as the trainers feed them (cast to bf16 on the host)."""
+    return torch.tensor(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.fixture(scope="module")
+def batches(cfg):
+    """tests/test_parallel_equivalence.py's batches (8 rows of 32 tokens):
+    the first three for the updates, all six for accumulation 2, and one
+    whose first four rows (rank 0's at world 2) keep a quarter of their
+    targets."""
+    out = [{k: np.array(v) for k, v in b.items()}
+           for b in _batches(cfg, n_steps=6)]
+    for b in out:
+        b["images"] = _bf16_round(b["images"])
+    ragged = {k: v.copy() for k, v in out[0].items()}
+    ragged["labels"][:4, :24] = -100
+    return {"main": out[:3], "six": out, "ragged": [ragged]}
+
+
+def _state(tree) -> dict:
+    return {n: t.detach().clone() for n, t in
+            from_jax_params(tree, "cpu", torch.float32).state_dict().items()}
+
+
+@pytest.fixture(scope="module")
+def weights(jparams):
+    """The port's full trees: the JAX init, and the same with LoRA
+    adapters (B drawn nonzero, so that the adapters move the loss)."""
+    lo = jax.device_get(jlora.add_lora(jparams, jax.random.key(1), r=4,
+                                       alpha=8, dtype=jnp.float32))
+    rng = np.random.default_rng(3)
+    for k, v in lo["llama"]["layers"].items():
+        if k.endswith("_lora_b"):
+            lo["llama"]["layers"][k] = rng.normal(
+                0, 0.05, np.shape(v)).astype(np.float32)
+    return {"base": _state(jparams), "lora": _state(lo)}
+
+
+LORA = dict(lora=True, freeze_backbone=True, lora_dropout=0.0)
+GRAD_NAMES = ["projector.w", "llama.embed", "llama.layers.wq",
+              "llama.layers.w_down", "llama.layers.attn_norm"]
+WORLD2 = [
+    {"name": "base", "kind": "train"},
+    {"name": "dots", "kind": "train",
+     "over": {"gradient_checkpointing": "dots"}},
+    {"name": "clip", "kind": "train", "over": {"max_grad_norm": 0.05}},
+    {"name": "norm", "kind": "norm"},
+    {"name": "accum_offload", "kind": "train", "batches": "six",
+     "over": {"gradient_accumulation_steps": 2, "offload_optimizer": True}},
+    {"name": "lora", "kind": "train", "weights": "lora", "over": LORA},
+    {"name": "masks", "kind": "masks", "weights": "lora"},
+    {"name": "global", "kind": "grads", "batches": "ragged",
+     "names": GRAD_NAMES},
+    {"name": "save", "kind": "save", "updates": 2,
+     "over": {"save_steps": 1, "async_checkpointing": True}},
+    {"name": "eval", "kind": "eval"},
+    {"name": "refuse", "kind": "refuse"},
+]
+
+
+def _spawn(job_path: Path, world: int, data: int, tmp: Path):
+    """The ranks of a world (world 0: one process with no group), each
+    with one CPU thread, so that a world-1 group and no group sum in the
+    same order; each logs beside its job's results."""
+    out = job_path.parent / job_path.stem
+    store = out / "store"
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    procs = []
+    for r in range(max(world, 1)):
+        log = open(out / f"world{world}_rank{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(WORKER), str(r), str(world), str(data),
+             str(store), str(job_path)], env=env, stdout=log,
+            stderr=subprocess.STDOUT, cwd=ROOT), log))
+    return procs
+
+
+def _wait(procs, tmp: Path, world: int) -> dict:
+    for r, (p, log) in enumerate(procs):
+        rc = p.wait(timeout=300)
+        log.close()
+        text = (tmp / f"world{world}_rank{r}.log").read_text()
+        assert rc == 0, f"world {world} rank {r}:\n{text[-3000:]}"
+    with open(tmp / f"results_world{world}.pkl", "rb") as f:
+        return pickle.load(f)
+
+
+def _jax_losses(cfg, jparams, batches, tmp: Path) -> dict:
+    """Three updates of JAX's trainer on one device and on its (1, 8, 1)
+    mesh, with the port's settings (without remat, which leaves the losses
+    as they are and compiles faster)."""
+
+    class Loader:
+        def __len__(self):
+            return len(batches)
+
+        def epoch(self, _i):
+            yield from batches
+
+    out = {}
+    for shape in ((1, 1, 1), (1, 8, 1)):
+        d = tmp / f"jax{shape[1]}"
+        jt = JTrainer(cfg, JTrainConfig(
+            output_dir=str(d), mesh_data=shape[0], mesh_fsdp=shape[1],
+            mesh_model=shape[2], **dict(COMMON, gradient_checkpointing=False)),
+            jax.tree.map(jnp.asarray, jparams), Loader())
+        assert jt.train(resume=False) == 3
+        with open(d / "metrics.jsonl") as f:
+            out[shape] = [json.loads(line)["loss"] for line in f]
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, cfg, jparams, weights, batches):
+    """The scenarios at world 0 (one process, no group: world 1's
+    reference), world 1 with a group, world 2 (1, 2, 1) and world 4 (2, 2,
+    1), each in processes of its own; JAX's runs in this process while the
+    first three run."""
+    tmp = tmp_path_factory.mktemp("mp")
+
+    def job(name, scenarios, out):
+        (tmp / out).mkdir(exist_ok=True)
+        path = tmp / f"{name}.pkl"
+        with open(path, "wb") as f:
+            pickle.dump({"out": str(tmp / out), "weights": weights,
+                         "batches": batches, "scenarios": scenarios}, f)
+        return path
+
+    alone = [sc for sc in WORLD2 if sc["kind"] in ("train", "grads")]
+    first = {0: _spawn(job("w0", alone, "w0"), 0, 1, tmp),
+             1: _spawn(job("w1", alone[:1], "w1"), 1, 1, tmp),
+             2: _spawn(job("w2", WORLD2, "w2"), 2, 1, tmp)}
+    jax_losses = _jax_losses(cfg, jparams, batches["main"], tmp)
+    got = {w: _wait(procs, tmp / f"w{w}", w) for w, procs in first.items()}
+    resume = {"name": "resume", "kind": "resume",
+              "from": str(tmp / "w2" / "save_rank0")}
+    later = {4: _spawn(job("w4", alone[:1] + [resume], "w4"), 4, 2, tmp),
+             0: _spawn(job("w0r", [resume], "w0r"), 0, 1, tmp)}
+    got[4] = _wait(later[4], tmp / "w4", 4)
+    local = {**got.pop(0), **_wait(later[0], tmp / "w0r", 0)}
+    return {"local": local, "jax": jax_losses, **got}
+
+
+def _losses(records):
+    return [r["loss"] for r in records if "loss" in r]
+
+
+def _worst_move(tree, ref, start) -> tuple:
+    """The largest gap between two trained trees, as a share of the
+    reference's largest movement, over every leaf that moved."""
+    worst, at = 0.0, None
+    for name, want in ref.items():
+        moved = (want - start[name]).abs().max()
+        if moved == 0:
+            assert torch.equal(tree[name], want), name
+            continue
+        gap = float((tree[name] - want).abs().max() / moved)
+        if gap > worst:
+            worst, at = gap, name
+    return worst, at
+
+
+def test_mesh_sizes_match_jax():
+    """(data, fsdp, model) over 1-8 devices: the sizes JAX's create_mesh
+    gives (its mesh's shape), or its error, word for word."""
+    devices = jax.devices()
+    values = (-1, 1, 2, 3, 4, 8)
+    checked = 0
+    for n in (1, 2, 3, 4, 6, 8):
+        for data in values:
+            for fsdp in values:
+                for model in (-1, 1, 2):
+                    try:
+                        want = tuple(jmesh.create_mesh(
+                            data, fsdp, model, devices[:n]).devices.shape)
+                    except ValueError as e:
+                        with pytest.raises(ValueError) as got:
+                            mesh_sizes(data, fsdp, model, n)
+                        assert str(got.value) == str(e)
+                        continue
+                    assert mesh_sizes(data, fsdp, model, n) == want
+                    checked += 1
+    assert checked > 50
+
+
+def _jax_trees(jparams):
+    """Tiny JAX trees of every kind the rules cover: unfused, fused, int8,
+    int8a8, int4gp (grouped, packed), LoRA, an int8 and a W8A8 tower, and
+    the v2 and v3 temporal leaves."""
+    def copy():     # the quantizers consume their trees
+        return jax.tree.map(np.array, jparams)
+
+    def fused():
+        return jllama.fuse_llama_params(copy())
+
+    trees = {"unfused": copy(), "fused": fused(),
+             "int8": jquant.quantize_llama_params(fused()),
+             "int8a8": jquant.quantize_llama_params(fused(), act8=True),
+             "int4gp": jquant.pack_int4_params(jquant.quantize_llama_params(
+                 fused(), bits=4, group_size=32)),
+             "lora": jlora.add_lora(copy(), jax.random.key(1), r=4,
+                                    alpha=8, dtype=jnp.float32),
+             "vision_int8": jquant.quantize_vision_params(copy()),
+             "vision_w8a8": jquant.quantize_vision_params(copy(),
+                                                          act8=True)}
+    for method in ("temporal_importance", "temporal_transformer"):
+        trees[method] = jvalley.init_params(
+            C.valley_tiny(patch_pooling_method=method), jax.random.key(2),
+            jnp.float32)
+    return {k: jax.device_get(v) for k, v in trees.items()}
+
+
+def _fsdp_position(spec):
+    for i, axis in enumerate(spec):
+        if axis == "fsdp" or (isinstance(axis, tuple) and "fsdp" in axis):
+            return i
+    return None
+
+
+def test_rule_table_matches_jax_param_specs(jparams):
+    """For every leaf of every kind of tree, the port shards the axis that
+    JAX's param_specs puts on fsdp, mapped through the port's layout (the
+    quantized lm_head is stored transposed)."""
+    for kind, tree in _jax_trees(jparams).items():
+        specs = {".".join(k.key for k in path): spec
+                 for path, spec in jax.tree_util.tree_leaves_with_path(
+                     jsharding.param_specs(tree), is_leaf=lambda x:
+                     isinstance(x, jax.sharding.PartitionSpec))}
+        port = dict(from_jax_params(tree, "cpu").named_parameters())
+        assert set(port) == set(specs), kind
+        sharded = 0
+        for name, p in port.items():
+            want = _fsdp_position(specs[name])
+            if want is not None and name == "llama.lm_head" \
+                    and p.dtype in (torch.int8, torch.uint8):
+                want = 1 - want      # JAX (in, out), the port (out, in)
+            assert fsdp_axis(name, p) == want, (kind, name, specs[name])
+            sharded += want is not None
+        assert sharded >= 10, kind
+
+
+def test_world_2_and_4_train_as_jax_and_world_1(runs, weights):
+    """Three updates at world 2 (1, 2, 1) and world 4 (2, 2, 1): losses
+    within JAX's bar of JAX's single-device and (1, 8, 1) runs, gathered
+    parameters within 2e-3 of world 1's movement (full remat and "dots")."""
+    start = weights["base"]
+    for world in (2, 4):
+        got = _losses(runs[world]["base"]["records"])
+        for shape, want in runs["jax"].items():
+            np.testing.assert_allclose(got, want, rtol=LOSS_RTOL,
+                                       err_msg=f"world {world} vs {shape}")
+        worst, at = _worst_move(runs[world]["base"]["tree"],
+                                runs["local"]["base"]["tree"], start)
+        assert worst <= MOVE_BAR, (world, at, worst)
+    got = _losses(runs[2]["dots"]["records"])
+    np.testing.assert_allclose(got, runs["jax"][(1, 1, 1)], rtol=LOSS_RTOL)
+    worst, at = _worst_move(runs[2]["dots"]["tree"],
+                            runs["local"]["dots"]["tree"], start)
+    assert worst <= MOVE_BAR, (at, worst)
+
+
+def test_world_1_group_is_bit_equal_to_no_group(runs):
+    """Every logged loss and grad norm, and every parameter after the
+    updates, bit for bit."""
+    a, b = runs[1]["base"], runs["local"]["base"]
+    for key in ("loss", "grad_norm", "learning_rate"):
+        assert [r[key] for r in a["records"]] == [r[key]
+                                                  for r in b["records"]]
+    for name, t in b["tree"].items():
+        assert torch.equal(a["tree"][name], t), name
+
+
+def test_global_token_mean(runs, cfg, weights, batches):
+    """Ranks whose rows hold different numbers of supervised tokens (rank
+    0 about a quarter of rank 1's): world 2's loss and gradients equal
+    world 1's within 1e-6 (absolute; the loss is about 7, the gradients'
+    largest elements 0.05 to 0.5).  The mean of the two
+    ranks' own means is another loss: on these rows it lands 1.08e-2
+    (relative) from the global mean."""
+    got = runs[2]["global"]
+    want = runs["local"]["global"]
+    want_loss, want_norm, want = want["loss"], want["norm"], want["grads"]
+    assert abs(got["loss"] - want_loss) <= 1e-6
+    assert abs(got["norm"] - want_norm) <= 1e-5 * want_norm
+    for name in GRAD_NAMES:
+        err = float((got["grads"][name] - want[name]).abs().max())
+        assert err <= 1e-6, (name, err)
+    batch = batches["ragged"][0]
+    params = port_weights(weights["base"])
+    with torch.no_grad():
+        means = [float(valley.loss_fn(params, cfg, {
+            k: torch.from_numpy(v[rows]) for k, v in batch.items()}))
+            for rows in (slice(0, 4), slice(4, 8))]
+    gap = abs(np.mean(means) - want_loss) / want_loss
+    assert gap > MEAN_OF_MEANS_AT_LEAST, gap
+
+
+def test_clip_counts_a_replicated_leaf_once(runs, weights):
+    """With max_grad_norm under the norm, the clipped updates' norms equal
+    world 1's, and the norm of a large replicated gradient beside a
+    sharded one equals the one-device norm of the full tensors."""
+    got = [r["grad_norm"] for r in runs[2]["clip"]["records"]]
+    want = [r["grad_norm"] for r in runs["local"]["clip"]["records"]]
+    assert min(want) > 0.05     # the clip fires at every update
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    norm, one_device = runs[2]["norm"]["norm"]
+    assert norm == pytest.approx(one_device, rel=1e-6)
+    worst, at = _worst_move(runs[2]["clip"]["tree"],
+                            runs["local"]["clip"]["tree"], weights["base"])
+    assert worst <= MOVE_BAR, (at, worst)
+
+
+def test_accumulation_and_offload_at_world_2(runs, weights):
+    a, b = runs[2]["accum_offload"], runs["local"]["accum_offload"]
+    np.testing.assert_allclose(_losses(a["records"]), _losses(b["records"]),
+                               rtol=LOSS_RTOL)
+    assert [r["step"] for r in a["records"]] == [1, 2, 3]
+    worst, at = _worst_move(a["tree"], b["tree"], weights["base"])
+    assert worst <= MOVE_BAR, (at, worst)
+
+
+def test_lora_at_world_2(runs, weights):
+    """Adapters (and the projector) at world 2: dropout 0 trains as world
+    1; at dropout 0.05 the ranks draw different masks, and each layer's
+    recompute draws the masks its forward drew."""
+    a, b = runs[2]["lora"], runs["local"]["lora"]
+    np.testing.assert_allclose(_losses(a["records"]), _losses(b["records"]),
+                               rtol=LOSS_RTOL)
+    worst, at = _worst_move(a["tree"], b["tree"], weights["lora"])
+    assert worst <= MOVE_BAR, (at, worst)
+    calls = runs[2]["masks"]["calls"]
+    keys = []
+    for rank_calls in calls:
+        seen = {}
+        for key, mask in rank_calls:
+            seen.setdefault(key, []).append(mask)
+        assert all(len(m) == 2 and torch.equal(*m) for m in seen.values())
+        assert 0.9 < float(torch.cat([m[0].flatten().float()
+                                      for m in seen.values()]).mean()) < 1
+        keys.append(seen)
+    assert len(keys[0]) == len(keys[1]) > 0
+    assert not set(keys[0]) & set(keys[1])
+    for m0, m1 in zip(keys[0].values(), keys[1].values()):
+        assert not torch.equal(m0[0], m1[0])
+
+
+def test_resume_at_another_world(runs, weights):
+    """checkpoint-2 written at world 2 (the first save asynchronous)
+    resumes at world 1 and at world 4: the third update's loss, and the
+    parameters after it, are the uninterrupted run's."""
+    want = runs["local"]["base"]
+    for got in (runs["local"]["resume"], runs[4]["resume"]):
+        assert [r["step"] for r in got["records"]] == [3]
+        np.testing.assert_allclose(got["records"][0]["loss"],
+                                   want["records"][2]["loss"],
+                                   rtol=LOSS_RTOL)
+        worst, at = _worst_move(got["tree"], want["tree"], weights["base"])
+        assert worst <= MOVE_BAR, (at, worst)
+
+
+def test_steps_eval_runs_on_rank_0_over_the_gathered_tree(runs, cfg):
+    """``evaluation_strategy: steps`` at world 2: the eval runs after every
+    update on rank 0 only, over the full (unsharded) tree, and its result
+    is logged."""
+    rank0, rank1 = runs[2]["eval"]["seen"]
+    full = (cfg.vision.hidden_size, cfg.text.hidden_size)
+    assert rank0 == [(step, full, True) for step in (1, 2, 3)]
+    assert rank1 == []
+    assert [r for r in runs[2]["eval"]["records"] if "eval_rank" in r] == [
+        {"step": step, "eval_rank": 0} for step in (1, 2, 3)]
+
+
+def test_rank_loaders_reassemble_jax_global_batch():
+    """The port's rank loaders at worlds 2 and 4, concatenated, are the JAX
+    package's one-process global batch (tests/mp_worker.py's loader)."""
+    ref = next(iter(make_loader(0, 1).epoch(0)))
+    for world in (2, 4):
+        parts = [next(iter(TLoader(
+            synthetic_dataset(), 16,
+            TColl(pad_token_id=0, pad_to_length=16, pad_frames_to=4,
+                  max_length=16), shuffle=True, seed=7, num_workers=0,
+            process_index=r, process_count=world).epoch(0)))
+            for r in range(world)]
+        for k in ref:
+            np.testing.assert_array_equal(
+                np.concatenate([p[k] for p in parts]), ref[k], err_msg=k)
+
+
+def _greedy(out_dir) -> list:
+    """Greedy tokens of an `Engine` over a run's ``final/``."""
+    cfg, params, tk = load_framework_checkpoint(str(out_dir), 256, "cpu",
+                                                torch.float32)
+    engine = Engine(cfg, params, buckets=(128,), max_new_tokens=8)
+    frames = np.random.default_rng(0).integers(
+        0, 256, (2, 3, 28, 28)).astype(np.uint8)
+    return completion(engine, tk, None,
+                      [{"role": "user", "content": "describe <video>"}],
+                      GenerationConfig(max_new_tokens=8), frames=frames)
+
+
+def test_torchrun_entry_point_at_world_2(corpus, tmp_path):  # noqa: F811
+    """``torchrun --nproc_per_node 2 -m valley_tpu_torch.train.train`` on
+    the CPU: a global batch of per_device x 2 (8 rows, 2 updates), one
+    trainer.log and one final/ written by rank 0, losses as one process
+    with the same global batch, and final/ served with the same greedy
+    tokens as that process's."""
+    two = _conf(corpus, "torchrun2", output_dir=str(tmp_path / "w2"),
+                per_device_train_batch_size=2)
+    one = _conf(corpus, "torchrun1", output_dir=str(tmp_path / "w1"),
+                per_device_train_batch_size=4)
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "1"}
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "valley_tpu_torch.train.train",
+         "--conf", two, "--device", "cpu"], capture_output=True, text=True,
+        env=env, cwd=ROOT, timeout=300)
+    assert run.returncode == 0, run.stderr[-3000:]
+    from valley_tpu_torch.train.train import train as train_entry
+
+    assert train_entry(one, "cpu") == 2
+    lines = {}
+    for world in ("w1", "w2"):
+        out = tmp_path / world
+        for name in ("final", "valley_config.json", "valley_meta.json",
+                     "checkpoint-2"):
+            assert (out / name).exists(), (world, name)
+        with open(out / "trainer.log") as f:
+            lines[world] = [json.loads(line) for line in f]
+        assert [r["step"] for r in lines[world]] == [1, 2]
+    np.testing.assert_allclose([r["loss"] for r in lines["w2"]],
+                               [r["loss"] for r in lines["w1"]],
+                               rtol=LOSS_RTOL)
+    assert _greedy(tmp_path / "w2") == _greedy(tmp_path / "w1")
+
+
+def test_tensor_parallel_still_refused(runs):
+    """mesh_model 2 (the trainer, and a mesh at world 2) and
+    --tensor-parallel 2 (batch_infer) name ROADMAP §1."""
+    import argparse
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
+        check_ported(TrainConfig(mesh_model=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
+        batch_infer._refuse_unported(argparse.Namespace(tensor_parallel=2))
+    assert "ROADMAP.md §1" in runs[2]["refuse"]["message"]
+    # and the default mesh puts every rank on fsdp, as JAX's local_mesh
+    assert runs[2]["refuse"]["local_mesh"] == (1, 2, 1)

@@ -419,7 +419,7 @@ def test_refusals_name_their_roadmap_items():
     and the grouped W4A8 modes, once refused, build their engines (their
     trees against JAX: tests/test_torch_vision_quant.py,
     tests/test_torch_w4a8.py)."""
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
         worker_mod.load_engine(_args(tensor_parallel=2))
     eng, _ = worker_mod.load_engine(_args(quantize_vision="int8a8"))
     lay = eng.params["vision"]["layers"]

@@ -63,6 +63,7 @@ import threading
 import time
 
 from valley_tpu_torch.inference.run_valley import DEFAULT_SYSTEM_PROMPT
+from valley_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSED
 
 logger = logging.getLogger("valley_tpu_torch.batch_infer")
 
@@ -145,8 +146,9 @@ def _prepare(req: dict, cfg, num_frames: int, frame_mode: str,
 
 def _refuse_unported(args) -> None:
     if args.tensor_parallel != 1:
-        raise NotImplementedError("--tensor-parallel above 1 is not ported "
-                                  "yet: the port serves from one card")
+        raise NotImplementedError(f"--tensor-parallel above 1: "
+                                  f"{TENSOR_PARALLEL_REFUSED}; the port "
+                                  "serves from one card")
 
 
 def frame_buckets(args):

@@ -3,7 +3,7 @@ package's names and layouts, forward passes as plain functions."""
 
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Callable, Mapping, Union
 
 import torch
 from torch import nn
@@ -16,6 +16,10 @@ class Weights(nn.Module):
     that is a `Weights` becomes a child module."""
 
     NAMES: tuple[str, ...] = ()
+    # {name: the function a read of that parameter goes through}: set by
+    # `parallel.sharding.shard_params` on a tree cut into fsdp slices, where
+    # a read gathers the full tensor; empty on a full tree
+    reads: Mapping[str, Callable] = {}
 
     @classmethod
     def expected_names(cls, tensors: Mapping) -> tuple[str, ...]:
@@ -38,7 +42,9 @@ class Weights(nn.Module):
                     name, nn.Parameter(value, requires_grad=False))
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        value = getattr(self, name)
+        read = self.reads.get(name)
+        return value if read is None else read(value)
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules

@@ -442,8 +442,14 @@ def _per_layer(lp: LlamaLayers) -> dict:
     stacked parameter once per layer makes autograd write a zeroed tensor
     the size of the whole stack for every layer and add each into the
     gradient; the layers' views of one ``unbind`` take their gradients
-    apart and stack them once."""
-    return {n: p.unbind(0) for n, p in lp.named_parameters(recurse=False)}
+    apart and stack them once.  On a sharded tree each layer's view goes
+    through the stack's read (`LlamaLayers.reads`), which gathers that
+    layer when the layer reads it."""
+    out = {}
+    for n, p in lp.named_parameters(recurse=False):
+        read = lp.reads.get(n)
+        out[n] = p.unbind(0) if read is None else read(p.unbind(0))
+    return out
 
 
 def _dots_policy(ctx, op, *args, **kwargs):

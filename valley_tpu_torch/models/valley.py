@@ -14,6 +14,7 @@ from valley_tpu_torch.config import ValleyConfig
 from valley_tpu_torch.constants import IGNORE_INDEX
 from valley_tpu_torch.models import Weights, clip_vit, llama, temporal
 from valley_tpu_torch.ops.attention import KERNELS, Attention
+from valley_tpu_torch.parallel.sharding import batch_sum
 
 
 class Projector(Weights):
@@ -135,10 +136,17 @@ def forward(params: ValleyWeights, cfg: ValleyConfig,
                          lora_rng=lora_rng, lora_dropout=lora_dropout)
 
 
-def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
-                          ) -> torch.Tensor:
+def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          global_count: bool = False) -> torch.Tensor:
     """Mean cross entropy over the shifted targets that are not
-    ``IGNORE_INDEX``, from an fp32 log-softmax (valley.py:148-160)."""
+    ``IGNORE_INDEX``, from an fp32 log-softmax (valley.py:148-160).
+
+    With ``global_count`` the rows are this rank's share of a global batch
+    split over the process group: the local sum is divided by the count of
+    valid targets over every rank, so the ranks' losses (and gradients) sum
+    to the global batch's mean, JAX's loss over its sharded batch.  The
+    mean of per-rank means is another loss wherever ranks hold different
+    numbers of supervised tokens."""
     shift_logits = logits[:, :-1, :]
     shift_labels = labels[:, 1:]
     valid = shift_labels != IGNORE_INDEX
@@ -146,17 +154,22 @@ def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     logp = torch.log_softmax(shift_logits.float(), dim=-1)
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    if global_count:
+        count = batch_sum(count)
+    return nll.sum() / count.clamp_min(1)
 
 
 def loss_fn(params: ValleyWeights, cfg: ValleyConfig, batch, remat=True,
             attention: Attention = KERNELS, lora_rng: Optional[int] = None,
-            lora_dropout: float = 0.0) -> torch.Tensor:
+            lora_dropout: float = 0.0,
+            global_count: bool = False) -> torch.Tensor:
     """Training loss of one batch (valley.py:163-171): ``batch`` holds
     ``input_ids``, ``labels`` and optionally ``attention_mask``, ``images``
-    and ``frame_mask`` tensors."""
+    and ``frame_mask`` tensors; ``global_count``: the batch is one rank's
+    rows of a global batch (`shifted_cross_entropy`)."""
     logits = forward(params, cfg, batch["input_ids"], batch.get("images"),
                      batch.get("attention_mask"), batch.get("frame_mask"),
                      attention=attention, remat=remat, lora_rng=lora_rng,
                      lora_dropout=lora_dropout)
-    return shifted_cross_entropy(logits, batch["labels"])
+    return shifted_cross_entropy(logits, batch["labels"], global_count)

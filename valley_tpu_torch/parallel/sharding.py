@@ -1,0 +1,343 @@
+"""Sharding rules and the ZeRO-3 collectives of the PyTorch port, the
+counterpart of ``valley_tpu/parallel/sharding.py`` for the ``data`` and
+``fsdp`` axes.
+
+The JAX package writes ZeRO-3 as rules: one PartitionSpec per weight kind,
+the stacked layer weights sharded over ``fsdp``, and XLA inserts the
+collectives.  The port keeps the rules (`fsdp_axis`: for every weight kind,
+the axis of the port's layout that is split over ``fsdp``, or None for a
+replicated leaf) and writes the collectives out:
+
+* `shard_params` cuts a full `ValleyWeights` in place: every parameter
+  whose rule names an axis keeps this rank's contiguous slice of it as its
+  data, so the gradients, and AdamW's moments, which the optimizer makes
+  from the parameters at its first step, are born sharded (JAX's optimizer
+  init had to be told where its state goes, or it landed whole on one
+  device: ``opt_state_shardings``; here there is nothing to tell).
+* The model reads a parameter through `Weights.__getitem__`, which on a
+  sharded tree calls the read this module installs: `gather`, an autograd
+  function whose forward all-gathers the slices over ``fsdp`` and whose
+  backward reduce-scatters the gradient over ``fsdp`` and all-reduces it
+  over ``data``.  A stacked layer weight is read one layer at a time
+  (`LayerReads`), so a whole layer is live only while it runs; under remat
+  the recompute reads, and gathers, it again.
+* Replicated trainable leaves (norms, biases) take their gradient's
+  all-reduce over the whole batch after the backward
+  (`all_reduce_replicated`), and the global norm counts each of them once
+  (`sum_squares`).
+* `gather_params` and `gather_state` carry the slices back to a full tree
+  (checkpoints, ``final/``, the steps eval); `load_full_state` takes a full
+  state onto the slices of any world.
+
+Every rank of one mesh must read the same parameters in the same order
+(the collectives pair up by order), which the shared model code does: the
+per-rank batches have one shape (`DataLoader` with ``process_count`` and
+the collator's fixed geometry).  Collectives run on the process group's
+backend; no library of finished sharding stands in for the rules (the
+stacked (L, out, in) layout does not map onto FSDP's module units).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Optional
+
+import torch
+import torch.distributed as dist
+
+from valley_tpu_torch.models.llama import QUANTIZED
+
+# The fsdp axis of each decoder layer weight (L, out, in): the in axis of
+# q/k/v/gate/up (fused or not), the out axis of o and down, which contract
+# over the tensor-parallel axis (sharding.py:18-40)
+_LLAMA_LAYER = {"wqkv": 2, "w_gateup": 2, "wq": 2, "wk": 2, "wv": 2,
+                "w_gate": 2, "w_up": 2, "wo": 1, "w_down": 1}
+# ... and of each tower layer weight (L, in, out) (sharding.py:72-83)
+_VISION_LAYER = {"wq": 1, "wk": 1, "wv": 1, "fc1": 1, "wo": 2, "fc2": 2}
+_SCALES = ("_scale_a8", "_scale")
+
+
+def fsdp_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
+    """The axis of parameter ``name`` (dotted, as ``named_parameters``
+    gives it) that the ``fsdp`` axis splits, in the port's layout; None for
+    a replicated leaf.  The JAX package's rules, translated: its one
+    layout that differs is the quantized ``lm_head``, which the port stores
+    (out, in) where JAX keeps (in, out)."""
+    top, *mid, leaf = name.split(".")
+    layers = bool(mid)
+    if top == "llama":
+        if layers:
+            if leaf.endswith("_lora_a"):
+                return 1          # (L, in, r): the big axis
+            return _LLAMA_LAYER.get(leaf)   # norms, scales, lora_b: None
+        if leaf == "embed":
+            return 1              # (V, H)
+        if leaf == "lm_head":
+            return 1 if tensor.dtype in QUANTIZED else 0
+        return None               # final_norm, lm_head_scale
+    if top == "vision":
+        if not layers:
+            return 1 if leaf in ("patch_embedding",
+                                 "position_embedding") else None
+        for suffix in _SCALES:
+            base = leaf[:-len(suffix)]
+            if leaf.endswith(suffix) and base in _VISION_LAYER:
+                # (L, 1, out) scales follow their weight's out axis
+                return 2 if _VISION_LAYER[base] == 2 else None
+        return _VISION_LAYER.get(leaf)
+    if top == "projector":
+        return 0 if leaf == "w" else None
+    if top == "temporal":
+        return 0 if leaf == "pooling_w" else None
+    return None
+
+
+@dataclass(frozen=True)
+class Sharding:
+    """What `shard_params` did to a tree: the mesh, and the fsdp axis of
+    every sharded parameter by dotted name."""
+    mesh: object
+    axes: Mapping[str, int]
+
+
+def sharding_of(params) -> Optional[Sharding]:
+    """The `Sharding` of a tree `shard_params` cut, else None."""
+    return getattr(params, "sharding", None)
+
+
+def _size(mesh, axis: str) -> int:
+    return mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def fsdp_size(mesh) -> int:
+    return _size(mesh, "fsdp")
+
+
+def data_size(mesh) -> int:
+    return _size(mesh, "data")
+
+
+def batch_rank(mesh) -> int:
+    """This rank's block of each global batch: its (data, fsdp) position,
+    data outermost (the model axis is 1, so it is the global rank)."""
+    return (mesh.get_local_rank("data") * fsdp_size(mesh)
+            + mesh.get_local_rank("fsdp"))
+
+
+def all_gather(shard: torch.Tensor, axis: int, mesh) -> torch.Tensor:
+    """The full tensor of the fsdp ranks' slices along ``axis`` (no
+    autograd), contiguous: the slices gathered as a stack, then joined
+    along ``axis`` by one copy of whole runs of the slices' rows (none for
+    the leading axis, or for one rank)."""
+    x = shard.contiguous()
+    n = fsdp_size(mesh)
+    # the slices joined along the leading axis are their stack in memory
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mesh.get_group("fsdp"))
+    full = list(x.shape)
+    full[axis] *= n
+    return out.view((n,) + tuple(x.shape)).movedim(0, axis).reshape(full)
+
+
+def reduce_scatter(full: torch.Tensor, axis: int, mesh) -> torch.Tensor:
+    """This rank's slice along ``axis`` of the sum of ``full`` over the
+    fsdp ranks (no autograd), contiguous: ``full`` split along ``axis``
+    into a stack of the ranks' slices by one copy (none for the leading
+    axis, or for one rank), then reduce-scattered."""
+    n = fsdp_size(mesh)
+    shape = tuple(full.shape)
+    x = full.reshape(shape[:axis] + (n, shape[axis] // n) + shape[axis + 1:])
+    x = x.movedim(axis, 0).contiguous()
+    out = x.new_empty(tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.view((-1,) + tuple(x.shape[2:])),
+                               group=mesh.get_group("fsdp"))
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """Forward: all-gather one parameter's (or one layer's) slices over
+    fsdp.  Backward: the full gradient reduce-scattered over fsdp (each
+    rank's loss is its share of the global mean, so the sum is the
+    gradient of the global loss), then all-reduced over data."""
+
+    @staticmethod
+    def forward(ctx, shard, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return all_gather(shard, axis, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        g = reduce_scatter(grad, ctx.axis, ctx.mesh)
+        if data_size(ctx.mesh) > 1:
+            dist.all_reduce(g, group=ctx.mesh.get_group("data"))
+        return g, None, None
+
+
+def gather(shard: torch.Tensor, axis: int, mesh) -> torch.Tensor:
+    """The full tensor of a sharded parameter (or layer), with the
+    gradient's reduce-scatter in the backward."""
+    return _Gather.apply(shard, axis, mesh)
+
+
+class LayerReads:
+    """A sharded (L, ...) stack (or the L views of its one ``unbind``) read
+    one layer at a time: ``[li]`` gathers layer li."""
+
+    def __init__(self, stack, axis: int, mesh):
+        self.stack, self.axis, self.mesh = stack, axis, mesh
+
+    def __getitem__(self, li: int) -> torch.Tensor:
+        return gather(self.stack[li], self.axis, self.mesh)
+
+    def __len__(self) -> int:
+        return len(self.stack)
+
+
+_STACKS = ("llama.layers", "vision.layers")
+
+
+def shard_params(mesh, params):
+    """Cut the full tree ``params`` in place to this rank's slices over the
+    mesh's fsdp axis (`fsdp_axis`), and make its reads gather them.  Every
+    parameter keeps its `nn.Parameter` (and so its ``requires_grad``); the
+    slices are contiguous.  Returns ``params``.  An axis that the fsdp
+    size does not divide is refused."""
+    if sharding_of(params) is not None:
+        raise ValueError("these weights are sharded already")
+    n, r = fsdp_size(mesh), mesh.get_local_rank("fsdp")
+    axes: Dict[str, int] = {}
+    for prefix, module in params.named_modules():
+        if not hasattr(module, "reads"):
+            continue
+        reads = {}
+        for name, p in module.named_parameters(recurse=False):
+            dotted = f"{prefix}.{name}" if prefix else name
+            axis = fsdp_axis(dotted, p)
+            if axis is None:
+                continue
+            size = p.shape[axis]
+            if size % n:
+                raise ValueError(f"{dotted} {tuple(p.shape)}: axis {axis} "
+                                 f"of {size} does not divide by fsdp {n}")
+            if n > 1:
+                p.data = p.data.narrow(axis, r * size // n, size // n).clone(
+                    memory_format=torch.contiguous_format)
+            axes[dotted] = axis
+            reads[name] = (functools.partial(LayerReads, axis=axis - 1,
+                                             mesh=mesh)
+                           if prefix in _STACKS else
+                           functools.partial(gather, axis=axis, mesh=mesh))
+        module.reads = reads
+    params.sharding = Sharding(mesh, axes)
+    return params
+
+
+def local_slice(full: torch.Tensor, axis: Optional[int], mesh
+                ) -> torch.Tensor:
+    """This rank's slice of ``full`` along ``axis`` (all of it for None)."""
+    if axis is None:
+        return full
+    n = fsdp_size(mesh)
+    size = full.shape[axis] // n
+    return full.narrow(axis, mesh.get_local_rank("fsdp") * size, size)
+
+
+def full_tensor(t: torch.Tensor, axis: Optional[int], mesh,
+                device=None) -> torch.Tensor:
+    """The full tensor of one rank's slice ``t`` (a collective; a
+    replicated ``t`` as it is): the slice is taken to ``device`` for the
+    collective where it lies elsewhere (an offloaded moment)."""
+    if axis is None:
+        return t
+    if device is not None:
+        t = t.to(device)
+    return all_gather(t.detach(), axis, mesh)
+
+
+def gather_state(params, to_host: bool = False
+                 ) -> Dict[str, Optional[torch.Tensor]]:
+    """The full ``state_dict`` of a sharded tree, one parameter at a time
+    (a collective: every rank calls it).  ``to_host``: what a checkpoint
+    that rank 0 writes needs: each full tensor goes to the host on rank 0
+    as soon as it is gathered, and the other ranks keep none of them
+    (their values are None)."""
+    sh = sharding_of(params)
+    keep = not to_host or sh.mesh.get_rank() == 0
+    out = {}
+    for name, p in params.named_parameters():
+        t = full_tensor(p.detach(), sh.axes.get(name), sh.mesh)
+        out[name] = None if not keep else \
+            t.to("cpu", copy=True) if to_host else t
+    return out
+
+
+def gather_params(params):
+    """A full `ValleyWeights` of a sharded tree (a collective), on the
+    slices' device; replicated parameters are shared with ``params``."""
+    from valley_tpu_torch.weights import from_state_dict
+
+    return from_state_dict(gather_state(params))
+
+
+def load_full_state(params, state: Mapping[str, torch.Tensor]) -> None:
+    """Copy a full ``state_dict`` (of any world) into a sharded tree's
+    slices, as ``load_state_dict`` would into a full tree."""
+    sh = sharding_of(params)
+    names = dict(params.named_parameters())
+    if set(names) != set(state):
+        raise KeyError(f"state and weights differ: "
+                       f"{sorted(set(names) ^ set(state))}")
+    with torch.no_grad():
+        for name, p in names.items():
+            p.copy_(local_slice(state[name], sh.axes.get(name), sh.mesh))
+
+
+def process_batch_slice(mesh, global_batch: int) -> slice:
+    """The rows of each global batch this rank loads (sharding.py:230-256):
+    the batch is split over (data, fsdp), so rank r of the batch order
+    (`batch_rank`) holds the r-th contiguous block, which is
+    ``DataLoader(process_index=r, process_count=data x fsdp)``'s slice."""
+    if mesh is None:
+        return slice(0, global_batch)
+    dp = data_size(mesh) * fsdp_size(mesh)
+    if global_batch % dp:
+        raise ValueError(f"global batch {global_batch} does not divide over "
+                         f"{dp} data-parallel ranks")
+    per = global_batch // dp
+    r = batch_rank(mesh)
+    return slice(r * per, (r + 1) * per)
+
+
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over every rank of the batch (in place; the model axis
+    is 1, so that is the whole process group)."""
+    dist.all_reduce(t)
+    return t
+
+
+def all_reduce_replicated(grads: List[torch.Tensor], sharded: List[bool]
+                          ) -> None:
+    """Sum, in place over the whole batch, the gradients of the
+    replicated parameters (the sharded ones were reduced in their
+    gather's backward)."""
+    for g, s in zip(grads, sharded):
+        if not s:
+            dist.all_reduce(g)
+
+
+def sum_squares(squares: List[torch.Tensor], sharded: List[bool], mesh
+                ) -> List[torch.Tensor]:
+    """Each gradient's global sum of squares from this rank's: a sharded
+    gradient's slices summed over fsdp (its data replicas hold the same
+    slice), a replicated one counted once (from fsdp rank 0 only).  One
+    collective; the result keeps the list's order, so that the norm adds
+    them in the order of one device."""
+    v = torch.stack(squares)
+    if mesh.get_local_rank("fsdp") != 0:
+        keep = torch.tensor(sharded, device=v.device)
+        v = torch.where(keep, v, torch.zeros_like(v))
+    dist.all_reduce(v, group=mesh.get_group("fsdp"))
+    return list(v.unbind(0))

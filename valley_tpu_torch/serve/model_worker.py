@@ -56,6 +56,7 @@ from valley_tpu_torch.constants import (DEFAULT_IM_END_TOKEN,
                                         DEFAULT_VIDEO_FRAME_TOKEN,
                                         DEFAULT_VIDEO_TOKEN,
                                         WORKER_HEART_BEAT_INTERVAL)
+from valley_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSED
 from valley_tpu_torch.serve import hbm
 from valley_tpu_torch.serve.httpd import JsonHttpServer, post_json
 from valley_tpu_torch.utils.logging import server_error_msg
@@ -944,8 +945,8 @@ def load_engine(args):
     from valley_tpu_torch.inference.run_valley import load_model
     if int(getattr(args, "tensor_parallel", 1) or 1) > 1:
         raise NotImplementedError(
-            "--tensor-parallel above 1 is not ported yet (ROADMAP §1 item "
-            "8: parallel/); the port serves from one card")
+            f"--tensor-parallel above 1: {TENSOR_PARALLEL_REFUSED}; the port "
+            "serves from one card")
     fb = (getattr(args, "frame_buckets", "") or "").strip()
     fbt = tuple(int(b) for b in fb.split(",")) \
         if fb and fb.lower() != "off" else None

@@ -1,7 +1,22 @@
 """Training entry point of the PyTorch port: a YAML experiment config ->
-the Valley recipe on one device.
+the Valley recipe on one device, or on one process per device under
+torchrun:
 
     python -m valley_tpu_torch.train.train --conf <yaml> [--device cuda|cpu]
+    torchrun --nproc_per_node N -m valley_tpu_torch.train.train --conf <yaml>
+
+Under torchrun (its environment: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR``, ``MASTER_PORT``) each process drives ``cuda:LOCAL_RANK``
+(NCCL; gloo with ``--device cpu``) on the recipe's mesh (``mesh_data``,
+``mesh_fsdp``, ``mesh_model``; -1 infers an axis from the world, as JAX
+infers it from the devices): the weights and AdamW's state sharded over
+``fsdp`` (ZeRO-3, `parallel/sharding.py`), the global batch
+``per_device_train_batch_size x data x fsdp`` split over the ranks, each
+loading only its rows with the collator's padded geometry fixed (JAX
+train.py:211-223).  Rank 0 writes the logs, ``final/``,
+``valley_config.json``, ``valley_meta.json`` and ``hf/``.  Without
+torchrun's environment the recipe runs in one process with no process
+group, and a mesh larger than one device is refused as JAX refuses it.
 
 Reads the same YAML keys as ``valley_tpu/train/train.py`` (model, data and
 training arguments) with the same meaning.  ``model_name_or_path`` may be
@@ -20,8 +35,9 @@ checkpoint); ``export_hf`` writes a Hugging Face checkpoint under
 ``<output_dir>/hf`` (not with LoRA); ``evaluation_strategy: steps`` runs
 the generate-eval (`train/eval_loop.py`) every ``eval_steps`` updates and
 ``predict_with_generate`` once after training, over the first
-``eval_num`` training samples.  Refused with NotImplementedError: the
-options of `trainer.check_ported`.
+``eval_num`` training samples (on a mesh: on rank 0, over the gathered
+tree).  Refused with NotImplementedError: the options of
+`trainer.check_ported` (``mesh_model`` above 1 among them).
 """
 
 from __future__ import annotations
@@ -40,8 +56,11 @@ from valley_tpu_torch import config as C
 from valley_tpu_torch.data.dataset import (DataLoader,
                                            make_video_supervised_data_module)
 from valley_tpu_torch.models import valley
+from valley_tpu_torch.parallel import distributed, sharding
+from valley_tpu_torch.parallel.mesh import create_mesh, mesh_sizes
 from valley_tpu_torch.train import lora as lora_lib
-from valley_tpu_torch.train.trainer import TrainConfig, Trainer
+from valley_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                            check_ported, label_params)
 from valley_tpu_torch.utils import checkpoint as ckpt_lib
 from valley_tpu_torch.utils.logging import (print_trainable_params,
                                             rank_zero_info)
@@ -249,6 +268,14 @@ def train(conf_path: str, device: str = "cuda") -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass --device cpu to train on "
                            "the CPU")
+    check_ported(tc)
+    grouped = distributed.initialize(device=device)
+    device = distributed.device_for(device)
+    data, fsdp, _ = mesh_sizes(tc.mesh_data, tc.mesh_fsdp, tc.mesh_model,
+                               distributed.process_count())
+    mesh = create_mesh(tc.mesh_data, tc.mesh_fsdp, tc.mesh_model,
+                       device.type) if grouped else None
+    rank0 = distributed.process_index() == 0
     dtype = torch.bfloat16 if extra.get("bf16", True) else torch.float32
     cfg, params, tokenizer = build_model_and_tokenizer(model_args, extra,
                                                        device, dtype)
@@ -268,17 +295,34 @@ def train(conf_path: str, device: str = "cuda") -> int:
                                cfg.vision.image_size)
     data_args.patch_size = cfg.vision.patch_size
     module = make_video_supervised_data_module(tokenizer, data_args)
+    if distributed.process_count() > 1:
+        # the ranks' batches must agree on shape without seeing each
+        # other's samples: fix the collator's padded geometry
+        coll = module["data_collator"]
+        coll.pad_to_length = coll.max_length
+        coll.pad_frames_to = data_args.num_frames
+        coll.image_size = cfg.vision.image_size
+    # per-device batch (torchrun's semantics): the global batch scales
+    # with the data-parallel ranks, and each rank loads its rows of it
     loader = DataLoader(module["train_dataset"],
-                        tc.per_device_train_batch_size,
-                        module["data_collator"], seed=tc.seed)
+                        tc.per_device_train_batch_size * data * fsdp,
+                        module["data_collator"], seed=tc.seed,
+                        process_index=sharding.batch_rank(mesh)
+                        if mesh is not None else 0,
+                        process_count=data * fsdp)
 
     step_eval = StepEval(cfg, tc, tokenizer, module["train_dataset"],
                          data_args.conv_mode) \
         if tc.evaluation_strategy == "steps" else None
-    trainer = Trainer(cfg, tc, params, loader, eval_fn=step_eval)
-    print_trainable_params(trainer.params, trainer.labels)
+    print_trainable_params(params, label_params(params, tc))
+    trainer = Trainer(cfg, tc, params, loader, eval_fn=step_eval, mesh=mesh)
     step = trainer.train(resume=True)
     trainer.eval_fn = step_eval = None     # frees the eval engine
+    if mesh is not None:
+        params = sharding.gather_params(params)
+    if not rank0:
+        distributed.barrier()    # rank 0 writes and evaluates
+        return step
 
     final_dir = os.path.join(tc.output_dir, "final")
     if tc.lora:
@@ -320,6 +364,7 @@ def train(conf_path: str, device: str = "cuda") -> int:
             gen=GenerationConfig(max_new_tokens=256, do_sample=False))
         trainer.log({"step": step, **{f"eval_{k}": v
                                       for k, v in metrics.items()}})
+    distributed.barrier()
     return step
 
 
@@ -330,7 +375,10 @@ def main(argv=None):
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    train(args.conf, args.device)
+    try:
+        train(args.conf, args.device)
+    finally:
+        distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Training loop of the PyTorch port, the counterpart of
-``valley_tpu/train/trainer.py`` on one device.
+``valley_tpu/train/trainer.py``, on one device or on a (data, fsdp) mesh.
 
 * Parameter groups: the same labels as the JAX `label_params` ('frozen' |
   'base' | 'lora'), applied as ``requires_grad`` flags, so the backward
@@ -22,6 +22,23 @@
   and the forward folds in the layer and the projection
   (`llama.dropout_mask`).  The masks come from torch's generators, not
   JAX's ``dropout_rng_impl``: the name is checked and the bits differ.
+  On a mesh of more than one rank the key also folds in the rank's block
+  of the batch, so that ranks draw different masks (JAX draws one mask
+  over the global batch; the port's ranks cannot share one).
+* On a mesh (``mesh``: `parallel.mesh.create_mesh`, one process per
+  device under torchrun) the parameters are this rank's fsdp slices
+  (`parallel.sharding.shard_params`; ZeRO-3: the gradients and AdamW's
+  moments, offloaded or not, are slices too), the batch is this rank's
+  rows of the global batch, and the loss divides by the global count of
+  supervised tokens.  Each layer is gathered where the model reads it and
+  its gradient reduce-scattered in the backward; the replicated leaves'
+  gradients are all-reduced after it; the norms that clip and the logged
+  loss and ``grad_norm`` are global.  AdamW is elementwise, so each
+  rank's update of its slices is exact.  Only rank 0 writes
+  ``trainer.log``, ``metrics.jsonl``, the trace and the checkpoints,
+  which hold the full tree (gathered on save), so that a run resumes at
+  any world; the steps eval runs on rank 0 over the gathered tree while
+  the other ranks wait.
 * Optimizer offload (``offload_optimizer``, DeepSpeed's ZeRO-offload in
   the reference, JAX's pinned-host optimizer state): the AdamW moments live
   in pinned host memory, and each update streams them to the device a
@@ -41,8 +58,8 @@
   and the ``eval_fn`` of ``evaluation_strategy: steps`` every
   ``eval_steps``.
 
-Options that only the JAX package's mesh or wandb gave are refused with
-NotImplementedError (see `check_ported`).
+Refused with NotImplementedError (see `check_ported`): a mesh with a
+``model`` axis above 1 (tensor parallelism) and wandb.
 """
 
 from __future__ import annotations
@@ -66,9 +83,13 @@ from valley_tpu_torch.data.dataset import PrefetchLoader
 from valley_tpu_torch.models import valley
 from valley_tpu_torch.models.llama import fold_in
 from valley_tpu_torch.ops.attention import KERNELS, Attention
+from valley_tpu_torch.parallel import sharding
+from valley_tpu_torch.parallel.distributed import (barrier, process_count,
+                                                   process_index)
+from valley_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSED
 from valley_tpu_torch.utils import checkpoint as ckpt_lib
 from valley_tpu_torch.utils import profiling
-from valley_tpu_torch.weights import set_trainable
+from valley_tpu_torch.weights import from_state_dict, set_trainable
 
 logger = logging.getLogger(__name__)
 
@@ -138,10 +159,8 @@ def check_ported(tc: TrainConfig) -> None:
         raise ValueError(f"unknown dropout_rng_impl {tc.dropout_rng_impl!r}"
                          f" (one of {', '.join(DROPOUT_RNG_IMPLS)})")
     refused = {
-        "mesh": ((tc.mesh_data, tc.mesh_model) != (1, 1)
-                 or tc.mesh_fsdp not in (-1, 1))
-        and f"the port trains on one device: mesh_data/mesh_fsdp/mesh_model "
-        f"must be 1/-1/1, got {tc.mesh_data}/{tc.mesh_fsdp}/{tc.mesh_model}",
+        "mesh": tc.mesh_model != 1 and f"mesh_model {tc.mesh_model}: "
+        f"{TENSOR_PARALLEL_REFUSED}",
         "report_to": tc.report_to == "wandb" and "report_to: wandb is not "
         "ported; the trainer writes trainer.log and metrics.jsonl",
     }
@@ -299,12 +318,18 @@ def pinned_zeros(p: torch.Tensor) -> torch.Tensor:
             f"({e}); the moments are not kept on the device instead") from e
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: List[torch.Tensor], sharded: Optional[List[bool]]
+                = None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (without an
-    fp32 copy of each gradient)."""
-    return torch.sqrt(sum(
-        torch.linalg.vector_norm(g, dtype=torch.float32).square()
-        for g in grads))
+    fp32 copy of each gradient).  On a ``mesh``, ``grads`` are this rank's
+    and ``sharded`` says which are slices: the norm is the global one
+    (`sharding.sum_squares`), each gradient's square summed in the same
+    order as on one device."""
+    squares = [torch.linalg.vector_norm(g, dtype=torch.float32).square()
+               for g in grads]
+    if mesh is not None:
+        squares = sharding.sum_squares(squares, sharded, mesh)
+    return torch.sqrt(sum(squares))
 
 
 # ---------------------------------------------------------------------------
@@ -314,19 +339,28 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 class Trainer:
     """Train ``params`` in place on the batches of ``train_loader`` (an
     object with ``epoch(i)`` yielding collated numpy batches, as the port's
-    `DataLoader`).  The ``attention`` attribute picks the kernels (the
-    default, `KERNELS`) or their plain versions (`PLAIN`, to compare a
-    step on the card against); it is read at every step."""
+    `DataLoader`; on a mesh, this rank's rows of each global batch).  The
+    ``attention`` attribute picks the kernels (the default, `KERNELS`) or
+    their plain versions (`PLAIN`, to compare a step on the card against);
+    it is read at every step.  ``mesh``: a (data, fsdp) mesh, over which a
+    full ``params`` is sharded here (a tree `shard_params` cut already
+    brings its own)."""
 
     def __init__(self, cfg: ValleyConfig, tc: TrainConfig,
                  params: valley.ValleyWeights, train_loader,
                  total_steps: Optional[int] = None,
-                 eval_fn: Optional[Callable] = None):
+                 eval_fn: Optional[Callable] = None, mesh=None):
         # eval_fn(params, step) -> metrics dict, run every eval_steps
         # updates under evaluation_strategy: steps
         self.eval_fn = eval_fn
         self.cfg = cfg
         self.tc = tc
+        check_ported(tc)
+        if mesh is not None and sharding.sharding_of(params) is None:
+            sharding.shard_params(mesh, params)
+        sh = sharding.sharding_of(params)
+        self.mesh = None if sh is None else sh.mesh
+        self.rank0 = process_index() == 0
         self.params = params
         self.attention: Attention = KERNELS
         self.device = next(params.parameters()).device
@@ -338,6 +372,12 @@ class Trainer:
         self.schedules = group_schedules(tc, self.total_steps)
         self._trainable = [p for g in self.optimizer.param_groups
                            for p in g["params"]]
+        # each trainable parameter's fsdp axis (None: replicated, or no
+        # mesh), in optimizer order
+        self.fsdp_axes = [sh.axes.get(n) if sh else None
+                      for g in self.optimizer.param_groups
+                      for n in g["names"]]
+        self._sharded = [a is not None for a in self.fsdp_axes]
         self.lora_dropout = tc.lora_dropout if tc.lora else 0.0
         self.offload = tc.offload_optimizer
         self.offload_chunk = OFFLOAD_CHUNK
@@ -375,20 +415,31 @@ class Trainer:
         if self.lora_dropout <= 0.0:
             return None
         k = max(self.tc.gradient_accumulation_steps, 1)
-        return fold_in(self.tc.seed, self.step * k + self._micro)
+        key = fold_in(self.tc.seed, self.step * k + self._micro)
+        if self.mesh is not None and process_count() > 1:
+            key = fold_in(key, sharding.batch_rank(self.mesh))
+        return key
 
     def loss_and_grads(self, batch):
         """(loss, global grad norm, [gradient of each trainable parameter,
-        in optimizer order]) of one batch, without updating anything."""
+        in optimizer order]) of one batch, without updating anything.  On
+        a mesh: the global batch's loss and norm, and this rank's reduced
+        gradients (slices of the sharded parameters)."""
+        mesh = self.mesh
         loss = valley.loss_fn(self.params, self.cfg, batch,
                               remat=self.tc.gradient_checkpointing,
                               attention=self.attention,
                               lora_rng=self.lora_rng(),
-                              lora_dropout=self.lora_dropout)
+                              lora_dropout=self.lora_dropout,
+                              global_count=mesh is not None)
         grads = torch.autograd.grad(loss, self._trainable, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, self._trainable)]
-        return loss.detach(), global_norm(grads), grads
+        loss = loss.detach()
+        if mesh is not None:
+            sharding.all_reduce_replicated(grads, self._sharded)
+            loss = sharding.batch_sum(loss)
+        return loss, global_norm(grads, self._sharded, mesh), grads
 
     def train_step(self, batch) -> dict:
         """One micro-batch: gradients, accumulation, and every k-th time an
@@ -419,10 +470,12 @@ class Trainer:
         # g's dtype, as optax's `t / g_norm * max_norm` in that dtype), else
         # g / 1 * 1, which is g
         max_norm = self.tc.max_grad_norm
-        it = iter(grads)
+        at = 0
         for group in self.optimizer.param_groups:
-            gs = [next(it) for _ in group["params"]]
-            norm = global_norm(gs)
+            n = len(group["params"])
+            gs = grads[at:at + n]
+            norm = global_norm(gs, self._sharded[at:at + n], self.mesh)
+            at += n
             clip = norm >= max_norm
             div = torch.where(clip, norm, 1.0)
             mul = torch.where(clip, max_norm, 1.0)
@@ -561,28 +614,55 @@ class Trainer:
     # -- loop -------------------------------------------------------------
 
     def log(self, record: dict) -> None:
+        if not self.rank0:
+            return
         line = json.dumps(record)
         for path in (self._metrics_path, self._log_path):
             with open(path, "a") as f:
                 f.write(line + "\n")
         logger.info(line)
 
+    def _optimizer_state(self) -> dict:
+        """``optimizer.state_dict()``; on a mesh with every moment gathered
+        whole (a collective), on the host on rank 0 (the other ranks keep
+        none of it)."""
+        osd = self.optimizer.state_dict()
+        if self.mesh is None:
+            return osd
+        states = {}
+        for i, st in osd["state"].items():
+            st = dict(st)    # the optimizer's own dict: leave it be
+            for k in ("exp_avg", "exp_avg_sq"):
+                full = sharding.full_tensor(st[k], self.fsdp_axes[i],
+                                            self.mesh, self.device)
+                st[k] = full.to("cpu", copy=True) if self.rank0 else None
+            states[i] = st
+        return {**osd, "state": states}
+
     def save(self, step: int, final: bool = False) -> str:
         """Save ``checkpoint-<step>``: blocking, or with
         ``async_checkpointing`` (but not for the ``final`` save) copied to
-        the host here and written on a thread."""
-        path = ckpt_lib.save_checkpoint(
-            self.tc.output_dir,
-            {"params": self.params.state_dict(),
-             "optimizer": self.optimizer.state_dict(), "step": step},
-            step, keep=self.tc.save_total_limit,
+        the host here and written on a thread.  On a mesh every rank takes
+        part in gathering the full state, which rank 0 writes."""
+        params = self.params.state_dict() if self.mesh is None else \
+            sharding.gather_state(self.params, to_host=True)
+        state = {"params": params, "optimizer": self._optimizer_state(),
+                 "step": step}
+        path = os.path.abspath(os.path.join(self.tc.output_dir,
+                                            f"checkpoint-{step}"))
+        if not self.rank0:
+            return path
+        ckpt_lib.save_checkpoint(
+            self.tc.output_dir, state, step, keep=self.tc.save_total_limit,
             block=final or not self.tc.async_checkpointing)
         if self.tc.lora and self.tc.lora_save_strategy == "steps":
             from valley_tpu_torch.train import lora as lora_lib
 
+            tree = self.params if self.mesh is None else \
+                from_state_dict(params)
             ckpt_lib.save_pytree(
                 os.path.join(self.tc.output_dir, f"adapter-{step}"),
-                lora_lib.split_lora(self.params))
+                lora_lib.split_lora(tree))
         return path
 
     def maybe_resume(self) -> int:
@@ -590,13 +670,23 @@ class Trainer:
         parameters and optimizer, if there is one; returns its step."""
         restored = ckpt_lib.restore_latest(
             self.tc.output_dir,
-            map_location="cpu" if self.offload else self.device)
+            map_location="cpu" if self.offload or self.mesh is not None
+            else self.device, mmap=self.mesh is not None)
         if restored is None:
             return 0
         state, step = restored
         logger.info("resume from checkpoint-%d", step)
-        self.params.load_state_dict(state["params"])
-        self._load_optimizer(state["optimizer"])
+        osd = state["optimizer"]
+        if self.mesh is None:
+            self.params.load_state_dict(state["params"])
+        else:
+            # the full tree of any world, cut to this rank's slices
+            sharding.load_full_state(self.params, state["params"])
+            osd = {**osd, "state": {i: {
+                k: v if k == "step" else sharding.local_slice(
+                    v, self.fsdp_axes[i], self.mesh).contiguous()
+                for k, v in st.items()} for i, st in osd["state"].items()}}
+        self._load_optimizer(osd)
         self.step, self._micro, self._acc = step, 0, None
         return step
 
@@ -621,7 +711,7 @@ class Trainer:
                     if seen <= start_step * accum:
                         continue   # fast-forward through resumed data
                     if (prof_range and self.step == prof_range[0]
-                            and not tracing):
+                            and not tracing and self.rank0):
                         trace.enter_context(profiling.trace(
                             os.path.join(tc.output_dir, "trace")))
                         tracing = True
@@ -638,6 +728,17 @@ class Trainer:
                     self._after_update(epoch, metrics, t0, t_step, timer)
         self.save(self.step, final=True)
         return self.step
+
+    def run_eval(self, step: int):
+        """``eval_fn`` over the parameters; on a mesh over the gathered
+        tree, on rank 0 while the other ranks wait (they return None)."""
+        if self.mesh is None:
+            return self.eval_fn(self.params, step)
+        full = sharding.gather_params(self.params)
+        result = self.eval_fn(full, step) if self.rank0 else None
+        del full
+        barrier()
+        return result
 
     def _after_update(self, epoch: int, metrics: dict, t0: float,
                       t_step: float, timer: profiling.StepTimer) -> None:
@@ -657,7 +758,7 @@ class Trainer:
             self.save(step)
         if (self.eval_fn is not None and tc.evaluation_strategy == "steps"
                 and tc.eval_steps and step % tc.eval_steps == 0):
-            result = self.eval_fn(self.params, step)
+            result = self.run_eval(step)
             if result:
                 self.log({"step": step, **{f"eval_{k}": v
                                            for k, v in result.items()}})

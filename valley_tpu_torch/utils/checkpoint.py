@@ -17,6 +17,11 @@ renamed into place (and older ones rotated out) only by
 `finalize_pending`, which the next save, `restore_latest` and the end of
 training call after the write is done.  An exception of the write is
 raised there, never dropped.
+
+On a mesh the trainer gathers the full tree and rank 0 writes it, in this
+same format, so a ``checkpoint-N`` written at one world resumes at any
+other (each rank maps the file and takes its slices): the port's
+counterpart of orbax restoring onto another mesh.
 """
 
 from __future__ import annotations
@@ -69,10 +74,12 @@ def save_pytree(path: str, tree: Any) -> None:
     _replace(path + ".tmp", path)
 
 
-def restore_pytree(path: str, map_location=None) -> Any:
-    """The tree `save_pytree` wrote into ``path``."""
+def restore_pytree(path: str, map_location=None, mmap: bool = False) -> Any:
+    """The tree `save_pytree` wrote into ``path``; ``mmap`` maps the file
+    instead of reading it (each rank of a mesh then reads only the slices
+    it takes)."""
     return torch.load(os.path.join(os.path.abspath(path), _FILE),
-                      map_location=map_location, weights_only=True)
+                      map_location=map_location, weights_only=True, mmap=mmap)
 
 
 def to_host(tree: Any) -> Any:
@@ -137,7 +144,7 @@ def save_checkpoint(output_dir: str, state: Any, step: int,
     return path
 
 
-def restore_latest(output_dir: str, map_location=None
+def restore_latest(output_dir: str, map_location=None, mmap: bool = False
                    ) -> Optional[Tuple[Any, int]]:
     """(state, step) of the newest checkpoint-N, or None; saves still in
     flight are committed first."""
@@ -146,4 +153,4 @@ def restore_latest(output_dir: str, map_location=None
     if not existing:
         return None
     step, path = existing[-1]
-    return restore_pytree(path, map_location), step
+    return restore_pytree(path, map_location, mmap), step

@@ -4,8 +4,9 @@ handler on every logger, stdout and stderr redirected into loggers),
 `get_logger`, `StreamToLogger`, the serving texts `server_error_msg` and
 `moderation_msg`, the fail-open `violates_moderation`,
 `pretty_print_semaphore`, `disable_progress`, and the training entry
-point's `rank_zero_info` and `print_trainable_params`.  The port runs one
-process, which is rank 0.
+point's `rank_zero_info` and `print_trainable_params`, which log from
+process 0 only (a run under torchrun has one process a device; a run
+without a process group is process 0).
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import sys
 import urllib.request
 from typing import Mapping, Optional
+
+from valley_tpu_torch.parallel.distributed import process_index
 
 handler = None
 
@@ -112,14 +115,15 @@ def get_logger(name: str, filename: Optional[str] = None) -> logging.Logger:
 
 def rank_zero_info(message: str, logger=None) -> None:
     """Log ``message`` at INFO from rank 0 (logging.py:100-102)."""
-    (logger or logging.getLogger(__name__)).info(message)
+    if process_index() == 0:
+        (logger or logging.getLogger(__name__)).info(message)
 
 
 def print_trainable_params(params, labels: Optional[Mapping[str, str]] = None
                            ) -> str:
-    """Print and return a table of every parameter's element count and
-    label group, and the trainable total ('frozen' labels excluded;
-    without ``labels`` every parameter counts as 'base'), as
+    """Print (from rank 0) and return a table of every parameter's element
+    count and label group, and the trainable total ('frozen' labels
+    excluded; without ``labels`` every parameter counts as 'base'), as
     logging.py:105-130 tabulates the JAX tree.  ``params`` is a module
     (``named_parameters``); names are dotted."""
     lines = [f"{'param':60s} {'count':>14s} {'group':>8s}"]
@@ -134,7 +138,8 @@ def print_trainable_params(params, labels: Optional[Mapping[str, str]] = None
     lines.append(f"total={total:,} trainable={trainable:,} "
                  f"({100.0 * trainable / max(total, 1):.2f}%)")
     table = "\n".join(lines)
-    print(table)
+    if process_index() == 0:
+        print(table)
     return table
 
 
