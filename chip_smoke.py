@@ -15,7 +15,7 @@ GEMVs K4, K5 and K6 also at a speculative verify round's 9 rows and at 16,
 each row bit-equal to the same row alone; K8, the grouped W4A8 product, at
 the 13B projections before the int4gpa8 request), and drives
 the port's paths at full width and depth with random bf16 weights from a
-seed, nine processes one after the other:
+seed, ten processes one after the other:
 
 - serving: one 8-frame video question with Valley-7B through
   ``Engine.generate_tokens``, its 63 decode steps one replay of a CUDA
@@ -142,7 +142,17 @@ seed, nine processes one after the other:
   launches of K1, K3-int8, K5, K8 and K8q, first token and ms/token (printed
   beside the int4 path's int4gp request), the eager step's first 16
   tokens and launches against the graph's, the prefill's device time by
-  kernel, and its logits against the plain versions.
+  kernel, and its logits against the plain versions; beside it every
+  serving kernel (K1, K3 and its int8 branch, K4, K5, K6, K8, and K8q with
+  a token's absmax over every rank's inputs) at the per-rank shapes of
+  Valley-7B and 13B over 2 and 4 ranks, against its plain version;
+- tensor parallelism in serving: two rank processes of this script on the
+  one card over gloo (NCCL refuses two ranks on one device), a (1, 1, 2)
+  mesh, Valley-7B's width cut to a few layers, fused bf16 and int8a8 with
+  an int8 cache, against world 1 in the path's process on the same
+  weights: logits at the prefill and three teacher-forced steps, greedy
+  tokens, each rank's launches of K1, K3 and K6 or K4, and each rank's
+  kernels against their plain versions on its own shares.
 
 Then the card tests, ``tests/test_torch_cuda.py`` (each kernel against its
 plain version at small shapes, the tiny models end to end), in a process
@@ -2717,15 +2727,12 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
     del sl
     gc.collect()
     conv_spec = spec_conv(cfg, params, smi)
-    k5_src = {"route": "cuda",
-              "source": "valley_tpu_torch/csrc/int4_matvec.cu",
-              "replaces": "tools/exp_int4_group.py:91"}
     entries = [{**K1_SRC, "name": "flash_fwd_int4", "path": "serve_int4",
                 "launches": counts["K1"], "max_abs_err": k1_err, **k1_t},
                {**K3_SRC, "name": "decode_attn_int4", "path": "serve_int4",
                 "launches": counts["K3-int8"], "max_abs_err": k3q_err,
                 **k3q_t},
-               {**k5_src, "name": "int4_matvec", "path": "serve_int4",
+               {**K5_SRC, "name": "int4_matvec", "path": "serve_int4",
                 "launches": counts["K5"], "max_abs_err": k5_err, **k5_t,
                 "request_first_token_ms": walls["first_token_ms"],
                 "request_decode_ms_per_token":
@@ -2733,13 +2740,13 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
                {**K1_SRC, "name": "flash_fwd_int4_spec",
                 "path": "serve_int4_spec", "launches": spec_counts["K1"],
                 "max_abs_err": k1_err, **k1_t},
-               {**k5_src, "name": "int4_matvec_verify",
+               {**K5_SRC, "name": "int4_matvec_verify",
                 "path": "serve_int4_spec", "launches": spec_counts["K5"],
                 "max_abs_err": k5v_err, **k5v_t},
-               {**k5_src, "name": "int4_matvec_B16",
+               {**K5_SRC, "name": "int4_matvec_B16",
                 "path": "serve_int4, GEMV phase only (a 16-row pool step)",
                 "launches": k5w_n["K5"], "max_abs_err": k5w_err, **k5w_t},
-               {**k5_src, "name": "int4_matvec_spec_conv",
+               {**K5_SRC, "name": "int4_matvec_spec_conv",
                 "path": "serve_conv_spec", "launches": conv_spec["K5"],
                 "max_abs_err": k5v_err, **k5v_t}]
 
@@ -2754,7 +2761,7 @@ def serve_int4_path(smi: str, gen, work: Path) -> list:
     return entries + [
         {**K1_SRC, "name": "flash_fwd_conv", "path": "serve_conv",
          "launches": conv_counts["K1"], "max_abs_err": k1_err, **k1_t},
-        {**k5_src, "name": "int4_matvec_conv", "path": "serve_conv",
+        {**K5_SRC, "name": "int4_matvec_conv", "path": "serve_conv",
          "launches": conv_counts["K5"], "max_abs_err": k5_err, **k5_t}]
 
 
@@ -2785,6 +2792,9 @@ def lab_tools_path(smi: str, gen, work: Path) -> list:
                      "serve_conv, lab at the tools' shape")
 
 
+K5_SRC = dict(name="int4_matvec", route="cuda",
+              source="valley_tpu_torch/csrc/int4_matvec.cu",
+              replaces="tools/exp_int4_group.py:91")
 K6_SRC = dict(name="bf16_matvec", route="cuda",
               source="valley_tpu_torch/csrc/bf16_matvec.cu",
               replaces="tools/exp_pallas_gemv.py:37")
@@ -5770,7 +5780,8 @@ def variant_slice(cfg, params, smi: str) -> dict:
 def serve_variants_path(smi: str, gen, work: Path) -> list:
     """The weight formats and pooling of the fourteenth slice: K8 at the
     13B projections (and ragged shapes and other group sizes) and K8q
-    against their plain versions, the pooling variants at 7B
+    against their plain versions, the tensor-parallel shard shapes of every
+    serving kernel (`tp_shard_phase`), the pooling variants at 7B
     and 13B widths against the CPU, the int8 and int8a8 towers beside the
     bf16 one, then Valley-13B served int4gpa8 with an int8a8 tower and
     transformer pooling (`variant_slice`).  Returns its kernels
@@ -5783,6 +5794,7 @@ def serve_variants_path(smi: str, gen, work: Path) -> list:
 
     k8_err, k8_t, k8_n = k8_phase(gen)
     k8q_t = k8q_phase(gen)
+    tp_entries = tp_shard_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
     pooling_phase(gen)
@@ -5814,7 +5826,587 @@ def serve_variants_path(smi: str, gen, work: Path) -> list:
             {**K8Q_SRC, "name": "quantize_tokens", "path": "serve_variants",
              "launches": sl["counts"]["K8q"],
              "shape": f"T{K8Q_SHAPES[0][0]} K{K8Q_SHAPES[0][1]} bf16",
-             "request_k8q_prefill_ms": sl["k8q_prefill_ms"], **k8q_t}]
+             "request_k8q_prefill_ms": sl["k8q_prefill_ms"], **k8q_t}
+            ] + tp_entries
+
+
+# -- tensor parallelism in serving (the mesh's model axis) -----------------
+
+# The per-rank shapes of Valley-7B and -13B cut over 2 and 4 ranks: (model,
+# ranks) -> (hidden, ffn, heads).  Column-parallel wqkv and w_gateup keep
+# their inputs and take 1/N of their outputs; row-parallel wo and w_down
+# take 1/N of their inputs (K split); lm_head 1/N of the vocabulary
+TP_SHAPES = {("7b", 2): (4096, 11008, 32), ("7b", 4): (4096, 11008, 32),
+             ("13b", 2): (5120, 13824, 40), ("13b", 4): (5120, 13824, 40)}
+TP_VOCAB = 32000
+TP_GROUP = 128
+TP_ROWS = 512
+
+
+def tp_weights(h: int, f: int, n: int) -> tuple:
+    """(name, F, K, kf) of one rank's decode GEMVs at (hidden ``h``, ffn
+    ``f``) over ``n`` ranks; kf: the bf16 lm_head's (K, F) layout."""
+    return (("wqkv", 3 * h // n, h, False), ("wo", h, h // n, False),
+            ("w_gateup", 2 * f // n, h, False), ("w_down", h, f // n, False),
+            ("lm_head", TP_VOCAB // n, h, True))
+
+
+# the bytes of weight copies a shard-shape GEMV walks, 10x the 50 MB L2
+TP_WALK_BYTES = 500_000_000
+
+
+def tp_walk(w: torch.Tensor):
+    """A function giving ``w`` or one of its copies in turn, past what the
+    L2 keeps of a cyclic walk (as the GEMV phases time their weights)."""
+    ws = [w] + [w.clone() for _ in range(
+        -(-TP_WALK_BYTES // (w.numel() * w.element_size())) - 1)]
+    it = iter(range(10 ** 9))
+    return lambda: ws[next(it) % len(ws)]
+
+
+def tp_timed(tag: str, fn, plain_fn, b: dict, library=None) -> dict:
+    """A shard-shape case's times: device time of the kernel and its plain
+    version (`kernel_times`), the bound ``b`` beside them, and the device
+    time of the library call ``library()`` (None where there is none)."""
+    t = kernel_times(fn, plain_fn, iters=10)
+    add_bound(t, b, tag)
+    t["library_ms"] = None if library is None else library()
+    return t
+
+
+def tp_shard_phase(gen) -> list:
+    """K1, K3 (bf16 and int8 cache), K4, K5, K6, K8 and K8q at the per-rank
+    shapes of Valley-7B and -13B over 2 and 4 ranks, each against its plain
+    version at the tolerance of its own phase (`tolerance`; K8 and K8q
+    bit-equal); the first case of each kernel (7B over 2 ranks) timed.  A
+    grouped-int4 shard that would cut a group of 128 is the one the
+    engine refuses (`sharding._model_cut`), and is skipped with a line.
+    Returns the entries, with the launches this check made."""
+    from valley_tpu_torch.models.llama import _quantize_kv
+    from valley_tpu_torch.ops.decode_attention import (
+        decode_attention_plain, decode_attention_stacked)
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+    from valley_tpu_torch.ops.matvec import bf16_matvec, bf16_matvec_plain
+    from valley_tpu_torch.ops.quant import (int4_matvec, int4_matvec_plain,
+                                            int8_matvec, int8_matvec_plain)
+    from valley_tpu_torch.ops.w4a8 import (quantize_tokens,
+                                           quantize_tokens_plain,
+                                           w4a8_group_gemm, w4a8_group_plain)
+
+    wrappers = {"K1": flash_attention, "K3": decode_attention_stacked,
+                "K4": int8_matvec, "K5": int4_matvec, "K6": bf16_matvec,
+                "K8": w4a8_group_gemm, "K8q": quantize_tokens}
+    for w in wrappers.values():
+        w.launches = 0
+    errs = {k: 0.0 for k in ("K1", "K3", "K3-int8", "K4", "K5", "K6", "K8",
+                             "K8q")}
+    times, where, skipped = {}, {}, []
+
+    def note(kind, name, err, tol, timed=None):
+        check(err <= tol, f"tp shard {kind} {name}: max abs err {err} > "
+              f"{tol}")
+        errs[kind] = max(errs[kind], err)
+        if timed is not None and kind not in times:
+            times[kind], where[kind] = timed(), name
+
+    for (model, n), (h, f, heads) in TP_SHAPES.items():
+        hl, tag = heads // n, f"{model}/{n}"
+        for wname, fo, k, kf in tp_weights(h, f, n):
+            name = f"{tag} {wname} {fo}x{k}"
+            x = torch.randn((1, k), generator=gen, device="cuda").bfloat16()
+            wb = bf16_weight(gen, k, fo, kf)
+            ref = bf16_matvec_plain(x, wb, kf)
+
+            def k6_times():
+                walk = tp_walk(wb)
+                return tp_timed(
+                    f"K6 {name}", lambda: bf16_matvec(x, walk(), kf),
+                    lambda: bf16_matvec_plain(x, walk(), kf),
+                    bound(2 * wb.numel() + 2 * k + 4 * fo, 2 * k * fo),
+                    lambda: library_linear_ms(x, [walk() for _ in range(
+                        -(-TP_WALK_BYTES // (2 * wb.numel())))], kf, 10))
+
+            note("K6", name, max_err(bf16_matvec(x, wb, kf), ref),
+                 tolerance(ref), k6_times)
+            del wb
+            w8, s8 = int8_weight(gen, fo, k)
+            ref = int8_matvec_plain(x, w8, s8)
+
+            def k4_times():
+                walk = tp_walk(w8)
+                return tp_timed(
+                    f"K4 {name}", lambda: int8_matvec(x, walk(), s8),
+                    lambda: int8_matvec_plain(x, walk(), s8),
+                    bound(fo * k + 2 * k + 2 * fo + 4 * fo, 2 * k * fo),
+                    lambda: library_matvec_ms(x, [walk() for _ in range(
+                        -(-TP_WALK_BYTES // w8.numel()))], s8, 10)[0])
+
+            note("K4", name, max_err(int8_matvec(x, w8, s8), ref),
+                 tolerance(ref), k4_times)
+            del w8, s8
+            group = 0 if wname == "lm_head" else TP_GROUP
+            if group and k % group:
+                skipped.append(f"{name} (K {k} is not whole groups of "
+                               f"{group}: the engine refuses this cut)")
+                continue
+            w4, s4 = int4_weight(gen, fo, k, group)
+            ref = int4_matvec_plain(x, w4, s4)
+
+            def k5_times():
+                walk = tp_walk(w4)
+                return tp_timed(
+                    f"K5 {name}", lambda: int4_matvec(x, walk(), s4),
+                    lambda: int4_matvec_plain(x, walk(), s4),
+                    bound(fo * k // 2 + 2 * s4.numel() + 2 * k + 4 * fo,
+                          2 * k * fo),
+                    lambda: library_int4_matvec_ms(
+                        x, w4, s4, -(-TP_WALK_BYTES // w4.numel()), 10,
+                        ref)[0])
+
+            note("K5", name, max_err(int4_matvec(x, w4, s4), ref),
+                 tolerance(ref), k5_times)
+            if wname != "lm_head":
+                xq, a = quantize_tokens_plain(torch.randn(
+                    (TP_ROWS, k), generator=gen, device="cuda"))
+                a = a.reshape(-1)
+                got = w4a8_group_gemm(xq, a, w4, s4)
+                ref = w4a8_group_plain(xq, a, w4, s4)
+                # no single library call computes the grouped product
+                note("K8", name, max_err(got, ref), 0.0, lambda: tp_timed(
+                    f"K8 {name}", lambda: w4a8_group_gemm(xq, a, w4, s4),
+                    lambda: w4a8_group_plain(xq, a, w4, s4),
+                    bound(xq.numel() + 4 * TP_ROWS + w4.numel()
+                          + 2 * s4.numel() + 4 * TP_ROWS * fo,
+                          2 * TP_ROWS * k * fo, INT8_OPS_PER_S)))
+            del w4, s4
+        # K8q on a rank's share of the inputs of a row-parallel product,
+        # quantized by the token's absmax over every rank's share
+        for k in (h // n, f // n):
+            x = torch.randn((TP_ROWS, k), generator=gen,
+                            device="cuda").bfloat16()
+            amax = torch.maximum(x.float().abs().amax(-1), torch.rand(
+                (TP_ROWS,), generator=gen, device="cuda") * 4)
+            got, ref = quantize_tokens(x, amax), \
+                quantize_tokens_plain(x, amax)
+            check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+                  f"tp shard K8q {tag} K {k}: not bit-equal to the plain")
+            note("K8q", f"{tag} K {k}", 0.0, 0.0, lambda: tp_timed(
+                f"K8q {tag} K {k}", lambda: quantize_tokens(x, amax),
+                lambda: quantize_tokens_plain(x, amax),
+                bound(3 * x.numel() + 8 * TP_ROWS, x.numel())))
+        # K1 at the rank's heads: a prompt of 473 in the 512 bucket
+        name, q, k, v, mask, causal = flash_cases(gen, heads=hl,
+                                                  model=tag)[0]
+        ref = flash_attention_plain(q, k, v, mask, causal=causal)
+        note("K1", name, max_err(flash_attention(q, k, v, mask,
+                                                 causal=causal), ref),
+             tolerance(ref), lambda: tp_timed(
+                 f"K1 {name}",
+                 lambda: flash_attention(q, k, v, mask, causal=causal),
+                 lambda: flash_attention_plain(q, k, v, mask, causal=causal),
+                 attention_bound(q, k, mask, causal, 2, 0),
+                 lambda: library_attention_ms(q, k, v, mask, causal,
+                                              iters=10)))
+        del q, k, v
+        # K3 at the rank's heads over bench's cache (bf16, and int8)
+        valid = torch.zeros((1, SMAX), dtype=torch.bool, device="cuda")
+        valid[:, :PROMPT_LEN] = True
+        valid[:, BUCKET:BUCKET + 40] = True
+        q = torch.randn((1, 1, hl, 128), generator=gen,
+                        device="cuda").bfloat16()
+        kv = [torch.randn((2, 1, SMAX, hl, 128), generator=gen,
+                          device="cuda").bfloat16() for _ in range(2)]
+        need = 2 * int(valid.sum()) * hl * 128 * 2 + 4 * q.numel()
+        ref = decode_attention_plain(q, kv[0], kv[1], 1, valid)
+        note("K3", f"{tag} H{hl}", max_err(decode_attention_stacked(
+            q, kv[0], kv[1], 1, valid), ref), tolerance(ref),
+            lambda: tp_timed(
+                f"K3 {tag}", lambda: decode_attention_stacked(
+                    q, kv[0], kv[1], 1, valid),
+                lambda: decode_attention_plain(q, kv[0], kv[1], 1, valid),
+                bound(need, 4 * 128 * int(valid.sum()) * hl),
+                lambda: library_attention_ms(q, kv[0][1], kv[1][1], valid,
+                                             False, iters=10)))
+        # each its own buffer, aligned as the cache's are
+        (kq, vq), (ks, vs) = ([t.clone() for t in pair]
+                              for pair in _quantize_kv(torch.stack(kv)))
+        ref = decode_attention_plain(q, kq, vq, 1, valid, ks, vs)
+        note("K3-int8", f"{tag} H{hl}", max_err(decode_attention_stacked(
+            q, kq, vq, 1, valid, ks, vs), ref), tolerance(ref),
+            lambda: tp_timed(
+                f"K3-int8 {tag}", lambda: decode_attention_stacked(
+                    q, kq, vq, 1, valid, ks, vs),
+                lambda: decode_attention_plain(q, kq, vq, 1, valid, ks, vs),
+                bound(need // 2 + 4 * int(valid.sum()) * hl,
+                      4 * 128 * int(valid.sum()) * hl)))
+        del kv, kq, vq
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print("tp shard check (7B and 13B over 2 and 4 ranks): max abs err "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+          + "; timed at " + "; ".join(
+              f"{k} {where[k]} {fmt_times(t)}, bound {t['bound_ms']:.4f} ms"
+              + ("" if t["library_ms"] is None else
+                 f", library {t['library_ms']:.4f} ms")
+              for k, t in times.items())
+          + f"; launches {launches}; skipped: " + "; ".join(skipped))
+    srcs = {"K1": K1_SRC, "K3": dict(K3_SRC, name="decode_attn"),
+            "K3-int8": dict(K3_SRC, name="decode_attn_int8"),
+            "K4": dict(K4_SRC, name="int8_matvec"),
+            "K5": K5_SRC, "K6": K6_SRC,
+            "K8": dict(K8_SRC, name="w4a8_group_gemm"),
+            "K8q": dict(K8Q_SRC, name="quantize_tokens")}
+    wrap = {"K3-int8": "K3"}
+    return [{**srcs[k], "name": srcs[k]["name"] + "_tp_shards",
+             "path": f"tp shard-shape check only ({where[k]} timed)",
+             "launches": launches[wrap.get(k, k)],
+             "max_abs_err": errs[k], **times[k]} for k in errs]
+
+
+# The serving slice over two ranks on the one card: Valley-7B's width at
+# TP_LAYERS of its 32 layers, fused, bf16 (K1, K3, K6) and int8a8 with an
+# int8 cache (K1, K3-int8, K4), as rank processes of this script over gloo
+# (NCCL refuses two ranks on one device; gloo's collectives go through the
+# host, so the engine decodes eagerly, by its rule), against world 1 on the
+# same weights in the path's own process
+TP_LAYERS = 4
+TP_RANKS = 2
+TP_NEW = 16
+TP_TEACHER = (319, 1576, 29871)
+# The TP logits against world 1's, at the prefill and the teacher-forced
+# decode steps: the row-parallel products' partial sums add in another
+# order (bf16 partial sums in prefill, fp32 in decode; W8A8's int32 sums
+# exactly, so int8a8's prefill is world 1's bit for bit).  Readings of
+# this script on an H100 80GB HBM3 at 700 W: bf16 0.0410 / 0.0311 /
+# 0.0253 / 0.0261 (largest logit 4.43), int8a8 0 / 0.0026 / 0.0270 /
+# 0.0239 (largest 4.42); the bars are about twice them.
+TP_LOGIT_TOL = 0.08
+TP_INT8_LOGIT_TOL = 0.06
+
+
+def tp_config():
+    import dataclasses
+
+    from valley_tpu_torch import SpecialTokens, valley_7b
+    from valley_tpu_torch.data.synthetic import BENCH_TOKENS
+
+    cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+    return cfg.replace(text=dataclasses.replace(
+        cfg.text, num_hidden_layers=TP_LAYERS))
+
+
+def tp_engine(cfg, mode: str, mesh):
+    """The slice's engine in ``mode`` (bf16 or int8a8), its random weights
+    from seed 3 fused (and quantized) on the card, cut by ``mesh``."""
+    from valley_tpu_torch.inference.engine import Engine
+    from valley_tpu_torch.models import llama, valley
+    from valley_tpu_torch.ops.quant import quantize_llama_params
+
+    params = llama.fuse_llama_params(valley.init_params(
+        cfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16,
+        "cuda"))
+    if mode == "int8a8":
+        params = quantize_llama_params(params, act8=True)
+    return Engine(cfg, params, buckets=(BUCKET,), max_new_tokens=TP_NEW,
+                  cache_dtype=torch.int8 if mode == "int8a8"
+                  else torch.bfloat16, mesh=mesh)
+
+
+def tp_drive(engine, cfg) -> dict:
+    """bench's request through ``engine``: the prefill's logits, the
+    teacher-forced steps' logits on its cache, and TP_NEW greedy tokens
+    decoded eagerly; with each wrapper's launches during them."""
+    from valley_tpu_torch.inference.engine import GenerationConfig
+    from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from valley_tpu_torch.ops.flash_attention import flash_attention
+    from valley_tpu_torch.ops.matvec import bf16_matvec
+    from valley_tpu_torch.ops.quant import int8_matvec
+
+    prompt, frames = bench_request(cfg, BUCKET)
+    gcfg = GenerationConfig(max_new_tokens=TP_NEW, do_sample=False)
+
+    def run():
+        pre = engine.prefill([prompt], frames, gcfg)
+        steps = decode_logits(engine, pre.cache, pre.valid, pre.bucket,
+                              len(prompt), TP_TEACHER)
+        s0 = engine.steps_run
+        toks = [int(t[0]) for t in engine.generate_tokens(
+            [prompt], frames, gcfg, eos_ids=[-1], eager=True)]
+        return [pre.logits[0]] + steps, toks, engine.steps_run - s0
+
+    t0 = time.perf_counter()
+    (logits, toks, decoded), counts = counted(
+        {"K1": flash_attention, "K3": decode_attention_stacked,
+         "K6": bf16_matvec, "K4": int8_matvec}, run)
+    return {"logits": torch.stack(logits).float().cpu(), "tokens": toks,
+            "counts": counts, "seconds": time.perf_counter() - t0,
+            # the decode steps run: the teacher-forced ones and the
+            # request's (its last chunk padded to a scheduled size)
+            "steps": len(TP_TEACHER) + decoded}
+
+
+def tp_rank_kernels(engine, mode: str, gen) -> dict:
+    """This rank's kernels against their plain versions on its own shares:
+    K1 on its heads at the prefill shape, K3 over its cache's kv heads,
+    the decode GEMV of each of its weights (K6 bf16, K4 int8) at one
+    row.  Returns the largest errors."""
+    from valley_tpu_torch.ops.decode_attention import (
+        decode_attention_plain, decode_attention_stacked)
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+    from valley_tpu_torch.ops.matvec import matvec, matvec_plain
+
+    errs = {}
+    heads, d = engine.tp.heads, engine.cfg.text.head_dim
+    name, q, k, v, mask, causal = flash_cases(gen, heads=heads)[0]
+    ref = flash_attention_plain(q, k, v, mask, causal=causal)
+    errs["K1"] = max_err(flash_attention(q, k, v, mask, causal=causal), ref)
+    check(errs["K1"] <= tolerance(ref), f"tp {mode} K1 {name}: {errs}")
+    cache = engine.init_cache(1, SMAX)
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda")
+                .to(t.dtype) if t.dtype != torch.int8 else torch.randint(
+                    -127, 128, t.shape, generator=gen, device="cuda",
+                    dtype=torch.int8))
+    for t in (cache.k_scale, cache.v_scale):
+        if t is not None:
+            t.copy_(torch.rand(t.shape, generator=gen, device="cuda") / 64)
+    valid = torch.zeros((1, SMAX), dtype=torch.bool, device="cuda")
+    valid[:, :PROMPT_LEN] = True
+    valid[:, BUCKET:BUCKET + 8] = True
+    q = torch.randn((1, 1, heads, d), generator=gen, device="cuda").bfloat16()
+    args = (q, cache.k, cache.v, 1, valid, cache.k_scale, cache.v_scale)
+    ref = decode_attention_plain(*args)
+    k3 = "K3-int8" if mode == "int8a8" else "K3"
+    errs[k3] = max_err(decode_attention_stacked(*args), ref)
+    check(errs[k3] <= tolerance(ref), f"tp {mode} {k3}: {errs}")
+    gemv = "K4" if mode == "int8a8" else "K6"
+    errs[gemv] = 0.0
+    lp, top = engine.params["llama"]["layers"], engine.params["llama"]
+    weights = []
+    for n in ("wqkv", "wo", "w_gateup", "w_down"):
+        scale = lp.get(n + "_scale_a8")
+        weights.append((lp[n][0], None if scale is None else scale[0],
+                        False))
+    weights.append((top["lm_head"], top.get("lm_head_scale"),
+                    mode != "int8a8"))
+    for w, scale, kf in weights:
+        x = torch.randn((1, w.shape[0] if kf else w.shape[-1]),
+                        generator=gen, device="cuda").bfloat16()
+        s = None if scale is None else scale.reshape(-1)
+        ref = matvec_plain(x, w, s, kf)
+        err = max_err(matvec(x, w, s, kf), ref)
+        check(err <= tolerance(ref), f"tp {mode} {gemv} "
+              f"{tuple(w.shape)}: {err}")
+        errs[gemv] = max(errs[gemv], err)
+    return errs
+
+
+def tp_rank_main(rank: int, out: Path) -> None:
+    """One rank of `serve_tp_path`, in a process of its own: the slice in
+    both modes over a (1, 1, 2) mesh on the one card, this rank's kernels
+    against their plain versions; rank 0 then (once the path's process has
+    its world-1 references) times the kernels at its shapes.  Each rank
+    writes what it read to ``out/rank<r>.pt``."""
+    from valley_tpu_torch.parallel import distributed
+    from valley_tpu_torch.parallel.mesh import create_mesh
+
+    distributed.initialize(f"file://{out}/store", TP_RANKS, rank,
+                           device="cuda:0", backend="gloo")
+    mesh = create_mesh(1, 1, TP_RANKS, "cuda")
+    cfg = tp_config()
+    gen = torch.Generator("cuda").manual_seed(11 + rank)
+    got = {}
+    for mode in ("bf16", "int8a8"):
+        engine = tp_engine(cfg, mode, mesh)
+        check(not engine.use_graphs, "tp: graphs over gloo")
+        got[mode] = tp_drive(engine, cfg)
+        got[mode]["errs"] = tp_rank_kernels(engine, mode, gen)
+        got[mode]["shapes"] = {n: tuple(p.shape) for n, p in engine.params[
+            "llama"]["layers"].named_parameters()}
+        got[mode]["heads"] = (engine.tp.heads, engine.kv_heads)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    distributed.barrier()
+    distributed.shutdown()
+    if rank == 0:
+        # the path's process is idle once its references are written
+        while not (out / "ref_done").exists():
+            time.sleep(0.2)
+        got["times"] = tp_times(gen)
+    torch.save(got, out / f"rank{rank}.pt")
+
+
+def tp_times(gen) -> dict:
+    """K1, K3, K3-int8, K4 and K6 timed at this rank's shapes (7B over 2
+    ranks: 16 heads, the fused weights' shares), by `kernel_times`, with
+    their bounds and library calls."""
+    from valley_tpu_torch.ops.decode_attention import (
+        decode_attention_plain, decode_attention_stacked)
+    from valley_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      flash_attention_plain)
+    from valley_tpu_torch.ops.matvec import bf16_matvec, bf16_matvec_plain
+    from valley_tpu_torch.ops.quant import int8_matvec, int8_matvec_plain
+
+    h, f, heads = TP_SHAPES[("7b", TP_RANKS)]
+    hl = heads // TP_RANKS
+    out = {}
+    name, q, k, v, mask, causal = flash_cases(gen, heads=hl)[0]
+    out["K1"] = tp_timed(
+        f"tp K1 {name}", lambda: flash_attention(q, k, v, mask,
+                                                 causal=causal),
+        lambda: flash_attention_plain(q, k, v, mask, causal=causal),
+        attention_bound(q, k, mask, causal, 2, 0),
+        lambda: library_attention_ms(q, k, v, mask, causal, iters=10))
+    valid = torch.zeros((1, SMAX), dtype=torch.bool, device="cuda")
+    valid[:, :PROMPT_LEN] = True
+    valid[:, BUCKET:BUCKET + 8] = True
+    qd = torch.randn((1, 1, hl, 128), generator=gen,
+                     device="cuda").bfloat16()
+    kv = [torch.randn((TP_LAYERS, 1, SMAX, hl, 128), generator=gen,
+                      device="cuda").bfloat16() for _ in range(2)]
+    n_valid = int(valid.sum())
+    need = 2 * n_valid * hl * 128 * 2 + 4 * qd.numel()
+    it = iter(range(10 ** 9))
+    out["K3"] = tp_timed(
+        "tp K3", lambda: decode_attention_stacked(
+            qd, kv[0], kv[1], next(it) % TP_LAYERS, valid),
+        lambda: decode_attention_plain(qd, kv[0], kv[1],
+                                       next(it) % TP_LAYERS, valid),
+        bound(need, 4 * 128 * n_valid * hl),
+        lambda: library_attention_ms(qd, kv[0][0], kv[1][0], valid, False,
+                                     iters=10))
+    from valley_tpu_torch.models.llama import _quantize_kv
+
+    (kq, vq), (ks, vs) = ([t.clone() for t in pair]
+                          for pair in _quantize_kv(torch.stack(kv)))
+    out["K3-int8"] = tp_timed(
+        "tp K3-int8", lambda: decode_attention_stacked(
+            qd, kq, vq, next(it) % TP_LAYERS, valid, ks, vs),
+        lambda: decode_attention_plain(qd, kq, vq, next(it) % TP_LAYERS,
+                                       valid, ks, vs),
+        bound(need // 2 + 4 * n_valid * hl, 4 * 128 * n_valid * hl))
+    # the GEMVs: per call, averaged over one decode step's (layers x the
+    # four fused weights, then lm_head)
+    for kind in ("K6", "K4"):
+        step = {}
+        for wname, fo, k, kf in tp_weights(h, f, TP_RANKS):
+            x = torch.randn((1, k), generator=gen, device="cuda").bfloat16()
+            if kind == "K6":
+                w = bf16_weight(gen, k, fo, kf)
+                walk = tp_walk(w)
+                t = tp_timed(
+                    f"tp K6 {wname}", lambda: bf16_matvec(x, walk(), kf),
+                    lambda: bf16_matvec_plain(x, walk(), kf),
+                    bound(2 * w.numel() + 2 * k + 4 * fo, 2 * k * fo),
+                    lambda: library_linear_ms(x, [walk() for _ in range(
+                        -(-TP_WALK_BYTES // (2 * w.numel())))], kf, 10))
+            else:
+                w, s = int8_weight(gen, fo, k)
+                walk = tp_walk(w)
+                t = tp_timed(
+                    f"tp K4 {wname}", lambda: int8_matvec(x, walk(), s),
+                    lambda: int8_matvec_plain(x, walk(), s),
+                    bound(fo * k + 2 * k + 4 * fo + 4 * fo, 2 * k * fo),
+                    lambda: library_matvec_ms(x, [walk() for _ in range(
+                        -(-TP_WALK_BYTES // w.numel()))], s, 10)[0])
+            step[wname] = t
+            del w, walk
+        calls = 4 * TP_LAYERS + 1
+        avg = {}
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            vals = [step[n][key] * (1 if n == "lm_head" else TP_LAYERS)
+                    for n in step]
+            avg[key] = None if None in vals else sum(vals) / calls
+        avg["bound_by"] = "bytes"
+        out[kind] = avg
+    return out
+
+
+def serve_tp_path(smi: str, gen, work: Path) -> list:
+    """Tensor parallelism in serving: two rank processes of this script on
+    the one card over gloo, a (1, 1, 2) mesh, against world 1 in this
+    process on the same weights, in bf16 (K1, K3, K6) and int8a8 with an
+    int8 cache (K1, K3-int8, K4): the TP logits at the prefill and the
+    teacher-forced steps within the bars, the greedy tokens equal to world
+    1's up to the first step whose world-1 top-2 margin is under
+    BATCH_MARGIN_BAR, each rank's launches (each kernel launched, as one
+    device's path launches it a layer) and each rank's kernels against
+    their plain versions.  Returns rank 0's entries."""
+    out = work / "serve_tp"
+    out.mkdir()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--tp-rank",
+                               str(r), "--out", str(out)])
+             for r in range(TP_RANKS)]
+    cfg = tp_config()
+    ref, engines = {}, {}
+    try:
+        for mode in ("bf16", "int8a8"):
+            engines[mode] = tp_engine(cfg, mode, None)
+            ref[mode] = tp_drive(engines[mode], cfg)
+        (out / "ref_done").touch()
+    finally:
+        rcs = [p.wait(timeout=600) for p in procs]
+    check(rcs == [0] * TP_RANKS, f"serve_tp: the ranks exited {rcs}")
+    ranks = [torch.load(out / f"rank{r}.pt") for r in range(TP_RANKS)]
+    layers = TP_LAYERS
+    entries = []
+    prompt, frames = bench_request(cfg, BUCKET)
+    for mode, tol, gemv in (("bf16", TP_LOGIT_TOL, "K6"),
+                            ("int8a8", TP_INT8_LOGIT_TOL, "K4")):
+        want = ref[mode]
+        got = ranks[0][mode]
+        k3 = "K3-int8" if mode == "int8a8" else "K3"
+        steps = want["steps"]
+        # two prefills (each one lm_head row by the GEMV), the decode steps
+        expect = {"K1": 2 * layers, "K3": steps * layers,
+                  gemv: steps * (4 * layers + 1) + 2}
+        for r, rk in enumerate(ranks):
+            check(rk[mode]["tokens"] == got["tokens"] and torch.equal(
+                rk[mode]["logits"], got["logits"]),
+                f"serve_tp {mode}: rank {r} parts from rank 0")
+            for kname, n in expect.items():
+                check(rk[mode]["counts"][kname] == n, f"serve_tp {mode}: "
+                      f"rank {r} launched {kname} {rk[mode]['counts']}, "
+                      f"want {n}")
+        diffs = (got["logits"] - want["logits"]).abs().amax(dim=-1).tolist()
+        check(max(diffs) <= tol, f"serve_tp {mode}: TP logits differ from "
+              f"world 1 by {diffs} (bar {tol})")
+        tokens = first_divergence(f"serve_tp {mode}", engines[mode], prompt,
+                                  frames, want["tokens"], got["tokens"],
+                                  BATCH_MARGIN_BAR)
+        heads, kv_heads = got["heads"]
+        print(f"serve_tp {mode}: Valley-7B width at {layers} layers, fused"
+              f"{', int8 cache' if mode == 'int8a8' else ''}, (1, 1, 2) over "
+              f"gloo on one card against world 1: logits max abs diff at the "
+              f"prefill and {len(TP_TEACHER)} teacher-forced steps "
+              f"{[round(x, 4) for x in diffs]} (bar {tol}; largest logit "
+              f"{want['logits'].abs().max().item():.3f}); greedy: {tokens}; "
+              f"each rank {heads} heads, {kv_heads} cached kv heads, wqkv "
+              f"{got['shapes']['wqkv']}, w_down {got['shapes']['w_down']}; "
+              f"launches rank 0 {got['counts']}, rank 1 "
+              f"{ranks[1][mode]['counts']} (want {expect}); kernels vs plain "
+              f"on each rank's shares: rank 0 {got['errs']}, rank 1 "
+              f"{ranks[1][mode]['errs']}; the TP request {got['seconds']:.2f}"
+              f" s eager (gloo, host-staged) vs {want['seconds']:.2f} s at "
+              f"world 1 eager; on {smi}")
+        times = ranks[0]["times"]
+        err = {k: max(rk[mode]["errs"][k] for rk in ranks)
+               for k in got["errs"]}
+        srcs = {"K1": K1_SRC, k3: dict(K3_SRC, name="decode_attn"
+                                       + ("_int8" if k3 != "K3" else "")),
+                "K6": K6_SRC, "K4": dict(K4_SRC, name="int8_matvec")}
+        for kname in ("K1", k3, gemv):
+            entries.append({
+                **srcs[kname], "name": srcs[kname]["name"] + f"_tp_{mode}",
+                "path": f"serve_tp {mode}, rank 0 of 2",
+                "launches": got["counts"]["K3" if kname == k3 else kname],
+                "max_abs_err": err[kname], **times[kname]})
+    print(f"serve_tp: {time.perf_counter() - t0:.1f} s in all")
+    return entries
 
 
 def _timed(fn):
@@ -5842,7 +6434,7 @@ for _name in ("k8q_phase", "k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
               "stage2_zero3_phase", "gloo_fsdp_phase",
               "profile_steps_phase", "flash_stage2_phase", "k8_phase",
               "pooling_phase", "vision_quant_phase", "variant_slice",
-              "web_ui_phase"):
+              "web_ui_phase", "tp_shard_phase", "tp_drive", "tp_times"):
     globals()[_name] = _timed(globals()[_name])
 
 
@@ -5856,7 +6448,8 @@ PATHS = {"serve": serve_path, "serve_batch": serve_batch_path,
          "serve_int8": serve_int8_path, "serve_worker": serve_worker_path,
          "serve_int4": serve_int4_path,
          "lab_conv": lab_conv_path, "lab_tools": lab_tools_path,
-         "train": train_path, "serve_variants": serve_variants_path}
+         "train": train_path, "serve_variants": serve_variants_path,
+         "serve_tp": serve_tp_path}
 # Where the int4 path leaves the conversation's cache for the lab's process,
 # in the run's scratch directory
 CONV_CACHE = "conv_cache.pt"
@@ -5875,6 +6468,7 @@ def main(argv=None) -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--out", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5892,6 +6486,10 @@ def main(argv=None) -> int:
 
     if args.gloo_rank is not None:
         gloo_rank_main(args.gloo_rank, Path(args.out))
+        return 0
+    if args.tp_rank is not None:
+        tp_rank_main(args.tp_rank, Path(args.out))
+        check("jax" not in sys.modules, "the port imported jax")
         return 0
     if args.path:
         entries = PATHS[args.path](nvidia_smi(),

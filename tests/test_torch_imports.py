@@ -274,7 +274,9 @@ print(json.dumps({"modules": len(names), "loaded": loaded,
     assert got["modules"] >= 25
     assert got["parallel"] == [
         "valley_tpu_torch.parallel", "valley_tpu_torch.parallel.distributed",
-        "valley_tpu_torch.parallel.mesh", "valley_tpu_torch.parallel.sharding"]
+        "valley_tpu_torch.parallel.lockstep", "valley_tpu_torch.parallel.mesh",
+        "valley_tpu_torch.parallel.sharding",
+        "valley_tpu_torch.parallel.tensor"]
     assert got["updated"] and got["loss"] > 0
 
 

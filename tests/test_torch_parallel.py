@@ -52,7 +52,6 @@ from valley_tpu.train.trainer import Trainer as JTrainer
 from valley_tpu_torch.data.dataset import \
     DataCollatorForSupervisedDataset as TColl
 from valley_tpu_torch.data.dataset import DataLoader as TLoader
-from valley_tpu_torch.inference import batch_infer
 from valley_tpu_torch.inference.engine import Engine, GenerationConfig
 from valley_tpu_torch.inference.generate import completion
 from valley_tpu_torch.models import valley
@@ -520,14 +519,20 @@ def test_torchrun_entry_point_at_world_2(corpus, tmp_path):  # noqa: F811
 
 
 def test_tensor_parallel_still_refused(runs):
-    """mesh_model 2 (the trainer, and a mesh at world 2) and
-    --tensor-parallel 2 (batch_infer) name ROADMAP §1."""
-    import argparse
+    """Training on a model axis is refused, naming ROADMAP §1: mesh_model 2
+    in the trainer's config, and a (1, 1, 2) mesh at world 2 (which
+    create_mesh now makes: serving takes it).  batch_infer's
+    --tensor-parallel 2 outside a torchrun world of 2 is refused with the
+    command line that runs it (its serving: test_torch_tensor_parallel_
+    serve.py)."""
+    from valley_tpu_torch.parallel.mesh import serving_mesh
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
         check_ported(TrainConfig(mesh_model=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
-        batch_infer._refuse_unported(argparse.Namespace(tensor_parallel=2))
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2 -m "
+                       "valley_tpu_torch.inference.batch_infer"):
+        serving_mesh(2, "cpu", "valley_tpu_torch.inference.batch_infer")
     assert "ROADMAP.md §1" in runs[2]["refuse"]["message"]
+    assert runs[2]["refuse"]["model_mesh"] == (1, 1, 2)
     # and the default mesh puts every rank on fsdp, as JAX's local_mesh
     assert runs[2]["refuse"]["local_mesh"] == (1, 2, 1)

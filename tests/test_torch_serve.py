@@ -415,11 +415,14 @@ def _args(**kw):
 
 
 def test_refusals_name_their_roadmap_items():
-    """--tensor-parallel above 1 names its ROADMAP item; --quantize-vision
-    and the grouped W4A8 modes, once refused, build their engines (their
-    trees against JAX: tests/test_torch_vision_quant.py,
+    """--tensor-parallel above 1, once refused, serves under torchrun
+    (tests/test_torch_tensor_parallel_serve.py): outside a torchrun world
+    of its size it is refused with the command line that runs it;
+    --quantize-vision and the grouped W4A8 modes, once refused, build their
+    engines (their trees against JAX: tests/test_torch_vision_quant.py,
     tests/test_torch_w4a8.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2 -m "
+                       "valley_tpu_torch.serve.model_worker"):
         worker_mod.load_engine(_args(tensor_parallel=2))
     eng, _ = worker_mod.load_engine(_args(quantize_vision="int8a8"))
     lay = eng.params["vision"]["layers"]

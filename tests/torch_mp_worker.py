@@ -1,5 +1,7 @@
 """One rank of a CPU gloo process group training the PyTorch port on a
-(data, fsdp) mesh (tests/test_torch_parallel.py).
+(data, fsdp) mesh (tests/test_torch_parallel.py), or serving it on a
+(data, fsdp, model) mesh (tests/test_torch_tensor_parallel.py: a job with
+``"mesh"``, whose scenarios `serve_run` runs).
 
 Run: python torch_mp_worker.py <rank> <world> <data> <store> <job.pkl>
 (world 0: one process with no process group)
@@ -174,10 +176,12 @@ def run(job, rank, mesh):
             torch.distributed.all_gather_object(every, seen)
             res = {"records": recs, "seen": every}
         elif kind == "refuse":
+            # serving takes a model axis; the trainer refuses it
+            tp_mesh = create_mesh(1, 1, 2, device_type="cpu")
             try:
-                create_mesh(1, 1, 2, device_type="cpu")
+                train(state, batches, work, tp_mesh)
             except NotImplementedError as e:
-                res = {"message": str(e),
+                res = {"message": str(e), "model_mesh": tuple(tp_mesh.shape),
                        "local_mesh": tuple(local_mesh(device_type="cpu")
                                            .shape)}
         elif kind == "masks":
@@ -192,6 +196,230 @@ def run(job, rank, mesh):
     return results
 
 
+# -- serving on a (data, fsdp, model) mesh ---------------------------------
+
+def _serving_cfg(name: str):
+    from valley_tpu_torch import config as TC
+
+    cfg = valley_tiny()
+    if name == "gqa":
+        # tests/test_gqa.py's width: 8 query heads over 2 kv heads
+        cfg = TC.ValleyConfig(
+            text=TC.TextConfig(vocab_size=256, hidden_size=64,
+                               intermediate_size=128, num_hidden_layers=2,
+                               num_attention_heads=8, num_key_value_heads=2,
+                               max_position_embeddings=256),
+            vision=TC.VISION_TINY,
+            tokens=TC.SpecialTokens(im_patch=250, im_start=251, im_end=252,
+                                    vi_frame=253, vi_start=254, vi_end=255))
+    return cfg
+
+
+def _engine(job, sc, mesh):
+    """The scenario's engine: its JAX tree carried over (`from_jax_params`,
+    the full tree on every rank), cut by ``Engine(mesh=)``."""
+    from valley_tpu_torch.inference.engine import Engine
+    from valley_tpu_torch.weights import from_jax_params
+
+    params = from_jax_params(job["trees"][sc.get("tree", "fp32")], "cpu",
+                             torch.float32)
+    if sc.get("fused"):
+        params = llama.fuse_llama_params(params)
+    return Engine(_serving_cfg(sc.get("cfg", "tiny")), params,
+                  buckets=(sc.get("bucket", 64),),
+                  max_new_tokens=sc.get("max_new", 8),
+                  steps_per_call=sc.get("steps", 4),
+                  cache_dtype=torch.int8 if sc.get("int8_cache")
+                  else torch.float32, mesh=mesh)
+
+
+def _gen(sc, **over):
+    from valley_tpu_torch.inference.engine import GenerationConfig
+
+    return GenerationConfig(**{**dict(max_new_tokens=sc.get("new", 6),
+                                      do_sample=False), **over})
+
+
+def _every_rank(value):
+    out = [None] * distributed.process_count()
+    torch.distributed.all_gather_object(out, value)
+    return out
+
+
+def serve_scenario(job, sc, rank, mesh):
+    kind = sc["kind"]
+    prompts = [(list(p), None if im is None else np.asarray(im))
+               for p, im in sc.get("prompts", [])]
+    if kind == "engine":
+        eng = _engine(job, sc, mesh)
+        toks = [[int(t[0]) for t in eng.generate_tokens(
+            [p], im, _gen(sc), eos_ids=[-1])] for p, im in prompts]
+        pre = eng.prefill([prompts[0][0]], prompts[0][1], _gen(sc))
+        return {"tokens": _every_rank(toks),
+                "logits": pre.logits[0].numpy().copy(),
+                "wq": tuple(eng.params["llama"]["layers"].wq.shape)
+                if "wq" in eng.params["llama"]["layers"] else None,
+                "cache_heads": eng.kv_heads}
+    if kind == "sampled":
+        eng = _engine(job, sc, mesh)
+        gen = _gen(sc, do_sample=True, temperature=0.9, seed=5)
+        return {"tokens": _every_rank([int(t[0]) for t in eng.generate_tokens(
+            [prompts[0][0]], prompts[0][1], gen, eos_ids=[-1])])}
+    if kind == "spec":
+        from valley_tpu_torch.inference.speculative import (SpecConfig,
+                                                            SpecDecoder)
+
+        eng = _engine(job, sc, mesh)
+        dec = SpecDecoder(eng, SpecConfig(draft_len=4,
+                                          rounds_per_call=sc["rounds"]))
+        return {"tokens": _every_rank([
+            list(dec.generate_tokens(p, im, _gen(sc), eos_ids=[-1]))
+            for p, im in prompts])}
+    if kind == "session":
+        from valley_tpu_torch.inference.engine import ChatSession
+
+        eng = _engine(job, sc, mesh)
+        sess = ChatSession(eng, _gen(sc), extra_slots=64)
+        replies = [sess.chat(list(turn), images=None if i else
+                             prompts[0][1], eos_ids=[-1])
+                   for i, turn in enumerate(sc["turns"])]
+        return {"tokens": _every_rank(replies),
+                "cache_heads": sess._state[0].k.shape[3]}
+    if kind == "pool":
+        from valley_tpu_torch.inference.continuous import (ContinuousEngine,
+                                                           _drain)
+        from valley_tpu_torch.inference.speculative import SpecConfig
+        from valley_tpu_torch.parallel import lockstep
+
+        eng = _engine(job, sc, mesh)
+        if sc.get("fault_rank") == rank:
+            # this rank's first decode chunk fails: the world must stop
+            def fault(self, n_steps):
+                raise RuntimeError(f"injected chunk fault on rank {rank}")
+
+            ContinuousEngine._decode_chunk = fault
+
+        def body(ls):
+            pool = lockstep.make(
+                ContinuousEngine, eng, rows=2, bucket=sc.get("bucket", 64),
+                extra_slots=64, steps_per_call=2,
+                speculative=sc.get("speculative", False),
+                spec=SpecConfig(draft_len=4), proxy=False)
+            queues = [pool.submit(p, images=im, max_new_tokens=sc["new"],
+                                  eos_id=-1) for p, im in prompts]
+            out = [list(_drain(q, timeout=120)) for q in queues]
+            rounds = pool.rounds_run
+            pool.close()
+            return {"tokens": out, "rounds": rounds,
+                    "cache_heads": pool._state.cache.k.shape[3]}
+
+        return _lead_calls(eng, body)
+    if kind == "load_engine":
+        from valley_tpu_torch.serve import model_worker as worker_mod
+
+        eng, tk = worker_mod.load_engine(worker_args(sc))
+        ids = tk.encode("### Human: hi\n### Assistant:")
+        return {"mesh": tuple(eng.mesh.shape), "tokens": _every_rank(
+            [int(t[0]) for t in eng.generate_tokens(
+                [ids], None, _gen(sc), eos_ids=[-1])])}
+    if kind == "http":
+        return http_scenario(sc)
+    if kind == "batch":
+        from valley_tpu_torch.inference import batch_infer
+
+        batch_infer.run_batch(batch_infer.build_parser().parse_args(
+            sc["argv"]))
+        return {}
+    raise ValueError(kind)
+
+
+def _lead_calls(engine, body):
+    """``body(lockstep)`` on the lead under a fresh `Lockstep` (``engine``
+    registered first on every rank), whose calls the other ranks follow;
+    its result on the lead, None elsewhere."""
+    from valley_tpu_torch.parallel import lockstep
+
+    ls = lockstep.Lockstep()
+    ls.register(engine)
+    if not ls.lead:
+        ls.follow()
+        return None
+    try:
+        return body(ls)
+    finally:
+        ls.stop()
+
+
+def worker_args(sc):
+    """The worker's flags of a scenario (tests/test_torch_serve.py's)."""
+    import argparse
+
+    return argparse.Namespace(**{
+        **dict(model_path="random:tiny", vision_tower=None, lora_path=None,
+               quantize=None, quantize_vision=None, kv_cache="bf16",
+               fused=False, buckets="128", max_new_tokens=8,
+               steps_per_call=4, decode_ramp="off", frame_buckets="off",
+               num_frames=2, tensor_parallel=2, raw_pixels=True,
+               device="cpu"), **sc.get("args", {})})
+
+
+def http_scenario(sc):
+    """A two-rank worker: rank 0 serves over localhost HTTP and streams
+    the scenario's request to itself; the other rank follows."""
+    from valley_tpu_torch.serve import model_worker as worker_mod
+    from valley_tpu_torch.serve.httpd import iter_delimited, open_json
+
+    argv = ["--model-path", "random:tiny", "--device", "cpu",
+            "--tensor-parallel", "2", "--no-register", "--buckets", "128",
+            "--max-new-tokens", "16", *sc.get("argv", [])]
+    args = worker_mod.build_parser().parse_args(argv)
+    engine, tk = worker_mod.load_engine(args)
+    engine = worker_mod.lockstep_engine(engine, tk)
+    if engine is None:
+        return {}
+    from valley_tpu_torch.parallel import lockstep
+
+    worker = worker_mod.make_worker(args, engine, tk)
+    app = worker_mod.build_app(worker)
+    port = app.start()
+    try:
+        chunks = []
+        for req in sc["requests"]:
+            with open_json(f"http://localhost:{port}/worker_generate_stream",
+                           req, timeout=120) as r:
+                chunks.append([c + b"\0" for c in iter_delimited(r)])
+    finally:
+        app.shutdown()
+        if worker.continuous is not None:
+            worker.continuous.close()
+        lockstep.current().stop()
+    return {"chunks": chunks}
+
+
+def _random_tiny_from_jax(tree) -> None:
+    """Make ``random:tiny``'s weights the JAX worker's (JAX's key 0, as
+    tests/test_torch_batch.py feeds them), so that load_engine, the
+    worker and batch_infer can be held to the JAX package's."""
+    from valley_tpu_torch.inference import run_valley
+    from valley_tpu_torch.weights import from_jax_params
+
+    run_valley.valley.init_params = lambda *a, **k: from_jax_params(
+        tree, "cpu", torch.float32)
+
+
+def serve_run(job, rank, mesh):
+    if "random_tiny" in job["trees"]:
+        _random_tiny_from_jax(job["trees"]["random_tiny"])
+    results = {}
+    for sc in job["scenarios"]:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res = serve_scenario(job, sc, rank, mesh)
+        results[sc["name"]] = {**(res or {}),
+                               "seconds": time.perf_counter() - t0}
+    return results
+
+
 def main():
     """World 0 is one process without a process group (mesh None)."""
     rank, world, data = (int(a) for a in sys.argv[1:4])
@@ -201,10 +429,11 @@ def main():
     mesh = None
     if world:
         distributed.initialize(f"file://{store}", world, rank, device="cpu")
-        mesh = create_mesh(data, world // data, 1, device_type="cpu")
+        mesh = create_mesh(*job.get("mesh", (data, world // data, 1)),
+                           device_type="cpu")
     torch.manual_seed(0)
     np.random.seed(0)
-    results = run(job, rank, mesh)
+    results = (serve_run if "mesh" in job else run)(job, rank, mesh)
     if rank == 0:
         with open(f"{job['out']}/results_world{world}.pkl", "wb") as f:
             pickle.dump(results, f)

@@ -677,27 +677,34 @@ __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
 
 template <typename X>
 __global__ void __launch_bounds__(QTHREADS)
-quantize_tokens_kernel(const X* __restrict__ x, int8_t* __restrict__ xq,
-                       float* __restrict__ a, int K) {
+quantize_tokens_kernel(const X* __restrict__ x,
+                       const float* __restrict__ amax_in,
+                       int8_t* __restrict__ xq, float* __restrict__ a,
+                       int K) {
   __shared__ float part[QTHREADS / 32];
   const X* row = x + static_cast<size_t>(blockIdx.x) * K;
   int8_t* qrow = xq + static_cast<size_t>(blockIdx.x) * K;
   const int nv = K / 8;
   float m = 0.f;
-  for (int i = threadIdx.x; i < nv; i += QTHREADS) {
-    float v[8];
-    load8(row + 8 * i, v);
+  if (amax_in != nullptr) {
+    // the token's absmax over a wider row (a tensor-parallel rank's share)
+    m = amax_in[blockIdx.x];
+  } else {
+    for (int i = threadIdx.x; i < nv; i += QTHREADS) {
+      float v[8];
+      load8(row + 8 * i, v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
+      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
+    if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = m;
+    __syncthreads();
+    m = part[0];
+#pragma unroll
+    for (int w = 1; w < QTHREADS / 32; ++w) m = fmaxf(m, part[w]);
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
-  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = m;
-  __syncthreads();
-  m = part[0];
-#pragma unroll
-  for (int w = 1; w < QTHREADS / 32; ++w) m = fmaxf(m, part[w]);
   const float as = __fmul_rn(fmaxf(m, 1e-6f), RECIP_127);
   for (int i = threadIdx.x; i < nv; i += QTHREADS) {
     float v[8];
@@ -839,18 +846,21 @@ extern "C" int w4a8_group_gemm(const void* xq, const void* a, const void* w,
 }
 
 // K8q: x (T, K) bf16 (x_bf16) or fp32 -> xq (T, K) int8 and a (T,) fp32.
-// K a multiple of 8; x 16-byte and xq 8-byte aligned.
-extern "C" int w4a8_quantize_tokens(const void* x, void* xq, void* a, int T,
-                                    int K, int x_bf16, void* stream) {
+// K a multiple of 8; x 16-byte and xq 8-byte aligned.  amax: each token's
+// absmax (T,) fp32 to quantize by, or null to take it from x.
+extern "C" int w4a8_quantize_tokens(const void* x, const void* amax,
+                                    void* xq, void* a, int T, int K,
+                                    int x_bf16, void* stream) {
   if (T <= 0 || K <= 0 || K % 8) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     quantize_tokens_kernel<__nv_bfloat16><<<T, QTHREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const float*>(amax), static_cast<int8_t*>(xq),
         static_cast<float*>(a), K);
   else
     quantize_tokens_kernel<float><<<T, QTHREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<int8_t*>(xq),
-        static_cast<float*>(a), K);
+        static_cast<const float*>(x), static_cast<const float*>(amax),
+        static_cast<int8_t*>(xq), static_cast<float*>(a), K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,8 +49,17 @@ exact counts; ``--num-frames`` is added as a bucket where it exceeds
 them), as the JAX worker's ``load_engine`` does, and the pool is warmed at
 those buckets.  ``--lora-path`` merges a LoRA adapter into a checkpoint
 directory's weights before fusing and quantizing (`run_valley.load_model`);
-``--quantize-vision int8|int8a8`` quantizes the CLIP tower.  Not ported,
-and refused: ``--tensor-parallel`` above 1.
+``--quantize-vision int8|int8a8`` quantizes the CLIP tower.
+
+``--tensor-parallel N`` cuts the weights over N ranks, one process a card:
+
+    torchrun --nproc_per_node N -m valley_tpu_torch.inference.batch_infer \
+        --tensor-parallel N --model-path ... --input ... --output ...
+
+Every rank reads the JSONL and its output (to tell whether work is left)
+and runs the same pool; rank 0 submits the requests, sends each to the
+other ranks with its submit (`parallel.lockstep`), and alone writes the
+output.
 """
 
 from __future__ import annotations
@@ -63,7 +72,6 @@ import threading
 import time
 
 from valley_tpu_torch.inference.run_valley import DEFAULT_SYSTEM_PROMPT
-from valley_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSED
 
 logger = logging.getLogger("valley_tpu_torch.batch_infer")
 
@@ -144,13 +152,6 @@ def _prepare(req: dict, cfg, num_frames: int, frame_mode: str,
                         require_media=False), frames
 
 
-def _refuse_unported(args) -> None:
-    if args.tensor_parallel != 1:
-        raise NotImplementedError(f"--tensor-parallel above 1: "
-                                  f"{TENSOR_PARALLEL_REFUSED}; the port "
-                                  "serves from one card")
-
-
 def frame_buckets(args):
     """``--frame-buckets`` as the engine takes it (model_worker.py:992-999):
     None for ``off`` or empty, else the buckets, with ``--num-frames``
@@ -165,13 +166,15 @@ def frame_buckets(args):
 
 
 def run_batch(args) -> dict:
-    """Run the file; returns summary stats (also printed)."""
+    """Run the file; returns summary stats (also printed; None on a
+    follower rank of ``--tensor-parallel``)."""
     from valley_tpu_torch.inference.continuous import (ContinuousEngine,
                                                        _drain)
     from valley_tpu_torch.inference.generate import process_response
     from valley_tpu_torch.inference.run_valley import load_model
+    from valley_tpu_torch.parallel import distributed, lockstep
+    from valley_tpu_torch.parallel.mesh import serving_mesh
 
-    _refuse_unported(args)
     reqs = _load_requests(args.input)
     done = _done_ids(args.output)
     todo = [r for r in reqs if r["id"] not in done]
@@ -185,8 +188,12 @@ def run_batch(args) -> dict:
         print(json.dumps(summary))
         return summary
 
+    mesh = serving_mesh(args.tensor_parallel, args.device,
+                        "valley_tpu_torch.inference.batch_infer")
+    device = args.device if mesh is None else \
+        distributed.device_for(args.device or "cuda")
     engine, tokenizer = load_model(
-        args.model_path, args.device,
+        args.model_path, device,
         buckets=tuple(int(b) for b in args.buckets.split(",") if b),
         max_new_tokens=args.max_new_tokens, quantize=args.quantize,
         fused=args.fused, kv_cache=args.kv_cache,
@@ -194,11 +201,19 @@ def run_batch(args) -> dict:
         decode_ramp=tuple(int(s) for s in args.decode_ramp.split(",") if s),
         frame_buckets=frame_buckets(args), raw_media=bool(args.raw_pixels),
         vision_tower=args.vision_tower, lora_path=args.lora_path,
-        quantize_vision=args.quantize_vision)
+        quantize_vision=args.quantize_vision, mesh=mesh)
     cfg = engine.cfg
-    pool = ContinuousEngine(engine, rows=args.rows,
-                            admit_batch=args.admit_batch,
-                            speculative=bool(args.speculative))
+    ls = None
+    if mesh is not None:
+        ls = lockstep.Lockstep()
+        ls.register(engine)
+        ls.register(tokenizer)
+        if not ls.lead:
+            ls.follow()
+            return None
+    pool = lockstep.make(ContinuousEngine, engine, rows=args.rows,
+                         admit_batch=args.admit_batch,
+                         speculative=bool(args.speculative), proxy=False)
     # model_worker.py:1225-1226: the engine's frame buckets where it has
     # them
     pool.warmup(frames=engine.frame_buckets
@@ -269,6 +284,8 @@ def run_batch(args) -> dict:
     finally:
         pool.close()
         out_f.close()
+        if ls is not None:
+            ls.stop()
     wall = time.perf_counter() - t0
     summary = {"requests": len(reqs), "ran": totals["ran"],
                "skipped": len(done), "errors": totals["errors"],
@@ -332,8 +349,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    from valley_tpu_torch.parallel import distributed
+
     logging.basicConfig(level=logging.INFO)
     run_batch(build_parser().parse_args(argv))
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

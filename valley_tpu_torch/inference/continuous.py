@@ -63,6 +63,21 @@ thread wrote is complete before the decode loop's copy of it runs, in
 stream order.  ``torch.inference_mode`` is entered in each thread (it is
 thread-local), and each thread samples from a `torch.Generator` of its own
 (a generator is not thread-safe).
+
+On a mesh (``Engine(mesh=)``, one process a device) every rank runs the
+same pool, and every device call must come in the same order on every rank
+(the collectives pair up by order).  The pool then runs under the
+process's `parallel.lockstep.Lockstep`, made by the lead (rank 0) through
+`lockstep.make(..., proxy=False)`: the lead's `submit` sends each request
+to every rank, and its one loop thread (no prefill thread) decides each
+iteration on the host (which waiting requests to admit, from what arrived
+by then; the chunk's size and kind, from its clock-free schedule and the
+speculative control) and sends it as two calls, the admission
+(`_tp_admit`) and the chunk (`_run_chunk`), which every rank makes under
+the lock.  The followers' pools run no thread and deliver no tokens.  A
+failed prefill, insert or chunk is then not recovered from on its rank (a
+request refused alike on every rank aside): it goes on to the lockstep,
+which stops the world.
 """
 
 from __future__ import annotations
@@ -83,10 +98,18 @@ from valley_tpu_torch.inference.graphs import (DecodeGraphs, DecodeState,
 from valley_tpu_torch.inference.speculative import (SpecConfig,
                                                     resolved_disable_below)
 from valley_tpu_torch.models import llama
+from valley_tpu_torch.parallel import lockstep
 
 logger = logging.getLogger(__name__)
 
 _DONE = object()
+
+
+class _Sink:
+    """A follower rank's request queue: its tokens reach no reader."""
+
+    def put(self, _item) -> None:
+        pass
 
 
 @dataclasses.dataclass
@@ -101,6 +124,7 @@ class _Request:
         default_factory=lambda: queue.Queue(maxsize=4096))
     emitted: int = 0
     prefix: Any = None       # a PrefixCache its input_ids start with
+    seq: int = 0             # its place in submission order
 
 
 class ContinuousEngine:
@@ -148,7 +172,7 @@ class ContinuousEngine:
         # worker while it runs the engine outside the pool (reentrant, so
         # that such a caller may nest it)
         self._prefill_lock = threading.RLock()
-        self.graphs_on = dev.type == "cuda" and not eager
+        self.graphs_on = engine.use_graphs and not eager
         self.steps_run = 0
         self.rounds_run = 0
         self.prefill_sizes: List[int] = []
@@ -192,10 +216,25 @@ class ContinuousEngine:
         # device; a partly inserted group keeps its whole cache alive, so
         # at most ready_depth + admit_batch - 1 rows are parked
         self.ready_depth = min(8, max(2, rows))
-        self._ready: "queue.Queue[tuple]" = queue.Queue(
-            maxsize=self.ready_depth)
         self._wake = threading.Event()
         self._closed = False
+        self._prefill_thread = self._thread = None
+        self._lockstep = None
+        if engine.mesh is not None:
+            self._lockstep = lockstep.current()
+            if self._lockstep is None:
+                raise RuntimeError(
+                    "a pool over a mesh runs its ranks in lockstep: make a "
+                    "parallel.lockstep.Lockstep on every rank and the pool "
+                    "on the lead with lockstep.make(..., proxy=False)")
+            # requests waiting for admission, in submission order; the
+            # admission's items park unbounded (the lead admits no more
+            # than there are free rows)
+            self._pending: List[_Request] = []
+            self._seq = 0
+            self._ready: "queue.Queue[tuple]" = queue.Queue()
+            return
+        self._ready = queue.Queue(maxsize=self.ready_depth)
         self._prefill_thread = threading.Thread(target=self._prefill_loop,
                                                 daemon=True)
         self._prefill_thread.start()
@@ -207,8 +246,7 @@ class ContinuousEngine:
         again at their next chunk); also the recovery path after a failed
         decode chunk, which may have left the cache half written."""
         eng = self.engine
-        self._state = DecodeState.empty(eng.cfg.text, self.rows, self.smax,
-                                        eng.cache_dtype, eng.device)
+        self._state = DecodeState.empty(eng, self.rows, self.smax)
         if self._spec is not None:
             self._state = SpecState.over(self._state, self.hist_max)
         self._graphs = self._spec_graphs = None
@@ -303,12 +341,78 @@ class ContinuousEngine:
         if prefix is not None and images is not None:
             raise ValueError("a prefix request takes no images: its "
                              "PrefixCache holds the media")
+        if self._lockstep is not None:
+            self._start_tp_loop()
+            return self._lockstep.call(
+                self, "_enqueue", list(input_ids), images, float(temperature),
+                float(top_p), int(max_new_tokens), int(eos_id), prefix)
         req = _Request(list(input_ids), images, float(temperature),
                        float(top_p), int(max_new_tokens), int(eos_id),
                        prefix=prefix)
         self._queue.put(req)
         self._wake.set()
         return req.out
+
+    # -- lockstep (a pool over a mesh; module docstring) -------------------
+
+    def _start_tp_loop(self) -> None:
+        """The lead's loop thread, started at the first request (the pool
+        is registered with the lockstep by then)."""
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._tp_loop,
+                                            daemon=True)
+            self._thread.start()
+
+    def _enqueue(self, input_ids, images, temperature, top_p,
+                 max_new_tokens, eos_id, prefix):
+        """Every rank's half of a lead's `submit`: the request waits in
+        submission order; a follower's delivers nowhere."""
+        req = _Request(input_ids, images, temperature, top_p, max_new_tokens,
+                       eos_id, prefix=prefix, seq=self._seq)
+        if not self._lockstep.lead:
+            req.out = _Sink()
+        self._seq += 1
+        self._pending.append(req)
+        self._wake.set()
+        return req.out
+
+    def _plan_admission(self) -> List[List[int]]:
+        """The lead's choice of the next admission: groups (by submission
+        number) of the waiting requests, as the prefill thread groups
+        them, no more than there are free rows."""
+        free = sum(r is None for r in self._active) - self._ready.qsize()
+        pending = list(self._pending)
+        groups = []
+        while free > 0 and pending:
+            group, pending = self._take_group(pending, free)
+            groups.append([r.seq for r in group])
+            free -= len(group)
+        return groups
+
+    def _tp_admit(self, groups: List[List[int]]) -> None:
+        """Every rank: prefill the lead's groups, park them, and insert
+        what fits into free rows (`_admit`)."""
+        for seqs in groups:
+            group = [r for r in self._pending if r.seq in seqs]
+            self._pending = [r for r in self._pending if r.seq not in seqs]
+            for item in self._prefill_items(group):
+                self._park(item)
+        self._admit()
+
+    def _tp_loop(self):
+        with torch.inference_mode():
+            while not self._closed:
+                if all(r is None for r in self._active) and \
+                        self._ready.empty() and not self._pending:
+                    self._wake.wait(timeout=1.0)
+                    self._wake.clear()
+                    continue
+                with self._prefill_lock:
+                    self._lockstep.call(self, "_tp_admit",
+                                        self._plan_admission())
+                    if any(r is not None for r in self._active):
+                        self._lockstep.call(self, "_run_chunk",
+                                            *self._decide_chunk())
 
     def warmup(self, frames=0) -> None:
         """Run every admission-bucket prefill (at every batched admission
@@ -362,13 +466,16 @@ class ContinuousEngine:
                     if size == 1:
                         continue   # covered by the submits below
                     for temp in (0.0, 0.7):
-                        group = [_Request(list(range(2, 2 + bucket)),
-                                          images, temp, 1.0, 1, -1)
-                                 for _ in range(size)]
-                        for item in self._prefill_group(group):
-                            self._park(item)
-                        for r in group:
-                            for _ in _drain(r.out):
+                        if self._lockstep is None:
+                            outs = self._warm_group(bucket, images, size,
+                                                    temp)
+                        else:
+                            self._start_tp_loop()
+                            outs = self._lockstep.call(
+                                self, "_warm_group", bucket, images, size,
+                                temp)
+                        for outq in outs:
+                            for _ in _drain(outq):
                                 pass
         new = 1 + sum(self.ramp) + self.steps
         # one request alone first: it decodes every ramp size, then steps
@@ -404,13 +511,26 @@ class ContinuousEngine:
                 pass
             self._force_chunks = []
 
+    def _warm_group(self, bucket: int, images, size: int, temp: float):
+        """One batched admission of ``size`` warm-up requests, parked for
+        the decode loop; their queues."""
+        group = [_Request(list(range(2, 2 + bucket)), images, temp, 1.0, 1,
+                          -1) for _ in range(size)]
+        if self._lockstep is not None and not self._lockstep.lead:
+            for r in group:
+                r.out = _Sink()
+        for item in self._prefill_group(group):
+            self._park(item)
+        return [r.out for r in group]
+
     def close(self, timeout: float = 30.0) -> None:
-        """Stop both threads; every request not finished gets an error."""
+        """Stop the threads; every request not finished gets an error."""
         self._closed = True
         self._queue.put(None)
         self._wake.set()
-        self._prefill_thread.join(timeout)
-        self._thread.join(timeout)
+        for th in (self._prefill_thread, self._thread):
+            if th is not None:
+                th.join(timeout)
         closed = RuntimeError("the pool was closed")
         self._fail_active(closed)
         for q in (self._ready, self._queue):
@@ -449,6 +569,44 @@ class ContinuousEngine:
         with torch.inference_mode():
             self._prefill_loop_body()
 
+    def _take_group(self, pending: List[_Request], most: int):
+        """The next admission group from the front of ``pending`` (its
+        head and the compatible requests after it, a power-of-two count of
+        at most ``admit_batch`` and ``most``), and the rest in order."""
+        pending = list(pending)
+        head = pending.pop(0)
+        group = [head]
+        if head.prefix is None and self.admit_batch > 1:
+            key0 = self._admit_key(head)
+            i = 0
+            while i < len(pending) and len(group) < min(self.admit_batch,
+                                                        most):
+                r = pending[i]
+                if r.prefix is None and self._admit_key(r) == key0:
+                    group.append(pending.pop(i))
+                else:
+                    i += 1
+            # power-of-two group sizes; the overflow returns to the
+            # front of the queue in order
+            size = max(s for s in self._admit_sizes if s <= len(group))
+            pending[:0] = group[size:]
+            group = group[:size]
+        return group, pending
+
+    def _prefill_items(self, group: List[_Request]) -> list:
+        """The ready items of one admission group; a failed prefill
+        refuses the group's requests and gives none."""
+        try:
+            return (self._prefill_group(group) if len(group) > 1
+                    else [self._prefill_one(group[0])])
+        except Exception as e:  # noqa: BLE001 -- deliver, don't die
+            if self._stops_world(e):
+                raise
+            logger.exception("prefill failed for request(s)")
+            for r in group:
+                _refuse(r, e)
+            return []
+
     def _prefill_loop_body(self):
         pending: List[_Request] = []
         while not self._closed:
@@ -464,31 +622,8 @@ class ContinuousEngine:
                 for r in pending:
                     _refuse(r, RuntimeError("the pool was closed"))
                 return
-            head = pending.pop(0)
-            group = [head]
-            if head.prefix is None and self.admit_batch > 1:
-                key0 = self._admit_key(head)
-                i = 0
-                while i < len(pending) and len(group) < self.admit_batch:
-                    r = pending[i]
-                    if r.prefix is None and self._admit_key(r) == key0:
-                        group.append(pending.pop(i))
-                    else:
-                        i += 1
-                # power-of-two group sizes; the overflow returns to the
-                # front of the queue in order
-                size = max(s for s in self._admit_sizes if s <= len(group))
-                pending[:0] = group[size:]
-                group = group[:size]
-            try:
-                items = (self._prefill_group(group) if len(group) > 1
-                         else [self._prefill_one(group[0])])
-            except Exception as e:  # noqa: BLE001 -- deliver, don't die
-                logger.exception("prefill failed for request(s)")
-                for r in group:
-                    _refuse(r, e)
-                continue
-            for item in items:
+            group, pending = self._take_group(pending, self.admit_batch)
+            for item in self._prefill_items(group):
                 self._park(item)
 
     def _prefill_group(self, group: List[_Request]) -> list:
@@ -631,6 +766,8 @@ class ContinuousEngine:
             try:
                 self._insert_row(req, tok, row_cache, row_valid, n, src, b)
             except Exception as e:  # noqa: BLE001 -- deliver, don't die
+                if self._stops_world(e):
+                    raise
                 logger.exception("row insert failed")
                 _refuse(req, e)
                 self._fail_active(RuntimeError("pool reset"))
@@ -689,50 +826,69 @@ class ContinuousEngine:
             self._admit()
             if all(r is None for r in self._active):
                 continue
-            n_steps = self._next_chunk()
-            use_spec = self._spec is not None
-            if use_spec and not self._spec_live:
-                # paused: plain chunks until the re-probe countdown ends
-                use_spec = False
-                self._plain_left -= 1
-                if self._plain_left <= 0:
-                    self._spec_live = True
-                    self.spec_reprobes += 1
-            active = [b for b in range(self.rows)
-                      if self._active[b] is not None]
-            counts = None
-            try:
-                if use_spec:
-                    out = self._spec_chunk(n_steps).cpu().numpy()
-                    toks_np, counts = out[..., :-1], out[..., -1]
-                else:
-                    toks = self._decode_chunk(n_steps)
-                    if self._spec is not None:
-                        self._append_hist(toks)
-                    toks_np = toks.cpu().numpy()
-            except Exception as e:  # noqa: BLE001 -- deliver, don't die
-                logger.exception("decode chunk failed")
-                self._fail_active(e)
-                # the cache may be half written
-                self._reset_pool()
-                continue
-            if counts is not None:
-                self._observe(counts[:, active])
-            for step in range(toks_np.shape[0]):
-                for b in range(self.rows):
-                    req = self._active[b]
-                    if req is None:
-                        continue
-                    # tokens decoded after a row finished within the chunk
-                    # are dropped (they stay masked off for the next request)
-                    row = [int(toks_np[step, b])] if counts is None else \
-                        toks_np[step, b, :counts[step, b]].tolist()
-                    for t in row:
-                        req.out.put(t)
-                        req.emitted += 1
-                        self._finish_if_done(b, t)
-                        if self._active[b] is None:
-                            break
+            self._run_chunk(*self._decide_chunk())
+
+    def _stops_world(self, err: Exception) -> bool:
+        """Whether ``err`` goes on to the lockstep, which stops the world,
+        rather than being recovered from here: on a mesh, any failure but
+        a refusal every rank meets alike (`lockstep.alike`), since the
+        other ranks' pools went on and may wait in a collective."""
+        return self._lockstep is not None and not lockstep.alike(err)
+
+    def _decide_chunk(self) -> tuple:
+        """(steps, speculative) of the next chunk: `_next_chunk`'s size,
+        and a verify round unless speculation is off or paused (the
+        re-probe countdown advances here)."""
+        n_steps = self._next_chunk()
+        use_spec = self._spec is not None
+        if use_spec and not self._spec_live:
+            # paused: plain chunks until the re-probe countdown ends
+            use_spec = False
+            self._plain_left -= 1
+            if self._plain_left <= 0:
+                self._spec_live = True
+                self.spec_reprobes += 1
+        return n_steps, use_spec
+
+    def _run_chunk(self, n_steps: int, use_spec: bool) -> None:
+        """Decode one chunk of the active rows and deliver its tokens."""
+        active = [b for b in range(self.rows)
+                  if self._active[b] is not None]
+        counts = None
+        try:
+            if use_spec:
+                out = self._spec_chunk(n_steps).cpu().numpy()
+                toks_np, counts = out[..., :-1], out[..., -1]
+            else:
+                toks = self._decode_chunk(n_steps)
+                if self._spec is not None:
+                    self._append_hist(toks)
+                toks_np = toks.cpu().numpy()
+        except Exception as e:  # noqa: BLE001 -- deliver, don't die
+            if self._stops_world(e):
+                raise
+            logger.exception("decode chunk failed")
+            self._fail_active(e)
+            # the cache may be half written
+            self._reset_pool()
+            return
+        if counts is not None:
+            self._observe(counts[:, active])
+        for step in range(toks_np.shape[0]):
+            for b in range(self.rows):
+                req = self._active[b]
+                if req is None:
+                    continue
+                # tokens decoded after a row finished within the chunk
+                # are dropped (they stay masked off for the next request)
+                row = [int(toks_np[step, b])] if counts is None else \
+                    toks_np[step, b, :counts[step, b]].tolist()
+                for t in row:
+                    req.out.put(t)
+                    req.emitted += 1
+                    self._finish_if_done(b, t)
+                    if self._active[b] is None:
+                        break
 
     def _observe(self, counts: np.ndarray) -> None:
         """Acceptance telemetry and the adaptive decision over the rows

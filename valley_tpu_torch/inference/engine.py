@@ -30,6 +30,7 @@ is bound to fixed buffers.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +41,9 @@ from valley_tpu_torch.inference.graphs import (DecodeGraphs, DecodeState,
                                                decode_step)
 from valley_tpu_torch.models import llama, valley
 from valley_tpu_torch.ops.attention import KERNELS, Attention
+from valley_tpu_torch.parallel.tensor import tensor_parallel
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -129,6 +133,18 @@ class Engine:
     steps included; not a capture's warm-up step).  On the card, the graphs
     of `generate_tokens` are kept for each (batch, cache length) with the
     decode state they are bound to (`graph_sets`), in one memory pool.
+
+    ``mesh`` (a (data, fsdp, model) `DeviceMesh`, one process a device)
+    cuts ``params`` in place to this rank's share, as JAX's
+    ``Engine(mesh=)`` shards them (engine.py:143-151): over ``model``
+    Megatron-style (`parallel.sharding.shard_params`; the KV cache then
+    holds this rank's kv heads), over ``fsdp`` into slices gathered where
+    a layer is read.  Every rank runs every row of a batch (replicated
+    over ``data`` and ``fsdp``) and must make the same calls in the same
+    order: the collectives pair up by order.  Decode chunks are CUDA
+    graphs with the collectives captured inside on NCCL; over gloo (two
+    ranks on one card, or the CPU) the engine decodes eagerly
+    (`use_graphs`).
     """
 
     def __init__(self, cfg: ValleyConfig, params: valley.ValleyWeights,
@@ -139,10 +155,19 @@ class Engine:
                  decode_ramp: Sequence[int] = (),
                  attention: Attention = KERNELS,
                  frame_buckets: Optional[Sequence[int]] = None,
-                 raw_media: bool = False):
+                 raw_media: bool = False, mesh=None):
         self.cfg = cfg
-        self.params = params
         self.device = params["llama"]["embed"].device
+        self.mesh = mesh
+        if mesh is not None:
+            from valley_tpu_torch.parallel import sharding
+
+            sharding.shard_params(mesh, params, cfg.text, serving=True)
+        self.params = params
+        self.tp = tensor_parallel(params["llama"])
+        # the kv heads this rank's cache holds
+        self.kv_heads = cfg.text.kv_heads if self.tp is None \
+            else self.tp.kv_heads
         self.buckets = tuple(sorted(buckets))
         self.max_new_tokens = max_new_tokens
         self.cache_dtype = cache_dtype
@@ -159,6 +184,14 @@ class Engine:
         self.steps_run = 0
         self.graph_sets: Dict[Tuple[int, int], DecodeGraphs] = {}
         self._graph_pool = None
+        self.use_graphs = self.device.type == "cuda" and _graphs_capture(
+            mesh)
+
+    def init_cache(self, batch: int, max_len: int) -> llama.KVCache:
+        """A zeroed cache of this engine's dtype and this rank's kv
+        heads."""
+        return llama.init_cache(self.cfg.text, batch, max_len,
+                                self.cache_dtype, self.device, self.kv_heads)
 
     def pick_bucket(self, length: int) -> int:
         for b in self.buckets:
@@ -230,8 +263,7 @@ class Engine:
         embeds = valley.build_inputs_embeds(self.params, cfg, ids, frames,
                                             frame_mask)
         if cache is None:
-            cache = llama.init_cache(cfg.text, ids.shape[0], cache_len,
-                                     self.cache_dtype, self.device)
+            cache = self.init_cache(ids.shape[0], cache_len)
         elif cache.max_len != cache_len:
             raise ValueError(f"a cache of {cache.max_len} slots, want "
                              f"{cache_len}")
@@ -288,8 +320,7 @@ class Engine:
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             self.graph_sets[key] = DecodeGraphs(
-                DecodeState.empty(self.cfg.text, batch, cache_len,
-                                  self.cache_dtype, self.device),
+                DecodeState.empty(self, batch, cache_len),
                 self._step, torch.Generator(self.device), self._graph_pool)
         return self.graph_sets[key]
 
@@ -369,7 +400,8 @@ class Engine:
         first use (`warmup` captures them all), into whose static state the
         prompt is prefilled; ``eager=True`` runs the same steps eagerly on
         a cache of the request's own instead (the reference the graphs are
-        held to).  On the CPU the steps always run eagerly."""
+        held to).  On the CPU, and where `use_graphs` is off, the steps
+        always run eagerly."""
         gen = gen or GenerationConfig()
         ids, lens, bucket = self._pad(input_ids)
         b = len(input_ids)
@@ -378,7 +410,7 @@ class Engine:
         # a scheduled size (JAX engine.py:501-507)
         cache_len = bucket + self.max_new_tokens + self.steps_per_call
         graphs = None
-        if self.device.type == "cuda" and not eager:
+        if self.use_graphs and not eager:
             graphs = self.graphs_for(b, cache_len)
             if graphs.in_use:
                 raise RuntimeError(
@@ -484,6 +516,25 @@ class Engine:
             tokenizer, gen)
 
 
+def _graphs_capture(mesh) -> bool:
+    """Whether decode on the card runs as CUDA graphs: always on one card;
+    on a mesh whose collectives run on NCCL, with them captured in the
+    graphs; not over gloo, whose collectives on CUDA tensors go through the
+    host and cannot be captured (the engine then decodes eagerly, by this
+    rule, never by catching a failed capture)."""
+    if mesh is None:
+        return True
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    if backend != "nccl":
+        logger.info("decode runs eagerly: the process group's backend is "
+                    "%s, whose collectives a CUDA graph cannot capture",
+                    backend)
+        return False
+    return True
+
+
 def stream_text(token_iter, tokenizer, gen: GenerationConfig
                 ) -> Iterator[str]:
     """Token ids -> accumulated-text chunks every ``stream_interval``
@@ -579,6 +630,13 @@ def _grow_cache(frag: llama.KVCache, valid: torch.Tensor, total_len: int):
                                              frag.v_scale))), new_valid
 
 
+class CacheExhausted(RuntimeError):
+    """A session's cache has no room for the next turn: start a new
+    session.  Every rank of a tensor-parallel server refuses such a turn
+    alike (`parallel.lockstep`)."""
+    lockstep_alike = True
+
+
 class ChatSession:
     """Multi-turn generation with the KV cache kept across turns (B = 1), the
     counterpart of JAX's ``ChatSession`` (engine.py:711-892).
@@ -592,6 +650,10 @@ class ChatSession:
     ``torch.Generator`` seeded from ``gen.seed``.  ``prefills``,
     ``extends``, ``decode_steps`` and ``compactions`` count what it ran.
     """
+
+    # a tensor-parallel server's followers keep their own copy of a session
+    # a call makes (`parallel.lockstep`)
+    lockstep_object = True
 
     def __init__(self, engine: Engine, gen: Optional[GenerationConfig] = None,
                  extra_slots: Optional[int] = None):
@@ -662,7 +724,7 @@ class ChatSession:
             slot = int(n_valid[0])
             self.compactions += 1
         if slot + cb + budget > cache.max_len:
-            raise RuntimeError(
+            raise CacheExhausted(
                 f"session cache exhausted (slot={slot} live tokens, need "
                 f"{cb + gen.max_new_tokens}, max={cache.max_len}); start a "
                 "new ChatSession")
@@ -754,6 +816,8 @@ class PrefixCache:
     Only the prefix's ``bucket``-slot fragment is kept; each `spawn` copies
     it into fresh session-size buffers.
     """
+
+    lockstep_object = True    # as ChatSession's
 
     def __init__(self, engine: Engine, prefix_ids: Sequence[int],
                  images=None, gen: Optional[GenerationConfig] = None,

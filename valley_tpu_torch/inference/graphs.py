@@ -60,13 +60,15 @@ class DecodeState:
     top_p: torch.Tensor        # (B,) fp32
 
     @classmethod
-    def empty(cls, cfg, rows: int, smax: int, cache_dtype,
-              device) -> "DecodeState":
-        """A zeroed state: every row at slot ``smax - 1``, greedy."""
+    def empty(cls, engine, rows: int, smax: int) -> "DecodeState":
+        """A zeroed state over a cache of ``engine``'s (`Engine.init_cache`):
+        every row at slot ``smax - 1``, greedy."""
+        device = engine.device
+
         def vec(fill, dtype):
             return torch.full((rows,), fill, dtype=dtype, device=device)
 
-        return cls(llama.init_cache(cfg, rows, smax, cache_dtype, device),
+        return cls(engine.init_cache(rows, smax),
                    torch.zeros((rows, smax), dtype=torch.bool,
                                device=device),
                    vec(0, torch.int64), vec(0, torch.int64),

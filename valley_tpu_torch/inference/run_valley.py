@@ -51,7 +51,7 @@ def load_model(model_name: str, device: Optional[str] = None,
                decode_ramp=(), frame_buckets=None, raw_media: bool = False,
                vision_tower: Optional[str] = None, tokenizer=None,
                lora_path: Optional[str] = None,
-               quantize_vision: Optional[str] = None):
+               quantize_vision: Optional[str] = None, mesh=None):
     """Build (engine, tokenizer) on ``device`` (default the card; without
     one this raises unless the caller asks for ``"cpu"``).  ``model_name``
     is a checkpoint directory (`hf_bridge.load_valley_checkpoint`: its
@@ -72,7 +72,9 @@ def load_model(model_name: str, device: Optional[str] = None,
     in the JAX worker's order (model_worker.py:938-975).  Weights are bf16 on the card,
     where the kernels take bf16, and fp32 on the CPU.  At the tiny widths
     (64, 128) group-128 scales fall back to per channel where 128 does not
-    divide the contraction axis, as in JAX."""
+    divide the contraction axis, as in JAX.  ``mesh``: the engine's
+    (`Engine(mesh=)`), which cuts the full weights to this rank's share
+    (``device`` is then this rank's)."""
     if device is None:
         device = "cuda"
     if torch.device(device).type == "cuda" and \
@@ -150,7 +152,7 @@ def load_model(model_name: str, device: Optional[str] = None,
                     cache_dtype=torch.int8 if kv_cache == "int8"
                     else torch.bfloat16, steps_per_call=steps_per_call,
                     decode_ramp=decode_ramp, frame_buckets=frame_buckets,
-                    raw_media=raw_media)
+                    raw_media=raw_media, mesh=mesh)
     return engine, tokenizer
 
 
@@ -192,14 +194,22 @@ def main(argv=None):
                         help="n-gram self-speculative decode (greedy "
                              "token-identical, sampling "
                              "distribution-exact)")
+    parser.add_argument("--tensor-parallel", type=int, default=1,
+                        help="N ranks under torchrun --nproc_per_node N, "
+                             "the weights cut over them; rank 0 prints")
     args = parser.parse_args(argv)
 
-    engine, tokenizer = load_model(args.model_name, args.device,
-                                   max_new_tokens=args.max_new_tokens,
-                                   quantize=args.quantize, fused=args.fused,
-                                   kv_cache=args.kv_cache,
-                                   vision_tower=args.vision_tower,
-                                   lora_path=args.lora_path)
+    from valley_tpu_torch.parallel import distributed
+    from valley_tpu_torch.parallel.mesh import serving_mesh
+
+    mesh = serving_mesh(args.tensor_parallel, args.device,
+                        "valley_tpu_torch.inference.run_valley")
+    engine, tokenizer = load_model(
+        args.model_name,
+        distributed.device_for(args.device or "cuda") if mesh is not None
+        else args.device, max_new_tokens=args.max_new_tokens,
+        quantize=args.quantize, fused=args.fused, kv_cache=args.kv_cache,
+        vision_tower=args.vision_tower, lora_path=args.lora_path, mesh=mesh)
     messages = [
         {"role": "system", "content": args.system_prompt},
         {"role": "user", "content": args.query + " <video>"},
@@ -207,9 +217,12 @@ def main(argv=None):
     gen = GenerationConfig(max_new_tokens=args.max_new_tokens,
                            temperature=args.temperature,
                            do_sample=args.do_sample)
+    # every rank runs the same request (the collectives pair up by order)
     response = completion(engine, tokenizer, args.video_file, messages, gen,
                           speculative=args.speculative)
-    print(response[0])
+    if distributed.process_index() == 0:
+        print(response[0])
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -311,7 +311,7 @@ class SpecDecoder:
         max_new = min(gen.max_new_tokens, eng.max_new_tokens)
         cache_len = self.cache_len(bucket)
         base = graphs = None
-        if eng.device.type == "cuda" and not eager:
+        if eng.use_graphs and not eager:
             graphs = self.graphs_for(bucket, cache_len)
             base = eng.graphs_for(1, cache_len)
             if base.in_use:

@@ -49,6 +49,7 @@ from valley_tpu_torch.ops.quant import (MAX_ROWS, RECIP_127, dequantize,
                                         int8_matvec_plain, unpack_int4)
 from valley_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from valley_tpu_torch.ops.w4a8 import quantize_tokens_plain
+from valley_tpu_torch.parallel.tensor import TensorParallel, tensor_parallel
 
 Slots = Union[int, torch.Tensor]   # one cache slot, or one per row (B,)
 
@@ -115,8 +116,13 @@ class LlamaLayers(Weights):
 
 class LlamaWeights(Weights):
     """Embedding, layers, final norm and ``lm_head`` (int8 or packed int4:
-    with its (1, vocab) bf16 ``lm_head_scale``)."""
+    with its (1, vocab) bf16 ``lm_head_scale``).  ``tp``: the
+    `parallel.tensor.TensorParallel` of a tree cut over a ``model`` axis
+    (`parallel.sharding.shard_params`), whose collectives the cached
+    forward, `embed` and `logits_from_hidden` then run; None on one
+    device."""
     NAMES = ("embed", "layers", "final_norm", "lm_head")
+    tp: Optional[TensorParallel] = None
 
     @classmethod
     def expected_names(cls, tensors) -> tuple:
@@ -142,8 +148,11 @@ class KVCache:
 
 
 def init_cache(cfg: TextConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> KVCache:
-    shape = (cfg.num_hidden_layers, batch, max_len, cfg.kv_heads,
+               dtype=torch.bfloat16, device=None,
+               kv_heads: Optional[int] = None) -> KVCache:
+    """A zeroed cache of ``kv_heads`` heads (default the config's: a
+    tensor-parallel rank's are its `TensorParallel.kv_heads`)."""
+    shape = (cfg.num_hidden_layers, batch, max_len, kv_heads or cfg.kv_heads,
              cfg.head_dim)
     cache = KVCache(torch.zeros(shape, dtype=dtype, device=device),
                     torch.zeros(shape, dtype=dtype, device=device))
@@ -228,6 +237,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float
 
 
 def embed(params: LlamaWeights, input_ids: torch.Tensor) -> torch.Tensor:
+    """The ids' rows of the embedding; vocabulary-parallel on a tree cut
+    over a ``model`` axis (`TensorParallel.embed`)."""
+    tp = tensor_parallel(params)
+    if tp is not None:
+        return tp.embed(params["embed"], input_ids)
     return params["embed"][input_ids]
 
 
@@ -243,8 +257,17 @@ _A8_MIN_SEQ = 128
 _quantize_tokens = quantize_tokens_plain
 
 
+def _global_amax(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Each token's absmax over the inputs of every rank of the ``model``
+    group: a row-parallel projection's activations quantize by the whole
+    row's absmax, as one device does (XLA reduces it over the group)."""
+    amax = x.reshape(-1, x.shape[-1]).to(torch.float32).abs().amax(dim=-1)
+    return tp.all_reduce_max(amax)
+
+
 def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
-              scale: torch.Tensor) -> torch.Tensor:
+              scale: torch.Tensor,
+              tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """quant(x) @ int8 w^T -> int32, fp32 rescale (llama.py:182-207).
 
     Activations quantize per token (row absmax clamped at 1e-6, times
@@ -256,17 +279,24 @@ def _w8a8_dot(x: torch.Tensor, w: torch.Tensor,
     the library's int8 matrix product (``torch._int_mm``), as it leaves
     plain large matmuls to torch.  A packed int4 ``w`` with per-channel
     scales (int4ga8's tree where the group does not divide K) takes its
-    int4 values as int8, as JAX's does."""
+    int4 values as int8, as JAX's does.  A row-parallel ``tp`` product
+    quantizes by the tokens' absmax over the group and sums the int32
+    partial products over it, exactly, as XLA does: the result is one
+    device's bit for bit."""
     if w.dtype == torch.uint8:
         w = unpack_int4(w)
-    xq, ascale = _quantize_tokens(x)
+    amax = None if tp is None else _global_amax(x, tp)
+    xq, ascale = _quantize_tokens(x, amax)
     y = torch._int_mm(xq, w.t())
+    if tp is not None:
+        y = tp.all_reduce(y)
     out = y.to(torch.float32) * ascale * scale[None, :].to(torch.float32)
     return out.reshape(x.shape[:-1] + (w.shape[-2],)).to(x.dtype)
 
 
 def _w4a8_group_dot(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                    attention: Attention = KERNELS) -> torch.Tensor:
+                    attention: Attention = KERNELS,
+                    tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Grouped W4A8 (llama.py:210-243): x quantized per token by
     ``attention.quantize`` (K8q, `ops.w4a8.quantize_tokens`, or
     `_quantize_tokens`, bit-equal), then ``attention.group_gemm`` (K8,
@@ -276,9 +306,16 @@ def _w4a8_group_dot(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     summed over the groups, times the token's scale, cast to x's dtype.
     K8 sums the groups in order; XLA's reduction may take another order,
     so the result agrees with JAX's to the rounding of an fp32 sum of
-    K/gs terms."""
-    xq, ascale = attention.quantize(x)
-    y = attention.group_gemm(xq, ascale.reshape(-1), w, scale, x.dtype)
+    K/gs terms.  A row-parallel ``tp`` product quantizes by the tokens'
+    absmax over the group, each rank's fp32 partial sum over its groups
+    summed over the group before the cast."""
+    if tp is None:
+        xq, ascale = attention.quantize(x)
+        y = attention.group_gemm(xq, ascale.reshape(-1), w, scale, x.dtype)
+    else:
+        xq, ascale = attention.quantize(x, _global_amax(x, tp))
+        y = tp.all_reduce(attention.group_gemm(
+            xq, ascale.reshape(-1), w, scale, torch.float32)).to(x.dtype)
     return y.reshape(x.shape[:-1] + (w.shape[0],))
 
 
@@ -343,7 +380,8 @@ def dropout_mask(key: int, shape, keep: float, device) -> torch.Tensor:
 
 def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
           attention: Attention, lora_key: Optional[int] = None,
-          lora_dropout: float = 0.0) -> torch.Tensor:
+          lora_dropout: float = 0.0,
+          reduce: Optional[TensorParallel] = None) -> torch.Tensor:
     """x @ W^T for layer ``li``'s (out, in) projection ``name``
     (llama.py:246-347) through `_linear`, except a weight with a
     ``_scale_a8`` scale and a sequence axis of at least `_A8_MIN_SEQ`: an
@@ -354,7 +392,9 @@ def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
     under inverted dropout (rate ``lora_dropout``, the layer's key
     ``lora_key`` folded with the projection's id) when a key is given and
     x itself otherwise; the JAX package computes this branch with plain
-    XLA products, and so the port with torch's."""
+    XLA products, and so the port with torch's.  ``reduce``: the
+    projection is row-parallel over that `TensorParallel`'s group, and
+    its partial sums are summed over the group before the cast."""
     w = lp[name][li]
     scale = None
     if w.dtype in QUANTIZED:
@@ -362,9 +402,12 @@ def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
         scale = (lp[name + "_scale"] if a8 is None else a8)[li]
         if a8 is not None and x.dim() >= 2 and x.shape[-2] >= _A8_MIN_SEQ:
             if scale.dim() == w.dim():
-                return _w4a8_group_dot(x, w, scale, attention)
-            return _w8a8_dot(x, w, scale)
-    out = _linear(x, w, scale, attention).to(x.dtype)
+                return _w4a8_group_dot(x, w, scale, attention, reduce)
+            return _w8a8_dot(x, w, scale, reduce)
+    out = _linear(x, w, scale, attention)
+    if reduce is not None:
+        out = reduce.all_reduce(out)
+    out = out.to(x.dtype)
     a = lp.get(name + "_lora_a")
     if a is None:
         return out
@@ -378,14 +421,24 @@ def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
     return out + delta * lp["lora_scale"][li][0, 0]
 
 
+def _heads(cfg: TextConfig, tp: Optional[TensorParallel]) -> tuple:
+    """(query heads, kv heads) one rank computes: the config's, or a
+    tensor-parallel rank's share."""
+    if tp is None:
+        return cfg.num_attention_heads, cfg.kv_heads
+    return tp.heads, tp.kv_heads
+
+
 def _qkv(lp: Mapping, li: int, x: torch.Tensor, cfg: TextConfig, cos,
-         sin, attention: Attention, **lora):
+         sin, attention: Attention, tp: Optional[TensorParallel] = None,
+         **lora):
     b, s, _ = x.shape
+    nh, nkv = _heads(cfg, tp)
     if "wqkv" in lp:
         # fused serving layout: one product, then the q/k/v column slices
         # (v made contiguous: the kernels take contiguous tensors)
-        h_sz = cfg.num_attention_heads * cfg.head_dim
-        kv_sz = cfg.kv_heads * cfg.head_dim
+        h_sz = nh * cfg.head_dim
+        kv_sz = nkv * cfg.head_dim
         qkv = _proj(lp, li, "wqkv", x, attention, **lora)
         q = qkv[..., :h_sz]
         k = qkv[..., h_sz:h_sz + kv_sz]
@@ -394,14 +447,14 @@ def _qkv(lp: Mapping, li: int, x: torch.Tensor, cfg: TextConfig, cos,
         q = _proj(lp, li, "wq", x, attention, **lora)
         k = _proj(lp, li, "wk", x, attention, **lora)
         v = _proj(lp, li, "wv", x, attention, **lora)
-    q = q.reshape(b, s, cfg.num_attention_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.kv_heads, cfg.head_dim)
+    q = q.reshape(b, s, nh, cfg.head_dim)
+    k = k.reshape(b, s, nkv, cfg.head_dim)
+    v = v.reshape(b, s, nkv, cfg.head_dim)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _mlp(lp: Mapping, li: int, x: torch.Tensor, attention: Attention,
-         **lora) -> torch.Tensor:
+         tp: Optional[TensorParallel] = None, **lora) -> torch.Tensor:
     if "w_gateup" in lp:
         gu = _proj(lp, li, "w_gateup", x, attention, **lora)
         f = gu.shape[-1] // 2
@@ -412,7 +465,7 @@ def _mlp(lp: Mapping, li: int, x: torch.Tensor, attention: Attention,
             torch.float32))
         up = _proj(lp, li, "w_up", x, attention, **lora).to(torch.float32)
     return _proj(lp, li, "w_down", (gate * up).to(x.dtype), attention,
-                 **lora)
+                 reduce=tp, **lora)
 
 
 def _attn(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention,
@@ -530,7 +583,8 @@ def _extend_bias(cross_valid: torch.Tensor, cache_index: Slots, s: int
 
 
 def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: Slots,
-                 kv_valid, attention: Attention, cross_bias=None):
+                 kv_valid, attention: Attention, cross_bias=None,
+                 tp: Optional[TensorParallel] = None):
     """Write this chunk's K/V (an int8 cache: quantized, with their scales)
     into layer ``li`` of the cache at slot ``cache_index``, or at each
     row's own slot for a (B,) ``cache_index``, then attend: one token
@@ -539,9 +593,12 @@ def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: Slots,
     causally, through the plain `mha_attention` over the layer read back
     (dequantized) from the cache, as JAX does (``use_flash=False``); or a
     prefill chunk causally within itself on its unquantized K/V (the cache
-    beyond the chunk is empty: the engine prefills at slot 0)."""
+    beyond the chunk is empty: the engine prefills at slot 0).  On a
+    tensor-parallel rank (``tp``) the heads are the rank's, the cache
+    holds the kv heads they read, and the ``wo`` product's partial sums
+    are summed over the group."""
     b, s, h = x.shape
-    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention)
+    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention, tp)
     if isinstance(cache_index, torch.Tensor):
         # per-row slots.  jax.lax.dynamic_update_slice clamps a start into
         # [0, Smax - S] (JAX _cache_write, llama.py:395-405), and the pool
@@ -577,7 +634,7 @@ def _attn_cached(lp, li, x, cfg, cos, sin, cache: KVCache, cache_index: Slots,
         chunk_valid = kv_valid[:, :s] if kv_valid is not None else None
         out = prefill_attention(q, k, v, chunk_valid, causal=True,
                                 attention=attention)
-    return _proj(lp, li, "wo", out.reshape(b, s, h), attention)
+    return _proj(lp, li, "wo", out.reshape(b, s, -1), attention, reduce=tp)
 
 
 def forward_hidden(params: LlamaWeights, cfg: TextConfig,
@@ -639,6 +696,10 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
     if lora_rng is not None and cache is not None:
         raise ValueError("adapter dropout applies to the cacheless forward "
                          "only")
+    tp = tensor_parallel(params)
+    if tp is not None and cache is None:
+        raise NotImplementedError("the cacheless forward (training) does not"
+                                  " run tensor-parallel (ROADMAP.md §1)")
     lp = params["layers"]
     if cache is None and torch.is_grad_enabled():
         lp = _per_layer(lp)
@@ -658,9 +719,9 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
             continue
         hn = rms_norm(x, lp["attn_norm"][li], eps)
         x = x + _attn_cached(lp, li, hn, cfg, cos, sin, cache, cache_index,
-                             kv_valid, attention, cross_bias)
+                             kv_valid, attention, cross_bias, tp)
         x = x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps),
-                     attention)
+                     attention, tp)
     return rms_norm(x, params["final_norm"], eps), cache
 
 
@@ -668,12 +729,18 @@ def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
                        attention: Attention = KERNELS) -> torch.Tensor:
     """fp32 logits (llama.py:777-787) through `_linear`: a float
     ``lm_head`` is stored (in, out), a quantized one ((out, in), packed for
-    int4, see ``ops/quant.py``) comes with its (1, vocab) scale."""
+    int4, see ``ops/quant.py``) comes with its (1, vocab) scale.  On a
+    tree cut over a ``model`` axis each rank computes its vocabulary's
+    columns and every rank gets all of them
+    (`TensorParallel.gather_vocab`)."""
     w = params["lm_head"]
     if w.dtype not in QUANTIZED:
-        return _linear(hidden, w, None, attention, kf=True).to(torch.float32)
-    return _linear(hidden, w, params["lm_head_scale"].reshape(-1),
-                   attention).to(torch.float32)
+        out = _linear(hidden, w, None, attention, kf=True).to(torch.float32)
+    else:
+        out = _linear(hidden, w, params["lm_head_scale"].reshape(-1),
+                      attention).to(torch.float32)
+    tp = tensor_parallel(params)
+    return out if tp is None else tp.gather_vocab(out)
 
 
 def forward(params: LlamaWeights, cfg: TextConfig,

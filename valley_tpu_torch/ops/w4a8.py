@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -50,17 +51,21 @@ def check_card_group(group_size: int, k: int, device) -> None:
             f"with such a group, or serve this tree on the CPU")
 
 
-def quantize_tokens_plain(x: torch.Tensor) -> tuple:
+def quantize_tokens_plain(x: torch.Tensor,
+                          amax: Optional[torch.Tensor] = None) -> tuple:
     """x (..., K) -> (int8 (T, K), fp32 (T, 1) scales): each token by its
     absmax clamped at 1e-6 times fl32(1/127), its values divided by that
     scale (correctly rounded) and rounded half to even (llama.py:232-235).
+    ``amax`` (T,) fp32, where given, is each token's absmax over a wider
+    row than x's (a tensor-parallel rank's share of the inputs).
     JAX's function writes ``/ 127.0``, which XLA compiles under jit, as the
     package serves it, into this product with the reciprocal; run op by op
     it divides, which differs in the last bit of some scales.  The product
     is the same on the CPU and the card, and K8q's."""
     xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6)
-    ascale = amax * RECIP_127
+    amax = xf.abs().amax(dim=-1, keepdim=True) if amax is None \
+        else amax.reshape(-1, 1).to(torch.float32)
+    ascale = amax.clamp_min(1e-6) * RECIP_127
     return torch.round(xf / ascale).to(torch.int8), ascale
 
 
@@ -105,7 +110,7 @@ def _lib():
     i = ctypes.c_int
     lib.w4a8_group_gemm.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, vp]
     lib.w4a8_group_gemm.restype = i
-    lib.w4a8_quantize_tokens.argtypes = [vp, vp, vp, i, i, i, vp]
+    lib.w4a8_quantize_tokens.argtypes = [vp, vp, vp, vp, i, i, i, vp]
     lib.w4a8_quantize_tokens.restype = i
     lib.w4a8_group_quantum.restype = i
     if lib.w4a8_group_quantum() != QUANTUM:
@@ -189,16 +194,19 @@ def w4a8_group_gemm(xq: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
 w4a8_group_gemm.launches = 0
 
 
-def quantize_tokens(x: torch.Tensor) -> tuple:
-    """Per-token int8 quantization: same argument and result as
+def quantize_tokens(x: torch.Tensor,
+                    amax: Optional[torch.Tensor] = None) -> tuple:
+    """Per-token int8 quantization: same arguments and result as
     `quantize_tokens_plain`.
 
     CPU tensors run the plain version.  A CUDA x (bf16 or fp32, K a
-    multiple of 8; made contiguous) runs K8q, and anything else raises.
-    Each kernel launch adds one to ``quantize_tokens.launches``.
+    multiple of 8; made contiguous), with an fp32 (T,) ``amax`` or none,
+    runs K8q (which then reads each token's absmax from ``amax`` instead of
+    computing it), and anything else raises.  Each kernel launch adds one
+    to ``quantize_tokens.launches``.
     """
     if x.device.type == "cpu":
-        return quantize_tokens_plain(x)
+        return quantize_tokens_plain(x, amax)
     if x.device.type != "cuda":
         raise ValueError(f"no token quantization for device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -211,12 +219,21 @@ def quantize_tokens(x: torch.Tensor) -> tuple:
                          f"got T {t}, K {k}")
     if x2.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
+    if amax is not None:
+        amax = amax.reshape(-1)
+        if amax.dtype != torch.float32 or amax.shape != (t,) \
+                or amax.device != x.device:
+            raise ValueError(f"amax must be fp32 ({t},) on {x.device}, got "
+                             f"{amax.dtype} {tuple(amax.shape)} on "
+                             f"{amax.device}")
+        amax = amax.contiguous()
     lib = _lib()
     xq = torch.empty((t, k), dtype=torch.int8, device=x.device)
     a = torch.empty((t, 1), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.w4a8_quantize_tokens(x2.data_ptr(), xq.data_ptr(),
-                                   a.data_ptr(), t, k,
+    err = lib.w4a8_quantize_tokens(x2.data_ptr(),
+                                   None if amax is None else amax.data_ptr(),
+                                   xq.data_ptr(), a.data_ptr(), t, k,
                                    int(x.dtype == torch.bfloat16), stream)
     _build.check(err, "w4a8_quantize_tokens")
     _build.count_launch(quantize_tokens)

@@ -1,5 +1,7 @@
-"""Multi-process training of the PyTorch port over ``torch.distributed``:
-the process group (`distributed`), the (data, fsdp, model) mesh (`mesh`)
-and the ZeRO-3 sharding rules and collectives (`sharding`), the
-counterparts of ``valley_tpu/parallel/``.  The ``model`` axis (tensor
-parallelism) is not ported yet."""
+"""Multi-process training and serving of the PyTorch port over
+``torch.distributed``: the process group (`distributed`), the (data, fsdp,
+model) mesh (`mesh`), the ZeRO-3 and tensor-parallel sharding rules (`sharding`), the
+``model`` axis's collectives (`tensor`) and the lockstep of a
+tensor-parallel server's ranks (`lockstep`), the counterparts of
+``valley_tpu/parallel/``.  Training on the ``model`` axis is not ported
+yet."""

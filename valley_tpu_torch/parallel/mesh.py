@@ -11,8 +11,10 @@ group's ranks (one rank a device):
 * ``fsdp``  — parameter, gradient and optimizer-state sharding (ZeRO-3:
   `sharding.py` gathers a layer's slices where the model reads it and
   reduce-scatters its gradient);
-* ``model`` — tensor parallelism, not ported yet (ROADMAP.md §1): a mesh
-  with ``model`` above 1 is refused.
+* ``model`` — tensor parallelism (`tensor.py`): the serving engine cuts
+  its weights Megatron-style over it (`sharding.shard_params`); training
+  on a ``model`` axis above 1 is not ported yet (ROADMAP.md §1), and the
+  trainer refuses it.
 
 `mesh_sizes` is the size arithmetic alone (``-1`` infers an axis from the
 device count, with the JAX package's errors), so it runs without a process
@@ -30,8 +32,9 @@ import torch.distributed as dist
 AXES = ("data", "fsdp", "model")
 
 TENSOR_PARALLEL_REFUSED = (
-    "tensor parallelism (the mesh's model axis) is not ported yet "
-    "(ROADMAP.md §1, next: the model axis in training and serving)")
+    "training with tensor parallelism (the mesh's model axis) is not "
+    "ported yet (ROADMAP.md §1, next: the model axis in training); "
+    "serving takes it (--tensor-parallel N under torchrun)")
 
 
 def mesh_sizes(data: int = -1, fsdp: int = 1, model: int = 1,
@@ -59,9 +62,9 @@ def create_mesh(data: int = -1, fsdp: int = 1, model: int = 1,
                 device_type: str = "cuda"):
     """A (data, fsdp, model) `DeviceMesh` over every rank of the default
     process group (`distributed.initialize` first), rank r at position
-    ``divmod`` of r, ``data`` outermost.  Refused: a mesh that leaves
-    ranks out (each process is one device and must hold a slice) and
-    ``model`` above 1."""
+    ``divmod`` of r, ``data`` outermost, ``model`` innermost.  Refused: a
+    mesh that leaves ranks out (each process is one device and must hold
+    a slice)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not dist.is_initialized():
@@ -69,9 +72,6 @@ def create_mesh(data: int = -1, fsdp: int = 1, model: int = 1,
                            "first (or launch under torchrun)")
     world = dist.get_world_size()
     sizes = mesh_sizes(data, fsdp, model, world)
-    if sizes[2] != 1:
-        raise NotImplementedError(f"mesh {list(sizes)}: "
-                                  f"{TENSOR_PARALLEL_REFUSED}")
     if math.prod(sizes) != world:
         raise ValueError(f"mesh {list(sizes)} uses {math.prod(sizes)} of "
                          f"the {world} processes; every process must be "
@@ -80,9 +80,33 @@ def create_mesh(data: int = -1, fsdp: int = 1, model: int = 1,
                       mesh_dim_names=AXES)
 
 
+def serving_mesh(tensor_parallel: int, device, entry: str):
+    """The (1, 1, N) mesh of ``--tensor-parallel N`` (JAX's worker and
+    batch_infer build the same, model_worker.py:1000-1009), over the
+    process group torchrun's environment describes (`distributed.
+    initialize`: NCCL on the card, gloo on the CPU); None for N = 1.  An N
+    that is not the torchrun world is refused, with the command line that
+    runs it."""
+    from valley_tpu_torch.parallel import distributed
+
+    n = int(tensor_parallel or 1)
+    if n <= 1:
+        return None
+    device = torch.device(device or "cuda")
+    distributed.initialize(device=device)
+    world = distributed.process_count()
+    if world != n:
+        raise ValueError(
+            f"--tensor-parallel {n} runs one process a rank, and this "
+            f"process is one of {world}: launch it as `torchrun "
+            f"--nproc_per_node {n} -m {entry} --tensor-parallel {n} ...`")
+    return create_mesh(1, 1, n, device_type=device.type)
+
+
 def local_mesh(fsdp: Optional[int] = None, model: int = 1,
                device_type: str = "cuda"):
-    """Every rank on ``fsdp`` (ZeRO-3), as the JAX ``local_mesh``."""
+    """Every rank on ``fsdp`` (ZeRO-3) beside ``model``, as the JAX
+    ``local_mesh``."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if fsdp is None:
         fsdp = world // model

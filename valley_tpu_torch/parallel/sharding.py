@@ -47,6 +47,8 @@ import torch
 import torch.distributed as dist
 
 from valley_tpu_torch.models.llama import QUANTIZED
+from valley_tpu_torch.parallel.tensor import TensorParallel
+from valley_tpu_torch.parallel.tensor import plan as tensor_plan
 
 # The fsdp axis of each decoder layer weight (L, out, in): the in axis of
 # q/k/v/gate/up (fused or not), the out axis of o and down, which contract
@@ -56,6 +58,50 @@ _LLAMA_LAYER = {"wqkv": 2, "w_gateup": 2, "wq": 2, "wk": 2, "wv": 2,
 # ... and of each tower layer weight (L, in, out) (sharding.py:72-83)
 _VISION_LAYER = {"wq": 1, "wk": 1, "wv": 1, "fc1": 1, "wo": 2, "fc2": 2}
 _SCALES = ("_scale_a8", "_scale")
+
+
+# The model axis of each decoder layer weight (L, out, in)
+# (sharding.py:18-38): the out axis of the column-parallel q/k/v/gate/up
+# (fused or not), the in axis of the row-parallel o and down
+_LLAMA_MODEL = {"wqkv": 1, "w_gateup": 1, "wq": 1, "wk": 1, "wv": 1,
+                "w_gate": 1, "w_up": 1, "wo": 2, "w_down": 2}
+_ROW_PARALLEL = ("wo", "w_down")
+
+
+def model_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
+    """The axis of parameter ``name`` that the ``model`` axis splits, in
+    the port's layout; None for a leaf every rank holds whole.  JAX's
+    rules (sharding.py:18-75), translated, with two differences of
+    arithmetic, not of layout:
+
+    * a row-parallel projection's scales: each rank rescales its partial
+      sum before the sum over the group, so a per-channel scale (L, out)
+      stays whole and a grouped one (L, out, in/gs) splits with the in
+      axis (axis 2), where JAX puts both on their out axis and XLA
+      reshards;
+    * the tower, the projector and the temporal module stay whole on
+      every rank (ROADMAP.md §3), where JAX splits them too.
+
+    The quantized ``lm_head`` is stored (out, in) here, (in, out) in JAX:
+    its vocabulary axis is 0."""
+    top, *mid, leaf = name.split(".")
+    if top != "llama":
+        return None
+    if not mid:
+        if leaf == "embed":
+            return 0              # (V, H)
+        if leaf == "lm_head":
+            return 0 if tensor.dtype in QUANTIZED else 1
+        return 1 if leaf == "lm_head_scale" else None    # (1, V)
+    if leaf.endswith("_lora_b"):
+        return 2                  # (L, r, out)
+    for suffix in _SCALES:
+        base = leaf[:-len(suffix)]
+        if leaf.endswith(suffix) and base in _LLAMA_MODEL:
+            if base not in _ROW_PARALLEL:
+                return 1
+            return 2 if tensor.dim() == 3 else None
+    return _LLAMA_MODEL.get(leaf)
 
 
 def fsdp_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
@@ -199,18 +245,108 @@ class LayerReads:
 _STACKS = ("llama.layers", "vision.layers")
 
 
-def shard_params(mesh, params):
-    """Cut the full tree ``params`` in place to this rank's slices over the
-    mesh's fsdp axis (`fsdp_axis`), and make its reads gather them.  Every
-    parameter keeps its `nn.Parameter` (and so its ``requires_grad``); the
-    slices are contiguous.  Returns ``params``.  An axis that the fsdp
-    size does not divide is refused."""
+def model_size(mesh) -> int:
+    return _size(mesh, "model")
+
+
+def _model_spans(leaf: str, tp: TensorParallel, cfg) -> tuple:
+    """(the length of ``leaf``'s model axis in inputs or outputs, this
+    rank's [start, stop) spans of it, in order): its own heads, the kv
+    heads they read, MLP columns or vocabulary rows.  A fused stack takes its q, k and v heads (its gate and up
+    columns) re-fused, not a contiguous slice of the fused axis."""
+    d = cfg.head_dim
+    q0, q1 = tp.head_start * d, (tp.head_start + tp.heads) * d
+    hq, hkv = cfg.num_attention_heads * d, cfg.kv_heads * d
+    k0 = tp.kv_start * d
+    k1 = k0 + tp.kv_heads * d
+    f, f0 = cfg.intermediate_size, tp.rank * tp.ffn
+    v0 = tp.vocab_start
+    return {
+        "wq": (hq, ((q0, q1),)), "wo": (hq, ((q0, q1),)),
+        "wk": (hkv, ((k0, k1),)), "wv": (hkv, ((k0, k1),)),
+        "wqkv": (hq + 2 * hkv, ((q0, q1), (hq + k0, hq + k1),
+                                (hq + hkv + k0, hq + hkv + k1))),
+        "w_gate": (f, ((f0, f0 + tp.ffn),)), "w_up": (f, ((f0, f0 + tp.ffn),)),
+        "w_down": (f, ((f0, f0 + tp.ffn),)),
+        "w_gateup": (2 * f, ((f0, f0 + tp.ffn), (f + f0, f + f0 + tp.ffn))),
+        "vocab": (cfg.vocab_size, ((v0, v0 + tp.vocab),)),
+    }[leaf]
+
+
+def _model_cut(name: str, t: torch.Tensor, axis: int, tp: TensorParallel,
+               cfg) -> torch.Tensor:
+    """This rank's part of ``t`` along its model ``axis``: the spans of
+    `_model_spans` in units of ``t``'s axis (a packed int4 axis holds two
+    inputs an entry, a grouped scale's one group), each of which must
+    start and end on such a unit: a shard that would split a byte of
+    nibbles or a scale group is refused, with the reason."""
+    top, *mid, leaf = name.split(".")
+    base = leaf
+    for suffix in _SCALES:
+        if leaf.endswith(suffix) and leaf[:-len(suffix)] in _LLAMA_MODEL:
+            base = leaf[:-len(suffix)]
+    if not mid:
+        base = "vocab"
+    length, spans = _model_spans(base, tp, cfg)
+    unit = length // t.shape[axis]
+    if unit * t.shape[axis] != length:
+        raise ValueError(f"{name} {tuple(t.shape)}: axis {axis} is not "
+                         f"{length} long in units of whole entries")
+    parts = []
+    for a, b in spans:
+        if a % unit or b % unit:
+            what = "a scale group" if leaf != base else "a byte of nibbles"
+            raise ValueError(
+                f"{name}: tensor parallelism over {tp.size} ranks would cut "
+                f"{what} (this rank's inputs [{a}, {b}) of {length}, "
+                f"{unit} to an entry); serve with a --tensor-parallel that "
+                "splits on whole groups")
+        parts.append(t.narrow(axis, a // unit, (b - a) // unit))
+    return torch.cat(parts, dim=axis) if len(parts) > 1 else parts[0]
+
+
+def _cut_model_axis(mesh, params, cfg) -> TensorParallel:
+    """Cut every decoder leaf with a `model_axis` in place to this rank's
+    part; LoRA leaves are refused (merge them first)."""
+    tp = tensor_plan(cfg, model_size(mesh), mesh.get_local_rank("model"),
+                     mesh.get_group("model"))
+    for prefix, module in params.named_modules():
+        if not prefix.startswith("llama"):
+            continue
+        for name, p in module.named_parameters(recurse=False):
+            dotted = f"{prefix}.{name}"
+            if name.endswith(("_lora_a", "_lora_b")) or name == "lora_scale":
+                raise NotImplementedError(
+                    f"{dotted}: LoRA adapters are not served tensor-parallel;"
+                    " merge them first (--lora-path merges before the cut)")
+            axis = model_axis(dotted, p)
+            if axis is not None:
+                p.data = _model_cut(dotted, p.data, axis, tp, cfg).clone(
+                    memory_format=torch.contiguous_format)
+    params.llama.tp = tp
+    return tp
+
+
+def shard_params(mesh, params, cfg=None, serving: bool = False):
+    """Cut the full tree ``params`` in place to this rank's slices: over
+    the mesh's model axis (`model_axis`, a `TextConfig` ``cfg`` needed;
+    the decoder then carries its `TensorParallel` as ``params.llama.tp``),
+    then over its fsdp axis (`fsdp_axis`), and make its reads gather the
+    fsdp slices.  Every parameter keeps its `nn.Parameter` (and so its
+    ``requires_grad``); the slices are contiguous.  Returns ``params``.
+    An axis that the fsdp size does not divide is refused.  ``serving``:
+    no gradient will flow, so a mesh without fsdp slices installs no reads
+    (they would copy every weight at every read)."""
     if sharding_of(params) is not None:
         raise ValueError("these weights are sharded already")
+    if model_size(mesh) > 1:
+        if cfg is None:
+            raise ValueError("a model axis above 1 needs the TextConfig")
+        _cut_model_axis(mesh, params, cfg)
     n, r = fsdp_size(mesh), mesh.get_local_rank("fsdp")
     axes: Dict[str, int] = {}
     for prefix, module in params.named_modules():
-        if not hasattr(module, "reads"):
+        if not hasattr(module, "reads") or (serving and n == 1):
             continue
         reads = {}
         for name, p in module.named_parameters(recurse=False):

@@ -29,6 +29,14 @@ the pool's own threads take it around prefills and captures.  Up to
 through `SpecDecoder`.  A pool (``--batch-window-ms`` < 0) speculates only
 when ``--speculative`` is given explicitly: on the card a speculative
 pool's round costs more than its drafts can repay (ROADMAP §1).
+
+``--tensor-parallel N`` serves the weights cut over N ranks, one process a
+card under ``torchrun --nproc_per_node N``: every rank loads the engine
+on its (1, 1, N) mesh; rank 0 serves HTTP and registers with the
+controller, and the other ranks follow its calls on the engine-side
+objects (`parallel.lockstep`): the worker makes every such object through
+`lockstep.make` and holds the engine through a proxy, so each call it
+makes reaches every rank in one order.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ from valley_tpu_torch.constants import (DEFAULT_IM_END_TOKEN,
                                         DEFAULT_VIDEO_FRAME_TOKEN,
                                         DEFAULT_VIDEO_TOKEN,
                                         WORKER_HEART_BEAT_INTERVAL)
-from valley_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSED
+from valley_tpu_torch.parallel.lockstep import make
 from valley_tpu_torch.serve import hbm
 from valley_tpu_torch.serve.httpd import JsonHttpServer, post_json
 from valley_tpu_torch.utils.logging import server_error_msg
@@ -122,10 +130,11 @@ class ModelWorker:
             from valley_tpu_torch.inference.continuous import \
                 ContinuousEngine
 
-            self.continuous = ContinuousEngine(
-                engine, rows=max_batch, admit_batch=admit_batch,
+            self.continuous = make(
+                ContinuousEngine, engine, rows=max_batch,
+                admit_batch=admit_batch,
                 speculative=speculative if speculative_pool is None
-                else speculative_pool)
+                else speculative_pool, proxy=False)
             # the pool's threads take this lock around every prefill and
             # capture; the worker's own engine work takes it too
             self._engine_lock = self.continuous._prefill_lock
@@ -154,7 +163,7 @@ class ModelWorker:
         if speculative and self.continuous is None and self.batcher is None:
             from valley_tpu_torch.inference.speculative import SpecDecoder
 
-            self.spec_decoder = SpecDecoder(engine)
+            self.spec_decoder = make(SpecDecoder, engine)
         # --hbm-budget: one accountant over everything resident on the card
         # (serve/hbm.py).  None = the card's memory less headroom (off
         # without a card); <= 0 = off
@@ -271,8 +280,8 @@ class ModelWorker:
                                   np.uint8 if self.raw_pixels
                                   else np.float32)
                 with self._engine_lock, torch.inference_mode():
-                    pc = PrefixCache(eng, [1] + span, images,
-                                     extra_slots=_PREFIX_SPAWN_EXTRA)
+                    pc = make(PrefixCache, eng, [1] + span, images,
+                              extra_slots=_PREFIX_SPAWN_EXTRA)
                     for gen in gens:
                         sess = pc.spawn(gen=gen,
                                         speculative=self._speculative)
@@ -295,7 +304,7 @@ class ModelWorker:
         if self.max_sessions > 0:
             with self._engine_lock, torch.inference_mode():
                 for gen in gens:
-                    sess = ChatSession(eng, gen, extra_slots=512)
+                    sess = make(ChatSession, eng, gen, extra_slots=512)
                     sess.chat([5, 6], tokenizer=self.tokenizer,
                               eos_ids=[-1])
                     sess.chat([7, 8], tokenizer=self.tokenizer,
@@ -313,8 +322,8 @@ class ModelWorker:
                     gen = GenerationConfig(max_new_tokens=48,
                                            do_sample=g.do_sample,
                                            temperature=g.temperature)
-                    sess = SpecChatSession(eng, gen, extra_slots=512,
-                                           spec=sp)
+                    sess = make(SpecChatSession, eng, gen, extra_slots=512,
+                                spec=sp)
                     sess.chat([5, 6], tokenizer=self.tokenizer,
                               eos_ids=[-1])
             logger.info("warmed adaptive session fallback")
@@ -323,9 +332,13 @@ class ModelWorker:
             # request's max_new_tokens), the probe and steady rounds
             # (adaptive off, so high acceptance cannot skip the steady ones)
             # and the plain fallback (forced), in both sampling modes
+            # (the settings replaced whole, so that a tensor-parallel
+            # worker's followers take them too)
+            import dataclasses
+
             sd = self.spec_decoder
-            saved = (sd.spec.adaptive, sd.spec.disable_below)
-            budget = 4 * (sd.spec.draft_len + 1) + 8
+            saved = sd.spec
+            budget = 4 * (saved.draft_len + 1) + 8
             lows = (0,) + tuple(eng.buckets[:-1])
             try:
                 with self._engine_lock:
@@ -335,17 +348,15 @@ class ModelWorker:
                             g = GenerationConfig(max_new_tokens=budget,
                                                  do_sample=do_sample,
                                                  temperature=temp)
-                            sd.spec.adaptive = False
-                            for _ in sd.generate_tokens(prompt, gen=g,
-                                                        eos_ids=[-1]):
-                                pass
-                            sd.spec.adaptive, sd.spec.disable_below = \
-                                True, 10.0
-                            for _ in sd.generate_tokens(prompt, gen=g,
-                                                        eos_ids=[-1]):
-                                pass
+                            for over in (dict(adaptive=False),
+                                         dict(adaptive=True,
+                                              disable_below=10.0)):
+                                sd.spec = dataclasses.replace(saved, **over)
+                                for _ in sd.generate_tokens(prompt, gen=g,
+                                                            eos_ids=[-1]):
+                                    pass
             finally:
-                sd.spec.adaptive, sd.spec.disable_below = saved
+                sd.spec = saved
             logger.info("warmed stateless speculative paths")
         return _capture_delta(self, before)
 
@@ -614,6 +625,7 @@ class ModelWorker:
                 SpecChatSession as ChatSession
         else:
             from valley_tpu_torch.inference.engine import ChatSession
+        from valley_tpu_torch.inference.engine import CacheExhausted
 
         with self._session_lock:
             entry = self._sessions.pop(session_id, None)
@@ -629,7 +641,7 @@ class ModelWorker:
         extra = -(-(2 * gen.max_new_tokens + 256) // 512) * 512
 
         def new_session():
-            sess = ChatSession(self.engine, gen, extra_slots=extra)
+            sess = make(ChatSession, self.engine, gen, extra_slots=extra)
             if self.hbm is not None and not self.hbm.reserve(
                     f"session:{session_id}", "sessions",
                     hbm.session_cache_bytes(self.engine, extra,
@@ -668,7 +680,7 @@ class ModelWorker:
                                              tokenizer=self.tokenizer,
                                              eos_ids=[eos_id],
                                              on_token=stream_q.put)
-                    except RuntimeError as e:  # cache exhausted: fresh
+                    except CacheExhausted as e:   # a fresh session
                         logger.info("session %s reset: %s", session_id, e)
                         fresh = new_session()
                         reply = fresh.chat(list(input_ids), images=images,
@@ -803,8 +815,8 @@ class ModelWorker:
                 logger.info("hbm: budget short, skipping prefix cache")
                 return None
             with self._engine_lock, torch.inference_mode():
-                pc = PrefixCache(self.engine, prefix_ids, images,
-                                 extra_slots=_PREFIX_SPAWN_EXTRA)
+                pc = make(PrefixCache, self.engine, prefix_ids, images,
+                          extra_slots=_PREFIX_SPAWN_EXTRA)
             with self._prefix_lock:
                 if len(self._prefix_caches) >= self.prefix_cache_size:
                     evicted = next(iter(self._prefix_caches))
@@ -940,13 +952,18 @@ def load_engine(args):
     worker's flags (`run_valley.load_model`; ``--lora-path`` merges an
     adapter into a checkpoint's bf16 weights before fusing and quantizing,
     with no quantize-on-load; ``--quantize-vision int8|int8a8`` quantizes
-    the tower after the decoder).  Refused, with its ROADMAP item:
-    ``--tensor-parallel`` above 1."""
+    the tower after the decoder; ``--tensor-parallel N`` cuts the weights
+    over the (1, 1, N) mesh of a torchrun world of N, this rank's share on
+    its own device: `mesh.serving_mesh`)."""
     from valley_tpu_torch.inference.run_valley import load_model
-    if int(getattr(args, "tensor_parallel", 1) or 1) > 1:
-        raise NotImplementedError(
-            f"--tensor-parallel above 1: {TENSOR_PARALLEL_REFUSED}; the port "
-            "serves from one card")
+    from valley_tpu_torch.parallel import distributed
+    from valley_tpu_torch.parallel.mesh import serving_mesh
+
+    device = getattr(args, "device", None)
+    mesh = serving_mesh(getattr(args, "tensor_parallel", 1), device,
+                        "valley_tpu_torch.serve.model_worker")
+    if mesh is not None:
+        device = distributed.device_for(device or "cuda")
     fb = (getattr(args, "frame_buckets", "") or "").strip()
     fbt = tuple(int(b) for b in fb.split(",")) \
         if fb and fb.lower() != "off" else None
@@ -957,7 +974,7 @@ def load_engine(args):
     ramp = () if not ramp or ramp.lower() == "off" else \
         tuple(int(s) for s in ramp.split(","))
     return load_model(
-        args.model_path, getattr(args, "device", None),
+        args.model_path, device,
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         max_new_tokens=args.max_new_tokens,
         quantize=getattr(args, "quantize", None),
@@ -968,7 +985,7 @@ def load_engine(args):
         raw_media=bool(getattr(args, "raw_pixels", True)),
         vision_tower=getattr(args, "vision_tower", None),
         lora_path=getattr(args, "lora_path", None),
-        quantize_vision=getattr(args, "quantize_vision", None))
+        quantize_vision=getattr(args, "quantize_vision", None), mesh=mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -1081,11 +1098,37 @@ def make_worker(args, engine, tokenizer) -> ModelWorker:
                        speculative_pool=args.speculative is True)
 
 
+def lockstep_engine(engine, tokenizer):
+    """The engine as the worker drives it: itself on one device; on a mesh
+    (`load_engine` under torchrun), the lead's proxy of it
+    (`parallel.lockstep`), every rank having registered the engine and the
+    tokenizer in that order.  A follower rank follows the lead's calls
+    here until the lead stops, then returns None."""
+    if engine.mesh is None:
+        return engine
+    from valley_tpu_torch.parallel import lockstep
+
+    ls = lockstep.Lockstep()
+    ref = ls.register(engine)
+    ls.register(tokenizer)
+    if ls.lead:
+        return lockstep.Proxy(ls, engine, ref)
+    ls.follow()
+    return None
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
 
     engine, tokenizer = load_engine(args)
+    engine = lockstep_engine(engine, tokenizer)
+    if engine is None:
+        # a follower rank: the lead stopped it
+        from valley_tpu_torch.parallel import distributed
+
+        distributed.shutdown()
+        return
     # stateless requests decode by SpecDecoder unless --no-speculative or a
     # batcher or pool takes them: engine.warmup's plain decode graphs would
     # then hold their states and never replay (warmup_serving_paths warms

@@ -356,6 +356,9 @@ class Trainer:
         self.cfg = cfg
         self.tc = tc
         check_ported(tc)
+        if mesh is not None and sharding.model_size(mesh) > 1:
+            raise NotImplementedError(f"mesh {tuple(mesh.shape)}: "
+                                      f"{TENSOR_PARALLEL_REFUSED}")
         if mesh is not None and sharding.sharding_of(params) is None:
             sharding.shard_params(mesh, params)
         sh = sharding.sharding_of(params)
