@@ -139,7 +139,7 @@ WORLD2 = [
     {"name": "save", "kind": "save", "updates": 2,
      "over": {"save_steps": 1, "async_checkpointing": True}},
     {"name": "eval", "kind": "eval"},
-    {"name": "refuse", "kind": "refuse"},
+    {"name": "model_mesh", "kind": "model_mesh"},
 ]
 
 
@@ -519,20 +519,25 @@ def test_torchrun_entry_point_at_world_2(corpus, tmp_path):  # noqa: F811
 
 
 def test_tensor_parallel_still_refused(runs):
-    """Training on a model axis is refused, naming ROADMAP §1: mesh_model 2
-    in the trainer's config, and a (1, 1, 2) mesh at world 2 (which
-    create_mesh now makes: serving takes it).  batch_infer's
-    --tensor-parallel 2 outside a torchrun world of 2 is refused with the
-    command line that runs it (its serving: test_torch_tensor_parallel_
-    serve.py)."""
+    """Training on a model axis is no longer refused: mesh_model 2 passes
+    the trainer's check, and the same two ranks as a (1, 1, 2) mesh train
+    one update to world 1's loss (the model axis in training:
+    test_torch_tensor_parallel_train.py); wandb is still refused.
+    batch_infer's --tensor-parallel 2 outside a torchrun world of 2 is
+    refused with the command line that runs it (its serving:
+    test_torch_tensor_parallel_serve.py)."""
     from valley_tpu_torch.parallel.mesh import serving_mesh
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
-        check_ported(TrainConfig(mesh_model=2))
+    check_ported(TrainConfig(mesh_model=2))
+    with pytest.raises(NotImplementedError, match="wandb"):
+        check_ported(TrainConfig(mesh_model=2, report_to="wandb"))
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2 -m "
                        "valley_tpu_torch.inference.batch_infer"):
         serving_mesh(2, "cpu", "valley_tpu_torch.inference.batch_infer")
-    assert "ROADMAP.md §1" in runs[2]["refuse"]["message"]
-    assert runs[2]["refuse"]["model_mesh"] == (1, 1, 2)
+    got = runs[2]["model_mesh"]
+    assert got["model_mesh"] == (1, 1, 2)
+    np.testing.assert_allclose(_losses(got["records"]),
+                               _losses(runs["local"]["base"]["records"])[:1],
+                               rtol=LOSS_RTOL)
     # and the default mesh puts every rank on fsdp, as JAX's local_mesh
-    assert runs[2]["refuse"]["local_mesh"] == (1, 2, 1)
+    assert got["local_mesh"] == (1, 2, 1)

@@ -44,7 +44,7 @@ from valley_tpu.serve.model_worker import ModelWorker as JWorker
 from valley_tpu.tokenizer import ByteFallbackTokenizer
 from valley_tpu_torch import config as TC
 from valley_tpu_torch.parallel import tensor
-from valley_tpu_torch.parallel.sharding import model_axis
+from valley_tpu_torch.parallel.sharding import model_axis, partial_over_model
 from valley_tpu_torch.serve import model_worker as worker_mod
 from valley_tpu_torch.weights import from_jax_params
 
@@ -238,8 +238,10 @@ def _model_position(spec):
     return None
 
 
-# the port's two deliberate differences from JAX's table (model_axis)
+# the port's deliberate differences from JAX's table (model_axis)
 ROW_SCALES = ("wo_scale", "w_down_scale", "wo_scale_a8", "w_down_scale_a8")
+ROW_LORA = {"wo_lora_a": 1, "w_down_lora_a": 1, "wo_lora_b": None,
+            "w_down_lora_b": None}
 
 
 def test_model_rule_table_matches_jax_param_specs():
@@ -247,8 +249,11 @@ def test_model_rule_table_matches_jax_param_specs():
     the axis JAX's param_specs puts there, in the port's layout (the
     quantized lm_head transposed), except where its arithmetic differs:
     a row-parallel projection's per-channel scales stay whole and its
-    grouped ones split with the in axis, and the tower, projector and
-    temporal leaves stay whole (ROADMAP.md §3)."""
+    grouped ones split with the in axis; a row-parallel adapter's A splits
+    on its in axis and its B stays whole, where JAX keeps A whole and
+    splits B's out axis; and the tower, projector and temporal leaves stay
+    whole (ROADMAP.md §3).  The LoRA factors that stay whole are the ones
+    whose ranks' gradients are parts of a sum (`partial_over_model`)."""
     jparams = jvalley.init_params(C.valley_tiny(), jax.random.key(0),
                                   jnp.float32)
     for kind, tree in _jax_trees(jparams).items():
@@ -267,10 +272,16 @@ def test_model_rule_table_matches_jax_param_specs():
             elif leaf in ROW_SCALES:
                 assert want == 1, (kind, name)
                 want = 2 if p.dim() == 3 else None
+            elif leaf in ROW_LORA:
+                assert want == (None if leaf.endswith("_a") else 2), \
+                    (kind, name)
+                want = ROW_LORA[leaf]
             elif want is not None and name == "llama.lm_head" \
                     and p.dtype in (torch.int8, torch.uint8):
                 want = 1 - want      # JAX (in, out), the port (out, in)
             assert model_axis(name, p) == want, (kind, name, specs[name])
+            assert partial_over_model(name) == (
+                name.endswith(("_lora_a", "_lora_b")) and want is None), name
             split += want is not None
         assert split >= 6, kind
 

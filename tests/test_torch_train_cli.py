@@ -184,13 +184,19 @@ def test_cli_stage1_then_stage2_on_cpu(corpus):
 
 
 def test_cli_refuses_what_is_not_ported(corpus, tmp_path):
+    """wandb is refused; ``mesh_model: 2`` is ported (under torchrun:
+    test_torch_tensor_parallel_train_cli.py), and one process refuses it
+    as JAX's create_mesh refuses a mesh larger than its devices."""
     from valley_tpu_torch.train.train import train
 
-    for key, value in (("mesh_model", 2), ("report_to", "wandb")):
-        conf = _conf(corpus, f"refuse_{key}",
-                     output_dir=str(tmp_path / key), **{key: value})
-        with pytest.raises(NotImplementedError):
-            train(conf, "cpu")
+    conf = _conf(corpus, "refuse_report_to",
+                 output_dir=str(tmp_path / "report_to"), report_to="wandb")
+    with pytest.raises(NotImplementedError, match="wandb"):
+        train(conf, "cpu")
+    conf = _conf(corpus, "refuse_mesh_model",
+                 output_dir=str(tmp_path / "mesh_model"), mesh_model=2)
+    with pytest.raises(ValueError, match="1 devices not divisible by 2"):
+        train(conf, "cpu")
     with pytest.raises(ValueError, match="dropout_rng_impl"):
         train(_conf(corpus, "refuse_rng", output_dir=str(tmp_path / "r"),
                     lora=True, dropout_rng_impl="philox"), "cpu")

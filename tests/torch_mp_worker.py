@@ -1,7 +1,9 @@
 """One rank of a CPU gloo process group training the PyTorch port on a
-(data, fsdp) mesh (tests/test_torch_parallel.py), or serving it on a
-(data, fsdp, model) mesh (tests/test_torch_tensor_parallel.py: a job with
-``"mesh"``, whose scenarios `serve_run` runs).
+(data, fsdp) mesh (tests/test_torch_parallel.py) or on a (data, fsdp,
+model) mesh (tests/test_torch_tensor_parallel_train.py: a job with
+``"train_mesh"``), or serving it on a (data, fsdp, model) mesh
+(tests/test_torch_tensor_parallel.py: a job with ``"mesh"``, whose
+scenarios `serve_run` runs).
 
 Run: python torch_mp_worker.py <rank> <world> <data> <store> <job.pkl>
 (world 0: one process with no process group)
@@ -69,9 +71,10 @@ def weights(state):
 
 
 def train(state, batches, out_dir, mesh, total_steps=None, resume=False,
-          eval_fn=None, **over):
+          eval_fn=None, before=None, **over):
     """A `Trainer` over ``batches`` (this rank's rows); returns (the
-    metrics lines of rank 0, the full tree after training, trainer)."""
+    metrics lines of rank 0, the full tree after training, trainer).
+    ``before(trainer)`` runs before the training does."""
     params = weights(state)
     tc = TrainConfig(output_dir=out_dir, **dict(COMMON, **over))
     loader = RankRows(batches, rows_of(mesh, len(batches[0]["input_ids"])))
@@ -79,27 +82,36 @@ def train(state, batches, out_dir, mesh, total_steps=None, resume=False,
                       total_steps=total_steps, eval_fn=eval_fn, mesh=mesh)
     records = []
     trainer.log = records.append
+    if before is not None:
+        before(trainer)
     trainer.train(resume=resume)
     return records, full_state(params), trainer
 
 
-def grads_of(state, batch, mesh, names, out_dir):
-    """The loss, the grad norm and the full gradients of ``names`` of one
-    batch (this rank's rows) through `Trainer.loss_and_grads`."""
-    params = weights(state)
+def first_grads(trainer, batch, mesh, names=None) -> dict:
+    """The loss, the grad norm and the full gradients of ``names`` (None:
+    every trainable parameter) of one batch (this rank's rows) through
+    `Trainer.loss_and_grads`, and this rank's own gradients of the
+    projector (on a mesh: every rank's, with its block of the batch)."""
     rows = rows_of(mesh, len(batch["input_ids"]))
-    trainer = Trainer(valley_tiny(), TrainConfig(output_dir=out_dir,
-                                                 **COMMON),
-                      params, RankRows([batch], rows), mesh=mesh)
     loss, norm, grads = trainer.loss_and_grads(trainer.device_batch(
         {k: v[rows] for k, v in batch.items()}))
-    order = [n for g in trainer.optimizer.param_groups for n in g["names"]]
-    out = {}
-    for n in names:
-        i = order.index(n)
-        out[n] = sharding.full_tensor(grads[i], trainer.fsdp_axes[i], mesh) \
-            if mesh is not None else grads[i]
-    return float(loss), float(norm), out
+    full = trainer.gathered(grads)
+    own = {n: g.clone() for n, g in zip(trainer.names, grads)
+           if n.startswith("projector.")}
+    if mesh is not None:
+        own = _every_rank((sharding.batch_rank(mesh), own))
+    return {"loss": float(loss), "norm": float(norm),
+            "grads": {n: full[n] for n in names or full}, "own": own}
+
+
+def grads_of(state, batch, mesh, names, out_dir, **over):
+    """`first_grads` of a fresh `Trainer` over ``state``."""
+    rows = rows_of(mesh, len(batch["input_ids"]))
+    trainer = Trainer(valley_tiny(), TrainConfig(output_dir=out_dir,
+                                                 **dict(COMMON, **over)),
+                      weights(state), RankRows([batch], rows), mesh=mesh)
+    return first_grads(trainer, batch, mesh, names)
 
 
 def norm_of_replicated(mesh):
@@ -113,23 +125,36 @@ def norm_of_replicated(mesh):
 
 
 def lora_masks(state, batch, mesh, out_dir):
-    """One LoRA step at dropout 0.05 with every mask recorded: [(key,
-    mask)] in call order (forward, then the recompute)."""
+    """One LoRA step at dropout 0.05 with every mask an adapter applied
+    recorded: [(key, mask)] in call order (forward, then the recompute;
+    a row-parallel adapter's mask is the rank's columns)."""
     calls = []
-    draw = llama.dropout_mask
+    draw = llama._adapter_mask
 
-    def recording(key, shape, keep, device):
-        m = draw(key, shape, keep, device)
+    def recording(key, x, keep, row=None):
+        m = draw(key, x, keep, row)
         calls.append((key, m.clone()))
         return m
 
-    llama.dropout_mask = recording
+    llama._adapter_mask = recording
     try:
         train(state, [batch], out_dir, mesh, lora=True, lora_dropout=0.05,
               freeze_backbone=True)
     finally:
-        llama.dropout_mask = draw
+        llama._adapter_mask = draw
     return calls
+
+
+def wait_for(path: str, timeout: float = 240.0) -> None:
+    """Wait until ``path`` exists (a world that another world's save
+    feeds)."""
+    import os
+
+    end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > end:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
 
 
 def run(job, rank, mesh):
@@ -142,24 +167,31 @@ def run(job, rank, mesh):
         state = job["weights"][sc.get("weights", "base")]
         work = f"{out}/{name}_rank{rank}"
         if kind == "train":
-            recs, tree, _ = train(state, batches, work, mesh,
-                                  **sc.get("over", {}))
-            res = {"records": recs, "tree": tree}
+            # with "grads": the first batch's gradients before the updates
+            first = {}
+            recs, tree, _ = train(
+                state, batches, work, mesh, before=sc.get("grads") and (
+                    lambda t: first.update(first_grads(t, batches[0], mesh))),
+                **sc.get("over", {}))
+            res = {"records": recs, "tree": tree, **first}
         elif kind == "save":
             recs, _, _ = train(state, batches[:sc["updates"]], work, mesh,
                                total_steps=len(batches), **sc.get("over", {}))
             res = {"records": recs}
+            if rank == 0:
+                # the checkpoints are whole: a world may resume from them
+                open(f"{work}.done", "w").close()
         elif kind == "resume":
             if rank == 0:
+                wait_for(f"{sc['from']}.done")
                 shutil.copytree(sc["from"], work)
             distributed.barrier()
             recs, tree, _ = train(state, batches, f"{out}/{name}_rank0",
                                   mesh, resume=True, **sc.get("over", {}))
             res = {"records": recs, "tree": tree}
         elif kind == "grads":
-            res = dict(zip(("loss", "norm", "grads"),
-                           grads_of(state, batches[0], mesh, sc["names"],
-                                    work)))
+            res = grads_of(state, batches[0], mesh, sc.get("names"), work,
+                           **sc.get("over", {}))
         elif kind == "norm":
             res = {"norm": norm_of_replicated(mesh)}
         elif kind == "eval":
@@ -175,21 +207,16 @@ def run(job, rank, mesh):
             every = [None] * distributed.process_count()
             torch.distributed.all_gather_object(every, seen)
             res = {"records": recs, "seen": every}
-        elif kind == "refuse":
-            # serving takes a model axis; the trainer refuses it
+        elif kind == "model_mesh":
+            # the same ranks as a (1, 1, 2) mesh: one update
             tp_mesh = create_mesh(1, 1, 2, device_type="cpu")
-            try:
-                train(state, batches, work, tp_mesh)
-            except NotImplementedError as e:
-                res = {"message": str(e), "model_mesh": tuple(tp_mesh.shape),
-                       "local_mesh": tuple(local_mesh(device_type="cpu")
-                                           .shape)}
+            recs, _, _ = train(state, batches[:1], work, tp_mesh)
+            res = {"records": recs, "model_mesh": tuple(tp_mesh.shape),
+                   "local_mesh": tuple(local_mesh(device_type="cpu").shape)}
         elif kind == "masks":
             calls = lora_masks(state, batches[0], mesh, work)
             # every rank's masks reach rank 0
-            gathered = [None] * distributed.process_count()
-            torch.distributed.all_gather_object(gathered, calls)
-            res = {"calls": gathered}
+            res = {"calls": [calls] if mesh is None else _every_rank(calls)}
         else:
             raise ValueError(kind)
         results[name] = {**res, "seconds": time.perf_counter() - t0}
@@ -429,8 +456,8 @@ def main():
     mesh = None
     if world:
         distributed.initialize(f"file://{store}", world, rank, device="cpu")
-        mesh = create_mesh(*job.get("mesh", (data, world // data, 1)),
-                           device_type="cpu")
+        mesh = create_mesh(*job.get("mesh", job.get(
+            "train_mesh", (data, world // data, 1))), device_type="cpu")
     torch.manual_seed(0)
     np.random.seed(0)
     results = (serve_run if "mesh" in job else run)(job, rank, mesh)

@@ -39,6 +39,7 @@ import torch
 
 from valley_tpu_torch.models import llama
 from valley_tpu_torch.ops import _build
+from valley_tpu_torch.parallel import distributed
 
 
 def _per_row(value, rows: int, device) -> torch.Tensor:
@@ -324,6 +325,9 @@ class DecodeGraphs:
             if collecting:
                 gc.enable()
         torch.cuda.current_stream(s.token.device).synchronize()
+        # a graph over a mesh may hold NCCL's communicator: the process
+        # group's teardown releases it first
+        distributed.hold_graph(graph)
         entry = _Graph(graph, out, launches)
         self._graphs[(n_steps, do_sample)] = entry
         self.capture_s += time.perf_counter() - t0

@@ -11,7 +11,9 @@ rotary and softmax run in fp32 exactly where the JAX package runs them.
 
 Ported: the cacheless forward (training, with per-layer
 rematerialisation, full or ``"dots"``, as an option, and LoRA adapters
-with their training-time dropout), bucketed prefill at ``cache_index`` 0 and
+with their training-time dropout; on a tree cut over a ``model`` axis, on
+the rank's heads and MLP columns with Megatron's collectives,
+`parallel.tensor`), bucketed prefill at ``cache_index`` 0 and
 single-token decode over the stacked cache, for any number of rows B, with
 one slot for every row or a slot per row (continuous batching: rows that
 joined at different times write at their own slots); the fused serving
@@ -378,6 +380,19 @@ def dropout_mask(key: int, shape, keep: float, device) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=device) < keep
 
 
+def _adapter_mask(key: int, x: torch.Tensor, keep: float,
+                  row: Optional[TensorParallel] = None) -> torch.Tensor:
+    """The keep-mask of an adapter's input ``x``: `dropout_mask` of x's
+    shape; for a row-parallel adapter (``row``: its `TensorParallel`)
+    drawn over the one-device inputs and narrowed to the rank's, so that
+    every rank applies its columns of the one-device mask."""
+    if row is None:
+        return dropout_mask(key, x.shape, keep, x.device)
+    start, full = row.in_span(x.shape[-1])
+    return dropout_mask(key, x.shape[:-1] + (full,), keep,
+                        x.device).narrow(-1, start, x.shape[-1])
+
+
 def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
           attention: Attention, lora_key: Optional[int] = None,
           lora_dropout: float = 0.0,
@@ -393,8 +408,10 @@ def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
     ``lora_key`` folded with the projection's id) when a key is given and
     x itself otherwise; the JAX package computes this branch with plain
     XLA products, and so the port with torch's.  ``reduce``: the
-    projection is row-parallel over that `TensorParallel`'s group, and
-    its partial sums are summed over the group before the cast."""
+    projection is row-parallel over that `TensorParallel`'s group (x the
+    rank's inputs, A the rank's rows of it, B whole), and its partial
+    sums, the adapter's added, are summed over the group (`TensorParallel.
+    sum`) before the cast."""
     w = lp[name][li]
     scale = None
     if w.dtype in QUANTIZED:
@@ -405,20 +422,19 @@ def _proj(lp: Mapping, li: int, name: str, x: torch.Tensor,
                 return _w4a8_group_dot(x, w, scale, attention, reduce)
             return _w8a8_dot(x, w, scale, reduce)
     out = _linear(x, w, scale, attention)
-    if reduce is not None:
-        out = reduce.all_reduce(out)
-    out = out.to(x.dtype)
     a = lp.get(name + "_lora_a")
-    if a is None:
-        return out
-    xl = x
-    if lora_key is not None and lora_dropout > 0.0:
-        keep = 1.0 - lora_dropout
-        mask = dropout_mask(fold_in(lora_key, _PROJ_IDS[name]), x.shape,
-                            keep, x.device)
-        xl = torch.where(mask, x / keep, 0).to(x.dtype)
-    delta = (xl @ a[li]) @ lp[name + "_lora_b"][li]
-    return out + delta * lp["lora_scale"][li][0, 0]
+    if a is not None:
+        xl = x
+        if lora_key is not None and lora_dropout > 0.0:
+            keep = 1.0 - lora_dropout
+            mask = _adapter_mask(fold_in(lora_key, _PROJ_IDS[name]), x,
+                                 keep, reduce)
+            xl = torch.where(mask, x / keep, 0).to(x.dtype)
+        delta = (xl @ a[li]) @ lp[name + "_lora_b"][li]
+        out = out.to(x.dtype) + delta * lp["lora_scale"][li][0, 0]
+    if reduce is not None:
+        out = reduce.sum(out)
+    return out.to(x.dtype)
 
 
 def _heads(cfg: TextConfig, tp: Optional[TensorParallel]) -> tuple:
@@ -434,6 +450,8 @@ def _qkv(lp: Mapping, li: int, x: torch.Tensor, cfg: TextConfig, cos,
          **lora):
     b, s, _ = x.shape
     nh, nkv = _heads(cfg, tp)
+    if tp is not None:
+        x = tp.enter(x)
     if "wqkv" in lp:
         # fused serving layout: one product, then the q/k/v column slices
         # (v made contiguous: the kernels take contiguous tensors)
@@ -455,6 +473,8 @@ def _qkv(lp: Mapping, li: int, x: torch.Tensor, cfg: TextConfig, cos,
 
 def _mlp(lp: Mapping, li: int, x: torch.Tensor, attention: Attention,
          tp: Optional[TensorParallel] = None, **lora) -> torch.Tensor:
+    if tp is not None:
+        x = tp.enter(x)
     if "w_gateup" in lp:
         gu = _proj(lp, li, "w_gateup", x, attention, **lora)
         f = gu.shape[-1] // 2
@@ -469,25 +489,29 @@ def _mlp(lp: Mapping, li: int, x: torch.Tensor, attention: Attention,
 
 
 def _attn(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention,
-          **lora):
-    """Cacheless causal self-attention over the block."""
+          tp: Optional[TensorParallel] = None, **lora):
+    """Cacheless causal self-attention over the block (on a tensor-parallel
+    rank: over its heads, with ``wo``'s partial sums summed)."""
     b, s, h = x.shape
-    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention, **lora)
+    q, k, v = _qkv(lp, li, x, cfg, cos, sin, attention, tp, **lora)
     mask = None if attn_mask is None else attn_mask > 0
     out = prefill_attention(q, k, v, mask, causal=True, attention=attention)
-    return _proj(lp, li, "wo", out.reshape(b, s, h), attention, **lora)
+    return _proj(lp, li, "wo", out.reshape(b, s, -1), attention,
+                 reduce=tp, **lora)
 
 
 def _layer(lp, li, x, cfg, cos, sin, attn_mask, attention: Attention,
-           lora_key: Optional[int] = None, lora_dropout: float = 0.0):
+           lora_key: Optional[int] = None, lora_dropout: float = 0.0,
+           tp: Optional[TensorParallel] = None):
     """One cacheless decoder layer (llama.py:526-535); ``lora_key`` is the
-    layer's adapter-dropout key (`_proj`)."""
+    layer's adapter-dropout key (`_proj`); ``tp``: the rank's
+    `TensorParallel` on a tree cut over a ``model`` axis."""
     eps = cfg.rms_norm_eps
     lora = dict(lora_key=lora_key, lora_dropout=lora_dropout)
     x = x + _attn(lp, li, rms_norm(x, lp["attn_norm"][li], eps), cfg, cos,
-                  sin, attn_mask, attention, **lora)
+                  sin, attn_mask, attention, tp, **lora)
     return x + _mlp(lp, li, rms_norm(x, lp["mlp_norm"][li], eps), attention,
-                    **lora)
+                    tp, **lora)
 
 
 def _per_layer(lp: LlamaLayers) -> dict:
@@ -697,9 +721,6 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
         raise ValueError("adapter dropout applies to the cacheless forward "
                          "only")
     tp = tensor_parallel(params)
-    if tp is not None and cache is None:
-        raise NotImplementedError("the cacheless forward (training) does not"
-                                  " run tensor-parallel (ROADMAP.md §1)")
     lp = params["layers"]
     if cache is None and torch.is_grad_enabled():
         lp = _per_layer(lp)
@@ -710,12 +731,12 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
             key = None if lora_rng is None else fold_in(lora_rng, li)
             if policy is not None:
                 x = checkpoint(_layer, lp, li, x, cfg, cos, sin, attn_mask,
-                               attention, key, lora_dropout,
+                               attention, key, lora_dropout, tp,
                                use_reentrant=False,
                                **_checkpoint_kwargs(policy))
             else:
                 x = _layer(lp, li, x, cfg, cos, sin, attn_mask, attention,
-                           key, lora_dropout)
+                           key, lora_dropout, tp)
             continue
         hn = rms_norm(x, lp["attn_norm"][li], eps)
         x = x + _attn_cached(lp, li, hn, cfg, cos, sin, cache, cache_index,
@@ -731,16 +752,21 @@ def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
     ``lm_head`` is stored (in, out), a quantized one ((out, in), packed for
     int4, see ``ops/quant.py``) comes with its (1, vocab) scale.  On a
     tree cut over a ``model`` axis each rank computes its vocabulary's
-    columns and every rank gets all of them
-    (`TensorParallel.gather_vocab`)."""
+    columns (its input through `TensorParallel.enter`) and every rank gets
+    all of them (`TensorParallel.gather_vocab`, before the cast to fp32:
+    a bf16 product's columns move at half the bytes, the same values)."""
+    tp = tensor_parallel(params)
+    if tp is not None:
+        hidden = tp.enter(hidden)
     w = params["lm_head"]
     if w.dtype not in QUANTIZED:
-        out = _linear(hidden, w, None, attention, kf=True).to(torch.float32)
+        out = _linear(hidden, w, None, attention, kf=True)
     else:
         out = _linear(hidden, w, params["lm_head_scale"].reshape(-1),
-                      attention).to(torch.float32)
-    tp = tensor_parallel(params)
-    return out if tp is None else tp.gather_vocab(out)
+                      attention)
+    if tp is not None:
+        out = tp.gather_vocab(out)
+    return out.to(torch.float32)
 
 
 def forward(params: LlamaWeights, cfg: TextConfig,

@@ -14,7 +14,8 @@ from valley_tpu_torch.config import ValleyConfig
 from valley_tpu_torch.constants import IGNORE_INDEX
 from valley_tpu_torch.models import Weights, clip_vit, llama, temporal
 from valley_tpu_torch.ops.attention import KERNELS, Attention
-from valley_tpu_torch.parallel.sharding import batch_sum
+from valley_tpu_torch.parallel.sharding import (batch_group, batch_sum,
+                                                 sharding_of)
 
 
 class Projector(Weights):
@@ -113,6 +114,12 @@ def build_inputs_embeds(params: ValleyWeights, cfg: ValleyConfig,
                         images: Optional[torch.Tensor],
                         frame_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
+    """The token embeddings (vocabulary-parallel on a tree cut over a
+    ``model`` axis, `llama.embed`) with the vision features spliced in.
+    The tower, projector and temporal module run whole on every rank of a
+    ``model`` group; their gradients are the same on each, the spliced
+    features' being the first layer's input gradient, which every rank
+    holds whole (`parallel.tensor`)."""
     embeds = llama.embed(params["llama"], input_ids)
     if images is not None:
         feats = encode_images(params, cfg, images, frame_mask)
@@ -137,16 +144,19 @@ def forward(params: ValleyWeights, cfg: ValleyConfig,
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          global_count: bool = False) -> torch.Tensor:
+                          global_count: bool = False,
+                          group=None) -> torch.Tensor:
     """Mean cross entropy over the shifted targets that are not
     ``IGNORE_INDEX``, from an fp32 log-softmax (valley.py:148-160).
 
     With ``global_count`` the rows are this rank's share of a global batch
-    split over the process group: the local sum is divided by the count of
-    valid targets over every rank, so the ranks' losses (and gradients) sum
-    to the global batch's mean, JAX's loss over its sharded batch.  The
-    mean of per-rank means is another loss wherever ranks hold different
-    numbers of supervised tokens."""
+    split over the batch world (``group``, `sharding.batch_group`; None:
+    the whole process group): the local sum is divided by the count of
+    valid targets over every rank of it, so the ranks' losses (and
+    gradients) sum to the global batch's mean, JAX's loss over its sharded
+    batch.  The ranks of one ``model`` group hold the same rows and count
+    them once.  The mean of per-rank means is another loss wherever ranks
+    hold different numbers of supervised tokens."""
     shift_logits = logits[:, :-1, :]
     shift_labels = labels[:, 1:]
     valid = shift_labels != IGNORE_INDEX
@@ -156,7 +166,7 @@ def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     nll = torch.where(valid, nll, 0.0)
     count = valid.sum()
     if global_count:
-        count = batch_sum(count)
+        count = batch_sum(count, group)
     return nll.sum() / count.clamp_min(1)
 
 
@@ -172,4 +182,6 @@ def loss_fn(params: ValleyWeights, cfg: ValleyConfig, batch, remat=True,
                      batch.get("attention_mask"), batch.get("frame_mask"),
                      attention=attention, remat=remat, lora_rng=lora_rng,
                      lora_dropout=lora_dropout)
-    return shifted_cross_entropy(logits, batch["labels"], global_count)
+    sh = sharding_of(params)
+    return shifted_cross_entropy(logits, batch["labels"], global_count,
+                                 None if sh is None else batch_group(sh.mesh))

@@ -17,12 +17,21 @@ always did: `process_index` is 0 and `process_count` 1.
 JAX's ``multislice_mesh`` (slices of TPU pods joined over the data-center
 network) has no counterpart on GPUs: a torchrun world is one flat set of
 ranks, and `mesh.create_mesh` lays the ``data`` axis outermost over it.
+
+A CUDA graph that captured an NCCL collective holds NCCL's communicator:
+``destroy_process_group`` waits on it for as long as the graph lives (a
+world of two cards that kept one captured all-reduce hung there, one that
+freed its graph first left in half a second:
+``valley_tpu_torch/tools/teardown_probe.py``).  So every graph captured
+while a process group is up is registered here (`hold_graph`), and
+`shutdown` releases the live ones before it takes the group down.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import weakref
 from typing import Optional
 
 import torch
@@ -113,7 +122,30 @@ def barrier() -> None:
         dist.barrier()
 
 
-def shutdown() -> None:
-    """Take the default process group down, if there is one."""
+# the CUDA graphs captured while a process group was up (`hold_graph`)
+_GRAPHS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def hold_graph(graph) -> None:
+    """Register a CUDA graph captured while a process group is up: it may
+    hold the group's communicator, which `shutdown` must have it let go
+    of first."""
     if dist.is_initialized():
-        dist.destroy_process_group()
+        _GRAPHS.add(graph)
+
+
+def shutdown() -> None:
+    """Take the default process group down, if there is one: after the
+    device's queue drains, every live graph of `hold_graph` is released
+    (``reset``: it cannot be replayed after), then the group is
+    destroyed."""
+    if not dist.is_initialized():
+        return
+    graphs = list(_GRAPHS)
+    if graphs:
+        torch.cuda.synchronize()
+        for graph in graphs:
+            graph.reset()
+        _GRAPHS.clear()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()

@@ -11,10 +11,11 @@ group's ranks (one rank a device):
 * ``fsdp``  — parameter, gradient and optimizer-state sharding (ZeRO-3:
   `sharding.py` gathers a layer's slices where the model reads it and
   reduce-scatters its gradient);
-* ``model`` — tensor parallelism (`tensor.py`): the serving engine cuts
-  its weights Megatron-style over it (`sharding.shard_params`); training
-  on a ``model`` axis above 1 is not ported yet (ROADMAP.md §1), and the
-  trainer refuses it.
+* ``model`` — tensor parallelism (`tensor.py`): the serving engine and
+  the trainer cut the decoder's weights Megatron-style over it
+  (`sharding.shard_params`), the trainer each rank's share again over
+  ``fsdp``; the ranks of one ``model`` group read the same rows of each
+  batch.
 
 `mesh_sizes` is the size arithmetic alone (``-1`` infers an axis from the
 device count, with the JAX package's errors), so it runs without a process
@@ -30,11 +31,6 @@ import torch
 import torch.distributed as dist
 
 AXES = ("data", "fsdp", "model")
-
-TENSOR_PARALLEL_REFUSED = (
-    "training with tensor parallelism (the mesh's model axis) is not "
-    "ported yet (ROADMAP.md §1, next: the model axis in training); "
-    "serving takes it (--tensor-parallel N under torchrun)")
 
 
 def mesh_sizes(data: int = -1, fsdp: int = 1, model: int = 1,

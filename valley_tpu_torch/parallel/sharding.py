@@ -1,6 +1,6 @@
 """Sharding rules and the ZeRO-3 collectives of the PyTorch port, the
-counterpart of ``valley_tpu/parallel/sharding.py`` for the ``data`` and
-``fsdp`` axes.
+counterpart of ``valley_tpu/parallel/sharding.py``, for the ``data``,
+``fsdp`` and ``model`` axes.
 
 The JAX package writes ZeRO-3 as rules: one PartitionSpec per weight kind,
 the stacked layer weights sharded over ``fsdp``, and XLA inserts the
@@ -25,9 +25,18 @@ replicated leaf) and writes the collectives out:
   all-reduce over the whole batch after the backward
   (`all_reduce_replicated`), and the global norm counts each of them once
   (`sum_squares`).
-* `gather_params` and `gather_state` carry the slices back to a full tree
-  (checkpoints, ``final/``, the steps eval); `load_full_state` takes a full
-  state onto the slices of any world.
+* On a ``model`` axis above 1 (tensor parallelism, `tensor.py`) the tree
+  is first cut Megatron-style (`model_axis`), then each rank's share is
+  cut again over ``fsdp``.  The batch world is then data x fsdp, the
+  ranks of one ``model`` group reading the same rows (`batch_group`).  A
+  leaf cut over ``model`` takes its whole gradient on its rank; a leaf
+  whole on every ``model`` rank takes the same gradient on each (the
+  norms, the vision side: their input gradient came through
+  `TensorParallel.enter`), except the LoRA factors that stay whole
+  (`partial_over_model`), whose ranks' gradients are parts of a sum.
+* `gather_params` and `gather_state` carry the slices of both axes back to
+  a full tree (checkpoints, ``final/``, the steps eval); `load_full_state`
+  takes a full state onto the slices of any world.
 
 Every rank of one mesh must read the same parameters in the same order
 (the collectives pair up by order), which the shared model code does: the
@@ -39,6 +48,7 @@ stacked (L, out, in) layout does not map onto FSDP's module units).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Dict, List, Mapping, Optional
@@ -68,17 +78,31 @@ _LLAMA_MODEL = {"wqkv": 1, "w_gateup": 1, "wq": 1, "wk": 1, "wv": 1,
 _ROW_PARALLEL = ("wo", "w_down")
 
 
-def model_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
+def _lora_base(leaf: str) -> Optional[str]:
+    """The projection a LoRA factor's name adapts, else None."""
+    for suffix in ("_lora_a", "_lora_b"):
+        if leaf.endswith(suffix):
+            return leaf[:-len(suffix)]
+    return None
+
+
+def model_axis(name: str, tensor: Optional[torch.Tensor]) -> Optional[int]:
     """The axis of parameter ``name`` that the ``model`` axis splits, in
     the port's layout; None for a leaf every rank holds whole.  JAX's
-    rules (sharding.py:18-75), translated, with two differences of
-    arithmetic, not of layout:
+    rules (sharding.py:18-75), translated, with three differences, each
+    where the port's arithmetic on a rank differs from XLA's resharding:
 
     * a row-parallel projection's scales: each rank rescales its partial
       sum before the sum over the group, so a per-channel scale (L, out)
       stays whole and a grouped one (L, out, in/gs) splits with the in
       axis (axis 2), where JAX puts both on their out axis and XLA
       reshards;
+    * a row-parallel projection's adapter (``wo``, ``w_down``): each rank
+      adds its share of the delta, (x_r @ A_r) @ B, to its partial sum
+      before the sum over the group, so A (L, in, r) splits on its in axis
+      with the weight's and B (L, r, out) stays whole, where JAX keeps A
+      whole and splits B's out axis; a column-parallel adapter's B splits
+      on its out axis and A stays whole, as in JAX;
     * the tower, the projector and the temporal module stay whole on
       every rank (ROADMAP.md §3), where JAX splits them too.
 
@@ -93,8 +117,12 @@ def model_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
         if leaf == "lm_head":
             return 0 if tensor.dtype in QUANTIZED else 1
         return 1 if leaf == "lm_head_scale" else None    # (1, V)
-    if leaf.endswith("_lora_b"):
-        return 2                  # (L, r, out)
+    base = _lora_base(leaf)
+    if base is not None:
+        row = base in _ROW_PARALLEL
+        if leaf.endswith("_lora_a"):
+            return 1 if row else None      # (L, in, r)
+        return None if row else 2          # (L, r, out)
     for suffix in _SCALES:
         base = leaf[:-len(suffix)]
         if leaf.endswith(suffix) and base in _LLAMA_MODEL:
@@ -102,6 +130,17 @@ def model_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
                 return 1
             return 2 if tensor.dim() == 3 else None
     return _LLAMA_MODEL.get(leaf)
+
+
+def partial_over_model(name: str) -> bool:
+    """Whether the gradient of parameter ``name``, whole on every rank of
+    a ``model`` group, is a part of a sum over the group: a LoRA factor
+    that `model_axis` keeps whole (a column-parallel adapter's A, whose
+    rank reads only its outputs' part of the delta; a row-parallel one's
+    B, whose rank's delta is its inputs' part).  Every other whole leaf
+    takes the same gradient on every rank of the group."""
+    leaf = name.rsplit(".", 1)[-1]
+    return _lora_base(leaf) is not None and model_axis(name, None) is None
 
 
 def fsdp_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
@@ -141,10 +180,15 @@ def fsdp_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
 
 @dataclass(frozen=True)
 class Sharding:
-    """What `shard_params` did to a tree: the mesh, and the fsdp axis of
-    every sharded parameter by dotted name."""
+    """What `shard_params` did to a tree: the mesh, the fsdp axis of every
+    sharded parameter by dotted name, and on a ``model`` axis above 1 the
+    model axis of every parameter cut over it, the decoder's
+    `TextConfig` and this rank's `TensorParallel`."""
     mesh: object
     axes: Mapping[str, int]
+    model_axes: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    cfg: object = None
+    tp: Optional[TensorParallel] = None
 
 
 def sharding_of(params) -> Optional[Sharding]:
@@ -166,9 +210,30 @@ def data_size(mesh) -> int:
 
 def batch_rank(mesh) -> int:
     """This rank's block of each global batch: its (data, fsdp) position,
-    data outermost (the model axis is 1, so it is the global rank)."""
+    data outermost; the ranks of one ``model`` group share it."""
     return (mesh.get_local_rank("data") * fsdp_size(mesh)
             + mesh.get_local_rank("fsdp"))
+
+
+# {id(mesh): (mesh, this rank's batch group)}, made by `batch_group`
+_BATCH_GROUPS: Dict[int, tuple] = {}
+
+
+def batch_group(mesh):
+    """The process group of this rank's batch world: the data x fsdp ranks
+    at its ``model`` position, which hold the blocks of one global batch.
+    None (the default group, every rank) where the model axis is 1.  Made
+    at the first call on a mesh, a collective of every rank
+    (`shard_params` makes it)."""
+    if mesh is None or model_size(mesh) == 1:
+        return None
+    got = _BATCH_GROUPS.get(id(mesh))
+    if got is None or got[0] is not mesh:
+        ranks = mesh.mesh.reshape(-1, model_size(mesh))
+        group, _ = dist.new_subgroups_by_enumeration(
+            [ranks[:, m].tolist() for m in range(model_size(mesh))])
+        got = _BATCH_GROUPS[id(mesh)] = (mesh, group)
+    return got[1]
 
 
 def all_gather(shard: torch.Tensor, axis: int, mesh) -> torch.Tensor:
@@ -273,49 +338,89 @@ def _model_spans(leaf: str, tp: TensorParallel, cfg) -> tuple:
     }[leaf]
 
 
-def _model_cut(name: str, t: torch.Tensor, axis: int, tp: TensorParallel,
-               cfg) -> torch.Tensor:
-    """This rank's part of ``t`` along its model ``axis``: the spans of
-    `_model_spans` in units of ``t``'s axis (a packed int4 axis holds two
-    inputs an entry, a grouped scale's one group), each of which must
-    start and end on such a unit: a shard that would split a byte of
-    nibbles or a scale group is refused, with the reason."""
+def _model_base(name: str) -> str:
+    """The key of `_model_spans` that parameter ``name`` is cut by: its
+    projection's (a scale's or adapter's weight's), or the vocabulary's."""
     top, *mid, leaf = name.split(".")
-    base = leaf
+    if not mid:
+        return "vocab"
     for suffix in _SCALES:
         if leaf.endswith(suffix) and leaf[:-len(suffix)] in _LLAMA_MODEL:
-            base = leaf[:-len(suffix)]
-    if not mid:
-        base = "vocab"
+            return leaf[:-len(suffix)]
+    return _lora_base(leaf) or leaf
+
+
+def _model_units(name: str, entries: int, axis: int, tp: TensorParallel,
+                 cfg) -> list:
+    """This rank's [(start, count)] of the ``entries`` entries of
+    ``name``'s model ``axis``: the spans of `_model_spans` in units of an
+    entry (a packed int4 axis holds two inputs an entry, a grouped scale's
+    one group), each of which must start and end on such a unit: a shard
+    that would split a byte of nibbles or a scale group is refused, with
+    the reason."""
+    base = _model_base(name)
     length, spans = _model_spans(base, tp, cfg)
-    unit = length // t.shape[axis]
-    if unit * t.shape[axis] != length:
-        raise ValueError(f"{name} {tuple(t.shape)}: axis {axis} is not "
+    unit = length // entries
+    if unit * entries != length:
+        raise ValueError(f"{name}: axis {axis} of {entries} entries is not "
                          f"{length} long in units of whole entries")
-    parts = []
+    out = []
     for a, b in spans:
         if a % unit or b % unit:
-            what = "a scale group" if leaf != base else "a byte of nibbles"
+            what = "a byte of nibbles" if base == name.rsplit(".", 1)[-1] \
+                else "a scale group"
             raise ValueError(
                 f"{name}: tensor parallelism over {tp.size} ranks would cut "
                 f"{what} (this rank's inputs [{a}, {b}) of {length}, "
                 f"{unit} to an entry); serve with a --tensor-parallel that "
                 "splits on whole groups")
-        parts.append(t.narrow(axis, a // unit, (b - a) // unit))
+        out.append((a // unit, (b - a) // unit))
+    return out
+
+
+def _model_cut(name: str, t: torch.Tensor, axis: int, tp: TensorParallel,
+               cfg) -> torch.Tensor:
+    """This rank's part of ``t`` along its model ``axis`` (`_model_units`;
+    several spans, as a fused stack's q, k and v heads, re-joined)."""
+    parts = [t.narrow(axis, a, n)
+             for a, n in _model_units(name, t.shape[axis], axis, tp, cfg)]
     return torch.cat(parts, dim=axis) if len(parts) > 1 else parts[0]
 
 
-def _cut_model_axis(mesh, params, cfg) -> TensorParallel:
+def _model_join(name: str, parts: List[torch.Tensor], axis: int, cfg
+                ) -> torch.Tensor:
+    """The full tensor of the ``model`` ranks' parts of ``name`` (rank
+    order): each rank's spans put back where `_model_cut` took them."""
+    out = None
+    for r, part in enumerate(parts):
+        tp = tensor_plan(cfg, len(parts), r, None)
+        length, spans = _model_spans(_model_base(name), tp, cfg)
+        unit = sum(b - a for a, b in spans) // part.shape[axis]
+        if out is None:
+            shape = list(part.shape)
+            shape[axis] = length // unit
+            out = part.new_empty(shape)
+        at = 0
+        for a, n in _model_units(name, length // unit, axis, tp, cfg):
+            out.narrow(axis, a, n).copy_(part.narrow(axis, at, n))
+            at += n
+    return out
+
+
+def _cut_model_axis(mesh, params, cfg, serving: bool) -> tuple:
     """Cut every decoder leaf with a `model_axis` in place to this rank's
-    part; LoRA leaves are refused (merge them first)."""
+    part; returns (this rank's `TensorParallel`, {name: model axis}).
+    LoRA leaves are refused for ``serving`` (merge them first)."""
     tp = tensor_plan(cfg, model_size(mesh), mesh.get_local_rank("model"),
-                     mesh.get_group("model"))
+                     mesh.get_group("model"), training=not serving)
+    axes = {}
     for prefix, module in params.named_modules():
         if not prefix.startswith("llama"):
             continue
         for name, p in module.named_parameters(recurse=False):
             dotted = f"{prefix}.{name}"
-            if name.endswith(("_lora_a", "_lora_b")) or name == "lora_scale":
+            if serving and (name.endswith(("_lora_a", "_lora_b"))
+                            or name == "lora_scale"):
                 raise NotImplementedError(
                     f"{dotted}: LoRA adapters are not served tensor-parallel;"
                     " merge them first (--lora-path merges before the cut)")
@@ -323,8 +428,9 @@ def _cut_model_axis(mesh, params, cfg) -> TensorParallel:
             if axis is not None:
                 p.data = _model_cut(dotted, p.data, axis, tp, cfg).clone(
                     memory_format=torch.contiguous_format)
+                axes[dotted] = axis
     params.llama.tp = tp
-    return tp
+    return tp, axes
 
 
 def shard_params(mesh, params, cfg=None, serving: bool = False):
@@ -336,13 +442,17 @@ def shard_params(mesh, params, cfg=None, serving: bool = False):
     ``requires_grad``); the slices are contiguous.  Returns ``params``.
     An axis that the fsdp size does not divide is refused.  ``serving``:
     no gradient will flow, so a mesh without fsdp slices installs no reads
-    (they would copy every weight at every read)."""
+    (they would copy every weight at every read), and LoRA adapters are
+    refused."""
     if sharding_of(params) is not None:
         raise ValueError("these weights are sharded already")
+    tp, model_axes = None, {}
     if model_size(mesh) > 1:
         if cfg is None:
             raise ValueError("a model axis above 1 needs the TextConfig")
-        _cut_model_axis(mesh, params, cfg)
+        tp, model_axes = _cut_model_axis(mesh, params, cfg, serving)
+        if not serving:
+            batch_group(mesh)
     n, r = fsdp_size(mesh), mesh.get_local_rank("fsdp")
     axes: Dict[str, int] = {}
     for prefix, module in params.named_modules():
@@ -367,13 +477,14 @@ def shard_params(mesh, params, cfg=None, serving: bool = False):
                            if prefix in _STACKS else
                            functools.partial(gather, axis=axis, mesh=mesh))
         module.reads = reads
-    params.sharding = Sharding(mesh, axes)
+    params.sharding = Sharding(mesh, axes, model_axes, cfg, tp)
     return params
 
 
 def local_slice(full: torch.Tensor, axis: Optional[int], mesh
                 ) -> torch.Tensor:
-    """This rank's slice of ``full`` along ``axis`` (all of it for None)."""
+    """This rank's fsdp slice of ``full`` along ``axis`` (all of it for
+    None)."""
     if axis is None:
         return full
     n = fsdp_size(mesh)
@@ -383,7 +494,7 @@ def local_slice(full: torch.Tensor, axis: Optional[int], mesh
 
 def full_tensor(t: torch.Tensor, axis: Optional[int], mesh,
                 device=None) -> torch.Tensor:
-    """The full tensor of one rank's slice ``t`` (a collective; a
+    """The tensor of the fsdp ranks' slices ``t`` (a collective; a
     replicated ``t`` as it is): the slice is taken to ``device`` for the
     collective where it lies elsewhere (an offloaded moment)."""
     if axis is None:
@@ -391,6 +502,34 @@ def full_tensor(t: torch.Tensor, axis: Optional[int], mesh,
     if device is not None:
         t = t.to(device)
     return all_gather(t.detach(), axis, mesh)
+
+
+def full_leaf(name: str, t: torch.Tensor, sh: Sharding,
+              device=None) -> torch.Tensor:
+    """The full tensor of parameter ``name`` (or of its gradient, or of a
+    moment) from this rank's part ``t`` (a collective over both axes):
+    the fsdp slices gathered, then the ``model`` ranks' parts joined."""
+    t = full_tensor(t, sh.axes.get(name), sh.mesh, device)
+    axis = sh.model_axes.get(name)
+    if axis is None:
+        return t
+    if device is not None:
+        t = t.to(device)
+    x = t.detach().contiguous()
+    n = model_size(sh.mesh)
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=sh.mesh.get_group("model"))
+    return _model_join(name, list(out.view((n,) + tuple(x.shape))), axis,
+                       sh.cfg)
+
+
+def local_leaf(name: str, full: torch.Tensor, sh: Sharding) -> torch.Tensor:
+    """This rank's part of the full tensor of parameter ``name``: its
+    ``model`` part, then its fsdp slice of that."""
+    axis = sh.model_axes.get(name)
+    if axis is not None:
+        full = _model_cut(name, full, axis, sh.tp, sh.cfg)
+    return local_slice(full, sh.axes.get(name), sh.mesh)
 
 
 def gather_state(params, to_host: bool = False
@@ -404,7 +543,7 @@ def gather_state(params, to_host: bool = False
     keep = not to_host or sh.mesh.get_rank() == 0
     out = {}
     for name, p in params.named_parameters():
-        t = full_tensor(p.detach(), sh.axes.get(name), sh.mesh)
+        t = full_leaf(name, p.detach(), sh)
         out[name] = None if not keep else \
             t.to("cpu", copy=True) if to_host else t
     return out
@@ -420,7 +559,7 @@ def gather_params(params):
 
 def load_full_state(params, state: Mapping[str, torch.Tensor]) -> None:
     """Copy a full ``state_dict`` (of any world) into a sharded tree's
-    slices, as ``load_state_dict`` would into a full tree."""
+    parts, as ``load_state_dict`` would into a full tree."""
     sh = sharding_of(params)
     names = dict(params.named_parameters())
     if set(names) != set(state):
@@ -428,14 +567,15 @@ def load_full_state(params, state: Mapping[str, torch.Tensor]) -> None:
                        f"{sorted(set(names) ^ set(state))}")
     with torch.no_grad():
         for name, p in names.items():
-            p.copy_(local_slice(state[name], sh.axes.get(name), sh.mesh))
+            p.copy_(local_leaf(name, state[name], sh))
 
 
 def process_batch_slice(mesh, global_batch: int) -> slice:
     """The rows of each global batch this rank loads (sharding.py:230-256):
     the batch is split over (data, fsdp), so rank r of the batch order
     (`batch_rank`) holds the r-th contiguous block, which is
-    ``DataLoader(process_index=r, process_count=data x fsdp)``'s slice."""
+    ``DataLoader(process_index=r, process_count=data x fsdp)``'s slice;
+    the ranks of one ``model`` group load the same rows."""
     if mesh is None:
         return slice(0, global_batch)
     dp = data_size(mesh) * fsdp_size(mesh)
@@ -447,33 +587,46 @@ def process_batch_slice(mesh, global_batch: int) -> slice:
     return slice(r * per, (r + 1) * per)
 
 
-def batch_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over every rank of the batch (in place; the model axis
-    is 1, so that is the whole process group)."""
-    dist.all_reduce(t)
+def batch_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` summed over every rank of the batch world (in place):
+    ``group``, a `batch_group`, or the whole process group for None."""
+    dist.all_reduce(t, group=group)
     return t
 
 
-def all_reduce_replicated(grads: List[torch.Tensor], sharded: List[bool]
+def all_reduce_replicated(grads: List[torch.Tensor], sharded: List[bool],
+                          mesh=None, partial: Optional[List[bool]] = None
                           ) -> None:
-    """Sum, in place over the whole batch, the gradients of the
+    """Sum, in place over the batch world, the gradients of the
     replicated parameters (the sharded ones were reduced in their
-    gather's backward)."""
-    for g, s in zip(grads, sharded):
+    gather's backward); then over the ``model`` group the gradients that
+    are parts of a sum there (``partial``, `partial_over_model`)."""
+    group = batch_group(mesh)
+    for i, (g, s) in enumerate(zip(grads, sharded)):
         if not s:
-            dist.all_reduce(g)
+            dist.all_reduce(g, group=group)
+        if partial is not None and partial[i]:
+            dist.all_reduce(g, group=mesh.get_group("model"))
 
 
-def sum_squares(squares: List[torch.Tensor], sharded: List[bool], mesh
+def sum_squares(squares: List[torch.Tensor], sharded: List[bool], mesh,
+                model_cut: Optional[List[bool]] = None
                 ) -> List[torch.Tensor]:
     """Each gradient's global sum of squares from this rank's: a sharded
     gradient's slices summed over fsdp (its data replicas hold the same
-    slice), a replicated one counted once (from fsdp rank 0 only).  One
-    collective; the result keeps the list's order, so that the norm adds
-    them in the order of one device."""
+    slice), a replicated one counted once (from fsdp rank 0 only); on a
+    ``model`` axis above 1, then a gradient cut over it (``model_cut``)
+    summed over the group, a whole one counted once (from model rank 0).
+    One collective an axis; the result keeps the list's order, so that the
+    norm adds them in the order of one device."""
     v = torch.stack(squares)
     if mesh.get_local_rank("fsdp") != 0:
         keep = torch.tensor(sharded, device=v.device)
         v = torch.where(keep, v, torch.zeros_like(v))
     dist.all_reduce(v, group=mesh.get_group("fsdp"))
+    if model_size(mesh) > 1:
+        if mesh.get_local_rank("model") != 0:
+            keep = torch.tensor(model_cut, device=v.device)
+            v = torch.where(keep, v, torch.zeros_like(v))
+        dist.all_reduce(v, group=mesh.get_group("model"))
     return list(v.unbind(0))

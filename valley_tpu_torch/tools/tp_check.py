@@ -1,9 +1,10 @@
 """Valley-13B served tensor-parallel across cards over NCCL: one 8-frame
 video request decoded by CUDA graph with the collectives captured.
 
-Run one world per card count, one process a card (each rank leaves by
-``os._exit`` once the world's line is written); the first run (N = 1)
-writes its tokens, which the others are held to:
+Run one world per card count, one process a card (each rank takes the
+process group down, its captured graphs released first, and prints the
+seconds that took); the first run (N = 1) writes its tokens, which the
+others are held to:
 
     for n in 1 2 4; do
       torchrun --standalone --nproc_per_node $n \\
@@ -163,11 +164,12 @@ def main(argv=None) -> None:
                 "cards": smi[:n]}
         (out / f"n{n}.json").write_text(json.dumps(line))
         print(json.dumps(line), flush=True)
-    # every collective of the world is done; leave without the process
-    # group's barrier and teardown, which hung after the graphs had
-    # replayed NCCL's collectives (PERF.md §6)
-    torch.cuda.synchronize()
-    os._exit(0)
+    # the decode graphs hold NCCL's communicator: `shutdown` releases them
+    # before it destroys the group (it hung while they lived)
+    t0 = time.perf_counter()
+    distributed.shutdown()
+    print(json.dumps({"rank": rank, "teardown_s": time.perf_counter() - t0}),
+          flush=True)
 
 
 if __name__ == "__main__":

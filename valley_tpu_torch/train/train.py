@@ -9,14 +9,18 @@ Under torchrun (its environment: ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``MASTER_ADDR``, ``MASTER_PORT``) each process drives ``cuda:LOCAL_RANK``
 (NCCL; gloo with ``--device cpu``) on the recipe's mesh (``mesh_data``,
 ``mesh_fsdp``, ``mesh_model``; -1 infers an axis from the world, as JAX
-infers it from the devices): the weights and AdamW's state sharded over
-``fsdp`` (ZeRO-3, `parallel/sharding.py`), the global batch
-``per_device_train_batch_size x data x fsdp`` split over the ranks, each
-loading only its rows with the collator's padded geometry fixed (JAX
-train.py:211-223).  Rank 0 writes the logs, ``final/``,
-``valley_config.json``, ``valley_meta.json`` and ``hf/``.  Without
-torchrun's environment the recipe runs in one process with no process
-group, and a mesh larger than one device is refused as JAX refuses it.
+infers it from the devices): the decoder cut Megatron-style over
+``model`` (tensor parallelism, `parallel/tensor.py`), each rank's share of
+the weights and AdamW's state sharded again over ``fsdp`` (ZeRO-3,
+`parallel/sharding.py`), the global batch ``per_device_train_batch_size x
+data x fsdp`` split over the batch world, each rank loading only its rows
+(the ranks of one ``model`` group the same rows) with the collator's
+padded geometry fixed (JAX train.py:211-223).  Rank 0 writes the logs,
+``final/``, ``valley_config.json``, ``valley_meta.json`` and ``hf/``; the
+process group comes down at the end (`distributed.shutdown`, its seconds
+logged).  Without torchrun's environment the recipe runs in one process
+with no process group, and a mesh larger than one device is refused as
+JAX refuses it.
 
 Reads the same YAML keys as ``valley_tpu/train/train.py`` (model, data and
 training arguments) with the same meaning.  ``model_name_or_path`` may be
@@ -37,7 +41,7 @@ the generate-eval (`train/eval_loop.py`) every ``eval_steps`` updates and
 ``predict_with_generate`` once after training, over the first
 ``eval_num`` training samples (on a mesh: on rank 0, over the gathered
 tree).  Refused with NotImplementedError: the options of
-`trainer.check_ported` (``mesh_model`` above 1 among them).
+`trainer.check_ported`.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import dataclasses
 import json
 import logging
 import os
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -378,7 +383,9 @@ def main(argv=None):
     try:
         train(args.conf, args.device)
     finally:
+        t0 = time.perf_counter()
         distributed.shutdown()
+        logger.info("process group down in %.2f s", time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

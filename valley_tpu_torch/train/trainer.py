@@ -1,5 +1,6 @@
 """Training loop of the PyTorch port, the counterpart of
-``valley_tpu/train/trainer.py``, on one device or on a (data, fsdp) mesh.
+``valley_tpu/train/trainer.py``, on one device or on a (data, fsdp, model)
+mesh.
 
 * Parameter groups: the same labels as the JAX `label_params` ('frozen' |
   'base' | 'lora'), applied as ``requires_grad`` flags, so the backward
@@ -22,19 +23,24 @@
   and the forward folds in the layer and the projection
   (`llama.dropout_mask`).  The masks come from torch's generators, not
   JAX's ``dropout_rng_impl``: the name is checked and the bits differ.
-  On a mesh of more than one rank the key also folds in the rank's block
-  of the batch, so that ranks draw different masks (JAX draws one mask
-  over the global batch; the port's ranks cannot share one).
+  On a mesh whose batch world (data x fsdp) holds more than one block the
+  key also folds in the rank's block of the batch, so that ranks draw
+  different masks (JAX draws one mask over the global batch; the port's
+  ranks cannot share one).  The ranks of one ``model`` group share their
+  block's key, so a (1, 1, N) mesh draws one device's masks bit for bit.
 * On a mesh (``mesh``: `parallel.mesh.create_mesh`, one process per
-  device under torchrun) the parameters are this rank's fsdp slices
-  (`parallel.sharding.shard_params`; ZeRO-3: the gradients and AdamW's
-  moments, offloaded or not, are slices too), the batch is this rank's
-  rows of the global batch, and the loss divides by the global count of
-  supervised tokens.  Each layer is gathered where the model reads it and
-  its gradient reduce-scattered in the backward; the replicated leaves'
-  gradients are all-reduced after it; the norms that clip and the logged
-  loss and ``grad_norm`` are global.  AdamW is elementwise, so each
-  rank's update of its slices is exact.  Only rank 0 writes
+  device under torchrun) the parameters are this rank's slices
+  (`parallel.sharding.shard_params`: its ``model`` share, Megatron-style,
+  cut again over fsdp; ZeRO-3: the gradients and AdamW's moments,
+  offloaded or not, are slices too), the batch is this rank's rows of the
+  global batch (the ranks of one ``model`` group read the same rows), and
+  the loss divides by the global count of supervised tokens.  Each layer
+  is gathered where the model reads it and its gradient reduce-scattered
+  in the backward; the replicated leaves' gradients are all-reduced over
+  the batch world after it, and the LoRA factors whole on every ``model``
+  rank over the ``model`` group (`sharding.partial_over_model`); the norms
+  that clip and the logged loss and ``grad_norm`` are global.  AdamW is
+  elementwise, so each rank's update of its slices is exact.  Only rank 0 writes
   ``trainer.log``, ``metrics.jsonl``, the trace and the checkpoints,
   which hold the full tree (gathered on save), so that a run resumes at
   any world; the steps eval runs on rank 0 over the gathered tree while
@@ -58,8 +64,7 @@
   and the ``eval_fn`` of ``evaluation_strategy: steps`` every
   ``eval_steps``.
 
-Refused with NotImplementedError (see `check_ported`): a mesh with a
-``model`` axis above 1 (tensor parallelism) and wandb.
+Refused with NotImplementedError (see `check_ported`): wandb.
 """
 
 from __future__ import annotations
@@ -84,9 +89,7 @@ from valley_tpu_torch.models import valley
 from valley_tpu_torch.models.llama import fold_in
 from valley_tpu_torch.ops.attention import KERNELS, Attention
 from valley_tpu_torch.parallel import sharding
-from valley_tpu_torch.parallel.distributed import (barrier, process_count,
-                                                   process_index)
-from valley_tpu_torch.parallel.mesh import TENSOR_PARALLEL_REFUSED
+from valley_tpu_torch.parallel.distributed import barrier, process_index
 from valley_tpu_torch.utils import checkpoint as ckpt_lib
 from valley_tpu_torch.utils import profiling
 from valley_tpu_torch.weights import from_state_dict, set_trainable
@@ -158,15 +161,10 @@ def check_ported(tc: TrainConfig) -> None:
     if tc.dropout_rng_impl not in DROPOUT_RNG_IMPLS:
         raise ValueError(f"unknown dropout_rng_impl {tc.dropout_rng_impl!r}"
                          f" (one of {', '.join(DROPOUT_RNG_IMPLS)})")
-    refused = {
-        "mesh": tc.mesh_model != 1 and f"mesh_model {tc.mesh_model}: "
-        f"{TENSOR_PARALLEL_REFUSED}",
-        "report_to": tc.report_to == "wandb" and "report_to: wandb is not "
-        "ported; the trainer writes trainer.log and metrics.jsonl",
-    }
-    for what in refused.values():
-        if what:
-            raise NotImplementedError(what)
+    if tc.report_to == "wandb":
+        raise NotImplementedError("report_to: wandb is not ported; the "
+                                  "trainer writes trainer.log and "
+                                  "metrics.jsonl")
     profile_range(tc.profile_steps)
 
 
@@ -319,16 +317,17 @@ def pinned_zeros(p: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(grads: List[torch.Tensor], sharded: Optional[List[bool]]
-                = None, mesh=None) -> torch.Tensor:
+                = None, mesh=None, model_cut: Optional[List[bool]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (without an
-    fp32 copy of each gradient).  On a ``mesh``, ``grads`` are this rank's
-    and ``sharded`` says which are slices: the norm is the global one
-    (`sharding.sum_squares`), each gradient's square summed in the same
-    order as on one device."""
+    fp32 copy of each gradient).  On a ``mesh``, ``grads`` are this rank's,
+    ``sharded`` says which are fsdp slices and ``model_cut`` which are
+    ``model`` parts: the norm is the global one (`sharding.sum_squares`),
+    each gradient's square summed in the same order as on one device."""
     squares = [torch.linalg.vector_norm(g, dtype=torch.float32).square()
                for g in grads]
     if mesh is not None:
-        squares = sharding.sum_squares(squares, sharded, mesh)
+        squares = sharding.sum_squares(squares, sharded, mesh, model_cut)
     return torch.sqrt(sum(squares))
 
 
@@ -342,9 +341,9 @@ class Trainer:
     `DataLoader`; on a mesh, this rank's rows of each global batch).  The
     ``attention`` attribute picks the kernels (the default, `KERNELS`) or
     their plain versions (`PLAIN`, to compare a step on the card against);
-    it is read at every step.  ``mesh``: a (data, fsdp) mesh, over which a
-    full ``params`` is sharded here (a tree `shard_params` cut already
-    brings its own)."""
+    it is read at every step.  ``mesh``: a (data, fsdp, model) mesh, over
+    which a full ``params`` is sharded here (a tree `shard_params` cut
+    already brings its own)."""
 
     def __init__(self, cfg: ValleyConfig, tc: TrainConfig,
                  params: valley.ValleyWeights, train_loader,
@@ -356,12 +355,10 @@ class Trainer:
         self.cfg = cfg
         self.tc = tc
         check_ported(tc)
-        if mesh is not None and sharding.model_size(mesh) > 1:
-            raise NotImplementedError(f"mesh {tuple(mesh.shape)}: "
-                                      f"{TENSOR_PARALLEL_REFUSED}")
         if mesh is not None and sharding.sharding_of(params) is None:
-            sharding.shard_params(mesh, params)
+            sharding.shard_params(mesh, params, cfg.text)
         sh = sharding.sharding_of(params)
+        self.sharding = sh
         self.mesh = None if sh is None else sh.mesh
         self.rank0 = process_index() == 0
         self.params = params
@@ -375,12 +372,17 @@ class Trainer:
         self.schedules = group_schedules(tc, self.total_steps)
         self._trainable = [p for g in self.optimizer.param_groups
                            for p in g["params"]]
-        # each trainable parameter's fsdp axis (None: replicated, or no
-        # mesh), in optimizer order
-        self.fsdp_axes = [sh.axes.get(n) if sh else None
-                      for g in self.optimizer.param_groups
+        # the trainable parameters' names in optimizer order, which of them
+        # are fsdp slices and, on a model axis above 1, which are cut over
+        # it and which take parts of a sum there
+        self.names = [n for g in self.optimizer.param_groups
                       for n in g["names"]]
-        self._sharded = [a is not None for a in self.fsdp_axes]
+        self._sharded = [sh is not None and n in sh.axes for n in self.names]
+        self._model_cut = self._partial = None
+        if sh is not None and sh.tp is not None:
+            self._model_cut = [n in sh.model_axes for n in self.names]
+            self._partial = [sharding.partial_over_model(n)
+                             for n in self.names]
         self.lora_dropout = tc.lora_dropout if tc.lora else 0.0
         self.offload = tc.offload_optimizer
         self.offload_chunk = OFFLOAD_CHUNK
@@ -419,7 +421,8 @@ class Trainer:
             return None
         k = max(self.tc.gradient_accumulation_steps, 1)
         key = fold_in(self.tc.seed, self.step * k + self._micro)
-        if self.mesh is not None and process_count() > 1:
+        if self.mesh is not None and sharding.data_size(
+                self.mesh) * sharding.fsdp_size(self.mesh) > 1:
             key = fold_in(key, sharding.batch_rank(self.mesh))
         return key
 
@@ -440,9 +443,22 @@ class Trainer:
                  for g, p in zip(grads, self._trainable)]
         loss = loss.detach()
         if mesh is not None:
-            sharding.all_reduce_replicated(grads, self._sharded)
-            loss = sharding.batch_sum(loss)
-        return loss, global_norm(grads, self._sharded, mesh), grads
+            sharding.all_reduce_replicated(grads, self._sharded, mesh,
+                                           self._partial)
+            loss = sharding.batch_sum(loss, sharding.batch_group(mesh))
+        return loss, global_norm(grads, self._sharded, mesh,
+                                 self._model_cut), grads
+
+    def gathered(self, tensors: List[torch.Tensor]
+                 ) -> Dict[str, torch.Tensor]:
+        """{name: full tensor} of per-parameter tensors in optimizer order
+        (the gradients of `loss_and_grads`, the parameters): this rank's
+        parts gathered over both axes on a mesh (a collective), else as
+        they are."""
+        if self.mesh is None:
+            return dict(zip(self.names, tensors))
+        return {n: sharding.full_leaf(n, t, self.sharding)
+                for n, t in zip(self.names, tensors)}
 
     def train_step(self, batch) -> dict:
         """One micro-batch: gradients, accumulation, and every k-th time an
@@ -477,7 +493,8 @@ class Trainer:
         for group in self.optimizer.param_groups:
             n = len(group["params"])
             gs = grads[at:at + n]
-            norm = global_norm(gs, self._sharded[at:at + n], self.mesh)
+            norm = global_norm(gs, self._sharded[at:at + n], self.mesh,
+                               self._model_cut and self._model_cut[at:at + n])
             at += n
             clip = norm >= max_norm
             div = torch.where(clip, norm, 1.0)
@@ -636,8 +653,8 @@ class Trainer:
         for i, st in osd["state"].items():
             st = dict(st)    # the optimizer's own dict: leave it be
             for k in ("exp_avg", "exp_avg_sq"):
-                full = sharding.full_tensor(st[k], self.fsdp_axes[i],
-                                            self.mesh, self.device)
+                full = sharding.full_leaf(self.names[i], st[k],
+                                          self.sharding, self.device)
                 st[k] = full.to("cpu", copy=True) if self.rank0 else None
             states[i] = st
         return {**osd, "state": states}
@@ -686,8 +703,8 @@ class Trainer:
             # the full tree of any world, cut to this rank's slices
             sharding.load_full_state(self.params, state["params"])
             osd = {**osd, "state": {i: {
-                k: v if k == "step" else sharding.local_slice(
-                    v, self.fsdp_axes[i], self.mesh).contiguous()
+                k: v if k == "step" else sharding.local_leaf(
+                    self.names[i], v, self.sharding).contiguous()
                 for k, v in st.items()} for i, st in osd["state"].items()}}
         self._load_optimizer(osd)
         self.step, self._micro, self._acc = step, 0, None
