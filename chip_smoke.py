@@ -178,6 +178,7 @@ their time over the library's); the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -5115,7 +5116,8 @@ def gloo_train(stage: str, mesh, out: Path, rank: Optional[int]) -> dict:
         tc = stage2_full_config(run_dir)
     trainer = Trainer(cfg, tc, params, loader, total_steps=5, mesh=mesh)
     batch = trainer.device_batch(next(iter(loader.epoch(0))))
-    loss, _, grads = trainer.loss_and_grads(batch)
+    with ce_widths() as widths:
+        loss, _, grads = trainer.loss_and_grads(batch)
     full = {n: g.cpu() for n, g in trainer.gathered(grads).items()}
     del grads
     k1, k2 = flash_attention.launches, flash_attention_bwd.launches
@@ -5135,8 +5137,31 @@ def gloo_train(stage: str, mesh, out: Path, rank: Optional[int]) -> dict:
     return {"loss": float(loss), "grads": full, "losses": losses,
             "params": {n: t.float().cpu() for n, t in after.items()},
             "k1": launches[0], "k2": launches[1], "seconds": seconds,
+            "ce_widths": widths,
             "batch": tuple(batch["input_ids"].shape),
             "peak": torch.cuda.max_memory_allocated()}
+
+
+@contextlib.contextmanager
+def ce_widths():
+    """Within the block, the logits' width that each cross entropy over
+    the vocabulary shares reads (`TensorParallel.cross_entropy`), listed in
+    the list yielded: on a (1, 1, N) mesh the loss's one call a step at
+    vocab/N columns; none at world 1, whose loss takes the whole row."""
+    from valley_tpu_torch.parallel import tensor
+
+    seen = []
+    ce = tensor.TensorParallel.cross_entropy
+
+    def recording(self, logits, targets):
+        seen.append(logits.shape[-1])
+        return ce(self, logits, targets)
+
+    tensor.TensorParallel.cross_entropy = recording
+    try:
+        yield seen
+    finally:
+        tensor.TensorParallel.cross_entropy = ce
 
 
 def gloo_rank_main(rank: int, out: Path) -> None:
@@ -5271,10 +5296,19 @@ def gloo_fsdp_phase(smi: str, gen, work: Path) -> list:
         checks += [((k1, k2) == want, f"{tag}: rank {rank} launched K1 {k1} "
                     f"K2 {k2}, want {want}")
                    for rank, (k1, k2, _) in enumerate(g["every_rank"])]
+        # the loss over the vocabulary shares: one cross entropy a step on
+        # the rank's 16000 columns, never the row's 32000
+        checks.append((g["ce_widths"] == [TP_VOCAB // 2] and not
+                       r["ce_widths"], f"{tag}: cross entropies read "
+                       f"{g['ce_widths']} columns (world 1 "
+                       f"{r['ce_widths']}), want [{TP_VOCAB // 2}]"))
         print(f"{tag}: 7B width, {GLOO_LAYERS} layers, batch "
               f"{g['batch']} on each rank, mesh (1, 1, 2) over gloo (16 of "
               f"the 32 heads, 5504 of the 11008 MLP columns and 16000 of the "
-              f"32000 vocabulary rows a rank) against world 1: "
+              f"32000 vocabulary rows a rank; the tower's 8 of 16 heads and "
+              f"the projector's 2048 of 4096 outputs; the loss over the "
+              f"vocabulary shares, its cross entropies on "
+              f"{g['ce_widths']} columns) against world 1: "
               + "; ".join(parts) + f"; losses of {GLOO_UPDATES} updates "
               f"{[round(x, 5) for x in g['losses']]} vs "
               f"{[round(x, 5) for x in r['losses']]}; "
@@ -6330,6 +6364,13 @@ TP_TEACHER = (319, 1576, 29871)
 # 0.0239 (largest 4.42); the bars are about twice them.
 TP_LOGIT_TOL = 0.08
 TP_INT8_LOGIT_TOL = 0.06
+# The request's vision features (the pooled patches and the frames' CLS,
+# after the projector's gather) against world 1's, of the largest: the cut
+# tower's row-parallel partial sums (o, fc2) add in bf16 over the ranks;
+# W8A8's int32 partials add exactly.  Readings of this script on an H100
+# 80GB HBM3 at 700 W: bf16 1.290e-2, the W8A8 tower 0 (bit-equal); the
+# bf16 bar is about twice its reading, the W8A8 one a margin over 0.
+TP_FEATURE_TOL = {"bf16": 0.03, "int8a8": 1e-3}
 
 
 def tp_config():
@@ -6342,17 +6383,21 @@ def tp_config():
 
 
 def tp_engine(cfg, mode: str, mesh):
-    """The slice's engine in ``mode`` (bf16 or int8a8), its random weights
-    from seed 3 fused (and quantized) on the card, cut by ``mesh``."""
+    """The slice's engine in ``mode`` (bf16, or int8a8 with a W8A8 tower),
+    its random weights from seed 3 fused (and quantized) on the card, cut
+    by ``mesh`` (the decoder, the tower and the projector)."""
     from valley_tpu_torch.inference.engine import Engine
     from valley_tpu_torch.models import llama, valley
-    from valley_tpu_torch.ops.quant import quantize_llama_params
+    from valley_tpu_torch.ops.quant import (quantize_llama_params,
+                                            quantize_vision_params)
 
     params = llama.fuse_llama_params(valley.init_params(
         cfg, torch.Generator("cuda").manual_seed(3), torch.bfloat16,
         "cuda"))
     if mode == "int8a8":
-        params = quantize_llama_params(params, act8=True)
+        # and the tower W8A8, as the worker's --quantize-vision int8a8
+        params = quantize_vision_params(quantize_llama_params(
+            params, act8=True), act8=True)
     return Engine(cfg, params, buckets=(BUCKET,), max_new_tokens=TP_NEW,
                   cache_dtype=torch.int8 if mode == "int8a8"
                   else torch.bfloat16, mesh=mesh)
@@ -6361,8 +6406,11 @@ def tp_engine(cfg, mode: str, mesh):
 def tp_drive(engine, cfg) -> dict:
     """bench's request through ``engine``: the prefill's logits, the
     teacher-forced steps' logits on its cache, and TP_NEW greedy tokens
-    decoded eagerly; with each wrapper's launches during them."""
+    decoded eagerly, with each wrapper's launches during them; then the
+    request's vision features (`valley.encode_images`) and the shapes of
+    this rank's tower and projector weights."""
     from valley_tpu_torch.inference.engine import GenerationConfig
+    from valley_tpu_torch.models import valley
     from valley_tpu_torch.ops.decode_attention import decode_attention_stacked
     from valley_tpu_torch.ops.flash_attention import flash_attention
     from valley_tpu_torch.ops.matvec import bf16_matvec
@@ -6384,8 +6432,20 @@ def tp_drive(engine, cfg) -> dict:
     (logits, toks, decoded), counts = counted(
         {"K1": flash_attention, "K3": decode_attention_stacked,
          "K6": bf16_matvec, "K4": int8_matvec}, run)
+    seconds = time.perf_counter() - t0
+    with torch.inference_mode():
+        feats = valley.encode_images(engine.params, cfg, torch.from_numpy(
+            frames).to("cuda"))
+    vision = engine.params["vision"]
     return {"logits": torch.stack(logits).float().cpu(), "tokens": toks,
-            "counts": counts, "seconds": time.perf_counter() - t0,
+            "features": (feats.pooled.float().cpu(),
+                         feats.frame_cls.float().cpu()),
+            "tower": {"heads": getattr(vision, "tp", None) and vision.tp.heads,
+                      **{n: tuple(vision["layers"][n].shape)
+                         for n in ("wq", "wo", "fc1", "fc2")},
+                      "projector.w": tuple(
+                          engine.params["projector"]["w"].shape)},
+            "counts": counts, "seconds": seconds,
             # the decode steps run: the teacher-forced ones and the
             # request's (its last chunk padded to a scheduled size)
             "steps": len(TP_TEACHER) + decoded}
@@ -6571,16 +6631,56 @@ def tp_times(gen) -> dict:
     return out
 
 
+def native_video_phase(work: Path) -> None:
+    """bench's 8 frames from an mp4 (64 frames of 320x240 from seed 9,
+    mp4v) through the port's `load_video` as the serving path reads them
+    (raw uint8, 224 px): the decoder that served (the native one, built
+    here with g++ against libav, or OpenCV where it does not build or
+    load), its seconds, and the frames' shape."""
+    import cv2
+
+    from valley_tpu_torch.data import video
+
+    path = work / "native_video.mp4"
+    out = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 16,
+                          (320, 240))
+    rng = np.random.default_rng(9)
+    yy, xx = np.mgrid[0:240, 0:320]
+    for t in range(64):
+        base = np.stack([(xx + 3 * t) % 256, (yy + 5 * t) % 256,
+                         (xx + yy + 7 * t) % 256], axis=-1)
+        out.write(np.clip(base + rng.integers(-6, 7, base.shape), 0, 255)
+                  .astype(np.uint8))
+    out.release()
+    t0 = time.perf_counter()
+    frames = video.load_video(str(path), fixed_frame_number=8,
+                              raw_pixels=True)
+    first = time.perf_counter() - t0
+    decoder = video.last_decoder
+    t0 = time.perf_counter()
+    video.load_video(str(path), fixed_frame_number=8, raw_pixels=True)
+    again = time.perf_counter() - t0
+    print(f"native video: bench's 8 frames of a 64-frame 320x240 mp4 "
+          f"through load_video: decoder {decoder}, {first:.3f} s the first "
+          f"call (with the build), {again:.3f} s the second, frames "
+          f"{tuple(frames.shape)} {frames.dtype}", flush=True)
+    check(frames.shape == (3, 8, 224, 224) and frames.dtype == np.uint8,
+          f"native video: frames {frames.shape} {frames.dtype}")
+
+
 def serve_tp_path(smi: str, gen, work: Path) -> list:
     """Tensor parallelism in serving: two rank processes of this script on
     the one card over gloo, a (1, 1, 2) mesh, against world 1 in this
     process on the same weights, in bf16 (K1, K3, K6) and int8a8 with an
-    int8 cache (K1, K3-int8, K4): the TP logits at the prefill and the
-    teacher-forced steps within the bars, the greedy tokens equal to world
-    1's up to the first step whose world-1 top-2 margin is under
-    BATCH_MARGIN_BAR, each rank's launches (each kernel launched, as one
-    device's path launches it a layer) and each rank's kernels against
-    their plain versions.  Returns rank 0's entries."""
+    int8 cache and a W8A8 tower (K1, K3-int8, K4), the decoder, the tower
+    and the projector cut: the TP logits at the prefill and the
+    teacher-forced steps within the bars, the request's vision features
+    within `TP_FEATURE_TOL`, the greedy tokens equal to world 1's up to
+    the first step whose world-1 top-2 margin is under BATCH_MARGIN_BAR,
+    each rank's launches (each kernel launched, as one device's path
+    launches it a layer) and each rank's kernels against their plain
+    versions.  First, `native_video_phase`.  Returns rank 0's entries."""
+    native_video_phase(work)
     out = work / "serve_tp"
     out.mkdir()
     t0 = time.perf_counter()
@@ -6619,6 +6719,18 @@ def serve_tp_path(smi: str, gen, work: Path) -> list:
                       f"rank {r} launched {kname} {rk[mode]['counts']}, "
                       f"want {n}")
         diffs = (got["logits"] - want["logits"]).abs().amax(dim=-1).tolist()
+        feat = max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(got["features"], want["features"]))
+        tower = got["tower"]
+        print(f"serve_tp {mode}: the cut tower{' (W8A8)' if mode == 'int8a8' else ''}"
+              f" and projector's features against world 1: {feat:.3e} of "
+              f"the largest (bar {TP_FEATURE_TOL[mode]}); rank 0 holds "
+              f"{tower}", flush=True)
+        check(feat <= TP_FEATURE_TOL[mode], f"serve_tp {mode}: the features "
+              f"differ from world 1's by {feat} of the largest")
+        check(tower["heads"] == cfg.vision.num_attention_heads // TP_RANKS
+              and tower["projector.w"][1] == cfg.text.hidden_size // TP_RANKS,
+              f"serve_tp {mode}: rank 0's tower share {tower}")
         check(max(diffs) <= tol, f"serve_tp {mode}: TP logits differ from "
               f"world 1 by {diffs} (bar {tol})")
         tokens = first_divergence(f"serve_tp {mode}", engines[mode], prompt,
@@ -6680,7 +6792,8 @@ for _name in ("k8q_phase", "k1_phase", "k2_phase", "k3_phase", "k3_int8_phase",
               "stage2_zero3_phase", "gloo_fsdp_phase",
               "profile_steps_phase", "flash_stage2_phase", "k8_phase",
               "pooling_phase", "vision_quant_phase", "variant_slice",
-              "web_ui_phase", "tp_shard_phase", "tp_drive", "tp_times"):
+              "web_ui_phase", "tp_shard_phase", "tp_drive", "tp_times",
+              "native_video_phase"):
     globals()[_name] = _timed(globals()[_name])
 
 

@@ -3,10 +3,10 @@ the same corpus on disk (text, image and video conversations), the same
 tokenizer and the same seed give the same batches, array for array.
 
 Token ids, labels, masks and frame masks must be equal; pixels to 1e-6
-(both decode with OpenCV and run the same numpy transforms).  The JAX
-package runs with its native C++ decoder off (``VALLEY_DISABLE_NATIVE``):
-the port has no native decoder, and the JAX package's native and OpenCV
-paths do not agree with each other (ROADMAP.md, section 3).
+(both decode with OpenCV and run the same numpy transforms).  Both
+packages run with their native C++ decoders off (``VALLEY_DISABLE_NATIVE``),
+so that the OpenCV paths are held to each other here; the native decoders
+are held to each other in test_torch_native_video.py.
 """
 
 import json

@@ -247,13 +247,14 @@ ROW_LORA = {"wo_lora_a": 1, "w_down_lora_a": 1, "wo_lora_b": None,
 def test_model_rule_table_matches_jax_param_specs():
     """For every leaf of every kind of tree, the port splits over ``model``
     the axis JAX's param_specs puts there, in the port's layout (the
-    quantized lm_head transposed), except where its arithmetic differs:
-    a row-parallel projection's per-channel scales stay whole and its
-    grouped ones split with the in axis; a row-parallel adapter's A splits
-    on its in axis and its B stays whole, where JAX keeps A whole and
-    splits B's out axis; and the tower, projector and temporal leaves stay
-    whole (ROADMAP.md §3).  The LoRA factors that stay whole are the ones
-    whose ranks' gradients are parts of a sum (`partial_over_model`)."""
+    quantized lm_head transposed), the tower's, the projector's and the
+    temporal module's leaves included, except where the decoder's
+    arithmetic differs: a row-parallel projection's per-channel scales
+    stay whole and its grouped ones split with the in axis; a row-parallel
+    adapter's A splits on its in axis and its B stays whole, where JAX
+    keeps A whole and splits B's out axis (ROADMAP.md §3).  The LoRA
+    factors that stay whole are the ones whose ranks' gradients are parts
+    of a sum (`partial_over_model`)."""
     jparams = jvalley.init_params(C.valley_tiny(), jax.random.key(0),
                                   jnp.float32)
     for kind, tree in _jax_trees(jparams).items():
@@ -267,12 +268,11 @@ def test_model_rule_table_matches_jax_param_specs():
         for name, p in port.items():
             want = _model_position(specs[name])
             leaf = name.split(".")[-1]
-            if not name.startswith("llama."):
-                want = None
-            elif leaf in ROW_SCALES:
+            decoder = name.startswith("llama.")
+            if decoder and leaf in ROW_SCALES:
                 assert want == 1, (kind, name)
                 want = 2 if p.dim() == 3 else None
-            elif leaf in ROW_LORA:
+            elif decoder and leaf in ROW_LORA:
                 assert want == (None if leaf.endswith("_a") else 2), \
                     (kind, name)
                 want = ROW_LORA[leaf]

@@ -24,7 +24,11 @@ Bars, with their readings (this file's run on the CPU):
 - every trainable leaf's first-step gradient, gathered over both axes:
   within 1e-5 (absolute) of world 1's (reads at most 1.2e-7); a leaf whose
   sum over ``model`` were missed or doubled would be off by its own size;
-- the projector's gradient: bit-equal on the ranks of one ``model`` group;
+- the gradient the projector's column gather receives (the spliced
+  features'), of which each rank takes its own columns: bit-equal on the
+  ranks of one ``model`` group;
+- the loss reads the logits in the ranks' vocabulary shares only: every
+  cross entropy of a step sees V/N columns, and no gather joins them;
 - parameters after the updates: within 2e-3 of world 1's movement, the bar
   of tests/test_torch_parallel.py (reads at most 5.4e-5).
 The file takes about 50 s on its worker alone, 88-103 s in the whole suite
@@ -214,9 +218,11 @@ def test_first_step_gradients_equal_world_1(runs, mesh):
 
 @pytest.mark.parametrize("mesh", MESHES)
 def test_projector_gradient_bit_equal_across_model_group(runs, mesh):
-    """The projector (whole on every rank) takes the same gradient on
-    every rank of a ``model`` group, bit for bit: the spliced features'
-    gradient is the first layer's input gradient, summed over the group."""
+    """The projector, cut by its outputs, takes its columns of the
+    gradient its gather receives, which is the same on every rank of a
+    ``model`` group, bit for bit: the spliced features' gradient is the
+    first layer's input gradient, summed over the group.  The gather is
+    the step's only one (the loss joins no logits)."""
     for name in RECIPES:
         blocks = {}
         for block, own in runs[mesh][name]["own"]:
@@ -224,9 +230,23 @@ def test_projector_gradient_bit_equal_across_model_group(runs, mesh):
         assert len(blocks) == mesh[0] * mesh[1]
         for ranks in blocks.values():
             assert len(ranks) == mesh[2]
+            assert list(ranks[0]) == ["gather 0"], name
             for own in ranks[1:]:
                 for leaf, g in own.items():
                     assert torch.equal(g, ranks[0][leaf]), (name, leaf)
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+def test_loss_reads_only_vocabulary_shares(runs, cfg, mesh):
+    """Every cross entropy of the first step reads this rank's vocab/N
+    columns, and the step's only column gather is the projector's
+    (hidden wide): no rank holds (B, S, V) logits in the loss; world 1
+    gathers nothing."""
+    for name in RECIPES:
+        got = runs[mesh][name]
+        assert got["ce_widths"] == [cfg.text.vocab_size // mesh[2]], name
+        assert got["gathered"] == [cfg.text.hidden_size], name
+        assert runs["local"][name]["gathered"] == [], name
 
 
 @pytest.mark.parametrize("mesh", MESHES)

@@ -16,6 +16,8 @@ The same functions run world 1 without a process group in the test's own
 process (``mesh=None``).  Only the port is imported here, never jax.
 """
 
+import contextlib
+import dataclasses
 import pickle
 import shutil
 import sys
@@ -26,7 +28,7 @@ import torch
 
 from valley_tpu_torch import valley_tiny
 from valley_tpu_torch.models import llama, valley
-from valley_tpu_torch.parallel import distributed, sharding
+from valley_tpu_torch.parallel import distributed, sharding, tensor
 from valley_tpu_torch.parallel.mesh import create_mesh, local_mesh
 from valley_tpu_torch.train.trainer import TrainConfig, Trainer, global_norm
 from valley_tpu_torch.weights import from_state_dict
@@ -94,15 +96,47 @@ def first_grads(trainer, batch, mesh, names=None) -> dict:
     `Trainer.loss_and_grads`, and this rank's own gradients of the
     projector (on a mesh: every rank's, with its block of the batch)."""
     rows = rows_of(mesh, len(batch["input_ids"]))
-    loss, norm, grads = trainer.loss_and_grads(trainer.device_batch(
-        {k: v[rows] for k, v in batch.items()}))
+    with recording_columns() as seen:
+        loss, norm, grads = trainer.loss_and_grads(trainer.device_batch(
+            {k: v[rows] for k, v in batch.items()}))
     full = trainer.gathered(grads)
-    own = {n: g.clone() for n, g in zip(trainer.names, grads)
-           if n.startswith("projector.")}
+    own = {f"gather {i}": g for i, g in enumerate(seen["grads"])}
     if mesh is not None:
         own = _every_rank((sharding.batch_rank(mesh), own))
     return {"loss": float(loss), "norm": float(norm),
-            "grads": {n: full[n] for n in names or full}, "own": own}
+            "grads": {n: full[n] for n in names or full}, "own": own,
+            "ce_widths": seen["ce_widths"], "gathered": seen["gathered"]}
+
+
+@contextlib.contextmanager
+def recording_columns():
+    """Record, while inside, the column gathers of the ``model`` axis and
+    the cross entropies over the vocabulary shares: {"gathered": [the
+    width each gather joined], "grads": [the gradient each gather's
+    output received, which every rank of the group must hold alike],
+    "ce_widths": [the width of the logits each cross entropy read]}."""
+    seen = {"gathered": [], "grads": [], "ce_widths": []}
+    gather, ce = tensor.Group.gather_columns, \
+        tensor.TensorParallel.cross_entropy
+
+    def gather_rec(self, x):
+        out = gather(self, x)
+        seen["gathered"].append(out.shape[-1])
+        if out.requires_grad:
+            out.register_hook(lambda g: seen["grads"].append(g.clone()))
+        return out
+
+    def ce_rec(self, logits, targets):
+        seen["ce_widths"].append(logits.shape[-1])
+        return ce(self, logits, targets)
+
+    tensor.Group.gather_columns = gather_rec
+    tensor.TensorParallel.cross_entropy = ce_rec
+    try:
+        yield seen
+    finally:
+        tensor.Group.gather_columns = gather
+        tensor.TensorParallel.cross_entropy = ce
 
 
 def grads_of(state, batch, mesh, names, out_dir, **over):
@@ -143,6 +177,28 @@ def lora_masks(state, batch, mesh, out_dir):
     finally:
         llama._adapter_mask = draw
     return calls
+
+
+def vocab_ce(sc, mesh):
+    """`valley.shifted_cross_entropy` over this rank's vocabulary columns
+    of the scenario's (B, S, V) fp32 logits (on a mesh; world 1: all of
+    them) and its labels, and its backward: the loss and every rank's
+    gradient of its columns."""
+    logits = torch.from_numpy(sc["logits"])
+    tp = None
+    if mesh is not None:
+        tp = tensor.plan(dataclasses.replace(
+            valley_tiny().text, vocab_size=logits.shape[-1]),
+            sharding.model_size(mesh), mesh.get_local_rank("model"),
+            mesh.get_group("model"))
+        logits = logits.narrow(-1, tp.vocab_start, tp.vocab)
+    logits = logits.clone().requires_grad_(True)
+    loss = valley.shifted_cross_entropy(
+        logits, torch.from_numpy(sc["labels"]), tp=tp)
+    loss.backward()
+    grad = logits.grad
+    return {"loss": float(loss),
+            "grads": [grad] if mesh is None else _every_rank(grad)}
 
 
 def wait_for(path: str, timeout: float = 240.0) -> None:
@@ -213,6 +269,8 @@ def run(job, rank, mesh):
             recs, _, _ = train(state, batches[:1], work, tp_mesh)
             res = {"records": recs, "model_mesh": tuple(tp_mesh.shape),
                    "local_mesh": tuple(local_mesh(device_type="cpu").shape)}
+        elif kind == "vocab_ce":
+            res = vocab_ce(sc, mesh)
         elif kind == "masks":
             calls = lora_masks(state, batches[0], mesh, work)
             # every rank's masks reach rank 0
@@ -341,6 +399,8 @@ def serve_scenario(job, sc, rank, mesh):
                     "cache_heads": pool._state.cache.k.shape[3]}
 
         return _lead_calls(eng, body)
+    if kind == "encode":
+        return encode(job, sc, mesh)
     if kind == "load_engine":
         from valley_tpu_torch.serve import model_worker as worker_mod
 
@@ -358,6 +418,30 @@ def serve_scenario(job, sc, rank, mesh):
             sc["argv"]))
         return {}
     raise ValueError(kind)
+
+
+def encode(job, sc, mesh):
+    """`valley.encode_images` of the scenario's frames over its JAX tree
+    carried over (in ``dtype``, "bf16" or fp32) and cut by
+    `sharding.shard_params` on the mesh: the pooled and per-frame
+    features, every rank's (which must be equal) and this rank's share
+    of the tower's and projector's weights."""
+    from valley_tpu_torch.weights import from_jax_params
+
+    cfg = valley_tiny()
+    dtype = torch.bfloat16 if sc.get("dtype") == "bf16" else torch.float32
+    params = from_jax_params(job["trees"][sc["tree"]], "cpu", dtype)
+    if mesh is not None:
+        sharding.shard_params(mesh, params, cfg, serving=True)
+    feats = valley.encode_images(params, cfg, torch.from_numpy(sc["images"]))
+    out = (feats.pooled.float().numpy().copy(),
+           feats.frame_cls.float().numpy().copy())
+    lay = params["vision"]["layers"]
+    return {"features": out,
+            "every": [out] if mesh is None else _every_rank(out),
+            "shapes": {n: tuple(lay[n].shape) for n in ("wq", "fc1", "wo",
+                                                        "bq", "fc1_bias")}
+            | {"projector.w": tuple(params["projector"]["w"].shape)}}
 
 
 def _lead_calls(engine, body):

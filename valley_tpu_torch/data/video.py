@@ -2,8 +2,14 @@
 
 The PyTorch port's copy of ``valley_tpu/data/video.py``.  Replaces the
 reference's decord-based `load_video` (`valley/util/data_util.py:249-303`)
-with OpenCV's FFMPEG-backed `VideoCapture`; the JAX package's native C++
-decoder is not ported.  Sampling semantics are identical: ``fixed`` mode takes
+with the JAX package's chain: a video file (outside ``adaptive`` mode, and
+unless ``VALLEY_DISABLE_NATIVE`` is set) goes through the native C++
+decoder (`valley_tpu_torch.native`, libav in one pass), and where that
+does not build or load, through OpenCV's FFMPEG-backed `VideoCapture`.
+The two decoders resize differently (swscale's bilinear against the
+Python transforms), so their frames differ, as the JAX package's own two
+paths do; `last_decoder` says which one served the last file.  Sampling
+semantics are identical: ``fixed`` mode takes
 ``np.linspace(0, N-1, k)`` frame indices (`data_util.py:263-266`), ``fps``
 mode strides by round(avg_fps)/fps_number (`:267-271`); a directory of
 frame images is also supported (`:283-302`).  Beyond the reference, an
@@ -15,6 +21,7 @@ centercrop-224 / CLIP-normalized.
 
 from __future__ import annotations
 
+import logging
 import os
 from pathlib import Path
 from typing import List
@@ -22,6 +29,11 @@ from typing import List
 import numpy as np
 
 from valley_tpu_torch.data import transforms as T
+
+logger = logging.getLogger(__name__)
+
+# the decoder of the last video file `load_video` read: "native" or "opencv"
+last_decoder = None
 
 
 def _decode_indices_cv2(path: str, indices: np.ndarray) -> List[np.ndarray]:
@@ -163,7 +175,23 @@ def load_video(path: str,
     (serving path: normalization runs on device, `valley.encode_images`;
     1 byte/pixel over the host->device link instead of 2).
     """
+    global last_decoder
     if os.path.isfile(path):
+        if frame_mode != "adaptive" and \
+                not os.environ.get("VALLEY_DISABLE_NATIVE"):
+            try:
+                from valley_tpu_torch import native
+
+                out = (native.decode_preprocess_raw if raw_pixels else
+                       native.decode_preprocess)(
+                    path, frame_mode, fixed_frame_number, fps_number,
+                    scale_size, crop_size)
+                last_decoder = "native"
+                return out
+            except (ImportError, IOError) as e:
+                logger.debug("native decode unavailable (%s); falling back "
+                             "to OpenCV", e)
+        last_decoder = "opencv"
         frames = _load_file(path, frame_mode, fixed_frame_number, fps_number)
         if raw_pixels:
             return _raw_clip(frames, crop_size, scale_size)

@@ -162,7 +162,7 @@ class Engine:
         if mesh is not None:
             from valley_tpu_torch.parallel import sharding
 
-            sharding.shard_params(mesh, params, cfg.text, serving=True)
+            sharding.shard_params(mesh, params, cfg, serving=True)
         self.params = params
         self.tp = tensor_parallel(params["llama"])
         # the kv heads this rank's cache holds

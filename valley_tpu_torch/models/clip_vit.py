@@ -9,6 +9,11 @@ Attention is the plain `mha_attention`, as in the JAX tower
 (``ops/quant.quantize_vision_params``, worker ``--quantize-vision``): each
 (in, out) int8 weight with its (1, out) scale a layer, weight-only
 (``_scale``) or W8A8 (``_scale_a8``), in `_dot`.
+
+On a tree cut over a ``model`` axis (`parallel.sharding.shard_params`)
+the tower carries its `TowerParallel` as ``params.tp`` and each rank runs
+its heads and MLP columns, Megatron-style (`_encoder_layer`), as JAX's
+rules cut it (``valley_tpu/parallel/sharding.py:78-106``).
 """
 
 from __future__ import annotations
@@ -21,7 +26,10 @@ import torch.nn.functional as F
 from valley_tpu_torch.config import VisionConfig
 from valley_tpu_torch.models import Weights
 from valley_tpu_torch.ops.attention import mha_attention
-from valley_tpu_torch.ops.quant import RECIP_127, dequant_matmul
+from valley_tpu_torch.ops.quant import (RECIP_127, dequant_matmul,
+                                        int8_matvec_plain)
+from valley_tpu_torch.parallel.tensor import (Group, TowerParallel,
+                                              tensor_parallel)
 
 # CLIP preprocessing statistics (the JAX tower's CLIP_MEAN / CLIP_STD).
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -124,8 +132,8 @@ def _patchify(pixel_values: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
 _INT_MM_MIN_ROWS = 17
 
 
-def _dot(lp: ClipLayers, li: int, name: str, x: torch.Tensor
-         ) -> torch.Tensor:
+def _dot(lp: ClipLayers, li: int, name: str, x: torch.Tensor,
+         reduce: Optional[Group] = None) -> torch.Tensor:
     """``x @ w`` for layer ``li``'s (in, out) weight ``name``
     (clip_vit.py:102-134), in x's dtype.
 
@@ -141,46 +149,74 @@ def _dot(lp: ClipLayers, li: int, name: str, x: torch.Tensor
     and it has no groups, so the port leaves it to the library's int8
     product, ``torch._int_mm``, as `llama._w8a8_dot` does: its second
     operand column-major, and on the card more than 16 rows (a smaller
-    block is padded with zero rows)."""
+    block is padded with zero rows).
+
+    ``reduce``: the product is row-parallel over that group (x the rank's
+    inputs, w its rows of the weight) and its partial sums are summed over
+    the group before the cast: a float product's in x's dtype, a
+    weight-only one's in fp32 (each rank's rows dequantized by the whole
+    per-channel scale), W8A8's exactly in int32 before the rescale, each
+    token quantized by its absmax over the group (`llama._global_amax`),
+    so that its int8 activations and its result are one device's."""
     w = lp[name][li]
     if w.dtype != torch.int8:
-        return x @ w
+        y = x @ w
+        return y if reduce is None else reduce.sum(y)
     a8 = lp.get(name + "_scale_a8")
     if a8 is None:
-        return dequant_matmul(x, w, lp[name + "_scale"][li])
+        if reduce is None:
+            return dequant_matmul(x, w, lp[name + "_scale"][li])
+        y = int8_matvec_plain(x, w.t(), lp[name + "_scale"][li].reshape(-1))
+        return reduce.sum(y).to(x.dtype)
     k, o = w.shape
     xf = x.reshape(-1, k).to(torch.float32)
-    ascale = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) * RECIP_127
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce is not None:
+        amax = reduce.all_reduce_max(amax)
+    ascale = amax.clamp_min(1e-6) * RECIP_127
     xq = torch.round(xf / ascale).to(torch.int8)
     rows = xq.shape[0]
     if xq.is_cuda and rows < _INT_MM_MIN_ROWS:
         xq = torch.cat([xq, xq.new_zeros((_INT_MM_MIN_ROWS - rows, k))])
     y = torch._int_mm(xq, w.t().contiguous().t())[:rows]
+    if reduce is not None:
+        y = reduce.all_reduce(y)
     out = y.to(torch.float32) * ascale * a8[li].to(torch.float32)
     return out.reshape(x.shape[:-1] + (o,)).to(x.dtype)
 
 
 def _encoder_layer(lp: ClipLayers, li: int, x: torch.Tensor,
-                   cfg: VisionConfig) -> torch.Tensor:
+                   cfg: VisionConfig,
+                   tp: Optional[TowerParallel] = None) -> torch.Tensor:
+    """One encoder layer; on a tensor-parallel rank (``tp``) over its
+    heads and MLP columns: q/k/v and fc1 column-parallel (their input
+    through `Group.enter`), o and fc2 row-parallel (their partial sums
+    summed over the group, ``bo`` and ``fc2_bias`` added once after)."""
     b, s, h = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
+    if tp is not None:
+        nh = tp.heads
 
     residual = x
     x = layer_norm(x, lp["ln1_scale"][li], lp["ln1_bias"][li],
                    cfg.layer_norm_eps)
+    if tp is not None:
+        x = tp.enter(x)
     q = (_dot(lp, li, "wq", x) + lp["bq"][li]).reshape(b, s, nh, d)
     k = (_dot(lp, li, "wk", x) + lp["bk"][li]).reshape(b, s, nh, d)
     v = (_dot(lp, li, "wv", x) + lp["bv"][li]).reshape(b, s, nh, d)
     attn = mha_attention(q, k, v, causal=False)
-    x = residual + (_dot(lp, li, "wo", attn.reshape(b, s, h))
+    x = residual + (_dot(lp, li, "wo", attn.reshape(b, s, nh * d), tp)
                     + lp["bo"][li])
 
     residual = x
     x = layer_norm(x, lp["ln2_scale"][li], lp["ln2_bias"][li],
                    cfg.layer_norm_eps)
+    if tp is not None:
+        x = tp.enter(x)
     x = _activation(_dot(lp, li, "fc1", x) + lp["fc1_bias"][li],
                     cfg.hidden_act)
-    return residual + (_dot(lp, li, "fc2", x) + lp["fc2_bias"][li])
+    return residual + (_dot(lp, li, "fc2", x, tp) + lp["fc2_bias"][li])
 
 
 def encode(params: ClipWeights, cfg: VisionConfig,
@@ -205,6 +241,7 @@ def encode(params: ClipWeights, cfg: VisionConfig,
     x = x + params["position_embedding"][None]
     x = layer_norm(x, params["pre_ln_scale"], params["pre_ln_bias"],
                    cfg.layer_norm_eps)
+    tp = tensor_parallel(params)
     for li in range(num_layers):
-        x = _encoder_layer(params["layers"], li, x, cfg)
+        x = _encoder_layer(params["layers"], li, x, cfg, tp)
     return x

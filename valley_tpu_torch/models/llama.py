@@ -747,14 +747,17 @@ def forward_hidden(params: LlamaWeights, cfg: TextConfig,
 
 
 def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
-                       attention: Attention = KERNELS) -> torch.Tensor:
+                       attention: Attention = KERNELS,
+                       gather: bool = True) -> torch.Tensor:
     """fp32 logits (llama.py:777-787) through `_linear`: a float
     ``lm_head`` is stored (in, out), a quantized one ((out, in), packed for
     int4, see ``ops/quant.py``) comes with its (1, vocab) scale.  On a
     tree cut over a ``model`` axis each rank computes its vocabulary's
     columns (its input through `TensorParallel.enter`) and every rank gets
-    all of them (`TensorParallel.gather_vocab`, before the cast to fp32:
-    a bf16 product's columns move at half the bytes, the same values)."""
+    all of them (`Group.gather_columns`, before the cast to fp32: a bf16
+    product's columns move at half the bytes, the same values); with
+    ``gather`` False (the training loss, `TensorParallel.cross_entropy`)
+    each rank keeps its own (..., vocab/N) columns."""
     tp = tensor_parallel(params)
     if tp is not None:
         hidden = tp.enter(hidden)
@@ -764,8 +767,8 @@ def logits_from_hidden(params: LlamaWeights, hidden: torch.Tensor,
     else:
         out = _linear(hidden, w, params["lm_head_scale"].reshape(-1),
                       attention)
-    if tp is not None:
-        out = tp.gather_vocab(out)
+    if tp is not None and gather:
+        out = tp.gather_columns(out)
     return out.to(torch.float32)
 
 
@@ -774,9 +777,10 @@ def forward(params: LlamaWeights, cfg: TextConfig,
             attn_mask: Optional[torch.Tensor] = None,
             attention: Attention = KERNELS, remat=False,
             lora_rng: Optional[int] = None,
-            lora_dropout: float = 0.0) -> torch.Tensor:
-    """Cacheless forward: (B, S, H) -> fp32 logits (B, S, V)."""
+            lora_dropout: float = 0.0, gather: bool = True) -> torch.Tensor:
+    """Cacheless forward: (B, S, H) -> fp32 logits (B, S, V) (``gather``:
+    `logits_from_hidden`)."""
     hidden, _ = forward_hidden(params, cfg, inputs_embeds, attn_mask,
                                attention=attention, remat=remat,
                                lora_rng=lora_rng, lora_dropout=lora_dropout)
-    return logits_from_hidden(params, hidden, attention)
+    return logits_from_hidden(params, hidden, attention, gather=gather)

@@ -16,6 +16,7 @@ from valley_tpu_torch.models import Weights, clip_vit, llama, temporal
 from valley_tpu_torch.ops.attention import KERNELS, Attention
 from valley_tpu_torch.parallel.sharding import (batch_group, batch_sum,
                                                  sharding_of)
+from valley_tpu_torch.parallel.tensor import TensorParallel, tensor_parallel
 
 
 class Projector(Weights):
@@ -58,7 +59,11 @@ def encode_images(params: ValleyWeights, cfg: ValleyConfig,
     ``uint8`` images are raw pixels, CLIP-normalised here in fp32 and cast
     to bf16 (valley.py:63-69).  ``frame_mask``: optional (B, T) bool.  The
     tower is frozen in every recipe, so it runs under `torch.no_grad` (the
-    JAX ``stop_gradient``); the projector keeps its gradient.
+    JAX ``stop_gradient``); the projector keeps its gradient.  On a tree
+    cut over a ``model`` axis the tower runs on the rank's heads and MLP
+    columns (`clip_vit.encode`), the projector gives the rank's output
+    columns and `Group.gather_columns` joins them before the pooling,
+    which runs whole on every rank.
     """
     if images.dtype == torch.uint8:
         mean = torch.tensor(clip_vit.CLIP_MEAN, dtype=torch.float32,
@@ -73,6 +78,9 @@ def encode_images(params: ValleyWeights, cfg: ValleyConfig,
         feats = clip_vit.encode(params["vision"], cfg.vision, flat)
     proj = params["projector"]
     feats = feats @ proj["w"] + proj["b"]
+    tp = tensor_parallel(proj)
+    if tp is not None:
+        feats = tp.gather_columns(feats)
     feats = feats.reshape(b, t, feats.shape[1], feats.shape[2])
 
     patch = feats[:, :, 1:, :]     # (B, T, P, H)
@@ -116,10 +124,10 @@ def build_inputs_embeds(params: ValleyWeights, cfg: ValleyConfig,
                         ) -> torch.Tensor:
     """The token embeddings (vocabulary-parallel on a tree cut over a
     ``model`` axis, `llama.embed`) with the vision features spliced in.
-    The tower, projector and temporal module run whole on every rank of a
-    ``model`` group; their gradients are the same on each, the spliced
-    features' being the first layer's input gradient, which every rank
-    holds whole (`parallel.tensor`)."""
+    The temporal module runs whole on every rank of a ``model`` group and
+    takes the same gradient on each, the spliced features' being the first
+    layer's input gradient, which every rank holds whole
+    (`parallel.tensor`); the projector takes its columns of it."""
     embeds = llama.embed(params["llama"], input_ids)
     if images is not None:
         feats = encode_images(params, cfg, images, frame_mask)
@@ -133,19 +141,23 @@ def forward(params: ValleyWeights, cfg: ValleyConfig,
             frame_mask: Optional[torch.Tensor] = None,
             attention: Attention = KERNELS, remat=False,
             lora_rng: Optional[int] = None,
-            lora_dropout: float = 0.0) -> torch.Tensor:
+            lora_dropout: float = 0.0, gather: bool = True) -> torch.Tensor:
     """Full cacheless forward to fp32 logits (B, S, V); ``lora_rng`` and
     ``lora_dropout`` are a training step's adapter dropout
-    (`llama.forward_hidden`)."""
+    (`llama.forward_hidden`); ``gather`` False: on a tree cut over a
+    ``model`` axis, this rank's (B, S, V/N) vocabulary columns
+    (`llama.logits_from_hidden`)."""
     embeds = build_inputs_embeds(params, cfg, input_ids, images, frame_mask)
     return llama.forward(params["llama"], cfg.text, embeds, attn_mask,
                          attention=attention, remat=remat,
-                         lora_rng=lora_rng, lora_dropout=lora_dropout)
+                         lora_rng=lora_rng, lora_dropout=lora_dropout,
+                         gather=gather)
 
 
 def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          global_count: bool = False,
-                          group=None) -> torch.Tensor:
+                          global_count: bool = False, group=None,
+                          tp: Optional[TensorParallel] = None
+                          ) -> torch.Tensor:
     """Mean cross entropy over the shifted targets that are not
     ``IGNORE_INDEX``, from an fp32 log-softmax (valley.py:148-160).
 
@@ -156,13 +168,26 @@ def shifted_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     gradients) sum to the global batch's mean, JAX's loss over its sharded
     batch.  The ranks of one ``model`` group hold the same rows and count
     them once.  The mean of per-rank means is another loss wherever ranks
-    hold different numbers of supervised tokens."""
-    shift_logits = logits[:, :-1, :]
-    shift_labels = labels[:, 1:]
-    valid = shift_labels != IGNORE_INDEX
-    safe = torch.where(valid, shift_labels, 0).long()
-    logp = torch.log_softmax(shift_logits.float(), dim=-1)
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
+    hold different numbers of supervised tokens.
+
+    ``tp``: ``logits`` are this rank's (B, S, V/N) vocabulary columns and
+    the log-softmax runs over the shares (`TensorParallel.cross_entropy`):
+    no rank holds a row's whole logits.  Each position's target is the
+    next label (the last position's is ignored), so the shares are read
+    in place, not shifted into a copy."""
+    if tp is None:
+        shift_labels = labels[:, 1:]
+        valid = shift_labels != IGNORE_INDEX
+        safe = torch.where(valid, shift_labels, 0).long()
+        logp = torch.log_softmax(logits[:, :-1, :].float(), dim=-1)
+        nll = -logp.gather(-1, safe[..., None])[..., 0]
+    else:
+        targets = torch.cat([labels[:, 1:], torch.full_like(
+            labels[:, :1], IGNORE_INDEX)], dim=1)
+        valid = targets != IGNORE_INDEX
+        safe = torch.where(valid, targets, 0).long()
+        nll = tp.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               safe.reshape(-1)).reshape(safe.shape)
     nll = torch.where(valid, nll, 0.0)
     count = valid.sum()
     if global_count:
@@ -177,11 +202,15 @@ def loss_fn(params: ValleyWeights, cfg: ValleyConfig, batch, remat=True,
     """Training loss of one batch (valley.py:163-171): ``batch`` holds
     ``input_ids``, ``labels`` and optionally ``attention_mask``, ``images``
     and ``frame_mask`` tensors; ``global_count``: the batch is one rank's
-    rows of a global batch (`shifted_cross_entropy`)."""
+    rows of a global batch (`shifted_cross_entropy`).  On a tree cut over
+    a ``model`` axis the logits stay in the ranks' vocabulary shares and
+    the cross entropy runs over them."""
+    tp = tensor_parallel(params["llama"])
     logits = forward(params, cfg, batch["input_ids"], batch.get("images"),
                      batch.get("attention_mask"), batch.get("frame_mask"),
                      attention=attention, remat=remat, lora_rng=lora_rng,
-                     lora_dropout=lora_dropout)
+                     lora_dropout=lora_dropout, gather=tp is None)
     sh = sharding_of(params)
     return shifted_cross_entropy(logits, batch["labels"], global_count,
-                                 None if sh is None else batch_group(sh.mesh))
+                                 None if sh is None else batch_group(sh.mesh),
+                                 tp)

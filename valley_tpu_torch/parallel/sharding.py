@@ -29,11 +29,12 @@ replicated leaf) and writes the collectives out:
   is first cut Megatron-style (`model_axis`), then each rank's share is
   cut again over ``fsdp``.  The batch world is then data x fsdp, the
   ranks of one ``model`` group reading the same rows (`batch_group`).  A
-  leaf cut over ``model`` takes its whole gradient on its rank; a leaf
-  whole on every ``model`` rank takes the same gradient on each (the
-  norms, the vision side: their input gradient came through
-  `TensorParallel.enter`), except the LoRA factors that stay whole
-  (`partial_over_model`), whose ranks' gradients are parts of a sum.
+  leaf cut over ``model`` takes its whole gradient on its rank (the
+  projector's columns too: `Group.gather_columns`); a leaf whole on every
+  ``model`` rank takes the same gradient on each (the norms, the temporal
+  module: their input gradient came through `Group.enter`), except the
+  LoRA factors that stay whole (`partial_over_model`), whose ranks'
+  gradients are parts of a sum.
 * `gather_params` and `gather_state` carry the slices of both axes back to
   a full tree (checkpoints, ``final/``, the steps eval); `load_full_state`
   takes a full state onto the slices of any world.
@@ -59,6 +60,7 @@ import torch.distributed as dist
 from valley_tpu_torch.models.llama import QUANTIZED
 from valley_tpu_torch.parallel.tensor import TensorParallel
 from valley_tpu_torch.parallel.tensor import plan as tensor_plan
+from valley_tpu_torch.parallel.tensor import plan_tower as tensor_plan_tower
 
 # The fsdp axis of each decoder layer weight (L, out, in): the in axis of
 # q/k/v/gate/up (fused or not), the out axis of o and down, which contract
@@ -76,6 +78,11 @@ _SCALES = ("_scale_a8", "_scale")
 _LLAMA_MODEL = {"wqkv": 1, "w_gateup": 1, "wq": 1, "wk": 1, "wv": 1,
                 "w_gate": 1, "w_up": 1, "wo": 2, "w_down": 2}
 _ROW_PARALLEL = ("wo", "w_down")
+# ... and of each tower layer weight (L, in, out) and bias (L, out)
+# (sharding.py:78-106): q/k/v/fc1 and their biases on the out axis, o and
+# fc2 on the in axis
+_VISION_MODEL = {"wq": 2, "wk": 2, "wv": 2, "fc1": 2, "wo": 1, "fc2": 1,
+                 "bq": 1, "bk": 1, "bv": 1, "fc1_bias": 1}
 
 
 def _lora_base(leaf: str) -> Optional[str]:
@@ -89,26 +96,41 @@ def _lora_base(leaf: str) -> Optional[str]:
 def model_axis(name: str, tensor: Optional[torch.Tensor]) -> Optional[int]:
     """The axis of parameter ``name`` that the ``model`` axis splits, in
     the port's layout; None for a leaf every rank holds whole.  JAX's
-    rules (sharding.py:18-75), translated, with three differences, each
-    where the port's arithmetic on a rank differs from XLA's resharding:
+    rules (sharding.py:18-124), translated: the decoder's q/k/v/gate/up
+    (fused or not) on their out axis and o/down on their in axis, the
+    vocabulary of ``embed``, ``lm_head`` and its scale; the tower's
+    q/k/v/fc1 and their biases on their out axis and o/fc2 on their in
+    axis, an int8 tower's (L, 1, out) scales with their weight's out axis
+    (o's and fc2's whole); the projector by its outputs; the temporal
+    module whole.  Two differences, each where the port's arithmetic on a
+    rank differs from XLA's resharding:
 
-    * a row-parallel projection's scales: each rank rescales its partial
-      sum before the sum over the group, so a per-channel scale (L, out)
-      stays whole and a grouped one (L, out, in/gs) splits with the in
-      axis (axis 2), where JAX puts both on their out axis and XLA
+    * a row-parallel decoder projection's scales: each rank rescales its
+      partial sum before the sum over the group, so a per-channel scale
+      (L, out) stays whole and a grouped one (L, out, in/gs) splits with
+      the in axis (axis 2), where JAX puts both on their out axis and XLA
       reshards;
     * a row-parallel projection's adapter (``wo``, ``w_down``): each rank
       adds its share of the delta, (x_r @ A_r) @ B, to its partial sum
       before the sum over the group, so A (L, in, r) splits on its in axis
       with the weight's and B (L, r, out) stays whole, where JAX keeps A
       whole and splits B's out axis; a column-parallel adapter's B splits
-      on its out axis and A stays whole, as in JAX;
-    * the tower, the projector and the temporal module stay whole on
-      every rank (ROADMAP.md §3), where JAX splits them too.
+      on its out axis and A stays whole, as in JAX.
 
     The quantized ``lm_head`` is stored (out, in) here, (in, out) in JAX:
     its vocabulary axis is 0."""
     top, *mid, leaf = name.split(".")
+    if top == "vision":
+        if not mid:
+            return None
+        for suffix in _SCALES:
+            base = leaf[:-len(suffix)]
+            if leaf.endswith(suffix) and base in _VISION_MODEL:
+                # (L, 1, out) scales follow their weight's out axis
+                return 2 if _VISION_MODEL[base] == 2 else None
+        return _VISION_MODEL.get(leaf)
+    if top == "projector":
+        return 1 if leaf == "w" else 0       # w (in, out), b (out,)
     if top != "llama":
         return None
     if not mid:
@@ -182,8 +204,8 @@ def fsdp_axis(name: str, tensor: torch.Tensor) -> Optional[int]:
 class Sharding:
     """What `shard_params` did to a tree: the mesh, the fsdp axis of every
     sharded parameter by dotted name, and on a ``model`` axis above 1 the
-    model axis of every parameter cut over it, the decoder's
-    `TextConfig` and this rank's `TensorParallel`."""
+    model axis of every parameter cut over it, the `ValleyConfig` and
+    this rank's `TensorParallel`."""
     mesh: object
     axes: Mapping[str, int]
     model_axes: Mapping[str, int] = dataclasses.field(default_factory=dict)
@@ -380,10 +402,16 @@ def _model_units(name: str, entries: int, axis: int, tp: TensorParallel,
 
 def _model_cut(name: str, t: torch.Tensor, axis: int, tp: TensorParallel,
                cfg) -> torch.Tensor:
-    """This rank's part of ``t`` along its model ``axis`` (`_model_units`;
-    several spans, as a fused stack's q, k and v heads, re-joined)."""
-    parts = [t.narrow(axis, a, n)
-             for a, n in _model_units(name, t.shape[axis], axis, tp, cfg)]
+    """This rank's part of ``t`` along its model ``axis``: a decoder
+    leaf's spans (`_model_units`; several, as a fused stack's q, k and v
+    heads, re-joined) of the `ValleyConfig` ``cfg``; a tower or projector
+    leaf's equal block in rank order (its heads, MLP columns or
+    outputs)."""
+    if not name.startswith("llama."):
+        n = t.shape[axis] // tp.size
+        return t.narrow(axis, tp.rank * n, n)
+    parts = [t.narrow(axis, a, n) for a, n in
+             _model_units(name, t.shape[axis], axis, tp, cfg.text)]
     return torch.cat(parts, dim=axis) if len(parts) > 1 else parts[0]
 
 
@@ -391,6 +419,9 @@ def _model_join(name: str, parts: List[torch.Tensor], axis: int, cfg
                 ) -> torch.Tensor:
     """The full tensor of the ``model`` ranks' parts of ``name`` (rank
     order): each rank's spans put back where `_model_cut` took them."""
+    if not name.startswith("llama."):
+        return torch.cat(parts, dim=axis)
+    cfg = cfg.text
     out = None
     for r, part in enumerate(parts):
         tp = tensor_plan(cfg, len(parts), r, None)
@@ -408,14 +439,22 @@ def _model_join(name: str, parts: List[torch.Tensor], axis: int, cfg
 
 
 def _cut_model_axis(mesh, params, cfg, serving: bool) -> tuple:
-    """Cut every decoder leaf with a `model_axis` in place to this rank's
-    part; returns (this rank's `TensorParallel`, {name: model axis}).
-    LoRA leaves are refused for ``serving`` (merge them first)."""
-    tp = tensor_plan(cfg, model_size(mesh), mesh.get_local_rank("model"),
-                     mesh.get_group("model"), training=not serving)
+    """Cut every leaf with a `model_axis` in place to this rank's part:
+    the decoder's, the tower's and the projector's (the `ValleyConfig`
+    ``cfg``'s shares, `tensor.plan` and `tensor.plan_tower`, each refused
+    with the reason where the axis does not divide it); returns (this
+    rank's `TensorParallel`, {name: model axis}).  The decoder carries
+    its `TensorParallel` as ``params.llama.tp``, the tower and the
+    projector their `TowerParallel` as ``.tp``.  LoRA leaves are refused
+    for ``serving`` (merge them first)."""
+    size, rank = model_size(mesh), mesh.get_local_rank("model")
+    group = mesh.get_group("model")
+    tp = tensor_plan(cfg.text, size, rank, group, training=not serving)
+    tower = tensor_plan_tower(cfg.vision, cfg.text.hidden_size, size, rank,
+                              group)
     axes = {}
     for prefix, module in params.named_modules():
-        if not prefix.startswith("llama"):
+        if not prefix.startswith(("llama", "vision", "projector")):
             continue
         for name, p in module.named_parameters(recurse=False):
             dotted = f"{prefix}.{name}"
@@ -430,14 +469,14 @@ def _cut_model_axis(mesh, params, cfg, serving: bool) -> tuple:
                     memory_format=torch.contiguous_format)
                 axes[dotted] = axis
     params.llama.tp = tp
+    params.vision.tp = params.projector.tp = tower
     return tp, axes
 
 
 def shard_params(mesh, params, cfg=None, serving: bool = False):
     """Cut the full tree ``params`` in place to this rank's slices: over
-    the mesh's model axis (`model_axis`, a `TextConfig` ``cfg`` needed;
-    the decoder then carries its `TensorParallel` as ``params.llama.tp``),
-    then over its fsdp axis (`fsdp_axis`), and make its reads gather the
+    the mesh's model axis (`model_axis`, the `ValleyConfig` ``cfg``
+    needed; `_cut_model_axis`), then over its fsdp axis (`fsdp_axis`), and make its reads gather the
     fsdp slices.  Every parameter keeps its `nn.Parameter` (and so its
     ``requires_grad``); the slices are contiguous.  Returns ``params``.
     An axis that the fsdp size does not divide is refused.  ``serving``:
@@ -449,7 +488,7 @@ def shard_params(mesh, params, cfg=None, serving: bool = False):
     tp, model_axes = None, {}
     if model_size(mesh) > 1:
         if cfg is None:
-            raise ValueError("a model axis above 1 needs the TextConfig")
+            raise ValueError("a model axis above 1 needs the ValleyConfig")
         tp, model_axes = _cut_model_axis(mesh, params, cfg, serving)
         if not serving:
             batch_group(mesh)

@@ -28,7 +28,7 @@ the pool's own threads take it around prefills and captures.  Up to
 ``--speculative`` is on by default, as in JAX: stateless requests decode
 through `SpecDecoder`.  A pool (``--batch-window-ms`` < 0) speculates only
 when ``--speculative`` is given explicitly: on the card a speculative
-pool's round costs more than its drafts can repay (ROADMAP §1).
+pool's round costs more than its drafts can repay (ROADMAP §2 item 7).
 
 ``--tensor-parallel N`` serves the weights cut over N ranks, one process a
 card under ``torchrun --nproc_per_node N``: every rank loads the engine

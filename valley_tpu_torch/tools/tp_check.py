@@ -18,7 +18,10 @@ graphs), then serves it again and prints, from rank 0, one line of JSON:
 the first token and its wall time, decode ms/token over the 128 new
 tokens, the share of a decode step's device time in NCCL's kernels (the
 profiler over replays of one 16-step graph: all-reduce, and the all-gather
-of the logits' vocabulary shares), and whether the tokens equal N = 1's
+of the logits' vocabulary shares), each rank's vision features (the tower
+and the projector, cut over the ranks: the call's ms by CUDA events and
+its device ms by kind, the tower's all-reduces, the projector's gather
+and the compute; `tower_times`), and whether the tokens equal N = 1's
 (else the first step where they part).  The card's name and power limit
 from ``nvidia-smi`` stand beside them.
 """
@@ -103,6 +106,51 @@ def collective_share(engine) -> dict:
                for k, v in kinds.items() if k != "other"}}
 
 
+def tower_times(engine, frames, repeats: int = 5) -> dict:
+    """The request's vision features (`valley.encode_images`: the tower
+    on this rank's heads and MLP columns, the projector on its outputs and
+    their gather, the pooling) on this rank: the call's ms by CUDA events
+    (median of ``repeats``), and the device ms a call by kind over
+    ``repeats`` calls under the profiler: NCCL's all-reduces (the tower's
+    row-parallel sums, two a layer), its all-gathers (the projector's
+    outputs) and the rest (the tower's and projector's products,
+    attention, norms, pooling)."""
+    from valley_tpu_torch.models import valley
+
+    x = torch.from_numpy(frames).to(engine.device)
+    with torch.inference_mode():
+        valley.encode_images(engine.params, engine.cfg, x)
+        walls = []
+        for _ in range(repeats):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            valley.encode_images(engine.params, engine.cfg, x)
+            b.record()
+            torch.cuda.synchronize()
+            walls.append(a.elapsed_time(b))
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(repeats):
+                valley.encode_images(engine.params, engine.cfg, x)
+            torch.cuda.synchronize()
+    kinds = {"all_reduce": 0.0, "all_gather": 0.0, "compute": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if not us or e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.key.lower()
+        kind = "all_reduce" if "nccl" in name and "allreduce" in name \
+            else "all_gather" if "nccl" in name and "allgather" in name \
+            else "compute"
+        kinds[kind] += us / 1e3 / repeats
+    return {"event_ms": sorted(walls)[len(walls) // 2],
+            **{f"{k}_ms": v for k, v in kinds.items()}}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", required=True,
@@ -139,6 +187,11 @@ def main(argv=None) -> None:
     warm_s = time.perf_counter() - t0
     toks, first_ms, decode_ms = serve(engine, prompt, frames)
     share = collective_share(engine)
+    tower = [tower_times(engine, frames)]
+    if mesh is not None:
+        every = [None] * n
+        torch.distributed.all_gather_object(every, tower[0])
+        tower = every
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     if rank == 0:
@@ -155,6 +208,7 @@ def main(argv=None) -> None:
         line = {"ranks": n, "layers": cfg.text.num_hidden_layers,
                 "first_token": toks[0], "first_token_ms": first_ms,
                 "decode_ms_per_token": decode_ms, **share,
+                "vision_by_rank": tower,
                 "tokens_equal_n1": None if ref is None else ref == toks,
                 "first_parting_step": parted,
                 "graphs": engine.use_graphs,

@@ -11,7 +11,11 @@ with valley_stage2.yaml's settings (the decoder, embeddings, head and
 projector trained, AdamW, lr 2e-5, clipping at 1) and ``"dots"`` remat,
 on one synthetic row of 2048 tokens with an 8-frame video a batch block:
 every block holds the same row, so the global mean loss, and every update,
-is the same at every mesh.  Rank 0 prints one line of JSON a mesh: the
+is the same at every mesh.  Each mesh runs with the port's loss, the cross
+entropy over the vocabulary shares ("shares"), and then with the loss it
+replaced, the logits gathered whole onto every rank ("gathered",
+`gathered_loss`).  Rank 0 prints one line of JSON a
+mesh and loss: the
 three updates' losses and walls (the update's wall: the median of the last
 two), then, over a fourth update under the profiler, the device's busy
 time (the union of the kernels' intervals: NCCL's kernels run on their own
@@ -21,7 +25,7 @@ time (a collective's kernel waits for its peers, so the share counts the
 ranks' skew with the transfer), K1's and K2's device ms a call on the
 rank's heads, and each rank's peak memory over the updates (and apart,
 the peak of making the full tree before it is cut); then a last line
-with the meshes' losses against each other (the stage-2 loss bar, 2.5e-3)
+with the runs' losses against each other (the stage-2 loss bar, 2.5e-3)
 and the seconds the process group took to come down.  The card's name and
 power limit from ``nvidia-smi`` stand beside them.  No depth or width is
 cut: Valley-13B full stage 2 fits no fewer than four cards.
@@ -40,6 +44,7 @@ from pathlib import Path
 import torch
 
 MESHES = ((1, 1, 4), (1, 2, 2), (1, 4, 1))
+LOSSES = ("shares", "gathered")
 UPDATES = 3
 SEQ = 2048
 FRAMES = 8
@@ -122,16 +127,50 @@ def profile_update(trainer, batch) -> dict:
     return ms
 
 
-def train_mesh(cfg, shape, device, out_dir: Path) -> dict:
-    """The updates of one mesh on this rank: losses, walls, the profiled
-    update's breakdown, K1's and K2's launches in it, and peak memory."""
+def gathered_loss(params, cfg, batch, remat=True, attention=None,
+                  lora_rng=None, lora_dropout=0.0, global_count=False):
+    """The loss as the port took it before the cross entropy over the
+    vocabulary shares: every rank's logits gathered whole onto every rank
+    of the ``model`` group (`Group.gather_columns`), then a full
+    log-softmax.  Measured beside `valley.loss_fn`, used nowhere else."""
+    from valley_tpu_torch.models import valley
+    from valley_tpu_torch.ops.attention import KERNELS
+    from valley_tpu_torch.parallel.sharding import batch_group, sharding_of
+
+    logits = valley.forward(
+        params, cfg, batch["input_ids"], batch.get("images"),
+        batch.get("attention_mask"), batch.get("frame_mask"),
+        attention=attention or KERNELS, remat=remat, lora_rng=lora_rng,
+        lora_dropout=lora_dropout)
+    sh = sharding_of(params)
+    return valley.shifted_cross_entropy(
+        logits, batch["labels"], global_count,
+        None if sh is None else batch_group(sh.mesh))
+
+
+def train_mesh(cfg, mesh, shape, device, out_dir: Path, loss: str) -> dict:
+    """The updates of one mesh on this rank with ``loss`` ("shares": the
+    port's cross entropy over the vocabulary shares; "gathered":
+    `gathered_loss`): losses, walls, the profiled update's breakdown, K1's
+    and K2's launches in it, and peak memory."""
+    from valley_tpu_torch.models import valley
+
+    own_loss = valley.loss_fn
+    if loss == "gathered":
+        valley.loss_fn = gathered_loss
+    try:
+        return _train_mesh(cfg, mesh, shape, device, out_dir / loss)
+    finally:
+        valley.loss_fn = own_loss
+
+
+def _train_mesh(cfg, mesh, shape, device, out_dir: Path) -> dict:
+    """`train_mesh`'s updates under the loss installed."""
     from valley_tpu_torch.models import valley
     from valley_tpu_torch.ops.flash_attention import (flash_attention,
                                                       flash_attention_bwd)
-    from valley_tpu_torch.parallel.mesh import create_mesh
     from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    mesh = create_mesh(*shape, device_type=device.type)
     torch.cuda.reset_peak_memory_stats(device)
     params = valley.init_params(cfg, torch.Generator(device).manual_seed(0),
                                 torch.bfloat16, device)
@@ -195,10 +234,14 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines() if rank == 0 else None
+    from valley_tpu_torch.parallel.mesh import create_mesh
+
     lines = {}
-    for shape in MESHES:
+    meshes = {shape: create_mesh(*shape, device_type=device.type)
+              for shape in MESHES}
+    for shape, loss in [(m, ls) for m in MESHES for ls in LOSSES]:
         t0 = time.perf_counter()
-        got = train_mesh(cfg, shape, device, out)
+        got = train_mesh(cfg, meshes[shape], shape, device, out, loss)
         every = [None] * n
         torch.distributed.all_gather_object(
             every, {"peak": got["peak"], "init_peak": got["init_peak"],
@@ -207,7 +250,8 @@ def main(argv=None) -> None:
             prof = got["prof"]
             coll = sum(prof[k] for k in KINDS)
             line = {
-                "mesh": list(shape), "layers": cfg.text.num_hidden_layers,
+                "mesh": list(shape), "loss": loss,
+                "layers": cfg.text.num_hidden_layers,
                 "seq": SEQ, "losses": got["losses"],
                 "update_walls_ms": [w * 1e3 for w in got["walls"]],
                 "update_wall_ms": statistics.median(got["walls"][1:]) * 1e3,
@@ -232,12 +276,12 @@ def main(argv=None) -> None:
                     sum(e["prof"][k] for k in KINDS) / e["prof"]["kernels"]
                     for e in every],
                 "seconds": time.perf_counter() - t0, "cards": smi}
-            lines[shape] = line
-            (out / ("mesh_" + "x".join(map(str, shape)) + ".json")
+            lines[shape, loss] = line
+            (out / ("mesh_" + "x".join(map(str, shape)) + f"_{loss}.json")
              ).write_text(json.dumps(line))
             print(json.dumps(line), flush=True)
     if rank == 0:
-        losses = [lines[s]["losses"] for s in MESHES]
+        losses = [line["losses"] for line in lines.values()]
         gap = max(abs(a - b) for ls in losses for a, b in zip(ls, losses[0]))
         print(json.dumps({"losses_agree": gap <= LOSS_BAR, "largest_gap": gap,
                           "bar": LOSS_BAR}), flush=True)

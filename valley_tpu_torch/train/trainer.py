@@ -34,7 +34,10 @@ mesh.
   cut again over fsdp; ZeRO-3: the gradients and AdamW's moments,
   offloaded or not, are slices too), the batch is this rank's rows of the
   global batch (the ranks of one ``model`` group read the same rows), and
-  the loss divides by the global count of supervised tokens.  Each layer
+  the loss divides by the global count of supervised tokens; over
+  ``model`` the tower and the projector are cut too (the tower frozen),
+  and the loss is the cross entropy over the vocabulary shares, no rank
+  holding a row's whole logits (`valley.loss_fn`).  Each layer
   is gathered where the model reads it and its gradient reduce-scattered
   in the backward; the replicated leaves' gradients are all-reduced over
   the batch world after it, and the LoRA factors whole on every ``model``
@@ -356,7 +359,7 @@ class Trainer:
         self.tc = tc
         check_ported(tc)
         if mesh is not None and sharding.sharding_of(params) is None:
-            sharding.shard_params(mesh, params, cfg.text)
+            sharding.shard_params(mesh, params, cfg)
         sh = sharding.sharding_of(params)
         self.sharding = sh
         self.mesh = None if sh is None else sh.mesh
@@ -609,6 +612,23 @@ class Trainer:
                 for k, t in self.optimizer.state.get(p, {}).items()
                 if k != "step"]
 
+    def _own_groups(self, osd: dict) -> dict:
+        """A saved optimizer state with this run's groups: each saved
+        group's parameter ids under this run's hyperparameters (a state
+        converted from the JAX package's, `utils.orbax_io`, names its
+        groups' parameters only).  The groups' names must be this run's,
+        else the checkpoint trained other parameters and is refused."""
+        live = self.optimizer.state_dict()["param_groups"]
+        saved = osd["param_groups"]
+        if [g["names"] for g in saved] != [g["names"] for g in live]:
+            raise ValueError(
+                "the checkpoint's optimizer trained other parameters than "
+                "this run's flags train: "
+                f"{[(g.get('label'), len(g['names'])) for g in saved]} "
+                f"against {[(g['label'], len(g['names'])) for g in live]}")
+        return {**osd, "param_groups": [{**g, "params": s["params"]}
+                                        for g, s in zip(live, saved)]}
+
     def _load_optimizer(self, osd: dict) -> None:
         """`torch.optim.Optimizer.load_state_dict`; offloaded, the moments
         go straight into pinned host buffers, never through the device."""
@@ -696,7 +716,7 @@ class Trainer:
             return 0
         state, step = restored
         logger.info("resume from checkpoint-%d", step)
-        osd = state["optimizer"]
+        osd = self._own_groups(state["optimizer"])
         if self.mesh is None:
             self.params.load_state_dict(state["params"])
         else:

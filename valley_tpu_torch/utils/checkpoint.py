@@ -4,10 +4,12 @@ directories.
 Same layout and rules as ``valley_tpu/utils/checkpoint.py``: auto-resume
 from the newest ``checkpoint-N``, ``save_total_limit`` rotation (``keep``),
 and a write to ``checkpoint-N.tmp`` renamed into place, so a reader never
-sees a partial checkpoint.  The format is the port's own: one
-``torch.save`` file per directory (tensors, numbers, strings and dicts of
-them, loaded back with ``weights_only=True``), not orbax, so the two
-packages do not read each other's checkpoints.
+sees a partial checkpoint.  The format is the port's own, and the
+default: one ``torch.save`` file per directory (tensors, numbers, strings
+and dicts of them, loaded back with ``weights_only=True``), not orbax.
+`utils.orbax_io` converts ``checkpoint-N``, ``final/`` and ``adapter-N/``
+both ways between it and the JAX package's orbax format (``python -m
+valley_tpu_torch.utils.orbax_io {to-port,to-orbax} SRC DST``).
 
 A save with ``block=False`` (the trainer's ``async_checkpointing``)
 copies the state to the host before it returns, so what is saved is the
