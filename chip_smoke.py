@@ -282,6 +282,20 @@ KERNEL_NAMES = {"K1": ("flash_fwd_kernel",),
                 "T4": ("t4_head_chunked_kernel",),
                 "T5": ("t5_per_head_kernel",), "T6": ("t6_stacked_kernel",),
                 "T7": ("t7_stage_kernel", "t7_combine_kernel")}
+# K1's and K2's profiler names and wrappers, whose traces are held to
+# their launches (`traced`)
+FLASH = {"K1": ("flash_fwd_kernel", "flash_attention"),
+         "K2": ("flash_bwd_kernel", "flash_attention_bwd")}
+
+
+def flash_expect(kind: str) -> tuple:
+    """(profiler name, wrapper) of K1 or K2, for `traced`'s ``expect``."""
+    from valley_tpu_torch.ops import flash_attention as fa
+
+    name, wrapper = FLASH[kind]
+    return name, getattr(fa, wrapper)
+
+
 # Profiler kernel names by kind, for the training step's breakdown
 KERNEL_KINDS = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
@@ -340,7 +354,7 @@ _empty_traces = False
 
 
 def traced(fn, iters: int, read, attempts: int = PROFILE_ATTEMPTS,
-           **kwargs):
+           expect=None, **kwargs):
     """``read(prof)`` of a profiler trace, with CUDA activities, of
     ``iters`` calls of ``fn()``; ``read`` returns (device ms, ...).  A
     trace that holds no device time is taken again after a pause, up to
@@ -356,7 +370,14 @@ def traced(fn, iters: int, read, attempts: int = PROFILE_ATTEMPTS,
     CUDA events' time.  The CPU side (the ops) is traced only where
     ``record_shapes`` asks for the ops' shapes: its events outnumber the
     device's several times, and reading them took tens of seconds of each
-    serving process."""
+    serving process.
+
+    With ``expect`` (a kernel's profiler name and its wrapper, `FLASH`),
+    the trace must also hold as many of that kernel's events as the
+    wrapper counted launches in the traced calls: a trace that holds fewer
+    is a trace fault, reported and taken again like an empty one, never
+    read as the kernel's time.  Each profile keeps its events across
+    cycles (``acc_events``)."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA]
@@ -366,10 +387,23 @@ def traced(fn, iters: int, read, attempts: int = PROFILE_ATTEMPTS,
         if attempt > 1:
             time.sleep(0.25 * attempt)
         torch.cuda.synchronize()
-        with profile(activities=activities, **kwargs) as prof:
+        before = expect[1].launches if expect else 0
+        with profile(activities=activities, acc_events=True,
+                     **kwargs) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        if expect is not None:
+            name, wrapper = expect
+            launched = wrapper.launches - before
+            events = sum(e.count for e in prof.key_averages()
+                         if name in e.key
+                         and str(e.device_type).endswith("CUDA"))
+            if events < launched:
+                print(f"profiler: trace {attempt} held {events} {name} "
+                      f"events of {launched} launches: a trace fault",
+                      flush=True)
+                continue
         got = read(prof)
         if got[0] > 0:
             return got
@@ -378,7 +412,8 @@ def traced(fn, iters: int, read, attempts: int = PROFILE_ATTEMPTS,
     return None
 
 
-def profile_device(fn, iters: int = 1, with_flops: bool = False):
+def profile_device(fn, iters: int = 1, with_flops: bool = False,
+                   expect=None):
     """Run ``fn()`` ``iters`` times under the profiler's CUDA trace.
     Returns (device ms per call summed over every kernel and copy, the
     kernels by total device ms, the FLOPs per call of `MATMUL_OPS` as the
@@ -394,7 +429,8 @@ def profile_device(fn, iters: int = 1, with_flops: bool = False):
     not device time of its own: its kernels are counted.  When every trace
     of `traced` is empty, the time per call is that of ``iters`` calls
     between two CUDA events (launch gaps included), with no kernels and
-    no FLOPs: a caller that reads the kernels fails its own check."""
+    no FLOPs: a caller that reads the kernels fails its own check.
+    ``expect`` goes to `traced`."""
     def read(prof):
         events = prof.key_averages()
         device = [e for e in events if str(e.device_type).endswith("CUDA")
@@ -406,8 +442,8 @@ def profile_device(fn, iters: int = 1, with_flops: bool = False):
     global _empty_traces
     attempts = PROFILE_ATTEMPTS_AFTER_EMPTY if _empty_traces \
         else PROFILE_ATTEMPTS
-    got = traced(fn, iters, read, attempts, record_shapes=with_flops,
-                 with_flops=with_flops)
+    got = traced(fn, iters, read, attempts, expect,
+                 record_shapes=with_flops, with_flops=with_flops)
     if got is None:
         _empty_traces = True
         start = torch.cuda.Event(enable_timing=True)
@@ -436,13 +472,15 @@ def profile_device(fn, iters: int = 1, with_flops: bool = False):
     return per_call, sorted(rows, key=lambda r: -r[1]), flops / iters
 
 
-def kernel_times(fn, plain_fn, iters: int) -> dict:
+def kernel_times(fn, plain_fn, iters: int, expect=None) -> dict:
     """Per-call times of a kernel's wrapper and its plain version: ``ms``
-    and ``plain_ms`` are device time from the profiler trace; ``loop_ms``
-    and ``plain_loop_ms`` are a loop of calls timed by CUDA events."""
+    and ``plain_ms`` are device time from the profiler trace (whose
+    kernel's events are held to its launches with ``expect``, `traced`);
+    ``loop_ms`` and ``plain_loop_ms`` are a loop of calls timed by CUDA
+    events."""
     fn()
     plain_fn()
-    return {"ms": profile_device(fn, iters)[0],
+    return {"ms": profile_device(fn, iters, expect=expect)[0],
             "plain_ms": profile_device(plain_fn, iters)[0],
             "loop_ms": time_ms(fn, iters), "plain_loop_ms": time_ms(
                 plain_fn, iters)}
@@ -635,7 +673,7 @@ def k2_phase(gen) -> tuple:
             k1 = {"max_abs_err": err, **kernel_times(
                 lambda: flash_attention(q, k, v, mask, causal=causal),
                 lambda: flash_attention_plain(q, k, v, mask, causal=causal),
-                iters=5)}
+                iters=5, expect=flash_expect("K1"))}
             add_bound(k1, attention_bound(q, k, mask, causal, 2,
                                           lse.numel() * 4), f"K1 {name}")
             k1["library_ms"] = library_attention_ms(q, k, v, mask, causal,
@@ -685,7 +723,7 @@ def k2_phase(gen) -> tuple:
                                             causal=causal),
                 lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse,
                                                   g, causal=causal),
-                iters=5)
+                iters=5, expect=flash_expect("K2"))
             # inputs q/k/v/out/dout and the lse, outputs dq/dk/dv
             add_bound(k2_t, attention_bound(
                 q, k, mask, causal, 5,
@@ -1941,7 +1979,7 @@ def k1_phase(cases) -> tuple:
             k1_t = kernel_times(
                 lambda: flash_attention(q, k, v, mask, causal=causal),
                 lambda: flash_attention_plain(q, k, v, mask, causal=causal),
-                iters=20)
+                iters=20, expect=flash_expect("K1"))
             add_bound(k1_t, attention_bound(q, k, mask, causal, 2,
                                             lse.numel() * 4), f"K1 {name}")
             k1_t["library_ms"] = library_attention_ms(q, k, v, mask, causal,
@@ -5234,10 +5272,20 @@ def gloo_fsdp_phase(smi: str, gen, work: Path) -> list:
     16 of the 32 heads, K1 and K2 on them) stage 1 at the same bars and
     full stage 2 at stage 2's, every trainable gradient; each run's
     gathered trainable parameters' largest difference after
-    `GLOO_UPDATES` updates, printed.  Then K1 and K2 at the rank's shapes
-    timed.  Returns the kernels entries of the (1, 1, 2) run."""
+    `GLOO_UPDATES` updates, printed.  K1 and K2 at the rank's shapes are
+    timed first, before the ranks run on the card (after them this
+    process's traces hold none of K1's and K2's events, PERF.md §7).
+    Returns the kernels entries of the (1, 1, 2) run."""
     out = work / "gloo_fsdp"
     out.mkdir()
+    t_times = time.perf_counter()
+    rank_times = {}
+    for stage in GLOO_STAGES:
+        case = flash_train_case(gen, stage, 16)
+        rank_times[stage] = (case[0], *flash_train_check(case, timed=True))
+        del case
+    print(f"phase gloo_tp_kernels (K1/K2 at the ranks' shapes): "
+          f"{time.perf_counter() - t_times:.1f} s", flush=True)
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, __file__, "--gloo-rank",
                                str(r), "--out", str(out)])
@@ -5282,7 +5330,6 @@ def gloo_fsdp_phase(smi: str, gen, work: Path) -> list:
     # the model axis's runs in the ranks, after their (1, 2, 1) run
     print(f"phase gloo_tp (the ranks' (1, 1, 2) runs): "
           f"{tp['seconds']:.1f} s", flush=True)
-    t_times = time.perf_counter()
     entries = []
     for stage in GLOO_STAGES:
         g, r = tp[stage], ref[stage]
@@ -5321,16 +5368,12 @@ def gloo_fsdp_phase(smi: str, gen, work: Path) -> list:
               f"host-staged) vs {r['seconds']:.2f} s at world 1, on {smi}")
         for ok, what in checks:
             check(ok, what)
-        case = flash_train_case(gen, stage, 16)
-        e1, e2, k1t, k2t = flash_train_check(case, timed=True)
+        shape, _, _, k1t, k2t = rank_times[stage]
         path = f"train_tp_gloo (1, 1, 2) {stage}, {GLOO_LAYERS} layers"
         entries += [{**K1_SRC, "name": "flash_fwd_train", "path": path,
-                     "launches": g["k1"], "shape": case[0], **k1t},
+                     "launches": g["k1"], "shape": shape, **k1t},
                     {**K2_SRC, "path": path, "launches": g["k2"],
-                     "shape": case[0], **k2t}]
-        del case
-    print(f"phase gloo_tp_kernels (K1/K2 at the ranks' shapes): "
-          f"{time.perf_counter() - t_times:.1f} s", flush=True)
+                     "shape": shape, **k2t}]
     print(f"gloo: {time.perf_counter() - t0:.1f} s in all")
     return entries
 
@@ -5453,14 +5496,16 @@ def flash_train_check(case, timed: bool) -> tuple:
         return e1, e2, None, None
     k1 = {"max_abs_err": e1, **kernel_times(
         lambda: flash_attention(q, k, v, mask, causal=True),
-        lambda: flash_attention_plain(q, k, v, mask, causal=True), iters=5)}
+        lambda: flash_attention_plain(q, k, v, mask, causal=True), iters=5,
+        expect=flash_expect("K1"))}
     add_bound(k1, attention_bound(q, k, mask, True, 2, lse.numel() * 4),
               f"K1 {name}")
     k1["library_ms"] = library_attention_ms(q, k, v, mask, True, iters=5)
     k2 = {"max_abs_err": e2, **kernel_times(
         lambda: flash_attention_bwd(q, k, v, mask, out, lse, g, causal=True),
         lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse, g,
-                                          causal=True), iters=5)}
+                                          causal=True), iters=5,
+        expect=flash_expect("K2"))}
     add_bound(k2, attention_bound(
         q, k, mask, True, 5, (g.numel() + q.numel() + 2 * k.numel())
         * g.element_size() + lse.numel() * 4), f"K2 {name}")
@@ -5497,7 +5542,8 @@ def flash_stage2_phase(gen, mask) -> tuple:
           f"{fault:.3f} of the tolerance only")
     k1 = {"max_abs_err": err, **kernel_times(
         lambda: flash_attention(q, k, v, mask, causal=True),
-        lambda: flash_attention_plain(q, k, v, mask, causal=True), iters=5)}
+        lambda: flash_attention_plain(q, k, v, mask, causal=True), iters=5,
+        expect=flash_expect("K1"))}
     add_bound(k1, attention_bound(q, k, mask, True, 2, lse.numel() * 4),
               f"K1 {name}")
     k1["library_ms"] = library_attention_ms(q, k, v, mask, True, iters=5)
@@ -5521,7 +5567,8 @@ def flash_stage2_phase(gen, mask) -> tuple:
     k2 = {"max_abs_err": k2_err, **kernel_times(
         lambda: flash_attention_bwd(q, k, v, mask, out, lse, g, causal=True),
         lambda: flash_attention_bwd_plain(q, k, v, mask, out, lse, g,
-                                          causal=True), iters=5)}
+                                          causal=True), iters=5,
+        expect=flash_expect("K2"))}
     add_bound(k2, attention_bound(
         q, k, mask, True, 5, (g.numel() + q.numel() + 2 * k.numel())
         * g.element_size() + lse.numel() * 4), f"K2 {name}")
@@ -5543,8 +5590,9 @@ def train_path(smi: str, gen, work: Path) -> list:
     full stage 2, on the device, with the optimizer offloaded and through
     the sharded path at world 1 over NCCL (valley_stage2_zero3.yaml); stage
     1 on two ranks of the one card over gloo against world 1 at (1, 2, 1),
-    then stage 1 and full stage 2 at (1, 1, 2) (the model axis); then K1
-    and K2 at stage 2's shape.  Returns its kernels entries."""
+    then stage 1 and full stage 2 at (1, 1, 2) (the model axis); K1 and K2
+    at stage 2's shape, and at Valley-13B's stage 2 over 1, 2 and 4 ranks'
+    heads, after LoRA stage 2.  Returns its kernels entries."""
     k2_err, k2_t, k1_train = k2_phase(gen)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5552,6 +5600,14 @@ def train_path(smi: str, gen, work: Path) -> list:
     prof = profile_steps_phase(smi, work)
     corpus = write_stage2_corpus(work / "stage2_corpus")
     lora_r, mask = stage2_lora_phase(smi, corpus)
+    # K1 and K2 at stage 2's shape, then at Valley-13B's full stage 2 on
+    # one card and on a rank of 2 and 4 (tools/tp_train_check.py trains at
+    # these shapes), beside SDPA: before the gloo ranks have run on the
+    # card, after which this process's traces hold none of K1's and K2's
+    # events (PERF.md §7)
+    k1_s2, k2_s2 = flash_stage2_phase(gen, mask)
+    for heads in (40, 20, 10):
+        flash_train_check(flash_train_case(gen, "stage2", heads), timed=True)
     out = stage2_entry_phase(smi, corpus, work)
     stage2_merge_phase(smi, corpus, out)
     full_r, host = stage2_full_phase(smi, corpus)
@@ -5559,7 +5615,6 @@ def train_path(smi: str, gen, work: Path) -> list:
     zero3_r = stage2_zero3_phase(smi, corpus, full_r, host, work)
     del host
     gloo_entries = gloo_fsdp_phase(smi, gen, work)
-    k1_s2, k2_s2 = flash_stage2_phase(gen, mask)
     return [{**K1_SRC, "name": "flash_fwd_train", "path": "train",
              "launches": train_k1, **k1_train},
             {**K2_SRC, "name": "flash_bwd", "path": "train",
@@ -6130,11 +6185,13 @@ def tp_walk(w: torch.Tensor):
     return lambda: ws[next(it) % len(ws)]
 
 
-def tp_timed(tag: str, fn, plain_fn, b: dict, library=None) -> dict:
+def tp_timed(tag: str, fn, plain_fn, b: dict, library=None,
+             expect=None) -> dict:
     """A shard-shape case's times: device time of the kernel and its plain
-    version (`kernel_times`), the bound ``b`` beside them, and the device
-    time of the library call ``library()`` (None where there is none)."""
-    t = kernel_times(fn, plain_fn, iters=10)
+    version (`kernel_times`, ``expect`` to it), the bound ``b`` beside
+    them, and the device time of the library call ``library()`` (None
+    where there is none)."""
+    t = kernel_times(fn, plain_fn, iters=10, expect=expect)
     add_bound(t, b, tag)
     t["library_ms"] = None if library is None else library()
     return t
@@ -6278,7 +6335,8 @@ def tp_shard_phase(gen) -> list:
                  lambda: flash_attention_plain(q, k, v, mask, causal=causal),
                  attention_bound(q, k, mask, causal, 2, 0),
                  lambda: library_attention_ms(q, k, v, mask, causal,
-                                              iters=10)))
+                                              iters=10),
+                 flash_expect("K1")))
         del q, k, v
         # K1 and K2 at the rank's heads at the training shapes (timed on
         # the path that trains at them: `gloo_fsdp_phase`)
@@ -6565,7 +6623,8 @@ def tp_times(gen) -> dict:
                                                  causal=causal),
         lambda: flash_attention_plain(q, k, v, mask, causal=causal),
         attention_bound(q, k, mask, causal, 2, 0),
-        lambda: library_attention_ms(q, k, v, mask, causal, iters=10))
+        lambda: library_attention_ms(q, k, v, mask, causal, iters=10),
+        flash_expect("K1"))
     valid = torch.zeros((1, SMAX), dtype=torch.bool, device="cuda")
     valid[:, :PROMPT_LEN] = True
     valid[:, BUCKET:BUCKET + 8] = True

@@ -10,7 +10,9 @@ output.  Both sides compute in fp32 from the same bf16 inputs and round the
 output to bf16; the decode kernel also rounds probabilities to bf16 per
 chunk of slots rather than after the global softmax.  The backward kernel
 is held to the same bar on each of dq, dk and dv, with the forward
-kernel's out and lse as both sides' inputs.  Inputs are N(0, 1), so
+kernel's out and lse as both sides' inputs; both at the edges of their
+tiles, each with two planted faults (a K tile one swizzled box over, a
+masked key tile read and attended) that must fail it.  Inputs are N(0, 1), so
 logits have unit spread and attending a wrong slot moves the output by far
 more than the tolerance (the decode test plants that fault and checks it
 is caught).  The int8 GEMV (K4) and the int8-cache decode attention are
@@ -46,11 +48,12 @@ from valley_tpu_torch.ops.decode_attention import (decode_attention_plain,
                                                    decode_attention_stacked)
 from valley_tpu_torch.ops.matvec import bf16_matvec, bf16_matvec_plain
 from valley_tpu_torch.ops.read_bw import read_sum, read_sum_plain
-from valley_tpu_torch.ops.flash_attention import (FlashAttention,
+from valley_tpu_torch.ops.flash_attention import (FAULTS, FlashAttention,
                                                   flash_attention,
                                                   flash_attention_bwd,
                                                   flash_attention_bwd_plain,
-                                                  flash_attention_plain)
+                                                  flash_attention_plain,
+                                                  planted_fault)
 from valley_tpu_torch.ops.quant import (int4_matvec, int4_matvec_plain,
                                         int8_matvec, int8_matvec_plain,
                                         pack_int4, quantize_llama_params,
@@ -273,6 +276,77 @@ def test_flash_autograd_on_the_card_matches_plain_autograd(gen):
         assert a.dtype == torch.bfloat16
         err, tol = _err_and_tol(a, r)
         assert err <= tol
+
+
+# K1 and K2 at the edges of their tiles (K1: 128 queries a block, 64 keys
+# a tile; K2: 128-row blocks, 64-row tiles; the 128-byte swizzle's
+# 64-column boxes): every head dim at S just under and over 64 and 128,
+# causal and not; S 2047, 2048 (causal, stage 2's length) and 2049; a whole
+# key tile masked mid-sequence, causal and not; rows with no key
+FLASH_EDGE_CASES = [
+    (2, s, 2, d, i % 2 == 0, (s, s - 5), None)
+    for d in (16, 32, 64, 128) for i, s in enumerate((63, 65, 127, 129))] + [
+    (1, 2047, 4, 128, True, (2047,), None),
+    (1, 2048, 4, 128, True, (2048,), None),
+    (2, 2049, 2, 64, True, (2049, 2000), None),
+    (2, 520, 2, 128, False, (520, 520), (128, 320)),
+    (2, 520, 2, 128, True, (520, 300), (128, 320)),
+    (3, 130, 2, 64, True, (0, 130, 0), None)]
+
+
+@pytest.mark.parametrize("b,s,h,d,causal,lengths,hole", FLASH_EDGE_CASES)
+def test_flash_kernels_at_their_tile_edges(gen, b, s, h, d, causal, lengths,
+                                           hole):
+    """K1 (out and lse) and K2 against their plain versions; K2's rerun
+    bit-equal; rows with no key 0."""
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, b, s, h, d, causal,
+                                             lengths, hole)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_attention_plain(q, k, v, mask, causal=causal,
+                                         return_lse=True)
+    err, tol = _err_and_tol(out, ref)
+    assert bool(torch.isfinite(out.float()).all()) and err <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    got = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=causal)
+    again = flash_attention_bwd(q, k, v, mask, out, lse, g, causal=causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = flash_attention_bwd_plain(q, k, v, mask, out, lse, g,
+                                     causal=causal)
+    for a, r in zip(got, want):
+        err, tol = _err_and_tol(a, r)
+        assert bool(torch.isfinite(a.float()).all()) and err <= tol
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert bool((out[i] == 0).all())
+            assert all(bool((x[i] == 0).all()) for x in got)
+    if hole is not None:
+        assert bool((got[1][:, hole[0]:hole[1]] == 0).all())
+        assert bool((got[2][:, hole[0]:hole[1]] == 0).all())
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_flash_kernels_with_a_planted_fault_fail(gen, fault):
+    """The planted faults (``csrc/flash_common.cuh``): a K tile loaded one
+    64-column box over, and a key tile the mask says to skip read and
+    attended.  Both kernels must then fail the check, at D 128 with a whole
+    key tile masked mid-sequence."""
+    q, k, v, g, mask, out, lse = _bwd_inputs(gen, 2, 520, 2, 128, True,
+                                             (520, 520), (128, 320))
+    ref = flash_attention_plain(q, k, v, mask, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, mask, out, lse, g, causal=True)
+    with planted_fault(fault):
+        bad = flash_attention(q, k, v, mask, causal=True)
+        bad_grads = flash_attention_bwd(q, k, v, mask, out, lse, g,
+                                        causal=True)
+    torch.cuda.synchronize()
+    err, tol = _err_and_tol(bad, ref)
+    assert err > tol
+    assert max(_err_and_tol(a, r)[0] / _err_and_tol(a, r)[1]
+               for a, r in zip(bad_grads, want)) > 1.0
+    # and the next call, with no fault, is right again
+    err, tol = _err_and_tol(flash_attention(q, k, v, mask, causal=True), ref)
+    assert err <= tol
 
 
 class _Rows:

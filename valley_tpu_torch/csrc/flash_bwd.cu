@@ -11,43 +11,47 @@
 // by flash_bwd_delta_bf16 below).  Every sum is fp32; P and dS are rounded
 // to bf16 for the products they feed; dq, dk and dv are written in bf16.
 //
-// What bounds it on the H100: at the Valley-7B training shape (B=16,
-// S=512, H=32, D=128, causal) one layer moves ~537 MB of q/k/v/o/dO/dq/dk/dv
-// (160 us at 3.35 TB/s) and needs ~86 GFLOP of products (87 us at the bf16
-// tensor-core peak), so bytes bound it on paper.  In practice latency does:
-// with mma.sync each warp rereads the streamed tile from shared memory for
-// its own 16 rows, and 255 registers and ~105 KB of shared memory a block
-// leave 8 warps on an SM, so the tensor cores idle between dependent
-// ldmatrix/mma steps.  wgmma (64-row warpgroup tiles fed from shared memory)
-// is the next step.
+// What bounds it on the H100: the operations.  At the training shapes
+// (B16 S512 and B1 S2048, H32, D128, causal) the attended pairs need 2 D
+// operations each in five products (dQ's pass recomputes S and dP: seven
+// are run), 86 GFLOP a layer at B16 S512 (87 us at the bf16 peak), against
+// some 30 MB of q/k/v/o/dO/dq/dk/dv (9 us at 3.35 TB/s).
 //
-// What the design does about it: the Pallas kernel carries dQ in fp32
-// across a sequential grid of K tiles; Hopper's blocks run in parallel and
-// in no order, so the work is split into two deterministic passes (no
-// atomics: two runs give the same bits), each recomputing P from the lse,
-// launched as one grid so that pass 2's blocks fill the tail of pass 1's:
-//   pass 1, one block of 4 warps per (64-key tile, batch, head), each warp
-//     16 keys: K and V stay in shared memory while Q, dO, lse and delta
-//     tiles of 64 queries stream past through a 2-stage cp.async ring;
-//     S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q, in steps
-//     of 32 queries, dK and dV accumulating in registers.  Causal: Q tiles
-//     entirely above the key tile are skipped; a key tile with no attended
-//     key loads nothing and writes its zero dK and dV.
-//   pass 2, one block per (64-query tile, batch, head), each warp 16
-//     queries: Q and dO are read once into registers as mma A fragments
-//     while K and V tiles stream past (a tile with no attended key is never
-//     loaded, nor one past the causal diagonal); S = Q K^T, dP = dO V^T,
-//     dQ += dS K, in steps of 32 keys.
-// All seven products run on the tensor cores (mma.sync m16n8k16 bf16, fp32
-// sums, operands through ldmatrix or ldmatrix.trans from padded bf16
-// tiles), with P and dS rounded to bf16 and repacked in registers as A
-// fragments.  A tile fully attended and off the diagonal takes no
-// per-element predicate.  Ragged S is masked inside the kernel (zero-filled
-// copies past the edge): no padding copy.  delta = rowsum(dO * O) has a
-// kernel of its own here (flash_bwd_delta_bf16, one pass over dO and O in
-// fp32): the eager PyTorch reduction writes and rereads fp32 copies of
-// both, 9x the time at the training shape.
+// Design.  The Pallas kernel carries dQ in fp32 across a sequential grid
+// of K tiles; Hopper's blocks run in parallel and in no order, so the work
+// is split into two deterministic passes (no atomics: two runs give the
+// same bits), each recomputing P from the lse, launched as one grid so
+// that pass 2's blocks fill the tail of pass 1's.  Each block is a producer
+// warpgroup (setmaxnreg 24) whose one thread loads by TMA (4-D maps over
+// (B, S, H, D), boxes of 64 rows by 64 columns in the 128-byte swizzle,
+// rows past S as zeros) through a ring of STAGES stages under mbarriers,
+// and two consumer warpgroups (240 registers) of 64 rows each; every
+// product is wgmma m64nNk16, bf16 in, fp32 sums:
+//   pass 1, a block per (128-key tile, batch, head): K and V are loaded
+//     once; Q, dO, lse and delta tiles of BQS = 64 queries stream past
+//     (the lse and delta copied into the stage by a second producer warp:
+//     a row of them is 4 bytes a query, below TMA's 16-byte strides).
+//     S^T = K Q^T and dP^T = V dO^T with both operands from shared memory
+//     (K-major: D is the reduction); P^T and dS^T in registers; dV += P^T
+//     dO and dK += dS^T Q with A = P^T, dS^T from registers (packed from
+//     the sums, as K1's P) and B = dO, Q read MN-major by the transpose
+//     flag (no transposed copies); dV's product runs while dS^T is made.
+//     Causal: query tiles wholly before the key tile are skipped; a key
+//     tile with no attended key loads nothing and writes its zero dK and
+//     dV.
+//   pass 2, a block per (128-query tile, batch, head): Q and dO are loaded
+//     once; K and V tiles of BKS = 64 keys stream past (a tile with no
+//     attended key is never loaded, nor one past the causal diagonal: the
+//     producer and the consumers read the same mask bit words); S = Q K^T,
+//     dP = dO V^T, dQ += dS K (K MN-major by the transpose flag).
+// A tile fully attended and off a warpgroup's diagonal takes no
+// per-element predicate; a warpgroup skips (and releases) a tile that
+// causality leaves it nothing of.  D 16 and 32 are read as one 64-column box whose
+// columns past D are zeros.  delta = rowsum(dO * O) has a kernel of its
+// own here (flash_bwd_delta_bf16, one pass over dO and O in fp32): the
+// eager PyTorch reduction writes and rereads fp32 copies of both.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,398 +59,511 @@
 #include <algorithm>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using flash::pitch;
+using namespace hopper;
 
-constexpr int BR = 64;    // a block's rows: keys (pass 1), queries (pass 2)
-constexpr int BT = 64;    // rows of a streamed tile
-constexpr int NT = 128;   // 4 warps of 16 rows
-constexpr int STEP = 32;  // streamed rows per step: queries (1), keys (2)
-constexpr int NB = STEP / 8;  // n-blocks of S and dP per step
+constexpr int BR = 128;       // a block's rows: keys (pass 1), queries (2)
+constexpr int BT = 64;        // rows of a streamed tile
+constexpr int BOX = 64;       // rows of a TMA box
+constexpr int WORDS1 = BR / 32;  // mask words of pass 1's key tile
+constexpr int WORDS2 = BT / 32;  // mask words of pass 2's key tiles
+constexpr int CONSUMERS = 2;
+constexpr int THREADS = (CONSUMERS + 1) * 128;
+constexpr int STAGES = 2;
+constexpr int ROW = 128;      // bytes of a swizzled row: 64 bf16
 
-// K, V, then two stages of Q, dO and of the lse and delta of BT rows.
+// Shared memory, offsets from a 1024-byte aligned base.  A tile of R rows
+// is NH column boxes of [R][64] bf16, box c at c * R * ROW.
 template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  return 2 * pitch<D>() * (2 * BR + 4 * BT) + 2 * 2 * BT * sizeof(float);
-}
+struct Layout {
+  static constexpr int NH = D <= 64 ? 1 : D / 64;
+  static constexpr int BIG = NH * BR * ROW;    // the block's own tile
+  static constexpr int SMALL = NH * BT * ROW;  // a streamed tile
+  // pass 1: K, V, then per stage Q, dO, lse and delta
+  static constexpr int K1 = 0;
+  static constexpr int V1 = BIG;
+  static constexpr int Q1 = 2 * BIG;
+  static constexpr int O1 = Q1 + STAGES * SMALL;
+  static constexpr int L1 = O1 + STAGES * SMALL;  // lse, then delta
+  static constexpr int END1 = L1 + STAGES * 2 * BT * 4;
+  // pass 2: Q, dO, then per stage K and V
+  static constexpr int Q2 = 0;
+  static constexpr int O2 = BIG;
+  static constexpr int K2 = 2 * BIG;
+  static constexpr int V2 = K2 + STAGES * SMALL;
+  static constexpr int END2 = V2 + STAGES * SMALL;
+  static constexpr int BARS = END1 > END2 ? END1 : END2;  // own, full, empty
+  static constexpr int BITS = BARS + 8 * (1 + 2 * STAGES);
+  static size_t bytes(int n_words) { return BITS + 4 * n_words + 1024; }
+};
 
-// Q, dO, two stages of K and V, then the key bit words.
-template <int D>
-size_t dq_smem_bytes(int sk) {
-  return 2 * pitch<D>() * (2 * BR + 4 * BT) + 8 * ((sk + BT - 1) / BT);
-}
-
-// q/dout: (B, Sq, H, D); k/v and dq/dk/dv: (B, Sk, H, D) and (B, Sq, H,
-// D), contiguous bf16.  lse/delta: (B*H, Sq) fp32.  kv_mask: (B, Sk) bytes,
-// row b at kv_mask + b * mask_stride, nonzero = attend.
 struct BwdArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* lse;
-  const float* delta;
-  const uint8_t* kv_mask;
+  const uint8_t* kv_mask;  // (B, Sk) bytes, row b at + b * mask_stride
   long long mask_stride;
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
+  const float* lse;        // (B*H, Sq) fp32
+  const float* delta;
+  __nv_bfloat16* dq;       // (B, Sq, H, D)
+  __nv_bfloat16* dk;       // (B, Sk, H, D)
   __nv_bfloat16* dv;
-  int H, Sq, Sk, causal;
+  int H, Sq, Sk, causal, fault;
   float scale, scale_log2;
 };
 
-// Pass 1: dK and dV of the 64-key tile kt of (batch, head) bh.
-template <int D>
-__device__ __forceinline__ void dkdv_tile(const BwdArgs& a, int bh, int kt,
-                                          unsigned char* smem) {
-  constexpr int P = pitch<D>();
-  constexpr int KS = D / 16;  // k-steps over the head dim
-  constexpr int DB = D / 8;   // n-blocks of dK and dV
-  const __nv_bfloat16* q = a.q;
-  const __nv_bfloat16* k = a.k;
-  const __nv_bfloat16* v = a.v;
-  const __nv_bfloat16* dout = a.dout;
-  const float* lse = a.lse;
-  const float* delta = a.delta;
-  __nv_bfloat16* dk = a.dk;
-  __nv_bfloat16* dv = a.dv;
-  const int H = a.H, Sq = a.Sq, Sk = a.Sk, causal = a.causal;
-  const float scale = a.scale, scale_log2 = a.scale_log2;
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + BR * P;
-  __nv_bfloat16* sQ = sV + BR * P;      // 2 stages
-  __nv_bfloat16* sO = sQ + 2 * BT * P;  // 2 stages, dO
-  float* sL = reinterpret_cast<float*>(sO + 2 * BT * P);  // 2 x (lse, delta)
+// The kernel's tensor maps: pointers to its __grid_constant__ parameters.
+struct Maps {
+  const CUtensorMap *q, *k, *v, *dout;
+};
 
-  const int b = bh / H;
-  const int h = bh % H;
-  const int k0 = kt * BR;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long rs = (long long)H * D;  // elements between consecutive s
-  const __nv_bfloat16* qb = q + (long long)b * Sq * rs + (long long)h * D;
-  const __nv_bfloat16* ob = dout + (long long)b * Sq * rs + (long long)h * D;
-  const __nv_bfloat16* kb = k + (long long)b * Sk * rs + (long long)h * D;
-  const __nv_bfloat16* vb = v + (long long)b * Sk * rs + (long long)h * D;
-  const float* lb = lse + (long long)bh * Sq;
-  const float* db = delta + (long long)bh * Sq;
-  const uint8_t* mb = a.kv_mask + (long long)b * a.mask_stride;
-
-  // keys key0 and key0 + 8 of this thread's accumulator rows
-  const int key0 = k0 + warp * 16 + (lane >> 2);
-  const bool kok[2] = {key0 < Sk && mb[key0] != 0,
-                       key0 + 8 < Sk && mb[key0 + 8] != 0};
-  const bool tile_key = tid < BR && k0 + tid < Sk && mb[k0 + tid] != 0;
-  // causal: query tiles before k0 see none of this block's keys
-  const int qt_begin = causal ? k0 / BT : 0;
-  const int n_qt = (Sq + BT - 1) / BT;
-  auto load_q = [&](int qt, int st) {
-    const int q0 = qt * BT;
-    flash::load_tile<D, BT, NT>(qb, q0, Sq, rs, sQ + st * BT * P, tid);
-    flash::load_tile<D, BT, NT>(ob, q0, Sq, rs, sO + st * BT * P, tid);
-    if (tid < 2 * BT) {
-      const int i = tid & (BT - 1);
-      const bool ok = q0 + i < Sq;
-      const float* src = (tid < BT ? lb : db) + (ok ? q0 + i : 0);
-      flash::cp_async4(sL + st * 2 * BT + tid, src, ok);
-    }
-  };
-  const int any_key = __syncthreads_or(tile_key);
-  const int all_keys = __syncthreads_and(tid >= BR || tile_key);
-  const int c0 = 2 * (lane & 3);
-
-  float dkv[2][DB][4];  // dK, dV
-#pragma unroll
-  for (int x = 0; x < 2; ++x)
-#pragma unroll
-    for (int j = 0; j < DB; ++j)
-      dkv[x][j][0] = dkv[x][j][1] = dkv[x][j][2] = dkv[x][j][3] = 0.f;
-
-  if (any_key) {
-    flash::load_tile<D, BR, NT>(kb, k0, Sk, rs, sK, tid);
-    flash::load_tile<D, BR, NT>(vb, k0, Sk, rs, sV, tid);
-    if (qt_begin < n_qt) load_q(qt_begin, 0);
-    flash::cp_async_commit();
-
-    int stage = 0;
-    for (int qt = qt_begin; qt < n_qt; ++qt) {
-      if (qt + 1 < n_qt) load_q(qt + 1, stage ^ 1);
-      flash::cp_async_commit();
-      flash::cp_async_wait<1>();  // K, V and this Q tile have landed
-      __syncthreads();
-      const int q0 = qt * BT;
-      const __nv_bfloat16* tQ = sQ + stage * BT * P;
-      const __nv_bfloat16* tO = sO + stage * BT * P;
-      const float* tL = sL + stage * 2 * BT;
-      const float* tD = tL + BT;
-      const bool pred = !all_keys || q0 + BT > Sq ||
-                        (causal && q0 < k0 + BR - 1);
-
-#pragma unroll
-      for (int step = 0; step < BT / STEP; ++step) {
-        const int qh = step * STEP;  // the step's first query in the tile
-        // S^T = K Q^T and dP^T = V dO^T: 16 keys x STEP queries a warp
-        float st[NB][4], dpt[NB][4];
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t ka[4], va[4];
-          flash::load_a<P>(ka, sK + warp * 16 * P + ks * 16, lane);
-          flash::load_a<P>(va, sV + warp * 16 * P + ks * 16, lane);
-#pragma unroll
-          for (int np = 0; np < NB / 2; ++np) {
-            uint32_t bf[4];
-            flash::load_b_nk<P>(bf, tQ + (qh + np * 16) * P + ks * 16, lane);
-            flash::mma(st[2 * np], ka, bf[0], bf[1]);
-            flash::mma(st[2 * np + 1], ka, bf[2], bf[3]);
-            flash::load_b_nk<P>(bf, tO + (qh + np * 16) * P + ks * 16, lane);
-            flash::mma(dpt[2 * np], va, bf[0], bf[1]);
-            flash::mma(dpt[2 * np + 1], va, bf[2], bf[3]);
-          }
-        }
-        // P^T = exp(S^T scale - lse), masked; dS^T = P^T (dP^T - delta) scale
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = qh + j * 8 + c0 + (e & 1);
-            const int r = e >> 1;
-            const bool ok =
-                !pred || (kok[r] && q0 + qi < Sq &&
-                          (!causal || key0 + 8 * r <= q0 + qi));
-            const float p =
-                ok ? exp2f(st[j][e] * scale_log2 - tL[qi] * flash::LOG2E)
-                   : 0.f;
-            st[j][e] = p;
-            dpt[j][e] = p * (dpt[j][e] - tD[qi]) * scale;
-          }
-        // dV += P^T dO and dK += dS^T Q over the step's queries
-#pragma unroll
-        for (int kk = 0; kk < STEP / 16; ++kk) {
-          uint32_t pa[4], sa[4];
-          flash::c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-          flash::c_to_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-          for (int dp = 0; dp < DB / 2; ++dp) {
-            uint32_t bf[4];
-            flash::load_b_kn<P>(bf, tO + (qh + kk * 16) * P + dp * 16, lane);
-            flash::mma(dkv[1][2 * dp], pa, bf[0], bf[1]);
-            flash::mma(dkv[1][2 * dp + 1], pa, bf[2], bf[3]);
-            flash::load_b_kn<P>(bf, tQ + (qh + kk * 16) * P + dp * 16, lane);
-            flash::mma(dkv[0][2 * dp], sa, bf[0], bf[1]);
-            flash::mma(dkv[0][2 * dp + 1], sa, bf[2], bf[3]);
-          }
-        }
-      }
-      __syncthreads();  // this stage is consumed before it is refilled
-      stage ^= 1;
+struct Ring {
+  uint32_t own, full0, empty0;
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ uint32_t full() const { return full0 + 8 * stage; }
+  __device__ uint32_t empty() const { return empty0 + 8 * stage; }
+  __device__ void advance() {
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
     }
   }
-  flash::cp_async_wait<0>();
+};
 
+// Rows [r0, r0 + n_boxes * BOX) of a (B, S, H, D) map, NH column boxes
+// each, into a tile of n_boxes * BOX rows at dst.
+template <int NH>
+__device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* m,
+                                          uint32_t bar, int n_boxes, int h,
+                                          int r0, int b, int shift) {
+  for (int c = 0; c < NH; ++c)
+    for (int x = 0; x < n_boxes; ++x)
+      tma_load_4d(dst + (c * n_boxes + x) * BOX * ROW, m, bar,
+                  64 * c + shift, h, r0 + x * BOX, b);
+}
+
+// D (64 x N sums of one warpgroup) = A B^T over KS k16 steps, both from
+// shared memory, K-major: a at a tile of A_ROWS rows (the warpgroup's
+// first row), b at a tile of B_ROWS rows.
+template <int N, int KS, int A_ROWS, int B_ROWS>
+__device__ __forceinline__ void product_ss(float (&d)[N / 2], uint32_t a,
+                                           uint32_t b) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
-    if (key >= Sk) continue;
-    const long long off = (long long)b * Sk * rs + (long long)key * rs +
-                          (long long)h * D + c0;
-#pragma unroll
-    for (int j = 0; j < DB; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + j * 8) =
-          __floats2bfloat162_rn(dkv[0][j][2 * r], dkv[0][j][2 * r + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + j * 8) =
-          __floats2bfloat162_rn(dkv[1][j][2 * r], dkv[1][j][2 * r + 1]);
-    }
+  for (int ks = 0; ks < KS; ++ks) {
+    const int c = ks / 4, off = (ks % 4) * 32;
+    wgmma_bf16_ss<N, 0>(d, sw128_desc(a + c * A_ROWS * ROW + off, 16, 1024),
+                        sw128_desc(b + c * B_ROWS * ROW + off, 16, 1024),
+                        ks > 0);
   }
 }
 
-// Pass 2: dQ of the 64-query tile qt of (batch, head) bh.
-template <int D>
-__device__ __forceinline__ void dq_tile(const BwdArgs& a, int bh, int qt,
-                                        unsigned char* smem) {
-  constexpr int P = pitch<D>();
-  constexpr int KS = D / 16;
-  constexpr int DB = D / 8;
-  const __nv_bfloat16* q = a.q;
-  const __nv_bfloat16* k = a.k;
-  const __nv_bfloat16* v = a.v;
-  const __nv_bfloat16* dout = a.dout;
-  const float* lse = a.lse;
-  const float* delta = a.delta;
-  __nv_bfloat16* dq = a.dq;
-  const int H = a.H, Sq = a.Sq, Sk = a.Sk, causal = a.causal;
-  const float scale = a.scale, scale_log2 = a.scale_log2;
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sO = sQ + BR * P;      // dO
-  __nv_bfloat16* sK = sO + BR * P;      // 2 stages
-  __nv_bfloat16* sV = sK + 2 * BT * P;  // 2 stages
-  uint32_t* bits = reinterpret_cast<uint32_t*>(sV + 2 * BT * P);
-
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = qt * BR;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long long rs = (long long)H * D;
-  const __nv_bfloat16* qb = q + (long long)b * Sq * rs + (long long)h * D;
-  const __nv_bfloat16* ob = dout + (long long)b * Sq * rs + (long long)h * D;
-  const __nv_bfloat16* kb = k + (long long)b * Sk * rs + (long long)h * D;
-  const __nv_bfloat16* vb = v + (long long)b * Sk * rs + (long long)h * D;
-
-  const int q_end = min(Sq, q0 + BR);
-  // causal: keys at or past q_end are masked for every row of this tile
-  const int k_end = causal ? min(Sk, q_end) : Sk;
-  const int n_kt = (k_end + BT - 1) / BT;
-
-  flash::load_tile<D, BR, NT>(qb, q0, Sq, rs, sQ, tid);
-  flash::load_tile<D, BR, NT>(ob, q0, Sq, rs, sO, tid);
-  flash::cp_async_commit();
-  flash::mask_words<NT>(a.kv_mask + (long long)b * a.mask_stride, Sk, bits,
-                        2 * n_kt, tid);
-  __syncthreads();
-  auto live = [&](int t) { return (bits[2 * t] | bits[2 * t + 1]) != 0u; };
-
-  int kt = 0;
-  while (kt < n_kt && !live(kt)) ++kt;
-  int stage = 0;
-  if (kt < n_kt) {
-    flash::load_tile<D, BT, NT>(kb, kt * BT, Sk, rs, sK, tid);
-    flash::load_tile<D, BT, NT>(vb, kt * BT, Sk, rs, sV, tid);
-  }
-  flash::cp_async_commit();
-  flash::cp_async_wait<1>();  // Q and dO have landed
-  __syncthreads();
-
-  uint32_t qf[KS][4], of[KS][4];
+// D (64 x DP) += A (64 x 64, registers) B, B a tile of 64 rows (the
+// reduction) by DP columns in shared memory, read MN-major.
+template <int DP>
+__device__ __forceinline__ void product_rs(float (&d)[DP / 2],
+                                           const uint32_t (&a)[BT / 16][4],
+                                           uint32_t b) {
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    flash::load_a<P>(qf[ks], sQ + warp * 16 * P + ks * 16, lane);
-    flash::load_a<P>(of[ks], sO + warp * 16 * P + ks * 16, lane);
+  for (int kk = 0; kk < BT / 16; ++kk)
+    wgmma_bf16_rs<DP, 1>(d, a[kk], sw128_desc(b + kk * 2048, BT * ROW, 1024),
+                         1);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.f;
+}
+
+// Writes the warpgroup's 64 rows x D sums (rows row0 and row0 + 8 of each
+// thread) in bf16 to a (B, S, H, D) array, rows below S.
+template <int D, int DP>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, const float
+                                           (&d)[DP / 2], int b, int h, int H,
+                                           int S, int row0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* p =
+        dst + ((long long)b * S + row) * H * D + (long long)h * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * j) =
+          __floats2bfloat162_rn(d[4 * j + 2 * r], d[4 * j + 2 * r + 1]);
   }
-  const int row0 = q0 + warp * 16 + (lane >> 2);  // rows row0, row0 + 8
-  const int c0 = 2 * (lane & 3);
+}
+
+// Pass 1, dK and dV of the 128-key tile kt of (batch, head) bh.  The
+// producer thread: K and V once, then the Q, dO, lse and delta tiles of the
+// queries that can see the keys.
+template <int D>
+__device__ __forceinline__ void dkdv_producer(const BwdArgs& a, const Maps& m,
+                                              int bh, int kt, uint32_t base,
+                                              Ring ring) {
+  using L = Layout<D>;
+  constexpr int NH = L::NH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int k0 = kt * BR;
+  const int n_qt = (a.Sq + BT - 1) / BT;
+  const int shift = a.fault == flash::FAULT_BOX ? 64 : 0;
+  mbar_expect_tx(ring.own, 2 * L::BIG);
+  load_rows<NH>(base + L::K1, m.k, ring.own, BR / BOX, h, k0, b, shift);
+  load_rows<NH>(base + L::V1, m.v, ring.own, BR / BOX, h, k0, b, 0);
+  // causal: query tiles wholly before k0 see none of this tile's keys
+  for (int qt = a.causal ? k0 / BT : 0; qt < n_qt; ++qt) {
+    mbar_wait(ring.empty(), ring.phase ^ 1);
+    const uint32_t full = ring.full();
+    const int st = ring.stage;
+    mbar_expect_tx(full, 2 * L::SMALL);
+    load_rows<NH>(base + L::Q1 + st * L::SMALL, m.q, full, 1, h, qt * BT, b,
+                  0);
+    load_rows<NH>(base + L::O1 + st * L::SMALL, m.dout, full, 1, h, qt * BT,
+                  b, 0);
+    ring.advance();
+  }
+}
+
+// Pass 1's second producer warp: the lse and delta of each query tile into
+// its stage (zeros past Sq); each lane arrives on the stage's full barrier
+// after its stores.
+template <int D>
+__device__ __forceinline__ void dkdv_rows(const BwdArgs& a, int bh, int kt,
+                                          uint8_t* smem, Ring ring) {
+  using L = Layout<D>;
+  const int lane = threadIdx.x % 32;
+  const int Sq = a.Sq;
+  const int n_qt = (Sq + BT - 1) / BT;
+  for (int qt = a.causal ? kt * BR / BT : 0; qt < n_qt; ++qt) {
+    mbar_wait(ring.empty(), ring.phase ^ 1);
+    float* dst = reinterpret_cast<float*>(smem + L::L1 +
+                                          ring.stage * 2 * BT * 4);
+    for (int i = lane; i < 2 * BT; i += 32) {
+      const int q = qt * BT + i % BT;
+      const float* src = i < BT ? a.lse : a.delta;
+      dst[i] = q < Sq ? src[(long long)bh * Sq + q] : 0.f;
+    }
+    mbar_arrive(ring.full());
+    ring.advance();
+  }
+}
+
+// Pass 1's consumer warpgroup wg: keys k0 + 64 wg .. + 63.  bits: the
+// tile's mask words (relative to k0).
+template <int D>
+__device__ __forceinline__ void dkdv_consumer(const BwdArgs& a, int bh,
+                                              int kt, int wg,
+                                              const uint8_t* smem,
+                                              uint32_t base,
+                                              const uint32_t* bits,
+                                              bool live, Ring ring) {
+  using L = Layout<D>;
+  constexpr int DP = 64 * L::NH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int k0 = kt * BR;
+  const int Sq = a.Sq;
+  const int n_qt = (Sq + BT - 1) / BT;
+  const int tw = threadIdx.x % 128;
+  const int warp = tw / 32, lane = tw % 32;
+  const int t = lane & 3;
+  const int kw = wg * 64;                              // the warpgroup's keys
+  const int key0 = k0 + kw + warp * 16 + (lane >> 2);  // keys key0, +8
+  const bool kok[2] = {flash::key_bit(bits, key0 - k0),
+                       flash::key_bit(bits, key0 + 8 - k0)};
+  // every key of the warpgroup attended
+  const bool all_kw = flash::all_keys<2>(bits + kw / 32);
+  float dk[DP / 2], dv[DP / 2];
+  zero(dk);
+  zero(dv);
+  if (live) {
+    const uint32_t ka = base + L::K1 + kw * ROW;
+    const uint32_t va = base + L::V1 + kw * ROW;
+    mbar_wait(ring.own, 0);
+    for (int qt = a.causal ? k0 / BT : 0; qt < n_qt; ++qt) {
+      mbar_wait(ring.full(), ring.phase);
+      const int q0 = qt * BT;
+      if (a.causal && k0 + kw > q0 + BT - 1) {
+        // no query of the tile sees the warpgroup's keys
+        mbar_arrive(ring.empty());
+        ring.advance();
+        continue;
+      }
+      const int st = ring.stage;
+      const uint32_t tq = base + L::Q1 + st * L::SMALL;
+      const uint32_t to = base + L::O1 + st * L::SMALL;
+      const float* tl =
+          reinterpret_cast<const float*>(smem + L::L1 + st * 2 * BT * 4);
+      const float* td = tl + BT;
+
+      // S^T = K Q^T and dP^T = V dO^T: the warpgroup's 64 keys x BT queries
+      float s[BT / 2], dp[BT / 2];
+      zero(s);
+      zero(dp);
+      fence_regs(s);
+      fence_regs(dp);
+      wgmma_fence();
+      product_ss<BT, D / 16, BR, BT>(s, ka, tq);
+      product_ss<BT, D / 16, BR, BT>(dp, va, to);
+      wgmma_commit();
+      wgmma_wait_n<0>();
+      fence_regs(s);
+      fence_regs(dp);
+
+      // P^T = exp(S^T scale - lse), masked; dS^T = P^T (dP^T - delta) scale
+      const bool pred = !all_kw || q0 + BT > Sq ||
+                        (a.causal && q0 < k0 + kw + 63);
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) {
+        const int qi = 8 * (i / 4) + 2 * t + (i & 1);
+        const int r = (i >> 1) & 1;
+        const bool ok = !pred || (kok[r] && q0 + qi < Sq &&
+                                  (!a.causal || key0 + 8 * r <= q0 + qi));
+        s[i] = ok ? exp2f(s[i] * a.scale_log2 - tl[qi] * flash::LOG2E)
+                  : 0.f;
+      }
+      // dV += P^T dO over the tile's queries, running while dS^T is made
+      uint32_t pa[BT / 16][4], sa[BT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        flash::c_to_a(pa[kk], s + 8 * kk);
+        fence_regs(pa[kk]);
+      }
+      fence_regs(dv);
+      wgmma_fence();
+      product_rs<DP>(dv, pa, to);
+      wgmma_commit();
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) {
+        const int qi = 8 * (i / 4) + 2 * t + (i & 1);
+        dp[i] = s[i] * (dp[i] - td[qi]) * a.scale;
+      }
+      // dK += dS^T Q
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        flash::c_to_a(sa[kk], dp + 8 * kk);
+        fence_regs(sa[kk]);
+      }
+      fence_regs(dk);
+      wgmma_fence();
+      product_rs<DP>(dk, sa, tq);
+      wgmma_commit();
+      wgmma_wait_n<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(ring.empty());
+      ring.advance();
+    }
+  }
+  store_rows<D, DP>(a.dk, dk, b, h, a.H, a.Sk, key0, t);
+  store_rows<D, DP>(a.dv, dv, b, h, a.H, a.Sk, key0, t);
+}
+
+// Pass 2, dQ of the 128-query tile qt of (batch, head) bh.  The producer
+// thread: Q and dO once, then the live K and V tiles of 64 keys up to
+// n_kt (bits: the mask words from key 0).
+template <int D>
+__device__ __forceinline__ void dq_producer(const BwdArgs& a, const Maps& m,
+                                            int bh, int qt, int n_kt,
+                                            uint32_t base,
+                                            const uint32_t* bits,
+                                            Ring ring) {
+  using L = Layout<D>;
+  constexpr int NH = L::NH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = qt * BR;
+  const int shift = a.fault == flash::FAULT_BOX ? 64 : 0;
+  mbar_expect_tx(ring.own, 2 * L::BIG);
+  load_rows<NH>(base + L::Q2, m.q, ring.own, BR / BOX, h, q0, b, 0);
+  load_rows<NH>(base + L::O2, m.dout, ring.own, BR / BOX, h, q0, b, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (!flash::any_key<WORDS2>(bits + kt * WORDS2)) continue;
+    mbar_wait(ring.empty(), ring.phase ^ 1);
+    const uint32_t full = ring.full();
+    const int st = ring.stage;
+    mbar_expect_tx(full, 2 * L::SMALL);
+    load_rows<NH>(base + L::K2 + st * L::SMALL, m.k, full, 1, h, kt * BT, b,
+                  shift);
+    load_rows<NH>(base + L::V2 + st * L::SMALL, m.v, full, 1, h, kt * BT, b,
+                  0);
+    ring.advance();
+  }
+}
+
+// Pass 2's consumer warpgroup wg: queries q0 + 64 wg .. + 63.
+template <int D>
+__device__ __forceinline__ void dq_consumer(const BwdArgs& a, int bh, int qt,
+                                            int n_kt, int wg, uint32_t base,
+                                            const uint32_t* bits,
+                                            Ring ring) {
+  using L = Layout<D>;
+  constexpr int DP = 64 * L::NH;
+  const int b = bh / a.H, h = bh % a.H;
+  const int q0 = qt * BR;
+  const int Sq = a.Sq;
+  const int tw = threadIdx.x % 128;
+  const int warp = tw / 32, lane = tw % 32;
+  const int t = lane & 3;
+  const int r_first = q0 + wg * 64;
+  const int row0 = r_first + warp * 16 + (lane >> 2);  // rows row0, +8
   float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    lse2[r] = row < Sq ? lse[(long long)bh * Sq + row] * flash::LOG2E : 0.f;
-    dl[r] = row < Sq ? delta[(long long)bh * Sq + row] : 0.f;
+    lse2[r] = row < Sq ? a.lse[(long long)bh * Sq + row] * flash::LOG2E : 0.f;
+    dl[r] = row < Sq ? a.delta[(long long)bh * Sq + row] : 0.f;
   }
-
-  float acc[DB][4];
-#pragma unroll
-  for (int j = 0; j < DB; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  while (kt < n_kt) {
-    int nxt = kt + 1;
-    while (nxt < n_kt && !live(nxt)) ++nxt;
-    if (nxt < n_kt) {
-      flash::load_tile<D, BT, NT>(kb, nxt * BT, Sk, rs,
-                                  sK + (stage ^ 1) * BT * P, tid);
-      flash::load_tile<D, BT, NT>(vb, nxt * BT, Sk, rs,
-                                  sV + (stage ^ 1) * BT * P, tid);
-    }
-    flash::cp_async_commit();
-    flash::cp_async_wait<1>();  // tile kt has landed
-    __syncthreads();
-    const __nv_bfloat16* tK = sK + stage * BT * P;
-    const __nv_bfloat16* tV = sV + stage * BT * P;
+  const uint32_t qa = base + L::Q2 + wg * 64 * ROW;
+  const uint32_t oa = base + L::O2 + wg * 64 * ROW;
+  float dq[DP / 2];
+  zero(dq);
+  mbar_wait(ring.own, 0);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const uint32_t* tb = bits + kt * WORDS2;
+    if (!flash::any_key<WORDS2>(tb)) continue;
+    mbar_wait(ring.full(), ring.phase);
     const int k0 = kt * BT;
-    const uint32_t* tb = bits + 2 * kt;
-    const bool pred =
-        (tb[0] & tb[1]) != 0xffffffffu || (causal && k0 + BT - 1 > q0);
-
-#pragma unroll
-    for (int step = 0; step < BT / STEP; ++step) {
-      const int kh = step * STEP;  // the step's first key in the tile
-      // S = Q K^T and dP = dO V^T: 16 queries x STEP keys a warp
-      float s[NB][4], dp[NB][4];
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const uint32_t(&qa)[4] = qf[ks];
-        const uint32_t(&oa)[4] = of[ks];
-#pragma unroll
-        for (int np = 0; np < NB / 2; ++np) {
-          uint32_t bf[4];
-          flash::load_b_nk<P>(bf, tK + (kh + np * 16) * P + ks * 16, lane);
-          flash::mma(s[2 * np], qa, bf[0], bf[1]);
-          flash::mma(s[2 * np + 1], qa, bf[2], bf[3]);
-          flash::load_b_nk<P>(bf, tV + (kh + np * 16) * P + ks * 16, lane);
-          flash::mma(dp[2 * np], oa, bf[0], bf[1]);
-          flash::mma(dp[2 * np + 1], oa, bf[2], bf[3]);
-        }
-      }
-      // P = exp(S scale - lse), masked; dS = P (dP - delta) scale
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kh + j * 8 + c0 + (e & 1);
-          const int r = e >> 1;
-          const bool ok = !pred || (flash::key_bit(tb, col) &&
-                                    (!causal || k0 + col <= row0 + 8 * r));
-          const float p = ok ? exp2f(s[j][e] * scale_log2 - lse2[r]) : 0.f;
-          dp[j][e] = p * (dp[j][e] - dl[r]) * scale;
-        }
-      // dQ += dS K over the step's keys
-#pragma unroll
-      for (int kk = 0; kk < STEP / 16; ++kk) {
-        uint32_t sa[4];
-        flash::c_to_a(sa, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int dq2 = 0; dq2 < DB / 2; ++dq2) {
-          uint32_t bf[4];
-          flash::load_b_kn<P>(bf, tK + (kh + kk * 16) * P + dq2 * 16, lane);
-          flash::mma(acc[2 * dq2], sa, bf[0], bf[1]);
-          flash::mma(acc[2 * dq2 + 1], sa, bf[2], bf[3]);
-        }
-      }
+    if (a.causal && k0 > r_first + 63) {
+      // no row of the warpgroup attends the tile
+      mbar_arrive(ring.empty());
+      ring.advance();
+      continue;
     }
-    __syncthreads();  // this stage is consumed before it is refilled
-    kt = nxt;
-    stage ^= 1;
-  }
+    const int st = ring.stage;
+    const uint32_t tk = base + L::K2 + st * L::SMALL;
+    const uint32_t tv = base + L::V2 + st * L::SMALL;
 
+    // S = Q K^T and dP = dO V^T: the warpgroup's 64 queries x BT keys
+    float s[BT / 2], dp[BT / 2];
+    zero(s);
+    zero(dp);
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    product_ss<BT, D / 16, BR, BT>(s, qa, tk);
+    product_ss<BT, D / 16, BR, BT>(dp, oa, tv);
+    wgmma_commit();
+    wgmma_wait_n<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(S scale - lse), masked; dS = P (dP - delta) scale
+    const bool pred = !flash::all_keys<WORDS2>(tb) ||
+                      (a.causal && k0 + BT - 1 > r_first);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= Sq) continue;
-    __nv_bfloat16* o = dq + (long long)b * Sq * rs + (long long)row * rs +
-                       (long long)h * D + c0;
+    for (int i = 0; i < BT / 2; ++i) {
+      const int col = 8 * (i / 4) + 2 * t + (i & 1);
+      const int r = (i >> 1) & 1;
+      const bool ok = !pred || (flash::key_bit(tb, col) &&
+                                (!a.causal || k0 + col <= row0 + 8 * r));
+      const float p = ok ? exp2f(s[i] * a.scale_log2 - lse2[r]) : 0.f;
+      dp[i] = p * (dp[i] - dl[r]) * a.scale;
+    }
+    // dQ += dS K over the tile's keys
+    uint32_t sa[BT / 16][4];
 #pragma unroll
-    for (int j = 0; j < DB; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      flash::c_to_a(sa[kk], dp + 8 * kk);
+      fence_regs(sa[kk]);
+    }
+    fence_regs(dq);
+    wgmma_fence();
+    product_rs<DP>(dq, sa, tk);
+    wgmma_commit();
+    wgmma_wait_n<0>();
+    fence_regs(dq);
+    mbar_arrive(ring.empty());
+    ring.advance();
   }
+  store_rows<D, DP>(a.dq, dq, b, h, a.H, Sq, row0, t);
 }
 
-// Both passes in one kernel: blocks y < n_kt of the grid (B*H, n_kt +
+// Both passes in one kernel: blocks y < n_kt1 of the grid (B*H, n_kt1 +
 // n_qt) run pass 1 on key tile y; the others pass 2, the heaviest query
 // tiles first, so pass 2's blocks fill the tail of pass 1's.
 template <int D>
-__global__ void __launch_bounds__(NT, 2)
-    flash_bwd_kernel(const BwdArgs a, int n_kt) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  if ((int)blockIdx.y < n_kt)
-    dkdv_tile<D>(a, blockIdx.x, blockIdx.y, smem);
-  else
-    dq_tile<D>(a, blockIdx.x, gridDim.y - 1 - blockIdx.y, smem);
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap dout_map, const BwdArgs a,
+    int n_kt1) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* smem = smem_raw + (base - raw);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::BITS);
+  Ring ring;
+  ring.own = base + L::BARS;
+  ring.full0 = ring.own + 8;
+  ring.empty0 = ring.full0 + 8 * STAGES;
+
+  const bool pass1 = (int)blockIdx.y < n_kt1;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H;
+  const uint8_t* mask = a.kv_mask + (long long)b * a.mask_stride;
+  // pass 1: its key tile's words, from k0; pass 2: every key tile's up to
+  // its causal limit, from key 0
+  const int tile = pass1 ? blockIdx.y : gridDim.y - 1 - blockIdx.y;
+  int n_tiles = 1, n_words = WORDS1;
+  if (pass1) {
+    flash::mask_words<THREADS>(mask + tile * BR, a.Sk - tile * BR, bits,
+                               WORDS1, threadIdx.x);
+  } else {
+    const int q_end = min(a.Sq, (tile + 1) * BR);
+    const int k_end = a.causal ? min(a.Sk, q_end) : a.Sk;
+    n_tiles = (k_end + BT - 1) / BT;
+    n_words = n_tiles * WORDS2;
+    flash::mask_words<THREADS>(mask, a.Sk, bits, n_words, threadIdx.x);
+  }
+  if (threadIdx.x == 0) {
+    mbar_init(ring.own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      // pass 1: the TMA thread and the 32 lanes of the lse and delta warp
+      mbar_init(ring.full0 + 8 * s, pass1 ? 33 : 1);
+      mbar_init(ring.empty0 + 8 * s, CONSUMERS * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (a.fault == flash::FAULT_SKIP) {
+    if (pass1)
+      flash::plant_skip_fault<WORDS1>(bits, 1, threadIdx.x);
+    else
+      flash::plant_skip_fault<WORDS2>(bits, n_tiles, threadIdx.x);
+    __syncthreads();
+  }
+  const bool live = !pass1 || flash::any_key<WORDS1>(bits);
+  const Maps m{&q_map, &k_map, &v_map, &dout_map};
+
+  // the warpgroup, uniform across the warp as the compiler sees it
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == CONSUMERS) {
+    // the producer warpgroup: one thread keeps the ring full, and in
+    // pass 1 its second warp copies the lse and delta
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    const int warp = threadIdx.x / 32 - 4 * CONSUMERS;
+    if (live && threadIdx.x % 32 == 0 && warp == 0) {
+      if (pass1)
+        dkdv_producer<D>(a, m, bh, tile, base, ring);
+      else
+        dq_producer<D>(a, m, bh, tile, n_tiles, base, bits, ring);
+    } else if (live && pass1 && warp == 1) {
+      dkdv_rows<D>(a, bh, tile, smem, ring);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    if (pass1)
+      dkdv_consumer<D>(a, bh, tile, wg, smem, base, bits, live, ring);
+    else
+      dq_consumer<D>(a, bh, tile, n_tiles, wg, base, bits, ring);
+  }
 }
 
 template <int D>
-int launch(const BwdArgs& a, int B, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const BwdArgs& a, int B, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -455,12 +572,19 @@ int launch(const BwdArgs& a, int B, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const size_t bytes = std::max(dkdv_smem_bytes<D>(), dq_smem_bytes<D>(a.Sk));
+  const int n_words = std::max(WORDS1, ((a.Sk + BT - 1) / BT) * WORDS2);
+  const size_t bytes = Layout<D>::bytes(n_words);
   if (bytes > (size_t)flash::MAX_SMEM) return (int)cudaErrorInvalidValue;
+  CUtensorMap q_map, k_map, v_map, dout_map;
+  if (!encode_bshd_bf16(&q_map, q, B, a.Sq, a.H, D, BOX) ||
+      !encode_bshd_bf16(&k_map, k, B, a.Sk, a.H, D, BOX) ||
+      !encode_bshd_bf16(&v_map, v, B, a.Sk, a.H, D, BOX) ||
+      !encode_bshd_bf16(&dout_map, dout, B, a.Sq, a.H, D, BOX))
+    return (int)cudaErrorInvalidValue;
   const int n_kt = (a.Sk + BR - 1) / BR;
   const int n_qt = (a.Sq + BR - 1) / BR;
-  flash_bwd_kernel<D><<<dim3(B * a.H, n_kt + n_qt), NT, bytes, stream>>>(
-      a, n_kt);
+  flash_bwd_kernel<D><<<dim3(B * a.H, n_kt + n_qt), THREADS, bytes,
+                        stream>>>(q_map, k_map, v_map, dout_map, a, n_kt);
   return (int)cudaGetLastError();
 }
 
@@ -516,35 +640,33 @@ int launch_delta(const void* out, const void* dout, void* delta, int B, int H,
 
 }  // namespace
 
-// Returns a cudaError_t as int: 0 when the kernel launched.
+// Returns a cudaError_t as int: 0 when the kernel launched.  ``fault``
+// plants one of flash_common.cuh's faults for the card tests; 0 otherwise.
 extern "C" int flash_bwd_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* kv_mask,
                               long long mask_stride, void* dq, void* dk,
                               void* dv, int B, int H, int Sq, int Sk, int D,
-                              int causal, float scale, void* stream) {
-  const BwdArgs a{static_cast<const __nv_bfloat16*>(q),
-                  static_cast<const __nv_bfloat16*>(k),
-                  static_cast<const __nv_bfloat16*>(v),
-                  static_cast<const __nv_bfloat16*>(dout),
+                              int causal, float scale, int fault,
+                              void* stream) {
+  const BwdArgs a{static_cast<const uint8_t*>(kv_mask),
+                  mask_stride,
                   static_cast<const float*>(lse),
                   static_cast<const float*>(delta),
-                  static_cast<const uint8_t*>(kv_mask),
-                  mask_stride,
                   static_cast<__nv_bfloat16*>(dq),
                   static_cast<__nv_bfloat16*>(dk),
                   static_cast<__nv_bfloat16*>(dv),
-                  H, Sq, Sk, causal, scale, scale * flash::LOG2E};
+                  H, Sq, Sk, causal, fault, scale, scale * flash::LOG2E};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch<16>(a, B, st);
+      return launch<16>(q, k, v, dout, a, B, st);
     case 32:
-      return launch<32>(a, B, st);
+      return launch<32>(q, k, v, dout, a, B, st);
     case 64:
-      return launch<64>(a, B, st);
+      return launch<64>(q, k, v, dout, a, B, st);
     case 128:
-      return launch<128>(a, B, st);
+      return launch<128>(q, k, v, dout, a, B, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

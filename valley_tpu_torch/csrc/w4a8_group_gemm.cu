@@ -100,7 +100,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int KC = 128;        // inputs a stage: one 128-byte row of xq
 constexpr int KSTEP = 32;      // inputs a wgmma
@@ -127,74 +131,10 @@ struct Layout {
   static constexpr int ALLOC = BYTES + 1024;  // room to align the base
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// A 2-D tile of a tensor map into shared memory, completing on ``bar``.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of the sums across a
-// wgmma fence or wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(int (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
 // The shared-memory descriptor of a K-major 8-bit B tile in the 128-byte
 // swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |           // leading offset, unused
-         (static_cast<uint64_t>(1024 >> 4) << 32) |   // stride offset
-         (static_cast<uint64_t>(1) << 62);            // 128-byte swizzle
+  return sw128_desc(addr, 16, 1024);  // leading offset unused
 }
 
 __device__ __forceinline__ void wgmma_n32(int (&d)[16],
@@ -286,11 +226,6 @@ __device__ __forceinline__ void wgmma_n(int (&d)[N / 2],
     wgmma_n64(d, a, desc, scale_d);
   else
     wgmma_n32(d, a, desc, scale_d);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait_n() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Four nibbles as bytes 0-3 of ``v`` (values 0-15) -> four int8: a set
@@ -548,7 +483,7 @@ w4a8_group_gemm_kernel(const __grid_constant__ CUtensorMap x_map,
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, CONSUMERS * 128);  // every consumer thread
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -719,34 +654,6 @@ quantize_tokens_kernel(const X* __restrict__ x,
     *reinterpret_cast<uint2*>(qrow + 8 * i) = make_uint2(q[0], q[1]);
   }
   if (threadIdx.x == 0) a[blockIdx.x] = as;
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime so that the build
-// needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A 2-D uint8 tensor map over a row-major (rows, cols) array, boxes of

@@ -11,6 +11,7 @@ the CPU; for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -21,6 +22,23 @@ from valley_tpu_torch.ops import _build
 
 NEG_INF = -1e9
 HEAD_DIMS = (16, 32, 64, 128)
+# The planted faults of the kernels (``csrc/flash_common.cuh``), for the card
+# tests that must catch them: "box" loads every K tile one 64-column box
+# over, "skip" reads a key tile the mask says to skip and attends it
+FAULTS = {"box": 1, "skip": 2}
+_fault = 0
+
+
+@contextlib.contextmanager
+def planted_fault(name: str):
+    """Within the block, K1's and K2's launches plant the fault ``name``
+    of `FAULTS`: their results are wrong on purpose."""
+    global _fault
+    _fault = FAULTS[name]
+    try:
+        yield
+    finally:
+        _fault = 0
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -59,7 +77,8 @@ def _kernel():
     vp = ctypes.c_void_p
     fn.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp, vp,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, vp]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,7 +89,7 @@ def _bwd_kernel():
     vp = ctypes.c_void_p
     i = ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp, vp, vp,
-                   i, i, i, i, i, i, ctypes.c_float, vp]
+                   i, i, i, i, i, i, ctypes.c_float, i, vp]
     fn.restype = i
     return fn
 
@@ -163,7 +182,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     kv_mask.data_ptr(), kv_mask.stride(0), out.data_ptr(),
                     lse.data_ptr(), b, h, sq, sk, d, int(causal), d ** -0.5,
-                    stream)
+                    _fault, stream)
     _build.check(err, "flash_fwd_bf16")
     _build.count_launch(flash_attention)
     return (out, lse) if return_lse else out
@@ -258,7 +277,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                         kv_mask.data_ptr(), kv_mask.stride(0), dq.data_ptr(),
                         dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d,
-                        int(causal), d ** -0.5, stream)
+                        int(causal), d ** -0.5, _fault, stream)
     _build.check(err, "flash_bwd_bf16")
     _build.count_launch(flash_attention_bwd)
     return dq, dk, dv

@@ -3,7 +3,7 @@ choices move the two checks that read whole models, ``chip_smoke.py``'s
 first-step training loss (bar 1e-4) and ``tests/test_torch_cuda.py``'s
 ``test_tiny_int8_serving_on_the_card`` (bar 0.05).
 
-    python -m valley_tpu_torch.tools.flash_numerics
+    python -m valley_tpu_torch.tools.flash_numerics [--layers N]
 
 It builds K1 as shipped and variants made from the same source by text
 substitution (`VARIANTS`; each raises if its anchor is no longer in the
@@ -14,8 +14,11 @@ attention (exact beyond the plain version), against the plain version
 1. the tiny int8a8 model's prefill logits (the card test's construction):
    W8A8 turns a one-ulp change of an attention output into an int8 step;
 2. Valley-7B's first-step training loss on ``chip_smoke.py``'s batch and
-   weights (`valley_tpu_torch.data.synthetic`, seed 1), TF32 off;
-3. that forward's own attention inputs at layers `LAYERS`: how many bf16
+   weights (`valley_tpu_torch.data.synthetic`, seed 1), TF32 off, at
+   ``--layers`` of its 32 layers (16, chip_smoke.py's `TRAIN_LAYERS`, by
+   default);
+3. that forward's own attention inputs at its first, middle and last
+   layers: how many bf16
    outputs differ from the plain version's, and their mean signed change;
 
 and gives each variant's device time (profiler) at the serving prefill
@@ -25,7 +28,9 @@ and gives each variant's device time (profiler) at the serving prefill
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import dataclasses
 import subprocess
 import sys
 import tempfile
@@ -38,19 +43,34 @@ from valley_tpu_torch.ops import _build
 from valley_tpu_torch.ops.attention import KERNELS, PLAIN, Attention
 from valley_tpu_torch.ops.flash_attention import flash_attention_plain
 
-# K1's P V step as shipped: P carried as two bf16 terms, the small term's
-# products first
-PV_SHIPPED = """      uint32_t pa[4], pl[4];
-      flash::c_to_a2(pa, pl, s[2 * kk], s[2 * kk + 1]);
+# K1's P V step as shipped (`PTerms`, `split_p`, `p_times_v`): P carried
+# as two bf16 terms, the small term's products first
+PV_SHIPPED = """struct PTerms {
+  uint32_t hi[BK / 16][4], lo[BK / 16][4];
+};
+
+// P's terms from S's sums (the probabilities, fp32), in wgmma's register A
+// layout.
+__device__ __forceinline__ void split_p(PTerms& p, const float* s) {
 #pragma unroll
-      for (int dp = 0; dp < DB / 2; ++dp) {
-        uint32_t bf[4];
-        flash::load_b_kn<P>(bf, tV + kk * 16 * P + dp * 16, lane);
-        flash::mma(o[2 * dp], pl, bf[0], bf[1]);
-        flash::mma(o[2 * dp + 1], pl, bf[2], bf[3]);
-        flash::mma(o[2 * dp], pa, bf[0], bf[1]);
-        flash::mma(o[2 * dp + 1], pa, bf[2], bf[3]);
-      }"""
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    flash::c_to_a2(p.hi[kk], p.lo[kk], s + 8 * kk);
+    fence_regs(p.hi[kk]);
+    fence_regs(p.lo[kk]);
+  }
+}
+
+// O += P V, issued (not committed): V's tile of BK keys at vb, MN-major.
+template <int DP>
+__device__ __forceinline__ void p_times_v(float (&o)[DP / 2],
+                                          const PTerms& p, uint32_t vb) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t dv = sw128_desc(vb + kk * 2048, BK * ROW, 1024);
+    wgmma_bf16_rs<DP, 1>(o, p.lo[kk], dv, 1);
+    wgmma_bf16_rs<DP, 1>(o, p.hi[kk], dv, 1);
+  }
+}"""
 
 
 def pv_step(terms: int, split: str = "rn", lo_first: bool = False) -> str:
@@ -58,47 +78,59 @@ def pv_step(terms: int, split: str = "rn", lo_first: bool = False) -> str:
     remainder of the ones before it rounded to bf16 (``split`` "rn") or
     truncated to bf16 (``split`` "rz"; the last term is rounded); with
     ``lo_first`` the smallest term's products are taken first."""
-    names = ("pa", "pm", "pl")[:terms] if terms == 3 else ("pa", "pl")[:terms]
-    text = "      uint32_t " + ", ".join(f"{n}[4]" for n in names) + ";\n"
+    text = ("struct PTerms {\n"
+            f"  uint32_t t[{terms}][BK / 16][4];\n"
+            "};\n\n"
+            "__device__ __forceinline__ void split_p(PTerms& p, "
+            "const float* s) {\n"
+            "#pragma unroll\n"
+            "  for (int kk = 0; kk < BK / 16; ++kk) {\n")
     if terms == 1:
-        text += "      flash::c_to_a(pa, s[2 * kk], s[2 * kk + 1]);\n"
+        text += "    flash::c_to_a(p.t[0][kk], s + 8 * kk);\n"
     else:
         cut = ("__bfloat162float(__float2bfloat16_rn(x))" if split == "rn"
                else "__uint_as_float(__float_as_uint(x) & 0xffff0000u)")
-        text += ("      {\n"
-                 f"        auto cut = [](float x) {{ return {cut}; }};\n"
-                 "        float c[8] = {s[2 * kk][0], s[2 * kk][1], "
-                 "s[2 * kk][2], s[2 * kk][3], s[2 * kk + 1][0], "
-                 "s[2 * kk + 1][1], s[2 * kk + 1][2], s[2 * kk + 1][3]};\n"
+        text += (f"    auto cut = [](float x) {{ return {cut}; }};\n"
+                 "    float c[8];\n"
                  "#pragma unroll\n"
-                 "        for (int i = 0; i < 4; ++i) {\n")
-        for n in names[:-1]:
-            text += ("          {\n"
-                     "            const float h0 = cut(c[2 * i]);\n"
-                     "            const float h1 = cut(c[2 * i + 1]);\n"
-                     f"            {n}[i] = flash::pack_bf16(h0, h1);\n"
-                     "            c[2 * i] -= h0;\n"
-                     "            c[2 * i + 1] -= h1;\n"
-                     "          }\n")
-        text += (f"          {names[-1]}[i] = flash::pack_bf16(c[2 * i], "
+                 "    for (int i = 0; i < 8; ++i) c[i] = s[8 * kk + i];\n"
+                 "#pragma unroll\n"
+                 "    for (int i = 0; i < 4; ++i) {\n")
+        for n in range(terms - 1):
+            text += ("      {\n"
+                     "        const float h0 = cut(c[2 * i]);\n"
+                     "        const float h1 = cut(c[2 * i + 1]);\n"
+                     f"        p.t[{n}][kk][i] = flash::pack_bf16(h0, h1);\n"
+                     "        c[2 * i] -= h0;\n"
+                     "        c[2 * i + 1] -= h1;\n"
+                     "      }\n")
+        text += (f"      p.t[{terms - 1}][kk][i] = flash::pack_bf16(c[2 * i], "
                  "c[2 * i + 1]);\n"
-                 "        }\n"
-                 "      }\n")
-    text += ("#pragma unroll\n"
-             "      for (int dp = 0; dp < DB / 2; ++dp) {\n"
-             "        uint32_t bf[4];\n"
-             "        flash::load_b_kn<P>(bf, tV + kk * 16 * P + dp * 16, "
-             "lane);\n")
-    for n in (names[::-1] if lo_first else names):
-        text += (f"        flash::mma(o[2 * dp], {n}, bf[0], bf[1]);\n"
-                 f"        flash::mma(o[2 * dp + 1], {n}, bf[2], bf[3]);\n")
-    return text + "      }"
+                 "    }\n")
+    for n in range(terms):
+        text += f"    fence_regs(p.t[{n}][kk]);\n"
+    text += ("  }\n"
+             "}\n\n"
+             "template <int DP>\n"
+             "__device__ __forceinline__ void p_times_v(float (&o)[DP / 2],\n"
+             "                                          const PTerms& p, "
+             "uint32_t vb) {\n"
+             "#pragma unroll\n"
+             "  for (int kk = 0; kk < BK / 16; ++kk) {\n"
+             "    const uint64_t dv = sw128_desc(vb + kk * 2048, BK * ROW, "
+             "1024);\n")
+    order = range(terms - 1, -1, -1) if lo_first else range(terms)
+    for n in order:
+        text += f"    wgmma_bf16_rs<DP, 1>(o, p.t[{n}][kk], dv, 1);\n"
+    return text + "  }\n}"
 
 
 # the output divided by the denominator instead of multiplied by its inverse
-DIVIDE = [("    const float inv = 1.f / denom;\n", ""),
-          ("o[j][2 * r] * inv, o[j][2 * r + 1] * inv",
-           "o[j][2 * r] / denom, o[j][2 * r + 1] / denom")]
+DIVIDE = [("      const float inv = 1.f / denom;\n", ""),
+          ("o[4 * j + 2 * r] * inv,", "o[4 * j + 2 * r] / denom,"),
+          ("o[4 * j + 2 * r + 1] * inv)", "o[4 * j + 2 * r + 1] / denom)")]
+BK128 = [("constexpr int BK = 64;", "constexpr int BK = 128;"),
+         ("constexpr int STAGES = 4;", "constexpr int STAGES = 2;")]
 VARIANTS = {
     "shipped": [],
     "bf16_p": [(PV_SHIPPED, pv_step(1))],
@@ -108,8 +140,10 @@ VARIANTS = {
     "two_term_rz_div": [(PV_SHIPPED, pv_step(2, "rz"))] + DIVIDE,
     "two_term_rz_lo_first": [(PV_SHIPPED, pv_step(2, "rz", True))],
     "three_term": [(PV_SHIPPED, pv_step(3))],
+    # key tiles of 128: the running max and O rescaled every 128 keys
+    "bk128": BK128,
+    "bk128_two_term": BK128 + [(PV_SHIPPED, pv_step(2))],
 }
-LAYERS = (0, 16, 31)
 
 
 def build(work: Path) -> dict:
@@ -139,7 +173,7 @@ def build(work: Path) -> dict:
             raise RuntimeError(f"nvcc failed on {name}:\n{log}")
         fn = ctypes.CDLL(str(so)).flash_fwd_bf16
         fn.argtypes = [vp, vp, vp, vp, ctypes.c_longlong, vp, vp, i, i, i,
-                       i, i, i, ctypes.c_float, vp]
+                       i, i, i, ctypes.c_float, i, vp]
         fn.restype = i
         fns[name] = fn
     return fns
@@ -156,7 +190,7 @@ def prefill_of(fn):
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         kv_mask.data_ptr(), kv_mask.stride(0),
                         out.data_ptr(), lse.data_ptr(), b, h, sq,
-                        k.shape[1], d, int(causal), d ** -0.5,
+                        k.shape[1], d, int(causal), d ** -0.5, 0,
                         torch.cuda.current_stream().cuda_stream),
                      "flash_fwd_bf16")
         return out
@@ -223,11 +257,11 @@ def tiny_int8_logits(prefills: dict) -> dict:
             for name, fn in prefills.items()}
 
 
-def training(prefills: dict) -> tuple:
+def training(prefills: dict, layers: int) -> tuple:
     """(loss of the plain version, {name: loss - plain's}, {name: [(bf16
     outputs that differ from the plain version's, mean signed change) at
-    each of `LAYERS`]}, layer 0's attention inputs) on ``chip_smoke.py``'s
-    training batch and weights."""
+    its first, middle and last layer]}, layer 0's attention inputs) on
+    ``chip_smoke.py``'s training batch and weights at ``layers`` layers."""
     from valley_tpu_torch import SpecialTokens, valley_7b
     from valley_tpu_torch.data.dataset import (
         DataCollatorForSupervisedDataset, DataLoader)
@@ -236,6 +270,8 @@ def training(prefills: dict) -> tuple:
     from valley_tpu_torch.train.trainer import TrainConfig, Trainer
 
     cfg = valley_7b(tokens=SpecialTokens(**BENCH_TOKENS))
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text,
+                                               num_hidden_layers=layers))
     params = valley.init_params(cfg, torch.Generator("cuda").manual_seed(1),
                                 torch.bfloat16, "cuda")
     loader = DataLoader(TrainRows(cfg), 16,
@@ -249,9 +285,10 @@ def training(prefills: dict) -> tuple:
     batch = Trainer(cfg, tc, params, loader, total_steps=1).device_batch(
         next(iter(loader.epoch(0))))
     inputs = []
+    kept_layers = (0, layers // 2, layers - 1)
 
     def recording(q, k, v, kv_mask=None, *, causal=False):
-        if len(inputs) in LAYERS:
+        if len(inputs) in kept_layers:
             inputs.append((q.clone(), k.clone(), v.clone(), kv_mask.clone(),
                            causal))
         else:
@@ -290,6 +327,9 @@ def serving_inputs():
 
 
 def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--layers", type=int, default=16)
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("flash_numerics: no CUDA device", file=sys.stderr)
         return 2
@@ -304,7 +344,7 @@ def main(argv=None) -> int:
         prefills = {name: prefill_of(fn) for name, fn in fns.items()}
         prefills["fp64"] = fp64_prefill
         tiny = tiny_int8_logits(prefills)
-        plain, diffs, changes, train_in = training(prefills)
+        plain, diffs, changes, train_in = training(prefills, args.layers)
         serve_in = serving_inputs()
         times = {}
         for name in fns:
@@ -317,11 +357,13 @@ def main(argv=None) -> int:
     print(f"flash_numerics on {smi}")
     print("tiny int8a8 prefill logits, max |kernel - plain| (bar 0.05): " +
           ", ".join(f"{n} {x:.4f}" for n, x in tiny.items()))
-    print(f"7B first-step training loss {plain:.5f}; kernel - plain (bar "
+    kept_layers = (0, args.layers // 2, args.layers - 1)
+    print(f"7B first-step training loss at {args.layers} layers "
+          f"{plain:.5f}; kernel - plain (bar "
           f"1e-4): " + ", ".join(f"{n} {x:+.3e}" for n, x in diffs.items()))
     for name, per_layer in changes.items():
         print(f"{name}: bf16 outputs changed against the plain version, "
-              f"layers {LAYERS}: " + "; ".join(
+              f"layers {kept_layers}: " + "; ".join(
                   f"{n} (mean signed {m:+.2e})" for n, m in per_layer))
     print("device ms at the serving prefill / on layer 0's training "
           "inputs: " + ", ".join(f"{n} {a:.4f} / {b:.4f}"

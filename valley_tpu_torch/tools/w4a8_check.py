@@ -50,8 +50,8 @@ def build(sources: dict, work: Path, flags=()) -> dict:
     for name, src in sources.items():
         out = work / f"lib{name}.so"
         jobs[name] = (out, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(out),
-             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags,
+             f"-I{_build.CSRC}", "-o", str(out), str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     ref = w4a8._lib().w4a8_group_gemm     # the shipped build, meanwhile
     built = {}
